@@ -1,0 +1,108 @@
+"""Map a Flax variables tree onto the port's ``state_dict``.
+
+The inverse of ``vip_cup_2022_tpu/weights/torch_pt.py``'s layout rules:
+
+- conv kernel HWIO -> OIHW, except a depthwise kernel (kh, kw, 1, C), which
+  keeps Flax's layout with the I axis dropped, (kh, kw, C): the layout the
+  depthwise kernel reads;
+- Dense kernel (in, out) -> (out, in);
+- norm gamma / beta -> weight / bias; BN batch_stats mean / var ->
+  running_mean / running_var;
+- any other leaf (a block's layer-scale ``gamma``) keeps its name.
+
+The port names its modules after the Flax modules, so a Flax path
+``params/stages_0_blocks_0/mlp_fc1/kernel`` becomes the key
+``stages_0_blocks_0.mlp_fc1.weight``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+
+_CLASSIFIER_PREFIXES = ("predictions", "head", "classifier", "logits")
+
+
+def is_classifier_key(key: str) -> bool:
+    """True for the classifier head (``head_fc``, ``head_norm``, ...), whose
+    shape may differ from a checkpoint's (the classifier swap)."""
+    return any(part.startswith(_CLASSIFIER_PREFIXES) for part in key.split("."))
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v, tree
+
+
+def _leaf_name(collection: str, leaf: str, siblings: Mapping) -> str:
+    if collection == "batch_stats":
+        return {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+    if leaf == "kernel":
+        return "weight"
+    if leaf in ("beta", "bias"):
+        return "bias"
+    if leaf == "gamma" and "beta" in siblings:
+        return "weight"
+    return leaf
+
+
+def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
+    if leaf != "kernel":
+        return value
+    if value.ndim == 4 and value.shape[2] == 1 and value.shape[3] > 1:  # depthwise
+        return value[:, :, 0, :]
+    if value.ndim == 4:  # HWIO -> OIHW
+        return np.transpose(value, (3, 2, 0, 1))
+    if value.ndim == 2:  # (in, out) -> (out, in)
+        return value.T
+    raise ValueError(f"kernel of rank {value.ndim} has no torch layout rule")
+
+
+def flax_to_torch(variables: Mapping) -> Dict[str, np.ndarray]:
+    """{state_dict key: numpy array in torch layout} for every leaf."""
+    out: Dict[str, np.ndarray] = {}
+    for path, value, siblings in _flatten(variables):
+        collection, modules, leaf = path[0], path[1:-1], path[-1]
+        key = ".".join(modules + (_leaf_name(collection, leaf, siblings),))
+        if key in out:
+            raise ValueError(f"two Flax leaves map to the state_dict key {key!r}")
+        out[key] = np.ascontiguousarray(_to_torch_layout(leaf, np.asarray(value)))
+    return out
+
+
+def state_dict_from_flax(variables: Mapping, target: Mapping[str, Any],
+                         strict: bool = False) -> Dict[str, Any]:
+    """Build a complete state dict for ``target`` (a module's ``state_dict()``)
+    from a Flax tree. Unless ``strict``, entries of the classifier head whose
+    shape differs, or that the tree lacks, keep ``target``'s value (the
+    classifier swap of fine-tuning). Any other uncovered, unexpected or
+    shape-mismatched entry raises; with ``strict`` the head's too."""
+    import torch
+
+    src = flax_to_torch(variables)
+    swappable = (lambda key: False) if strict else is_classifier_key
+    out: Dict[str, Any] = {}
+    problems = []
+    for key, dst in target.items():
+        if key not in src:
+            if not swappable(key):
+                problems.append(f"{key}: missing from the checkpoint")
+            out[key] = dst
+            continue
+        value = src[key]
+        if tuple(value.shape) != tuple(dst.shape):
+            if not swappable(key):
+                problems.append(f"{key}: checkpoint {value.shape} vs model {tuple(dst.shape)}")
+            out[key] = dst
+            continue
+        out[key] = torch.tensor(value, dtype=dst.dtype)
+    extra = [k for k in src if k not in target and not swappable(k)]
+    problems += [f"{k}: in the checkpoint but not in the model" for k in extra]
+    if problems:
+        raise ValueError(f"weight bridge: {len(problems)} uncovered or mismatched "
+                         "leaf(s): " + "; ".join(problems[:8])
+                         + (" ..." if len(problems) > 8 else ""))
+    return out
