@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K
+from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G
 
 
 @pytest.fixture
@@ -88,3 +89,92 @@ def test_each_wrapper_counts_its_launches(cuda_device):
                          torch.zeros((m, c), dtype=torch.bfloat16, device=dev))
     torch.cuda.synchronize()
     assert K.LAUNCHES == {"dwconv7x7_nhwc": 1, "ln_fc1_gelu": 1, "fc2_scale_residual": 1}
+
+
+# ---------------------------------------------------------------------------
+# GCViT window-block kernels
+# ---------------------------------------------------------------------------
+def _rel(a, ref):
+    return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _gcvit_inputs(dev, b, nwin, n, c, heads, global_query, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=dev) * (hi - lo) + lo
+
+    s = 2 if global_query else 3
+    bf = torch.bfloat16
+    return dict(
+        x=u((b, nwin * n, c)).to(bf), qg=u((b, n, c)).to(bf) if global_query else None,
+        ln1_weight=u((c,), 0.5, 1.5), ln1_bias=u((c,), -0.1, 0.1),
+        wqkv=(u((s * c, c)) * c ** -0.5).to(bf), bqkv=u((s * c,), -0.1, 0.1),
+        bias=u((heads, n, n)), wp=(u((c, c)) * c ** -0.5).to(bf), bp=u((c,), -0.1, 0.1),
+        gamma1=u((c,), 0.5, 1.5), ln2_weight=u((c,), 0.5, 1.5), ln2_bias=u((c,), -0.1, 0.1),
+        w1=(u((3 * c, c)) * c ** -0.5).to(bf), b1=u((3 * c,), -0.1, 0.1),
+        w2=(u((c, 3 * c)) * (3 * c) ** -0.5).to(bf), b2=u((c,), -0.1, 0.1),
+        gamma2=u((c,), 0.5, 1.5),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nwin,n,c,heads", [
+    (2, 64, 49, 64, 2), (3, 16, 49, 128, 4), (2, 1, 196, 256, 8), (5, 1, 49, 512, 16),
+    (1, 4, 9, 32, 1),
+])
+@pytest.mark.parametrize("global_query", [False, True])
+def test_gcvit_kernels_match_plain_on_card(cuda_device, b, nwin, n, c, heads, global_query):
+    """Each GCViT kernel against its f32 plain version on the same bf16 inputs
+    at the GCViTTiny level shapes (and a 3 x 3 window): max|d| / max|ref|
+    <= 1e-2 (bf16 rounding of the LN output, q, P and the hidden)."""
+    p = _gcvit_inputs(cuda_device, b, nwin, n, c, heads, global_query)
+    m, f = b * nwin * n, lambda t: t.float()
+    x2 = p["x"].view(m, c)
+    parts = G.ln_qkv(x2, p["ln1_weight"], p["ln1_bias"], p["wqkv"], p["bqkv"], 1e-5)
+    refs = G.ln_qkv_plain(x2, p["ln1_weight"], p["ln1_bias"], f(p["wqkv"]), p["bqkv"], 1e-5)
+    for got, ref in zip(parts, refs):
+        assert _rel(got, ref) <= 1e-2
+    q = p["qg"] if global_query else parts[0].view(b, -1, c)
+    k, v = (t.view(b, -1, c) for t in parts[-2:])
+    scale = 32 ** -0.5
+    attn = G.window_attention(q, k, v, p["bias"], n, scale, q_is_global=global_query)
+    ref = G.window_attention_plain(f(q), f(k), f(v), p["bias"], n, scale, global_query)
+    assert _rel(attn, ref) <= 1e-2
+    r1 = G.proj_scale_residual(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], x2)
+    ref = G.proj_scale_residual_plain(f(attn.view(m, c)), f(p["wp"]), p["bp"], p["gamma1"], f(x2))
+    assert r1.dtype == torch.float32 and _rel(r1, ref) <= 1e-2
+    h = K.ln_fc1_gelu(r1, p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"], 1e-5)
+    ref = K.ln_fc1_gelu_plain(r1, p["ln2_weight"], p["ln2_bias"], f(p["w1"]), p["b1"], 1e-5)
+    assert _rel(h, ref) <= 1e-2
+    out = K.fc2_scale_residual(h, p["w2"], p["b2"], p["gamma2"], r1)
+    ref = K.fc2_scale_residual_plain(f(h), f(p["w2"]), p["b2"], p["gamma2"], r1)
+    assert out.dtype == torch.bfloat16 and _rel(out, ref) <= 1e-2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_gcvit_block_counts_its_launches(cuda_device):
+    G.reset_launches()
+    K.reset_launches()
+    p = _gcvit_inputs(cuda_device, 1, 4, 49, 64, 2, True)
+    x, qg = p.pop("x"), p.pop("qg")
+    out = G.window_transformer_block(x, qg, n=49, **p)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert G.LAUNCHES == {"ln_qkv": 1, "window_attention": 1, "proj_scale_residual": 1}
+    assert K.LAUNCHES == {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1}
+
+
+@pytest.mark.cuda
+def test_gcvit_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    dev = cuda_device
+    t = torch.zeros((1, 49, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="heads"):  # head width 16, not 32
+        G.window_attention(t, t, t, torch.zeros((4, 49, 49), device=dev), 49, 0.25)
+    with pytest.raises(TypeError, match="bfloat16"):
+        G.window_attention(t.float(), t, t, torch.zeros((2, 49, 49), device=dev), 49, 0.2)
+    with pytest.raises(ValueError, match="2C or 3C"):
+        G.ln_qkv(t.view(49, 64), torch.ones(64, device=dev), torch.zeros(64, device=dev),
+                 torch.zeros((64, 64), dtype=torch.bfloat16, device=dev),
+                 torch.zeros(64, device=dev), 1e-5)

@@ -266,7 +266,8 @@ def test_unported_member_raises(workspace):
     cfg = _cfg(root, input_csv, "never.csv")
     cfg.ckpt_cfg = [("ResNetRS50-200x200", [], (200, 200), 0)]
     eng = engine.EnsembleEngine(device="cpu", verbose=0)
-    with pytest.raises(NotImplementedError, match="ResNetRS50 is ROADMAP item A3"):
+    with pytest.raises(NotImplementedError,
+                       match="only ConvNeXt and GCViT are ported; ResNetRS50 is ROADMAP item A3"):
         eng.predict_soln_fused(cfg)
     eng.close()
 
@@ -306,7 +307,9 @@ def test_device_and_dtype_selection(monkeypatch):
 
 def test_port_imports_no_jax():
     code = ("import sys; import vip_cup_2022_tpu_torch, vip_cup_2022_tpu_torch.infer.engine, "
-            "vip_cup_2022_tpu_torch.ops.kernels.build, main_torch; "
+            "vip_cup_2022_tpu_torch.ops.kernels.build, vip_cup_2022_tpu_torch.models.gcvit, "
+            "vip_cup_2022_tpu_torch.ops.kernels.gcvit_block, vip_cup_2022_tpu_torch.ops.window, "
+            "vip_cup_2022_tpu_torch.ops.attention, vip_cup_2022_tpu_torch.ops.conv, main_torch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'vip_cup_2022_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

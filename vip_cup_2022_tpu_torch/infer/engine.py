@@ -15,7 +15,7 @@ same contract:
 
 Not ported yet, and raising ``NotImplementedError`` rather than running
 something else: test-time augmentation (``tta > 1``), int8 members, the
-conv-BN fold and members other than ConvNeXt.
+conv-BN fold and members other than ConvNeXt and GCViT.
 """
 from __future__ import annotations
 
@@ -133,7 +133,7 @@ class EnsembleEngine:
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
         if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
             raise NotImplementedError(
-                "f32 compute on CUDA: the ConvNeXt kernels take bf16 activations; "
+                "f32 compute on CUDA: the block kernels take bf16 activations; "
                 "f32 kernels are ROADMAP item A15")
         self.verbose = verbose
         self._decoder = ImageDecoder(num_threads=num_decode_threads)
@@ -167,8 +167,8 @@ class EnsembleEngine:
         route when no checkpoint exists; otherwise overwritten)."""
         if not is_model(name):
             raise NotImplementedError(
-                f"member {name!r}: only ConvNeXt is ported; ResNetRS50 is ROADMAP "
-                "item A3, GCViT A6, ResNest A7, EfficientNet A8, NFNet A9")
+                f"member {name!r}: only ConvNeXt and GCViT are ported; ResNetRS50 is "
+                "ROADMAP item A3, ResNest A7, EfficientNet A8, NFNet A9")
         return create_model(name, input_size=tuple(dim), dtype=self.compute_dtype,
                             **overrides)
 

@@ -21,12 +21,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.act import apply_activation
+from ..ops.conv import Conv, DepthwiseTaps, Linear, lecun_normal_
 from ..ops.kernels.convnext_block import convnext_block
 from ..ops.norms import LayerNorm
 from .base import ModelConfig, preprocess_input
@@ -47,44 +46,6 @@ class ConvNeXtConfig(ModelConfig):
     init_scale: float = 1e-6
     crop_pct: float = 0.875
     classifier_activation: Optional[str] = "softmax"
-
-
-class Linear(nn.Module):
-    """y = x W^T + b with W (out, in) in the compute dtype and b in f32."""
-
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(out_features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias.to(self.weight.dtype))
-
-
-class Conv(nn.Module):
-    """VALID conv on NHWC input; weight (O, I, kh, kw) and bias in the
-    compute dtype, as Flax's ``nn.Conv(dtype=...)`` computes."""
-
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.stride = stride
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride)
-        return y.permute(0, 2, 3, 1).contiguous()
-
-
-class DepthwiseTaps(nn.Module):
-    """A depthwise conv's f32 taps, (k, k, C) as the depthwise kernel reads
-    them (Flax's (k, k, 1, C) without its I axis), and its f32 (C,) bias."""
-
-    def __init__(self, dim: int, kernel: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(kernel, kernel, dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
 
 
 class ConvNeXtBlock(nn.Module):
@@ -138,11 +99,7 @@ class ConvNeXt(nn.Module):
         biases 0, LN weight 1 and bias 0, layer scale ``cfg.init_scale``."""
         for module in self.modules():
             if isinstance(module, (Conv, Linear, DepthwiseTaps)):
-                w = module.weight
-                fan_in = int(np.prod(w.shape[:2] if isinstance(module, DepthwiseTaps)
-                                     else w.shape[1:]))
-                w.copy_(torch.randn(w.shape, generator=generator) * fan_in ** -0.5)
-                module.bias.zero_()
+                lecun_normal_(module, generator)
             elif isinstance(module, LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()

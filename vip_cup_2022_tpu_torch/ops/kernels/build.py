@@ -2,14 +2,17 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``<package>/_build/lib<name>-<hash>.so`` at first use and loaded with
-``ctypes``. The file name carries a hash of the source and the flags, so an
-edited source builds anew and a finished build is reused by later processes.
+``ctypes``. The file name carries a hash of the source, of the shared
+headers (``csrc/*.cuh``) and of the flags, so an edited source builds anew
+and a finished build is reused by later processes. :func:`build_all` runs
+one ``nvcc`` per source, all at once.
 Nothing here runs at import time: the CPU tests import every module and this
 host has no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -17,7 +20,8 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -47,9 +51,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str, verbose: bool = False) -> str:
@@ -78,6 +85,13 @@ def build(name: str, verbose: bool = False) -> str:
         print(f"[build] {name}: nvcc {time.perf_counter() - t0:.1f} s -> {out}")
         print(proc.stdout + proc.stderr)
     return out
+
+
+def build_all(names: Sequence[str], verbose: bool = False) -> Dict[str, str]:
+    """:func:`build` every source in ``names`` concurrently, one nvcc each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        paths = list(pool.map(lambda n: build(n, verbose), names))
+    return dict(zip(names, paths))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,6 +22,12 @@ kernels (``csrc/convnext_block.cu``) covers every stage:
 3. ``fc2_scale_residual``: a wmma bf16 GEMM of the hidden against fc2, then
    (+ b2) x gamma + residual, bf16 out.
 
+The last two also run the MLP half of every GCViT window block
+(:mod:`.gcvit_block`): LN eps 1e-5, N = 3C, and an f32 residual, the
+unrounded attention residual r1, for which ``fc2_scale_residual`` launches
+its f32-residual instantiation. Their GEMM mainloops are templates in
+``csrc/block_gemm.cuh``, shared with the GCViT kernels.
+
 What bounds them on the card: at s1/s2 (99x99x96, 49x49x192) the block does
 few FLOPs per byte (K = 96 or 192), so the depthwise pass and the memory
 traffic dominate; at s3/s4 (24x24x384, 12x12x768) the two GEMMs dominate.
@@ -55,6 +61,7 @@ _SIGNATURES = {
     "dwconv7x7_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ln_fc1_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "fc2_scale_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "fc2_scale_residual_f32res": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -73,11 +80,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, counter: str = "") -> None:
     err = getattr(_lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -129,9 +136,9 @@ def ln_fc1_gelu_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.T
 def fc2_scale_residual_plain(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                              gamma: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     """(M, N) hidden -> Linear(w2 (C, N), b2) -> x gamma -> + residual, in the
-    residual's dtype."""
+    hidden's dtype."""
     o = F.linear(hidden, w2).float() + b2
-    return (o * gamma + residual.float()).to(residual.dtype)
+    return (o * gamma + residual.float()).to(hidden.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +189,8 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
 def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                        gamma: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     """Linear N->C, (+ b2) x gamma + residual on rows. CUDA: hidden bf16
-    (M, N), w2 bf16 (C, N), b2 and gamma f32 (C,), residual bf16 (M, C) -> bf16."""
+    (M, N), w2 bf16 (C, N), b2 and gamma f32 (C,), residual bf16 or f32
+    (M, C) -> bf16."""
     if hidden.device.type == "cpu":
         return fc2_scale_residual_plain(hidden, w2, b2, gamma, residual)
     if hidden.ndim != 2:
@@ -195,10 +203,14 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     _check("w2", w2, torch.bfloat16, (c, n), hidden.device)
     _check("b2", b2, torch.float32, (c,), hidden.device)
     _check("gamma", gamma, torch.float32, (c,), hidden.device)
-    _check("residual", residual, torch.bfloat16, (m, c), hidden.device)
+    f32_residual = residual.dtype == torch.float32
+    _check("residual", residual, torch.float32 if f32_residual else torch.bfloat16, (m, c),
+           hidden.device)
     out = torch.empty((m, c), dtype=torch.bfloat16, device=hidden.device)
-    _launch("fc2_scale_residual", hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            gamma.data_ptr(), residual.data_ptr(), out.data_ptr(), m, n, c, _stream(hidden.device))
+    _launch("fc2_scale_residual_f32res" if f32_residual else "fc2_scale_residual",
+            hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            residual.data_ptr(), out.data_ptr(), m, n, c, _stream(hidden.device),
+            counter="fc2_scale_residual")
     return out
 
 
