@@ -7,43 +7,70 @@ Needs one CUDA GPU and nvcc; builds every kernel from ``csrc/`` first. Phases,
 each printing its results on earlier lines, any failure exiting non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the ConvNeXt and the GCViT block kernels, one nvcc per
-   source, both at once;
+2. build: compile every source of ``csrc/`` (the ConvNeXt and GCViT block
+   kernels, window attention, LayerNorm, depthwise), one nvcc per source,
+   all at once;
 3. kernels: each of ``dwconv7x7_nhwc``, ``ln_fc1_gelu`` and
    ``fc2_scale_residual`` against its plain PyTorch version in f32 (TF32 off)
    on the same bf16-rounded inputs at the stage shapes s1-s4, with batch 8
    (ragged row tiles) and with the main path's batch 256, max|d| / max|ref|
    <= 1e-2 (bf16 rounding of the LN output and the hidden feeding sums over
-   K = C ... 4C); then each timed against its plain version on the same
-   batch-256 inputs (CUDA events);
+   K = C ... 4C); then each timed against its plain version and, where one
+   PyTorch call computes the same function, that call, on the same batch-256
+   inputs (CUDA events);
 4. gcvit kernels: each of ``ln_qkv`` (local q/k/v and global k/v),
    ``window_attention`` (local and global query), ``proj_scale_residual``,
    ``ln_fc1_gelu`` (eps 1e-5, N = 3C) and ``fc2_scale_residual`` (f32
    residual) against its plain version in f32 (TF32 off) on the same inputs
    at the GCViTTiny@224 level shapes L1-L4 (56/28/14/7 grids, C 64-512,
    windows 7/7/14/7), at batch 8 and 256, under the same 1e-2 bound; then
-   each timed against its plain version at batch 256;
-5. model: full-width convnext_tiny_in22k at 200 x 200 with seeded random
+   each timed as in 3 at batch 256;
+5. unfused-path kernels, under the same bound at batch 8 and 256, timed as
+   in 3 at batch 256:
+   - ``window_attention_bhnd`` on (B*nWin, heads, N, 32) at L1-L4, local and
+     global (repeated) query; the library call is
+     ``F.scaled_dot_product_attention`` with the bias as a float mask;
+   - ``layer_norm`` at every LN shape both members call on the unfused path
+     (recorded from one forward of each); the library call is
+     ``F.layer_norm`` on the f32 copy, with the casts;
+   - ``depthwise_conv_nhwc`` at the six ``exp_dw`` shapes, then the
+     ``exp_dw`` tool itself, which times the kernel, its plain version and
+     cuDNN's depthwise conv;
+6. model: full-width convnext_tiny_in22k at 200 x 200 with seeded random
    weights and layer scale ~ U(0.5, 1.5), and full-width GCViTTiny at
-   224 x 224 with seeded random weights, rel-pos tables ~ U(-1, 1) and LN
-   scales ~ U(0.5, 1.5) (so attention and MLP branches matter against the
-   residual): each member's kernel-path logits against its plain path's
-   (f32 and bf16) at batch 8 and at batch 256, max|d| / max|ref| <= 5e-2
-   (bf16 activations through 18 or 31 residual blocks), then one batch-256
-   forward timed on each path; ``--profile`` adds a torch.profiler table of
-   each member's forward;
-6. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
+   224 x 224, on its fused and on its unfused block path, with seeded random
+   weights, rel-pos tables ~ U(-1, 1) and LN scales ~ U(0.5, 1.5) (so
+   attention and MLP branches matter against the residual): each member's
+   kernel-path logits against its plain path's (f32 and bf16) at batch 8 and
+   at batch 256, max|d| / max|ref| <= 5e-2 (bf16 activations through 18 or
+   31 residual blocks), then one batch-256 forward timed on each path;
+   ``--profile`` adds a torch.profiler table of each member's forward;
+7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
    (``convnext_tiny_in22k-200x200``, ``GCViTTiny-224x224``) run through
    ``main_torch.main`` at batch 256 (one full batch and one zero-padded
-   tail) with ``VIPTPU_ALLOW_RANDOM_INIT=1``; the CSV must hold 300 sorted
-   rows with logits in {0.0, 1.0} and every kernel of both families must
-   have been launched by that run.
+   tail) with ``VIPTPU_ALLOW_RANDOM_INIT=1``, twice on the fused block path
+   and once with ``VIPTPU_NO_FUSED_BLOCK=1``; each CSV must hold 300 sorted
+   rows with logits in {0.0, 1.0}; the first fused run must have launched
+   every kernel of both block families and the LN kernel at each standalone
+   LN, the unfused run the window-attention kernel at each of GCViT's 31
+   blocks and the LN kernel at every LN, per batch, and none of the fused
+   GCViT family.
 
-The line before the last is the kernels' JSON record: ``launches`` from the
-slice phase's first run, ``ms`` and ``plain_ms`` per batch-256 forward of both
-members together (phases 3 and 4; ``ln_fc1_gelu`` and ``fc2_scale_residual``
-serve both), ``max_abs_err`` over every check of phases 3 and 4. The last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record. ``launches`` come from
+the run of each kernel's path, counted from 0 just before it: the first fused
+CSV run for the block families, the unfused CSV run for
+``window_attention_bhnd`` and ``layer_norm``, the ``exp_dw`` run for
+``depthwise_conv_nhwc``. ``ms``, ``plain_ms`` and ``library_ms`` (null where
+no one PyTorch call computes the function) are per batch-256 forward of both
+members together on that path (phases 3-5; ``ln_fc1_gelu`` and
+``fc2_scale_residual`` serve both members), and for ``depthwise_conv_nhwc``
+per pass over the six ``exp_dw`` shapes. ``bound_ms`` is the least time the
+card could take for the same launches, each launch's bytes (inputs read once,
+outputs written once) over 3.35 TB/s or its operations over the peak for
+their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s f32 elsewhere;
+NVIDIA's H100 SXM data sheet), whichever is larger, summed; ``bound_by`` says
+which of the two made most of it. ``max_abs_err`` is over every check of
+phases 3-5. The last line is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -52,9 +79,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -63,32 +92,56 @@ import main_torch  # noqa: E402
 from vip_cup_2022_tpu_torch.models import create_model  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
+from vip_cup_2022_tpu_torch.tools import exp_dw  # noqa: E402
+from vip_cup_2022_tpu_torch.tools.exp_dw import cuda_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
 GCVIT_KERNELS = ("ln_qkv", "window_attention", "proj_scale_residual")
-KERNELS = CONVNEXT_KERNELS + GCVIT_KERNELS
-SOURCES = {n: "vip_cup_2022_tpu_torch/csrc/convnext_block.cu" for n in CONVNEXT_KERNELS}
-SOURCES.update({n: "vip_cup_2022_tpu_torch/csrc/gcvit_block.cu" for n in GCVIT_KERNELS})
-TPU = "vip_cup_2022_tpu/ops/pallas/convnext_block.py"
-GTPU = "vip_cup_2022_tpu/ops/pallas/gcvit_block.py"
+ATTN, LN, DW = "window_attention_bhnd", "layer_norm", "depthwise_conv_nhwc"
+KERNELS = CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW)
+CSRC = "vip_cup_2022_tpu_torch/csrc"
+SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
+SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
+SOURCES.update({ATTN: f"{CSRC}/window_attention.cu", LN: f"{CSRC}/layernorm.cu",
+                DW: f"{CSRC}/depthwise.cu"})
+PALLAS = "vip_cup_2022_tpu/ops/pallas"
+TPU = f"{PALLAS}/convnext_block.py"
+GTPU = f"{PALLAS}/gcvit_block.py"
 REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 ln_dense,
-    # K5 grouped_window_attention, K6 proj_res_ln_mlp, K7 mono_window_transformer_block
+    # K5 grouped_window_attention, K6 proj_res_ln_mlp, K7 mono_window_transformer_block,
+    # K8 window_attention, K10 fused_layernorm -> _pallas_ln2, K9 depthwise_conv_nhwc
     "dwconv7x7_nhwc": f"{TPU}:602",
     "ln_fc1_gelu": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
     "fc2_scale_residual": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
     "ln_qkv": f"{GTPU}:247, {GTPU}:906",
     "window_attention": f"{GTPU}:542, {GTPU}:906",
     "proj_scale_residual": f"{GTPU}:667, {GTPU}:906",
+    ATTN: f"{PALLAS}/window_attention.py:45",
+    LN: f"{PALLAS}/norms.py:65, {PALLAS}/norms.py:34",
+    DW: f"{PALLAS}/depthwise.py:41",
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 # GCViTTiny@224 levels: grid, C, heads, window, local blocks, global-query blocks
 LEVELS = ((56, 64, 2, 7, 2, 1), (28, 128, 4, 7, 2, 2), (14, 256, 8, 14, 10, 9),
           (7, 512, 16, 7, 3, 2))
+GCVIT_BLOCKS = 31
+# LN calls per forward: ConvNeXt's stem, three downsamples and head; GCViT's
+# stem and downsample ReduceSizes (two each) and head; on the unfused path
+# also each block's norm1 and norm2
+CONVNEXT_LNS, GCVIT_LNS = 5, 9
 KERNEL_BOUND = 1e-2
+F32_KERNEL_BOUND = 1e-5  # a kernel with f32 input and output (the ConvNeXt head LN)
 MODEL_BOUND = 5e-2
 N_IMAGES = 300
 BATCH = 256
+# the card's data-sheet peaks (NVIDIA H100 SXM, 700 W): memory, dense bf16
+# tensor-core products, f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -99,24 +152,21 @@ def abs_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     return (a.float() - ref.float()).abs().max().item()
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def reset_launches() -> None:
+    for module in (K, G, WA, L, D):
+        module.reset_launches()
+
+
+def all_launches() -> dict:
+    return {**K.LAUNCHES, **G.LAUNCHES, **WA.LAUNCHES, **L.LAUNCHES, **D.LAUNCHES}
 
 
 @contextlib.contextmanager
 def plain_blocks():
-    """Route the model's blocks through the plain versions (the reference
+    """Route the models' kernels through the plain versions (the reference
     path on the card); the wrappers themselves never fall back."""
-    mods = [(K, n) for n in CONVNEXT_KERNELS] + [(G, n) for n in GCVIT_KERNELS]
+    mods = ([(K, n) for n in CONVNEXT_KERNELS] + [(G, n) for n in GCVIT_KERNELS]
+            + [(WA, "window_attention"), (L, "layer_norm")])
     saved = [(m, n, getattr(m, n)) for m, n in mods]
     for m, n in mods:
         setattr(m, n, getattr(m, n + "_plain"))
@@ -125,6 +175,64 @@ def plain_blocks():
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
+
+
+def new_stats() -> dict:
+    return {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0} for n in KERNELS}
+
+
+def account(stats: dict, name: str, count: int, times: tuple, nbytes: float, ops: float,
+            kind: str) -> float:
+    """Add ``count`` launches of one shape, timed (kernel, plain, library) ms
+    per launch, to ``name``'s per-forward numbers; return the launch's bound
+    in ms: its bytes over the memory rate or its operations over the peak
+    for their ``kind``, whichever is larger."""
+    st = stats[name]
+    k_ms, p_ms, l_ms = times
+    st["ms"] += count * k_ms
+    st["plain_ms"] += count * p_ms
+    if l_ms is not None:
+        st["library_ms"] = (st["library_ms"] or 0.0) + count * l_ms
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    bound = max(t_bytes, t_ops)
+    st["bound_ms"] += count * bound
+    st["bytes_ms" if t_bytes >= t_ops else "ops_ms"] += count * bound
+    return bound
+
+
+def fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.3f} ms"
+
+
+def print_launch(name: str, shape: str, times: tuple, bound: float, card: str) -> None:
+    k_ms, p_ms, l_ms = times
+    print(f"[kernels] {name:26s} {shape} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
+          f"{fmt_ms(l_ms)}, bound {bound:.3f} ms per launch [{card}]")
+
+
+def print_per_forward(stats: dict, before: dict, names, label: str, card: str) -> None:
+    for n in names:
+        d = {k: stats[n][k] - before[n][k] for k in ("ms", "plain_ms", "bound_ms")}
+        lib = stats[n]["library_ms"]
+        lib = None if lib is None else lib - (before[n]["library_ms"] or 0.0)
+        print(f"[kernels] {n:26s} per {label}: kernel {d['ms']:.2f} ms, plain "
+              f"{d['plain_ms']:.2f} ms, library {fmt_ms(lib)}, bound {d['bound_ms']:.3f} ms "
+              f"[{card}]")
+
+
+def snapshot(stats: dict) -> dict:
+    return {n: dict(st) for n, st in stats.items()}
+
+
+def time_calls(kern, plain, library=None) -> tuple:
+    """Kernel, plain and library ms per launch, interleaved k, p, l, l, p, k."""
+    fns = [kern, plain] + ([library] if library is not None else [])
+    first = [cuda_ms(f) for f in fns]
+    second = [cuda_ms(f) for f in reversed(fns)][::-1]
+    ms = [(a + b) / 2 for a, b in zip(first, second)]
+    return ms[0], ms[1], (ms[2] if library is not None else None)
 
 
 def block_inputs(b, h, w, c, gen):
@@ -154,9 +262,10 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = build.build_all(["convnext_block", "gcvit_block"], verbose=True)
-    K._lib()
-    G._lib()
+    names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()})
+    paths = build.build_all(names, verbose=True)
+    for module in (K, G, WA, L, D):
+        module._lib()
     print(f"[build] {sorted(paths.values())} ready in {time.perf_counter() - t0:.1f} s")
 
 
@@ -172,20 +281,21 @@ def run_stage(b, h, w, c, gen) -> dict:
     return p
 
 
-def check(refs: dict, label: str, stats: dict) -> None:
+def check(refs: dict, label: str, stats: dict, bound: float = KERNEL_BOUND) -> None:
     """Each kernel output in ``refs`` (name -> (output, reference maker))
-    against its plain version in f32 on the same (bf16-rounded) inputs;
-    references are made one at a time to bound memory."""
+    against its plain version in f32 on the same (bf16-rounded) inputs,
+    within ``bound`` of max|ref|; references are made one at a time to bound
+    memory."""
     for name, (got, make_ref) in refs.items():
         ref = make_ref()
         r = rel_err(got, ref)
         kernel = name.split(" ")[0]
         stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], abs_err(got, ref))
         del ref
-        print(f"[kernels] {name:26s} {label} max|d|/max|ref| = {r:.3e} (bound {KERNEL_BOUND:g})")
-        if not r <= KERNEL_BOUND:
+        print(f"[kernels] {name:26s} {label} max|d|/max|ref| = {r:.3e} (bound {bound:g})")
+        if not r <= bound:
             raise AssertionError(f"{name} at {label} disagrees with its plain version: "
-                                 f"{r:.3e} > {KERNEL_BOUND:g}")
+                                 f"{r:.3e} > {bound:g}")
 
 
 def check_stage(p: dict, shape: tuple, stats: dict) -> None:
@@ -200,45 +310,44 @@ def check_stage(p: dict, shape: tuple, stats: dict) -> None:
     }, str(shape), stats)
 
 
-def time_pair(kern, plain) -> tuple:
-    """Kernel and plain ms per launch, interleaved k, p, p, k."""
-    ms = [cuda_ms(kern), cuda_ms(plain), cuda_ms(plain), cuda_ms(kern)]
-    return (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-
-
 def phase_kernels(card: str, stats: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     for h, w, c, _ in STAGES:  # batch 8: ragged row tiles (B*H*W not a multiple of 64)
         check_stage(run_stage(8, h, w, c, gen), (8, h, w, c), stats)
-    per_fwd = {n: [0.0, 0.0] for n in CONVNEXT_KERNELS}
+    before = snapshot(stats)
     for h, w, c, nblocks in STAGES:  # the main path's batch-256 shapes: checked, then timed
         p = run_stage(BATCH, h, w, c, gen)
         check_stage(p, (BATCH, h, w, c), stats)
-        calls = {
-            "dwconv7x7_nhwc": (lambda: K.dwconv7x7_nhwc(p["x"], p["dw"], p["dwb"]),
-                               lambda: K.dwconv7x7_nhwc_plain(p["x"], p["dw"], p["dwb"])),
+        m, n = BATCH * h * w, 4 * c
+        # cuDNN's depthwise conv on the same channels-last bf16 input
+        xc = p["x"].permute(0, 3, 1, 2)
+        wc = p["dw"].permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16)
+        bc = p["dwb"].to(torch.bfloat16)
+        calls = {  # name: (kernel, plain, library, bytes, operations, their type)
+            "dwconv7x7_nhwc": (
+                lambda: K.dwconv7x7_nhwc(p["x"], p["dw"], p["dwb"]),
+                lambda: K.dwconv7x7_nhwc_plain(p["x"], p["dw"], p["dwb"]),
+                lambda: F.conv2d(xc, wc, bc, padding=3, groups=c),
+                m * c * 2 + 50 * c * 4 + m * c * 4, 2 * 49 * m * c, "f32"),
             "ln_fc1_gelu": (
                 lambda: K.ln_fc1_gelu(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6),
-                lambda: K.ln_fc1_gelu_plain(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6)),
+                lambda: K.ln_fc1_gelu_plain(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6),
+                None, m * c * 4 + n * c * 2 + (n + 2 * c) * 4 + m * n * 2, 2 * m * c * n, "bf16"),
             "fc2_scale_residual": (
                 lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"]),
-                lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"])),
+                lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"]),
+                None, m * n * 2 + n * c * 2 + 2 * c * 4 + 2 * m * c * 2, 2 * m * n * c, "bf16"),
         }
-        for name, (kern, plain) in calls.items():
-            k_ms, p_ms = time_pair(kern, plain)
-            per_fwd[name][0] += nblocks * k_ms
-            per_fwd[name][1] += nblocks * p_ms
-            print(f"[kernels] {name:26s} ({BATCH},{h},{w},{c}) kernel {k_ms:.3f} ms, plain "
-                  f"{p_ms:.3f} ms per launch [{card}]")
-        del p, calls
+        for name, (kern, plain, lib, nbytes, ops, kind) in calls.items():
+            times = time_calls(kern, plain, lib)
+            bound = account(stats, name, nblocks, times, nbytes, ops, kind)
+            print_launch(name, f"({BATCH},{h},{w},{c})", times, bound, card)
+        del p, calls, xc, wc, bc
         torch.cuda.empty_cache()
-    for name, (k_ms, p_ms) in per_fwd.items():
-        stats[name]["ms"] += k_ms
-        stats[name]["plain_ms"] += p_ms
-        print(f"[kernels] {name:26s} per convnext_tiny batch-256 forward (3/3/9/3 blocks): "
-              f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms [{card}]")
+    print_per_forward(stats, before, CONVNEXT_KERNELS,
+                      "convnext_tiny batch-256 forward (3/3/9/3 blocks)", card)
 
 
 def gcvit_level_inputs(b, grid, c, heads, ws, gen) -> dict:
@@ -262,34 +371,51 @@ def gcvit_level_inputs(b, grid, c, heads, ws, gen) -> dict:
     )
 
 
-def gcvit_calls(p: dict, b: int, c: int) -> dict:
-    """name -> (kernel call, plain call) for every GCViT launch of one level,
-    both block kinds; the plain versions run on the same bf16 inputs."""
+def gcvit_calls(p: dict, b: int, c: int, heads: int) -> dict:
+    """name -> (kernel call, plain call, library call or None, bytes,
+    operations) for every GCViT launch of one level, both block kinds; the
+    plain versions run on the same bf16 inputs. The library call of the
+    attention is SDPA on the same (window, head) tiles, the global query
+    repeated over the windows beforehand."""
     n, m = p["n"], p["m"]
     wkv, bkv = p["wqkv"][c:], p["bqkv"][c:]
     t = lambda a: a.view(b, -1, c)  # noqa: E731
+    heads_view = lambda a: a.reshape(-1, n, heads, 32).transpose(1, 2)  # noqa: E731
     q, k, v = p["qkv"]
+    q_rep = p["qg"].repeat_interleave(m // (b * n), 0)
+    mask = p["bias"].to(torch.bfloat16)
+    sdpa = lambda qq: F.scaled_dot_product_attention(  # noqa: E731
+        heads_view(qq), heads_view(k), heads_view(v), attn_mask=mask, scale=p["scale"])
+    act, weights = m * c * 2, c * c * 2  # bytes of one bf16 (M, C) activation, one C x C weight
+    attn_ops, bias_bytes = 4 * m * n * c, heads * n * n * 4
     return {
         "ln_qkv local": (lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5),
                          lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"],
-                                                1e-5)),
+                                                1e-5),
+                         None, 4 * act + 3 * weights, 2 * m * c * 3 * c),
         "ln_qkv global": (lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
-                          lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5)),
+                          lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
+                          None, 3 * act + 2 * weights, 2 * m * c * 2 * c),
         "window_attention local": (
             lambda: G.window_attention(t(q), t(k), t(v), p["bias"], n, p["scale"]),
-            lambda: G.window_attention_plain(t(q), t(k), t(v), p["bias"], n, p["scale"])),
+            lambda: G.window_attention_plain(t(q), t(k), t(v), p["bias"], n, p["scale"]),
+            lambda: sdpa(q), 4 * act + bias_bytes, attn_ops),
         "window_attention global": (
             lambda: G.window_attention(p["qg"], t(k), t(v), p["bias"], n, p["scale"], True),
-            lambda: G.window_attention_plain(p["qg"], t(k), t(v), p["bias"], n, p["scale"], True)),
+            lambda: G.window_attention_plain(p["qg"], t(k), t(v), p["bias"], n, p["scale"], True),
+            lambda: sdpa(q_rep), 3 * act + b * n * c * 2 + bias_bytes, attn_ops),
         "proj_scale_residual": (
             lambda: G.proj_scale_residual(p["attn"], p["wp"], p["bp"], p["g1"], p["x"]),
-            lambda: G.proj_scale_residual_plain(p["attn"], p["wp"], p["bp"], p["g1"], p["x"])),
+            lambda: G.proj_scale_residual_plain(p["attn"], p["wp"], p["bp"], p["g1"], p["x"]),
+            None, 2 * act + weights + m * c * 4, 2 * m * c * c),
         "ln_fc1_gelu": (
             lambda: K.ln_fc1_gelu(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5),
-            lambda: K.ln_fc1_gelu_plain(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5)),
+            lambda: K.ln_fc1_gelu_plain(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5),
+            None, m * c * 4 + 3 * weights + 3 * act, 2 * m * c * 3 * c),
         "fc2_scale_residual": (
             lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"]),
-            lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"])),
+            lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"]),
+            None, 3 * act + 3 * weights + m * c * 4 + act, 2 * m * 3 * c * c),
     }
 
 
@@ -337,26 +463,171 @@ def phase_gcvit_kernels(card: str, stats: dict) -> None:
     for level in LEVELS:  # batch 8: ragged row tiles
         run_check_level(8, level, gen, stats)
         torch.cuda.empty_cache()
-    per_fwd = {n: [0.0, 0.0] for n in ("ln_qkv", "window_attention", "proj_scale_residual",
-                                       "ln_fc1_gelu", "fc2_scale_residual")}
+    before = snapshot(stats)
     for level in LEVELS:  # the main path's batch-256 shapes: checked, then timed
         grid, c, heads, ws, n_local, n_global = level
         p = run_check_level(BATCH, level, gen, stats)
-        for name, (kern, plain) in gcvit_calls(p, BATCH, c).items():
-            k_ms, p_ms = time_pair(kern, plain)
+        for name, (kern, plain, lib, nbytes, ops) in gcvit_calls(p, BATCH, c, heads).items():
+            times = time_calls(kern, plain, lib)
             count = (n_local if name.endswith("local") else n_global if name.endswith("global")
                      else n_local + n_global)
-            per_fwd[name.split(" ")[0]][0] += count * k_ms
-            per_fwd[name.split(" ")[0]][1] += count * p_ms
-            print(f"[kernels] {name:26s} ({BATCH},{grid},{grid},{c}) w{ws} kernel {k_ms:.3f} ms, "
-                  f"plain {p_ms:.3f} ms per launch [{card}]")
+            bound = account(stats, name.split(" ")[0], count, times, nbytes, ops, "bf16")
+            print_launch(name, f"({BATCH},{grid},{grid},{c}) w{ws}", times, bound, card)
         del p
         torch.cuda.empty_cache()
-    for name, (k_ms, p_ms) in per_fwd.items():
-        stats[name]["ms"] += k_ms
-        stats[name]["plain_ms"] += p_ms
-        print(f"[kernels] {name:26s} per GCViTTiny batch-256 forward (3/4/19/5 blocks): "
-              f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms [{card}]")
+    print_per_forward(stats, before, ("ln_qkv", "window_attention", "proj_scale_residual",
+                                      "ln_fc1_gelu", "fc2_scale_residual"),
+                      "GCViTTiny batch-256 forward (3/4/19/5 blocks)", card)
+
+
+def attention_inputs(b, grid, heads, ws, gen) -> dict:
+    """The window-attention kernel's inputs at one GCViT level and batch
+    ``b``: bf16 q, k, v (b * nWin, heads, N, 32), a per-image global query
+    repeated over its windows, and an f32 (heads, N, N) bias."""
+    n, nwin = ws * ws, (grid // ws) ** 2
+
+    def u(shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+
+    shape = (b * nwin, heads, n, 32)
+    q, k, v = (u(shape).to(torch.bfloat16) for _ in range(3))
+    qg = u((b, heads, n, 32)).to(torch.bfloat16).repeat_interleave(nwin, 0)
+    return dict(q=q, qg=qg, k=k, v=v, bias=u((heads, n, n)), scale=32 ** -0.5)
+
+
+def phase_attention(card: str, stats: dict) -> None:
+    """The unfused path's window attention at L1-L4, local and global query."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    before = snapshot(stats)
+    for b in (8, BATCH):
+        for grid, c, heads, ws, n_local, n_global in LEVELS:
+            p = attention_inputs(b, grid, heads, ws, gen)
+            k, v, bias, scale = p["k"], p["v"], p["bias"], p["scale"]
+            f = lambda a: a.float()  # noqa: E731
+            outs = {kind: WA.window_attention(p[key], k, v, bias, scale)
+                    for kind, key in (("local", "q"), ("global", "qg"))}
+            torch.cuda.synchronize()
+            check({f"{ATTN} local": (outs["local"], lambda: WA.window_attention_plain(
+                       f(p["q"]), f(k), f(v), bias, scale)),
+                   f"{ATTN} global": (outs["global"], lambda: WA.window_attention_plain(
+                       f(p["qg"]), f(k), f(v), bias, scale))},
+                  f"L b{b} {tuple(p['q'].shape)}", stats)
+            if b == BATCH:
+                mask = bias.to(torch.bfloat16)
+                nbytes = 4 * p["q"].numel() * 2 + bias.numel() * 4
+                ops = 4 * p["q"].numel() * p["q"].shape[2]
+                for kind, q, count in (("local", p["q"], n_local), ("global", p["qg"], n_global)):
+                    times = time_calls(
+                        lambda: WA.window_attention(q, k, v, bias, scale),
+                        lambda: WA.window_attention_plain(q, k, v, bias, scale),
+                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                               scale=scale))
+                    bound = account(stats, ATTN, count, times, nbytes, ops, "bf16")
+                    print_launch(f"{ATTN} {kind}", f"{tuple(q.shape)} L{grid}x{grid}", times,
+                                 bound, card)
+            del p, outs
+            torch.cuda.empty_cache()
+    print_per_forward(stats, before, (ATTN,), "GCViTTiny unfused batch-256 forward (31 blocks)",
+                      card)
+
+
+@contextlib.contextmanager
+def recording_layer_norms(calls: list):
+    """Record (shape without the batch, dtype, eps) of each LN wrapper call."""
+    real = L.layer_norm
+
+    def record(x, weight, bias, eps):
+        calls.append((tuple(x.shape[1:]), x.dtype, float(eps)))
+        return real(x, weight, bias, eps)
+
+    L.layer_norm = record
+    try:
+        yield
+    finally:
+        L.layer_norm = real
+
+
+def member_layer_norms(name: str, **kw) -> list:
+    """Every LN call of one batch-1 bf16 forward of a full-width member."""
+    model = _model(name, torch.bfloat16, **kw)
+    calls = []
+    with torch.inference_mode(), recording_layer_norms(calls):
+        model(torch.rand((1, *MEMBERS[name][0], 3), device="cuda"))
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_layernorm(card: str, stats: dict) -> None:
+    """The LN kernel at every LN shape of both members on the unfused path."""
+    calls = {"convnext_tiny_in22k": member_layer_norms("convnext_tiny_in22k"),
+             "GCViTTiny fused": member_layer_norms("GCViTTiny", fused_block=True),
+             "GCViTTiny unfused": member_layer_norms("GCViTTiny", fused_block=False)}
+    want = {"convnext_tiny_in22k": CONVNEXT_LNS, "GCViTTiny fused": GCVIT_LNS,
+            "GCViTTiny unfused": GCVIT_LNS + 2 * GCVIT_BLOCKS}
+    for path, got in calls.items():
+        print(f"[kernels] {LN} calls per {path} forward: {len(got)} (expected {want[path]})")
+        if len(got) != want[path]:
+            raise AssertionError(f"{path} ran {len(got)} LNs through the LN wrapper, "
+                                 f"expected {want[path]}")
+    per_forward = Counter(calls["convnext_tiny_in22k"] + calls["GCViTTiny unfused"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    before = snapshot(stats)
+    for b in (8, BATCH):
+        for (shape, dtype, eps), count in per_forward.items():
+            c = shape[-1]
+            x = (torch.rand((b, *shape), generator=gen, device="cuda") * 4 - 2).to(dtype)
+            w = torch.rand((c,), generator=gen, device="cuda") + 0.5
+            bb = torch.rand((c,), generator=gen, device="cuda") * 0.2 - 0.1
+            out = L.layer_norm(x, w, bb, eps)
+            torch.cuda.synchronize()
+            label = f"{tuple(x.shape)} eps {eps:g} x{count}"
+            check({LN: (out, lambda: L.layer_norm_plain(x.float(), w, bb, eps))}, label, stats,
+                  F32_KERNEL_BOUND if dtype == torch.float32 else KERNEL_BOUND)
+            if b == BATCH:
+                times = time_calls(
+                    lambda: L.layer_norm(x, w, bb, eps),
+                    lambda: L.layer_norm_plain(x, w, bb, eps),
+                    lambda: F.layer_norm(x.float(), (c,), w, bb, eps).to(x.dtype))
+                bound = account(stats, LN, count, times, 2 * x.numel() * x.element_size()
+                                + 2 * c * 4, 8 * x.numel(), "f32")
+                print_launch(LN, label, times, bound, card)
+            del x, out
+            torch.cuda.empty_cache()
+    print_per_forward(stats, before, (LN,), "two-member batch-256 forward, GCViT unfused "
+                      f"({sum(per_forward.values())} LNs)", card)
+
+
+def phase_depthwise(card: str, stats: dict) -> int:
+    """The depthwise kernel at the six ``exp_dw`` shapes, then the ``exp_dw``
+    tool (its entry point); returns the tool's launches."""
+    for b in (8, BATCH):
+        for tag, _, h, w, c, k in exp_dw.SHAPES:
+            x, kern = exp_dw.inputs(b, h, w, c, k)
+            pad = ((k // 2, k // 2), (k // 2, k // 2))
+            out = D.depthwise_conv_nhwc(x, kern, padding=pad)
+            torch.cuda.synchronize()
+            check({f"{DW} {tag}": (out, lambda: D.depthwise_conv_nhwc_plain(
+                x.float(), kern, padding=pad))}, f"b{b}", stats)
+            del x, kern, out
+            torch.cuda.empty_cache()
+    reset_launches()
+    results = exp_dw.main(["--iters", "10"])
+    launches = D.LAUNCHES[DW]
+    for r in results:
+        b, h, w, c = r["shape"]
+        k = r["k"]
+        times = (r["ms"], r["plain_ms"], r["cudnn_ms"])
+        bound = account(stats, DW, 1, times, 2 * b * h * w * c * 2 + k * k * c * 4,
+                        2 * k * k * b * h * w * c, "f32")
+        stats[DW]["max_abs_err"] = max(stats[DW]["max_abs_err"], r["max_abs_err"])
+        print_launch(DW, r["tag"], times, bound, card)
+    print(f"[kernels] {DW} per pass over the six exp_dw shapes: kernel {stats[DW]['ms']:.2f} ms, "
+          f"plain {stats[DW]['plain_ms']:.2f} ms, cuDNN {stats[DW]['library_ms']:.2f} ms, "
+          f"bound {stats[DW]['bound_ms']:.3f} ms; {launches} launches in the exp_dw run [{card}]")
+    if launches <= 0:
+        raise AssertionError("the exp_dw run launched no depthwise kernel")
+    return launches
 
 
 MEMBERS = {  # name: (input size, output width)
@@ -365,12 +636,13 @@ MEMBERS = {  # name: (input size, output width)
 }
 
 
-def _model(name: str, dtype: torch.dtype) -> torch.nn.Module:
+def _model(name: str, dtype: torch.dtype, **kw) -> torch.nn.Module:
     """Full-width member with seeded random weights; ConvNeXt's layer scale
     ~ U(0.5, 1.5), GCViT's rel-pos tables ~ U(-1, 1) and LN scales
     ~ U(0.5, 1.5), so the blocks' branches matter against the residual."""
     size, _ = MEMBERS[name]
-    model, _ = create_model(name, input_size=size, classifier_activation=None, dtype=dtype, seed=0)
+    model, _ = create_model(name, input_size=size, classifier_activation=None, dtype=dtype, seed=0,
+                            **kw)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for pname, p in model.named_parameters():
@@ -383,7 +655,7 @@ def _model(name: str, dtype: torch.dtype) -> torch.nn.Module:
     return model.cuda()
 
 
-def compare_logits(name, kernel_model, ref_model, x: torch.Tensor) -> None:
+def compare_logits(name, label, kernel_model, ref_model, x: torch.Tensor) -> None:
     """The kernel path's logits against the plain f32 and plain bf16 paths."""
     with torch.inference_mode():
         logits = kernel_model(x)
@@ -393,26 +665,29 @@ def compare_logits(name, kernel_model, ref_model, x: torch.Tensor) -> None:
         torch.cuda.synchronize()
     b, width = x.shape[0], MEMBERS[name][1]
     if logits.shape != (b, width) or not torch.isfinite(logits).all():
-        raise AssertionError(f"{name} output {tuple(logits.shape)} not finite ({b}, {width})")
-    for label, other in (("plain f32", ref), ("plain bf16", plain_bf16)):
+        raise AssertionError(f"{label} output {tuple(logits.shape)} not finite ({b}, {width})")
+    for path, other in (("plain f32", ref), ("plain bf16", plain_bf16)):
         r = rel_err(logits, other)
-        print(f"[model] {name} {x.shape[1]}x{x.shape[2]} b{b} kernel path vs {label} path: "
+        print(f"[model] {label} {x.shape[1]}x{x.shape[2]} b{b} kernel path vs {path} path: "
               f"max|d|/max|ref| = {r:.3e} (bound {MODEL_BOUND:g}), max|ref| = "
               f"{other.float().abs().max().item():.3e}")
         if not r <= MODEL_BOUND:
-            raise AssertionError(f"{name} b{b} logits disagree with the {label} path: {r:.3e}")
+            raise AssertionError(f"{label} b{b} logits disagree with the {path} path: {r:.3e}")
 
 
-def phase_model(name: str, card: str, profile: bool) -> None:
+def phase_model(name: str, card: str, profile: bool, **kw) -> None:
+    """One member against its plain paths, then its batch-256 forward timed;
+    ``kw`` (``fused_block``) goes to the model's config."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    label = name + ("" if kw.get("fused_block", True) else " unfused")
     gen = torch.Generator(device="cuda").manual_seed(2)
     h, w = MEMBERS[name][0]
     x8 = torch.rand((8, h, w, 3), generator=gen, device="cuda")
     xb = torch.rand((BATCH, h, w, 3), generator=gen, device="cuda")
-    kernel_model, ref_model = _model(name, torch.bfloat16), _model(name, torch.float32)
-    compare_logits(name, kernel_model, ref_model, x8)
-    compare_logits(name, kernel_model, ref_model, xb)  # the main path's batch
+    kernel_model, ref_model = _model(name, torch.bfloat16, **kw), _model(name, torch.float32, **kw)
+    compare_logits(name, label, kernel_model, ref_model, x8)
+    compare_logits(name, label, kernel_model, ref_model, xb)  # the main path's batch
     del ref_model
     torch.cuda.empty_cache()
     with torch.inference_mode():
@@ -422,7 +697,7 @@ def phase_model(name: str, card: str, profile: bool) -> None:
             p1 = cuda_ms(fwd, iters=3, warmup=1)
             p2 = cuda_ms(fwd, iters=3, warmup=1)
         k2 = cuda_ms(fwd, iters=3, warmup=1)
-        print(f"[model] {name} batch-{BATCH} forward: kernel path {(k1 + k2) / 2:.2f} ms "
+        print(f"[model] {label} batch-{BATCH} forward: kernel path {(k1 + k2) / 2:.2f} ms "
               f"({BATCH * 2000 / (k1 + k2):.1f} img/s), plain bf16 path {(p1 + p2) / 2:.2f} ms "
               f"({BATCH * 2000 / (p1 + p2):.1f} img/s) [{card}]")
         if profile:
@@ -456,7 +731,47 @@ def _write_images(img_dir: str, n: int) -> list:
     return names
 
 
+def run_csv(input_csv: str, output_csv: str, names: list, batch_times: str = "") -> tuple:
+    """One ``main_torch`` CSV run with every launch count set to 0 just
+    before it; returns (launches, seconds, per-batch e2e seconds or None)
+    after checking the CSV."""
+    if batch_times:
+        os.environ["VIPTPU_E2E_BATCH_TIMES"] = batch_times
+    reset_launches()
+    t0 = time.perf_counter()
+    main_torch.main(["main_torch.py", input_csv, output_csv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    batch_s = None
+    if batch_times:
+        del os.environ["VIPTPU_E2E_BATCH_TIMES"]
+        with open(batch_times) as fh:
+            batch_s = json.load(fh)["batch_e2e_s"]
+    with open(output_csv) as fh:
+        lines = fh.read().splitlines()
+    if lines[0] != "filename,logit" or len(lines) != N_IMAGES + 1:
+        raise AssertionError(f"CSV has {len(lines) - 1} rows / header {lines[0]!r}")
+    rows = [ln.split(",") for ln in lines[1:]]
+    if [r[0] for r in rows] != sorted(names) or not {r[1] for r in rows} <= {"0.0", "1.0"}:
+        raise AssertionError("CSV rows are not the sorted filenames with logits in {0.0, 1.0}")
+    print(f"[slice] CSV: {len(rows)} sorted rows, logits {sorted({r[1] for r in rows})}")
+    return launches, seconds, batch_s
+
+
+def expect_launches(launches: dict, want: dict, label: str) -> None:
+    """``want``: name -> exact count, or None for "at least once"."""
+    print(f"[slice] launches in the {label} run: {launches}")
+    bad = {n: launches[n] for n, w in want.items()
+           if (launches[n] <= 0 if w is None else launches[n] != w)}
+    if bad:
+        raise AssertionError(f"the {label} run launched {bad}; expected {want}")
+
+
 def phase_slice(card: str) -> dict:
+    """The two-member CSV run: fused cold and warm, then unfused; returns
+    each kernel's launches from the run of its path."""
+    batches = -(-N_IMAGES // BATCH)
     with tempfile.TemporaryDirectory() as ws:
         img_dir = os.path.join(ws, "images")
         os.makedirs(img_dir)
@@ -471,41 +786,32 @@ def phase_slice(card: str) -> dict:
         print(f"[slice] {N_IMAGES} JPEGs written; decode runs through the port's host pool")
         os.environ.update(VIPTPU_CKPT_DIR=os.path.join(ws, "ckpts"), VIPTPU_ALLOW_RANDOM_INIT="1",
                           VIPTPU_MAX_BATCH=str(BATCH), VIPTPU_VERBOSE="1")
+        os.environ.pop("VIPTPU_NO_FUSED_BLOCK", None)
         output_csv = os.path.join(ws, "output.csv")
+        times = os.path.join(ws, "batch_times.json")
 
-        K.reset_launches()
-        G.reset_launches()
-        t0 = time.perf_counter()
-        main_torch.main(["main_torch.py", input_csv, output_csv])
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        launches = {**K.LAUNCHES, **G.LAUNCHES}
+        fused, cold, _ = run_csv(input_csv, output_csv, names)
+        _, warm, batch_s = run_csv(input_csv, output_csv, names, times)
+        os.environ["VIPTPU_NO_FUSED_BLOCK"] = "1"
+        try:
+            unfused, t_unfused, batch_u = run_csv(input_csv, output_csv, names, times)
+        finally:
+            del os.environ["VIPTPU_NO_FUSED_BLOCK"]
 
-        os.environ["VIPTPU_E2E_BATCH_TIMES"] = os.path.join(ws, "batch_times.json")
-        t0 = time.perf_counter()
-        main_torch.main(["main_torch.py", input_csv, output_csv])
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        del os.environ["VIPTPU_E2E_BATCH_TIMES"]
-        with open(os.path.join(ws, "batch_times.json")) as fh:
-            batch_s = json.load(fh)["batch_e2e_s"]
-
-        with open(output_csv) as fh:
-            lines = fh.read().splitlines()
-    if lines[0] != "filename,logit" or len(lines) != N_IMAGES + 1:
-        raise AssertionError(f"CSV has {len(lines) - 1} rows / header {lines[0]!r}")
-    rows = [ln.split(",") for ln in lines[1:]]
-    if [r[0] for r in rows] != sorted(names) or not {r[1] for r in rows} <= {"0.0", "1.0"}:
-        raise AssertionError("CSV rows are not the sorted filenames with logits in {0.0, 1.0}")
-    print(f"[slice] CSV: {len(rows)} sorted rows, logits {sorted({r[1] for r in rows})}")
-    print(f"[slice] launches in the CSV->CSV run: {launches}")
-    missing = [n for n in KERNELS if launches[n] <= 0]
-    if missing:
-        raise AssertionError(f"the main path launched no {missing}")
+    expect_launches(fused, {**{n: None for n in CONVNEXT_KERNELS + GCVIT_KERNELS},
+                            ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)}, "fused CSV->CSV")
+    expect_launches(unfused, {**{n: None for n in CONVNEXT_KERNELS}, **{n: 0 for n in GCVIT_KERNELS},
+                              ATTN: batches * GCVIT_BLOCKS,
+                              LN: batches * (CONVNEXT_LNS + GCVIT_LNS + 2 * GCVIT_BLOCKS)},
+                    "unfused CSV->CSV")
+    ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
     print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 2 members: cold {cold:.2f} s "
           f"({N_IMAGES / cold:.1f} img/s), warm {warm:.2f} s ({N_IMAGES / warm:.1f} img/s); "
-          f"warm per-batch e2e {', '.join(f'{s * 1000:.1f} ms' for s in batch_s)} [{card}]")
-    return launches
+          f"warm per-batch e2e {ms(batch_s)} [{card}]")
+    print(f"[slice] CSV->CSV with VIPTPU_NO_FUSED_BLOCK=1: {t_unfused:.2f} s "
+          f"({N_IMAGES / t_unfused:.1f} img/s); per-batch e2e {ms(batch_u)} [{card}]")
+    return {**{n: fused[n] for n in CONVNEXT_KERNELS + GCVIT_KERNELS},
+            ATTN: unfused[ATTN], LN: unfused[LN]}
 
 
 def main(argv) -> None:
@@ -513,15 +819,22 @@ def main(argv) -> None:
         sys.exit("chip_smoke: no CUDA device is available")
     card = phase_device()
     phase_build()
-    stats = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for n in KERNELS}
+    stats = new_stats()
     phase_kernels(card, stats)
     phase_gcvit_kernels(card, stats)
-    for name in MEMBERS:
-        phase_model(name, card, profile="--profile" in argv)
-    launches = phase_slice(card)
+    phase_attention(card, stats)
+    phase_layernorm(card, stats)
+    dw_launches = phase_depthwise(card, stats)
+    for name, kw in (("convnext_tiny_in22k", {}), ("GCViTTiny", {"fused_block": True}),
+                     ("GCViTTiny", {"fused_block": False})):
+        phase_model(name, card, profile="--profile" in argv, **kw)
+    launches = {**phase_slice(card), DW: dw_launches}
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
-               "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"]} for n in KERNELS]
+               "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],
+               "bound_ms": stats[n]["bound_ms"],
+               "bound_by": "bytes" if stats[n]["bytes_ms"] >= stats[n]["ops_ms"] else "operations",
+               "library_ms": stats[n]["library_ms"]} for n in KERNELS]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

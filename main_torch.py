@@ -15,7 +15,9 @@ the PyTorch port (``vip_cup_2022_tpu_torch``):
 Knobs: ``VIPTPU_PLATFORM=cpu`` runs the plain PyTorch path on the CPU (CUDA
 otherwise, and no CUDA device is an error); ``VIPTPU_DTYPE``,
 ``VIPTPU_MAX_BATCH`` (default 256), ``VIPTPU_DEBUG``, ``VIPTPU_VERBOSE``,
-``VIPTPU_ALLOW_RANDOM_INIT``, ``VIPTPU_E2E_BATCH_TIMES``. ``VIPTPU_TTA`` > 1,
+``VIPTPU_ALLOW_RANDOM_INIT``, ``VIPTPU_E2E_BATCH_TIMES``;
+``VIPTPU_NO_FUSED_BLOCK=1`` runs GCViT's unfused block path.
+``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN`` have no effect. ``VIPTPU_TTA`` > 1,
 ``VIPTPU_FUSED=0``, ``VIPTPU_INT8`` other than off/auto and
 ``VIPTPU_FUSE_BN`` raise ``NotImplementedError``: the port has no such path
 yet.

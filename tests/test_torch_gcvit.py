@@ -238,7 +238,13 @@ def _cfg(root, input_csv, out_name, entries=None):
 
 
 def test_two_member_cli_csv_equals_jax_byte_for_byte(two_member_workspace, monkeypatch):
-    root, input_csv, names, members = two_member_workspace
+    assert_two_member_csvs_equal(two_member_workspace, monkeypatch)
+
+
+def assert_two_member_csvs_equal(workspace, monkeypatch):
+    """Put the threshold between the images, then run both CLIs on the
+    workspace and compare their CSVs byte for byte."""
+    root, input_csv, names, members = workspace
     monkeypatch.setenv("VIPTPU_MAX_BATCH", "8")
     # each member's probabilities from the port, then a shift of the ConvNeXt
     # head bias that puts the 0.487 threshold on the ensemble mean as far from

@@ -178,3 +178,119 @@ def test_gcvit_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         G.ln_qkv(t.view(49, 64), torch.ones(64, device=dev), torch.zeros(64, device=dev),
                  torch.zeros((64, 64), dtype=torch.bfloat16, device=dev),
                  torch.zeros(64, device=dev), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm (K10), window attention on (B, H, N, D) (K8), depthwise conv (K9)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_matches_plain_on_card(cuda_device, c, dtype):
+    """A ragged row count (1001 rows: no tile divides it) at every LN width
+    of both members; the plain version in f32 on the same inputs. bf16:
+    max|d| / max|ref| <= 1e-2 (the output's rounding); f32 <= 1e-5."""
+    from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L
+
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x = (torch.rand((1001, c), generator=g, device=cuda_device) * 4 - 2).to(dtype)
+    w = torch.rand((c,), generator=g, device=cuda_device) + 0.5
+    b = torch.rand((c,), generator=g, device=cuda_device) * 0.2 - 0.1
+    L.reset_launches()
+    got = L.layer_norm(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and L.LAUNCHES == {"layer_norm": 1}
+    assert _rel(got, L.layer_norm_plain(x.float(), w, b, 1e-6)) <= (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_layer_norm_function_backward_on_card(cuda_device):
+    """Forward through the kernel, backward the plain LN's gradient."""
+    from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((3, 7, 64), generator=g, device=cuda_device).requires_grad_()
+    w = (torch.rand((64,), generator=g, device=cuda_device) + 0.5).requires_grad_()
+    b = torch.zeros((64,), device=cuda_device, requires_grad=True)
+    dy = torch.randn((3, 7, 64), generator=g, device=cuda_device)
+    L.fused_layernorm(x, w, b, 1e-5).backward(dy)
+    refs = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    L.layer_norm_plain(*refs, 1e-5).backward(dy)
+    for got, ref in zip((x, w, b), refs):
+        assert torch.allclose(got.grad, ref.grad, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,n", [(6, 2, 49), (5, 4, 49), (3, 8, 196), (4, 16, 49),
+                                       (2, 1, 9)])
+def test_window_attention_bhnd_matches_plain_on_card(cuda_device, b, heads, n):
+    """bf16 q/k/v (B, H, N, 32) against the f32 plain version on the same
+    inputs: max|d| / max|ref| <= 1e-2 (bf16 P and output)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+
+    g = torch.Generator(device=cuda_device).manual_seed(n + heads)
+    q, k, v = (torch.rand((b, heads, n, 32), generator=g, device=cuda_device) * 2 - 1
+               for _ in range(3))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    bias = torch.rand((heads, n, n), generator=g, device=cuda_device) * 2 - 1
+    WA.reset_launches()
+    got = WA.window_attention(q, k, v, bias, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert WA.LAUNCHES == {"window_attention_bhnd": 1}
+    ref = WA.window_attention_plain(q.float(), k.float(), v.float(), bias, 32 ** -0.5)
+    assert _rel(got, ref) <= 1e-2
+    with pytest.raises(ValueError, match="head width"):
+        WA.window_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                            v[..., :16].contiguous(), bias, 0.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,padding,c", [
+    (3, ((1, 1), (1, 1)), 192), (5, ((2, 1), (0, 2)), 96), (7, ((3, 2), (1, 3)), 24),
+    (5, ((2, 2), (2, 2)), 1632),
+])
+def test_depthwise_matches_plain_on_card(cuda_device, k, padding, c):
+    """Asymmetric paddings, ragged column tiles (W = 13) and the widest
+    EfficientNet width: max|d| / max|ref| <= 1e-2 (the bf16 output)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    x = torch.rand((3, 11, 13, c), generator=g, device=cuda_device).to(torch.bfloat16)
+    kern = torch.rand((k, k, 1, c), generator=g, device=cuda_device) - 0.5
+    D.reset_launches()
+    got = D.depthwise_conv_nhwc(x, kern, padding=padding)
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == {"depthwise_conv_nhwc": 1}
+    ref = D.depthwise_conv_nhwc_plain(x.float(), kern, padding=padding)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert _rel(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_exp_dw_tool_runs_on_card(cuda_device):
+    from vip_cup_2022_tpu_torch.tools import exp_dw
+
+    (result,) = exp_dw.main(["--iters", "1", "--shapes", "s5_7x1632_k5"])
+    assert result["max_abs_err"] <= 1e-2 * result["max_abs_ref"]
+    assert result["ms"] > 0 and result["cudnn_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_to_cut_the_graph(cuda_device):
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+    from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+
+    q = torch.zeros((2, 1, 9, 32), dtype=torch.bfloat16, device=cuda_device)
+    bias = torch.zeros((1, 9, 9), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        WA.window_attention(q.clone().requires_grad_(), q, q, bias, 0.2)
+    x = torch.zeros((1, 5, 5, 8), dtype=torch.bfloat16, device=cuda_device)
+    kern = torch.zeros((3, 3, 8), device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        D.depthwise_conv_nhwc(x, kern, padding=((1, 1), (1, 1)))
+    with torch.no_grad():
+        WA.window_attention(q.clone().requires_grad_(), q, q, bias, 0.2)
+        D.depthwise_conv_nhwc(x, kern, padding=((1, 1), (1, 1)))
+    torch.cuda.synchronize()

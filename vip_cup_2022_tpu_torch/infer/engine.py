@@ -13,9 +13,21 @@ same contract:
   binary as ``1 - p[:, 0]``, mean over folds, then over members;
 - ``> thr`` (0.487) and a ``filename,logit`` CSV sorted by filename.
 
+GCViT's block path follows ``VIPTPU_NO_FUSED_BLOCK``, which the model reads
+at each forward: unset, the fused window block; set, the unfused block (LN,
+the window-attention kernel, Linears, MLP), the path the JAX package takes
+off the TPU. Every LN of both members runs the LN kernel on CUDA.
+``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN``, the JAX package's TPU A/B
+switches for those two kernels, have no effect here: on CUDA the kernels run
+wherever their module is on the path.
+
 Not ported yet, and raising ``NotImplementedError`` rather than running
 something else: test-time augmentation (``tta > 1``), int8 members, the
-conv-BN fold and members other than ConvNeXt and GCViT.
+conv-BN fold and members other than ConvNeXt and GCViT. Of the JAX
+package's Pallas kernels, only the four that its experiment tools reach
+(``tools/exp_convnext_s12.py``, ``tools/exp_attn_parts.py``,
+``tools/int8_pallas_spike.py``) have no CUDA counterpart; none is on this
+path.
 """
 from __future__ import annotations
 
@@ -107,7 +119,13 @@ def default_compute_dtype(device: torch.device) -> torch.dtype:
 
 
 def check_unported_knobs() -> None:
-    """Raise for environment knobs whose features the port does not have yet."""
+    """Raise for environment knobs whose features the port does not have yet:
+    ``VIPTPU_INT8`` (int8 members, A12) and ``VIPTPU_FUSE_BN`` (the conv-BN
+    fold, A13); ``VIPTPU_TTA`` > 1 (A11) raises where the ensemble is built.
+    The JAX package's TPU tuning switches (``VIPTPU_PALLAS``,
+    ``VIPTPU_PALLAS_LN``, the ``VIPTPU_GCVIT_*`` and ``VIPTPU_DW_*`` family)
+    choose among TPU kernels and layouts, have nothing to choose on CUDA and
+    are not read."""
     int8 = os.environ.get("VIPTPU_INT8", "auto").strip().lower()
     if int8 not in ("", "auto", "0", "off", "false"):
         raise NotImplementedError(

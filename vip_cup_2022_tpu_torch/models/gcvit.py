@@ -6,11 +6,17 @@ Counterpart of ``vip_cup_2022_tpu/models/gcvit.py``, NHWC throughout:
 - ReduceSize: LN -> [dw3x3, GELU, SE, 1x1] residual -> 3x3 strided conv -> LN;
 - level: FitWindow centred pad, the FeatExtract pyramid that makes the
   level's global query (zero pad then a 3x3 stride-2 max pool, no LN, no
-  projection), then the blocks on window-ordered tokens (partitioned once
-  per level), window reverse, crop, and ReduceSize down to the next level;
-- block: every window block (odd blocks with the global query) through the
-  kernels of :mod:`..ops.kernels.gcvit_block` (their plain versions on the
-  CPU); the residual after attention stays f32 into LN2, as on the TPU;
+  projection), then the blocks, window reverse, crop, and ReduceSize down to
+  the next level;
+- block (odd blocks with the global query), on one of two paths that read
+  the same parameters (:func:`_use_fused_block` picks):
+  - fused: on window-ordered tokens (partitioned once per level), through
+    the kernels of :mod:`..ops.kernels.gcvit_block`; the residual after
+    attention stays f32 into LN2, as on the TPU;
+  - unfused (the JAX package's Flax path): on NHWC, LN1 -> window partition
+    -> :class:`..ops.attention.WindowAttention` (the window-attention kernel
+    of :mod:`..ops.kernels.window_attention`) -> window reverse -> residual
+    in the compute dtype, then LN2 -> :class:`..ops.mlp.Mlp` -> residual;
 - head: LN -> global average pool in f32 -> f32 Linear -> activation.
 
 Module and parameter names follow the Flax paths (``patch_embed.conv_down.
@@ -18,12 +24,15 @@ conv_2.fc_0``, ``levels_0.blocks_1.attn.relative_position_bias_table``, ...),
 so the weight bridge maps a Flax variables tree onto :meth:`state_dict` by
 renaming leaves only. The dense (heads, N, N) rel-pos bias of each block is
 gathered from its table once, after weights are loaded or drawn, and kept as
-a buffer outside the state dict. The convs, SE, standalone LNs and the head
-stay plain PyTorch, as the JAX package leaves them to XLA.
+a buffer outside the state dict. Every LN runs the LN kernel of
+:mod:`..ops.kernels.layernorm`; the convs, SE, the qkv / proj / MLP Linears
+of the unfused block and the head stay plain PyTorch, as the JAX package
+leaves them to XLA.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -31,9 +40,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.act import apply_activation, gelu_exact
-from ..ops.attention import dense_relative_position_bias
+from ..ops.attention import WindowAttention
 from ..ops.conv import Conv, DepthwiseConv, Linear, lecun_normal_
 from ..ops.kernels.gcvit_block import window_transformer_block
+from ..ops.mlp import Mlp
 from ..ops.norms import LayerNorm
 from ..ops.window import crop_from_window, fit_window_pad, window_partition, window_reverse
 from .base import ModelConfig, preprocess_input
@@ -58,6 +68,22 @@ class GCViTConfig(ModelConfig):
     mean: Optional[Tuple[float, ...]] = None
     std: Optional[Tuple[float, ...]] = None
     classifier_activation: Optional[str] = "softmax"
+    # the block path: None = auto (fused unless VIPTPU_NO_FUSED_BLOCK is
+    # set), or force the fused (True) or the unfused (False) block
+    fused_block: Optional[bool] = None
+
+
+def _use_fused_block(cfg: GCViTConfig, training: bool) -> bool:
+    """Whether the blocks take the fused path, as the JAX package decides:
+    never when training or with dropout, else ``cfg.fused_block`` when set,
+    else not when ``VIPTPU_NO_FUSED_BLOCK`` is set. The auto case differs:
+    the port is fused on the CPU and on CUDA alike, where the JAX package is
+    fused only on a TPU, so on the CPU it runs the unfused path."""
+    if training or cfg.drop_rate or cfg.attn_drop:
+        return False
+    if cfg.fused_block is not None:
+        return cfg.fused_block
+    return not os.environ.get("VIPTPU_NO_FUSED_BLOCK")
 
 
 class SE(nn.Module):
@@ -127,48 +153,28 @@ class Stem(nn.Module):
         return self.conv_down(self.proj(x))
 
 
-class WindowAttention(nn.Module):
-    """The attention parameters of a block (qkv, proj, the rel-pos table)
-    and the dense bias gathered from the table."""
-
-    def __init__(self, dim: int, heads: int, window: int, global_query: bool,
-                 dtype: torch.dtype):
-        super().__init__()
-        self.window = window
-        self.qkv = Linear(dim, dim * (2 if global_query else 3), dtype)
-        self.proj = Linear(dim, dim, dtype)
-        self.relative_position_bias_table = nn.Parameter(torch.zeros((2 * window - 1) ** 2, heads))
-        n = window * window
-        self.register_buffer("bias_dense", torch.zeros(heads, n, n), persistent=False)
-
-    @torch.no_grad()
-    def gather_bias(self) -> None:
-        """(Re)build the dense (heads, N, N) bias from the table."""
-        self.bias_dense.copy_(dense_relative_position_bias(self.relative_position_bias_table,
-                                                           self.window))
-
-
 class GCViTBlock(nn.Module):
     def __init__(self, cfg: GCViTConfig, dim: int, heads: int, window: int, global_query: bool):
         super().__init__()
         self.window = window
-        self.scale = cfg.qk_scale
         self.norm1 = LayerNorm(dim, eps=EPS)
-        self.attn = WindowAttention(dim, heads, window, global_query, cfg.dtype)
+        self.attn = WindowAttention(dim, heads, window, global_query, cfg.dtype, cfg.qk_scale)
         self.norm2 = LayerNorm(dim, eps=EPS)
-        hidden = int(dim * cfg.mlp_ratio)
-        self.mlp = nn.Module()
-        self.mlp.fc1 = Linear(dim, hidden, cfg.dtype)
-        self.mlp.fc2 = Linear(hidden, dim, cfg.dtype)
-        if cfg.layer_scale is not None:
+        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), dtype=cfg.dtype)
+        self.layer_scale = cfg.layer_scale is not None
+        if self.layer_scale:
             self.gamma1 = nn.Parameter(torch.full((dim,), cfg.layer_scale))
             self.gamma2 = nn.Parameter(torch.full((dim,), cfg.layer_scale))
         else:  # gamma = 1, passed to the kernels as a vector all the same
             self.register_buffer("gamma1", torch.ones(dim), persistent=False)
             self.register_buffer("gamma2", torch.ones(dim), persistent=False)
 
-    def forward(self, x: torch.Tensor, q_global: Optional[torch.Tensor]) -> torch.Tensor:
-        """x: window-ordered tokens (B, nWin*N, C); q_global (B, N, C) or None."""
+    def forward(self, x: torch.Tensor, q_global: Optional[torch.Tensor],
+                fused: bool = True) -> torch.Tensor:
+        """Fused: x window-ordered tokens (B, nWin*N, C). Unfused: x NHWC
+        (B, H, W, C). q_global (B, N, C) or None."""
+        if not fused:
+            return self._unfused(x, q_global)
         a = self.attn
         return window_transformer_block(
             x, q_global, n=self.window * self.window,
@@ -178,7 +184,19 @@ class GCViTBlock(nn.Module):
             ln2_weight=self.norm2.weight, ln2_bias=self.norm2.bias,
             w1=self.mlp.fc1.weight, b1=self.mlp.fc1.bias,
             w2=self.mlp.fc2.weight, b2=self.mlp.fc2.bias, gamma2=self.gamma2,
-            scale=self.scale, eps=EPS)
+            scale=a.scale, eps=EPS)
+
+    def _unfused(self, x: torch.Tensor, q_global: Optional[torch.Tensor]) -> torch.Tensor:
+        """The Flax block: both residuals in x's dtype; gamma multiplies only
+        with a layer scale (a Python 1.0 in the JAX package otherwise, which
+        keeps the bf16 residual bf16)."""
+        b, h, w, c = x.shape
+        ws = self.window
+        y = window_partition(self.norm1(x), ws).reshape(-1, ws * ws, c)
+        y = window_reverse(self.attn(y, q_global).reshape(-1, ws, ws, c), ws, h, w)
+        x = x + (y * self.gamma1 if self.layer_scale else y)
+        m = self.mlp(self.norm2(x))
+        return x + (self.gamma2 * m if self.layer_scale else m)
 
 
 class GCViTLevel(nn.Module):
@@ -192,7 +210,7 @@ class GCViTLevel(nn.Module):
             self.add_module(f"blocks_{i}", GCViTBlock(cfg, dim, heads, window, bool(i % 2)))
         self.downsample = ReduceSize(dim, False, cfg.dtype) if downsample else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
         ws = self.window
         x, h, w = fit_window_pad(x, ws)
         b, hp, wp, c = x.shape
@@ -200,10 +218,13 @@ class GCViTLevel(nn.Module):
         for i in range(self.n_feat):
             q = getattr(self, f"q_global_gen_to_q_global_{i}")(q)
         q_global = q.reshape(b, ws * ws, c).contiguous()
-        t = window_partition(x, ws).reshape(b, -1, c).contiguous()
+        if fused:  # partition once per level, as the JAX package hoists it
+            x = window_partition(x, ws).reshape(b, -1, c).contiguous()
         for i in range(self.depth):
-            t = getattr(self, f"blocks_{i}")(t, q_global if i % 2 else None)
-        x = crop_from_window(window_reverse(t.reshape(-1, ws, ws, c), ws, hp, wp), h, w)
+            x = getattr(self, f"blocks_{i}")(x, q_global if i % 2 else None, fused)
+        if fused:
+            x = window_reverse(x.reshape(-1, ws, ws, c), ws, hp, wp)
+        x = crop_from_window(x, h, w)
         if self.downsample is not None:
             x = self.downsample(x.contiguous())
         return x
@@ -261,8 +282,9 @@ class GCViT(nn.Module):
         cfg = self.cfg
         x = preprocess_input(x, cfg).to(cfg.dtype)
         x = self.patch_embed(x)
+        fused = _use_fused_block(cfg, self.training)
         for i in range(len(cfg.depths)):
-            x = getattr(self, f"levels_{i}")(x)
+            x = getattr(self, f"levels_{i}")(x, fused)
         x = self.norm(x).float().mean(dim=(1, 2))
         if cfg.nb_classes <= 0:
             return x

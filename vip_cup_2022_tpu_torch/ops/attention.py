@@ -1,10 +1,16 @@
-"""Relative-position bias of window attention (counterpart of
-``vip_cup_2022_tpu/ops/attention.py``'s ``relative_position_index`` and its
-dense ``(heads, N, N)`` gather)."""
+"""Window attention (counterpart of ``vip_cup_2022_tpu/ops/attention.py``):
+the relative-position bias (``relative_position_index`` and its dense
+``(heads, N, N)`` gather) and the ``WindowAttention`` module."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+from .conv import Linear
+from .kernels import window_attention as attention_kernel
 
 
 def relative_position_index(wh: int, ww: int) -> np.ndarray:
@@ -23,3 +29,45 @@ def dense_relative_position_bias(table: torch.Tensor, window_size: int) -> torch
     idx = torch.from_numpy(relative_position_index(window_size, window_size).reshape(-1).astype(np.int64))
     bias = table.float()[idx.to(table.device)].reshape(n, n, -1)
     return bias.permute(2, 0, 1).contiguous()
+
+
+class WindowAttention(nn.Module):
+    """Windowed multi-head self-attention with a relative-position bias, on
+    (B*nW, N, C) tokens. With ``global_query`` the qkv projection emits k and
+    v only and the per-image query (B, N, C) is repeated over each image's
+    windows. The dense (heads, N, N) bias is gathered from the table once,
+    by :meth:`gather_bias`, and kept as a buffer outside the state dict."""
+
+    def __init__(self, dim: int, heads: int, window: int, global_query: bool,
+                 dtype: torch.dtype, qk_scale: Optional[float] = None):
+        super().__init__()
+        self.window, self.heads, self.global_query = window, heads, global_query
+        self.scale = qk_scale or (dim // heads) ** -0.5
+        self.qkv = Linear(dim, dim * (2 if global_query else 3), dtype)
+        self.proj = Linear(dim, dim, dtype)
+        self.relative_position_bias_table = nn.Parameter(torch.zeros((2 * window - 1) ** 2, heads))
+        n = window * window
+        self.register_buffer("bias_dense", torch.zeros(heads, n, n), persistent=False)
+
+    @torch.no_grad()
+    def gather_bias(self) -> None:
+        """(Re)build the dense (heads, N, N) bias from the table."""
+        self.bias_dense.copy_(dense_relative_position_bias(self.relative_position_bias_table,
+                                                           self.window))
+
+    def forward(self, x: torch.Tensor, q_global: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B*nW, N, C) -> (B*nW, N, C); ``q_global`` (B, N, C) in
+        global-query blocks."""
+        b_, n, c = x.shape
+        hd = c // self.heads
+        parts = 2 if self.global_query else 3
+        qkv = self.qkv(x).reshape(b_, n, parts, self.heads, hd).permute(2, 0, 3, 1, 4)
+        if self.global_query:
+            k, v = qkv[0], qkv[1]
+            q = q_global.repeat_interleave(b_ // q_global.shape[0], dim=0)
+            q = q.reshape(b_, n, self.heads, hd).transpose(1, 2)
+        else:
+            q, k, v = qkv[0], qkv[1], qkv[2]
+        out = attention_kernel.window_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                                self.bias_dense, self.scale)
+        return self.proj(out.transpose(1, 2).reshape(b_, n, c))

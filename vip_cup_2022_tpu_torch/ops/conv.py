@@ -2,8 +2,9 @@
 families (counterparts of Flax's ``nn.Conv`` and ``nn.Dense`` as the JAX
 package uses them).
 
-Weights are held in the compute dtype, as Flax's ``dtype=...`` computes;
-depthwise taps are (k, k, C), Flax's (k, k, 1, C) without its I axis.
+Weights are held in the compute dtype, and each layer casts its input to
+it, as Flax's ``dtype=...`` computes; depthwise taps are (k, k, C), Flax's
+(k, k, 1, C) without its I axis.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import torch.nn.functional as F
 
 
 class Linear(nn.Module):
-    """y = x W^T (+ b) with W (out, in) in the compute dtype and b in f32."""
+    """y = x W^T (+ b) with W (out, in) in the compute dtype and b in f32;
+    x is cast to W's dtype first, as Flax's ``Dense(dtype=...)`` casts its
+    input."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  bias: bool = True):
@@ -25,7 +28,7 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.weight.dtype)
-        return F.linear(x, self.weight, b)
+        return F.linear(x.to(self.weight.dtype), self.weight, b)
 
 
 class Conv(nn.Module):
@@ -40,7 +43,8 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride, self.padding)
+        y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, self.padding)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -66,7 +70,7 @@ class DepthwiseConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
         w = self.weight.permute(2, 0, 1).unsqueeze(1)  # (C, 1, k, k)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, None, 1, self.padding, groups=c)
+        y = F.conv2d(x.to(w.dtype).permute(0, 3, 1, 2), w, None, 1, self.padding, groups=c)
         return y.permute(0, 2, 3, 1).contiguous()
 
 

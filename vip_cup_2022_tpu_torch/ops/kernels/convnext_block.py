@@ -100,6 +100,14 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must start on a 16-byte boundary (the kernels load 16 bytes at a time)")
 
 
+def _check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel without a backward must not cut an autograd graph silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel; run it under torch.no_grad() or "
+            "torch.inference_mode() (training through it is ROADMAP item A14)")
+
+
 def _check_width(c: int) -> None:
     if c % 32:
         raise ValueError(f"channel width {c} is not a multiple of 32")

@@ -1,18 +1,19 @@
 """LayerNorm over the last axis with f32 statistics.
 
 Counterpart of ``vip_cup_2022_tpu/ops/norms.py::LayerNorm`` in its f32
-form: the input is promoted to f32, normalised with f32 mean and variance,
-scaled and shifted by f32 parameters, and returned in the input's dtype.
-The JAX package's bf16 path takes E[x^2] - E[x]^2 statistics instead; the
-port keeps the f32 form for every dtype. ``F.layer_norm`` computes it in one
-launch (Welford statistics on CUDA, as exact as two passes). It takes no
-bf16 input with f32 parameters on CUDA, hence the explicit f32 copy.
+form: the input is read in f32, normalised with two-pass f32 mean and
+variance, scaled and shifted by f32 parameters, and returned in the input's
+dtype. The JAX package's bf16 path takes E[x^2] - E[x]^2 statistics instead;
+the port keeps the two-pass form for every dtype. Every call goes through
+:func:`..ops.kernels.layernorm.fused_layernorm`: the LN kernel on CUDA, its
+plain version on the CPU, the plain version's gradient backward.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
+
+from .kernels.layernorm import fused_layernorm
 
 
 class LayerNorm(nn.Module):
@@ -23,5 +24,4 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, self.eps)
-        return y.to(x.dtype)
+        return fused_layernorm(x.contiguous(), self.weight, self.bias, self.eps)
