@@ -8,8 +8,8 @@ each printing its results on earlier lines, any failure exiting non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every source of ``csrc/`` (the ConvNeXt and GCViT block
-   kernels, window attention, LayerNorm, depthwise), one nvcc per source,
-   all at once;
+   kernels, window attention, LayerNorm, depthwise, the LN-MLP and the
+   attention-parts kernels), one nvcc per source, all at once;
 3. kernels: each of ``dwconv7x7_nhwc``, ``ln_fc1_gelu`` and
    ``fc2_scale_residual`` against its plain PyTorch version in f32 (TF32 off)
    on the same bf16-rounded inputs at the stage shapes s1-s4, with batch 8
@@ -36,6 +36,14 @@ each printing its results on earlier lines, any failure exiting non-zero:
    - ``depthwise_conv_nhwc`` at the six ``exp_dw`` shapes, then the
      ``exp_dw`` tool itself, which times the kernel, its plain version and
      cuDNN's depthwise conv;
+   - the tool kernels: ``fused_ln_mlp_residual``, ``lnmlp_batchlane`` and
+     ``lnmlp_chanfirst`` (one LN-MLP kernel in three layouts) at the
+     ``exp_convnext_s12`` shapes s1-s4 (no library call computes LN -> MLP
+     -> residual), and ``attn_parts``'s six variants at the
+     ``exp_attn_parts`` shapes l1 and l2 (its ``full`` variant timed beside
+     SDPA with the group bias as a float mask); then both tools end to end
+     (``exp_convnext_s12`` at s1-s4 and ``exp_attn_parts`` at l1 and l2,
+     ``--iters 10``), which must launch each of the four;
 6. model: full-width convnext_tiny_in22k at 200 x 200 with seeded random
    weights and layer scale ~ U(0.5, 1.5), and full-width GCViTTiny at
    224 x 224, on its fused and on its unfused block path, with seeded random
@@ -60,11 +68,14 @@ The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
 CSV run for the block families, the unfused CSV run for
 ``window_attention_bhnd`` and ``layer_norm``, the ``exp_dw`` run for
-``depthwise_conv_nhwc``. ``ms``, ``plain_ms`` and ``library_ms`` (null where
-no one PyTorch call computes the function) are per batch-256 forward of both
-members together on that path (phases 3-5; ``ln_fc1_gelu`` and
-``fc2_scale_residual`` serve both members), and for ``depthwise_conv_nhwc``
-per pass over the six ``exp_dw`` shapes. ``bound_ms`` is the least time the
+``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels.
+``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
+computes the function) are per batch-256 forward of both members together on
+that path (phases 3-5; ``ln_fc1_gelu`` and ``fc2_scale_residual`` serve both
+members), for ``depthwise_conv_nhwc`` per pass over the six ``exp_dw``
+shapes, for the LN-MLP kernels per batch-256 launch at each of s1-s4
+summed, and for ``attn_parts`` per batch-256 ``full`` launch at l1 and l2
+summed. ``bound_ms`` is the least time the
 card could take for the same launches, each launch's bytes (inputs read once,
 outputs written once) over 3.35 TB/s or its operations over the peak for
 their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s f32 elsewhere;
@@ -90,30 +101,36 @@ sys.path.insert(0, REPO)
 
 import main_torch  # noqa: E402
 from vip_cup_2022_tpu_torch.models import create_model  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
-from vip_cup_2022_tpu_torch.tools import exp_dw  # noqa: E402
-from vip_cup_2022_tpu_torch.tools.exp_dw import cuda_ms  # noqa: E402
+from vip_cup_2022_tpu_torch.tools import exp_attn_parts, exp_convnext_s12, exp_dw  # noqa: E402
+from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
 GCVIT_KERNELS = ("ln_qkv", "window_attention", "proj_scale_residual")
 ATTN, LN, DW = "window_attention_bhnd", "layer_norm", "depthwise_conv_nhwc"
-KERNELS = CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW)
+LNMLP_KERNELS = ("fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst")
+PARTS = "attn_parts"
+KERNELS = CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
 CSRC = "vip_cup_2022_tpu_torch/csrc"
 SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
 SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
 SOURCES.update({ATTN: f"{CSRC}/window_attention.cu", LN: f"{CSRC}/layernorm.cu",
-                DW: f"{CSRC}/depthwise.cu"})
+                DW: f"{CSRC}/depthwise.cu", PARTS: f"{CSRC}/attn_parts.cu"})
+SOURCES.update({n: f"{CSRC}/ln_mlp.cu" for n in LNMLP_KERNELS})
 PALLAS = "vip_cup_2022_tpu/ops/pallas"
 TPU = f"{PALLAS}/convnext_block.py"
 GTPU = f"{PALLAS}/gcvit_block.py"
 REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 ln_dense,
     # K5 grouped_window_attention, K6 proj_res_ln_mlp, K7 mono_window_transformer_block,
-    # K8 window_attention, K10 fused_layernorm -> _pallas_ln2, K9 depthwise_conv_nhwc
+    # K8 window_attention, K10 fused_layernorm -> _pallas_ln2, K9 depthwise_conv_nhwc,
+    # K3 fused_ln_mlp_residual, K12 lnmlp_batchlane / lnmlp_chanfirst, K11 build
     "dwconv7x7_nhwc": f"{TPU}:602",
     "ln_fc1_gelu": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
     "fc2_scale_residual": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
@@ -123,6 +140,10 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
     ATTN: f"{PALLAS}/window_attention.py:45",
     LN: f"{PALLAS}/norms.py:65, {PALLAS}/norms.py:34",
     DW: f"{PALLAS}/depthwise.py:41",
+    "fused_ln_mlp_residual": f"{TPU}:310",
+    "lnmlp_batchlane": "tools/exp_convnext_s12.py:87",
+    "lnmlp_chanfirst": "tools/exp_convnext_s12.py:164",
+    PARTS: "tools/exp_attn_parts.py:76",
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 # GCViTTiny@224 levels: grid, C, heads, window, local blocks, global-query blocks
@@ -152,13 +173,16 @@ def abs_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     return (a.float() - ref.float()).abs().max().item()
 
 
+KERNEL_MODULES = (K, G, WA, L, D, LM, A)
+
+
 def reset_launches() -> None:
-    for module in (K, G, WA, L, D):
+    for module in KERNEL_MODULES:
         module.reset_launches()
 
 
 def all_launches() -> dict:
-    return {**K.LAUNCHES, **G.LAUNCHES, **WA.LAUNCHES, **L.LAUNCHES, **D.LAUNCHES}
+    return {name: n for module in KERNEL_MODULES for name, n in module.LAUNCHES.items()}
 
 
 @contextlib.contextmanager
@@ -264,7 +288,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()})
     paths = build.build_all(names, verbose=True)
-    for module in (K, G, WA, L, D):
+    for module in KERNEL_MODULES:
         module._lib()
     print(f"[build] {sorted(paths.values())} ready in {time.perf_counter() - t0:.1f} s")
 
@@ -630,6 +654,107 @@ def phase_depthwise(card: str, stats: dict) -> int:
     return launches
 
 
+def lnmlp_inputs(b, h, w, c, gen) -> tuple:
+    """bf16 x and residual (b, h, w, c) and the LN-MLP parameters (hidden 4C)."""
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    n = 4 * c
+    x, r = u((b, h, w, c)).to(torch.bfloat16), u((b, h, w, c)).to(torch.bfloat16)
+    prm = (u((c,), 0.5, 1.5), u((c,), -0.1, 0.1), (u((n, c)) * c ** -0.5).to(torch.bfloat16),
+           u((n,), -0.1, 0.1), (u((c, n)) * n ** -0.5).to(torch.bfloat16), u((c,), -0.1, 0.1),
+           u((c,), 0.5, 1.5))
+    return x, r, prm
+
+
+def phase_lnmlp(card: str, stats: dict) -> None:
+    """K3 and K12 (one LN-MLP kernel in three layouts) at the ``exp_convnext_s12``
+    shapes s1-s4, batch 8 and 256, each against its plain version; timed at
+    batch 256. No one PyTorch call computes LN -> MLP -> residual."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b in (8, BATCH):
+        for tag, (h, w, c, n) in exp_convnext_s12.SHAPES.items():
+            x, r, prm = lnmlp_inputs(b, h, w, c, gen)
+            p32 = tuple(t.float() for t in prm)
+            m = b * h * w
+            for name in LNMLP_KERNELS:
+                perm = LM.LAYOUTS[name]
+                xl, rl = x.permute(*perm).contiguous(), r.permute(*perm).contiguous()
+                kern, plain = getattr(LM, name), getattr(LM, name + "_plain")
+                out = kern(xl, rl, *prm)
+                torch.cuda.synchronize()
+                check({f"{name} {tag}": (out, lambda: plain(xl.float(), rl.float(), *p32))},
+                      f"b{b} {tuple(xl.shape)}", stats)
+                if b == BATCH:
+                    times = time_calls(lambda: kern(xl, rl, *prm), lambda: plain(xl, rl, *prm))
+                    nbytes = 3 * m * c * 2 + 2 * n * c * 2 + (4 * c + n) * 4
+                    bound = account(stats, name, 1, times, nbytes, 4 * m * c * n, "bf16")
+                    print_launch(name, f"{tag} {tuple(xl.shape)}", times, bound, card)
+                del xl, rl, out
+            del x, r
+            torch.cuda.empty_cache()
+
+
+def phase_attn_parts(card: str, stats: dict) -> None:
+    """K11's six variants at the ``exp_attn_parts`` shapes l1 and l2, batch 8
+    and 256, each against its plain version; the ``full`` variant timed at
+    batch 256 beside SDPA with the group bias as a float mask, the copy
+    kernel beside ``q + v``."""
+    for b in (8, BATCH):
+        for tag, (nwin, n, c, heads, g) in exp_attn_parts.SHAPES.items():
+            t = exp_attn_parts.inputs(b, nwin, n, c, heads, g)
+            t32 = {k: t[k].float() for k in ("q", "k", "v")}
+            t32["mb"] = t["mb"]
+            for variant in exp_attn_parts.VARIANTS:
+                out = exp_attn_parts.call(variant, t, heads, n, g)()
+                torch.cuda.synchronize()
+                check({f"{PARTS} {variant}": (
+                    out, exp_attn_parts.call(variant, t32, heads, n, g, plain=True))},
+                    f"b{b} {tag} {tuple(t['q'].shape)}", stats)
+                del out
+            if b == BATCH:
+                gn, hd = g * n, c // heads
+                heads_view = lambda a: (a.view(b, -1, gn, heads, hd).transpose(2, 3)  # noqa: E731
+                                        .reshape(-1, heads, gn, hd).contiguous())
+                qh, kh, vh = (heads_view(t[k]) for k in ("q", "k", "v"))
+                mask = t["mb"].to(torch.bfloat16)
+                times = time_calls(exp_attn_parts.call("full", t, heads, n, g),
+                                   lambda: A.attn_parts_plain(t["q"], t["k"], t["v"], t["mb"],
+                                                              heads=heads, n=n, g=g,
+                                                              parts=exp_attn_parts.VARIANTS["full"]),
+                                   lambda: F.scaled_dot_product_attention(
+                                       qh, kh, vh, attn_mask=mask, scale=hd ** -0.5))
+                act = t["q"].numel() * 2
+                bound = account(stats, PARTS, 1, times, 4 * act + t["mb"].numel() * 4,
+                                4 * b * (nwin // g) * heads * gn * gn * hd, "bf16")
+                print_launch(f"{PARTS} full", f"{tag} {tuple(t['q'].shape)} g{g}", times, bound,
+                             card)
+                k_ms, p_ms, _ = time_calls(exp_attn_parts.call("empty", t, heads, n, g),
+                                           lambda: t["q"] + t["v"])
+                print(f"[kernels] {PARTS}_copy {tag}: kernel {k_ms:.3f} ms, q + v {p_ms:.3f} ms, "
+                      f"bound {3 * act / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]")
+                del qh, kh, vh, mask
+            del t, t32
+            torch.cuda.empty_cache()
+
+
+def phase_tools(card: str) -> dict:
+    """The two tools end to end (their entry points) with every launch count
+    set to 0 just before; returns the four tool kernels' launches."""
+    reset_launches()
+    for tag in exp_convnext_s12.SHAPES:
+        exp_convnext_s12.main([tag, "--iters", "10"])
+    for tag in exp_attn_parts.SHAPES:
+        exp_attn_parts.main([tag, "--iters", "10"])
+    launches = all_launches()
+    want = LNMLP_KERNELS + (PARTS, "attn_parts_copy")
+    print(f"[tools] launches in the two tools' runs: { {n: launches[n] for n in want} } [{card}]")
+    missing = [n for n in want if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"the tools' runs launched none of {missing}")
+    return {n: launches[n] for n in LNMLP_KERNELS + (PARTS,)}
+
+
 MEMBERS = {  # name: (input size, output width)
     "convnext_tiny_in22k": ((200, 200), 21841),
     "GCViTTiny": ((224, 224), 1000),
@@ -825,10 +950,13 @@ def main(argv) -> None:
     phase_attention(card, stats)
     phase_layernorm(card, stats)
     dw_launches = phase_depthwise(card, stats)
+    phase_lnmlp(card, stats)
+    phase_attn_parts(card, stats)
+    tool_launches = phase_tools(card)
     for name, kw in (("convnext_tiny_in22k", {}), ("GCViTTiny", {"fused_block": True}),
                      ("GCViTTiny", {"fused_block": False})):
         phase_model(name, card, profile="--profile" in argv, **kw)
-    launches = {**phase_slice(card), DW: dw_launches}
+    launches = {**phase_slice(card), DW: dw_launches, **tool_launches}
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],

@@ -294,3 +294,102 @@ def test_kernels_without_a_backward_refuse_to_cut_the_graph(cuda_device):
         WA.window_attention(q.clone().requires_grad_(), q, q, bias, 0.2)
         D.depthwise_conv_nhwc(x, kern, padding=((1, 1), (1, 1)))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The tool kernels: LN-MLP in three layouts (K3, K12) and attention parts (K11)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 5, 7, 32), (3, 7, 5, 96), (2, 5, 3, 384), (3, 3, 5, 768)])
+@pytest.mark.parametrize("name", ["fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst"])
+def test_ln_mlp_matches_plain_on_card(cuda_device, shape, name):
+    """Ragged row tiles (35 to 105 rows; batch 3 crosses a position inside a
+    tile of the batch-lane layout) against the f32 plain version on the same
+    bf16 inputs: max|d| / max|ref| <= 1e-2 (bf16 LN output, hidden and out)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM
+
+    g = torch.Generator(device=cuda_device).manual_seed(shape[-1])
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    perm = LM.LAYOUTS[name]
+    c, n = shape[-1], 4 * shape[-1]
+    x, r = (u(shape).to(torch.bfloat16).permute(*perm).contiguous() for _ in range(2))
+    prm = (u((c,), 0.5, 1.5), u((c,), -0.1, 0.1), (u((n, c)) * c ** -0.5).to(torch.bfloat16),
+           u((n,), -0.1, 0.1), (u((c, n)) * n ** -0.5).to(torch.bfloat16), u((c,), -0.1, 0.1),
+           u((c,), 0.5, 1.5))
+    LM.reset_launches()
+    got = getattr(LM, name)(x, r, *prm)
+    torch.cuda.synchronize()
+    assert LM.LAUNCHES[name] == 1 and sum(LM.LAUNCHES.values()) == 1
+    ref = getattr(LM, name + "_plain")(x.float(), r.float(), *(t.float() for t in prm))
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert _rel(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_ln_mlp_rejects_what_the_kernel_does_not_take(cuda_device):
+    from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM
+
+    dev = cuda_device
+
+    def args(c, n):
+        return (torch.ones(c, device=dev), torch.zeros(c, device=dev),
+                torch.zeros((n, c), dtype=torch.bfloat16, device=dev), torch.zeros(n, device=dev),
+                torch.zeros((c, n), dtype=torch.bfloat16, device=dev), torch.zeros(c, device=dev),
+                torch.ones(c, device=dev))
+
+    x = torch.zeros((1, 2, 3, 48), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        LM.fused_ln_mlp_residual(x, x, *args(48, 192))
+    x = torch.zeros((1, 2, 3, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        LM.fused_ln_mlp_residual(x, x, *args(32, 96))
+    with pytest.raises(TypeError, match="bfloat16"):
+        LM.fused_ln_mlp_residual(x.float(), x, *args(32, 128))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        LM.fused_ln_mlp_residual(x, x, *(t.requires_grad_() if t.dtype == torch.float32 else t
+                                          for t in args(32, 128)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "no_max", "no_bias", "no_exp", "gemm_only", "empty"])
+@pytest.mark.parametrize("b,nwin,n,c,heads,g", [(3, 4, 49, 64, 2, 2), (2, 16, 49, 128, 4, 8),
+                                                (2, 6, 9, 32, 1, 3)])
+def test_attn_parts_match_plain_on_card(cuda_device, variant, b, nwin, n, c, heads, g):
+    """Each variant against the f32 plain version on the same bf16 inputs:
+    max|d| / max|ref| <= 1e-2 (bf16 q, P and output; for no_exp, P holds
+    bf16-rounded -1e9 entries, held relative to max|ref| all the same)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A
+    from vip_cup_2022_tpu_torch.tools import exp_attn_parts as T
+
+    gen = torch.Generator(device=cuda_device).manual_seed(b * nwin)
+    q, k, v = (torch.randn((b, nwin * n, c), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    t = dict(q=q, k=k, v=v, mb=torch.from_numpy(A.group_bias(heads, n, g)).to(cuda_device))
+    t32 = dict(t, q=q.float(), k=k.float(), v=v.float())
+    A.reset_launches()
+    got = T.call(variant, t, heads, n, g)()
+    torch.cuda.synchronize()
+    assert sum(A.LAUNCHES.values()) == 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert _rel(got, T.call(variant, t32, heads, n, g, plain=True)()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_tools_run_on_card(cuda_device):
+    """One short run of each tool: every kernel variant within its bound and
+    timed, and each tool kernel launched."""
+    from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A
+    from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM
+    from vip_cup_2022_tpu_torch.tools import exp_attn_parts, exp_convnext_s12
+
+    LM.reset_launches()
+    A.reset_launches()
+    (res,) = exp_convnext_s12.main(["s4", "--iters", "1", "--batch", "8"])
+    assert set(res["ms"]) == set(exp_convnext_s12.VARIANTS)
+    assert all(e <= 1e-2 for e in res["equiv"].values())
+    parts = exp_attn_parts.main(["l2", "--iters", "1", "--batch", "4"])
+    assert set(parts) == set(exp_attn_parts.VARIANTS)
+    assert all(LM.LAUNCHES.values()) and all(A.LAUNCHES.values())

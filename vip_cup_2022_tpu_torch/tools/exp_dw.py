@@ -20,7 +20,6 @@ the JAX tool is not carried over. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 from typing import List, Optional, Sequence
 
@@ -28,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import depthwise as D
+from .bench_util import card_line, cuda_ms
 
 # (tag, B, H, W, C, k): EfficientNetV1B4's stride-1 depthwise shapes at 224 x 224
 # input, and ConvNeXt's s1 7 x 7 (the JAX tool's SHAPES)
@@ -39,20 +39,6 @@ SHAPES = [
     ("s5_7x1632_k5", 256, 7, 7, 1632, 5),
     ("cnx_99x96_k7", 256, 99, 99, 96, 7),
 ]
-
-
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean ms of ``fn`` over ``iters`` launches after ``warmup``, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def inputs(b: int, h: int, w: int, c: int, k: int):
@@ -108,10 +94,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("exp_dw: no CUDA device is available; the kernel has no CPU timing")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=False).stdout.strip()
-    print(f"device={torch.cuda.get_device_name(0)} [{smi.splitlines()[0] if smi else 'nvidia-smi: n/a'}]",
-          flush=True)
+    print(f"device={torch.cuda.get_device_name(0)} [{card_line()}]", flush=True)
     return run(args.shapes, args.iters)
 
 
