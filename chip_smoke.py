@@ -8,8 +8,9 @@ each printing its results on earlier lines, any failure exiting non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every source of ``csrc/`` (the ConvNeXt and GCViT block
-   kernels, window attention, LayerNorm, depthwise, the LN-MLP and the
-   attention-parts kernels), one nvcc per source, all at once;
+   kernels, window attention, LayerNorm, depthwise, the LN-MLP, the
+   attention-parts and the int8 GEMM kernels), one nvcc per source, all at
+   once;
 3. kernels: each of ``dwconv7x7_nhwc``, ``ln_fc1_gelu`` and
    ``fc2_scale_residual`` against its plain PyTorch version in f32 (TF32 off)
    on the same bf16-rounded inputs at the stage shapes s1-s4, with batch 8
@@ -44,6 +45,12 @@ each printing its results on earlier lines, any failure exiting non-zero:
      SDPA with the group bias as a float mask); then both tools end to end
      (``exp_convnext_s12`` at s1-s4 and ``exp_attn_parts`` at l1 and l2,
      ``--iters 10``), which must launch each of the four;
+   - K13's three spike bodies (``int8_spike_bf16``, ``int8_spike_int8``,
+     ``int8_spike_direct``) at the spike's three shapes, direct exactly,
+     int8 within 1e-6 of max|ref|, bf16 within 1e-2; then the port's
+     ``int8_pallas_spike`` tool in ``equiv`` and ``gemm`` modes (which times
+     each body beside cuBLAS bf16 and ``torch._int_mm`` on a column-major
+     w), which must launch all three;
 6. model: full-width convnext_tiny_in22k at 200 x 200 with seeded random
    weights and layer scale ~ U(0.5, 1.5), and full-width GCViTTiny at
    224 x 224, on its fused and on its unfused block path, with seeded random
@@ -53,6 +60,19 @@ each printing its results on earlier lines, any failure exiting non-zero:
    at batch 256, max|d| / max|ref| <= 5e-2 (bf16 activations through 18 or
    31 residual blocks), then one batch-256 forward timed on each path;
    ``--profile`` adds a torch.profiler table of each member's forward;
+   then full-width ResNetRS50 at 200 x 200 (the registry's 1000-class head)
+   with seeded weights and each BN's statistics measured on its input, so
+   activations stay O(1), on two draws: with the last BN of each residual
+   branch damped to U(0.1, 0.3) and without. On each: its int8 path
+   (calibrated on 64 images; 52 sites, the JAX pass's count) against the
+   same quantized model with the plain int8 version within 5e-2 of max|ref|
+   at batch 8 and 256; its bf16 path (cuDNN convs, no kernel) against the
+   plain f32 path, held to 5e-2 on the damped draw and reported on the
+   undamped one; int8 against bf16 with the decision flips at 0.487
+   reported. The damped draw's batch-256 bf16 and int8 forwards are timed;
+   ``ptq_int8_conv`` at every site shape
+   that forward recorded, batch 8 and 256, within 1e-6 of max|ref| of its
+   plain version, timed at 256 beside cuDNN's bf16 conv of the site;
 7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
    (``convnext_tiny_in22k-200x200``, ``GCViTTiny-224x224``) run through
    ``main_torch.main`` at batch 256 (one full batch and one zero-padded
@@ -62,26 +82,36 @@ each printing its results on earlier lines, any failure exiting non-zero:
    every kernel of both block families and the LN kernel at each standalone
    LN, the unfused run the window-attention kernel at each of GCViT's 31
    blocks and the LN kernel at every LN, per batch, and none of the fused
-   GCViT family.
+   GCViT family; then a three-member manifest (adding
+   ``ResNetRS50-200x200``) without int8, which launches no int8 kernel, and
+   with ``VIPTPU_INT8=ResNetRS50``, which must launch ``ptq_int8_conv`` at
+   every calibrated site of each batch.
 
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
 CSV run for the block families, the unfused CSV run for
 ``window_attention_bhnd`` and ``layer_norm``, the ``exp_dw`` run for
-``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels.
+``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
+``int8_pallas_spike`` run for the three spike bodies and the
+``VIPTPU_INT8=ResNetRS50`` CSV run for ``ptq_int8_conv``.
 ``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
 computes the function) are per batch-256 forward of both members together on
 that path (phases 3-5; ``ln_fc1_gelu`` and ``fc2_scale_residual`` serve both
 members), for ``depthwise_conv_nhwc`` per pass over the six ``exp_dw``
 shapes, for the LN-MLP kernels per batch-256 launch at each of s1-s4
-summed, and for ``attn_parts`` per batch-256 ``full`` launch at l1 and l2
-summed. ``bound_ms`` is the least time the
+summed, for ``attn_parts`` per batch-256 ``full`` launch at l1 and l2
+summed, for the spike bodies per launch at the spike's three shapes summed
+(library: cuBLAS bf16, and ``torch._int_mm`` on a column-major copy of w,
+the layout cuBLASLt's int8 path takes; none for the quantize-on-load body), and for ``ptq_int8_conv`` per batch-256 ResNetRS50 int8 forward (no
+one call computes the int8 site). ``bound_ms`` is the least time the
 card could take for the same launches, each launch's bytes (inputs read once,
 outputs written once) over 3.35 TB/s or its operations over the peak for
-their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s f32 elsewhere;
-NVIDIA's H100 SXM data sheet), whichever is larger, summed; ``bound_by`` says
+their type (989 TFLOP/s bf16 and 1,979 TOP/s int8 tensor-core products,
+67 TFLOP/s f32 elsewhere; NVIDIA's H100 SXM data sheet), whichever is
+larger, summed; ``bound_by`` says
 which of the two made most of it. ``max_abs_err`` is over every check of
-phases 3-5. The last line is ``{"ok": true, "device": {...}}``.
+phases 3-6. Before it the script prints its own wall time. The last line is
+``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -100,16 +130,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 import main_torch  # noqa: E402
+from vip_cup_2022_tpu_torch import quant  # noqa: E402
 from vip_cup_2022_tpu_torch.models import create_model  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
-from vip_cup_2022_tpu_torch.tools import exp_attn_parts, exp_convnext_s12, exp_dw  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
+from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
+                                          int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
@@ -117,20 +151,25 @@ GCVIT_KERNELS = ("ln_qkv", "window_attention", "proj_scale_residual")
 ATTN, LN, DW = "window_attention_bhnd", "layer_norm", "depthwise_conv_nhwc"
 LNMLP_KERNELS = ("fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst")
 PARTS = "attn_parts"
-KERNELS = CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
+SPIKE_KERNELS = ("int8_spike_bf16", "int8_spike_int8", "int8_spike_direct")
+PTQ = "ptq_int8_conv"
+KERNELS = (CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
+           + SPIKE_KERNELS + (PTQ,))
 CSRC = "vip_cup_2022_tpu_torch/csrc"
 SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
 SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
 SOURCES.update({ATTN: f"{CSRC}/window_attention.cu", LN: f"{CSRC}/layernorm.cu",
                 DW: f"{CSRC}/depthwise.cu", PARTS: f"{CSRC}/attn_parts.cu"})
 SOURCES.update({n: f"{CSRC}/ln_mlp.cu" for n in LNMLP_KERNELS})
+SOURCES.update({n: f"{CSRC}/int8_gemm.cu" for n in SPIKE_KERNELS + (PTQ,)})
 PALLAS = "vip_cup_2022_tpu/ops/pallas"
 TPU = f"{PALLAS}/convnext_block.py"
 GTPU = f"{PALLAS}/gcvit_block.py"
 REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 ln_dense,
     # K5 grouped_window_attention, K6 proj_res_ln_mlp, K7 mono_window_transformer_block,
     # K8 window_attention, K10 fused_layernorm -> _pallas_ln2, K9 depthwise_conv_nhwc,
-    # K3 fused_ln_mlp_residual, K12 lnmlp_batchlane / lnmlp_chanfirst, K11 build
+    # K3 fused_ln_mlp_residual, K12 lnmlp_batchlane / lnmlp_chanfirst, K11 build,
+    # K13 _call (and XLA's int8 conv / dot of the PTQ pass)
     "dwconv7x7_nhwc": f"{TPU}:602",
     "ln_fc1_gelu": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
     "fc2_scale_residual": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
@@ -144,6 +183,9 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
     "lnmlp_batchlane": "tools/exp_convnext_s12.py:87",
     "lnmlp_chanfirst": "tools/exp_convnext_s12.py:164",
     PARTS: "tools/exp_attn_parts.py:76",
+    **{n: "tools/int8_pallas_spike.py:55" for n in SPIKE_KERNELS},
+    PTQ: "tools/int8_pallas_spike.py:55, vip_cup_2022_tpu/quant/ptq.py:172, "
+         "vip_cup_2022_tpu/quant/ptq.py:258",
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 # GCViTTiny@224 levels: grid, C, heads, window, local blocks, global-query blocks
@@ -156,13 +198,15 @@ GCVIT_BLOCKS = 31
 CONVNEXT_LNS, GCVIT_LNS = 5, 9
 KERNEL_BOUND = 1e-2
 F32_KERNEL_BOUND = 1e-5  # a kernel with f32 input and output (the ConvNeXt head LN)
+INT8_BOUND = 1e-6  # int8 kernels: the same integer sums and f32 epilogue as the plain version
 MODEL_BOUND = 5e-2
 N_IMAGES = 300
 BATCH = 256
 # the card's data-sheet peaks (NVIDIA H100 SXM, 700 W): memory, dense bf16
-# tensor-core products, f32 outside the tensor cores
+# and int8 tensor-core products, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+RESNETRS50_INT8_SITES = 52  # the JAX pass's sites (tests/test_torch_resnet_rs.py)
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -173,7 +217,7 @@ def abs_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     return (a.float() - ref.float()).abs().max().item()
 
 
-KERNEL_MODULES = (K, G, WA, L, D, LM, A)
+KERNEL_MODULES = (K, G, WA, L, D, LM, A, Q)
 
 
 def reset_launches() -> None:
@@ -190,7 +234,7 @@ def plain_blocks():
     """Route the models' kernels through the plain versions (the reference
     path on the card); the wrappers themselves never fall back."""
     mods = ([(K, n) for n in CONVNEXT_KERNELS] + [(G, n) for n in GCVIT_KERNELS]
-            + [(WA, "window_attention"), (L, "layer_norm")])
+            + [(WA, "window_attention"), (L, "layer_norm"), (Q, PTQ)])
     saved = [(m, n, getattr(m, n)) for m, n in mods]
     for m, n in mods:
         setattr(m, n, getattr(m, n + "_plain"))
@@ -755,6 +799,53 @@ def phase_tools(card: str) -> dict:
     return {n: launches[n] for n in LNMLP_KERNELS + (PARTS,)}
 
 
+def phase_spike(card: str, stats: dict) -> dict:
+    """K13's three bodies at the spike's shapes against their plain versions
+    (direct exactly, int8 within 1e-6 of max|ref|, bf16 within 1e-2), then
+    the port's ``int8_pallas_spike`` tool (its entry point) in ``equiv`` and
+    ``gemm`` modes with every count at 0 just before; the tool's timings
+    (kernel, plain, cuBLAS bf16 or ``torch._int_mm`` on a column-major w)
+    go into the record.
+    Returns the three bodies' launches in the tool's run."""
+    for tag, m, k, n in int8_pallas_spike.SHAPES:
+        t = int8_pallas_spike.inputs(m, k, n)
+        sx = 1.0 / 16.0
+        direct = Q.int8_spike_direct(t["x8"], t["w8"])
+        torch.cuda.synchronize()
+        if not torch.equal(direct, Q.int8_spike_direct_plain(t["x8"], t["w8"])):
+            raise AssertionError(f"int8_spike_direct at {tag} is not exact")
+        check({"int8_spike_direct": (direct, lambda: Q.int8_spike_direct_plain(t["x8"], t["w8"]))},
+              tag, stats, 0.0)
+        check({"int8_spike_int8 bf16 x": (Q.int8_spike_int8(t["x16"], t["w8"], sx), lambda:
+                                          Q.int8_spike_int8_plain(t["x16"], t["w8"], sx)),
+               "int8_spike_int8 f32 x": (Q.int8_spike_int8(t["x16"].float(), t["w8"], sx), lambda:
+                                         Q.int8_spike_int8_plain(t["x16"].float(), t["w8"], sx))},
+              tag, stats, INT8_BOUND)
+        check({"int8_spike_bf16": (Q.int8_spike_bf16(t["x16"], t["w16"]), lambda:
+                                   Q.int8_spike_bf16_plain(t["x16"], t["w16"], torch.float32))},
+              tag, stats)
+        del t, direct
+        torch.cuda.empty_cache()
+    reset_launches()
+    int8_pallas_spike.main(["equiv"])
+    results = int8_pallas_spike.main(["gemm", "--iters", "20"])
+    launches = {n: Q.LAUNCHES[n] for n in SPIKE_KERNELS}
+    for r in results:
+        m, k, n, ms = r["m"], r["k"], r["n"], r["ms"]
+        ops = 2 * m * k * n
+        for name, body, nbytes, kind in (
+                ("int8_spike_bf16", "bf16", 2 * m * k + 2 * k * n + 2 * m * n, "bf16"),
+                ("int8_spike_int8", "int8", 2 * m * k + k * n + 4 * m * n, "int8"),
+                ("int8_spike_direct", "direct", m * k + k * n + 4 * m * n, "int8")):
+            times = (ms[body]["kernel"], ms[body]["plain"], ms[body]["library"])
+            bound = account(stats, name, 1, times, nbytes, ops, kind)
+            print_launch(name, f"{r['tag']} ({m},{k},{n})", times, bound, card)
+    print(f"[tools] launches in the int8_pallas_spike run: {launches} [{card}]")
+    if not all(launches.values()):
+        raise AssertionError(f"the int8_pallas_spike run launched {launches}")
+    return launches
+
+
 MEMBERS = {  # name: (input size, output width)
     "convnext_tiny_in22k": ((200, 200), 21841),
     "GCViTTiny": ((224, 224), 1000),
@@ -834,6 +925,216 @@ def phase_model(name: str, card: str, profile: bool, **kw) -> None:
             print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     del kernel_model
     torch.cuda.empty_cache()
+
+
+RESNET_CLASSES = 1000  # the registry's head: the logits' scale spans many classes
+
+
+def _resnet_state(damped: bool) -> dict:
+    """The f32 state of full-width ResNetRS50 at 200 x 200 with seeded random
+    weights: BN scale ~ U(0.5, 1), shift ~ U(-0.1, 0.1), and each BN's
+    statistics the mean and variance of its input over 16 seeded random
+    images, so every BN output is O(1). ``damped`` draws the last BN of each
+    residual branch from U(0.1, 0.3) instead, so the branches stay small
+    against the shortcut (the common recipe initialises that scale at 0);
+    undamped, every one of the 16 branches adds an O(1) term and the bf16
+    path drifts further from f32."""
+    model, _ = create_model("ResNetRS50", input_size=(200, 200), nb_classes=RESNET_CLASSES,
+                            classifier_activation=None, dtype=torch.float32, seed=0)
+    model = model.cuda()
+    gen = torch.Generator().manual_seed(1)
+
+    def measure(bn, args):
+        x = args[0].float()
+        bn.running_mean.copy_(x.mean(dim=(0, 1, 2)))
+        bn.running_var.copy_(x.var(dim=(0, 1, 2), unbiased=False))
+
+    hooks = []
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, BatchNorm):
+                lo, hi = (0.1, 0.3) if damped and name.endswith("batch_norm_3") else (0.5, 1.0)
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) * (hi - lo) + lo)
+                m.bias.copy_(torch.rand(m.bias.shape, generator=gen) * 0.2 - 0.1)
+                hooks.append(m.register_forward_pre_hook(measure))
+        x = torch.rand((16, 200, 200, 3), generator=torch.Generator(device="cuda").manual_seed(9),
+                       device="cuda")
+        model(x)
+        for h in hooks:
+            h.remove()
+    return model.state_dict()
+
+
+def _resnet(dtype: torch.dtype, state: dict) -> torch.nn.Module:
+    model, _ = create_model("ResNetRS50", input_size=(200, 200), nb_classes=RESNET_CLASSES,
+                            classifier_activation=None, dtype=dtype)
+    model.load_state_dict(state)
+    return model.cuda()
+
+
+@contextlib.contextmanager
+def recording_ptq_sites(calls: list):
+    """Record (input shape without the batch, kernel, stride, padding, N) of
+    each ``ptq_int8_conv`` call."""
+    real = Q.ptq_int8_conv
+
+    def record(x, qweight, *args, **kw):
+        calls.append((tuple(x.shape[1:]), kw["kernel"], kw["stride"], kw["padding"],
+                      qweight.shape[0]))
+        return real(x, qweight, *args, **kw)
+
+    Q.ptq_int8_conv = record
+    try:
+        yield
+    finally:
+        Q.ptq_int8_conv = real
+
+
+def _resnet_compare(draw: str, state: dict, x8: torch.Tensor, xb: torch.Tensor,
+                    gate_bf16: bool) -> tuple:
+    """One weight draw: the f32, bf16 and int8 (calibrated on 64 images, the
+    engine's count, weights quantized from ``state``) models at batch 8 and
+    256. The int8 kernel path must equal the plain int8 version within
+    5e-2; the bf16 path is held to 5e-2 of the plain f32 path when
+    ``gate_bf16``, else reported; int8 against bf16 is reported with the
+    decisions at 0.487 that flip between them (the sigmoid of logit 0,
+    centred on the f32 path's batch median: random weights put every image
+    on one side otherwise). Returns the bf16 and int8 models, the int8
+    sites called in one forward and the calibrated site count."""
+    ref_model, bf16_model, int8_model = (_resnet(d, state) for d in (torch.float32, torch.bfloat16,
+                                                                     torch.bfloat16))
+    scales = quant.calibrate(int8_model, [xb[:64]])
+    report = {}
+    quant.quantized(int8_model, scales, report=report, weights=state)
+    calls = []
+    with torch.inference_mode(), recording_ptq_sites(calls):
+        int8_model(x8[:1])
+    print(f"[resnet] ResNetRS50 {draw}: int8 {len(scales)} calibrated sites, "
+          f"{len(report['quantized_sites'])} quantized, {len(calls)} kernel calls per forward "
+          f"(JAX: {RESNETRS50_INT8_SITES})")
+    if not len(scales) == len(report["quantized_sites"]) == len(calls) == RESNETRS50_INT8_SITES:
+        raise AssertionError("ResNetRS50's int8 sites differ from the JAX pass's 52")
+    for x in (x8, xb):
+        with torch.inference_mode():
+            f32, bf16, i8 = ref_model(x), bf16_model(x), int8_model(x)
+            with plain_blocks():
+                i8_plain = int8_model(x)
+            torch.cuda.synchronize()
+        b = x.shape[0]
+        for label, got, ref, gated in (("bf16 path vs plain f32", bf16, f32, gate_bf16),
+                                       ("int8 kernel path vs plain int8", i8, i8_plain, True)):
+            if got.shape != (b, RESNET_CLASSES) or not torch.isfinite(got).all():
+                raise AssertionError(f"ResNetRS50 {label}: output {tuple(got.shape)} not finite")
+            r = rel_err(got, ref)
+            print(f"[resnet] ResNetRS50 {draw} b{b} {label}: max|d|/max|ref| = {r:.3e} "
+                  f"({f'bound {MODEL_BOUND:g}' if gated else 'reported, not gated'}), max|ref| = "
+                  f"{ref.float().abs().max().item():.3e}")
+            if gated and not r <= MODEL_BOUND:
+                raise AssertionError(f"ResNetRS50 {draw} b{b} {label}: {r:.3e} > {MODEL_BOUND:g}")
+        shift = float(np.log(0.487 / 0.513)) - f32[:, 0].median()
+        p_i8, p_bf16 = (torch.sigmoid(t[:, 0].float() + shift) for t in (i8, bf16))
+        flips = (p_i8 > 0.487) != (p_bf16 > 0.487)
+        print(f"[resnet] ResNetRS50 {draw} b{b} int8 vs bf16: max|d|/max|ref| = "
+              f"{rel_err(i8, bf16):.3e}; {int(flips.sum())} of {b} decisions flip at 0.487 "
+              f"(logit 0 centred, bf16 p in [{p_bf16.min().item():.4f}, "
+              f"{p_bf16.max().item():.4f}], max|p_int8 - p_bf16| = "
+              f"{(p_i8 - p_bf16).abs().max().item():.2e})")
+    del ref_model
+    torch.cuda.empty_cache()
+    return bf16_model, int8_model, calls, len(scales)
+
+
+def phase_resnet(card: str, profile: bool) -> tuple:
+    """ResNetRS50@200 on two weight draws (``_resnet_state``): damped, whose
+    bf16 path (plain convs, no kernel) is held to the plain f32 path, and
+    undamped, whose drift is reported beside the int8 numbers it changes;
+    each through :func:`_resnet_compare`. Then the damped draw's batch-256
+    bf16 and int8 forwards timed. Returns the int8 sites called in one
+    forward and the calibrated site count."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x8 = torch.rand((8, 200, 200, 3), generator=gen, device="cuda")
+    xb = torch.rand((BATCH, 200, 200, 3), generator=gen, device="cuda")
+    undamped = _resnet_compare("undamped", _resnet_state(damped=False), x8, xb, gate_bf16=False)
+    del undamped
+    torch.cuda.empty_cache()
+    bf16_model, int8_model, calls, n_scales = _resnet_compare(
+        "damped", _resnet_state(damped=True), x8, xb, gate_bf16=True)
+    with torch.inference_mode():
+        fwd_b, fwd_i = (lambda: bf16_model(xb)), (lambda: int8_model(xb))
+        b1, i1, i2, b2 = (cuda_ms(f, iters=5, warmup=1) for f in (fwd_b, fwd_i, fwd_i, fwd_b))
+        print(f"[resnet] ResNetRS50 batch-{BATCH} forward: bf16 (cuDNN convs) {(b1 + b2) / 2:.2f} "
+              f"ms ({BATCH * 2000 / (b1 + b2):.1f} img/s), int8 (ptq_int8_conv) {(i1 + i2) / 2:.2f} "
+              f"ms ({BATCH * 2000 / (i1 + i2):.1f} img/s) [{card}]")
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            for label, fwd in (("bf16", fwd_b), ("int8", fwd_i)):
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    fwd()
+                    torch.cuda.synchronize()
+                print(f"[resnet] ResNetRS50 {label} forward profile")
+                print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    del bf16_model, int8_model
+    torch.cuda.empty_cache()
+    return calls, n_scales
+
+
+def phase_ptq_sites(card: str, stats: dict, calls: list) -> None:
+    """``ptq_int8_conv`` at every ResNetRS50 int8 site shape (recorded from
+    one forward), batch 8 and 256, against its plain version (int8 products
+    summed in f64) within 1e-6 of max|ref|, bf16 x and output as on the
+    path; timed at batch 256 beside its plain version, and beside cuDNN's
+    bf16 conv of the same site for context (no one call computes the int8
+    site, so no library time)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    per_forward = Counter(calls)
+    before = snapshot(stats)
+    cudnn_total = int_mm_total = 0.0
+    for b in (8, BATCH):
+        for (shape, kernel, stride, padding, n), count in per_forward.items():
+            h, w, c = shape
+            x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+            k = kernel * kernel * c
+            qw = Q.pack_weight(torch.randint(-127, 128, (k, n), generator=gen, device="cuda")
+                               .to(torch.int8))
+            cs = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+            inv = Q.f32_reciprocal(x.float().abs().max().item() / 127.0)
+            kw = dict(kernel=kernel, stride=stride, padding=padding)
+            out = Q.ptq_int8_conv(x, qw, cs, None, inv, **kw)
+            torch.cuda.synchronize()
+            label = f"b{b} {(b, h, w, c)} -> {n} k{kernel} s{stride} x{count}"
+            check({PTQ: (out, lambda: Q.ptq_int8_conv_plain(x, qw, cs, None, inv, **kw))}, label,
+                  stats, INT8_BOUND)
+            if b == BATCH:
+                times = time_calls(lambda: Q.ptq_int8_conv(x, qw, cs, None, inv, **kw),
+                                   lambda: Q.ptq_int8_conv_plain(x, qw, cs, None, inv, **kw))
+                wc = torch.randn((n, c, kernel, kernel), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                xc = x.permute(0, 3, 1, 2)
+                cudnn = cuda_ms(lambda: torch.nn.functional.conv2d(xc, wc, None, stride, padding))
+                cudnn_total += count * cudnn
+                if kernel == 1:  # a 1 x 1 site is an (M, K) @ (K, N) product
+                    xq = Q.quantize(x, inv).view(-1, c)
+                    wq = qw[:, :c].contiguous()  # (N, K): the column-major B cuBLASLt takes
+                    int_mm = cuda_ms(lambda: torch._int_mm(xq, wq.t()))
+                    int_mm_total += count * int_mm
+                m = out.numel() // n
+                bound = account(stats, PTQ, count, times, x.numel() * 2 + k * n + m * n * 2 + n * 4,
+                                2 * m * k * n, "int8")
+                print_launch(PTQ, label, times, bound, card)
+                print(f"[kernels] {'':26s} cuDNN bf16 conv of the same site {cudnn:.3f} ms"
+                      + (f", torch._int_mm on its pre-quantized rows {int_mm:.3f} ms"
+                         if kernel == 1 else ""))
+            del x, qw, out
+            torch.cuda.empty_cache()
+    print_per_forward(stats, before, (PTQ,), f"ResNetRS50 batch-256 int8 forward "
+                      f"({sum(per_forward.values())} sites)", card)
+    print(f"[kernels] {PTQ} sites per ResNetRS50 batch-256 forward in cuDNN bf16 convs: "
+          f"{cudnn_total:.2f} ms; its 1 x 1 sites as torch._int_mm on pre-quantized rows: "
+          f"{int_mm_total:.2f} ms [{card}]")
 
 
 def _write_images(img_dir: str, n: int) -> list:
@@ -939,9 +1240,51 @@ def phase_slice(card: str) -> dict:
             ATTN: unfused[ATTN], LN: unfused[LN]}
 
 
+def phase_slice_int8(card: str, sites: int) -> int:
+    """A three-member CSV run (ConvNeXt, GCViT, ResNetRS50) without int8,
+    then with ``VIPTPU_INT8=ResNetRS50``, which must launch ``ptq_int8_conv``
+    at every calibrated site of each batch and nothing else of int8;
+    returns the int8 run's launches of it."""
+    batches = -(-N_IMAGES // BATCH)
+    with tempfile.TemporaryDirectory() as ws:
+        img_dir = os.path.join(ws, "images")
+        os.makedirs(img_dir)
+        names = _write_images(img_dir, N_IMAGES)
+        input_csv = os.path.join(img_dir, "input.csv")
+        with open(input_csv, "w") as fh:
+            fh.write("filename\n" + "".join(f"{n}\n" for n in reversed(names)))
+        os.makedirs(os.path.join(ws, "ckpts"))
+        with open(os.path.join(ws, "ckpts", "ckpts.json"), "w") as fh:
+            json.dump([["convnext_tiny_in22k-200x200", [200, 200], 0],
+                       ["GCViTTiny-224x224", [224, 224], 0],
+                       ["ResNetRS50-200x200", [200, 200], 0]], fh)
+        os.environ.update(VIPTPU_CKPT_DIR=os.path.join(ws, "ckpts"), VIPTPU_ALLOW_RANDOM_INIT="1",
+                          VIPTPU_MAX_BATCH=str(BATCH), VIPTPU_VERBOSE="1")
+        output_csv = os.path.join(ws, "output.csv")
+        times = os.path.join(ws, "batch_times.json")
+        plain, t_plain, batch_p = run_csv(input_csv, output_csv, names, times)
+        os.environ["VIPTPU_INT8"] = "ResNetRS50"
+        try:
+            int8, t_int8, batch_i = run_csv(input_csv, output_csv, names, times)
+        finally:
+            del os.environ["VIPTPU_INT8"]
+    fused = {n: None for n in CONVNEXT_KERNELS + GCVIT_KERNELS}
+    expect_launches(plain, {**fused, PTQ: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)},
+                    "three-member CSV->CSV")
+    expect_launches(int8, {**fused, PTQ: batches * sites, **{n: 0 for n in SPIKE_KERNELS}},
+                    "three-member VIPTPU_INT8=ResNetRS50 CSV->CSV")
+    ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
+    print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 3 members (ResNetRS50 bf16): "
+          f"{t_plain:.2f} s ({N_IMAGES / t_plain:.1f} img/s); per-batch e2e {ms(batch_p)} [{card}]")
+    print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 3 members, VIPTPU_INT8=ResNetRS50: "
+          f"{t_int8:.2f} s ({N_IMAGES / t_int8:.1f} img/s); per-batch e2e {ms(batch_i)} [{card}]")
+    return int8[PTQ]
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     stats = new_stats()
@@ -953,16 +1296,22 @@ def main(argv) -> None:
     phase_lnmlp(card, stats)
     phase_attn_parts(card, stats)
     tool_launches = phase_tools(card)
+    spike_launches = phase_spike(card, stats)
+    profile = "--profile" in argv
     for name, kw in (("convnext_tiny_in22k", {}), ("GCViTTiny", {"fused_block": True}),
                      ("GCViTTiny", {"fused_block": False})):
-        phase_model(name, card, profile="--profile" in argv, **kw)
-    launches = {**phase_slice(card), DW: dw_launches, **tool_launches}
+        phase_model(name, card, profile, **kw)
+    calls, sites = phase_resnet(card, profile)
+    phase_ptq_sites(card, stats, calls)
+    launches = {**phase_slice(card), DW: dw_launches, **tool_launches, **spike_launches,
+                PTQ: phase_slice_int8(card, sites)}
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],
                "bound_ms": stats[n]["bound_ms"],
                "bound_by": "bytes" if stats[n]["bytes_ms"] >= stats[n]["ops_ms"] else "operations",
                "library_ms": stats[n]["library_ms"]} for n in KERNELS]
+    print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -393,3 +393,118 @@ def test_tools_run_on_card(cuda_device):
     parts = exp_attn_parts.main(["l2", "--iters", "1", "--batch", "4"])
     assert set(parts) == set(exp_attn_parts.VARIANTS)
     assert all(LM.LAUNCHES.values()) and all(A.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# K13: the int8 / bf16 GEMM template (spike bodies and the PTQ site)
+# ---------------------------------------------------------------------------
+def _spike_inputs(dev, m, k, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) * 0.05
+    w8 = torch.clamp(w * 16.0, -127, 127).to(torch.int8)
+    x8 = torch.clamp(x * 16.0, -127, 127).to(torch.int8)
+    return x, w, w8, x8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(625, 384, 1536), (1352, 768, 3072), (37, 64, 96),
+                                   (130, 100, 132)])
+def test_int8_spike_matches_plain_on_card(cuda_device, m, k, n):
+    """The three spike bodies against their plain versions on the same
+    inputs: direct exactly, int8 within 1e-6 of max|ref| (the same integer
+    sums, one f32 scale), bf16 within 1e-2 (f32 sums in another order,
+    rounded to bf16). Ragged M, K and N against the 128 x 128 x 64 tiles."""
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    x, w, w8, x8 = _spike_inputs(cuda_device, m, k, n)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    sx = x.abs().max().item() / 127.0
+    got = Q.int8_spike_direct(x8, w8)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, Q.int8_spike_direct_plain(x8, w8))
+    for xi in (x, xb):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = Q.int8_spike_int8(xi, w8, sx, out_dtype)
+            ref = Q.int8_spike_int8_plain(xi, w8, sx, out_dtype)
+            assert got.dtype == out_dtype and _rel(got, ref) <= 1e-6
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = Q.int8_spike_bf16(xb, wb, out_dtype)
+        assert got.dtype == out_dtype
+        assert _rel(got, Q.int8_spike_bf16_plain(xb, wb, torch.float32)) <= 1e-2
+
+
+def _site(dev, b, h, w, c, n, kernel, seed=0):
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=g, device=dev)
+    qw = torch.randint(-127, 128, (kernel * kernel * c, n), generator=g, device=dev)
+    colscale = torch.rand((n,), generator=g, device=dev) * 1e-3
+    bias = torch.randn((n,), generator=g, device=dev)
+    inv = Q.f32_reciprocal(x.abs().max().item() / 127.0)
+    return x, Q.pack_weight(qw.to(torch.int8)), colscale, bias, inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 256])
+@pytest.mark.parametrize("h,c,n,kernel,stride,padding", [
+    (50, 64, 64, 3, 1, 1),     # c2 conv_2
+    (50, 128, 128, 3, 2, 1),   # c3 block 0 conv_2: 3 x 3 at stride 2
+    (13, 512, 512, 3, 2, 1),   # c5 block 0 conv_2, odd input
+    (25, 512, 128, 1, 1, 0),   # c3 conv_1: rows
+    (7, 1024, 2048, 1, 1, 0),  # c5 projection: rows, ragged M at batch 8
+])
+def test_ptq_int8_conv_matches_plain_on_card(cuda_device, b, h, c, n, kernel, stride, padding):
+    """ptq_int8_conv against its plain version at ResNetRS50's site shapes,
+    f32 and bf16 x and outputs, with and without bias: within 1e-6 of
+    max|ref| (the same integer sums and the same f32 epilogue)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    x, qw, cs, bias, inv = _site(cuda_device, b, h, h, c, n, kernel)
+    kw = dict(kernel=kernel, stride=stride, padding=padding)
+    for xi in (x, x.to(torch.bfloat16)):
+        for out_dtype, bi in ((None, None), (torch.float32, bias), (torch.bfloat16, bias)):
+            got = Q.ptq_int8_conv(xi, qw, cs, bi, inv, out_dtype=out_dtype, **kw)
+            ref = Q.ptq_int8_conv_plain(xi, qw, cs, bi, inv, out_dtype=out_dtype, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape and got.dtype == ref.dtype
+            assert _rel(got, ref) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_ptq_int8_conv_dense_rows_on_card(cuda_device):
+    """A Dense site: x (B, T, K) rows, bias, f32 out."""
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    x, qw, cs, bias, inv = _site(cuda_device, 3, 7, 5, 96, 40, 1)
+    x = x.view(3, 35, 96)
+    got = Q.ptq_int8_conv(x, qw, cs, bias, inv, kernel=None)
+    ref = Q.ptq_int8_conv_plain(x, qw, cs, bias, inv, kernel=None)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 35, 40) and _rel(got, ref) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_count_and_reject(cuda_device):
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    Q.reset_launches()
+    x, w, w8, x8 = _spike_inputs(cuda_device, 16, 32, 64)
+    Q.int8_spike_bf16(x.to(torch.bfloat16), w.to(torch.bfloat16))
+    Q.int8_spike_int8(x, w8, 0.01)
+    Q.int8_spike_direct(x8, w8)
+    xs, qw, cs, _, inv = _site(cuda_device, 2, 5, 5, 32, 64, 3)
+    Q.ptq_int8_conv(xs, qw, cs, None, inv, kernel=3, stride=2, padding=1)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES == {"int8_spike_bf16": 1, "int8_spike_int8": 1, "int8_spike_direct": 1,
+                          "ptq_int8_conv": 1}
+    with pytest.raises(TypeError, match="int8"):
+        Q.int8_spike_direct(x, w8)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        Q.int8_spike_direct(x8[:, :30].contiguous(), w8[:30])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        Q.ptq_int8_conv(xs[..., :30].contiguous(), qw, cs, None, inv, kernel=3, stride=2,
+                        padding=1)
+    with pytest.raises(ValueError, match="not packed"):
+        Q.ptq_int8_conv(xs, qw[:, :32].contiguous(), cs, None, inv, kernel=3)

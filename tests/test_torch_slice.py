@@ -264,10 +264,11 @@ def test_cli_unported_knobs_raise(workspace, monkeypatch, env, match):
 def test_unported_member_raises(workspace):
     root, input_csv, *_ = workspace
     cfg = _cfg(root, input_csv, "never.csv")
-    cfg.ckpt_cfg = [("ResNetRS50-200x200", [], (200, 200), 0)]
+    cfg.ckpt_cfg = [("ResNest50-200x200", [], (200, 200), 0)]
     eng = engine.EnsembleEngine(device="cpu", verbose=0)
     with pytest.raises(NotImplementedError,
-                       match="only ConvNeXt and GCViT are ported; ResNetRS50 is ROADMAP item A3"):
+                       match="only ConvNeXt, GCViT and ResNet-RS are ported; ResNest is ROADMAP "
+                             "item A7"):
         eng.predict_soln_fused(cfg)
     eng.close()
 
@@ -309,7 +310,10 @@ def test_port_imports_no_jax():
     code = ("import sys; import vip_cup_2022_tpu_torch, vip_cup_2022_tpu_torch.infer.engine, "
             "vip_cup_2022_tpu_torch.ops.kernels.build, vip_cup_2022_tpu_torch.models.gcvit, "
             "vip_cup_2022_tpu_torch.ops.kernels.gcvit_block, vip_cup_2022_tpu_torch.ops.window, "
-            "vip_cup_2022_tpu_torch.ops.attention, vip_cup_2022_tpu_torch.ops.conv, main_torch; "
+            "vip_cup_2022_tpu_torch.ops.attention, vip_cup_2022_tpu_torch.ops.conv, main_torch, "
+            "vip_cup_2022_tpu_torch.models.resnet_rs, vip_cup_2022_tpu_torch.quant, "
+            "vip_cup_2022_tpu_torch.ops.kernels.int8_gemm, "
+            "vip_cup_2022_tpu_torch.tools.int8_pallas_spike; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'vip_cup_2022_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

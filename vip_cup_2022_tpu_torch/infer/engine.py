@@ -21,13 +21,20 @@ off the TPU. Every LN of both members runs the LN kernel on CUDA.
 switches for those two kernels, have no effect here: on CUDA the kernels run
 wherever their module is on the path.
 
+``VIPTPU_INT8`` names the members whose convs and Linears run int8
+post-training quantization (:mod:`..quant.ptq`): a one-batch calibration on
+the first ``VIPTPU_INT8_CALIB`` (64) images of the CSV with fold 0, then
+every fold's eligible sites through the int8 kernel. ``auto``, the default,
+is off here as on every backend but the TPU; ``0``/``off`` is off, ``1``/
+``all`` every member, or a comma list of registry names. Only ResNet-RS
+members are quantized: int8 for ConvNeXt and GCViT, whose fused kernel paths
+hold the Linears the JAX pass would quantize, raises (ROADMAP A12b).
+
 Not ported yet, and raising ``NotImplementedError`` rather than running
-something else: test-time augmentation (``tta > 1``), int8 members, the
-conv-BN fold and members other than ConvNeXt and GCViT. Of the JAX
-package's Pallas kernels, only the four that its experiment tools reach
-(``tools/exp_convnext_s12.py``, ``tools/exp_attn_parts.py``,
-``tools/int8_pallas_spike.py``) have no CUDA counterpart; none is on this
-path.
+something else: test-time augmentation (``tta > 1``), the conv-BN fold and
+members other than ConvNeXt, GCViT and ResNet-RS. Every Pallas kernel of the
+JAX package has a CUDA counterpart; those its experiment tools reach run in
+the port's tools (``vip_cup_2022_tpu_torch/tools``), not on this path.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ import json
 import os
 import time
 from glob import glob
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,8 +51,10 @@ import torch
 from ..data.decode import ImageDecoder
 from ..data.pipeline import _host_resize_uint8
 from ..models import create_model, load_weights, transfer_weights
-from ..models.registry import is_model
+from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
+from ..quant import calibrate, quantized
+from ..weights.from_jax import flax_to_torch
 
 # Per-model batch-size table (reference main.py:43-56): 8 * NAME2BS.get(name, 16).
 NAME2BS: Dict[str, int] = {
@@ -120,16 +129,12 @@ def default_compute_dtype(device: torch.device) -> torch.dtype:
 
 def check_unported_knobs() -> None:
     """Raise for environment knobs whose features the port does not have yet:
-    ``VIPTPU_INT8`` (int8 members, A12) and ``VIPTPU_FUSE_BN`` (the conv-BN
-    fold, A13); ``VIPTPU_TTA`` > 1 (A11) raises where the ensemble is built.
-    The JAX package's TPU tuning switches (``VIPTPU_PALLAS``,
-    ``VIPTPU_PALLAS_LN``, the ``VIPTPU_GCVIT_*`` and ``VIPTPU_DW_*`` family)
-    choose among TPU kernels and layouts, have nothing to choose on CUDA and
-    are not read."""
-    int8 = os.environ.get("VIPTPU_INT8", "auto").strip().lower()
-    if int8 not in ("", "auto", "0", "off", "false"):
-        raise NotImplementedError(
-            f"VIPTPU_INT8={int8!r}: int8 members are ROADMAP item A12, not ported yet")
+    ``VIPTPU_FUSE_BN`` (the conv-BN fold, A13); ``VIPTPU_TTA`` > 1 (A11)
+    raises where the ensemble is built, ``VIPTPU_INT8`` on a member without
+    int8 sites (A12b) where the members are known. The JAX package's TPU
+    tuning switches (``VIPTPU_PALLAS``, ``VIPTPU_PALLAS_LN``, the
+    ``VIPTPU_GCVIT_*`` and ``VIPTPU_DW_*`` family) choose among TPU kernels
+    and layouts, have nothing to choose on CUDA and are not read."""
     if os.environ.get("VIPTPU_FUSE_BN", "").strip():
         raise NotImplementedError(
             "VIPTPU_FUSE_BN: the conv-BN fold is ROADMAP item A13, not ported yet")
@@ -185,20 +190,72 @@ class EnsembleEngine:
         route when no checkpoint exists; otherwise overwritten)."""
         if not is_model(name):
             raise NotImplementedError(
-                f"member {name!r}: only ConvNeXt and GCViT are ported; ResNetRS50 is "
-                "ROADMAP item A3, ResNest A7, EfficientNet A8, NFNet A9")
+                f"member {name!r}: only ConvNeXt, GCViT and ResNet-RS are ported; ResNest "
+                "is ROADMAP item A7, EfficientNet A8, NFNet A9")
         return create_model(name, input_size=tuple(dim), dtype=self.compute_dtype,
                             **overrides)
 
-    def build_fused_ensemble(self, members, tta: int = 1, agg: str = "mean"):
+    # ------------------------------------------------------------------
+    # int8 post-training quantization (quant/ptq.py; VIPTPU_INT8)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _int8_names() -> set:
+        """VIPTPU_INT8: 'auto' (default; the JAX package's measured-win set on
+        a TPU, off on every other backend, so off here), '0'/'off' (off),
+        '1'/'all' (every member, ``{"*"}``) or a comma list of registry names
+        ('ResNetRS50')."""
+        env = os.environ.get("VIPTPU_INT8", "auto").strip()
+        if not env or env.lower() in ("auto", "0", "off", "false"):
+            return set()
+        if env.lower() in ("1", "all", "true"):
+            return {"*"}
+        return {s.strip() for s in env.split(",") if s.strip()}
+
+    @staticmethod
+    def _int8_members(ckpt_cfg, names: set) -> List[bool]:
+        """Which manifest entries run int8; raises for a chosen member whose
+        model class does not declare ``int8_sites_match_jax`` (its int8 sites
+        are not the JAX pass's yet, ROADMAP A12b)."""
+        chosen = []
+        for base_dir, *_ in ckpt_cfg:
+            name = registry_name(base_dir)
+            pick = bool(names) and ("*" in names or name in names)
+            if pick and is_model(name) and not getattr(model_entry(name)[0],
+                                                       "int8_sites_match_jax", False):
+                raise NotImplementedError(
+                    f"VIPTPU_INT8 selects {name!r}: int8 ConvNeXt and GCViT members (their "
+                    "downsample convs, FeatExtract / ReduceSize convs and the Linears the fused "
+                    "block kernels hold) are ROADMAP item A12b, not ported yet")
+            chosen.append(pick)
+        return chosen
+
+    def _calibrate_member(self, model: torch.nn.Module, dim, calib_u8: np.ndarray):
+        """The per-site activation abs-max table of one member (fold 0) on the
+        calibration images, at the member's size and the compute dtype."""
+        x = torch.from_numpy(calib_u8).to(self.device).float() / 255.0
+        if tuple(dim) != NATIVE_SIZE:
+            x = resize(x, dim)
+        return calibrate(model, [x.to(self.compute_dtype)])
+
+    def build_fused_ensemble(self, members, tta: int = 1, agg: str = "mean",
+                             quant_scales=None, f32_weights=None):
         """``members``: list of ``(fold modules, dim)``. Returns
         ``fn(u8 (B, 200, 200, 3) numpy) -> (B, 1)`` ensemble-mean probability
-        on the device, aggregated binary -> folds -> members."""
+        on the device, aggregated binary -> folds -> members.
+
+        ``quant_scales``: optional per-member list; a non-None entry is a
+        calibration table from :meth:`_calibrate_member`, and every fold of
+        that member has its eligible sites swapped for the int8 kernel, its
+        weights quantized from ``f32_weights[member][fold]``."""
         if tta > 1:
             raise NotImplementedError(
                 f"tta={tta}: test-time augmentation is ROADMAP item A11, not ported yet")
         if agg != "mean":
             raise NotImplementedError(f"agg={agg!r}: only 'mean' is ported")
+        for i, scales in enumerate(quant_scales or []):
+            if scales:
+                for j, model in enumerate(members[i][0]):
+                    quantized(model, scales, weights=f32_weights[i][j] if f32_weights else None)
         device, dtype = self.device, self.compute_dtype
         dims = list(dict.fromkeys(tuple(dim) for _, dim in members))
 
@@ -220,10 +277,17 @@ class EnsembleEngine:
     # ------------------------------------------------------------------
     # prediction
     # ------------------------------------------------------------------
-    def load_members(self, ckpt_cfg) -> List[Tuple[List[torch.nn.Module], Tuple[int, int]]]:
-        """One ``(fold modules on the device, dim)`` per manifest entry."""
-        members = []
-        for base_dir, ckpt_paths, dim, _idx in ckpt_cfg:
+    def load_members(self, ckpt_cfg, keep_f32: Sequence[bool] = ()):
+        """``(members, f32_weights)``: one ``(fold modules on the device,
+        dim)`` per manifest entry and, for each entry that ``keep_f32`` marks
+        (the int8 ones), per fold the f32 values its int8 weights are
+        quantized from, as the JAX package quantizes its f32 parameters: the
+        checkpoint's tree, read once, in the port's layout; a random-init
+        member has no f32 copy, so the values it holds. Unmarked entries get
+        None."""
+        members, f32_weights = [], []
+        for i, (base_dir, ckpt_paths, dim, _idx) in enumerate(ckpt_cfg):
+            keep = i < len(keep_f32) and keep_f32[i]
             name = registry_name(base_dir)
             overrides: Dict = {}
             if ckpt_paths:
@@ -232,16 +296,21 @@ class EnsembleEngine:
                     with open(cfg_json) as fh:
                         overrides = json.load(fh)
                     overrides.pop("input_size", None)
-            folds = []
+            folds, f32 = [], []
             for ckpt in sorted(ckpt_paths):
                 module, _ = self._create_member(name, dim, overrides)
-                folds.append(transfer_weights(load_weights(ckpt), module, strict=True)
-                             .to(self.device))
+                tree = load_weights(ckpt)
+                folds.append(transfer_weights(tree, module, strict=True).to(self.device))
+                if keep:
+                    f32.append(flax_to_torch(tree))
             if not folds:  # random-init (allow_missing) member
                 module, _ = self._create_member(name, dim, overrides)
                 folds = [module.to(self.device)]
+                if keep:
+                    f32.append({k: v.float() for k, v in module.state_dict().items()})
             members.append((folds, tuple(dim)))
-        return members
+            f32_weights.append(f32 if keep else None)
+        return members, f32_weights
 
     def predict_soln_fused(self, cfg) -> Dict[str, np.ndarray]:
         """The whole ensemble per batch; writes ``cfg.output_csv_path`` and
@@ -254,8 +323,24 @@ class EnsembleEngine:
             test_paths = test_paths[:100]
             test_names = test_names[:100]
 
-        fwd = self.build_fused_ensemble(self.load_members(cfg.ckpt_cfg),
-                                        tta=cfg.tta, agg=cfg.agg)
+        int8 = self._int8_members(cfg.ckpt_cfg, self._int8_names())
+        members, f32_weights = self.load_members(cfg.ckpt_cfg, keep_f32=int8)
+        quant_scales = None
+        if any(int8):
+            # one-batch calibration on the head of the CSV, with fold 0
+            n_cal = min(int(os.environ.get("VIPTPU_INT8_CALIB", "64")), len(test_paths))
+            cal = [_host_resize_uint8(im, NATIVE_SIZE)
+                   for im in self._decoder.decode_batch(test_paths[:n_cal])]
+            calib_u8 = np.stack(cal) if cal else np.zeros((1, *NATIVE_SIZE, 3), np.uint8)
+            quant_scales = []
+            for pick, (folds, dim), (base_dir, *_) in zip(int8, members, cfg.ckpt_cfg):
+                scales = self._calibrate_member(folds[0], dim, calib_u8) if pick else None
+                if self.verbose and pick:
+                    print(f"> INT8 {registry_name(base_dir)}: {len(scales)} calibrated sites")
+                quant_scales.append(scales)
+        fwd = self.build_fused_ensemble(members, tta=cfg.tta, agg=cfg.agg,
+                                        quant_scales=quant_scales, f32_weights=f32_weights)
+        del f32_weights
         batch_size = int(os.environ.get("VIPTPU_MAX_BATCH", "0")) or 256
         # VIPTPU_E2E_BATCH_TIMES=<path>: diagnostic mode, each batch waited for
         # and its end-to-end latency (decode wait + H2D + compute + D2H) written

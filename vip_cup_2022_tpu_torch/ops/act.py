@@ -1,6 +1,6 @@
-"""Activations on the port's path: exact GELU, softmax over the last axis
-and sigmoid (counterparts of ``vip_cup_2022_tpu/ops/act.py``'s ``gelu``,
-``softmax`` and ``sigmoid`` entries)."""
+"""Activations on the port's path: exact GELU, ReLU, softmax over the last
+axis and sigmoid (counterparts of ``vip_cup_2022_tpu/ops/act.py``'s
+``gelu``, ``relu``, ``softmax`` and ``sigmoid`` entries)."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +14,7 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {
     None: lambda x: x,
     "gelu": gelu_exact,
+    "relu": F.relu,
     "sigmoid": torch.sigmoid,
     "softmax": lambda x: torch.softmax(x, dim=-1),
 }

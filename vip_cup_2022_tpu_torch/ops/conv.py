@@ -3,12 +3,15 @@ families (counterparts of Flax's ``nn.Conv`` and ``nn.Dense`` as the JAX
 package uses them).
 
 Weights are held in the compute dtype, and each layer casts its input to
-it, as Flax's ``dtype=...`` computes; depthwise taps are (k, k, C), Flax's
-(k, k, 1, C) without its I axis.
+it, as Flax's ``dtype=...`` computes; a :class:`Conv` built with ``dtype``
+None is Flax's ``dtype=None`` conv, f32 weights and f32 compute whatever the
+input (Flax promotes the input with its f32 parameters). Depthwise taps are
+(k, k, C), Flax's (k, k, 1, C) without its I axis.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -23,6 +26,7 @@ class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  bias: bool = True):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
@@ -33,14 +37,17 @@ class Linear(nn.Module):
 
 class Conv(nn.Module):
     """k x k conv on NHWC input with symmetric zero padding ``padding``
-    (0 = VALID); weight (O, I, kh, kw) and bias in the compute dtype."""
+    (0 = VALID); weight (O, I, kh, kw) and bias in the compute dtype
+    (``dtype``, f32 when None)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, padding: int = 0, bias: bool = True):
+                 dtype: Optional[torch.dtype] = torch.float32, padding: int = 0,
+                 bias: bool = True):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype)) if bias else None
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        wdtype = dtype or torch.float32
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel, dtype=wdtype))
+        self.bias = nn.Parameter(torch.zeros(cout, dtype=wdtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight, self.bias,

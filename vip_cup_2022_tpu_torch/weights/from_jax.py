@@ -6,8 +6,9 @@ The inverse of ``vip_cup_2022_tpu/weights/torch_pt.py``'s layout rules:
   keeps Flax's layout with the I axis dropped, (kh, kw, C): the layout the
   depthwise kernel reads;
 - Dense kernel (in, out) -> (out, in);
-- norm gamma / beta -> weight / bias; BN batch_stats mean / var ->
-  running_mean / running_var;
+- norm gamma / beta -> weight / bias; the BatchNorm ``batch_stats``
+  ``moving_mean`` / ``moving_variance`` -> ``running_mean`` /
+  ``running_var``;
 - any other leaf (a block's layer-scale ``gamma``) keeps its name.
 
 The port names its modules after the Flax modules, so a Flax path
@@ -39,7 +40,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 def _leaf_name(collection: str, leaf: str, siblings: Mapping) -> str:
     if collection == "batch_stats":
-        return {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+        return {"moving_mean": "running_mean", "moving_variance": "running_var"}.get(leaf, leaf)
     if leaf == "kernel":
         return "weight"
     if leaf in ("beta", "bias"):
