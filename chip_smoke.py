@@ -18,7 +18,8 @@ each printing its results on earlier lines, any failure exiting non-zero:
    <= 1e-2 (bf16 rounding of the LN output and the hidden feeding sums over
    K = C ... 4C); then each timed against its plain version and, where one
    PyTorch call computes the same function, that call, on the same batch-256
-   inputs (CUDA events);
+   inputs (CUDA events), with the kernel/library ratio per shape and per
+   forward;
 4. gcvit kernels: each of ``ln_qkv`` (local q/k/v and global k/v),
    ``window_attention`` (local and global query), ``proj_scale_residual``,
    ``ln_fc1_gelu`` (eps 1e-5, N = 3C) and ``fc2_scale_residual`` (f32
@@ -30,7 +31,8 @@ each printing its results on earlier lines, any failure exiting non-zero:
    in 3 at batch 256:
    - ``window_attention_bhnd`` on (B*nWin, heads, N, 32) at L1-L4, local and
      global (repeated) query; the library call is
-     ``F.scaled_dot_product_attention`` with the bias as a float mask;
+     ``F.scaled_dot_product_attention`` with the bias as a float mask; then
+     the ``exp_window_attention`` tool's phase cuts of the kernel at L1-L4;
    - ``layer_norm`` at every LN shape both members call on the unfused path
      (recorded from one forward of each); the library call is
      ``F.layer_norm`` on the f32 copy, with the casts;
@@ -143,7 +145,7 @@ from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
-                                          int8_pallas_spike)
+                                          exp_window_attention, int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
@@ -188,9 +190,7 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
          "vip_cup_2022_tpu/quant/ptq.py:258",
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
-# GCViTTiny@224 levels: grid, C, heads, window, local blocks, global-query blocks
-LEVELS = ((56, 64, 2, 7, 2, 1), (28, 128, 4, 7, 2, 2), (14, 256, 8, 14, 10, 9),
-          (7, 512, 16, 7, 3, 2))
+LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
 GCVIT_BLOCKS = 31
 # LN calls per forward: ConvNeXt's stem, three downsamples and head; GCViT's
 # stem and downsample ReduceSizes (two each) and head; on the unfused path
@@ -274,10 +274,14 @@ def fmt_ms(ms) -> str:
     return "n/a" if ms is None else f"{ms:.3f} ms"
 
 
+def fmt_ratio(k_ms: float, l_ms) -> str:
+    return "" if l_ms is None else f", kernel/library {k_ms / l_ms:.2f}"
+
+
 def print_launch(name: str, shape: str, times: tuple, bound: float, card: str) -> None:
     k_ms, p_ms, l_ms = times
     print(f"[kernels] {name:26s} {shape} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
-          f"{fmt_ms(l_ms)}, bound {bound:.3f} ms per launch [{card}]")
+          f"{fmt_ms(l_ms)}, bound {bound:.3f} ms per launch{fmt_ratio(k_ms, l_ms)} [{card}]")
 
 
 def print_per_forward(stats: dict, before: dict, names, label: str, card: str) -> None:
@@ -286,8 +290,8 @@ def print_per_forward(stats: dict, before: dict, names, label: str, card: str) -
         lib = stats[n]["library_ms"]
         lib = None if lib is None else lib - (before[n]["library_ms"] or 0.0)
         print(f"[kernels] {n:26s} per {label}: kernel {d['ms']:.2f} ms, plain "
-              f"{d['plain_ms']:.2f} ms, library {fmt_ms(lib)}, bound {d['bound_ms']:.3f} ms "
-              f"[{card}]")
+              f"{d['plain_ms']:.2f} ms, library {fmt_ms(lib)}, bound {d['bound_ms']:.3f} ms"
+              f"{fmt_ratio(d['ms'], lib)} [{card}]")
 
 
 def snapshot(stats: dict) -> dict:
@@ -597,6 +601,7 @@ def phase_attention(card: str, stats: dict) -> None:
             torch.cuda.empty_cache()
     print_per_forward(stats, before, (ATTN,), "GCViTTiny unfused batch-256 forward (31 blocks)",
                       card)
+    exp_window_attention.main(["--iters", "10"])  # the template's phase cuts at L1-L4
 
 
 @contextlib.contextmanager

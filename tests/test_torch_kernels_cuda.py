@@ -154,6 +154,39 @@ def test_gcvit_kernels_match_plain_on_card(cuda_device, b, nwin, n, c, heads, gl
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,nwin,n,heads", [
+    (1, 1, 1, 2), (2, 3, 16, 3), (1, 7, 49, 3), (2, 2, 64, 2), (3, 2, 100, 4), (1, 1, 196, 8),
+    (1, 1, 224, 2), (2, 2, 224, 1),
+    (13, 64, 49, 2),  # 1664 (window, head) items: more than one round of persistent CTAs
+    (37, 1, 196, 8),  # 296 items at N = 196, not a multiple of the grid
+])
+@pytest.mark.parametrize("global_query", [False, True])
+def test_gcvit_window_attention_shapes_on_card(cuda_device, b, nwin, n, heads, global_query):
+    """K5 at the key-tile edges (N = 1 ... 224 over the 64 / 208 / 224
+    tiles), batch 1, one and several windows with a global query, and item
+    counts that leave the last round of the persistent CTAs ragged, against
+    the f32 plain version on the same bf16 inputs: max|d| / max|ref| <= 1e-2
+    (bf16 q, P and output)."""
+    g = torch.Generator(device=cuda_device).manual_seed(n * 7 + heads)
+    c = heads * 32
+
+    def u(s):
+        return torch.rand(s, generator=g, device=cuda_device) * 2 - 1
+
+    k, v = (u((b, nwin * n, c)).to(torch.bfloat16) for _ in range(2))
+    q = u((b, n, c) if global_query else (b, nwin * n, c)).to(torch.bfloat16)
+    bias = u((heads, n, n))
+    G.reset_launches()
+    got = G.window_attention(q, k, v, bias, n, 32 ** -0.5, q_is_global=global_query)
+    torch.cuda.synchronize()
+    assert got.shape == k.shape and got.dtype == torch.bfloat16
+    assert G.LAUNCHES["window_attention"] == 1
+    ref = G.window_attention_plain(q.float(), k.float(), v.float(), bias, n, 32 ** -0.5,
+                                   global_query)
+    assert _rel(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
 def test_gcvit_block_counts_its_launches(cuda_device):
     G.reset_launches()
     K.reset_launches()
@@ -222,11 +255,18 @@ def test_layer_norm_function_backward_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,heads,n", [(6, 2, 49), (5, 4, 49), (3, 8, 196), (4, 16, 49),
-                                       (2, 1, 9)])
+@pytest.mark.parametrize("b,heads,n", [
+    (6, 2, 49), (5, 4, 49), (3, 8, 196), (4, 16, 49), (2, 1, 9),
+    (1, 1, 1), (3, 2, 16), (7, 3, 64), (5, 2, 100), (1, 3, 113), (1, 8, 196), (1, 2, 224),
+    (3, 5, 224),
+    (829, 2, 49),  # 1658 (window, head) items: more than one round of persistent CTAs
+    (37, 8, 196),  # 296 items at N = 196, not a multiple of the grid
+])
 def test_window_attention_bhnd_matches_plain_on_card(cuda_device, b, heads, n):
     """bf16 q/k/v (B, H, N, 32) against the f32 plain version on the same
-    inputs: max|d| / max|ref| <= 1e-2 (bf16 P and output)."""
+    inputs: max|d| / max|ref| <= 1e-2 (bf16 P and output). N = 1 ... 224
+    covers the 64 / 208 / 224 key tiles and their ragged edges; batch
+    1; item counts that leave the persistent CTAs' last round ragged."""
     from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
 
     g = torch.Generator(device=cuda_device).manual_seed(n + heads)
@@ -275,6 +315,24 @@ def test_exp_dw_tool_runs_on_card(cuda_device):
     (result,) = exp_dw.main(["--iters", "1", "--shapes", "s5_7x1632_k5"])
     assert result["max_abs_err"] <= 1e-2 * result["max_abs_ref"]
     assert result["ms"] > 0 and result["cudnn_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_exp_window_attention_tool_runs_on_card(cuda_device):
+    """The phase-cut tool at every level: the whole kernel within 1e-2 of
+    its plain version, each cut and SDPA timed."""
+    from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+    from vip_cup_2022_tpu_torch.tools import exp_window_attention
+
+    results = exp_window_attention.main(["--iters", "1", "--batch", "2"])
+    assert len(results) == len(exp_window_attention.LEVELS)
+    for r in results:
+        assert r["rel_err"] <= 1e-2
+        assert set(r["ms"]) == {"loads", "scores", "softmax", "whole", "sdpa"}
+        assert all(t > 0 for t in r["ms"].values())
+    q = torch.zeros((2, 1, 9, 32), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="cut 4"):
+        WA.window_attention_cut(q, q, q, torch.zeros((1, 9, 9), device=cuda_device), 0.2, 4)
 
 
 @pytest.mark.cuda

@@ -124,6 +124,22 @@ def test_window_attention_plain_casts_p_to_v_dtype():
                                   (p @ v.float()).to(torch.bfloat16).float().numpy())
 
 
+def test_window_attention_phase_cuts_are_cuda_only():
+    """The phase cuts are CUDA kernels with no plain version: CPU tensors
+    raise."""
+    q = torch.zeros((1, 1, 9, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="only as CUDA kernels"):
+        WA.window_attention_cut(q, q, q, torch.zeros(1, 9, 9), 0.2, 1)
+
+
+def test_exp_window_attention_needs_a_card(monkeypatch):
+    from vip_cup_2022_tpu_torch.tools import exp_window_attention
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        exp_window_attention.main(["--iters", "1"])
+
+
 # ---------------------------------------------------------------------------
 # K9: depthwise conv
 # ---------------------------------------------------------------------------

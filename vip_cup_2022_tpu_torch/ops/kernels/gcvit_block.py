@@ -19,9 +19,12 @@ One family of five launches covers all four (:func:`window_transformer_block`):
 1. ``ln_qkv`` (``csrc/gcvit_block.cu``): two-pass f32 LN of bf16 rows into
    shared memory as bf16, a wmma bf16 GEMM against W_qkv with f32
    accumulation, + bias, written as separate (M, C) q, k, v;
-2. ``window_attention`` (``csrc/gcvit_block.cu``): one CTA per (window, head,
-   64 query rows), K and V of the window in shared memory, scores and
-   probabilities on chip, N = 49 padded to 64 and 196 to 208;
+2. ``window_attention`` (``csrc/gcvit_block.cu``, the template of
+   ``csrc/window_attention.cuh`` on token rows): persistent CTAs walk the
+   (window, head) items with the next item's K and V in flight; a warp owns
+   16 query rows and keeps their scores, softmax and P in registers, N = 49
+   padded to a 64-key tile and 196 to 208; a CTA keeps one head and its
+   bias in shared memory;
 3. ``proj_scale_residual`` (``csrc/gcvit_block.cu``): r1 = x + gamma1 *
    (a W_p^T + b_p), written in f32 (the TPU kernel never rounds r1);
 4. ``ln_fc1_gelu`` and 5. ``fc2_scale_residual`` of

@@ -8,12 +8,15 @@ path: softmax(q k^T * scale + bias) v per (window, head), windows folded
 into B, with an f32 softmax normalised before P.V.
 
 ``window_attention`` (``csrc/window_attention.cu``, exported as
-``window_attention_bhnd``): one CTA per (window, head, 64 query rows); K and
-V of the window in shared memory, N = 49 padded to 64 and 196 to 208 with
-masked keys; q k^T and P.V on the tensor cores in bf16 with f32
-accumulation, the scale, bias and softmax in f32 on the scores. What bounds
-it on the card: memory bandwidth (q, k, v and the output are read and
-written once; ~4 N D FLOPs per token and head).
+``window_attention_bhnd``) instantiates the window-attention template of
+``csrc/window_attention.cuh`` on contiguous (N, 32) tiles: persistent CTAs
+walk the (window, head) items with the next item's K and V in flight, a
+warp owns 16 query rows and keeps their scores, softmax and P in registers
+(mma.sync, N padded to a 64, 208 or 224 key tile with masked keys),
+and a CTA keeps one head, whose bias it holds in shared memory up to 208
+keys. What bounds it on the card: at N = 49 the bytes of q, k, v and the
+output; at N = 196 the softmax between the two products (~4 N D FLOPs per
+token and head are far below the tensor cores' rate).
 
 Dispatch: the wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back. It
@@ -50,6 +53,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("window_attention")
     lib.window_attention_bhnd.argtypes = _ARGTYPES
     lib.window_attention_bhnd.restype = ctypes.c_int
+    lib.window_attention_bhnd_cut.argtypes = _ARGTYPES[:-1] + [ctypes.c_int, _P]
+    lib.window_attention_bhnd_cut.restype = ctypes.c_int
     return lib
 
 
@@ -71,15 +76,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
     would need one."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, scale)
-    if q.ndim != 4:
-        raise ValueError(f"q must be (B, H, N, D), got {tuple(q.shape)}")
-    b, heads, n, d = q.shape
-    if d != HEAD_DIM or n > MAX_WINDOW_TOKENS:
-        raise ValueError(f"window attention takes head width {HEAD_DIM} and N <= "
-                         f"{MAX_WINDOW_TOKENS}; got D = {d}, N = {n}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, torch.bfloat16, (b, heads, n, d), q.device)
-    _check("bias", bias, torch.float32, (heads, n, n), q.device)
+    b, heads, n = _check_inputs(q, k, v, bias)
     _check_no_grad("window_attention_bhnd", q, k, v, bias)
     out = torch.empty_like(q)
     err = _lib().window_attention_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -89,3 +86,38 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
         raise RuntimeError(f"window_attention_bhnd: CUDA launch failed with cudaError {err}")
     LAUNCHES["window_attention_bhnd"] += 1
     return out
+
+
+def window_attention_cut(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                         scale: float, cut: int) -> torch.Tensor:
+    """The CUDA kernel stopped after one phase, for the phase timings of
+    ``tools/exp_window_attention.py``: ``cut`` 1 after the loads, 2 after
+    the scores, 3 after the softmax. The output holds checksums of that
+    phase, not attention, and the launch is not counted in :data:`LAUNCHES`.
+    CUDA tensors only, as :func:`window_attention` takes them."""
+    if q.device.type != "cuda":
+        raise ValueError("the phase cuts exist only as CUDA kernels")
+    b, heads, n = _check_inputs(q, k, v, bias)
+    out = torch.empty_like(q)
+    err = _lib().window_attention_bhnd_cut(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           bias.data_ptr(), out.data_ptr(), b * heads, heads, n,
+                                           float(scale), int(cut), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"window_attention_bhnd_cut {cut}: CUDA launch failed with "
+                           f"cudaError {err}")
+    return out
+
+
+def _check_inputs(q, k, v, bias):
+    """(B, H, N) of bf16 q, k, v (B, H, N, 32) and an f32 (H, N, N) bias the
+    kernel takes; raises on anything else."""
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, H, N, D), got {tuple(q.shape)}")
+    b, heads, n, d = q.shape
+    if d != HEAD_DIM or n > MAX_WINDOW_TOKENS:
+        raise ValueError(f"window attention takes head width {HEAD_DIM} and N <= "
+                         f"{MAX_WINDOW_TOKENS}; got D = {d}, N = {n}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, torch.bfloat16, (b, heads, n, d), q.device)
+    _check("bias", bias, torch.float32, (heads, n, n), q.device)
+    return b, heads, n
