@@ -9,8 +9,8 @@ each printing its results on earlier lines, any failure exiting non-zero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every source of ``csrc/`` (the ConvNeXt and GCViT block
    kernels, window attention, LayerNorm, depthwise, the LN-MLP, the
-   attention-parts and the int8 GEMM kernels), one nvcc per source, all at
-   once;
+   attention-parts and the int8 GEMM kernels, and the MLP GEMMs' phase
+   cuts), one nvcc per source, all at once, with ``-Xptxas -v``;
 3. kernels: each of ``dwconv7x7_nhwc``, ``ln_fc1_gelu`` and
    ``fc2_scale_residual`` against its plain PyTorch version in f32 (TF32 off)
    on the same bf16-rounded inputs at the stage shapes s1-s4, with batch 8
@@ -19,14 +19,18 @@ each printing its results on earlier lines, any failure exiting non-zero:
    K = C ... 4C); then each timed against its plain version and, where one
    PyTorch call computes the same function, that call, on the same batch-256
    inputs (CUDA events), with the kernel/library ratio per shape and per
-   forward;
+   forward; ``ln_fc1_gelu`` and ``fc2_scale_residual`` also beside cuBLAS's
+   product of the same bf16 operands alone (``F.linear``, TF32 off; not a
+   ``library_ms``: it computes only the GEMM), with the kernel/cuBLAS ratio;
 4. gcvit kernels: each of ``ln_qkv`` (local q/k/v and global k/v),
    ``window_attention`` (local and global query), ``proj_scale_residual``,
    ``ln_fc1_gelu`` (eps 1e-5, N = 3C) and ``fc2_scale_residual`` (f32
    residual) against its plain version in f32 (TF32 off) on the same inputs
    at the GCViTTiny@224 level shapes L1-L4 (56/28/14/7 grids, C 64-512,
    windows 7/7/14/7), at batch 8 and 256, under the same 1e-2 bound; then
-   each timed as in 3 at batch 256;
+   each timed as in 3 at batch 256; then the ``exp_mlp_gemm`` tool's phase
+   cuts of the two MLP GEMM kernels (loads / + LN / + products / whole, and
+   the epilogue without its math or without its stores) at s1-s4 and L1-L4;
 5. unfused-path kernels, under the same bound at batch 8 and 256, timed as
    in 3 at batch 256:
    - ``window_attention_bhnd`` on (B*nWin, heads, N, 32) at L1-L4, local and
@@ -81,10 +85,13 @@ each printing its results on earlier lines, any failure exiting non-zero:
    tail) with ``VIPTPU_ALLOW_RANDOM_INIT=1``, twice on the fused block path
    and once with ``VIPTPU_NO_FUSED_BLOCK=1``; each CSV must hold 300 sorted
    rows with logits in {0.0, 1.0}; the first fused run must have launched
-   every kernel of both block families and the LN kernel at each standalone
-   LN, the unfused run the window-attention kernel at each of GCViT's 31
-   blocks and the LN kernel at every LN, per batch, and none of the fused
-   GCViT family; then a three-member manifest (adding
+   every kernel of both block families, ``ln_fc1_gelu`` and
+   ``fc2_scale_residual`` at each of ConvNeXt's 18 and GCViT's 31 blocks and
+   ``dwconv7x7_nhwc`` at each ConvNeXt block, and the LN kernel at each
+   standalone LN, the unfused run the window-attention kernel at each of
+   GCViT's 31 blocks, the two MLP kernels at ConvNeXt's 18 only and the LN
+   kernel at every LN, per batch, and none of the fused GCViT family; then a
+   three-member manifest (adding
    ``ResNetRS50-200x200``) without int8, which launches no int8 kernel, and
    with ``VIPTPU_INT8=ResNetRS50``, which must launch ``ptq_int8_conv`` at
    every calibrated site of each batch.
@@ -145,7 +152,7 @@ from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
-                                          exp_window_attention, int8_pallas_spike)
+                                          exp_mlp_gemm, exp_window_attention, int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
@@ -191,7 +198,8 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
-GCVIT_BLOCKS = 31
+CONVNEXT_BLOCKS, GCVIT_BLOCKS = 18, 31
+MLP_KERNELS = ("ln_fc1_gelu", "fc2_scale_residual")  # timed beside cuBLAS's product alone
 # LN calls per forward: ConvNeXt's stem, three downsamples and head; GCViT's
 # stem and downsample ReduceSizes (two each) and head; on the unfused path
 # also each block's norm1 and norm2
@@ -247,7 +255,7 @@ def plain_blocks():
 
 def new_stats() -> dict:
     return {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0} for n in KERNELS}
+                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "gemm_ms": 0.0} for n in KERNELS}
 
 
 def account(stats: dict, name: str, count: int, times: tuple, nbytes: float, ops: float,
@@ -278,20 +286,34 @@ def fmt_ratio(k_ms: float, l_ms) -> str:
     return "" if l_ms is None else f", kernel/library {k_ms / l_ms:.2f}"
 
 
-def print_launch(name: str, shape: str, times: tuple, bound: float, card: str) -> None:
+def fmt_gemm(k_ms: float, g_ms) -> str:
+    return "" if not g_ms else f", cuBLAS GEMM alone {g_ms:.3f} ms, kernel/cuBLAS {k_ms / g_ms:.2f}"
+
+
+def print_launch(name: str, shape: str, times: tuple, bound: float, card: str,
+                 gemm_ms=None) -> None:
     k_ms, p_ms, l_ms = times
     print(f"[kernels] {name:26s} {shape} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
-          f"{fmt_ms(l_ms)}, bound {bound:.3f} ms per launch{fmt_ratio(k_ms, l_ms)} [{card}]")
+          f"{fmt_ms(l_ms)}, bound {bound:.3f} ms per launch{fmt_ratio(k_ms, l_ms)}"
+          f"{fmt_gemm(k_ms, gemm_ms)} [{card}]")
 
 
 def print_per_forward(stats: dict, before: dict, names, label: str, card: str) -> None:
     for n in names:
-        d = {k: stats[n][k] - before[n][k] for k in ("ms", "plain_ms", "bound_ms")}
+        d = {k: stats[n][k] - before[n][k] for k in ("ms", "plain_ms", "bound_ms", "gemm_ms")}
         lib = stats[n]["library_ms"]
         lib = None if lib is None else lib - (before[n]["library_ms"] or 0.0)
         print(f"[kernels] {n:26s} per {label}: kernel {d['ms']:.2f} ms, plain "
               f"{d['plain_ms']:.2f} ms, library {fmt_ms(lib)}, bound {d['bound_ms']:.3f} ms"
-              f"{fmt_ratio(d['ms'], lib)} [{card}]")
+              f"{fmt_ratio(d['ms'], lib)}{fmt_gemm(d['ms'], d['gemm_ms'])} [{card}]")
+
+
+def time_gemm(stats: dict, name: str, count: int, gemm) -> float:
+    """cuBLAS's product alone (``gemm``), ms per launch, two readings
+    averaged; added ``count`` times to ``name``'s per-forward figure."""
+    g_ms = (cuda_ms(gemm) + cuda_ms(gemm)) / 2
+    stats[name]["gemm_ms"] += count * g_ms
+    return g_ms
 
 
 def snapshot(stats: dict) -> dict:
@@ -334,7 +356,8 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()})
+    names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()}
+                   | {"mlp_gemm_cuts"})  # the phase cuts that exp_mlp_gemm times
     paths = build.build_all(names, verbose=True)
     for module in KERNEL_MODULES:
         module._lib()
@@ -412,11 +435,15 @@ def phase_kernels(card: str, stats: dict) -> None:
                 lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"]),
                 None, m * n * 2 + n * c * 2 + 2 * c * 4 + 2 * m * c * 2, 2 * m * n * c, "bf16"),
         }
+        y = p["d"].to(torch.bfloat16)  # the LN output's stand-in for cuBLAS's product alone
+        alone = {"ln_fc1_gelu": lambda: F.linear(y, p["w1"]),
+                 "fc2_scale_residual": lambda: F.linear(p["hid"], p["w2"])}
         for name, (kern, plain, lib, nbytes, ops, kind) in calls.items():
             times = time_calls(kern, plain, lib)
             bound = account(stats, name, nblocks, times, nbytes, ops, kind)
-            print_launch(name, f"({BATCH},{h},{w},{c})", times, bound, card)
-        del p, calls, xc, wc, bc
+            g_ms = time_gemm(stats, name, nblocks, alone[name]) if name in alone else None
+            print_launch(name, f"({BATCH},{h},{w},{c})", times, bound, card, g_ms)
+        del p, calls, xc, wc, bc, y, alone
         torch.cuda.empty_cache()
     print_per_forward(stats, before, CONVNEXT_KERNELS,
                       "convnext_tiny batch-256 forward (3/3/9/3 blocks)", card)
@@ -539,17 +566,24 @@ def phase_gcvit_kernels(card: str, stats: dict) -> None:
     for level in LEVELS:  # the main path's batch-256 shapes: checked, then timed
         grid, c, heads, ws, n_local, n_global = level
         p = run_check_level(BATCH, level, gen, stats)
+        y = p["r1"].to(torch.bfloat16)  # the LN output's stand-in for cuBLAS's product alone
+        alone = {"ln_fc1_gelu": lambda: F.linear(y, p["w1"]),
+                 "fc2_scale_residual": lambda: F.linear(p["hid"], p["w2"])}
         for name, (kern, plain, lib, nbytes, ops) in gcvit_calls(p, BATCH, c, heads).items():
             times = time_calls(kern, plain, lib)
             count = (n_local if name.endswith("local") else n_global if name.endswith("global")
                      else n_local + n_global)
             bound = account(stats, name.split(" ")[0], count, times, nbytes, ops, "bf16")
-            print_launch(name, f"({BATCH},{grid},{grid},{c}) w{ws}", times, bound, card)
-        del p
+            g_ms = time_gemm(stats, name, count, alone[name]) if name in alone else None
+            print_launch(name, f"({BATCH},{grid},{grid},{c}) w{ws}", times, bound, card, g_ms)
+        del p, y, alone
         torch.cuda.empty_cache()
     print_per_forward(stats, before, ("ln_qkv", "window_attention", "proj_scale_residual",
                                       "ln_fc1_gelu", "fc2_scale_residual"),
                       "GCViTTiny batch-256 forward (3/4/19/5 blocks)", card)
+    print_per_forward(stats, {n: new_stats()[n] for n in MLP_KERNELS}, MLP_KERNELS,
+                      "ConvNeXt + fused GCViT batch-256 forward (18 + 31 blocks)", card)
+    exp_mlp_gemm.main(["--iters", "10"])  # the two MLP GEMM kernels' phase cuts
 
 
 def attention_inputs(b, grid, heads, ws, gen) -> dict:
@@ -1229,10 +1263,12 @@ def phase_slice(card: str) -> dict:
         finally:
             del os.environ["VIPTPU_NO_FUSED_BLOCK"]
 
-    expect_launches(fused, {**{n: None for n in CONVNEXT_KERNELS + GCVIT_KERNELS},
+    expect_launches(fused, {**{n: None for n in GCVIT_KERNELS},
+                            "dwconv7x7_nhwc": batches * CONVNEXT_BLOCKS,
+                            **{n: batches * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
                             ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)}, "fused CSV->CSV")
-    expect_launches(unfused, {**{n: None for n in CONVNEXT_KERNELS}, **{n: 0 for n in GCVIT_KERNELS},
-                              ATTN: batches * GCVIT_BLOCKS,
+    expect_launches(unfused, {**{n: batches * CONVNEXT_BLOCKS for n in CONVNEXT_KERNELS},
+                              **{n: 0 for n in GCVIT_KERNELS}, ATTN: batches * GCVIT_BLOCKS,
                               LN: batches * (CONVNEXT_LNS + GCVIT_LNS + 2 * GCVIT_BLOCKS)},
                     "unfused CSV->CSV")
     ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731

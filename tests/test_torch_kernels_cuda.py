@@ -58,6 +58,56 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("ratio", [3, 4])
+@pytest.mark.parametrize("rows", ["one", "tile-1", "tile+1", "ragged"])
+@pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32], ids=["bf16res", "f32res"])
+def test_mlp_kernels_match_plain_on_card(cuda_device, c, ratio, rows, res_dtype):
+    """``ln_fc1_gelu`` and ``fc2_scale_residual`` at every block width of
+    both members with N = 3C (GCViT) and 4C (ConvNeXt), against the f32
+    plain versions on the same bf16-rounded inputs: max|d| / max|ref| <=
+    1e-2 (bf16 LN output and hidden). Row counts at the edges of the plan's
+    row tile (1, one short of and one past a tile) and one that gives the
+    persistent CTAs more than a round of tiles with a ragged last one; both
+    residual types."""
+    g = torch.Generator(device=cuda_device).manual_seed(c * ratio)
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    n = ratio * c
+    bm = K.mlp_gemm_plan("ln", c, n)["bm"]
+    m = {"one": 1, "tile-1": bm - 1, "tile+1": bm + 1, "ragged": 2 * 132 * 128 + 77}[rows]
+    x, lg, lb = u((m, c)), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    w1, b1 = (u((n, c)) * c ** -0.5).to(torch.bfloat16), u((n,), -0.1, 0.1)
+    w2, b2, gamma = (u((c, n)) * n ** -0.5).to(torch.bfloat16), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    res = u((m, c)).to(res_dtype)
+    K.reset_launches()
+    hid = K.ln_fc1_gelu(x, lg, lb, w1, b1, 1e-6)
+    out = K.fc2_scale_residual(hid, w2, b2, gamma, res)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1}
+    assert hid.shape == (m, n) and out.shape == (m, c) and out.dtype == torch.bfloat16
+    assert _rel(hid, K.ln_fc1_gelu_plain(x, lg, lb, w1.float(), b1, 1e-6)) <= 1e-2
+    ref = K.fc2_scale_residual_plain(hid.float(), w2.float(), b2, gamma, res.float())
+    assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_mlp_gemm_cuts_run_on_card(cuda_device):
+    """The phase-cut tool at s1 and L4 (a resident and a streamed plan):
+    every cut launches and is timed, and the whole kernels agree with their
+    plain versions."""
+    from vip_cup_2022_tpu_torch.tools import exp_mlp_gemm
+
+    for r in exp_mlp_gemm.main(["--iters", "1", "--batch", "2", "--shapes", "s1", "L4"]):
+        assert all(e <= 1e-2 for e in r["rel_err"])
+        assert set(r["ln_fc1_gelu"]) == set(exp_mlp_gemm.LN_CUTS) | {"cublas"}
+        assert set(r["fc2_scale_residual"]) == set(exp_mlp_gemm.FC2_CUTS) | {"cublas"}
+        assert all(t > 0 for t in r["ln_fc1_gelu"].values())
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros((1, 5, 5, 48), dtype=torch.bfloat16, device=cuda_device)
     taps = torch.zeros((7, 7, 48), device=cuda_device)

@@ -1,25 +1,29 @@
-// Shared pieces of the block kernels for Hopper (sm_90a): cp.async staging,
-// wmma bf16 fragments, and two GEMM kernel templates that both the ConvNeXt
-// and the GCViT block sources instantiate.
+// The older GEMM templates of the GCViT block kernels for Hopper (sm_90a):
+// cp.async staging, wmma bf16 fragments, and two kernel templates that only
+// ln_qkv and proj_scale_residual (gcvit_block.cu) still use; the tool
+// kernels of ln_mlp.cu and attn_parts.cu share the helpers. The two MLP
+// GEMMs of both block families, ln_fc1_gelu and fc2_scale_residual, moved
+// to hopper_gemm.cuh's wgmma + TMA engine; these two are queued to follow.
 //
-//   ln_gemm_kernel<XT, kGelu>        (M, C) rows of XT (f32 or bf16) -> two-pass
-//                                    f32 LN -> bf16 tile in shared memory ->
-//                                    bf16 tensor-core GEMM against W (N, C)
-//                                    -> + bias -> exact GELU into one (M, N)
-//                                    output (kGelu), or no GELU and the N
-//                                    columns split into N / ldo outputs of
-//                                    width ldo (q / k / v)
+//   ln_gemm_kernel                   bf16 (M, C) rows -> two-pass f32 LN ->
+//                                    bf16 tile in shared memory -> bf16
+//                                    tensor-core GEMM against W (N, C) ->
+//                                    + bias -> the N columns split into
+//                                    N / ldo outputs of width ldo (q / k / v)
 //   gemm_scale_residual_kernel<ResT, OutT>
 //                                    bf16 A (M, K) @ W (C, K)^T, f32
 //                                    accumulation -> (+ bias) * gamma +
 //                                    residual (ResT) -> OutT (M, C)
 //
-// Weights arrive in the nn.Linear layout (out, in), which is exactly the
-// column-major B operand the tensor cores take. The GEMMs are written by
-// hand with nvcuda::wmma 16x16x16 bf16 tiles (f32 accumulators) fed from
-// shared memory by a three-stage cp.async ring; each warp writes its own
-// accumulator tiles out through 1 KB of shared memory, with the epilogue
-// applied in registers. No library GEMM is called.
+// They replace ln_dense and the proj half of proj_res_ln_mlp
+// (vip_cup_2022_tpu/ops/pallas/gcvit_block.py). What bounds them: the bytes
+// of x and the outputs (K = C = 64 ... 512 gives few products per byte);
+// what holds them back is the engine: nvcuda::wmma 16x16x16 bf16 tiles
+// (f32 accumulators) fed from shared memory by a three-stage cp.async ring,
+// so the loop is bound by shared-memory fragment loads, and each warp
+// writes its accumulator tiles through 1 KB of shared memory with the
+// epilogue applied in registers. Weights arrive in the nn.Linear layout
+// (out, in), the column-major B operand. No library GEMM is called.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,11 +51,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float gelu_erf(float h) {
+__device__ __forceinline__ float gelu_erf(float h) {  // the LN-MLP tool kernels' (ln_mlp.cu)
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // cp.async: 16-byte global -> shared copies that run while the warps compute.
@@ -140,14 +143,14 @@ __device__ __forceinline__ void store8(bf16* __restrict__ p, const float v[8]) {
 }
 
 // ---------------------------------------------------------------------------
-// LN + GEMM (+ GELU). A block owns kLnBM rows: it normalizes them once into a
+// LN + GEMM. A block owns kLnBM rows: it normalizes them once into a
 // bf16 (kLnBM, C) shared tile, then walks the N output columns in chunks of
 // kLnBN (the last chunk may be ragged: its missing weight rows are
 // zero-filled and its columns never stored), while a kStages-deep cp.async
 // ring streams W in (kLnBN, kBK) slices. Warps: 2 (m) x 4 (n), each a 32x32
 // patch = 2x2 wmma tiles, written out by the warp itself at the end of each
-// chunk. Without GELU, output column n goes to out[n / ldo] at column
-// n % ldo; ldo is a multiple of 16, so no warp tile straddles two outputs.
+// chunk. Output column n goes to out[n / ldo] at column n % ldo; ldo is a
+// multiple of 16, so no warp tile straddles two outputs.
 // ---------------------------------------------------------------------------
 constexpr int kLnBM = 64;
 constexpr int kLnBN = 128;
@@ -159,9 +162,8 @@ inline size_t ln_gemm_smem_bytes(int C) {
          (size_t)(kThreads / 32) * 256 * sizeof(float);
 }
 
-template <typename XT, bool kGelu>
 __global__ void __launch_bounds__(kThreads, 3)  // 3 blocks/SM where shared memory allows
-ln_gemm_kernel(const XT* __restrict__ x, const float* __restrict__ ln_g,
+ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
                const float* __restrict__ ln_b, const bf16* __restrict__ w,
                const float* __restrict__ bias, bf16* __restrict__ out0,
                bf16* __restrict__ out1, bf16* __restrict__ out2,
@@ -252,7 +254,7 @@ ln_gemm_kernel(const XT* __restrict__ x, const float* __restrict__ ln_g,
         for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
 
-    if (kt == KT - 1) {  // chunk done: + bias, (GELU), bf16 store, reset
+    if (kt == KT - 1) {  // chunk done: + bias, bf16 store, reset
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -265,17 +267,11 @@ ln_gemm_kernel(const XT* __restrict__ x, const float* __restrict__ ln_g,
             const int n = col0 + (lane & 1) * 8;
             if (m < M) {
               load8(bias + n, bv);
-              if constexpr (kGelu) {  // one output, N wide
 #pragma unroll
-                for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e] + bv[e]);
-                store8(out0 + m * N + n, v);
-              } else {  // split into N / ldo outputs
-#pragma unroll
-                for (int e = 0; e < 8; ++e) v[e] += bv[e];
-                const int part = n / ldo;
-                bf16* dst = part == 0 ? out0 : (part == 1 ? out1 : out2);
-                store8(dst + m * ldo + (n - part * ldo), v);
-              }
+              for (int e = 0; e < 8; ++e) v[e] += bv[e];
+              const int part = n / ldo;  // split into N / ldo outputs
+              bf16* dst = part == 0 ? out0 : (part == 1 ? out1 : out2);
+              store8(dst + m * ldo + (n - part * ldo), v);
             }
           }
           wmma::fill_fragment(acc[i][j], 0.f);
@@ -402,17 +398,16 @@ inline cudaError_t grant_smem(const void* kernel, size_t bytes, SmemGrant& grant
 
 // Launch helpers: raise the shared-memory grant of the instantiation, then
 // launch on `stream`; return cudaGetLastError() for the ctypes caller.
-template <typename XT, bool kGelu>
-cudaError_t launch_ln_gemm(const XT* x, const float* ln_g, const float* ln_b, const bf16* w,
+inline cudaError_t launch_ln_gemm(const bf16* x, const float* ln_g, const float* ln_b, const bf16* w,
                            const float* bias, bf16* out0, bf16* out1, bf16* out2,
                            int M, int C, int N, int ldo, float eps, cudaStream_t stream) {
   static SmemGrant grant;
   if (M == 0) return cudaSuccess;
   const size_t smem = ln_gemm_smem_bytes(C);
-  const cudaError_t err = grant_smem((const void*)ln_gemm_kernel<XT, kGelu>, smem, grant);
+  const cudaError_t err = grant_smem((const void*)ln_gemm_kernel, smem, grant);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((M + kLnBM - 1) / kLnBM);
-  ln_gemm_kernel<XT, kGelu><<<blocks, kThreads, smem, stream>>>(
+  ln_gemm_kernel<<<blocks, kThreads, smem, stream>>>(
       x, ln_g, ln_b, w, bias, out0, out1, out2, M, C, N, ldo, eps);
   return cudaGetLastError();
 }

@@ -22,8 +22,9 @@
 //                        + bf16 x -> f32 r1 (M, C)
 //
 // then ln_fc1_gelu and fc2_scale_residual_f32res of convnext_block.cu on r1.
-// ln_qkv and proj_scale_residual instantiate block_gemm.cuh's templates (the
-// same wmma + cp.async mainloops as the ConvNeXt kernels).
+// ln_qkv and proj_scale_residual instantiate block_gemm.cuh's wmma +
+// cp.async templates; the MLP half runs on hopper_gemm.cuh's wgmma + TMA
+// engine (convnext_block.cu), to which these two are queued to move.
 //
 // `window_attention` replaces the TPU kernel `grouped_window_attention`
 // (bodies `_attn_kernel`, `_attn_kernel_perwin`) of vip_cup_2022_tpu/ops/
@@ -46,7 +47,7 @@ extern "C" {
 
 int ln_qkv(const void* x, const void* ln_g, const void* ln_b, const void* w, const void* bias,
            void* q, void* k, void* v, int M, int C, int S, float eps, void* stream) {
-  return (int)launch_ln_gemm<bf16, false>(
+  return (int)launch_ln_gemm(
       (const bf16*)x, (const float*)ln_g, (const float*)ln_b, (const bf16*)w,
       (const float*)bias, (bf16*)q, (bf16*)k, (bf16*)v, M, C, S * C, C, eps,
       (cudaStream_t)stream);

@@ -16,28 +16,31 @@ kernels (``csrc/convnext_block.cu``) covers every stage:
 
 1. ``dwconv7x7_nhwc``: depthwise 7x7 + bias, bf16 in, f32 out (the LN reads
    the unrounded depthwise sum, as ``_kernel`` does);
-2. ``ln_fc1_gelu``: two-pass f32 LN of a row tile into shared memory as
-   bf16, a wmma bf16 GEMM against fc1 with f32 accumulation, + b1, exact
-   GELU (``erff``), bf16 hidden;
-3. ``fc2_scale_residual``: a wmma bf16 GEMM of the hidden against fc2, then
+2. ``ln_fc1_gelu``: two-pass f32 LN of a 128-row tile from registers into
+   shared memory as bf16, a wgmma product against fc1 with f32
+   accumulation, + b1, exact GELU (erf within 1 ulp of f32), bf16 hidden;
+3. ``fc2_scale_residual``: a wgmma product of the hidden against fc2, then
    (+ b2) x gamma + residual, bf16 out.
 
 The last two also run the MLP half of every GCViT window block
 (:mod:`.gcvit_block`): LN eps 1e-5, N = 3C, and an f32 residual, the
 unrounded attention residual r1, for which ``fc2_scale_residual`` launches
-its f32-residual instantiation. Their GEMM mainloops are templates in
-``csrc/block_gemm.cuh``, shared with the GCViT kernels.
+its f32-residual instantiation. Both are ``csrc/hopper_gemm.cuh``'s engine:
+TMA loads into an mbarrier ring, ``wgmma`` products, persistent CTAs and two
+pairs of consumer warpgroups in ping-pong, so that one pair's GELU or
+residual epilogue overlaps the other's products. :func:`mlp_gemm_plan` picks each
+shape's tiles, ring depth, A buffers and whether fc1 stays resident in
+shared memory; the launcher checks the plan.
 
 What bounds them on the card: at s1/s2 (99x99x96, 49x49x192) the block does
 few FLOPs per byte (K = 96 or 192), so the depthwise pass and the memory
-traffic dominate; at s3/s4 (24x24x384, 12x12x768) the two GEMMs dominate.
-What this simple design leaves on the table: the (M, 4C) hidden makes one
-round trip through device memory, which the TPU kernel keeps on chip (at s1
-and batch 256 that is 2.5 M rows x 384 x 2 B = 1.9 GB written and read once
-per block); the depthwise output also makes a f32 round trip; the GEMMs use
-warp-level wmma fed by a three-stage cp.async ring, not warpgroup wgmma fed
-by TMA, and the depthwise pass reads its 7x7 halo through L1 rather than a
-shared-memory tile.
+traffic dominate; at s3/s4 (24x24x384, 12x12x768) the two GEMMs' products.
+What this design leaves on the table: the (M, 4C) hidden makes one round
+trip through device memory, which the TPU kernel keeps on chip (at s1 and
+batch 256 that is 2.5 M rows x 384 x 2 B = 1.9 GB written and read once
+per block); the depthwise output also makes a f32 round trip, and the
+depthwise pass reads its 7x7 halo through L1 rather than a shared-memory
+tile.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -56,13 +59,113 @@ from . import build
 
 LAUNCHES: Dict[str, int] = {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LN_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I]  # + plan
+_RES_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]  # + plan
 _SIGNATURES = {
     "dwconv7x7_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ln_fc1_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
-    "fc2_scale_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "fc2_scale_residual_f32res": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ln_fc1_gelu": _LN_ARGS + [_P],
+    "fc2_scale_residual": _RES_ARGS + [_P],
+    "fc2_scale_residual_f32res": _RES_ARGS + [_P],
 }
+_CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type)
+    "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
+    "fc2_scale_residual_cut": _RES_ARGS + [_I, _I, _P],
+}
+
+# ---------------------------------------------------------------------------
+# the MLP GEMMs' per-shape plan (csrc/hopper_gemm.cuh checks it)
+# ---------------------------------------------------------------------------
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
+_ALIGN = 1024  # the 128-byte swizzle repeats every 1024 bytes; buffers start aligned
+_BK = 64  # bf16 per K tile: one 128-byte swizzle row
+BM = 128  # rows of a work item: 64 for each warpgroup of a consumer pair
+WIDTHS = (128, 96, 64, 32)  # column tiles (wgmma n) the kernels are built for, widest first
+SPLIT_WIDTHS = (128,)  # ln_fc1_gelu's column-split 64-row tiles: 64 columns a warpgroup
+# output staging of the 16 consumer warps: 16 rows x 32 columns each, bf16 for
+# ln_fc1_gelu, f32 for fc2_scale_residual (its residual is added after it)
+EPILOGUE_BYTES = {"ln": 16 * 1024, "res": 32 * 1024}
+MAX_RING = 8  # stages of a streamed ring
+MAX_RESIDENT = 64  # K tiles of a resident fc1
+WGMMA_N = tuple(range(8, 257, 8))  # the n a bf16 wgmma takes
+
+
+def _barrier_bytes(stages: int) -> int:
+    """A full and an empty mbarrier a stage, and one order barrier for each
+    of the two consumer pairs."""
+    return 8 * (2 * stages + 2)
+
+
+def _stages_that_fit(fixed: int, stage: int, most: int) -> int:
+    """Most ring stages (<= ``most``) beside ``fixed`` bytes, with their
+    mbarriers and the alignment slack."""
+    return min(most, (SMEM_LIMIT - _ALIGN - _barrier_bytes(0) - fixed) // (stage + 16))
+
+
+def _ln_tiles(c: int, n: int) -> dict:
+    """``ln_fc1_gelu``'s tiles: fc1 resident in the ring where it fits beside
+    two 128-row A tiles (else one); else streamed through 128-row tiles, with
+    two A buffers where that leaves four stages; where one A tile leaves
+    fewer than four, 64-row tiles split by columns between a pair's two
+    warpgroups. The widest chunk dividing n that works."""
+    cpad, fixed = -(-c // _BK) * _BK, EPILOGUE_BYTES["ln"]
+    for bn in (w for w in WIDTHS if n % w == 0):
+        stage, everything = bn * 2 * _BK, (n // bn) * (cpad // _BK)
+        options = []
+        for bm in (BM, BM // 2) if bn in SPLIT_WIDTHS else (BM,):
+            a_tile = bm * cpad * 2
+            if bm == BM and everything <= MAX_RESIDENT:
+                options += [(bm, a, everything, True) for a in (2, 1)]
+            a = 2 if _stages_that_fit(fixed + 2 * a_tile, stage, MAX_RING) >= 4 else 1
+            options.append((bm, a, _stages_that_fit(fixed + a * a_tile, stage, MAX_RING), False))
+        for bm, a_buffers, stages, resident in options:
+            fits = _stages_that_fit(fixed + a_buffers * bm * cpad * 2, stage, stages) == stages
+            last_resort = bm == options[-1][0] and stages >= 2
+            if fits and (resident or stages >= 4 or last_resort):
+                smem = (_barrier_bytes(stages) + _ALIGN + fixed + a_buffers * bm * cpad * 2
+                        + stages * stage)
+                return dict(bm=bm, bn=bn, stages=stages, a_buffers=a_buffers, resident=resident,
+                            split_n=bm < BM, smem=smem)
+    raise ValueError(f"no ln_fc1_gelu plan fits C = {c}, N = {n} in shared memory")
+
+
+def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
+    """Tiles of one MLP GEMM launch. ``kind`` "ln": ``ln_fc1_gelu`` on x
+    (M, c) -> (M, n); "res": ``fc2_scale_residual`` on a hidden (M, n) ->
+    (M, c). Keys: ``bm`` rows a work item (64 for each warpgroup of a
+    consumer pair), ``bn`` its columns (a wgmma n dividing the output
+    width), ``stages`` of the TMA ring, ``a_buffers`` (LN A tiles: two let
+    the next tile's LN overlap this one's products), ``resident`` (fc1
+    loaded once into the ring and kept), ``split_n`` (64-row LN tiles whose
+    columns the pair's two warpgroups split), ``swizzle`` bytes,
+    ``ctas_per_sm`` and ``smem`` bytes. Independent of M: the launcher
+    sizes the persistent grid."""
+    if c % 32 or n % 32 or c <= 0 or n <= 0:
+        raise ValueError(f"widths {c}, {n} are not multiples of 32")
+    plan = dict(kind=kind, swizzle=128, ctas_per_sm=1)
+    if kind == "ln":
+        plan.update(_ln_tiles(c, n))
+    elif kind == "res":
+        bn = next(w for w in WIDTHS if c % w == 0)
+        stage = (BM + bn) * 2 * _BK
+        stages = _stages_that_fit(EPILOGUE_BYTES["res"], stage, MAX_RING)
+        plan.update(bm=BM, bn=bn, stages=stages, a_buffers=0, resident=False, split_n=False)
+        plan["smem"] = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + stages * stage
+    else:
+        raise ValueError(f"kind must be 'ln' or 'res', got {kind!r}")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_plan_args(c: int, n: int) -> tuple:
+    p = mlp_gemm_plan("ln", c, n)
+    return p["bn"], p["stages"], p["a_buffers"], int(p["resident"]), int(p["split_n"])
+
+
+@functools.lru_cache(maxsize=None)
+def _res_plan_args(c: int, n: int) -> tuple:
+    p = mlp_gemm_plan("res", c, n)
+    return p["bn"], p["stages"]
 
 
 def reset_launches() -> None:
@@ -74,6 +177,16 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("convnext_block")
     for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _cut_lib() -> ctypes.CDLL:
+    lib = build.load("mlp_gemm_cuts")
+    for name, argtypes in _CUT_SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -190,7 +303,8 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     _check("b1", b1, torch.float32, (n,), x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     _launch("ln_fc1_gelu", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n, float(eps), _stream(x.device))
+            w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n, float(eps), *_ln_plan_args(c, n),
+            _stream(x.device))
     return out
 
 
@@ -217,8 +331,45 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     out = torch.empty((m, c), dtype=torch.bfloat16, device=hidden.device)
     _launch("fc2_scale_residual_f32res" if f32_residual else "fc2_scale_residual",
             hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-            residual.data_ptr(), out.data_ptr(), m, n, c, _stream(hidden.device),
-            counter="fc2_scale_residual")
+            residual.data_ptr(), out.data_ptr(), m, n, c, *_res_plan_args(c, n),
+            _stream(hidden.device), counter="fc2_scale_residual")
+    return out
+
+
+
+def ln_fc1_gelu_cut(x, ln_weight, ln_bias, w1, b1, eps: float, cut: int) -> torch.Tensor:
+    """A phase cut of the ``ln_fc1_gelu`` kernel on CUDA tensors, at the main
+    path's widths: 0 loads, 1 + LN, 2 + products, 3 the kernel itself, 4
+    products + raw stores, 5 the kernel without its stores
+    (``csrc/mlp_gemm_cuts.cu``). Timing only: except at 3 and 4 its output
+    holds nothing meaningful; counted in :data:`LAUNCHES` only at 3."""
+    if cut == 3:
+        return ln_fc1_gelu(x, ln_weight, ln_bias, w1, b1, eps)
+    m, c = x.shape
+    n = w1.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    err = _cut_lib().ln_fc1_gelu_cut(
+        x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        out.data_ptr(), m, c, n, float(eps), *_ln_plan_args(c, n), cut, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"ln_fc1_gelu cut {cut}: CUDA launch failed with cudaError {err}")
+    return out
+
+
+def fc2_scale_residual_cut(hidden, w2, b2, gamma, residual, cut: int) -> torch.Tensor:
+    """A phase cut of ``fc2_scale_residual``, numbered as in
+    :func:`ln_fc1_gelu_cut` (1, the LN, is 0 here)."""
+    if cut == 3:
+        return fc2_scale_residual(hidden, w2, b2, gamma, residual)
+    m, n = hidden.shape
+    c = w2.shape[0]
+    out = torch.empty((m, c), dtype=torch.bfloat16, device=hidden.device)
+    err = _cut_lib().fc2_scale_residual_cut(
+        hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), residual.data_ptr(),
+        out.data_ptr(), m, n, c, *_res_plan_args(c, n), int(residual.dtype == torch.float32),
+        cut, _stream(hidden.device))
+    if err != 0:
+        raise RuntimeError(f"fc2_scale_residual cut {cut}: CUDA launch failed with cudaError {err}")
     return out
 
 

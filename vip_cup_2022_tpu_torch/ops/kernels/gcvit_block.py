@@ -28,7 +28,10 @@ One family of five launches covers all four (:func:`window_transformer_block`):
 3. ``proj_scale_residual`` (``csrc/gcvit_block.cu``): r1 = x + gamma1 *
    (a W_p^T + b_p), written in f32 (the TPU kernel never rounds r1);
 4. ``ln_fc1_gelu`` and 5. ``fc2_scale_residual`` of
-   :mod:`.convnext_block` on the f32 r1 (eps 1e-5, f32 residual).
+   :mod:`.convnext_block` on the f32 r1 (eps 1e-5, f32 residual): the
+   wgmma + TMA engine of ``csrc/hopper_gemm.cuh``. ``ln_qkv`` and
+   ``proj_scale_residual`` keep the older wmma + cp.async templates of
+   ``csrc/block_gemm.cuh``.
 
 What bounds them on the card: the block does few FLOPs per byte at C = 64
 and 128 (the qkv and proj GEMMs have K = C), so L1 and L2 are bound by
