@@ -9,28 +9,34 @@ each printing its results on earlier lines, any failure exiting non-zero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every source of ``csrc/`` (the ConvNeXt and GCViT block
    kernels, window attention, LayerNorm, depthwise, the LN-MLP, the
-   attention-parts and the int8 GEMM kernels, and the MLP GEMMs' phase
-   cuts), one nvcc per source, all at once, with ``-Xptxas -v``;
+   attention-parts and the int8 GEMM kernels, and the phase cuts of the
+   wgmma + TMA engine's kernels and of the depthwise kernel), one nvcc per
+   source, all at once, with ``-Xptxas -v``;
 3. kernels: each of ``dwconv7x7_nhwc``, ``ln_fc1_gelu`` and
    ``fc2_scale_residual`` against its plain PyTorch version in f32 (TF32 off)
    on the same bf16-rounded inputs at the stage shapes s1-s4, with batch 8
    (ragged row tiles) and with the main path's batch 256, max|d| / max|ref|
    <= 1e-2 (bf16 rounding of the LN output and the hidden feeding sums over
-   K = C ... 4C); then each timed against its plain version and, where one
+   K = C ... 4C), the depthwise (f32 out) <= 1e-5; then each timed against its plain version and, where one
    PyTorch call computes the same function, that call, on the same batch-256
    inputs (CUDA events), with the kernel/library ratio per shape and per
    forward; ``ln_fc1_gelu`` and ``fc2_scale_residual`` also beside cuBLAS's
    product of the same bf16 operands alone (``F.linear``, TF32 off; not a
    ``library_ms``: it computes only the GEMM), with the kernel/cuBLAS ratio;
+   then the ``exp_dwconv`` tool's phase cuts of ``dwconv7x7_nhwc`` (loads /
+   + FMAs / whole, and the FMAs without their shared-memory reads) beside
+   cuDNN at s1-s4;
 4. gcvit kernels: each of ``ln_qkv`` (local q/k/v and global k/v),
    ``window_attention`` (local and global query), ``proj_scale_residual``,
    ``ln_fc1_gelu`` (eps 1e-5, N = 3C) and ``fc2_scale_residual`` (f32
    residual) against its plain version in f32 (TF32 off) on the same inputs
    at the GCViTTiny@224 level shapes L1-L4 (56/28/14/7 grids, C 64-512,
    windows 7/7/14/7), at batch 8 and 256, under the same 1e-2 bound; then
-   each timed as in 3 at batch 256; then the ``exp_mlp_gemm`` tool's phase
-   cuts of the two MLP GEMM kernels (loads / + LN / + products / whole, and
-   the epilogue without its math or without its stores) at s1-s4 and L1-L4;
+   each timed as in 3 at batch 256, ``ln_qkv`` also beside cuBLAS's product
+   alone; then the ``exp_mlp_gemm`` tool's phase cuts of the kernels on the
+   wgmma + TMA engine (loads / + LN / + products / whole, and the epilogue
+   without its math or without its stores) at s1-s4 and L1-L4, ``ln_qkv``'s
+   at L1-L4;
 5. unfused-path kernels, under the same bound at batch 8 and 256, timed as
    in 3 at batch 256:
    - ``window_attention_bhnd`` on (B*nWin, heads, N, 32) at L1-L4, local and
@@ -86,8 +92,9 @@ each printing its results on earlier lines, any failure exiting non-zero:
    and once with ``VIPTPU_NO_FUSED_BLOCK=1``; each CSV must hold 300 sorted
    rows with logits in {0.0, 1.0}; the first fused run must have launched
    every kernel of both block families, ``ln_fc1_gelu`` and
-   ``fc2_scale_residual`` at each of ConvNeXt's 18 and GCViT's 31 blocks and
-   ``dwconv7x7_nhwc`` at each ConvNeXt block, and the LN kernel at each
+   ``fc2_scale_residual`` at each of ConvNeXt's 18 and GCViT's 31 blocks,
+   ``dwconv7x7_nhwc`` at each ConvNeXt block, ``ln_qkv`` at each GCViT
+   block, and the LN kernel at each
    standalone LN, the unfused run the window-attention kernel at each of
    GCViT's 31 blocks, the two MLP kernels at ConvNeXt's 18 only and the LN
    kernel at every LN, per batch, and none of the fused GCViT family; then a
@@ -152,7 +159,8 @@ from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
-                                          exp_mlp_gemm, exp_window_attention, int8_pallas_spike)
+                                          exp_dwconv, exp_mlp_gemm, exp_window_attention,
+                                          int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
@@ -199,13 +207,16 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
 CONVNEXT_BLOCKS, GCVIT_BLOCKS = 18, 31
-MLP_KERNELS = ("ln_fc1_gelu", "fc2_scale_residual")  # timed beside cuBLAS's product alone
+# timed beside cuBLAS's product alone (and so is ln_qkv)
+MLP_KERNELS = ("ln_fc1_gelu", "fc2_scale_residual")
 # LN calls per forward: ConvNeXt's stem, three downsamples and head; GCViT's
 # stem and downsample ReduceSizes (two each) and head; on the unfused path
 # also each block's norm1 and norm2
 CONVNEXT_LNS, GCVIT_LNS = 5, 9
 KERNEL_BOUND = 1e-2
-F32_KERNEL_BOUND = 1e-5  # a kernel with f32 input and output (the ConvNeXt head LN)
+# a kernel with f32 sums and output: the ConvNeXt head LN, and the depthwise
+# pass (its f32 sums of 49 products in another order than the plain conv's)
+F32_KERNEL_BOUND = 1e-5
 INT8_BOUND = 1e-6  # int8 kernels: the same integer sums and f32 epilogue as the plain version
 MODEL_BOUND = 5e-2
 N_IMAGES = 300
@@ -357,7 +368,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()}
-                   | {"mlp_gemm_cuts"})  # the phase cuts that exp_mlp_gemm times
+                   | {"mlp_gemm_cuts", "dwconv_cuts"})  # the phase cuts the tools time
     paths = build.build_all(names, verbose=True)
     for module in KERNEL_MODULES:
         module._lib()
@@ -395,9 +406,9 @@ def check(refs: dict, label: str, stats: dict, bound: float = KERNEL_BOUND) -> N
 
 def check_stage(p: dict, shape: tuple, stats: dict) -> None:
     c = shape[-1]
+    check({"dwconv7x7_nhwc": (p["d"], lambda: K.dwconv7x7_nhwc_plain(
+        p["x"].float(), p["dw"], p["dwb"]).view(-1, c))}, str(shape), stats, F32_KERNEL_BOUND)
     check({
-        "dwconv7x7_nhwc": (p["d"], lambda: K.dwconv7x7_nhwc_plain(
-            p["x"].float(), p["dw"], p["dwb"]).view(-1, c)),
         "ln_fc1_gelu": (p["hid"], lambda: K.ln_fc1_gelu_plain(
             p["d"], p["lg"], p["lb"], p["w1"].float(), p["b1"], 1e-6)),
         "fc2_scale_residual": (p["out"], lambda: K.fc2_scale_residual_plain(
@@ -447,6 +458,7 @@ def phase_kernels(card: str, stats: dict) -> None:
         torch.cuda.empty_cache()
     print_per_forward(stats, before, CONVNEXT_KERNELS,
                       "convnext_tiny batch-256 forward (3/3/9/3 blocks)", card)
+    exp_dwconv.main(["--iters", "10"])  # the depthwise kernel's phase cuts at s1-s4
 
 
 def gcvit_level_inputs(b, grid, c, heads, ws, gen) -> dict:
@@ -568,13 +580,16 @@ def phase_gcvit_kernels(card: str, stats: dict) -> None:
         p = run_check_level(BATCH, level, gen, stats)
         y = p["r1"].to(torch.bfloat16)  # the LN output's stand-in for cuBLAS's product alone
         alone = {"ln_fc1_gelu": lambda: F.linear(y, p["w1"]),
-                 "fc2_scale_residual": lambda: F.linear(p["hid"], p["w2"])}
+                 "fc2_scale_residual": lambda: F.linear(p["hid"], p["w2"]),
+                 "ln_qkv local": lambda: F.linear(p["x"], p["wqkv"]),
+                 "ln_qkv global": lambda: F.linear(p["x"], p["wqkv"][c:])}
         for name, (kern, plain, lib, nbytes, ops) in gcvit_calls(p, BATCH, c, heads).items():
             times = time_calls(kern, plain, lib)
             count = (n_local if name.endswith("local") else n_global if name.endswith("global")
                      else n_local + n_global)
             bound = account(stats, name.split(" ")[0], count, times, nbytes, ops, "bf16")
-            g_ms = time_gemm(stats, name, count, alone[name]) if name in alone else None
+            g_ms = (time_gemm(stats, name.split(" ")[0], count, alone[name]) if name in alone
+                    else None)
             print_launch(name, f"({BATCH},{grid},{grid},{c}) w{ws}", times, bound, card, g_ms)
         del p, y, alone
         torch.cuda.empty_cache()
@@ -1265,6 +1280,7 @@ def phase_slice(card: str) -> dict:
 
     expect_launches(fused, {**{n: None for n in GCVIT_KERNELS},
                             "dwconv7x7_nhwc": batches * CONVNEXT_BLOCKS,
+                            "ln_qkv": batches * GCVIT_BLOCKS,
                             **{n: batches * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
                             ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)}, "fused CSV->CSV")
     expect_launches(unfused, {**{n: batches * CONVNEXT_BLOCKS for n in CONVNEXT_KERNELS},

@@ -94,10 +94,76 @@ def test_mlp_kernels_match_plain_on_card(cuda_device, c, ratio, rows, res_dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 96, 192, 384, 768])
+@pytest.mark.parametrize("grid", ["tiny", "ragged", "one", "rounds"])
+def test_dwconv_matches_plain_on_card(cuda_device, c, grid):
+    """The tiled depthwise kernel against its f32 plain version on the same
+    bf16 input, within 1e-5 of max|ref| (f32 sums of 49 products in another
+    order): H and W below 7 (the halo is mostly padding), ragged tiles (13 x
+    11 against 16 x 16 tiles), batch 1, and a batch whose tiles outnumber
+    one round of the persistent CTAs."""
+    b, h, w = {"tiny": (2, 5, 6), "ragged": (3, 13, 11), "one": (1, 24, 24),
+               "rounds": (24 * 96 // c + 40, 24, 24)}[grid]
+    g = torch.Generator(device=cuda_device).manual_seed(c + h)
+
+    def u(s, lo, hi):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    x = u((b, h, w, c), -1, 1).to(torch.bfloat16)
+    dw, dwb = u((7, 7, c), -0.2, 0.2), u((c,), -0.1, 0.1)
+    K.reset_launches()
+    got = K.dwconv7x7_nhwc(x, dw, dwb)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["dwconv7x7_nhwc"] == 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert _rel(got, K.dwconv7x7_nhwc_plain(x.float(), dw, dwb)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("s", [2, 3])
+@pytest.mark.parametrize("rows", ["one", "tile-1", "tile+1", "ragged"])
+def test_ln_qkv_matches_plain_on_card(cuda_device, c, s, rows):
+    """``ln_qkv`` on the wgmma + TMA engine at every GCViT width, local (q,
+    k, v) and global (k, v), against the f32 plain version on the same bf16
+    inputs: max|d| / max|ref| <= 1e-2 (the bf16 LN output and outputs). Row
+    counts at the edges of the plan's row tile and one that gives the
+    persistent CTAs more than a round of tiles with a ragged last one."""
+    g = torch.Generator(device=cuda_device).manual_seed(c * s)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    bm = K.mlp_gemm_plan("qkv", c, s * c)["bm"]
+    m = {"one": 1, "tile-1": bm - 1, "tile+1": bm + 1, "ragged": 2 * 132 * 128 + 77}[rows]
+    x, lg, lb = u((m, c)).to(torch.bfloat16), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    w, b = (u((s * c, c)) * c ** -0.5).to(torch.bfloat16), u((s * c,), -0.1, 0.1)
+    G.reset_launches()
+    got = G.ln_qkv(x, lg, lb, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["ln_qkv"] == 1 and len(got) == s
+    for o, ref in zip(got, G.ln_qkv_plain(x, lg, lb, w.float(), b, 1e-5)):
+        assert o.shape == (m, c) and o.dtype == torch.bfloat16
+        assert _rel(o, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_exp_dwconv_tool_runs_on_card(cuda_device):
+    """The depthwise phase-cut tool at s1 and s4: every cut and cuDNN timed,
+    the whole kernel within 1e-5 of its plain version."""
+    from vip_cup_2022_tpu_torch.tools import exp_dwconv
+
+    for r in exp_dwconv.main(["--iters", "1", "--batch", "2", "--shapes", "s1", "s4"]):
+        assert r["rel_err"] <= 1e-5
+        assert set(r["ms"]) == set(exp_dwconv.CUTS) | {"cudnn"}
+        assert all(t > 0 for t in r["ms"].values())
+
+
+@pytest.mark.cuda
 def test_mlp_gemm_cuts_run_on_card(cuda_device):
     """The phase-cut tool at s1 and L4 (a resident and a streamed plan):
-    every cut launches and is timed, and the whole kernels agree with their
-    plain versions."""
+    every cut launches and is timed (at L4 also ``ln_qkv``'s), and the whole
+    kernels agree with their plain versions."""
     from vip_cup_2022_tpu_torch.tools import exp_mlp_gemm
 
     for r in exp_mlp_gemm.main(["--iters", "1", "--batch", "2", "--shapes", "s1", "L4"]):
@@ -105,6 +171,8 @@ def test_mlp_gemm_cuts_run_on_card(cuda_device):
         assert set(r["ln_fc1_gelu"]) == set(exp_mlp_gemm.LN_CUTS) | {"cublas"}
         assert set(r["fc2_scale_residual"]) == set(exp_mlp_gemm.FC2_CUTS) | {"cublas"}
         assert all(t > 0 for t in r["ln_fc1_gelu"].values())
+        if r["name"] == "L4":  # ln_qkv's cuts on the same engine
+            assert set(r["ln_qkv"]) == set(exp_mlp_gemm.QKV_CUTS) | {"cublas"}
 
 
 @pytest.mark.cuda

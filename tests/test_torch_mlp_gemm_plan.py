@@ -1,5 +1,6 @@
-"""The tile plan of the two MLP GEMM kernels (``ln_fc1_gelu``,
-``fc2_scale_residual``) and their CPU dispatch, without a card.
+"""The tile plan of the kernels on the wgmma + TMA engine (``ln_fc1_gelu``,
+``fc2_scale_residual`` and GCViT's ``ln_qkv``) and their CPU dispatch,
+without a card.
 
 ``mlp_gemm_plan`` picks, per shape, the column tile (a wgmma n), the TMA
 ring's depth, the LN A buffers and whether fc1 stays resident in shared
@@ -15,11 +16,14 @@ import pytest
 import torch
 
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K
+from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G
 
 MAIN_PATH = [(96, 384), (192, 768), (384, 1536), (768, 3072),  # ConvNeXt s1-s4
              (64, 192), (128, 384), (256, 768), (512, 1536)]  # GCViTTiny L1-L4
 CARD_TESTS = [(c, r * c) for c in (32, 64, 96, 128, 192, 256, 384, 512, 768) for r in (3, 4)]
 SHAPES = sorted(set(MAIN_PATH + CARD_TESTS))
+QKV_WIDTHS = sorted({64, 128, 256, 512}  # GCViTTiny L1-L4
+                    | {32, 64, 96, 128, 192, 256, 384, 512})  # the card tests
 
 
 @pytest.mark.parametrize("c,n", SHAPES)
@@ -77,3 +81,67 @@ def test_wrappers_take_the_plain_versions_on_cpu(m, c, n, f32_residual):
     torch.testing.assert_close(hid, K.ln_fc1_gelu_plain(x, lg, lb, w1, b1, 1e-6), rtol=0, atol=0)
     torch.testing.assert_close(out, K.fc2_scale_residual_plain(hid, w2, b2, gamma, res), rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("c", QKV_WIDTHS)
+@pytest.mark.parametrize("s", [2, 3])
+def test_qkv_plan_fits_and_keeps_each_tile_in_one_output(c, s):
+    plan = K.mlp_gemm_plan("qkv", c, s * c)
+    assert plan["kind"] == "qkv" and plan["smem"] <= K.SMEM_LIMIT
+    assert plan["bn"] in K.WGMMA_N and plan["bn"] in K.WIDTHS
+    assert c % plan["bn"] == 0  # a column tile never straddles two of q, k, v
+    assert (s * c) % plan["bn"] == 0  # the S outputs are tiled exactly
+    assert plan["bm"] == (K.BM // 2 if plan["split_n"] else K.BM)
+    if plan["split_n"]:
+        assert plan["bn"] in K.SPLIT_WIDTHS
+    if plan["resident"]:
+        assert plan["stages"] == (s * c // plan["bn"]) * -(-c // 64) <= K.MAX_RESIDENT
+    else:
+        assert 2 <= plan["stages"] <= K.MAX_RING
+    assert plan["a_buffers"] in (1, 2)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_qkv_plan_at_gcvit_levels(c):
+    """L1 and L2 keep W_qkv resident in shared memory (24 and 96 KB at S =
+    3); L3 and L4 stream it through the ring in 128-row tiles, with four
+    stages or more."""
+    for s in (2, 3):
+        plan = K.mlp_gemm_plan("qkv", c, s * c)
+        assert plan["resident"] == (c <= 128) and not plan["split_n"]
+        assert plan["resident"] or plan["stages"] >= 4
+
+
+def test_qkv_plan_rejects_widths_that_are_not_two_or_three_c():
+    with pytest.raises(ValueError, match="2 or 3"):
+        K.mlp_gemm_plan("qkv", 64, 256)
+
+
+@pytest.mark.parametrize("m,c,s", [(1, 32, 2), (37, 64, 3), (130, 128, 2)])
+def test_ln_qkv_takes_the_plain_version_on_cpu(m, c, s):
+    rng = np.random.RandomState(m + c + s)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.uniform(-1, 1, shape) * scale).astype(np.float32))
+
+    x, lg, lb = t(m, c), t(c) + 1, t(c, scale=0.1)
+    w, b = t(s * c, c, scale=c ** -0.5), t(s * c)
+    G.reset_launches()
+    got = G.ln_qkv(x, lg, lb, w, b, 1e-5)
+    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0}
+    assert len(got) == s and all(o.shape == (m, c) for o in got)
+    for o, ref in zip(got, G.ln_qkv_plain(x, lg, lb, w, b, 1e-5)):
+        torch.testing.assert_close(o, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 6, 32), (2, 9, 13, 96)])
+def test_dwconv_takes_the_plain_version_on_cpu(shape):
+    rng = np.random.RandomState(shape[-1])
+    c = shape[-1]
+    x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(torch.bfloat16)
+    taps = torch.from_numpy(rng.uniform(-0.2, 0.2, (7, 7, c)).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-0.1, 0.1, (c,)).astype(np.float32))
+    K.reset_launches()
+    got = K.dwconv7x7_nhwc(x, taps, bias)
+    assert K.LAUNCHES["dwconv7x7_nhwc"] == 0 and got.dtype == torch.float32
+    torch.testing.assert_close(got, K.dwconv7x7_nhwc_plain(x, taps, bias), rtol=0, atol=0)

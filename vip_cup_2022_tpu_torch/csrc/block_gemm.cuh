@@ -1,24 +1,20 @@
-// The older GEMM templates of the GCViT block kernels for Hopper (sm_90a):
-// cp.async staging, wmma bf16 fragments, and two kernel templates that only
-// ln_qkv and proj_scale_residual (gcvit_block.cu) still use; the tool
-// kernels of ln_mlp.cu and attn_parts.cu share the helpers. The two MLP
-// GEMMs of both block families, ln_fc1_gelu and fc2_scale_residual, moved
-// to hopper_gemm.cuh's wgmma + TMA engine; these two are queued to follow.
+// The older GEMM template of the GCViT block kernels for Hopper (sm_90a):
+// cp.async staging, wmma bf16 fragments, and one kernel template that only
+// proj_scale_residual (gcvit_block.cu) still uses; the tool kernels of
+// ln_mlp.cu and attn_parts.cu and the window-attention template share the
+// helpers. The two MLP GEMMs of both block families and ln_qkv moved to
+// hopper_gemm.cuh's wgmma + TMA engine; proj_scale_residual is queued to
+// follow.
 //
-//   ln_gemm_kernel                   bf16 (M, C) rows -> two-pass f32 LN ->
-//                                    bf16 tile in shared memory -> bf16
-//                                    tensor-core GEMM against W (N, C) ->
-//                                    + bias -> the N columns split into
-//                                    N / ldo outputs of width ldo (q / k / v)
 //   gemm_scale_residual_kernel<ResT, OutT>
 //                                    bf16 A (M, K) @ W (C, K)^T, f32
 //                                    accumulation -> (+ bias) * gamma +
 //                                    residual (ResT) -> OutT (M, C)
 //
-// They replace ln_dense and the proj half of proj_res_ln_mlp
-// (vip_cup_2022_tpu/ops/pallas/gcvit_block.py). What bounds them: the bytes
-// of x and the outputs (K = C = 64 ... 512 gives few products per byte);
-// what holds them back is the engine: nvcuda::wmma 16x16x16 bf16 tiles
+// It replaces the proj half of proj_res_ln_mlp (vip_cup_2022_tpu/ops/
+// pallas/gcvit_block.py). What bounds it: the bytes of its operands and
+// output (K = C = 64 ... 512 gives few products per byte); what holds it
+// back is the engine: nvcuda::wmma 16x16x16 bf16 tiles
 // (f32 accumulators) fed from shared memory by a three-stage cp.async ring,
 // so the loop is bound by shared-memory fragment loads, and each warp
 // writes its accumulator tiles through 1 KB of shared memory with the
@@ -54,8 +50,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float gelu_erf(float h) {  // the LN-MLP tool kernels' (ln_mlp.cu)
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
 }
-
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // cp.async: 16-byte global -> shared copies that run while the warps compute.
 // With pred false the 16 bytes are zero-filled and nothing is read.
@@ -140,145 +134,6 @@ __device__ __forceinline__ void store8(bf16* __restrict__ p, const float v[8]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) o.h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
   *reinterpret_cast<uint4*>(p) = o.u;
-}
-
-// ---------------------------------------------------------------------------
-// LN + GEMM. A block owns kLnBM rows: it normalizes them once into a
-// bf16 (kLnBM, C) shared tile, then walks the N output columns in chunks of
-// kLnBN (the last chunk may be ragged: its missing weight rows are
-// zero-filled and its columns never stored), while a kStages-deep cp.async
-// ring streams W in (kLnBN, kBK) slices. Warps: 2 (m) x 4 (n), each a 32x32
-// patch = 2x2 wmma tiles, written out by the warp itself at the end of each
-// chunk. Output column n goes to out[n / ldo] at column n % ldo; ldo is a
-// multiple of 16, so no warp tile straddles two outputs.
-// ---------------------------------------------------------------------------
-constexpr int kLnBM = 64;
-constexpr int kLnBN = 128;
-constexpr int kLnRows = kLnBM / (kThreads / 32);  // rows each warp normalizes
-
-inline size_t ln_gemm_smem_bytes(int C) {
-  return (size_t)kLnBM * (C + kPad) * sizeof(bf16) +
-         (size_t)kStages * kLnBN * kLd * sizeof(bf16) +
-         (size_t)(kThreads / 32) * 256 * sizeof(float);
-}
-
-__global__ void __launch_bounds__(kThreads, 3)  // 3 blocks/SM where shared memory allows
-ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
-               const float* __restrict__ ln_b, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ out0,
-               bf16* __restrict__ out1, bf16* __restrict__ out2,
-               int M, int C, int N, int ldo, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = C + kPad;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kLnBM * lda;
-  float* stage = reinterpret_cast<float*>(Bs + kStages * kLnBN * kLd) + warp * 256;
-  const long long m0 = (long long)blockIdx.x * kLnBM;
-  const int KT = C / kBK;
-  const int T = (N + kLnBN - 1) / kLnBN * KT;  // (chunk, K slice) steps
-
-  // start streaming W before the LN prologue
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < T) load_tile_async<kLnBN>(Bs + s * kLnBN * kLd, w, (s / KT) * kLnBN, N, C, (s % KT) * kBK);
-    cp_async_commit();
-  }
-
-  // two-pass f32 LayerNorm; each warp normalizes its kLnRows rows together,
-  // so a lane has kLnRows independent loads in flight per pass
-  const float inv_c = 1.0f / (float)C;
-  const long long r0 = m0 + warp * kLnRows;
-  float mean[kLnRows], rstd[kLnRows];
-#pragma unroll
-  for (int i = 0; i < kLnRows; ++i) mean[i] = rstd[i] = 0.f;
-  for (int c = lane; c < C; c += 32) {
-#pragma unroll
-    for (int i = 0; i < kLnRows; ++i) {
-      if (r0 + i < M) mean[i] += to_f32(x[(r0 + i) * C + c]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kLnRows; ++i) mean[i] = warp_sum(mean[i]) * inv_c;
-  for (int c = lane; c < C; c += 32) {
-#pragma unroll
-    for (int i = 0; i < kLnRows; ++i) {
-      if (r0 + i < M) {
-        const float d = to_f32(x[(r0 + i) * C + c]) - mean[i];
-        rstd[i] += d * d;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kLnRows; ++i) rstd[i] = rsqrtf(warp_sum(rstd[i]) * inv_c + eps);
-  for (int c = lane; c < C; c += 32) {
-    const float g = ln_g[c], b = ln_b[c];
-#pragma unroll
-    for (int i = 0; i < kLnRows; ++i) {
-      const float y = r0 + i < M ? (to_f32(x[(r0 + i) * C + c]) - mean[i]) * rstd[i] * g + b : 0.f;
-      As[(warp * kLnRows + i) * lda + c] = __float2bfloat16(y);
-    }
-  }
-
-  const int wm = warp / 4, wn = warp % 4;
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // slice t landed for all; slice t-1's buffer is free; As is written
-    const int tn = t + kStages - 1;
-    if (tn < T) {
-      load_tile_async<kLnBN>(Bs + (tn % kStages) * kLnBN * kLd, w, (tn / KT) * kLnBN, N, C,
-                             (tn % KT) * kBK);
-    }
-    cp_async_commit();
-
-    const int kt = t % KT, n0 = (t / KT) * kLnBN;
-    const bf16* b = Bs + (t % kStages) * kLnBN * kLd;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA fa[2];
-      FragB fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * lda + kt * kBK + kk, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], b + (wn * 32 + j * 16) * kLd + kk, kLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-
-    if (kt == KT - 1) {  // chunk done: + bias, bf16 store, reset
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col0 = n0 + wn * 32 + j * 16;
-          if (col0 < N) {
-            float v[8], bv[8];
-            stage_fragment(stage, acc[i][j], v);
-            const long long m = m0 + wm * 32 + i * 16 + (lane >> 1);
-            const int n = col0 + (lane & 1) * 8;
-            if (m < M) {
-              load8(bias + n, bv);
-#pragma unroll
-              for (int e = 0; e < 8; ++e) v[e] += bv[e];
-              const int part = n / ldo;  // split into N / ldo outputs
-              bf16* dst = part == 0 ? out0 : (part == 1 ? out1 : out2);
-              store8(dst + m * ldo + (n - part * ldo), v);
-            }
-          }
-          wmma::fill_fragment(acc[i][j], 0.f);
-        }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -398,20 +253,6 @@ inline cudaError_t grant_smem(const void* kernel, size_t bytes, SmemGrant& grant
 
 // Launch helpers: raise the shared-memory grant of the instantiation, then
 // launch on `stream`; return cudaGetLastError() for the ctypes caller.
-inline cudaError_t launch_ln_gemm(const bf16* x, const float* ln_g, const float* ln_b, const bf16* w,
-                           const float* bias, bf16* out0, bf16* out1, bf16* out2,
-                           int M, int C, int N, int ldo, float eps, cudaStream_t stream) {
-  static SmemGrant grant;
-  if (M == 0) return cudaSuccess;
-  const size_t smem = ln_gemm_smem_bytes(C);
-  const cudaError_t err = grant_smem((const void*)ln_gemm_kernel, smem, grant);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((M + kLnBM - 1) / kLnBM);
-  ln_gemm_kernel<<<blocks, kThreads, smem, stream>>>(
-      x, ln_g, ln_b, w, bias, out0, out1, out2, M, C, N, ldo, eps);
-  return cudaGetLastError();
-}
-
 template <typename ResT, typename OutT>
 cudaError_t launch_gemm_scale_residual(const bf16* a, const bf16* w, const float* bias,
                                        const float* gamma, const ResT* res, OutT* out,

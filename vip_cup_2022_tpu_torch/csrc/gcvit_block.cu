@@ -6,9 +6,12 @@
 // and runs as five launches, three of them here:
 //
 //   ln_qkv               bf16 x (M, C) -> two-pass f32 LN -> bf16 tile in
-//                        shared memory -> bf16 GEMM against W_qkv (S*C, C)
+//                        shared memory -> wgmma against W_qkv (S*C, C)
 //                        + bias -> S separate bf16 (M, C) outputs: q, k, v
-//                        (S = 3), or k, v (S = 2, global-query blocks)
+//                        (S = 3), or k, v (S = 2, global-query blocks);
+//                        hopper_gemm.cuh's engine, its LN read of bf16 x
+//                        and its bias-only epilogue (kQkv), whose column
+//                        tiles divide C so that each lies in one output
 //   window_attention     per (window, head): softmax(q k^T + rel-pos bias) v
 //                        with hd = 32, q scaled in f32 and rounded to bf16,
 //                        P normalised after P.V by the sum of its bf16
@@ -22,9 +25,10 @@
 //                        + bf16 x -> f32 r1 (M, C)
 //
 // then ln_fc1_gelu and fc2_scale_residual_f32res of convnext_block.cu on r1.
-// ln_qkv and proj_scale_residual instantiate block_gemm.cuh's wmma +
-// cp.async templates; the MLP half runs on hopper_gemm.cuh's wgmma + TMA
-// engine (convnext_block.cu), to which these two are queued to move.
+// ln_qkv and the MLP half run on hopper_gemm.cuh's wgmma + TMA engine (the
+// plan, as for the MLP GEMMs, comes from ops/kernels/convnext_block.py:
+// mlp_gemm_plan, kind "qkv"); proj_scale_residual still instantiates
+// block_gemm.cuh's wmma + cp.async template, queued to move as well.
 //
 // `window_attention` replaces the TPU kernel `grouped_window_attention`
 // (bodies `_attn_kernel`, `_attn_kernel_perwin`) of vip_cup_2022_tpu/ops/
@@ -39,6 +43,7 @@
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
 
 #include "block_gemm.cuh"
+#include "hopper_gemm.cuh"
 #include "window_attention.cuh"
 
 using namespace block_gemm;
@@ -46,11 +51,13 @@ using namespace block_gemm;
 extern "C" {
 
 int ln_qkv(const void* x, const void* ln_g, const void* ln_b, const void* w, const void* bias,
-           void* q, void* k, void* v, int M, int C, int S, float eps, void* stream) {
-  return (int)launch_ln_gemm(
-      (const bf16*)x, (const float*)ln_g, (const float*)ln_b, (const bf16*)w,
-      (const float*)bias, (bf16*)q, (bf16*)k, (bf16*)v, M, C, S * C, C, eps,
-      (cudaStream_t)stream);
+           void* q, void* k, void* v, int M, int C, int S, float eps, int bn, int stages,
+           int a_buffers, int resident, int split_n, void* stream) {
+  const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
+                                {(bf16*)q, (bf16*)k, (bf16*)v}, M, C, S * C, eps, stages,
+                                a_buffers, resident};
+  return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, bf16, true>(
+      p, w, bn, split_n, (cudaStream_t)stream);
 }
 
 int window_attention(const void* q, const void* k, const void* v, const void* bias, void* out,

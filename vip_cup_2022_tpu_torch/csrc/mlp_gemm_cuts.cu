@@ -1,12 +1,16 @@
-// Phase cuts of the two MLP GEMM kernels (hopper_gemm.cuh) for timing, at
-// the widths of the main path's shapes (ConvNeXt s1-s4, GCViT L1-L4):
+// Phase cuts of the three kernels on hopper_gemm.cuh's engine for timing,
+// at the widths of the main path's shapes (ConvNeXt s1-s4, GCViT L1-L4; for
+// ln_qkv GCViT's column tiles of 64 and 128):
 //
 //   cut 0  loads: the TMA loads of W (and of the hidden for fc2) and the
-//          16-byte reads of x, nothing computed or written
-//   cut 1  + the LN and the A tile writes (ln_fc1_gelu only; for
+//          reads of x, nothing computed or written
+//   cut 1  + the LN and the A tile writes (ln_fc1_gelu and ln_qkv; for
 //          fc2_scale_residual the same as cut 0)
 //   cut 2  + the wgmma products
-//   cut 3  + the epilogue: the kernel itself (convnext_block.cu)
+//   cut 3  + the epilogue: the kernel itself (convnext_block.cu,
+//          gcvit_block.cu)
+//   cut 4  cut 2 + the accumulators stored as bf16 (the MLP GEMMs)
+//   cut 5  cut 3 without its stores
 //
 // The cut kernels are other instantiations of the same templates, under
 // other mangled names, so they load beside convnext_block.cu's library.
@@ -23,8 +27,8 @@ template <int kCut>
 int ln_cut(const void* x, const void* ln_g, const void* ln_b, const void* w1, const void* b1,
            void* hidden, int M, int C, int N, float eps, int bn, int stages, int a_buffers,
            int resident, int split_n, void* stream) {
-  const hopper_gemm::LnParams p{(const float*)x, (const float*)ln_g, (const float*)ln_b,
-                                (const float*)b1, (bf16*)hidden, M, C, N, eps, stages,
+  const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)b1,
+                                {(bf16*)hidden, nullptr, nullptr}, M, C, N, eps, stages,
                                 a_buffers, resident};
   return (int)hopper_gemm::launch_ln<kCut, false>(p, w1, bn, split_n, (cudaStream_t)stream);
 }
@@ -39,9 +43,38 @@ int res_cut(const void* hidden, const void* w2, const void* b2, const void* gamm
                                                           (cudaStream_t)stream);
 }
 
+template <int kCut>
+int qkv_cut(const hopper_gemm::LnParams& p, const void* w, int bn, int split_n,
+            cudaStream_t stream) {
+  if (p.M == 0) return 0;
+  if (split_n) return (int)cudaErrorInvalidValue;
+  switch (bn) {  // GCViTTiny's levels: C = 64 -> 64, C = 128 ... 512 -> 128
+    case 64: return (int)hopper_gemm::launch_ln_bn<64, kCut, false, bf16, true>(p, w, stream);
+    case 128: return (int)hopper_gemm::launch_ln_bn<128, kCut, false, bf16, true>(p, w, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+int ln_qkv_cut(const void* x, const void* ln_g, const void* ln_b, const void* w,
+               const void* bias, void* q, void* k, void* v, int M, int C, int S, float eps,
+               int bn, int stages, int a_buffers, int resident, int split_n, int cut,
+               void* stream) {
+  const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
+                                {(bf16*)q, (bf16*)k, (bf16*)v}, M, C, S * C, eps, stages,
+                                a_buffers, resident};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (cut) {
+    case 0: return qkv_cut<0>(p, w, bn, split_n, st);
+    case 1: return qkv_cut<1>(p, w, bn, split_n, st);
+    case 2: return qkv_cut<2>(p, w, bn, split_n, st);
+    case 5: return qkv_cut<5>(p, w, bn, split_n, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 int ln_fc1_gelu_cut(const void* x, const void* ln_g, const void* ln_b, const void* w1,
                     const void* b1, void* hidden, int M, int C, int N, float eps, int bn,

@@ -15,7 +15,10 @@ The two differ only in TPU layout, so one channels-last family of three
 kernels (``csrc/convnext_block.cu``) covers every stage:
 
 1. ``dwconv7x7_nhwc``: depthwise 7x7 + bias, bf16 in, f32 out (the LN reads
-   the unrounded depthwise sum, as ``_kernel`` does);
+   the unrounded depthwise sum, as ``_kernel`` does), on the shared-memory
+   tiled template of ``csrc/depthwise.cuh``: a persistent CTA copies each
+   output tile's halo (32 channels) into shared memory by ``cp.async``,
+   the next tile's copy overlapping this one's f32 FMAs;
 2. ``ln_fc1_gelu``: two-pass f32 LN of a 128-row tile from registers into
    shared memory as bf16, a wgmma product against fc1 with f32
    accumulation, + b1, exact GELU (erf within 1 ulp of f32), bf16 hidden;
@@ -30,7 +33,8 @@ TMA loads into an mbarrier ring, ``wgmma`` products, persistent CTAs and two
 pairs of consumer warpgroups in ping-pong, so that one pair's GELU or
 residual epilogue overlaps the other's products. :func:`mlp_gemm_plan` picks each
 shape's tiles, ring depth, A buffers and whether fc1 stays resident in
-shared memory; the launcher checks the plan.
+shared memory (also for the GCViT block's ``ln_qkv`` on the same engine,
+kind "qkv"); the launcher checks the plan.
 
 What bounds them on the card: at s1/s2 (99x99x96, 49x49x192) the block does
 few FLOPs per byte (K = 96 or 192), so the depthwise pass and the memory
@@ -38,9 +42,7 @@ traffic dominate; at s3/s4 (24x24x384, 12x12x768) the two GEMMs' products.
 What this design leaves on the table: the (M, 4C) hidden makes one round
 trip through device memory, which the TPU kernel keeps on chip (at s1 and
 batch 256 that is 2.5 M rows x 384 x 2 B = 1.9 GB written and read once
-per block); the depthwise output also makes a f32 round trip, and the
-depthwise pass reads its 7x7 halo through L1 rather than a shared-memory
-tile.
+per block); the depthwise output also makes a f32 round trip.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -71,7 +73,9 @@ _SIGNATURES = {
 _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type)
     "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
     "fc2_scale_residual_cut": _RES_ARGS + [_I, _I, _P],
+    "ln_qkv_cut": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 6 + [_P],  # gcvit_block.ln_qkv_cut
 }
+_DW_CUT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # csrc/dwconv_cuts.cu
 
 # ---------------------------------------------------------------------------
 # the MLP GEMMs' per-shape plan (csrc/hopper_gemm.cuh checks it)
@@ -102,14 +106,16 @@ def _stages_that_fit(fixed: int, stage: int, most: int) -> int:
     return min(most, (SMEM_LIMIT - _ALIGN - _barrier_bytes(0) - fixed) // (stage + 16))
 
 
-def _ln_tiles(c: int, n: int) -> dict:
-    """``ln_fc1_gelu``'s tiles: fc1 resident in the ring where it fits beside
-    two 128-row A tiles (else one); else streamed through 128-row tiles, with
-    two A buffers where that leaves four stages; where one A tile leaves
-    fewer than four, 64-row tiles split by columns between a pair's two
-    warpgroups. The widest chunk dividing n that works."""
+def _ln_tiles(c: int, n: int, kind: str = "ln") -> dict:
+    """The LN GEMM's tiles (``ln_fc1_gelu``, or ``ln_qkv`` for ``kind``
+    "qkv"): the weight resident in the ring where it fits beside two 128-row
+    A tiles (else one); else streamed through 128-row tiles, with two A
+    buffers where that leaves four stages; where one A tile leaves fewer than
+    four, 64-row tiles split by columns between a pair's two warpgroups. The
+    widest chunk dividing n (for "qkv" dividing c, so that a chunk lies in one
+    of the q, k, v outputs) that works."""
     cpad, fixed = -(-c // _BK) * _BK, EPILOGUE_BYTES["ln"]
-    for bn in (w for w in WIDTHS if n % w == 0):
+    for bn in (w for w in WIDTHS if n % w == 0 and (kind != "qkv" or c % w == 0)):
         stage, everything = bn * 2 * _BK, (n // bn) * (cpad // _BK)
         options = []
         for bm in (BM, BM // 2) if bn in SPLIT_WIDTHS else (BM,):
@@ -126,12 +132,14 @@ def _ln_tiles(c: int, n: int) -> dict:
                         + stages * stage)
                 return dict(bm=bm, bn=bn, stages=stages, a_buffers=a_buffers, resident=resident,
                             split_n=bm < BM, smem=smem)
-    raise ValueError(f"no ln_fc1_gelu plan fits C = {c}, N = {n} in shared memory")
+    raise ValueError(f"no {kind} plan fits C = {c}, N = {n} in shared memory")
 
 
 def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
-    """Tiles of one MLP GEMM launch. ``kind`` "ln": ``ln_fc1_gelu`` on x
-    (M, c) -> (M, n); "res": ``fc2_scale_residual`` on a hidden (M, n) ->
+    """Tiles of one launch on ``csrc/hopper_gemm.cuh``'s engine. ``kind``
+    "ln": ``ln_fc1_gelu`` on x (M, c) -> (M, n); "qkv": ``ln_qkv``
+    (:mod:`.gcvit_block`) on x (M, c) -> n = 2c or 3c columns, split into
+    (M, c) outputs; "res": ``fc2_scale_residual`` on a hidden (M, n) ->
     (M, c). Keys: ``bm`` rows a work item (64 for each warpgroup of a
     consumer pair), ``bn`` its columns (a wgmma n dividing the output
     width), ``stages`` of the TMA ring, ``a_buffers`` (LN A tiles: two let
@@ -145,6 +153,10 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     plan = dict(kind=kind, swizzle=128, ctas_per_sm=1)
     if kind == "ln":
         plan.update(_ln_tiles(c, n))
+    elif kind == "qkv":
+        if n not in (2 * c, 3 * c):
+            raise ValueError(f"ln_qkv's width {n} is not 2 or 3 x C = {c}")
+        plan.update(_ln_tiles(c, n, kind))
     elif kind == "res":
         bn = next(w for w in WIDTHS if c % w == 0)
         stage = (BM + bn) * 2 * _BK
@@ -152,13 +164,13 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
         plan.update(bm=BM, bn=bn, stages=stages, a_buffers=0, resident=False, split_n=False)
         plan["smem"] = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + stages * stage
     else:
-        raise ValueError(f"kind must be 'ln' or 'res', got {kind!r}")
+        raise ValueError(f"kind must be 'ln', 'qkv' or 'res', got {kind!r}")
     return plan
 
 
 @functools.lru_cache(maxsize=None)
-def _ln_plan_args(c: int, n: int) -> tuple:
-    p = mlp_gemm_plan("ln", c, n)
+def _ln_plan_args(c: int, n: int, kind: str = "ln") -> tuple:
+    p = mlp_gemm_plan(kind, c, n)
     return p["bn"], p["stages"], p["a_buffers"], int(p["resident"]), int(p["split_n"])
 
 
@@ -190,6 +202,14 @@ def _cut_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_cut_lib() -> ctypes.CDLL:
+    lib = build.load("dwconv_cuts")
+    lib.dwconv7x7_nhwc_cut.argtypes = _DW_CUT_SIGNATURE
+    lib.dwconv7x7_nhwc_cut.restype = ctypes.c_int
     return lib
 
 
@@ -353,6 +373,24 @@ def ln_fc1_gelu_cut(x, ln_weight, ln_bias, w1, b1, eps: float, cut: int) -> torc
         out.data_ptr(), m, c, n, float(eps), *_ln_plan_args(c, n), cut, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"ln_fc1_gelu cut {cut}: CUDA launch failed with cudaError {err}")
+    return out
+
+
+def dwconv7x7_nhwc_cut(x, dw_kernel, dw_bias, cut: int) -> torch.Tensor:
+    """A phase cut of the ``dwconv7x7_nhwc`` kernel on CUDA tensors: 0 the
+    halo copies into shared memory, 1 + the FMAs without stores, 2 the
+    kernel itself, 3 cut 1 with the halo values made in registers (no
+    shared-memory reads; ``csrc/dwconv_cuts.cu``). Timing only: except at 2
+    its output holds nothing meaningful; counted in :data:`LAUNCHES` only
+    at 2."""
+    if cut == 2:
+        return dwconv7x7_nhwc(x, dw_kernel, dw_bias)
+    b, h, w, c = x.shape
+    out = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
+    err = _dw_cut_lib().dwconv7x7_nhwc_cut(x.data_ptr(), dw_kernel.data_ptr(), dw_bias.data_ptr(),
+                                           out.data_ptr(), b, h, w, c, cut, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"dwconv7x7_nhwc cut {cut}: CUDA launch failed with cudaError {err}")
     return out
 
 

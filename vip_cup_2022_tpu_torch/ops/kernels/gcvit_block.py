@@ -17,8 +17,12 @@ Replaces the four TPU kernels of the JAX package's GCViT block
 One family of five launches covers all four (:func:`window_transformer_block`):
 
 1. ``ln_qkv`` (``csrc/gcvit_block.cu``): two-pass f32 LN of bf16 rows into
-   shared memory as bf16, a wmma bf16 GEMM against W_qkv with f32
-   accumulation, + bias, written as separate (M, C) q, k, v;
+   shared memory as bf16, a wgmma product against W_qkv with f32
+   accumulation, + bias, written as separate (M, C) q, k, v: the wgmma +
+   TMA engine of ``csrc/hopper_gemm.cuh`` that the MLP GEMMs run on, with
+   its LN reading bf16 x and a bias-only epilogue, on the plan of
+   :func:`.convnext_block.mlp_gemm_plan` (kind "qkv": column tiles divide
+   C, so each lies in one output);
 2. ``window_attention`` (``csrc/gcvit_block.cu``, the template of
    ``csrc/window_attention.cuh`` on token rows): persistent CTAs walk the
    (window, head) items with the next item's K and V in flight; a warp owns
@@ -29,9 +33,8 @@ One family of five launches covers all four (:func:`window_transformer_block`):
    (a W_p^T + b_p), written in f32 (the TPU kernel never rounds r1);
 4. ``ln_fc1_gelu`` and 5. ``fc2_scale_residual`` of
    :mod:`.convnext_block` on the f32 r1 (eps 1e-5, f32 residual): the
-   wgmma + TMA engine of ``csrc/hopper_gemm.cuh``. ``ln_qkv`` and
-   ``proj_scale_residual`` keep the older wmma + cp.async templates of
-   ``csrc/block_gemm.cuh``.
+   wgmma + TMA engine of ``csrc/hopper_gemm.cuh``. ``proj_scale_residual``
+   keeps the older wmma + cp.async template of ``csrc/block_gemm.cuh``.
 
 What bounds them on the card: the block does few FLOPs per byte at C = 64
 and 128 (the qkv and proj GEMMs have K = C), so L1 and L2 are bound by
@@ -65,7 +68,7 @@ MAX_WINDOW_TOKENS = 224  # keys per window the attention kernel holds (N <= 224:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "ln_qkv": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],  # + the plan
     "window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "proj_scale_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
@@ -160,7 +163,29 @@ def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     outs = [torch.empty((m, c), dtype=torch.bfloat16, device=x.device) for _ in range(s)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - s)
     _launch("ln_qkv", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
-            b.data_ptr(), *ptrs, m, c, s, float(eps), _stream(x.device))
+            b.data_ptr(), *ptrs, m, c, s, float(eps), *CK._ln_plan_args(c, s * c, "qkv"),
+            _stream(x.device))
+    return tuple(outs)
+
+
+def ln_qkv_cut(x, ln_weight, ln_bias, w, b, eps: float, cut: int) -> Tuple[torch.Tensor, ...]:
+    """A phase cut of the ``ln_qkv`` kernel on CUDA tensors at GCViTTiny's
+    widths (column tiles of 64 and 128): 0 loads, 1 + LN, 2 + products, 3
+    the kernel itself, 5 the kernel without its stores
+    (``csrc/mlp_gemm_cuts.cu``). Timing only: except at 3 the outputs hold
+    nothing meaningful; counted in :data:`LAUNCHES` only at 3."""
+    if cut == 3:
+        return ln_qkv(x, ln_weight, ln_bias, w, b, eps)
+    m, c = x.shape
+    s = w.shape[0] // c
+    outs = [torch.empty((m, c), dtype=torch.bfloat16, device=x.device) for _ in range(s)]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - s)
+    lib = CK._cut_lib()
+    err = lib.ln_qkv_cut(x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
+                         b.data_ptr(), *ptrs, m, c, s, float(eps),
+                         *CK._ln_plan_args(c, s * c, "qkv"), cut, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"ln_qkv cut {cut}: CUDA launch failed with cudaError {err}")
     return tuple(outs)
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phase cuts of the two MLP GEMM kernels at the main path's shapes, on one CUDA card.
+"""Phase cuts of the kernels on the wgmma + TMA engine at the main path's shapes, on one CUDA card.
 
     python3 -m vip_cup_2022_tpu_torch.tools.exp_mlp_gemm [--iters 10] [--batch 256]
         [--shapes s1 s2 ... L4]
@@ -7,16 +7,17 @@
 Per shape (ConvNeXt's stages s1-s4 at 200 px: 99/49/24/12 grids, C 96-768,
 N = 4C, bf16 residual; GCViTTiny@224's levels L1-L4: 56/28/14/7 grids, C
 64-512, N = 3C, f32 residual), ``ln_fc1_gelu`` and ``fc2_scale_residual``
-(``csrc/hopper_gemm.cuh``) timed whole and as the compile-time cuts of
-``csrc/mlp_gemm_cuts.cu``:
+(``csrc/hopper_gemm.cuh``), and at L1-L4 also GCViT's ``ln_qkv`` (bf16 x,
+S = 3: q, k, v) on the same engine, timed whole and as the compile-time
+cuts of ``csrc/mlp_gemm_cuts.cu``:
 
   loads       the TMA loads of the weights (and of the hidden for fc2) and
               the 16-byte reads of x, nothing computed or written
-  ln          + the LN and the A tile writes (ln_fc1_gelu only)
+  ln          + the LN and the A tile writes (ln_fc1_gelu and ln_qkv)
   products    + the wgmma products
   whole       + the epilogue: the kernel itself
   raw_stores  products + the accumulators stored as bf16 (no bias, GELU,
-              gamma or residual)
+              gamma or residual; the MLP GEMMs only)
   no_stores   whole without its stores
 
 beside cuBLAS's product of the same bf16 operands alone (``F.linear``, TF32
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import convnext_block as K
+from ..ops.kernels import gcvit_block as G
 from .bench_util import card_line, cuda_ms
 
 # name: grid, C, N / C, residual dtype, blocks per forward
@@ -47,6 +49,7 @@ SHAPES = {"s1": (99, 96, 4, torch.bfloat16, 3), "s2": (49, 192, 4, torch.bfloat1
           "L3": (14, 256, 3, torch.float32, 19), "L4": (7, 512, 3, torch.float32, 5)}
 LN_CUTS = {"loads": 0, "ln": 1, "products": 2, "whole": 3, "raw_stores": 4, "no_stores": 5}
 FC2_CUTS = {"loads": 0, "products": 2, "whole": 3, "raw_stores": 4, "no_stores": 5}
+QKV_CUTS = {"loads": 0, "ln": 1, "products": 2, "whole": 3, "no_stores": 5}
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
 
@@ -57,6 +60,13 @@ def bounds_ms(m: int, c: int, n: int, res_bytes: int) -> tuple:
     ln = (m * c * 4 + n * c * 2 + (n + 2 * c) * 4 + m * n * 2) / HBM_BYTES_PER_S * 1e3
     fc2 = (m * n * 2 + n * c * 2 + 2 * c * 4 + m * c * (res_bytes + 2)) / HBM_BYTES_PER_S * 1e3
     return max(ln, ops), max(fc2, ops)
+
+
+def qkv_bound_ms(m: int, c: int, s: int = 3) -> float:
+    """``ln_qkv``'s bound in ms: bf16 x and W read once, S bf16 (M, C)
+    outputs written once, or the products at the bf16 peak."""
+    nbytes = (s + 1) * m * c * 2 + s * c * c * 2 + (2 + s) * c * 4
+    return max(nbytes / HBM_BYTES_PER_S, 2 * m * c * s * c / BF16_OPS_PER_S) * 1e3
 
 
 def _timed(fns: dict, iters: int) -> dict:
@@ -101,15 +111,33 @@ def run(batch: int = 256, iters: int = 10, shapes: Sequence[str] = tuple(SHAPES)
         fc2_fns["cublas"] = lambda: F.linear(hid, w2)
         ln_ms, fc2_ms = _timed(ln_fns, iters), _timed(fc2_fns, iters)
         b_ln, b_fc2 = bounds_ms(m, c, n, res.element_size())
-        for kernel, ms, bound, err in (("ln_fc1_gelu", ln_ms, b_ln, errs[0]),
-                                       ("fc2_scale_residual", fc2_ms, b_fc2, errs[1])):
+        timed = [("ln_fc1_gelu", ln_ms, b_ln, errs[0]),
+                 ("fc2_scale_residual", fc2_ms, b_fc2, errs[1])]
+        extra = {}
+        if name.startswith("L"):  # GCViT's ln_qkv on the same engine
+            xq = u((m, c)).to(torch.bfloat16)
+            wq, bq = (u((3 * c, c)) * c ** -0.5).to(torch.bfloat16), u((3 * c,), -0.1, 0.1)
+            got = torch.cat(G.ln_qkv(xq, lg, lb, wq, bq, 1e-5), 1)[rows]
+            ref = torch.cat(G.ln_qkv_plain(xq[rows], lg, lb, wq.float(), bq, 1e-5), 1)
+            errs.append(((got.float() - ref).abs().max() / ref.abs().max()).item())
+            yq = xq  # an LN output's stand-in for cuBLAS's product alone
+            qkv_fns = {cut: (lambda k=k: G.ln_qkv_cut(xq, lg, lb, wq, bq, 1e-5, k))
+                       for cut, k in QKV_CUTS.items()}
+            qkv_fns["cublas"] = lambda: F.linear(yq, wq)
+            extra["ln_qkv"] = _timed(qkv_fns, iters)
+            extra["bound_ln_qkv"] = qkv_bound_ms(m, c)
+            timed.append(("ln_qkv", extra["ln_qkv"], extra["bound_ln_qkv"], errs[2]))
+            del xq, wq, got, ref, qkv_fns
+        for kernel, ms, bound, err in timed:
             print(f"[{name} ({m},{c})->{n}] {kernel}: whole vs plain max|d|/max|ref| {err:.2e}; "
                   + ", ".join(f"{cut} {t:.4f}" for cut, t in ms.items())
                   + f" ms; bound {bound:.4f} ms; whole/bound {ms['whole'] / bound:.2f}, "
                     f"whole/cuBLAS {ms['whole'] / ms['cublas']:.2f} [{card_line()}]", flush=True)
+        bound = dict(ln_fc1_gelu=b_ln, fc2_scale_residual=b_fc2)
+        if extra:
+            bound["ln_qkv"] = extra.pop("bound_ln_qkv")
         results.append(dict(name=name, m=m, c=c, n=n, blocks=blocks, rel_err=errs,
-                            ln_fc1_gelu=ln_ms, fc2_scale_residual=fc2_ms,
-                            bound=dict(ln_fc1_gelu=b_ln, fc2_scale_residual=b_fc2)))
+                            ln_fc1_gelu=ln_ms, fc2_scale_residual=fc2_ms, bound=bound, **extra))
         del x, w1, w2, res, hid, out, y, ln_fns, fc2_fns
         torch.cuda.empty_cache()
     return results
