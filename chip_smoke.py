@@ -32,10 +32,11 @@ each printing its results on earlier lines, any failure exiting non-zero:
    residual) against its plain version in f32 (TF32 off) on the same inputs
    at the GCViTTiny@224 level shapes L1-L4 (56/28/14/7 grids, C 64-512,
    windows 7/7/14/7), at batch 8 and 256, under the same 1e-2 bound; then
-   each timed as in 3 at batch 256, ``ln_qkv`` also beside cuBLAS's product
-   alone; then the ``exp_mlp_gemm`` tool's phase cuts of the kernels on the
-   wgmma + TMA engine (loads / + LN / + products / whole, and the epilogue
-   without its math or without its stores) at s1-s4 and L1-L4, ``ln_qkv``'s
+   each timed as in 3 at batch 256, ``ln_qkv`` and ``proj_scale_residual``
+   also beside cuBLAS's product alone; then the ``exp_mlp_gemm`` tool's
+   phase cuts of the kernels on the wgmma + TMA engine (loads / + LN / +
+   products / whole, and the epilogue without its math or without its
+   stores) at s1-s4 and L1-L4, ``ln_qkv``'s and ``proj_scale_residual``'s
    at L1-L4;
 5. unfused-path kernels, under the same bound at batch 8 and 256, timed as
    in 3 at batch 256:
@@ -82,9 +83,15 @@ each printing its results on earlier lines, any failure exiting non-zero:
    plain f32 path, held to 5e-2 on the damped draw and reported on the
    undamped one; int8 against bf16 with the decision flips at 0.487
    reported. The damped draw's batch-256 bf16 and int8 forwards are timed;
-   ``ptq_int8_conv`` at every site shape
-   that forward recorded, batch 8 and 256, within 1e-6 of max|ref| of its
-   plain version, timed at 256 beside cuDNN's bf16 conv of the site;
+   at every site shape that forward recorded, batch 8 and 256, the site's
+   launches, ``ptq_int8_quantize`` (exactly its plain version) and the GEMM
+   ``ptq_int8_conv`` (``int8_gemm.ptq_int8_gemm``, on x itself at the rows
+   sites that quantize in the GEMM; within 1e-6 of max|ref| of its plain
+   version, and the whole site too), timed at 256
+   beside cuDNN's bf16 conv of the site (and, at a 1 x 1 site,
+   ``torch._int_mm`` on its pre-quantized rows); then the ``exp_ptq_int8``
+   tool's phase cuts of the site (loads / + quantize / + products / whole)
+   at one 1 x 1 and one 3 x 3 site of each stage;
 7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
    (``convnext_tiny_in22k-200x200``, ``GCViTTiny-224x224``) run through
    ``main_torch.main`` at batch 256 (one full batch and one zero-padded
@@ -93,15 +100,16 @@ each printing its results on earlier lines, any failure exiting non-zero:
    rows with logits in {0.0, 1.0}; the first fused run must have launched
    every kernel of both block families, ``ln_fc1_gelu`` and
    ``fc2_scale_residual`` at each of ConvNeXt's 18 and GCViT's 31 blocks,
-   ``dwconv7x7_nhwc`` at each ConvNeXt block, ``ln_qkv`` at each GCViT
-   block, and the LN kernel at each
+   ``dwconv7x7_nhwc`` at each ConvNeXt block, ``ln_qkv`` and
+   ``proj_scale_residual`` at each GCViT block, and the LN kernel at each
    standalone LN, the unfused run the window-attention kernel at each of
    GCViT's 31 blocks, the two MLP kernels at ConvNeXt's 18 only and the LN
    kernel at every LN, per batch, and none of the fused GCViT family; then a
    three-member manifest (adding
    ``ResNetRS50-200x200``) without int8, which launches no int8 kernel, and
    with ``VIPTPU_INT8=ResNetRS50``, which must launch ``ptq_int8_conv`` at
-   every calibrated site of each batch.
+   every calibrated site of each batch and ``ptq_int8_quantize`` at those
+   that do not quantize in the GEMM.
 
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
@@ -109,7 +117,8 @@ CSV run for the block families, the unfused CSV run for
 ``window_attention_bhnd`` and ``layer_norm``, the ``exp_dw`` run for
 ``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
 ``int8_pallas_spike`` run for the three spike bodies and the
-``VIPTPU_INT8=ResNetRS50`` CSV run for ``ptq_int8_conv``.
+``VIPTPU_INT8=ResNetRS50`` CSV run for ``ptq_int8_quantize`` and
+``ptq_int8_conv``.
 ``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
 computes the function) are per batch-256 forward of both members together on
 that path (phases 3-5; ``ln_fc1_gelu`` and ``fc2_scale_residual`` serve both
@@ -118,14 +127,14 @@ shapes, for the LN-MLP kernels per batch-256 launch at each of s1-s4
 summed, for ``attn_parts`` per batch-256 ``full`` launch at l1 and l2
 summed, for the spike bodies per launch at the spike's three shapes summed
 (library: cuBLAS bf16, and ``torch._int_mm`` on a column-major copy of w,
-the layout cuBLASLt's int8 path takes; none for the quantize-on-load body), and for ``ptq_int8_conv`` per batch-256 ResNetRS50 int8 forward (no
-one call computes the int8 site). ``bound_ms`` is the least time the
-card could take for the same launches, each launch's bytes (inputs read once,
-outputs written once) over 3.35 TB/s or its operations over the peak for
-their type (989 TFLOP/s bf16 and 1,979 TOP/s int8 tensor-core products,
-67 TFLOP/s f32 elsewhere; NVIDIA's H100 SXM data sheet), whichever is
-larger, summed; ``bound_by`` says
-which of the two made most of it. ``max_abs_err`` is over every check of
+the layout cuBLASLt's int8 path takes; none for the quantize-on-load body),
+and for ``ptq_int8_quantize`` and ``ptq_int8_conv`` per batch-256 ResNetRS50
+int8 forward (no one call computes the int8 site). ``bound_ms`` is the least
+time the card could take for the same launches, each launch's bytes (inputs
+read once, outputs written once) over 3.35 TB/s or its operations over the
+peak for their type (989 TFLOP/s bf16 and 1,979 TOP/s int8 tensor-core
+products, 67 TFLOP/s f32 elsewhere; NVIDIA's H100 SXM data sheet), whichever
+is larger, summed; ``bound_by`` says which of the two made most of it. ``max_abs_err`` is over every check of
 phases 3-6. Before it the script prints its own wall time. The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -159,8 +168,8 @@ from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
-                                          exp_dwconv, exp_mlp_gemm, exp_window_attention,
-                                          int8_pallas_spike)
+                                          exp_dwconv, exp_mlp_gemm, exp_ptq_int8,
+                                          exp_window_attention, int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
@@ -169,16 +178,17 @@ ATTN, LN, DW = "window_attention_bhnd", "layer_norm", "depthwise_conv_nhwc"
 LNMLP_KERNELS = ("fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst")
 PARTS = "attn_parts"
 SPIKE_KERNELS = ("int8_spike_bf16", "int8_spike_int8", "int8_spike_direct")
-PTQ = "ptq_int8_conv"
+PTQ, QUANT = "ptq_int8_conv", "ptq_int8_quantize"  # the PTQ site's GEMM and quantize pass
 KERNELS = (CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
-           + SPIKE_KERNELS + (PTQ,))
+           + SPIKE_KERNELS + (QUANT, PTQ))
 CSRC = "vip_cup_2022_tpu_torch/csrc"
 SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
 SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
 SOURCES.update({ATTN: f"{CSRC}/window_attention.cu", LN: f"{CSRC}/layernorm.cu",
                 DW: f"{CSRC}/depthwise.cu", PARTS: f"{CSRC}/attn_parts.cu"})
 SOURCES.update({n: f"{CSRC}/ln_mlp.cu" for n in LNMLP_KERNELS})
-SOURCES.update({n: f"{CSRC}/int8_gemm.cu" for n in SPIKE_KERNELS + (PTQ,)})
+SOURCES.update({n: f"{CSRC}/int8_gemm.cu" for n in SPIKE_KERNELS})
+SOURCES.update({n: f"{CSRC}/ptq_int8.cuh" for n in (QUANT, PTQ)})  # built into int8_gemm.cu's
 PALLAS = "vip_cup_2022_tpu/ops/pallas"
 TPU = f"{PALLAS}/convnext_block.py"
 GTPU = f"{PALLAS}/gcvit_block.py"
@@ -203,6 +213,7 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
     **{n: "tools/int8_pallas_spike.py:55" for n in SPIKE_KERNELS},
     PTQ: "tools/int8_pallas_spike.py:55, vip_cup_2022_tpu/quant/ptq.py:172, "
          "vip_cup_2022_tpu/quant/ptq.py:258",
+    QUANT: "vip_cup_2022_tpu/quant/ptq.py:172, vip_cup_2022_tpu/quant/ptq.py:258",
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
@@ -367,8 +378,9 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()}
-                   | {"mlp_gemm_cuts", "dwconv_cuts"})  # the phase cuts the tools time
+    names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()
+                    if src.endswith(".cu")}  # ptq_int8.cuh is built into int8_gemm.cu
+                   | {"mlp_gemm_cuts", "dwconv_cuts", "ptq_int8_cuts"})  # the tools' cuts
     paths = build.build_all(names, verbose=True)
     for module in KERNEL_MODULES:
         module._lib()
@@ -582,7 +594,8 @@ def phase_gcvit_kernels(card: str, stats: dict) -> None:
         alone = {"ln_fc1_gelu": lambda: F.linear(y, p["w1"]),
                  "fc2_scale_residual": lambda: F.linear(p["hid"], p["w2"]),
                  "ln_qkv local": lambda: F.linear(p["x"], p["wqkv"]),
-                 "ln_qkv global": lambda: F.linear(p["x"], p["wqkv"][c:])}
+                 "ln_qkv global": lambda: F.linear(p["x"], p["wqkv"][c:]),
+                 "proj_scale_residual": lambda: F.linear(p["attn"], p["wp"])}
         for name, (kern, plain, lib, nbytes, ops) in gcvit_calls(p, BATCH, c, heads).items():
             times = time_calls(kern, plain, lib)
             count = (n_local if name.endswith("local") else n_global if name.endswith("global")
@@ -1137,16 +1150,21 @@ def phase_resnet(card: str, profile: bool) -> tuple:
 
 
 def phase_ptq_sites(card: str, stats: dict, calls: list) -> None:
-    """``ptq_int8_conv`` at every ResNetRS50 int8 site shape (recorded from
-    one forward), batch 8 and 256, against its plain version (int8 products
-    summed in f64) within 1e-6 of max|ref|, bf16 x and output as on the
-    path; timed at batch 256 beside its plain version, and beside cuDNN's
+    """The int8 PTQ site at every ResNetRS50 int8 site shape (recorded from
+    one forward), batch 8 and 256, bf16 x and output as on the path: its
+    quantize pass (``ptq_int8_quantize``) exactly its plain version, its
+    GEMM (``ptq_int8_conv``'s launch, ``ptq_int8_gemm``, on x quantized by
+    the pass or, at a site that quantizes in the GEMM, on x itself) and the
+    whole site within 1e-6 of max|ref| of their plain versions (int8
+    products summed in f64); timed at batch 256 beside their plain versions
+    (the pass only at the sites that run it), and the site beside cuDNN's
     bf16 conv of the same site for context (no one call computes the int8
-    site, so no library time)."""
+    site, so no library time); then the ``exp_ptq_int8`` tool's phase
+    cuts."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     per_forward = Counter(calls)
     before = snapshot(stats)
-    cudnn_total = int_mm_total = 0.0
+    cudnn_total = int_mm_total = site_total = 0.0
     for b in (8, BATCH):
         for (shape, kernel, stride, padding, n), count in per_forward.items():
             h, w, c = shape
@@ -1157,38 +1175,60 @@ def phase_ptq_sites(card: str, stats: dict, calls: list) -> None:
             cs = torch.rand((n,), generator=gen, device="cuda") * 1e-3
             inv = Q.f32_reciprocal(x.float().abs().max().item() / 127.0)
             kw = dict(kernel=kernel, stride=stride, padding=padding)
+            gkw = dict(kw, out_dtype=torch.bfloat16)
             out = Q.ptq_int8_conv(x, qw, cs, None, inv, **kw)
+            xq = Q.ptq_int8_quantize(x, inv)
+            # the GEMM's A as the site gives it: x quantized by the pass, or x itself
+            in_gemm = Q.quantizes_in_gemm(x.dtype, x.dtype, k=k, n=n, **kw)
+            a, a_inv = (x, inv) if in_gemm else (xq, None)
+            gemm = Q.ptq_int8_gemm(a, qw, cs, None, inv_s=a_inv, **gkw)
             torch.cuda.synchronize()
-            label = f"b{b} {(b, h, w, c)} -> {n} k{kernel} s{stride} x{count}"
-            check({PTQ: (out, lambda: Q.ptq_int8_conv_plain(x, qw, cs, None, inv, **kw))}, label,
-                  stats, INT8_BOUND)
+            label = (f"b{b} {(b, h, w, c)} -> {n} k{kernel} s{stride} x{count}"
+                     + (" quantized in the GEMM" if in_gemm else ""))
+            if not torch.equal(xq, Q.ptq_int8_quantize_plain(x, inv)):
+                raise AssertionError(f"{QUANT} at {label} differs from its plain version")
+            check({QUANT: (xq, lambda: Q.ptq_int8_quantize_plain(x, inv))}, label, stats, 0.0)
+            check({PTQ: (gemm, lambda: Q.ptq_int8_gemm_plain(xq, qw, cs, None, **gkw)),
+                   f"{PTQ} (whole site)": (out, lambda: Q.ptq_int8_conv_plain(
+                       x, qw, cs, None, inv, **kw))}, label, stats, INT8_BOUND)
             if b == BATCH:
-                times = time_calls(lambda: Q.ptq_int8_conv(x, qw, cs, None, inv, **kw),
-                                   lambda: Q.ptq_int8_conv_plain(x, qw, cs, None, inv, **kw))
+                m = out.numel() // n
+                g_times = time_calls(lambda: Q.ptq_int8_gemm(a, qw, cs, None, inv_s=a_inv, **gkw),
+                                     lambda: Q.ptq_int8_gemm_plain(xq, qw, cs, None, **gkw))
+                site = cuda_ms(lambda: Q.ptq_int8_conv(x, qw, cs, None, inv, **kw))
+                site_total += count * site
                 wc = torch.randn((n, c, kernel, kernel), generator=gen, device="cuda").to(
                     torch.bfloat16)
                 xc = x.permute(0, 3, 1, 2)
                 cudnn = cuda_ms(lambda: torch.nn.functional.conv2d(xc, wc, None, stride, padding))
                 cudnn_total += count * cudnn
                 if kernel == 1:  # a 1 x 1 site is an (M, K) @ (K, N) product
-                    xq = Q.quantize(x, inv).view(-1, c)
+                    xr = xq.view(-1, c)
                     wq = qw[:, :c].contiguous()  # (N, K): the column-major B cuBLASLt takes
-                    int_mm = cuda_ms(lambda: torch._int_mm(xq, wq.t()))
+                    int_mm = cuda_ms(lambda: torch._int_mm(xr, wq.t()))
                     int_mm_total += count * int_mm
-                m = out.numel() // n
-                bound = account(stats, PTQ, count, times, x.numel() * 2 + k * n + m * n * 2 + n * 4,
-                                2 * m * k * n, "int8")
-                print_launch(PTQ, label, times, bound, card)
-                print(f"[kernels] {'':26s} cuDNN bf16 conv of the same site {cudnn:.3f} ms"
+                if not in_gemm:  # the pass: bf16 x read, int8 written
+                    q_times = time_calls(lambda: Q.ptq_int8_quantize(x, inv),
+                                         lambda: Q.ptq_int8_quantize_plain(x, inv))
+                    q_bound = account(stats, QUANT, count, q_times, x.numel() * 3, x.numel(),
+                                      "f32")
+                    print_launch(QUANT, label, q_times, q_bound, card)
+                a_bytes = x.numel() * a.element_size()  # int8 after the pass, else bf16
+                g_bound = account(stats, PTQ, count, g_times, a_bytes + k * n + m * n * 2 + n * 4,
+                                  2 * m * k * n, "int8")
+                print_launch(PTQ, label, g_times, g_bound, card)
+                print(f"[kernels] {'':26s} the site (both launches) {site:.3f} ms; cuDNN bf16 conv "
+                      f"of the same site {cudnn:.3f} ms"
                       + (f", torch._int_mm on its pre-quantized rows {int_mm:.3f} ms"
                          if kernel == 1 else ""))
-            del x, qw, out
+            del x, qw, out, xq, gemm, a
             torch.cuda.empty_cache()
-    print_per_forward(stats, before, (PTQ,), f"ResNetRS50 batch-256 int8 forward "
+    print_per_forward(stats, before, (QUANT, PTQ), f"ResNetRS50 batch-256 int8 forward "
                       f"({sum(per_forward.values())} sites)", card)
-    print(f"[kernels] {PTQ} sites per ResNetRS50 batch-256 forward in cuDNN bf16 convs: "
-          f"{cudnn_total:.2f} ms; its 1 x 1 sites as torch._int_mm on pre-quantized rows: "
-          f"{int_mm_total:.2f} ms [{card}]")
+    print(f"[kernels] the {sum(per_forward.values())} int8 sites per ResNetRS50 batch-256 forward: "
+          f"both launches {site_total:.2f} ms; in cuDNN bf16 convs {cudnn_total:.2f} ms; the "
+          f"1 x 1 sites as torch._int_mm on pre-quantized rows {int_mm_total:.2f} ms [{card}]")
+    exp_ptq_int8.main(["--iters", "10"])  # the site's phase cuts
 
 
 def _write_images(img_dir: str, n: int) -> list:
@@ -1281,6 +1321,7 @@ def phase_slice(card: str) -> dict:
     expect_launches(fused, {**{n: None for n in GCVIT_KERNELS},
                             "dwconv7x7_nhwc": batches * CONVNEXT_BLOCKS,
                             "ln_qkv": batches * GCVIT_BLOCKS,
+                            "proj_scale_residual": batches * GCVIT_BLOCKS,
                             **{n: batches * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
                             ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)}, "fused CSV->CSV")
     expect_launches(unfused, {**{n: batches * CONVNEXT_BLOCKS for n in CONVNEXT_KERNELS},
@@ -1297,11 +1338,20 @@ def phase_slice(card: str) -> dict:
             ATTN: unfused[ATTN], LN: unfused[LN]}
 
 
-def phase_slice_int8(card: str, sites: int) -> int:
+def pass_sites(calls: list) -> int:
+    """How many of one forward's int8 sites (bf16 x and output, as the
+    model runs them) run the quantize pass: the rest quantize in the GEMM."""
+    return sum(not Q.quantizes_in_gemm(torch.bfloat16, torch.bfloat16, kernel, stride, padding,
+                                       (kernel or 1) ** 2 * shape[-1], n)
+               for shape, kernel, stride, padding, n in calls)
+
+
+def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
     """A three-member CSV run (ConvNeXt, GCViT, ResNetRS50) without int8,
     then with ``VIPTPU_INT8=ResNetRS50``, which must launch ``ptq_int8_conv``
-    at every calibrated site of each batch and nothing else of int8;
-    returns the int8 run's launches of it."""
+    at every calibrated site of each batch, ``ptq_int8_quantize`` at the
+    ``passes`` of them that run the pass, and nothing else of int8; returns
+    the int8 run's launches of the two."""
     batches = -(-N_IMAGES // BATCH)
     with tempfile.TemporaryDirectory() as ws:
         img_dir = os.path.join(ws, "images")
@@ -1326,16 +1376,17 @@ def phase_slice_int8(card: str, sites: int) -> int:
         finally:
             del os.environ["VIPTPU_INT8"]
     fused = {n: None for n in CONVNEXT_KERNELS + GCVIT_KERNELS}
-    expect_launches(plain, {**fused, PTQ: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)},
+    expect_launches(plain, {**fused, PTQ: 0, QUANT: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)},
                     "three-member CSV->CSV")
-    expect_launches(int8, {**fused, PTQ: batches * sites, **{n: 0 for n in SPIKE_KERNELS}},
+    expect_launches(int8, {**fused, PTQ: batches * sites, QUANT: batches * passes,
+                           **{n: 0 for n in SPIKE_KERNELS}},
                     "three-member VIPTPU_INT8=ResNetRS50 CSV->CSV")
     ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
     print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 3 members (ResNetRS50 bf16): "
           f"{t_plain:.2f} s ({N_IMAGES / t_plain:.1f} img/s); per-batch e2e {ms(batch_p)} [{card}]")
     print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 3 members, VIPTPU_INT8=ResNetRS50: "
           f"{t_int8:.2f} s ({N_IMAGES / t_int8:.1f} img/s); per-batch e2e {ms(batch_i)} [{card}]")
-    return int8[PTQ]
+    return {n: int8[n] for n in (QUANT, PTQ)}
 
 
 def main(argv) -> None:
@@ -1361,7 +1412,7 @@ def main(argv) -> None:
     calls, sites = phase_resnet(card, profile)
     phase_ptq_sites(card, stats, calls)
     launches = {**phase_slice(card), DW: dw_launches, **tool_launches, **spike_launches,
-                PTQ: phase_slice_int8(card, sites)}
+                **phase_slice_int8(card, sites, pass_sites(calls))}
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],

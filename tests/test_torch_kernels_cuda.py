@@ -148,6 +148,34 @@ def test_ln_qkv_matches_plain_on_card(cuda_device, c, s, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("rows", ["one", "tile-1", "tile+1", "ragged"])
+def test_proj_scale_residual_matches_plain_on_card(cuda_device, c, rows):
+    """``proj_scale_residual`` on the wgmma + TMA engine (K = C, f32 output,
+    W_p held in shared memory at C <= 256) at every GCViT width, against the
+    f32 plain version on the same bf16 inputs: max|d| / max|ref| <= 1e-2.
+    Row counts at the edges of the 128-row tile and one that gives the
+    persistent CTAs more than a round of tiles with a ragged last one."""
+    g = torch.Generator(device=cuda_device).manual_seed(c + 7)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    bm = K.mlp_gemm_plan("proj", c, c)["bm"]
+    m = {"one": 1, "tile-1": bm - 1, "tile+1": bm + 1, "ragged": 2 * 132 * 128 + 77}[rows]
+    a, x = u((m, c)).to(torch.bfloat16), u((m, c)).to(torch.bfloat16)
+    wp, bp = (u((c, c)) * c ** -0.5).to(torch.bfloat16), u((c,), -0.1, 0.1)
+    gamma = u((c,), 0.5, 1.5)
+    G.reset_launches()
+    got = G.proj_scale_residual(a, wp, bp, gamma, x)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["proj_scale_residual"] == 1
+    assert got.shape == (m, c) and got.dtype == torch.float32
+    ref = G.proj_scale_residual_plain(a.float(), wp.float(), bp, gamma, x.float())
+    assert _rel(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
 def test_exp_dwconv_tool_runs_on_card(cuda_device):
     """The depthwise phase-cut tool at s1 and s4: every cut and cuDNN timed,
     the whole kernel within 1e-5 of its plain version."""
@@ -171,8 +199,9 @@ def test_mlp_gemm_cuts_run_on_card(cuda_device):
         assert set(r["ln_fc1_gelu"]) == set(exp_mlp_gemm.LN_CUTS) | {"cublas"}
         assert set(r["fc2_scale_residual"]) == set(exp_mlp_gemm.FC2_CUTS) | {"cublas"}
         assert all(t > 0 for t in r["ln_fc1_gelu"].values())
-        if r["name"] == "L4":  # ln_qkv's cuts on the same engine
+        if r["name"] == "L4":  # ln_qkv's and proj's cuts on the same engine
             assert set(r["ln_qkv"]) == set(exp_mlp_gemm.QKV_CUTS) | {"cublas"}
+            assert set(r["proj_scale_residual"]) == set(exp_mlp_gemm.PROJ_CUTS) | {"cublas"}
 
 
 @pytest.mark.cuda
@@ -674,7 +703,7 @@ def test_int8_wrappers_count_and_reject(cuda_device):
     Q.ptq_int8_conv(xs, qw, cs, None, inv, kernel=3, stride=2, padding=1)
     torch.cuda.synchronize()
     assert Q.LAUNCHES == {"int8_spike_bf16": 1, "int8_spike_int8": 1, "int8_spike_direct": 1,
-                          "ptq_int8_conv": 1}
+                          "ptq_int8_quantize": 1, "ptq_int8_conv": 1}
     with pytest.raises(TypeError, match="int8"):
         Q.int8_spike_direct(x, w8)
     with pytest.raises(ValueError, match="multiples of 4"):
@@ -684,3 +713,96 @@ def test_int8_wrappers_count_and_reject(cuda_device):
                         padding=1)
     with pytest.raises(ValueError, match="not packed"):
         Q.ptq_int8_conv(xs, qw[:, :32].contiguous(), cs, None, inv, kernel=3)
+
+
+# ResNetRS50's 22 int8 site shapes at 200 px: (H = W, C, N, kernel, stride)
+RESNETRS50_SITES = [
+    (50, 64, 256, 1, 1), (50, 64, 64, 1, 1), (50, 64, 64, 3, 1), (50, 256, 64, 1, 1),
+    (25, 256, 512, 1, 1), (50, 256, 128, 1, 1), (50, 128, 128, 3, 2), (25, 128, 512, 1, 1),
+    (25, 512, 128, 1, 1), (25, 128, 128, 3, 1), (13, 512, 1024, 1, 1), (25, 512, 256, 1, 1),
+    (25, 256, 256, 3, 2), (13, 256, 1024, 1, 1), (13, 1024, 256, 1, 1), (13, 256, 256, 3, 1),
+    (7, 1024, 2048, 1, 1), (13, 1024, 512, 1, 1), (13, 512, 512, 3, 2), (7, 512, 2048, 1, 1),
+    (7, 2048, 512, 1, 1), (7, 512, 512, 3, 1),
+]
+
+
+def _ptq_check(dev, b, h, w, c, n, kernel, stride, x_dtype, out_dtype, with_bias, seed=0):
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    x, qw, cs, bias, inv = _site(dev, b, h, w, c, n, kernel, seed)
+    kw = dict(kernel=kernel, stride=stride, padding=kernel // 2)
+    xi, bi = x.to(x_dtype), bias if with_bias else None
+    Q.reset_launches()
+    got = Q.ptq_int8_conv(xi, qw, cs, bi, inv, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    in_gemm = Q.quantizes_in_gemm(x_dtype, out_dtype, k=kernel * kernel * c, n=n, **kw)
+    assert Q.LAUNCHES["ptq_int8_quantize"] == (0 if in_gemm else 1)
+    assert Q.LAUNCHES["ptq_int8_conv"] == 1
+    ref = Q.ptq_int8_conv_plain(xi, qw, cs, bi, inv, out_dtype=out_dtype, **kw)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert _rel(got, ref) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c,n,kernel,stride", RESNETRS50_SITES)
+def test_ptq_int8_conv_every_resnetrs50_site_on_card(cuda_device, h, c, n, kernel, stride):
+    """The wgmma + TMA int8 site at each of ResNetRS50's 22 site shapes at
+    batch 8, bf16 x and output as on the path, against the plain version
+    within 1e-6 of max|ref| (the same integer sums, the same f32 epilogue)."""
+    _ptq_check(cuda_device, 8, h, h, c, n, kernel, stride, torch.bfloat16, torch.bfloat16, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,n,kernel,stride", [
+    (2, 9, 7, 64, 64, 1, 1),      # N = 64, K = 64: one resident 64-wide tile, ragged M
+    (3, 11, 13, 64, 64, 3, 1),    # gathered N = 64, ragged last M tile
+    (1, 13, 13, 96, 128, 3, 2),   # stride 2 on an odd input
+    (2, 15, 9, 32, 96, 3, 2),     # stride 2, N not a multiple of the tile
+    (5, 5, 5, 36, 40, 3, 1),      # C not a multiple of 16 (4-byte gather), N = 40
+    (4, 6, 6, 40, 36, 1, 1),      # rows with K not a multiple of 16, N not of 8
+    (2, 17, 17, 256, 192, 1, 1),  # rows with two column tiles, the second ragged
+    (3, 11, 9, 520, 64, 1, 1),    # rows with K = 520: a last K tile of 8 columns
+    (1, 21, 21, 64, 384, 1, 1),   # bf16 rows too wide to quantize in the GEMM
+])
+@pytest.mark.parametrize("types", ["bf16-bf16", "f32-f32", "f32-bf16"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_ptq_int8_conv_edges_on_card(cuda_device, b, h, w, c, n, kernel, stride, types,
+                                     with_bias):
+    """Ragged M and N, stride 2 on odd inputs, K and C that take the 4-byte
+    gather, rows quantized in the GEMM (bf16 x and output) and after the
+    pass, f32 and bf16 x and outputs, with and without bias: within 1e-6."""
+    x_dtype, out_dtype = {"bf16-bf16": (torch.bfloat16, torch.bfloat16),
+                          "f32-f32": (torch.float32, torch.float32),
+                          "f32-bf16": (torch.float32, torch.bfloat16)}[types]
+    _ptq_check(cuda_device, b, h, w, c, n, kernel, stride, x_dtype, out_dtype, with_bias,
+               seed=h * w + c)
+
+
+@pytest.mark.cuda
+def test_ptq_int8_conv_rejects_kernels_past_its_tap_mask(cuda_device):
+    """A gathered row's taps are a 64-bit mask: an 8 x 8 conv runs, a 9 x 9
+    one is refused before any launch."""
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    x, qw, cs, _, inv = _site(cuda_device, 1, 11, 11, 16, 32, 8)
+    kw = dict(kernel=8, stride=1, padding=3)
+    got = Q.ptq_int8_conv(x, qw, cs, None, inv, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, Q.ptq_int8_conv_plain(x, qw, cs, None, inv, **kw)) <= 1e-6
+    x, qw, cs, _, inv = _site(cuda_device, 1, 11, 11, 16, 32, 9)
+    with pytest.raises(ValueError, match="taps"):
+        Q.ptq_int8_conv(x, qw, cs, None, inv, kernel=9, stride=1, padding=4)
+
+
+@pytest.mark.cuda
+def test_exp_ptq_int8_tool_runs_on_card(cuda_device):
+    """The PTQ phase-cut tool at one 1 x 1 and one 3 x 3 site at batch 2:
+    every cut timed, the whole site within 1e-6 of its plain version."""
+    from vip_cup_2022_tpu_torch.tools import exp_ptq_int8
+
+    results = exp_ptq_int8.main(["--iters", "1", "--batch", "2", "--sites", "c2_1x1", "c2_3x3"])
+    assert len(results) == 2 and results[0]["in_gemm"] and not results[1]["in_gemm"]
+    for r in results:
+        assert r["rel_err"] <= 1e-6
+        assert set(r["ms"]) == set(exp_ptq_int8.CUTS) | {"cudnn"}
+        assert all(t > 0 for t in r["ms"].values())

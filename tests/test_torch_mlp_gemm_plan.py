@@ -1,6 +1,6 @@
 """The tile plan of the kernels on the wgmma + TMA engine (``ln_fc1_gelu``,
-``fc2_scale_residual`` and GCViT's ``ln_qkv``) and their CPU dispatch,
-without a card.
+``fc2_scale_residual`` and GCViT's ``ln_qkv`` and ``proj_scale_residual``)
+and their CPU dispatch, without a card.
 
 ``mlp_gemm_plan`` picks, per shape, the column tile (a wgmma n), the TMA
 ring's depth, the LN A buffers and whether fc1 stays resident in shared
@@ -145,3 +145,56 @@ def test_dwconv_takes_the_plain_version_on_cpu(shape):
     got = K.dwconv7x7_nhwc(x, taps, bias)
     assert K.LAUNCHES["dwconv7x7_nhwc"] == 0 and got.dtype == torch.float32
     torch.testing.assert_close(got, K.dwconv7x7_nhwc_plain(x, taps, bias), rtol=0, atol=0)
+
+
+PROJ_WIDTHS = sorted({64, 128, 256, 512}  # GCViTTiny L1-L4
+                     | {32, 64, 96, 128, 192, 256, 384, 512, 768})  # the card tests' and kAll's
+
+
+@pytest.mark.parametrize("c", PROJ_WIDTHS)
+def test_proj_plan_fits_and_tiles_c_exactly(c):
+    """``proj_scale_residual``'s plan (K = C): a built wgmma width dividing
+    C, 227 KB at most, and W_p held apart from the ring only where four A
+    stages still fit beside it."""
+    plan = K.mlp_gemm_plan("proj", c, c)
+    assert plan["kind"] == "proj" and plan["smem"] <= K.SMEM_LIMIT
+    assert plan["bn"] in K.WGMMA_N and plan["bn"] in K.WIDTHS and c % plan["bn"] == 0
+    assert plan["bm"] == K.BM and not plan["split_n"] and plan["a_buffers"] == 0
+    assert 2 <= plan["stages"] <= K.MAX_RING
+    if plan["resident"]:  # every (column tile, K tile) of W_p, beside 4+ A-only stages
+        assert plan["held"] == (c // plan["bn"]) * -(-c // 64) * plan["bn"] * 128  # K padded to 64
+        assert plan["stages"] >= 4
+    else:
+        assert plan["held"] == 0
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_proj_plan_at_gcvit_levels(c):
+    """W_p stays in shared memory at L1-L3 (8, 32, 128 KB) and streams
+    through the ring at L4 (512 KB)."""
+    plan = K.mlp_gemm_plan("proj", c, c)
+    assert plan["resident"] == (c <= 256)
+    assert plan["bn"] == min(c, 128)
+
+
+def test_proj_plan_rejects_k_other_than_c():
+    with pytest.raises(ValueError, match="is not C"):
+        K.mlp_gemm_plan("proj", 64, 128)
+
+
+@pytest.mark.parametrize("m,c", [(1, 32), (37, 64), (130, 128)])
+def test_proj_scale_residual_takes_the_plain_version_on_cpu(m, c):
+    rng = np.random.RandomState(m + c)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.uniform(-1, 1, shape) * scale).astype(np.float32))
+
+    a, x = t(m, c), t(m, c).to(torch.bfloat16)
+    wp, bp, gamma = t(c, c, scale=c ** -0.5), t(c), t(c) + 1
+    G.reset_launches()
+    got = G.proj_scale_residual(a, wp, bp, gamma, x)
+    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0}
+    assert got.dtype == torch.float32 and got.shape == (m, c)
+    torch.testing.assert_close(got, G.proj_scale_residual_plain(a, wp, bp, gamma, x), rtol=0,
+                               atol=0)
+

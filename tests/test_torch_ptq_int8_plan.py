@@ -1,0 +1,123 @@
+"""The tile plan of the int8 PTQ site's wgmma + TMA GEMM (``ptq_plan``) and
+the CPU dispatch of its two wrappers, without a card.
+
+``ptq_plan`` picks, per site, the column tile (a wgmma n the GEMM is built
+for), the ring's depth and whether the int8 weight stays in shared memory;
+``csrc/ptq_int8.cuh`` checks the same limits before a launch. At each of
+ResNetRS50's 22 site shapes and at the card tests' edge shapes the plan
+must fit a block's 227 KB of shared memory and keep four A stages beside a
+held weight. On CPU tensors ``ptq_int8_quantize``, ``ptq_int8_gemm`` and
+``ptq_int8_conv`` run their plain versions and count no launch, and the
+site is the quantize pass followed by the GEMM.
+"""
+import numpy as np
+import pytest
+import torch
+
+from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K
+from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+# ResNetRS50's 22 int8 site shapes at 200 px: (H = W, C, N, kernel, stride)
+RESNETRS50_SITES = [
+    (50, 64, 256, 1, 1), (50, 64, 64, 1, 1), (50, 64, 64, 3, 1), (50, 256, 64, 1, 1),
+    (25, 256, 512, 1, 1), (50, 256, 128, 1, 1), (50, 128, 128, 3, 2), (25, 128, 512, 1, 1),
+    (25, 512, 128, 1, 1), (25, 128, 128, 3, 1), (13, 512, 1024, 1, 1), (25, 512, 256, 1, 1),
+    (25, 256, 256, 3, 2), (13, 256, 1024, 1, 1), (13, 1024, 256, 1, 1), (13, 256, 256, 3, 1),
+    (7, 1024, 2048, 1, 1), (13, 1024, 512, 1, 1), (13, 512, 512, 3, 2), (7, 512, 2048, 1, 1),
+    (7, 2048, 512, 1, 1), (7, 512, 512, 3, 1),
+]
+# (N, K, source) of the card tests' edges
+EDGES = [(64, 64, Q.PTQ_ROWS_QUANT), (64, 576, Q.PTQ_GATHER), (128, 864, Q.PTQ_GATHER),
+         (96, 288, Q.PTQ_GATHER), (40, 324, Q.PTQ_GATHER), (36, 40, Q.PTQ_GATHER),
+         (192, 256, Q.PTQ_ROWS_QUANT), (192, 256, Q.PTQ_ROWS), (64, 520, Q.PTQ_ROWS_QUANT),
+         (384, 64, Q.PTQ_ROWS), (40, 96, Q.PTQ_ROWS)]
+
+
+def _source(h, c, n, kernel, stride):
+    """The source ResNetRS50's site takes on the path (bf16 x and output)."""
+    k = kernel * kernel * c
+    if Q.quantizes_in_gemm(torch.bfloat16, torch.bfloat16, kernel, stride, kernel // 2, k, n):
+        return Q.PTQ_ROWS_QUANT
+    return Q.PTQ_GATHER if kernel != 1 else Q.PTQ_ROWS
+
+
+def _check_plan(n, k, src):
+    plan = Q.ptq_plan(n, k, src)
+    assert plan["smem"] <= K.SMEM_LIMIT
+    assert plan["bn"] in Q.PTQ_WIDTHS and plan["bn"] in K.WGMMA_N
+    assert plan["bn"] == (64 if n <= 64 else 128)  # N = 64 sites take the narrow tile
+    assert 2 <= plan["stages"] <= Q.PTQ_MAX_RING
+    if plan["resident"]:
+        assert plan["held"] == -(-n // plan["bn"]) * -(-k // 128) * plan["bn"] * 128
+        assert plan["held"] <= Q.MAX_TX_BYTES and plan["stages"] >= Q.PTQ_MIN_HELD_STAGES
+    else:
+        assert plan["held"] == 0
+    return plan
+
+
+@pytest.mark.parametrize("h,c,n,kernel,stride", RESNETRS50_SITES)
+def test_ptq_plan_fits_at_every_resnetrs50_site(h, c, n, kernel, stride):
+    src = _source(h, c, n, kernel, stride)
+    plan = _check_plan(n, kernel * kernel * c, src)
+    # the rows sites up to N = 256 quantize in the GEMM, the wider ones after the pass
+    assert (src == Q.PTQ_ROWS_QUANT) == (kernel == 1 and n <= 256)
+    if src == Q.PTQ_ROWS_QUANT:  # 48 KB stages (+ W's): three, W held where it fits
+        assert plan["stages"] == 3 and plan["resident"] == (c <= 256)
+
+
+@pytest.mark.parametrize("n,k,src", EDGES)
+def test_ptq_plan_fits_at_the_card_tests_edges(n, k, src):
+    _check_plan(n, k, src)
+
+
+@pytest.mark.parametrize("n,k,src", [(0, 64, 0), (42, 64, 0), (64, 0, 0), (64, 64, 3)])
+def test_ptq_plan_rejects_what_the_gemm_does_not_take(n, k, src):
+    with pytest.raises(ValueError):
+        Q.ptq_plan(n, k, src)
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype,kernel,stride,k,n,want", [
+    (torch.bfloat16, torch.bfloat16, 1, 1, 256, 256, True),
+    (torch.bfloat16, torch.bfloat16, None, 1, 96, 64, True),     # a Dense site
+    (torch.bfloat16, torch.bfloat16, 1, 1, 256, 257 // 4 * 4 + 256, False),  # three tiles
+    (torch.bfloat16, torch.float32, 1, 1, 256, 256, False),     # f32 output: after the pass
+    (torch.float32, torch.bfloat16, 1, 1, 256, 256, False),     # f32 x: after the pass
+    (torch.bfloat16, torch.bfloat16, 1, 1, 36, 64, False),      # K not a multiple of 8
+    (torch.bfloat16, torch.bfloat16, 3, 1, 576, 64, False),     # a gathered conv
+])
+def test_which_sites_quantize_in_the_gemm(x_dtype, out_dtype, kernel, stride, k, n, want):
+    assert Q.quantizes_in_gemm(x_dtype, out_dtype, kernel, stride, (kernel or 1) // 2, k,
+                               n) == want
+
+
+@pytest.mark.parametrize("shape,kernel,stride,n", [((2, 9, 9, 32), 3, 2, 40),
+                                                   ((3, 5, 7, 64), 1, 1, 64),
+                                                   ((2, 7, 96), None, 1, 36)])
+def test_ptq_wrappers_take_the_plain_versions_on_cpu(shape, kernel, stride, n):
+    rng = np.random.RandomState(len(shape) + n)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    c = shape[-1]
+    k = (kernel or 1) ** 2 * c
+    qw = Q.pack_weight(torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(np.int8)))
+    cs = torch.from_numpy(rng.uniform(0, 1e-3, n).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(n).astype(np.float32))
+    inv = Q.f32_reciprocal(float(x.abs().max()) / 127.0)
+    kw = dict(kernel=kernel, stride=stride, padding=(kernel or 1) // 2)
+    Q.reset_launches()
+    q = Q.ptq_int8_quantize(x, inv)
+    got = Q.ptq_int8_gemm(q, qw, cs, bias, out_dtype=torch.bfloat16, **kw)
+    site = Q.ptq_int8_conv(x.to(torch.bfloat16), qw, cs, bias, inv, **kw)
+    in_gemm = Q.ptq_int8_gemm(x.to(torch.bfloat16), qw, cs, bias, out_dtype=torch.bfloat16,
+                              inv_s=inv, **kw)  # the GEMM quantizing x itself
+    assert all(v == 0 for v in Q.LAUNCHES.values())
+    torch.testing.assert_close(in_gemm, site, rtol=0, atol=0)
+    assert q.dtype == torch.int8 and torch.equal(q, Q.ptq_int8_quantize_plain(x, inv))
+    torch.testing.assert_close(got, Q.ptq_int8_gemm_plain(q, qw, cs, bias, out_dtype=torch.bfloat16,
+                                                          **kw), rtol=0, atol=0)
+    ref = Q.ptq_int8_conv_plain(x.to(torch.bfloat16), qw, cs, bias, inv, **kw)
+    assert site.dtype == torch.bfloat16
+    torch.testing.assert_close(site, ref, rtol=0, atol=0)
+    # the site is the quantize pass, then the GEMM
+    torch.testing.assert_close(site, Q.ptq_int8_gemm_plain(
+        Q.ptq_int8_quantize_plain(x.to(torch.bfloat16), inv), qw, cs, bias,
+        out_dtype=torch.bfloat16, **kw), rtol=0, atol=0)

@@ -22,13 +22,25 @@
 //                        in registers, the bias of the CTA's head in shared
 //                        memory
 //   proj_scale_residual  bf16 attn (M, C) @ W_p (C, C)^T + b_p, * gamma1
-//                        + bf16 x -> f32 r1 (M, C)
+//                        + bf16 x -> f32 r1 (M, C); hopper_gemm.cuh's
+//                        residual GEMM (res_gemm_kernel) with K = C and an
+//                        f32 output: the epilogue computes (acc + b_p) *
+//                        gamma1 in f32, then adds f32(x), and a lane stores
+//                        8 consecutive f32 as two 16-byte stores; W_p stays
+//                        in shared memory where it fits beside four A stages
+//                        (L1-L3: 8, 32, 128 KB)
 //
 // then ln_fc1_gelu and fc2_scale_residual_f32res of convnext_block.cu on r1.
-// ln_qkv and the MLP half run on hopper_gemm.cuh's wgmma + TMA engine (the
-// plan, as for the MLP GEMMs, comes from ops/kernels/convnext_block.py:
-// mlp_gemm_plan, kind "qkv"); proj_scale_residual still instantiates
-// block_gemm.cuh's wmma + cp.async template, queued to move as well.
+// All three GEMMs of the block and the MLP half run on hopper_gemm.cuh's
+// wgmma + TMA engine; the plans come from ops/kernels/convnext_block.py:
+// mlp_gemm_plan (kinds "qkv" and "proj").
+//
+// proj_scale_residual replaces the proj half of the TPU kernels
+// proj_res_ln_mlp (body _tail_kernel) and mono_window_transformer_block.
+// What bounds it: bytes (K = C gives 2 C products per 2 + 2 + 4 bytes of
+// attn, x and r1 per element); its design reads each of them once in whole
+// sectors, with the products of one pair of warpgroups overlapping the
+// other pair's epilogue.
 //
 // `window_attention` replaces the TPU kernel `grouped_window_attention`
 // (bodies `_attn_kernel`, `_attn_kernel_perwin`) of vip_cup_2022_tpu/ops/
@@ -42,11 +54,10 @@
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
 
-#include "block_gemm.cuh"
 #include "hopper_gemm.cuh"
 #include "window_attention.cuh"
 
-using namespace block_gemm;
+using hopper_gemm::bf16;
 
 extern "C" {
 
@@ -84,10 +95,12 @@ int window_attention(const void* q, const void* k, const void* v, const void* bi
 }
 
 int proj_scale_residual(const void* a, const void* wp, const void* bp, const void* gamma,
-                        const void* x, void* out, int M, int C, void* stream) {
-  return (int)launch_gemm_scale_residual<bf16, float>(
-      (const bf16*)a, (const bf16*)wp, (const float*)bp, (const float*)gamma,
-      (const bf16*)x, (float*)out, M, C, C, (cudaStream_t)stream);
+                        const void* x, void* out, int M, int C, int bn, int stages, int resident,
+                        void* stream) {
+  const hopper_gemm::ResParams p{(const float*)bp, (const float*)gamma, x, out, M, C, C, stages,
+                                 resident};
+  return (int)hopper_gemm::launch_res<bf16, hopper_gemm::kWhole, true, float>(
+      p, a, wp, bn, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,4 @@
-// One tensor-core GEMM template for Hopper (sm_90a) with int8 and bf16
-// products, and its instantiations:
+// The int8 and bf16 tensor-core GEMMs for Hopper (sm_90a):
 //
 //   int8_spike_bf16    bf16 x (M, K) @ bf16 w (K, N), f32 accumulation
 //                      -> bf16 or f32 (M, N)
@@ -8,44 +7,45 @@
 //                      w (K, N), s32 accumulation -> f32(acc) * sx -> f32 or
 //                      bf16 (M, N)
 //   int8_spike_direct  int8 x (M, K) @ int8 w (K, N) -> s32 (M, N)
-//   ptq_int8_conv      the int8 site of post-training quantization: f32 or
-//                      bf16 x quantized on load with the site's calibrated
-//                      scale, int8 per-output-channel weights (N, Kp),
-//                      s32 accumulation -> f32(acc) * colscale[n]
+//
+// on one mma.sync template (below), and the int8 site of post-training
+// quantization on ptq_int8.cuh's wgmma + TMA kernels (its note says how):
+//
+//   ptq_int8_quantize  f32 or bf16 x -> int8 clamp(rint(x * inv_s), +-127)
+//   ptq_int8_conv      that int8 x @ int8 per-output-channel weights
+//                      (N, Kp), s32 accumulation -> f32(acc) * colscale[n]
 //                      (+ bias[n]) -> f32 or bf16. A is either rows of an
 //                      (M, K) matrix (a Dense site, a 1x1 stride-1 conv) or
 //                      an implicit-GEMM gather from NHWC x (a k x k or
 //                      strided conv): row m = (b, oh, ow), column
 //                      k = (kh, kw, c), zeros in the symmetric padding.
 //
-// Replaces the TPU kernel `_call` of tools/int8_pallas_spike.py (its three
-// bodies `_bf16_kernel`, `_int8_kernel`, `_int8_direct_kernel`, one
-// pallas_call over row tiles of x against the whole of w in VMEM), and, for
-// ptq_int8_conv, XLA's int8 conv_general_dilated / dot_general of
-// vip_cup_2022_tpu/quant/ptq.py (`_int8_conv`, `_handle_dense`).
+// The spike bodies replace the TPU kernel `_call` of
+// tools/int8_pallas_spike.py (its three bodies `_bf16_kernel`,
+// `_int8_kernel`, `_int8_direct_kernel`, one pallas_call over row tiles of x
+// against the whole of w in VMEM); the PTQ pair, XLA's int8
+// conv_general_dilated / dot_general of vip_cup_2022_tpu/quant/ptq.py
+// (`_int8_conv`, `_handle_dense`).
 //
 // Numerics, bit for bit with the JAX package: the activation is multiplied
 // by the f32 reciprocal of its scale (the wrapper rounds the f64 1 / s once)
 // and rounded half to even (__float2int_rn, as jnp.round), then clamped;
 // the s32 sum is converted with round to nearest, multiplied by the f32
-// scale, then the f32 bias is added (no fused multiply-add).
+// scale (PTQ: then the f32 bias is added; no fused multiply-add).
 //
-// What bounds it on this card: at the shapes it serves (K >= 64, N >= 64
-// and up to 640,000 rows) the int8 GEMM has 2 M K N operations against
-// bytes of x, w and the output; at 1,979 int8 TOP/s and 3.35 TB/s the
-// operations bound it once K N / (K + N) passes about 600 for a bf16 x, so
-// ResNetRS50's narrow stages (N = 64, 128) are bound by bytes and the wide
-// ones by operations. The design is the simple one: 128 x 128 output tiles
-// per block of 8 warps (each 64 x 32), mma.sync m16n8k32 s8 (m16n8k16 bf16,
-// whose fragments have the same byte layout) fed from shared memory, K in
-// 64-byte slices with two shared-memory buffers and the next slice's global
-// loads in flight in registers while the current one is multiplied; two
-// blocks per SM (registers capped at 128, a few bytes spilled in the f32-x
-// instantiations) hide more of the loads' latency than one block of up to
-// 198 registers did (PERF.md). The
-// activation is converted (quantized) once, on its way into shared memory,
-// so int8 x never exists in device memory and a conv's im2col matrix is
-// never built. wgmma and TMA are later work.
+// What bounds the spike bodies on this card: at the spike's shapes the
+// int8 GEMM has 2 M K N operations against bytes of x, w and the output; at
+// 1,979 int8 TOP/s and 3.35 TB/s the operations bound it once K N / (K + N)
+// passes about 600 for a bf16 x. Their design is the simple one: 128 x 128
+// output tiles per block of 8 warps (each 64 x 32), mma.sync m16n8k32 s8
+// (m16n8k16 bf16, whose fragments have the same byte layout) fed from
+// shared memory, K in 64-byte slices with two shared-memory buffers and the
+// next slice's global loads in flight in registers while the current one is
+// multiplied; two blocks per SM (registers capped at 128, a few bytes
+// spilled in the f32-x instantiations) hide more of the loads' latency than
+// one block of up to 198 registers did (PERF.md). The activation is
+// converted (quantized) once, on its way into shared memory. Moving the
+// three onto ptq_int8.cuh's wgmma + TMA kernel is later work.
 //
 // The launchers have a plain C interface for ctypes and return
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
@@ -55,6 +55,8 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "ptq_int8.cuh"
 
 namespace {
 
@@ -70,13 +72,7 @@ constexpr int kGC = kBKB / 4;    // 4-byte A groups per row of a slice
 constexpr int kAGroups = kBM * kGC / kThreads;  // A groups per thread per slice
 static_assert(kBKB % 32 == 0 && kThreads % kGC == 0, "slice must split over the block");
 
-enum Epilogue { kCast = 0, kScalar = 1, kColumn = 2 };
-
-// Where row m of A comes from in the gather: the image's offset in x and the
-// top-left input position of its window (far outside for rows past M).
-struct Geometry {
-  int H, W, C, KW, stride, pad, Ho, Wo;
-};
+enum Epilogue { kCast = 0, kScalar = 1 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -160,31 +156,19 @@ __device__ __forceinline__ void store2<bf16>(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = h;
 }
 
-// B is w (K, N) row-major (kBNK false: the JAX layout, transposed into
-// shared memory on the way) or (N, ldw) with K contiguous (kBNK true: the
-// PTQ weights, padded with zeros to ldw, a multiple of 64, once at load).
-template <typename MT, bool kBNK>
+// B is w (K, N) row-major (the JAX layout), transposed into shared memory on
+// the way.
+template <typename MT>
 struct BLoader {
-  // kBNK: 16-byte vectors; else int8: 4 x 4-byte blocks, bf16: 2 x 2-element blocks
-  static constexpr int kVecs = kBKB / 16;  // 16-byte vectors per row of a slice
-  static constexpr int kGroups = kBNK ? kBN * kVecs / kThreads
-                                      : (kBKB / 4) * (sizeof(MT) == 1 ? 32 : 64) / kThreads;
+  // int8: 4 x 4-byte blocks, bf16: 2 x 2-element blocks
+  static constexpr int kGroups = (kBKB / 4) * (sizeof(MT) == 1 ? 32 : 64) / kThreads;
   uint32_t r[kGroups][4];
 
-  __device__ __forceinline__ void load(const MT* __restrict__ w, int k0, int n0, int K, int N,
-                                       int ldw) {
+  __device__ __forceinline__ void load(const MT* __restrict__ w, int k0, int n0, int K, int N) {
 #pragma unroll
     for (int j = 0; j < kGroups; ++j) {
       const int g = threadIdx.x + j * kThreads;
-      if constexpr (kBNK) {
-        const int n = n0 + g / kVecs, kb = k0 + (g % kVecs) * 16;  // int8: bytes == elements
-        if (n < N) {
-          const uint4 v = *reinterpret_cast<const uint4*>(w + (long long)n * ldw + kb);
-          r[j][0] = v.x; r[j][1] = v.y; r[j][2] = v.z; r[j][3] = v.w;
-        } else {
-          r[j][0] = r[j][1] = r[j][2] = r[j][3] = 0u;
-        }
-      } else if constexpr (sizeof(MT) == 1) {
+      if constexpr (sizeof(MT) == 1) {
         const int n = n0 + (g % 32) * 4, k = k0 + (g / 32) * 4;
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -207,10 +191,7 @@ struct BLoader {
 #pragma unroll
     for (int j = 0; j < kGroups; ++j) {
       const int g = threadIdx.x + j * kThreads;
-      if constexpr (kBNK) {
-        *reinterpret_cast<uint4*>(bs + (g / kVecs) * kLd + (g % kVecs) * 16) =
-            make_uint4(r[j][0], r[j][1], r[j][2], r[j][3]);
-      } else if constexpr (sizeof(MT) == 1) {
+      if constexpr (sizeof(MT) == 1) {
         // 4 k-rows x 4 columns of bytes -> 4 columns x 4 k bytes
         const uint32_t t0 = __byte_perm(r[j][0], r[j][1], 0x5140);
         const uint32_t t1 = __byte_perm(r[j][0], r[j][1], 0x7362);
@@ -231,18 +212,15 @@ struct BLoader {
   }
 };
 
-template <typename XT, typename MT, bool kGather, bool kBNK, int kEpi, typename OutT>
+template <typename XT, typename MT, int kEpi, typename OutT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gemm_kernel(const XT* __restrict__ x, const MT* __restrict__ w, OutT* __restrict__ out,
-            int M, int K, int N, int ldw, float inv, float scale,
-            const float* __restrict__ colscale, const float* __restrict__ bias, Geometry geo) {
+            int M, int K, int N, float inv, float scale) {
   typedef typename std::conditional<sizeof(MT) == 1, int, float>::type AccT;
   constexpr int kElems = 4 / sizeof(MT);   // A elements per 4-byte group
   constexpr int kBK = kBKB / sizeof(MT);   // K elements per slice
   __shared__ __align__(16) unsigned char As[2][kBM * kLd];
   __shared__ __align__(16) unsigned char Bs[2][kBN * kLd];
-  __shared__ long long row_base[kGather ? kBM : 1];
-  __shared__ int row_ih[kGather ? kBM : 1], row_iw[kGather ? kBM : 1];
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;  // warp tile: rows wm*64.., columns wn*32..
@@ -250,50 +228,15 @@ gemm_kernel(const XT* __restrict__ x, const MT* __restrict__ w, OutT* __restrict
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int gc = tid % kGC;  // this thread's A group column; rows tid / kGC + (kThreads / kGC) i
 
-  if constexpr (kGather) {
-    if (tid < kBM) {
-      const int m = m0 + tid;
-      if (m < M) {
-        const int ow = m % geo.Wo, r = m / geo.Wo;
-        const int oh = r % geo.Ho, b = r / geo.Ho;
-        row_base[tid] = (long long)b * geo.H * geo.W * geo.C;
-        row_ih[tid] = oh * geo.stride - geo.pad;
-        row_iw[tid] = ow * geo.stride - geo.pad;
-      } else {
-        row_base[tid] = 0;
-        row_ih[tid] = row_iw[tid] = -(1 << 28);
-      }
-    }
-    __syncthreads();
-  }
-
   RawA<XT, MT> ra[kAGroups];
-  BLoader<MT, kBNK> rb;
+  BLoader<MT> rb;
 
   auto load_a = [&](int k0) {
     const int k = k0 + gc * kElems;
-    if constexpr (kGather) {
-      int kh = 0, kw = 0, c = 0;
-      const bool kok = k < K;
-      if (kok) {
-        c = k % geo.C;
-        const int tap = k / geo.C;
-        kh = tap / geo.KW;
-        kw = tap % geo.KW;
-      }
 #pragma unroll
-      for (int i = 0; i < kAGroups; ++i) {
-        const int r = tid / kGC + (kThreads / kGC) * i;
-        const int ih = row_ih[r] + kh, iw = row_iw[r] + kw;
-        const bool ok = kok && (unsigned)ih < (unsigned)geo.H && (unsigned)iw < (unsigned)geo.W;
-        load_raw(ra[i], x + row_base[r] + ((long long)ih * geo.W + iw) * geo.C + c, ok);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kAGroups; ++i) {
-        const int m = m0 + tid / kGC + (kThreads / kGC) * i;
-        load_raw(ra[i], x + (long long)m * K + k, m < M && k < K);
-      }
+    for (int i = 0; i < kAGroups; ++i) {
+      const int m = m0 + tid / kGC + (kThreads / kGC) * i;
+      load_raw(ra[i], x + (long long)m * K + k, m < M && k < K);
     }
   };
   auto store_a = [&](unsigned char* as) {
@@ -313,7 +256,7 @@ gemm_kernel(const XT* __restrict__ x, const MT* __restrict__ w, OutT* __restrict
 
   const int slices = (K + kBK - 1) / kBK;
   load_a(0);
-  rb.load(w, 0, n0, K, N, ldw);
+  rb.load(w, 0, n0, K, N);
   store_a(As[0]);
   rb.store(Bs[0]);
   __syncthreads();
@@ -323,7 +266,7 @@ gemm_kernel(const XT* __restrict__ x, const MT* __restrict__ w, OutT* __restrict
     const bool more = s + 1 < slices;
     if (more) {  // next slice's global loads in flight during this slice's products
       load_a((s + 1) * kBK);
-      rb.load(w, (s + 1) * kBK, n0, K, N, ldw);
+      rb.load(w, (s + 1) * kBK, n0, K, N);
     }
     const unsigned char* as = As[cur] + (wm * 64) * kLd;
     const unsigned char* bs = Bs[cur] + (wn * 32) * kLd;
@@ -363,15 +306,6 @@ gemm_kernel(const XT* __restrict__ x, const MT* __restrict__ w, OutT* __restrict
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + wn * 32 + j * 8 + 2 * t;
       if (n >= N) continue;
-      float cs0 = scale, cs1 = scale, b0 = 0.f, b1 = 0.f;
-      if constexpr (kEpi == kColumn) {
-        cs0 = colscale[n];
-        cs1 = colscale[n + 1];
-        if (bias != nullptr) {
-          b0 = bias[n];
-          b1 = bias[n + 1];
-        }
-      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wm * 64 + i * 16 + g + h * 8;
@@ -382,33 +316,24 @@ gemm_kernel(const XT* __restrict__ x, const MT* __restrict__ w, OutT* __restrict
           *reinterpret_cast<int2*>(p) = make_int2(a0, a1);
         } else if constexpr (kEpi == kCast) {
           store2<OutT>(p, static_cast<float>(a0), static_cast<float>(a1));
-        } else if constexpr (kEpi == kScalar) {
-          store2<OutT>(p, __fmul_rn(__int2float_rn(a0), scale), __fmul_rn(__int2float_rn(a1), scale));
         } else {
-          float v0 = __fmul_rn(__int2float_rn(a0), cs0), v1 = __fmul_rn(__int2float_rn(a1), cs1);
-          if (bias != nullptr) {
-            v0 = __fadd_rn(v0, b0);
-            v1 = __fadd_rn(v1, b1);
-          }
-          store2<OutT>(p, v0, v1);
+          store2<OutT>(p, __fmul_rn(__int2float_rn(a0), scale), __fmul_rn(__int2float_rn(a1), scale));
         }
       }
     }
   }
 }
 
-template <typename XT, typename MT, bool kGather, bool kBNK, int kEpi, typename OutT>
-int launch(const void* x, const void* w, void* out, int M, int K, int N, int ldw, float inv,
-           float scale, const float* colscale, const float* bias, Geometry geo, void* stream) {
+template <typename XT, typename MT, int kEpi, typename OutT>
+int launch(const void* x, const void* w, void* out, int M, int K, int N, float inv, float scale,
+           void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<XT, MT, kGather, kBNK, kEpi, OutT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const XT*>(x), static_cast<const MT*>(w), static_cast<OutT*>(out), M, K, N, ldw,
-      inv, scale, colscale, bias, geo);
+  gemm_kernel<XT, MT, kEpi, OutT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const XT*>(x), static_cast<const MT*>(w), static_cast<OutT*>(out), M, K, N, inv,
+      scale);
   return (int)cudaGetLastError();
 }
-
-const Geometry kRows = {1, 1, 1, 1, 1, 0, 1, 1};
 
 }  // namespace
 
@@ -416,56 +341,46 @@ extern "C" {
 
 int int8_spike_bf16(const void* x, const void* w, void* out, int out_f32, int M, int K, int N,
                     void* stream) {
-  return out_f32 ? launch<bf16, bf16, false, false, kCast, float>(
-                       x, w, out, M, K, N, N, 0.f, 0.f, nullptr, nullptr, kRows, stream)
-                 : launch<bf16, bf16, false, false, kCast, bf16>(
-                       x, w, out, M, K, N, N, 0.f, 0.f, nullptr, nullptr, kRows, stream);
+  return out_f32 ? launch<bf16, bf16, kCast, float>(x, w, out, M, K, N, 0.f, 0.f, stream)
+                 : launch<bf16, bf16, kCast, bf16>(x, w, out, M, K, N, 0.f, 0.f, stream);
 }
 
 int int8_spike_int8(const void* x, int x_f32, const void* w, void* out, int out_f32, int M, int K,
                     int N, float inv_sx, float sx, void* stream) {
   if (x_f32)
-    return out_f32 ? launch<float, int8_t, false, false, kScalar, float>(
-                         x, w, out, M, K, N, N, inv_sx, sx, nullptr, nullptr, kRows, stream)
-                   : launch<float, int8_t, false, false, kScalar, bf16>(
-                         x, w, out, M, K, N, N, inv_sx, sx, nullptr, nullptr, kRows, stream);
-  return out_f32 ? launch<bf16, int8_t, false, false, kScalar, float>(
-                       x, w, out, M, K, N, N, inv_sx, sx, nullptr, nullptr, kRows, stream)
-                 : launch<bf16, int8_t, false, false, kScalar, bf16>(
-                       x, w, out, M, K, N, N, inv_sx, sx, nullptr, nullptr, kRows, stream);
+    return out_f32 ? launch<float, int8_t, kScalar, float>(x, w, out, M, K, N, inv_sx, sx, stream)
+                   : launch<float, int8_t, kScalar, bf16>(x, w, out, M, K, N, inv_sx, sx, stream);
+  return out_f32 ? launch<bf16, int8_t, kScalar, float>(x, w, out, M, K, N, inv_sx, sx, stream)
+                 : launch<bf16, int8_t, kScalar, bf16>(x, w, out, M, K, N, inv_sx, sx, stream);
 }
 
 int int8_spike_direct(const void* x, const void* w, void* out, int M, int K, int N, void* stream) {
-  return launch<int8_t, int8_t, false, false, kCast, int>(x, w, out, M, K, N, N, 0.f, 0.f,
-                                                          nullptr, nullptr, kRows, stream);
+  return launch<int8_t, int8_t, kCast, int>(x, w, out, M, K, N, 0.f, 0.f, stream);
 }
 
-// x_f32 / out_f32 pick the types; gather 0: x is (M, K) rows; gather 1: x is
-// NHWC (B, H, W, C) and the conv is KH x KW at `stride` with symmetric
-// `pad`, output (B, Ho, Wo, N) with M = B Ho Wo and K = KH KW C.
-int ptq_int8_conv(const void* x, int x_f32, const void* w, int ldw, const float* colscale,
-                  const float* bias, void* out, int out_f32, int M, int K, int N, float inv_s,
-                  int gather, int H, int W, int C, int KW, int stride, int pad, int Ho, int Wo,
-                  void* stream) {
-  const Geometry geo = {H, W, C, KW, stride, pad, Ho, Wo};
-#define PTQ_LAUNCH(XT, G, OT)                                                                 \
-  return launch<XT, int8_t, G, true, kColumn, OT>(x, w, out, M, K, N, ldw, inv_s, 0.f,        \
-                                                  colscale, bias, geo, stream)
-  if (gather) {
-    if (x_f32) {
-      if (out_f32) PTQ_LAUNCH(float, true, float);
-      PTQ_LAUNCH(float, true, bf16);
-    }
-    if (out_f32) PTQ_LAUNCH(bf16, true, float);
-    PTQ_LAUNCH(bf16, true, bf16);
-  }
-  if (x_f32) {
-    if (out_f32) PTQ_LAUNCH(float, false, float);
-    PTQ_LAUNCH(float, false, bf16);
-  }
-  if (out_f32) PTQ_LAUNCH(bf16, false, float);
-  PTQ_LAUNCH(bf16, false, bf16);
-#undef PTQ_LAUNCH
+// n values of f32 (x_f32) or bf16 x -> int8 q, n a multiple of 4
+int ptq_int8_quantize(const void* x, int x_f32, void* q, long long n, float inv_s, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(x_f32 ? ptq_int8::launch_quantize<float>(x, q, n, inv_s, st)
+                     : ptq_int8::launch_quantize<bf16>(x, q, n, inv_s, st));
+}
+
+// a: the quantized x (src 0: (M, K) rows; src 1: NHWC (B, H, W, C), the conv
+// KH x KW at `stride` with symmetric `pad`, output (B, Ho, Wo, N) with M = B
+// Ho Wo and K = KH KW C) or, with src 2, the bf16 x rows themselves,
+// quantized in the GEMM with inv_s (bf16 output only); w (N, ldw) int8,
+// K-major; the plan from ops/kernels/int8_gemm.py:
+// ptq_plan (bn, stages, resident, tall)
+int ptq_int8_conv(const void* a, const void* w, int ldw, const float* colscale,
+                  const float* bias, void* out, int out_f32, int M, int K, int N, int src,
+                  float inv_s, int H, int W, int C, int KW, int stride, int pad, int Ho, int Wo,
+                  int bn, int stages, int resident, int tall, void* stream) {
+  const ptq_int8::Params p{(const int8_t*)a, inv_s, colscale, bias, out, M, K, N, ldw, H, W,
+                           C, KW, stride, pad, Ho, Wo, stages, resident};
+  const cudaStream_t st = (cudaStream_t)stream;
+  constexpr int kWhole = hopper_gemm::kWhole;
+  return (int)(out_f32 ? ptq_int8::launch_gemm<float, kWhole>(p, w, src, bn, tall != 0, st)
+                       : ptq_int8::launch_gemm<bf16, kWhole>(p, w, src, bn, tall != 0, st));
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
-// Phase cuts of the three kernels on hopper_gemm.cuh's engine for timing,
+// Phase cuts of the four kernels on hopper_gemm.cuh's engine for timing,
 // at the widths of the main path's shapes (ConvNeXt s1-s4, GCViT L1-L4; for
-// ln_qkv GCViT's column tiles of 64 and 128):
+// ln_qkv and proj_scale_residual GCViT's column tiles of 64 and 128):
 //
-//   cut 0  loads: the TMA loads of W (and of the hidden for fc2) and the
-//          reads of x, nothing computed or written
+//   cut 0  loads: the TMA loads of W (and of the hidden for fc2, of attn
+//          for proj) and the reads of x, nothing computed or written
 //   cut 1  + the LN and the A tile writes (ln_fc1_gelu and ln_qkv; for
 //          fc2_scale_residual the same as cut 0)
 //   cut 2  + the wgmma products
@@ -55,9 +55,36 @@ int qkv_cut(const hopper_gemm::LnParams& p, const void* w, int bn, int split_n,
   }
 }
 
+template <int kCut>
+int proj_cut(const hopper_gemm::ResParams& p, const void* a, const void* w, int bn,
+             cudaStream_t stream) {
+  if (p.M == 0) return 0;
+  switch (bn) {  // GCViTTiny's levels: C = 64 -> 64, C = 128 ... 512 -> 128
+    case 64:
+      return (int)hopper_gemm::launch_res_bn<64, bf16, kCut, float>(p, a, w, stream);
+    case 128:
+      return (int)hopper_gemm::launch_res_bn<128, bf16, kCut, float>(p, a, w, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+int proj_scale_residual_cut(const void* a, const void* wp, const void* bp, const void* gamma,
+                            const void* x, void* out, int M, int C, int bn, int stages,
+                            int resident, int cut, void* stream) {
+  const hopper_gemm::ResParams p{(const float*)bp, (const float*)gamma, x, out, M, C, C, stages,
+                                 resident};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (cut) {
+    case 0: return proj_cut<0>(p, a, wp, bn, st);
+    case 2: return proj_cut<2>(p, a, wp, bn, st);
+    case 5: return proj_cut<5>(p, a, wp, bn, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 int ln_qkv_cut(const void* x, const void* ln_g, const void* ln_b, const void* w,
                const void* bias, void* q, void* k, void* v, int M, int C, int S, float eps,

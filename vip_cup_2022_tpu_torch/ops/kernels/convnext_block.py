@@ -74,6 +74,8 @@ _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type
     "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
     "fc2_scale_residual_cut": _RES_ARGS + [_I, _I, _P],
     "ln_qkv_cut": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 6 + [_P],  # gcvit_block.ln_qkv_cut
+    # gcvit_block.proj_scale_residual_cut
+    "proj_scale_residual_cut": [_P] * 6 + [_I] * 6 + [_P],
 }
 _DW_CUT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # csrc/dwconv_cuts.cu
 
@@ -95,9 +97,9 @@ WGMMA_N = tuple(range(8, 257, 8))  # the n a bf16 wgmma takes
 
 
 def _barrier_bytes(stages: int) -> int:
-    """A full and an empty mbarrier a stage, and one order barrier for each
-    of the two consumer pairs."""
-    return 8 * (2 * stages + 2)
+    """A full and an empty mbarrier a stage, one order barrier for each of
+    the two consumer pairs, and one for a weight held apart from the ring."""
+    return 8 * (2 * stages + 3)
 
 
 def _stages_that_fit(fixed: int, stage: int, most: int) -> int:
@@ -140,14 +142,17 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     "ln": ``ln_fc1_gelu`` on x (M, c) -> (M, n); "qkv": ``ln_qkv``
     (:mod:`.gcvit_block`) on x (M, c) -> n = 2c or 3c columns, split into
     (M, c) outputs; "res": ``fc2_scale_residual`` on a hidden (M, n) ->
-    (M, c). Keys: ``bm`` rows a work item (64 for each warpgroup of a
-    consumer pair), ``bn`` its columns (a wgmma n dividing the output
-    width), ``stages`` of the TMA ring, ``a_buffers`` (LN A tiles: two let
-    the next tile's LN overlap this one's products), ``resident`` (fc1
-    loaded once into the ring and kept), ``split_n`` (64-row LN tiles whose
-    columns the pair's two warpgroups split), ``swizzle`` bytes,
-    ``ctas_per_sm`` and ``smem`` bytes. Independent of M: the launcher
-    sizes the persistent grid."""
+    (M, c); "proj": ``proj_scale_residual`` (:mod:`.gcvit_block`), the same
+    kernel with n = K = c and an f32 output. Keys: ``bm`` rows a work item
+    (64 for each warpgroup of a consumer pair), ``bn`` its columns (a wgmma
+    n dividing the output width), ``stages`` of the TMA ring, ``a_buffers``
+    (LN A tiles: two let the next tile's LN overlap this one's products),
+    ``resident`` (the weight loaded once and kept: fc1 and W_qkv in the
+    ring; for "proj" W_p apart from it, ``held`` bytes, where four A stages
+    still fit beside it), ``split_n`` (64-row LN tiles whose columns the
+    pair's two warpgroups split), ``swizzle`` bytes, ``ctas_per_sm`` and
+    ``smem`` bytes. Independent of M: the launcher sizes the persistent
+    grid."""
     if c % 32 or n % 32 or c <= 0 or n <= 0:
         raise ValueError(f"widths {c}, {n} are not multiples of 32")
     plan = dict(kind=kind, swizzle=128, ctas_per_sm=1)
@@ -157,14 +162,26 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
         if n not in (2 * c, 3 * c):
             raise ValueError(f"ln_qkv's width {n} is not 2 or 3 x C = {c}")
         plan.update(_ln_tiles(c, n, kind))
-    elif kind == "res":
+    elif kind in ("res", "proj"):
+        if kind == "proj" and n != c:
+            raise ValueError(f"proj_scale_residual's K = {n} is not C = {c}")
         bn = next(w for w in WIDTHS if c % w == 0)
         stage = (BM + bn) * 2 * _BK
         stages = _stages_that_fit(EPILOGUE_BYTES["res"], stage, MAX_RING)
-        plan.update(bm=BM, bn=bn, stages=stages, a_buffers=0, resident=False, split_n=False)
-        plan["smem"] = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + stages * stage
+        held = (c // bn) * -(-n // _BK) * bn * 2 * _BK  # all of W, a tile per (columns, K tile)
+        a_stage = BM * 2 * _BK
+        resident = (kind == "proj"
+                    and _stages_that_fit(EPILOGUE_BYTES["res"] + held, a_stage, MAX_RING) >= 4)
+        if resident:
+            stages = _stages_that_fit(EPILOGUE_BYTES["res"] + held, a_stage, MAX_RING)
+            ring = held + stages * a_stage
+        else:
+            held, ring = 0, stages * stage
+        plan.update(bm=BM, bn=bn, stages=stages, a_buffers=0, resident=resident, split_n=False,
+                    held=held)
+        plan["smem"] = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + ring
     else:
-        raise ValueError(f"kind must be 'ln', 'qkv' or 'res', got {kind!r}")
+        raise ValueError(f"kind must be 'ln', 'qkv', 'res' or 'proj', got {kind!r}")
     return plan
 
 
@@ -178,6 +195,12 @@ def _ln_plan_args(c: int, n: int, kind: str = "ln") -> tuple:
 def _res_plan_args(c: int, n: int) -> tuple:
     p = mlp_gemm_plan("res", c, n)
     return p["bn"], p["stages"]
+
+
+@functools.lru_cache(maxsize=None)
+def _proj_plan_args(c: int) -> tuple:
+    p = mlp_gemm_plan("proj", c, c)
+    return p["bn"], p["stages"], int(p["resident"])
 
 
 def reset_launches() -> None:

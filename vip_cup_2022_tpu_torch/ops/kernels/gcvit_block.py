@@ -30,11 +30,14 @@ One family of five launches covers all four (:func:`window_transformer_block`):
    padded to a 64-key tile and 196 to 208; a CTA keeps one head and its
    bias in shared memory;
 3. ``proj_scale_residual`` (``csrc/gcvit_block.cu``): r1 = x + gamma1 *
-   (a W_p^T + b_p), written in f32 (the TPU kernel never rounds r1);
+   (a W_p^T + b_p), written in f32 (the TPU kernel never rounds r1): the
+   engine's residual GEMM (``fc2_scale_residual``'s kernel) with K = C and
+   an f32 output, W_p held in shared memory where four A stages still fit
+   beside it (plan kind "proj");
 4. ``ln_fc1_gelu`` and 5. ``fc2_scale_residual`` of
-   :mod:`.convnext_block` on the f32 r1 (eps 1e-5, f32 residual): the
-   wgmma + TMA engine of ``csrc/hopper_gemm.cuh``. ``proj_scale_residual``
-   keeps the older wmma + cp.async template of ``csrc/block_gemm.cuh``.
+   :mod:`.convnext_block` on the f32 r1 (eps 1e-5, f32 residual). All
+   three GEMMs of the block run on the wgmma + TMA engine of
+   ``csrc/hopper_gemm.cuh``.
 
 What bounds them on the card: the block does few FLOPs per byte at C = 64
 and 128 (the qkv and proj GEMMs have K = C), so L1 and L2 are bound by
@@ -42,7 +45,7 @@ memory traffic, and the attention by its 49 x 49 x 32 per-head tiles, far
 below a tensor-core tile's appetite. What this simple design leaves on the
 table: q/k/v, the attention output, the f32 r1 and the (M, 3C) hidden each
 make a round trip through device memory, which the TPU's monoblock kept in
-VMEM; the proj GEMM at C = 64 fills half of a 128-wide column tile.
+VMEM.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -70,7 +73,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_qkv": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],  # + the plan
     "window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    "proj_scale_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "proj_scale_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],  # + the plan
 }
 
 
@@ -189,6 +192,24 @@ def ln_qkv_cut(x, ln_weight, ln_bias, w, b, eps: float, cut: int) -> Tuple[torch
     return tuple(outs)
 
 
+def proj_scale_residual_cut(a, wp, bp, gamma, x, cut: int) -> torch.Tensor:
+    """A phase cut of the ``proj_scale_residual`` kernel on CUDA tensors at
+    GCViTTiny's widths (column tiles of 64 and 128): 0 loads, 2 + products,
+    3 the kernel itself, 5 the kernel without its stores
+    (``csrc/mlp_gemm_cuts.cu``). Timing only: except at 3 the output holds
+    nothing meaningful; counted in :data:`LAUNCHES` only at 3."""
+    if cut == 3:
+        return proj_scale_residual(a, wp, bp, gamma, x)
+    m, c = a.shape
+    out = torch.empty((m, c), dtype=torch.float32, device=a.device)
+    err = CK._cut_lib().proj_scale_residual_cut(
+        a.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(), x.data_ptr(),
+        out.data_ptr(), m, c, *CK._proj_plan_args(c), cut, _stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"proj_scale_residual cut {cut}: CUDA launch failed with cudaError {err}")
+    return out
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                      n: int, scale: float, q_is_global: bool = False) -> torch.Tensor:
     """Window attention on (B, nWin*N, C) tokens with a (heads, N, N) f32
@@ -232,7 +253,7 @@ def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
     _check("x", x, torch.bfloat16, (m, c), a.device)
     out = torch.empty((m, c), dtype=torch.float32, device=a.device)
     _launch("proj_scale_residual", a.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(),
-            x.data_ptr(), out.data_ptr(), m, c, _stream(a.device))
+            x.data_ptr(), out.data_ptr(), m, c, *CK._proj_plan_args(c), _stream(a.device))
     return out
 
 

@@ -8,11 +8,13 @@ Per shape (ConvNeXt's stages s1-s4 at 200 px: 99/49/24/12 grids, C 96-768,
 N = 4C, bf16 residual; GCViTTiny@224's levels L1-L4: 56/28/14/7 grids, C
 64-512, N = 3C, f32 residual), ``ln_fc1_gelu`` and ``fc2_scale_residual``
 (``csrc/hopper_gemm.cuh``), and at L1-L4 also GCViT's ``ln_qkv`` (bf16 x,
-S = 3: q, k, v) on the same engine, timed whole and as the compile-time
-cuts of ``csrc/mlp_gemm_cuts.cu``:
+S = 3: q, k, v) and ``proj_scale_residual`` (K = C, f32 output) on the
+same engine, timed whole and as the compile-time cuts of
+``csrc/mlp_gemm_cuts.cu``:
 
-  loads       the TMA loads of the weights (and of the hidden for fc2) and
-              the 16-byte reads of x, nothing computed or written
+  loads       the TMA loads of the weights (and of the hidden for fc2, of
+              the attention output for proj) and the 16-byte reads of x,
+              nothing computed or written
   ln          + the LN and the A tile writes (ln_fc1_gelu and ln_qkv)
   products    + the wgmma products
   whole       + the epilogue: the kernel itself
@@ -50,6 +52,7 @@ SHAPES = {"s1": (99, 96, 4, torch.bfloat16, 3), "s2": (49, 192, 4, torch.bfloat1
 LN_CUTS = {"loads": 0, "ln": 1, "products": 2, "whole": 3, "raw_stores": 4, "no_stores": 5}
 FC2_CUTS = {"loads": 0, "products": 2, "whole": 3, "raw_stores": 4, "no_stores": 5}
 QKV_CUTS = {"loads": 0, "ln": 1, "products": 2, "whole": 3, "no_stores": 5}
+PROJ_CUTS = {"loads": 0, "products": 2, "whole": 3, "no_stores": 5}
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
 
@@ -67,6 +70,13 @@ def qkv_bound_ms(m: int, c: int, s: int = 3) -> float:
     outputs written once, or the products at the bf16 peak."""
     nbytes = (s + 1) * m * c * 2 + s * c * c * 2 + (2 + s) * c * 4
     return max(nbytes / HBM_BYTES_PER_S, 2 * m * c * s * c / BF16_OPS_PER_S) * 1e3
+
+
+def proj_bound_ms(m: int, c: int) -> float:
+    """``proj_scale_residual``'s bound in ms: bf16 attn and x and W_p read
+    once, the f32 r1 written once, or the products at the bf16 peak."""
+    nbytes = m * c * (2 + 2 + 4) + c * c * 2 + 2 * c * 4
+    return max(nbytes / HBM_BYTES_PER_S, 2 * m * c * c / BF16_OPS_PER_S) * 1e3
 
 
 def _timed(fns: dict, iters: int) -> dict:
@@ -127,7 +137,21 @@ def run(batch: int = 256, iters: int = 10, shapes: Sequence[str] = tuple(SHAPES)
             extra["ln_qkv"] = _timed(qkv_fns, iters)
             extra["bound_ln_qkv"] = qkv_bound_ms(m, c)
             timed.append(("ln_qkv", extra["ln_qkv"], extra["bound_ln_qkv"], errs[2]))
-            del xq, wq, got, ref, qkv_fns
+            # proj_scale_residual: the attention output and the block input, K = C
+            wp, bp = (u((c, c)) * c ** -0.5).to(torch.bfloat16), u((c,), -0.1, 0.1)
+            xr = u((m, c)).to(torch.bfloat16)
+            got = G.proj_scale_residual(xq, wp, bp, gm, xr)[rows]
+            ref = G.proj_scale_residual_plain(xq[rows].float(), wp.float(), bp, gm,
+                                              xr[rows].float())
+            errs.append(((got - ref).abs().max() / ref.abs().max()).item())
+            proj_fns = {cut: (lambda k=k: G.proj_scale_residual_cut(xq, wp, bp, gm, xr, k))
+                        for cut, k in PROJ_CUTS.items()}
+            proj_fns["cublas"] = lambda: F.linear(xq, wp)
+            extra["proj_scale_residual"] = _timed(proj_fns, iters)
+            extra["bound_proj_scale_residual"] = proj_bound_ms(m, c)
+            timed.append(("proj_scale_residual", extra["proj_scale_residual"],
+                          extra["bound_proj_scale_residual"], errs[3]))
+            del xq, xr, wq, wp, got, ref, qkv_fns, proj_fns
         for kernel, ms, bound, err in timed:
             print(f"[{name} ({m},{c})->{n}] {kernel}: whole vs plain max|d|/max|ref| {err:.2e}; "
                   + ", ".join(f"{cut} {t:.4f}" for cut, t in ms.items())
@@ -136,6 +160,7 @@ def run(batch: int = 256, iters: int = 10, shapes: Sequence[str] = tuple(SHAPES)
         bound = dict(ln_fc1_gelu=b_ln, fc2_scale_residual=b_fc2)
         if extra:
             bound["ln_qkv"] = extra.pop("bound_ln_qkv")
+            bound["proj_scale_residual"] = extra.pop("bound_proj_scale_residual")
         results.append(dict(name=name, m=m, c=c, n=n, blocks=blocks, rel_err=errs,
                             ln_fc1_gelu=ln_ms, fc2_scale_residual=fc2_ms, bound=bound, **extra))
         del x, w1, w2, res, hid, out, y, ln_fns, fc2_fns
