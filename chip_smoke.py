@@ -54,16 +54,19 @@ each printing its results on earlier lines, any failure exiting non-zero:
      ``lnmlp_chanfirst`` (one LN-MLP kernel in three layouts) at the
      ``exp_convnext_s12`` shapes s1-s4 (no library call computes LN -> MLP
      -> residual), and ``attn_parts``'s six variants at the
-     ``exp_attn_parts`` shapes l1 and l2 (its ``full`` variant timed beside
-     SDPA with the group bias as a float mask); then both tools end to end
-     (``exp_convnext_s12`` at s1-s4 and ``exp_attn_parts`` at l1 and l2,
-     ``--iters 10``), which must launch each of the four;
+     ``exp_attn_parts`` shapes l1 and l2 (its ``full`` variant timed by
+     device time, a CUDA graph of its launches replayed, beside SDPA with
+     the group bias as a float mask, timed the same way); then both tools
+     end to end (``exp_convnext_s12`` at s1-s4 and ``exp_attn_parts`` at l1
+     and l2 with the streamed-key mode's phase cuts, ``--iters 10``), which
+     must launch each of the four;
    - K13's three spike bodies (``int8_spike_bf16``, ``int8_spike_int8``,
-     ``int8_spike_direct``) at the spike's three shapes, direct exactly,
-     int8 within 1e-6 of max|ref|, bf16 within 1e-2; then the port's
-     ``int8_pallas_spike`` tool in ``equiv`` and ``gemm`` modes (which times
-     each body beside cuBLAS bf16 and ``torch._int_mm`` on a column-major
-     w), which must launch all three;
+     ``int8_spike_direct``) at the spike's three shapes, w packed by the
+     wrapper and beforehand, direct and int8 exactly, bf16 within 1e-2; then
+     the port's ``int8_pallas_spike`` tool in ``equiv`` and ``gemm`` modes
+     (which times each body by device time beside cuBLAS bf16 and
+     ``torch._int_mm`` on a column-major w, with w packed once outside the
+     timing), which must launch all three;
 6. model: full-width convnext_tiny_in22k at 200 x 200 with seeded random
    weights and layer scale ~ U(0.5, 1.5), and full-width GCViTTiny at
    224 x 224, on its fused and on its unfused block path, with seeded random
@@ -127,7 +130,9 @@ shapes, for the LN-MLP kernels per batch-256 launch at each of s1-s4
 summed, for ``attn_parts`` per batch-256 ``full`` launch at l1 and l2
 summed, for the spike bodies per launch at the spike's three shapes summed
 (library: cuBLAS bf16, and ``torch._int_mm`` on a column-major copy of w,
-the layout cuBLASLt's int8 path takes; none for the quantize-on-load body),
+the layout cuBLASLt's int8 path takes; none for the quantize-on-load body;
+the int8 body's ms is its two launches, the quantize pass and the GEMM;
+``attn_parts`` and the spike bodies, kernel and library, by device time),
 and for ``ptq_int8_quantize`` and ``ptq_int8_conv`` per batch-256 ResNetRS50
 int8 forward (no one call computes the int8 site). ``bound_ms`` is the least
 time the card could take for the same launches, each launch's bytes (inputs
@@ -170,7 +175,7 @@ from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
                                           exp_dwconv, exp_mlp_gemm, exp_ptq_int8,
                                           exp_window_attention, int8_pallas_spike)
-from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms  # noqa: E402
+from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms, device_ms  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
 GCVIT_KERNELS = ("ln_qkv", "window_attention", "proj_scale_residual")
@@ -342,11 +347,15 @@ def snapshot(stats: dict) -> dict:
     return {n: dict(st) for n, st in stats.items()}
 
 
-def time_calls(kern, plain, library=None) -> tuple:
-    """Kernel, plain and library ms per launch, interleaved k, p, l, l, p, k."""
-    fns = [kern, plain] + ([library] if library is not None else [])
-    first = [cuda_ms(f) for f in fns]
-    second = [cuda_ms(f) for f in reversed(fns)][::-1]
+def time_calls(kern, plain, library=None, device: bool = False) -> tuple:
+    """Kernel, plain and library ms per launch, interleaved k, p, l, l, p, k;
+    with ``device`` the kernel's and the library's by device time (a CUDA
+    graph of the launches replayed, ``bench_util.device_ms``), the plain
+    version's by CUDA events all the same."""
+    timer = device_ms if device else cuda_ms
+    fns = [(kern, timer), (plain, cuda_ms)] + ([(library, timer)] if library is not None else [])
+    first = [t(f) for f, t in fns]
+    second = [t(f) for f, t in reversed(fns)][::-1]
     ms = [(a + b) / 2 for a, b in zip(first, second)]
     return ms[0], ms[1], (ms[2] if library is not None else None)
 
@@ -834,7 +843,8 @@ def phase_attn_parts(card: str, stats: dict) -> None:
                                                               heads=heads, n=n, g=g,
                                                               parts=exp_attn_parts.VARIANTS["full"]),
                                    lambda: F.scaled_dot_product_attention(
-                                       qh, kh, vh, attn_mask=mask, scale=hd ** -0.5))
+                                       qh, kh, vh, attn_mask=mask, scale=hd ** -0.5),
+                                   device=True)
                 act = t["q"].numel() * 2
                 bound = account(stats, PARTS, 1, times, 4 * act + t["mb"].numel() * 4,
                                 4 * b * (nwin // g) * heads * gn * gn * hd, "bf16")
@@ -868,29 +878,33 @@ def phase_tools(card: str) -> dict:
 
 def phase_spike(card: str, stats: dict) -> dict:
     """K13's three bodies at the spike's shapes against their plain versions
-    (direct exactly, int8 within 1e-6 of max|ref|, bf16 within 1e-2), then
-    the port's ``int8_pallas_spike`` tool (its entry point) in ``equiv`` and
-    ``gemm`` modes with every count at 0 just before; the tool's timings
-    (kernel, plain, cuBLAS bf16 or ``torch._int_mm`` on a column-major w)
-    go into the record.
+    (direct and int8 exactly, bf16 within 1e-2), w packed by the wrapper and
+    beforehand, then the port's ``int8_pallas_spike`` tool (its entry point)
+    in ``equiv`` and ``gemm`` modes with every count at 0 just before; the
+    tool's timings (kernel and cuBLAS bf16 or ``torch._int_mm`` on a
+    column-major w by device time, plain by CUDA events) go into the record.
     Returns the three bodies' launches in the tool's run."""
     for tag, m, k, n in int8_pallas_spike.SHAPES:
         t = int8_pallas_spike.inputs(m, k, n)
         sx = 1.0 / 16.0
-        direct = Q.int8_spike_direct(t["x8"], t["w8"])
-        torch.cuda.synchronize()
-        if not torch.equal(direct, Q.int8_spike_direct_plain(t["x8"], t["w8"])):
-            raise AssertionError(f"int8_spike_direct at {tag} is not exact")
-        check({"int8_spike_direct": (direct, lambda: Q.int8_spike_direct_plain(t["x8"], t["w8"]))},
-              tag, stats, 0.0)
-        check({"int8_spike_int8 bf16 x": (Q.int8_spike_int8(t["x16"], t["w8"], sx), lambda:
-                                          Q.int8_spike_int8_plain(t["x16"], t["w8"], sx)),
-               "int8_spike_int8 f32 x": (Q.int8_spike_int8(t["x16"].float(), t["w8"], sx), lambda:
-                                         Q.int8_spike_int8_plain(t["x16"].float(), t["w8"], sx))},
-              tag, stats, INT8_BOUND)
-        check({"int8_spike_bf16": (Q.int8_spike_bf16(t["x16"], t["w16"]), lambda:
-                                   Q.int8_spike_bf16_plain(t["x16"], t["w16"], torch.float32))},
-              tag, stats)
+        for label, p8, p16 in (("w", {}, {}),
+                               ("w_packed", dict(w_packed=Q.pack_weight(t["w8"])),
+                                dict(w_packed=Q.pack_weight(t["w16"])))):
+            direct = Q.int8_spike_direct(t["x8"], t["w8"], **p8)
+            torch.cuda.synchronize()
+            for name, got, ref in (
+                    ("int8_spike_direct", direct, Q.int8_spike_direct_plain(t["x8"], t["w8"])),
+                    ("int8_spike_int8 bf16 x", Q.int8_spike_int8(t["x16"], t["w8"], sx, **p8),
+                     Q.int8_spike_int8_plain(t["x16"], t["w8"], sx)),
+                    ("int8_spike_int8 f32 x",
+                     Q.int8_spike_int8(t["x16"].float(), t["w8"], sx, **p8),
+                     Q.int8_spike_int8_plain(t["x16"].float(), t["w8"], sx))):
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{name} at {tag} ({label}) is not exact")
+                check({name: (got, lambda ref=ref: ref)}, f"{tag} {label}", stats, 0.0)
+            check({"int8_spike_bf16": (Q.int8_spike_bf16(t["x16"], t["w16"], **p16), lambda:
+                                       Q.int8_spike_bf16_plain(t["x16"], t["w16"], torch.float32))},
+                  f"{tag} {label}", stats)
         del t, direct
         torch.cuda.empty_cache()
     reset_launches()

@@ -560,8 +560,15 @@ def test_ln_mlp_rejects_what_the_kernel_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["full", "no_max", "no_bias", "no_exp", "gemm_only", "empty"])
-@pytest.mark.parametrize("b,nwin,n,c,heads,g", [(3, 4, 49, 64, 2, 2), (2, 16, 49, 128, 4, 8),
-                                                (2, 6, 9, 32, 1, 3)])
+@pytest.mark.parametrize("b,nwin,n,c,heads,g", [
+    (3, 4, 49, 64, 2, 2),     # gN 98: the register-resident kernel
+    (2, 16, 49, 128, 4, 8),   # gN 392: the streamed-key mode, five full stripes
+    (2, 6, 9, 32, 1, 3),      # gN 27
+    (2, 4, 49, 64, 2, 1),     # g = 1, gN 49
+    (2, 6, 49, 64, 2, 6),     # gN 294: three stripes of 7 tiles, the last partial
+    (1, 16, 49, 128, 4, 8),   # batch 1 at the tool's l2 shape
+    (1, 16, 49, 32, 1, 16),   # gN 784: one K and V stage beside the bias
+])
 def test_attn_parts_match_plain_on_card(cuda_device, variant, b, nwin, n, c, heads, g):
     """Each variant against the f32 plain version on the same bf16 inputs:
     max|d| / max|ref| <= 1e-2 (bf16 q, P and output; for no_exp, P holds
@@ -580,6 +587,28 @@ def test_attn_parts_match_plain_on_card(cuda_device, variant, b, nwin, n, c, hea
     assert sum(A.LAUNCHES.values()) == 1
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     assert _rel(got, T.call(variant, t32, heads, n, g, plain=True)()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", range(16))
+@pytest.mark.parametrize("g", [2, 8], ids=["resident", "streamed"])
+def test_attn_parts_every_mask_on_card(cuda_device, mask, g):
+    """Every subset of the four parts (the kernel's 16 instantiations on each
+    of the template's two paths) at a small batch, against the f32 plain
+    version within 1e-2 of max|ref|."""
+    from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A
+
+    b, nwin, n, c, heads = 2, 8, 49, 64, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(mask)
+    q, k, v = (torch.randn((b, nwin * n, c), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    mb = torch.from_numpy(A.group_bias(heads, n, g)).to(cuda_device)
+    parts = {name for i, name in enumerate(A.PARTS) if mask >> i & 1}
+    got = A.attn_parts(q, k, v, mb, heads=heads, n=n, g=g, parts=parts)
+    torch.cuda.synchronize()
+    ref = A.attn_parts_plain(q.float(), k.float(), v.float(), mb, heads=heads, n=n, g=g,
+                             parts=parts)
+    assert _rel(got, ref) <= 1e-2
 
 
 @pytest.mark.cuda
@@ -613,28 +642,36 @@ def _spike_inputs(dev, m, k, n, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(625, 384, 1536), (1352, 768, 3072), (37, 64, 96),
-                                   (130, 100, 132)])
-def test_int8_spike_matches_plain_on_card(cuda_device, m, k, n):
+@pytest.mark.parametrize("m,k,n", [(625, 384, 1536), (1352, 768, 3072), (4096, 768, 3072),
+                                   (37, 64, 96), (130, 100, 132), (100, 200, 100),
+                                   (129, 776, 260), (130, 104, 136)])
+@pytest.mark.parametrize("packed", [False, True], ids=["w", "w_packed"])
+def test_int8_spike_matches_plain_on_card(cuda_device, m, k, n, packed):
     """The three spike bodies against their plain versions on the same
-    inputs: direct exactly, int8 within 1e-6 of max|ref| (the same integer
-    sums, one f32 scale), bf16 within 1e-2 (f32 sums in another order,
-    rounded to bf16). Ragged M, K and N against the 128 x 128 x 64 tiles."""
+    inputs: direct and int8 exactly (the same integer sums, one f32 scale,
+    one rounding), bf16 within 1e-2 (f32 sums in another order, rounded to
+    bf16). The spike's three shapes, and ragged M (< 128, one past a tile),
+    K (not a multiple of 128, 16 or 8) and N (not a multiple of 8) against
+    the GEMM's tiles; f32 and bf16 x (bf16 x with a bf16 output quantized in
+    the GEMM where N spans two column tiles); w packed by the wrapper or
+    beforehand (``w_packed``)."""
     from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
 
     x, w, w8, x8 = _spike_inputs(cuda_device, m, k, n)
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    p8 = dict(w_packed=Q.pack_weight(w8)) if packed else {}
+    p16 = dict(w_packed=Q.pack_weight(wb)) if packed else {}
     sx = x.abs().max().item() / 127.0
-    got = Q.int8_spike_direct(x8, w8)
+    got = Q.int8_spike_direct(x8, w8, **p8)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, Q.int8_spike_direct_plain(x8, w8))
     for xi in (x, xb):
         for out_dtype in (torch.float32, torch.bfloat16):
-            got = Q.int8_spike_int8(xi, w8, sx, out_dtype)
+            got = Q.int8_spike_int8(xi, w8, sx, out_dtype, **p8)
             ref = Q.int8_spike_int8_plain(xi, w8, sx, out_dtype)
-            assert got.dtype == out_dtype and _rel(got, ref) <= 1e-6
+            assert got.dtype == out_dtype and torch.equal(got, ref)
     for out_dtype in (torch.bfloat16, torch.float32):
-        got = Q.int8_spike_bf16(xb, wb, out_dtype)
+        got = Q.int8_spike_bf16(xb, wb, out_dtype, **p16)
         assert got.dtype == out_dtype
         assert _rel(got, Q.int8_spike_bf16_plain(xb, wb, torch.float32)) <= 1e-2
 
@@ -702,12 +739,15 @@ def test_int8_wrappers_count_and_reject(cuda_device):
     xs, qw, cs, _, inv = _site(cuda_device, 2, 5, 5, 32, 64, 3)
     Q.ptq_int8_conv(xs, qw, cs, None, inv, kernel=3, stride=2, padding=1)
     torch.cuda.synchronize()
+    # int8_spike_int8 on f32 x: the quantize pass (counted as ptq_int8_quantize), then its GEMM
     assert Q.LAUNCHES == {"int8_spike_bf16": 1, "int8_spike_int8": 1, "int8_spike_direct": 1,
-                          "ptq_int8_quantize": 1, "ptq_int8_conv": 1}
+                          "ptq_int8_quantize": 2, "ptq_int8_conv": 1}
     with pytest.raises(TypeError, match="int8"):
         Q.int8_spike_direct(x, w8)
     with pytest.raises(ValueError, match="multiples of 4"):
         Q.int8_spike_direct(x8[:, :30].contiguous(), w8[:30])
+    with pytest.raises(ValueError, match="w_packed"):
+        Q.int8_spike_direct(x8, w8, w_packed=Q.pack_weight(w8)[:32].contiguous())
     with pytest.raises(ValueError, match="multiple of 4"):
         Q.ptq_int8_conv(xs[..., :30].contiguous(), qw, cs, None, inv, kernel=3, stride=2,
                         padding=1)

@@ -121,3 +121,87 @@ def test_ptq_wrappers_take_the_plain_versions_on_cpu(shape, kernel, stride, n):
     torch.testing.assert_close(site, Q.ptq_int8_gemm_plain(
         Q.ptq_int8_quantize_plain(x.to(torch.bfloat16), inv), qw, cs, bias,
         out_dtype=torch.bfloat16, **kw), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K13's spike bodies on the same GEMM: ptq_plan with the rows M
+# ---------------------------------------------------------------------------
+# (M, K, N) of the spike's three shapes and of the card tests' edges
+SPIKE_SHAPES = [(625, 384, 1536), (1352, 768, 3072), (4096, 768, 3072)]
+SPIKE_EDGES = [(37, 64, 96), (130, 100, 132), (100, 200, 100), (129, 776, 260), (130, 104, 136)]
+
+
+@pytest.mark.parametrize("m,k,n,esize,bn,tall", [
+    (625, 384, 1536, 1, 64, False),    # s3_fc1: 60 items of 128 columns would idle half the SMs
+    (625, 384, 1536, 2, 64, False),
+    (1352, 768, 3072, 1, 128, False),  # s4_fc1: 264 items; 144 tall ones would not fill twice
+    (1352, 768, 3072, 2, 128, False),
+    (4096, 768, 3072, 1, 128, False),  # big: 384 tall items, short of int8's four rounds
+    (4096, 768, 3072, 2, 128, True),   # ... and past bf16's two
+])
+def test_spike_plan_at_the_spike_shapes(m, k, n, esize, bn, tall):
+    plan = Q.ptq_plan(n, k, Q.PTQ_ROWS, esize, m)
+    assert (plan["bn"], plan["tall"], plan["resident"]) == (bn, tall, False)
+    assert plan["smem"] <= K.SMEM_LIMIT and 2 <= plan["stages"] <= Q.PTQ_MAX_RING
+    # without M (the PTQ sites) the same W streams in tall 128-column items
+    assert Q.ptq_plan(n, k, Q.PTQ_ROWS, esize)["tall"]
+
+
+@pytest.mark.parametrize("m,k,n", SPIKE_SHAPES + SPIKE_EDGES)
+@pytest.mark.parametrize("body", ["bf16", "int8 f32 x", "int8 bf16 x", "direct"])
+def test_spike_plan_fits_at_every_body_and_edge(m, k, n, body):
+    """The source each body's wrapper takes (bf16 rows, x padded to K a
+    multiple of 8; int8 rows where K is a multiple of 16, else gathered as
+    1 x 1 x K images; bf16 x with a bf16 output quantized in the GEMM where
+    N spans two column tiles) and a plan that fits."""
+    if body == "bf16":
+        src, kk, esize = Q.PTQ_ROWS, -(-k // 8) * 8, 2
+    elif body == "int8 bf16 x" and Q.quantizes_in_gemm(torch.bfloat16, torch.bfloat16, None, 1, 0,
+                                                       k, n):
+        src, kk, esize = Q.PTQ_ROWS_QUANT, k, 1
+    else:
+        src, kk, esize = (Q.PTQ_ROWS if k % 16 == 0 else Q.PTQ_GATHER), k, 1
+    plan = Q.ptq_plan(n, kk, src, esize, m)
+    assert plan["smem"] <= K.SMEM_LIMIT and 2 <= plan["stages"] <= Q.PTQ_MAX_RING
+    assert plan["bn"] in Q.PTQ_WIDTHS and not (plan["tall"] and src == Q.PTQ_ROWS_QUANT)
+    if plan["resident"]:
+        assert plan["held"] == -(-n // plan["bn"]) * -(-kk * esize // 128) * plan["bn"] * 128
+        assert plan["held"] <= Q.MAX_TX_BYTES
+
+
+def test_spike_shapes_quantize_after_the_pass():
+    """The spike's N (1536, 3072) spans 12 or 24 column tiles: its int8 body
+    quantizes x by the pass, then runs the GEMM on int8 rows; a narrow N
+    with a bf16 output quantizes in the GEMM."""
+    for _, k, n in SPIKE_SHAPES:
+        assert not Q.quantizes_in_gemm(torch.bfloat16, torch.bfloat16, None, 1, 0, k, n)
+    assert Q.quantizes_in_gemm(torch.bfloat16, torch.bfloat16, None, 1, 0, 64, 96)
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 64, 96), (130, 100, 132), (9, 24, 40)])
+def test_spike_wrappers_take_the_plain_versions_on_cpu(m, k, n):
+    """On CPU tensors the three bodies run their plain versions, with or
+    without a packed weight, and count no launch."""
+    rng = np.random.RandomState(m + k + n)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    w = torch.from_numpy((rng.randn(k, n) * 0.05).astype(np.float32))
+    w8 = torch.clamp(w * 16.0, -127, 127).to(torch.int8)
+    x8 = torch.clamp(x * 16.0, -127, 127).to(torch.int8)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    sx = float(x.abs().max()) / 127.0
+    Q.reset_launches()
+    for kw8, kw16 in (({}, {}), (dict(w_packed=Q.pack_weight(w8)),
+                                 dict(w_packed=Q.pack_weight(wb)))):
+        assert torch.equal(Q.int8_spike_direct(x8, w8, **kw8), Q.int8_spike_direct_plain(x8, w8))
+        assert torch.equal(Q.int8_spike_int8(x, w8, sx, **kw8), Q.int8_spike_int8_plain(x, w8, sx))
+        assert torch.equal(Q.int8_spike_bf16(xb, wb, **kw16), Q.int8_spike_bf16_plain(xb, wb))
+    assert all(v == 0 for v in Q.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_pack_weight_is_k_major_and_zero_padded(dtype):
+    rng = np.random.RandomState(3)
+    w = torch.from_numpy(rng.randint(-127, 128, (100, 36)).astype(np.float32)).to(dtype)
+    packed = Q.pack_weight(w)
+    assert packed.dtype == dtype and packed.shape == (36, 128)
+    assert torch.equal(packed[:, :100], w.t()) and not packed[:, 100:].any()

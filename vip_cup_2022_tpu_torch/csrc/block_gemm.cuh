@@ -1,11 +1,13 @@
 // The wmma helpers of the tool kernels for Hopper (sm_90a): cp.async
 // staging, wmma bf16 fragments and their staging through shared memory, 8-wide
 // loads and stores, and the shared-memory grant. The LN-MLP tool kernels
-// (ln_mlp.cu), the attention-parts tool kernels (attn_parts.cu) and the
-// window-attention template (window_attention.cuh) use them. No main-path
-// GEMM does: every GEMM of both block families (the MLP GEMMs, ln_qkv and
-// proj_scale_residual) runs on hopper_gemm.cuh's wgmma + TMA engine, and
-// the int8 PTQ site on ptq_int8.cuh. No library GEMM is called.
+// (ln_mlp.cu) use the wmma fragments; the window-attention template
+// (window_attention.cuh, with the attention-parts tool's kernels) the
+// cp.async staging, the 8-wide loads and the grant. No main-path GEMM does:
+// every GEMM of both block families (the MLP GEMMs, ln_qkv and
+// proj_scale_residual) runs on hopper_gemm.cuh's wgmma + TMA engine, and the
+// int8 PTQ site and the int8 spike's bodies on ptq_int8.cuh. No library GEMM
+// is called.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,7 +51,6 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 union Pack8 {  // eight bf16 = one 16-byte load or store
@@ -103,9 +104,14 @@ __device__ __forceinline__ void store8(bf16* __restrict__ p, const float v[8]) {
 
 // A kernel's dynamic shared-memory limit persists in the device's context, so
 // a launcher raises it only when a launch needs more than was granted there.
+// The grant is a launcher's static, which the dynamic linker may share between
+// two libraries that instantiate the same template (ptq_int8.cuh's or the
+// window-attention template's kernels built into two sources, each library
+// with its own copy of the kernel); so it remembers which kernel it granted.
 constexpr int kMaxDevices = 64;
 struct SmemGrant {
   std::mutex mu;
+  const void* kernel[kMaxDevices] = {};
   size_t bytes[kMaxDevices] = {};
 };
 
@@ -115,9 +121,12 @@ inline cudaError_t grant_smem(const void* kernel, size_t bytes, SmemGrant& grant
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(grant.mu);
-  if (bytes <= grant.bytes[dev]) return cudaSuccess;
+  if (kernel == grant.kernel[dev] && bytes <= grant.bytes[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) grant.bytes[dev] = bytes;
+  if (err == cudaSuccess) {
+    grant.kernel[dev] = kernel;
+    grant.bytes[dev] = bytes;
+  }
   return err;
 }
 

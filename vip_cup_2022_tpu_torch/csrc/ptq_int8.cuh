@@ -3,7 +3,7 @@
 //
 //   quantize_kernel<XT>   f32 or bf16 x -> int8 q = clamp(rint(x * inv), +-127)
 //                         in x's layout (rows, or NHWC for a conv), once
-//   ptq_gemm_kernel<BN, OutT, kSrc, kTall, kCut>
+//   ptq_gemm_kernel<BN, OutT, kSrc, kTall, kCut, ET, kScaled>
 //                         int8 A @ int8 W (N, Kp)^T, s32 accumulation ->
 //                         f32(acc) * colscale[n] (+ bias[n]) -> f32 or bf16
 //                         (M, N). A is the rows of q (M, K) (a Dense site or a
@@ -17,6 +17,15 @@
 // They replace XLA's int8 conv_general_dilated and dot_general of the JAX
 // package's PTQ pass (vip_cup_2022_tpu/quant/ptq.py: _int8_conv,
 // _handle_dense), which the port first ran on K13's mma.sync template.
+//
+// The same GEMM runs the three bodies of K13's TPU kernel (`_call` of
+// tools/int8_pallas_spike.py; int8_gemm.cu's entry points):
+// `_int8_kernel` is the quantize pass (or kRowsQuant) and the GEMM with
+// colscale[n] = sx and no bias; `_int8_direct_kernel` the GEMM with the s32
+// sums stored as they are (kScaled false, OutT int); `_bf16_kernel` the GEMM
+// on bf16 operands (ET bf16: wgmma m64nBNk16 bf16 -> f32, 64 bf16 a K tile,
+// W packed (N, Kp) K-major as the int8 weights are, the f32 sums stored as
+// f32 or rounded once to bf16).
 //
 // Numerics, bit for bit with the plain version: x * inv in f32 (the f32
 // reciprocal of the site's scale) rounded half to even and clamped; exact
@@ -82,6 +91,8 @@
 // hg::kWhole (+ the epilogue: the kernel itself), hg::kNoStores.
 #pragma once
 
+#include <type_traits>
+
 #include "hopper_gemm.cuh"
 
 namespace ptq_int8 {
@@ -112,9 +123,10 @@ static_assert((hg::kConsumers * hg::kConsumerRegs + kGatherProducerRegs) * hg::k
 
 struct Params {
   const int8_t* x;  // quantized A: rows (M, K), or NHWC (B, H, W, C) with kGather; with
-                    // kRowsQuant the bf16 x (M, K) itself, quantized with inv
+                    // kRowsQuant the bf16 x (M, K) itself, quantized with inv; bf16 rows
+                    // for the bf16 GEMM
   float inv;
-  const float* colscale;
+  const float* colscale;  // unused where the sums are stored unscaled
   const float* bias;  // or nullptr
   void* out;          // OutT (M, N)
   int M, K, N, Kp;    // K = KH KW C; W is (N, Kp), K-major, zeros past K
@@ -122,9 +134,27 @@ struct Params {
   int stages, resident;
 };
 
-// bytes of W held in shared memory: a tile per (column tile, K tile)
-inline size_t held_bytes(int bn, int N, int K) {
-  return (size_t)hg::ceil_div(N, bn) * hg::ceil_div(K, kTileK) * bn * kTileK;
+// The operands' element type: int8 (s8 wgmma, s32 sums) or bf16 (f32 sums).
+// A K tile is one 128-byte swizzle row of either.
+template <typename ET, int BN>
+struct Operand;
+template <int BN>
+struct Operand<int8_t, BN> {
+  typedef hg::WgmmaS8<BN> Mma;
+  typedef int Acc;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+template <int BN>
+struct Operand<bf16, BN> {
+  typedef hg::Wgmma<BN> Mma;
+  typedef float Acc;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+// bytes of W held in shared memory: a tile per (column tile, K tile); K in
+// elements of `esize` bytes
+inline size_t held_bytes(int bn, int N, int K, int esize = 1) {
+  return (size_t)hg::ceil_div(N, bn) * hg::ceil_div((long long)K * esize, kTileK) * bn * kTileK;
 }
 
 // a stage: the int8 A tile (two of them for a tall item), W's tile unless it
@@ -136,9 +166,9 @@ __host__ __device__ inline size_t stage_bytes(int bn, bool resident, int src, bo
 }
 
 inline size_t gemm_smem_bytes(int bn, int stages, bool resident, int N, int K, int src,
-                              bool tall) {
+                              bool tall, int esize = 1) {
   return hg::kBarrierBytes(stages) + hg::kAlign + kStagingBytes +
-         (src == kGather ? kGeoBytes : 0) + (resident ? held_bytes(bn, N, K) : 0) +
+         (src == kGather ? kGeoBytes : 0) + (resident ? held_bytes(bn, N, K, esize) : 0) +
          (size_t)stages * stage_bytes(bn, resident, src, tall);
 }
 
@@ -377,19 +407,22 @@ __device__ __forceinline__ float s32_to_f32(int a) {
   else return __int2float_rn(a);
 }
 
-// one warp's 16 rows of a (64, BN) s32 accumulator tile (first row row0,
-// first column col0): f32(acc) * colscale (+ bias) in the accumulators'
-// layout, then 32 columns at a time through the warp's 2 KB staging tile to
-// lanes holding 8 consecutive columns of a row, stored in whole sectors.
-// N is a multiple of 4; a bf16 row is stored as 16 bytes where N is a
-// multiple of 8, else as two 8-byte halves. Rows >= M, columns >= N are not
-// stored.
-template <int BN, bool kStore, bool kSmall, typename OutT>
-__device__ __forceinline__ void scale_epilogue(int (&acc)[BN / 2], long long row0, int col0,
+// one warp's 16 rows of a (64, BN) accumulator tile (first row row0, first
+// column col0): with kScaled, s32 sums as f32(acc) * colscale (+ bias);
+// else f32 sums as they are, or s32 sums as their bits (OutT int). Each in
+// the accumulators' layout, then 32 columns at a time through the warp's
+// 2 KB staging tile to lanes holding 8 consecutive columns of a row, stored
+// in whole sectors. N is a multiple of 4; a bf16 row is stored as 16 bytes
+// where N is a multiple of 8, else as two 8-byte halves. Rows >= M, columns
+// >= N are not stored.
+template <int BN, bool kStore, bool kSmall, bool kScaled, typename AccT, typename OutT>
+__device__ __forceinline__ void scale_epilogue(AccT (&acc)[BN / 2], long long row0, int col0,
                                                int M, int N, int warp, int lane,
                                                uint8_t* staging, const float* colscale,
                                                const float* bias, OutT* out) {
   static_assert(BN % 32 == 0, "the epilogue writes 32-column pieces");
+  static_assert(kScaled == std::is_same<AccT, int>::value || std::is_same<OutT, int>::value,
+                "s32 sums are scaled or stored as s32; f32 sums are stored as they are");
   const uint32_t st = hg::smem_u32(staging);
   const bool wide = N % 8 == 0;
 #pragma unroll
@@ -397,16 +430,27 @@ __device__ __forceinline__ void scale_epilogue(int (&acc)[BN / 2], long long row
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int c8 = 4 * q + c, col = 8 * c + 2 * (lane & 3), n = col0 + 32 * q + col;
-      const float2 cs = n < N ? hg::load_pair(colscale + n) : make_float2(0.f, 0.f);
-      const float2 bv =
-          n < N && bias != nullptr ? hg::load_pair(bias + n) : make_float2(0.f, 0.f);
+      float2 cs = make_float2(0.f, 0.f), bv = make_float2(0.f, 0.f);
+      if constexpr (kScaled) {
+        if (n < N) cs = hg::load_pair(colscale + n);
+        if (n < N && bias != nullptr) bv = hg::load_pair(bias + n);
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float a = __fmul_rn(s32_to_f32<kSmall>(acc[4 * c8 + 2 * h]), cs.x);
-        float b = __fmul_rn(s32_to_f32<kSmall>(acc[4 * c8 + 2 * h + 1]), cs.y);
-        if (bias != nullptr) {
-          a = __fadd_rn(a, bv.x);
-          b = __fadd_rn(b, bv.y);
+        float a, b;
+        if constexpr (kScaled) {
+          a = __fmul_rn(s32_to_f32<kSmall>(acc[4 * c8 + 2 * h]), cs.x);
+          b = __fmul_rn(s32_to_f32<kSmall>(acc[4 * c8 + 2 * h + 1]), cs.y);
+          if (bias != nullptr) {
+            a = __fadd_rn(a, bv.x);
+            b = __fadd_rn(b, bv.y);
+          }
+        } else if constexpr (std::is_same<AccT, int>::value) {  // s32 out: the sums' bits
+          a = __int_as_float(acc[4 * c8 + 2 * h]);
+          b = __int_as_float(acc[4 * c8 + 2 * h + 1]);
+        } else {
+          a = acc[4 * c8 + 2 * h];
+          b = acc[4 * c8 + 2 * h + 1];
         }
         hg::sts64(st + hg::stage32_offset((lane >> 2) + 8 * h, col), a, b);
       }
@@ -455,15 +499,21 @@ __device__ __forceinline__ void scale_epilogue(int (&acc)[BN / 2], long long row
 // kTall: 256-row items whose two 128-row halves the two consumer pairs
 // multiply at once against each stage's one W tile (no ping-pong): for the
 // sites whose W streams through the ring, half its traffic from L2.
-template <int BN, typename OutT, int kSrc, bool kTall, int kCut>
+// ET: the operands' type (int8, or bf16 for the spike's bf16 body); kScaled:
+// the colscale (+ bias) epilogue, else the sums stored as they are.
+template <int BN, typename OutT, int kSrc, bool kTall, int kCut, typename ET = int8_t,
+          bool kScaled = true>
 __global__ void __launch_bounds__(hg::kThreads, 1)
 ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                 const __grid_constant__ CUtensorMap w_map, const Params p) {
   extern __shared__ __align__(1024) uint8_t smem[];
+  typedef Operand<ET, BN> Op;
   constexpr bool kGat = kSrc == kGather, kQuant = kSrc == kRowsQuant;
   constexpr int kItemRows = kTall ? kTallBM : kBM, kATiles = kTall ? 2 : 1;
+  constexpr int kTileElems = kTileK / sizeof(ET);  // K elements of a K tile
   static_assert(!(kTall && kQuant), "a tall item's A comes quantized");
-  const int KT = hg::ceil_div(p.K, kTileK);
+  static_assert(sizeof(ET) == 1 || kSrc == kRows, "bf16 A comes as rows by TMA");
+  const int KT = hg::ceil_div(p.K, kTileElems);
   const int n_cols = hg::ceil_div(p.N, BN);
   const long long items = (long long)hg::ceil_div(p.M, kItemRows) * n_cols;
   const uint32_t w_tile = BN * kTileK;
@@ -492,7 +542,7 @@ ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
     if (pt == 0 && p.resident) {
       hg::mbar_expect_tx(ring.held, n_cols * KT * w_tile);
       for (int i = 0; i < n_cols * KT; ++i)
-        hg::tma_load(held + (size_t)i * w_tile, &w_map, ring.held, (i % KT) * kTileK,
+        hg::tma_load(held + (size_t)i * w_tile, &w_map, ring.held, (i % KT) * kTileElems,
                      (i / KT) * BN);
     }
     if (!kGat && pt != 0) return;
@@ -530,11 +580,11 @@ ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
           } else if (!kGat) {
 #pragma unroll
             for (int h = 0; h < kATiles; ++h)
-              hg::tma_load(stage + h * kATile, &a_map, &ring.full[s], kt * kTileK,
+              hg::tma_load(stage + h * kATile, &a_map, &ring.full[s], kt * kTileElems,
                            (int)row0 + h * kBM);
           }
           if (!p.resident)
-            hg::tma_load(stage + ring.b_offset, &w_map, &ring.full[s], kt * kTileK, col0);
+            hg::tma_load(stage + ring.b_offset, &w_map, &ring.full[s], kt * kTileElems, col0);
         }
         if constexpr (kGat) {
           const uint32_t a_tile = hg::smem_u32(stage);
@@ -555,7 +605,7 @@ ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
     OutT* out = static_cast<OutT*>(p.out);
     if (p.resident) hg::mbar_wait(ring.held, 0);
     const bool small = (long long)p.K * 127 * 127 < (1LL << 22);
-    int acc[BN / 2];
+    typename Op::Acc acc[BN / 2];
     long long q = 0;
     for (long long t = blockIdx.x; t < items; t += gridDim.x, ++q) {
       if (!kTall && (int)(q & 1) != pair) continue;
@@ -565,22 +615,22 @@ ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
       if constexpr (kQuant) {
         const QuantRows quant{hg::smem_u32(ring.base), ring.stage_bytes, raw_offset, p.inv,
                               half * 64 + warp * 16, lane, kConsumerBar0 + wg};
-        hg::mainloop<BN, kCut, hg::WgmmaS8<BN>, false>(acc, ring, KT, q, q * KT, false, 0, true, 0,
-                                                       0, half * 64 * kTileK, b_addr, w_tile, 0,
-                                                       pair, lane, quant);
+        hg::mainloop<BN, kCut, typename Op::Mma, false>(acc, ring, KT, q, q * KT, false, 0, true,
+                                                        0, 0, half * 64 * kTileK, b_addr, w_tile,
+                                                        0, pair, lane, quant);
       } else {
-        hg::mainloop<BN, kCut, hg::WgmmaS8<BN>, kGat, !kTall>(acc, ring, KT, q, q * KT, false,
-                                                                  0, true, 0, 0, a_half, b_addr,
-                                                                  w_tile, 0, pair, lane);
+        hg::mainloop<BN, kCut, typename Op::Mma, kGat, !kTall>(acc, ring, KT, q, q * KT, false,
+                                                               0, true, 0, 0, a_half, b_addr,
+                                                               w_tile, 0, pair, lane);
       }
       if constexpr (kCut >= hg::kWhole) {
         const long long r0 = (t / n_cols) * kItemRows + (kTall ? pair * kBM : 0) + half * 64;
-        if (small)
-          scale_epilogue<BN, kCut != hg::kNoStores, true>(acc, r0, j * BN, p.M, p.N, warp, lane,
-                                                          staging, p.colscale, p.bias, out);
+        if (kScaled && small)
+          scale_epilogue<BN, kCut != hg::kNoStores, true, kScaled>(
+              acc, r0, j * BN, p.M, p.N, warp, lane, staging, p.colscale, p.bias, out);
         else
-          scale_epilogue<BN, kCut != hg::kNoStores, false>(acc, r0, j * BN, p.M, p.N, warp, lane,
-                                                           staging, p.colscale, p.bias, out);
+          scale_epilogue<BN, kCut != hg::kNoStores, false, kScaled>(
+              acc, r0, j * BN, p.M, p.N, warp, lane, staging, p.colscale, p.bias, out);
       } else if constexpr (kCut == hg::kProducts) {  // keep the products live, write nothing
         if (acc[0] == 12345678) out[0] = OutT(0.f);
       }
@@ -588,63 +638,79 @@ ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
-template <int BN, typename OutT, int kSrc, bool kTall, int kCut>
+template <int BN, typename OutT, int kSrc, bool kTall, int kCut, typename ET, bool kScaled>
 cudaError_t launch_gemm_bn(const Params& p, const void* w, cudaStream_t stream) {
   static hg::SmemGrant grant;
-  if (p.stages < 2 || p.stages > hg::kMaxStages || p.N % 4 || p.K > p.Kp || p.Kp % 16 ||
-      (kSrc == kRows && p.K % 16) || (kSrc == kRowsQuant && p.K % 8) ||
+  constexpr int esize = sizeof(ET);
+  typedef Operand<ET, BN> Op;
+  // TMA: 16-byte row strides, W's rows padded to Kp
+  if (p.stages < 2 || p.stages > hg::kMaxStages || p.N % 4 || p.K > p.Kp ||
+      (long long)p.Kp * esize % 16 ||
+      (kSrc == kRows && (long long)p.K * esize % 16) || (kSrc == kRowsQuant && p.K % 8) ||
       (kSrc == kGather && (p.C % 4 || p.C <= 0 || p.KW <= 0 || p.KW > 8)))
     return cudaErrorInvalidValue;
-  if (p.resident && held_bytes(BN, p.N, p.K) > hg::kMaxTxBytes) return cudaErrorInvalidValue;
-  const size_t smem = gemm_smem_bytes(BN, p.stages, p.resident, p.N, p.K, kSrc, kTall);
+  if (p.resident && held_bytes(BN, p.N, p.K, esize) > hg::kMaxTxBytes)
+    return cudaErrorInvalidValue;
+  const size_t smem = gemm_smem_bytes(BN, p.stages, p.resident, p.N, p.K, kSrc, kTall, esize);
   if (smem > hg::kSmemLimit) return cudaErrorInvalidValue;
   CUtensorMap a_map, w_map;
-  if (!hg::make_map(&w_map, w, p.N, p.Kp, BN, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1))
+  if (!hg::make_map(&w_map, w, p.N, p.Kp, BN, Op::kMap, esize))
     return cudaErrorInvalidValue;
   if (kSrc == kGather) a_map = w_map;  // unused
   else if (kSrc == kRowsQuant ? !hg::make_map(&a_map, p.x, p.M, p.K, kBM)
-                              : !hg::make_map(&a_map, p.x, p.M, p.K, kBM,
-                                              CU_TENSOR_MAP_DATA_TYPE_UINT8, 1))
+                              : !hg::make_map(&a_map, p.x, p.M, p.K, kBM, Op::kMap, esize))
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = hg::sm_count(&dev, &sms);
   if (err != cudaSuccess) return err;
-  const void* kernel = (const void*)ptq_gemm_kernel<BN, OutT, kSrc, kTall, kCut>;
+  const void* kernel = (const void*)ptq_gemm_kernel<BN, OutT, kSrc, kTall, kCut, ET, kScaled>;
   err = hg::grant_smem(kernel, smem, grant, dev);
   if (err != cudaSuccess) return err;
   const long long items =
       (long long)hg::ceil_div(p.M, kTall ? kTallBM : kBM) * hg::ceil_div(p.N, BN);
   const int grid = items < sms ? (int)items : sms;
-  ptq_gemm_kernel<BN, OutT, kSrc, kTall, kCut>
+  ptq_gemm_kernel<BN, OutT, kSrc, kTall, kCut, ET, kScaled>
       <<<grid, hg::kThreads, smem, stream>>>(a_map, w_map, p);
   return cudaGetLastError();
 }
 
 // bn 64 or 128; tall items with bn 128 only (the sites whose W streams)
-template <typename OutT, int kSrc, int kCut>
+template <typename OutT, int kSrc, int kCut, typename ET, bool kScaled>
 cudaError_t launch_gemm_src(const Params& p, const void* w, int bn, bool tall,
                             cudaStream_t stream) {
-  if (bn == 64 && !tall) return launch_gemm_bn<64, OutT, kSrc, false, kCut>(p, w, stream);
+  if (bn == 64 && !tall)
+    return launch_gemm_bn<64, OutT, kSrc, false, kCut, ET, kScaled>(p, w, stream);
   if (bn != 128) return cudaErrorInvalidValue;
   if constexpr (kSrc != kRowsQuant) {
-    if (tall) return launch_gemm_bn<128, OutT, kSrc, true, kCut>(p, w, stream);
+    if (tall) return launch_gemm_bn<128, OutT, kSrc, true, kCut, ET, kScaled>(p, w, stream);
   }
-  return tall ? cudaErrorInvalidValue : launch_gemm_bn<128, OutT, kSrc, false, kCut>(p, w, stream);
+  return tall ? cudaErrorInvalidValue
+              : launch_gemm_bn<128, OutT, kSrc, false, kCut, ET, kScaled>(p, w, stream);
 }
 
-// src: a Source; kRowsQuant takes bf16 x and a bf16 output only (the path's)
-template <typename OutT, int kCut>
+// src: a Source. int8 operands (ET int8_t): kRowsQuant takes bf16 x and a
+// bf16 output only (the path's); with kScaled the s32 sums are scaled to an
+// f32 or bf16 output, without it stored as s32 (OutT int). bf16 operands:
+// rows only, the f32 sums to an f32 or bf16 output.
+template <typename OutT, int kCut, typename ET = int8_t, bool kScaled = true>
 cudaError_t launch_gemm(const Params& p, const void* w, int src, int bn, bool tall,
                         cudaStream_t stream) {
   if (p.M == 0) return cudaSuccess;
-  switch (src) {
-    case kRows: return launch_gemm_src<OutT, kRows, kCut>(p, w, bn, tall, stream);
-    case kGather: return launch_gemm_src<OutT, kGather, kCut>(p, w, bn, tall, stream);
-    case kRowsQuant:
-      if constexpr (sizeof(OutT) == 2)
-        return launch_gemm_src<OutT, kRowsQuant, kCut>(p, w, bn, tall, stream);
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
+  if constexpr (sizeof(ET) == 2) {
+    return src == kRows ? launch_gemm_src<OutT, kRows, kCut, ET, false>(p, w, bn, tall, stream)
+                        : cudaErrorInvalidValue;
+  } else {
+    switch (src) {
+      case kRows:
+        return launch_gemm_src<OutT, kRows, kCut, ET, kScaled>(p, w, bn, tall, stream);
+      case kGather:
+        return launch_gemm_src<OutT, kGather, kCut, ET, kScaled>(p, w, bn, tall, stream);
+      case kRowsQuant:
+        if constexpr (sizeof(OutT) == 2 && kScaled)
+          return launch_gemm_src<OutT, kRowsQuant, kCut, ET, kScaled>(p, w, bn, tall, stream);
+        return cudaErrorInvalidValue;
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -17,16 +17,21 @@ multiplications run in bf16 whatever the input dtype (the tool's
 ``mm_dtype``), the rest in f32. ``attn_parts_copy`` is the tool's ``empty``
 variant, q + v.
 
-``attn_parts`` (``csrc/attn_parts.cu``): one CTA per (image, group, head,
-64 query rows) with the group's K and V in shared memory, gN padded to 16
-with excluded keys; each warp walks the keys in 16 x 16 score tiles, a first
-pass for the row max, a second that recomputes the tile, rounds P to bf16
-and accumulates P V and sum(P), on the tensor cores (wmma bf16, f32
-accumulation), so no score row is kept. The bias is read from memory: the
-tool builds it block-diagonal with -1e9 off the diagonal blocks
-(:func:`group_bias`), and no block is skipped, since the variants without
-it attend across the whole group. What bounds it on the card: the bytes of
-q, k, v and the output (the exps on the SFUs are not in that bound).
+``attn_parts`` (``csrc/attn_parts.cu``) instantiates the window-attention
+template ``csrc/window_attention.cuh`` with the parts as compile-time flags:
+with all four it is K5's function. Up to gN = 224 the register-resident
+kernel of K5 and K8 runs; above (the tool's g = 8, gN = 392) the template's
+streamed-key mode: a warp keeps 16 query rows and walks the keys 16 at a
+time in registers, a first pass for the row max and a second that computes
+the scores again, rounds P to bf16 and accumulates P V and sum(P)
+(``mma.sync`` bf16, f32 accumulation); persistent CTAs each keep one (head,
+stripe of query rows) with that stripe of the bias in shared memory
+(:func:`stripe_plan`) and walk the groups with a ``cp.async`` ring of K and
+V. The bias is an input: the tool builds it block-diagonal with -1e9 off
+the diagonal blocks (:func:`group_bias`), and no block is skipped, since the
+variants without it attend across the whole group. What bounds it on the
+card: by bytes, q, k, v, the output and the bias once; in practice the
+per-score softmax work and the shared-memory reads of both passes.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -49,10 +54,21 @@ LAUNCHES: Dict[str, int] = {"attn_parts": 0, "attn_parts_copy": 0}
 PARTS = ("bias", "max", "exp", "div")  # bit i of the kernel's mask is PARTS[i]
 HEAD_DIM = 32        # the kernel's head width
 MAX_GROUP_TOKENS = 1024  # gN whose K and V tiles the kernel holds in shared memory
+# the template's streamed-key mode (csrc/window_attention.cuh)
+RESIDENT_MAX_TOKENS = 224  # up to here the register-resident kernel of K5 runs
+MAX_STRIPE_TILES = 8  # 16-row tiles of a stripe
+MAX_SPLITS = 4  # warps a row tile's keys are split over
+MAX_STREAM_WARPS = 16  # tiles x splits: the warps a CTA may have
+# the warps a CTA aims for: at gN = 392, five tiles with two splits were as
+# fast as with three and faster than with one, and four tiles lost with four
+# splits against two (tools/exp_attn_parts.py --tiles --splits, PERF.md)
+STREAM_WARPS = 10
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "attn_parts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float, _I, _P],
+    "attn_parts": [_P, _P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float, _I] + [_I] * 4 + [_P],
+    "attn_parts_cut": [_P, _P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float] + [_I] * 5 + [_P],
     "attn_parts_copy": [_P, _P, _P, _L, _P],
 }
 
@@ -70,6 +86,34 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def stripe_plan(gn: int) -> dict:
+    """The streamed-key mode's plan for groups of ``gn`` tokens: keys padded
+    to ``np`` (a multiple of 16), ``stages`` of the K and V ring (2, or 1
+    where two stages leave no room for one tile of bias), ``tiles`` 16-row
+    tiles a stripe (at most :data:`MAX_STRIPE_TILES`, as many as fit beside
+    the ring, the row tiles split evenly over ``stripes``), ``splits`` warps
+    over which each tile's keys are split (one CTA fits an SM, and its warps
+    hide each other's latencies: as many as bring it to about
+    :data:`STREAM_WARPS`, at most :data:`MAX_SPLITS`) and the ``smem``
+    bytes: each tile's bias row
+    block in fragment order (np / 8 float4 per lane), the ring (np rows of K
+    and of V, 64 bytes each, per stage) and the splits' row maxima (16 f32 a
+    warp)."""
+    if not 0 < gn <= MAX_GROUP_TOKENS:
+        raise ValueError(f"gN = {gn}: the kernel takes 1 ... {MAX_GROUP_TOKENS} tokens a group")
+    np_ = -(-gn // 16) * 16
+    stage, bias_tile, red = np_ * 2 * HEAD_DIM * 2, np_ // 8 * 32 * 16, MAX_STREAM_WARPS * 64
+    stages = 2 if 2 * stage + bias_tile + red <= SMEM_LIMIT else 1
+    row_tiles = np_ // 16
+    most = min(MAX_STRIPE_TILES, (SMEM_LIMIT - stages * stage - red) // bias_tile)
+    stripes = -(-row_tiles // most)
+    tiles = -(-row_tiles // stripes)
+    splits = max(1, min(MAX_SPLITS, STREAM_WARPS // tiles, np_ // 16))
+    return dict(np=np_, tiles=tiles, splits=splits, stripes=stripes, stages=stages,
+                smem=tiles * bias_tile + stages * stage + tiles * splits * 64)
 
 
 def group_bias(heads: int, n: int, g: int) -> np.ndarray:
@@ -130,6 +174,37 @@ def attn_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask_bias: tor
     if q.device.type == "cpu":
         return attn_parts_plain(q, k, v, mask_bias, heads=heads, n=n, g=g, parts=parts)
     mask = _mask(parts)
+    out, args = _launch_args(q, k, v, mask_bias, heads, n, g)
+    err = _lib().attn_parts(*args[:10], mask, *args[10:])
+    if err != 0:
+        raise RuntimeError(f"attn_parts: CUDA launch failed with cudaError {err}")
+    LAUNCHES["attn_parts"] += 1
+    return out
+
+
+def attn_parts_cut(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask_bias: torch.Tensor,
+                   *, heads: int, n: int, g: int, cut: int) -> torch.Tensor:
+    """The streamed-key mode (gN > :data:`RESIDENT_MAX_TOKENS`) with every
+    part, stopped after one phase for the phase timings of
+    ``tools/exp_attn_parts.py``: ``cut`` 1 after the loads, 2 after pass 1
+    (the row max), 3 after pass 2's softmax without P V. The output holds
+    checksums, not attention, and the launch is not counted in
+    :data:`LAUNCHES`. CUDA tensors only, as :func:`attn_parts` takes them."""
+    if q.device.type != "cuda":
+        raise ValueError("the phase cuts exist only as CUDA kernels")
+    if g * n <= RESIDENT_MAX_TOKENS:
+        raise ValueError(f"gN = {g * n} runs the register-resident kernel, which has no cuts "
+                         f"here (the streamed-key mode takes gN > {RESIDENT_MAX_TOKENS})")
+    out, args = _launch_args(q, k, v, mask_bias, heads, n, g)
+    err = _lib().attn_parts_cut(*args[:-1], int(cut), args[-1])
+    if err != 0:
+        raise RuntimeError(f"attn_parts_cut {cut}: CUDA launch failed with cudaError {err}")
+    return out
+
+
+def _launch_args(q, k, v, mask_bias, heads: int, n: int, g: int) -> tuple:
+    """The output and the launch's arguments (without the parts mask) for
+    tensors the kernel takes; raises on anything else."""
     if q.ndim != 3:
         raise ValueError(f"q must be (B, nWin*N, C), got {tuple(q.shape)}")
     b, toks, c = q.shape
@@ -142,14 +217,11 @@ def attn_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask_bias: tor
         _check(name, t, torch.bfloat16, (b, toks, c), q.device)
     _check("mask_bias", mask_bias, torch.float32, (heads, gn, gn), q.device)
     _check_no_grad("attn_parts", q, k, v, mask_bias)
+    plan = stripe_plan(gn)
     out = torch.empty_like(q)
-    err = _lib().attn_parts(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
-                            out.data_ptr(), b * toks // gn, heads, gn, c,
-                            float((c // heads) ** -0.5), mask, _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"attn_parts: CUDA launch failed with cudaError {err}")
-    LAUNCHES["attn_parts"] += 1
-    return out
+    return out, (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(), out.data_ptr(),
+                 b * toks // gn, heads, gn, c, float((c // heads) ** -0.5), plan["tiles"],
+                 plan["splits"], plan["stripes"], plan["stages"], _stream(q.device))
 
 
 def attn_parts_copy(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

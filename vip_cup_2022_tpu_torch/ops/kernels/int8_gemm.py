@@ -4,16 +4,20 @@ plain PyTorch versions.
 Replaces the TPU kernel ``_call`` of ``tools/int8_pallas_spike.py`` with its
 three bodies, and runs the int8 sites of post-training quantization
 (:mod:`...quant.ptq`) that the JAX package leaves to XLA's int8
-``conv_general_dilated`` / ``dot_general`` (``quant/ptq.py``). An
-``mma.sync`` template in ``csrc/int8_gemm.cu`` serves the three spike
-bodies, a wgmma + TMA pair in ``csrc/ptq_int8.cuh`` the PTQ site:
+``conv_general_dilated`` / ``dot_general`` (``quant/ptq.py``). All of them
+run on one wgmma + TMA GEMM, ``csrc/ptq_int8.cuh`` on the engine of
+``csrc/hopper_gemm.cuh`` (entry points in ``csrc/int8_gemm.cu``), with the
+tiles of :func:`ptq_plan`:
 
 - ``int8_spike_bf16``: bf16 x (M, K) @ bf16 w (K, N), f32 accumulation ->
   bf16 or f32;
-- ``int8_spike_int8``: f32 or bf16 x quantized on load with a static scale
-  ``sx`` (``clip(round(x * (1 / sx)), -127, 127)``) @ int8 w (K, N), s32
-  accumulation, ``f32(acc) * sx`` -> f32 or bf16;
-- ``int8_spike_direct``: int8 x @ int8 w (K, N) -> int32;
+- ``int8_spike_int8``: f32 or bf16 x quantized with a static scale ``sx``
+  (``clip(round(x * (1 / sx)), -127, 127)``) @ int8 w (K, N), s32
+  accumulation, ``f32(acc) * sx`` -> f32 or bf16: the PTQ site's quantize
+  pass and GEMM with ``colscale = sx`` and no bias (two launches; one where
+  the GEMM quantizes bf16 rows itself, :func:`quantizes_in_gemm`);
+- ``int8_spike_direct``: int8 x @ int8 w (K, N) -> int32, the GEMM with its
+  s32 sums stored as they are;
 - ``ptq_int8_conv``: a PTQ site. ``ptq_int8_quantize`` quantizes x (f32
   or bf16) once with the site's calibrated scale into an int8 copy in x's
   layout; then ``ptq_int8_gemm`` (counted as ``ptq_int8_conv``) multiplies
@@ -33,6 +37,11 @@ Rounding is the JAX package's: the activation scale's reciprocal is the f64
 ``1 / s`` rounded once to f32 (:func:`f32_reciprocal`), products round half
 to even, and the s32 sum is converted to f32 by round to nearest, so kernel,
 plain version and JAX agree bit for bit wherever the f32 result is exact.
+
+The GEMM reads an int8 weight as (N, Kp), K contiguous (:func:`pack_weight`);
+the spike's wrappers take w as (K, N) and pack it on the card at each call
+unless a ``w_packed`` from :func:`pack_weight` is passed (packed once, as a
+model packs its weights at load).
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU;
 for CUDA tensors it launches its kernel or raises, and never falls back.
@@ -78,6 +87,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ptq_int8_conv: a, w, ldw, colscale, bias, out, out_f32, M, K, N, src, inv_s, H, W, C, KW,
 # stride, pad, Ho, Wo, the plan (bn, stages, resident, tall), stream
 _PTQ_ARGS = [_P, _P, _I, _P, _P, _P, _I] + [_I] * 4 + [_F] + [_I] * 8 + [_I] * 4 + [_P]
+# the spike's small GEMMs (ptq_plan with m): the H100's SMs, and how many
+# times over 256-row items must fill them before they pay (measured at the
+# spike's shapes: bf16 operands stream twice W's bytes per K and gain from
+# tall items sooner)
+SMS = 132
+TALL_FILL = {1: 4, 2: 2}
 
 
 def reset_launches() -> None:
@@ -89,9 +104,11 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("int8_gemm")
     argtypes = {
-        "int8_spike_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "int8_spike_int8": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-        "int8_spike_direct": [_P, _P, _P, _I, _I, _I, _P],
+        # x, w, ldw, out, out_f32, M, K, N, the plan, stream
+        "int8_spike_bf16": [_P, _P, _I, _P] + [_I] * 4 + [_I] * 4 + [_P],
+        # a, w, ldw, out, M, K, N, src, the geometry (H, W, C, KW, stride, pad, Ho, Wo),
+        # the plan, stream
+        "int8_spike_direct": [_P, _P, _I, _P] + [_I] * 4 + [_I] * 8 + [_I] * 4 + [_P],
         "ptq_int8_quantize": [_P, _I, _P, ctypes.c_longlong, _F, _P],
         "ptq_int8_conv": _PTQ_ARGS,
     }
@@ -179,48 +196,91 @@ def int8_spike_direct_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _exact_matmul(x, w)
 
 
-def int8_spike_bf16(x: torch.Tensor, w: torch.Tensor,
-                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def _spike_weight(name: str, w: torch.Tensor, w_packed: Optional[torch.Tensor], k: int,
+                  n: int) -> torch.Tensor:
+    """The (N, Kp) K-major weight: ``w_packed`` checked, or ``w`` packed now."""
+    if w_packed is None:
+        return pack_weight(w)
+    if (w_packed.ndim != 2 or w_packed.shape[0] != n or w_packed.shape[1] < k
+            or w_packed.shape[1] % K_ALIGN):
+        raise ValueError(f"{name}: w_packed {tuple(w_packed.shape)} is not pack_weight's (N, Kp) "
+                         f"for K = {k}, N = {n}")
+    _check("w_packed", w_packed, w.dtype, tuple(w_packed.shape), w.device)
+    return w_packed
+
+
+def int8_spike_bf16(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
+                    *, w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``_bf16_kernel``: bf16 x (M, K) @ bf16 w (K, N), f32 accumulation,
-    -> ``out_dtype`` (bf16 or f32)."""
+    -> ``out_dtype`` (bf16 or f32). ``w_packed``: w packed by
+    :func:`pack_weight` beforehand. CUDA: x whose K is not a multiple of 8
+    (TMA's 16-byte row stride) is zero-padded to one on the card first."""
     if x.device.type == "cpu":
         return int8_spike_bf16_plain(x, w, out_dtype)
     m, k, n = _check_spike("int8_spike_bf16", x, (torch.bfloat16,), w, torch.bfloat16)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype {out_dtype}: the kernel writes bf16 or f32")
+    wk = _spike_weight("int8_spike_bf16", w, w_packed, k, n)
+    if k % 8:  # the packed weight's zeros past K meet the padding
+        x = F.pad(x, (0, 8 - k % 8))
+    kx = x.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     _launched("int8_spike_bf16", _lib().int8_spike_bf16(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32), m, k, n,
-        _stream(x.device)))
+        x.data_ptr(), wk.data_ptr(), wk.shape[1], out.data_ptr(), int(out_dtype == torch.float32),
+        m, kx, n, *_ptq_plan_args(n, kx, PTQ_ROWS, 2, m), _stream(x.device)))
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _scale_columns(n: int, sx: float, device: torch.device) -> torch.Tensor:
+    """colscale = f32(sx) for every column: the spike's epilogue as the PTQ
+    GEMM's (cached: a tool calls the body with one scale many times)."""
+    return torch.full((n,), sx, dtype=torch.float32, device=device)
+
+
 def int8_spike_int8(x: torch.Tensor, w: torch.Tensor, sx: float,
-                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.float32, *,
+                    w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``_int8_kernel``: x (f32 or bf16) quantized with the static scale
-    ``sx`` on load, @ int8 w (K, N), s32 accumulation, ``f32(acc) * sx`` ->
-    ``out_dtype`` (f32 or bf16)."""
+    ``sx``, @ int8 w (K, N), s32 accumulation, ``f32(acc) * sx`` ->
+    ``out_dtype`` (f32 or bf16). CUDA: ``ptq_int8_quantize`` (counted there)
+    then the PTQ GEMM with ``colscale = sx`` and no bias, or the GEMM alone
+    on bf16 rows where it quantizes them itself (:func:`quantizes_in_gemm`);
+    ``w_packed``: w packed by :func:`pack_weight` beforehand."""
     if x.device.type == "cpu":
         return int8_spike_int8_plain(x, w, sx, out_dtype)
     m, k, n = _check_spike("int8_spike_int8", x, (torch.float32, torch.bfloat16), w, torch.int8)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype {out_dtype}: the kernel writes bf16 or f32")
+    qw = _spike_weight("int8_spike_int8", w, w_packed, k, n)
+    site = _site_of((m, k), tuple(qw.shape), None, 1, 0)
+    inv = f32_reciprocal(sx)
+    if quantizes_in_gemm(x.dtype, out_dtype, None, 1, 0, k, n):
+        a, src = x, PTQ_ROWS_QUANT
+    else:
+        a, src = _quantize(x, inv), PTQ_GATHER if site["gather"] else PTQ_ROWS
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    _launched("int8_spike_int8", _lib().int8_spike_int8(
-        x.data_ptr(), int(x.dtype == torch.float32), w.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.float32), m, k, n, f32_reciprocal(sx), float(sx),
-        _stream(x.device)))
+    _launched("int8_spike_int8", _lib().ptq_int8_conv(
+        a.data_ptr(), qw.data_ptr(), site["kp"], _scale_columns(n, float(sx), x.device).data_ptr(),
+        None, out.data_ptr(), int(out_dtype == torch.float32), m, k, n, src, inv,
+        *site["geometry"], *_ptq_plan_args(n, k, src, 1, m), _stream(x.device)))
     return out
 
 
-def int8_spike_direct(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``_int8_direct_kernel``: int8 x (M, K) @ int8 w (K, N) -> int32."""
+def int8_spike_direct(x: torch.Tensor, w: torch.Tensor, *,
+                      w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``_int8_direct_kernel``: int8 x (M, K) @ int8 w (K, N) -> int32.
+    ``w_packed``: w packed by :func:`pack_weight` beforehand."""
     if x.device.type == "cpu":
         return int8_spike_direct_plain(x, w)
     m, k, n = _check_spike("int8_spike_direct", x, (torch.int8,), w, torch.int8)
+    qw = _spike_weight("int8_spike_direct", w, w_packed, k, n)
+    site = _site_of((m, k), tuple(qw.shape), None, 1, 0)
+    src = PTQ_GATHER if site["gather"] else PTQ_ROWS
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     _launched("int8_spike_direct", _lib().int8_spike_direct(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, _stream(x.device)))
+        x.data_ptr(), qw.data_ptr(), site["kp"], out.data_ptr(), m, k, n, src,
+        *site["geometry"], *_ptq_plan_args(n, k, src, 1, m), _stream(x.device)))
     return out
 
 
@@ -228,12 +288,12 @@ def int8_spike_direct(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # the PTQ site
 # ---------------------------------------------------------------------------
 def pack_weight(qw_kn: torch.Tensor) -> torch.Tensor:
-    """int8 (K, N) (a Flax HWIO kernel reshaped, or a Dense kernel) -> the
-    kernel's (N, Kp) layout, K contiguous and zero-padded to a multiple of
-    :data:`K_ALIGN`."""
+    """int8 (or bf16) (K, N) (a Flax HWIO kernel reshaped, or a Dense
+    kernel) -> the kernel's (N, Kp) layout, K contiguous and zero-padded to
+    a multiple of :data:`K_ALIGN`."""
     k, n = qw_kn.shape
     kp = -(-k // K_ALIGN) * K_ALIGN
-    packed = torch.zeros((n, kp), dtype=torch.int8, device=qw_kn.device)
+    packed = torch.zeros((n, kp), dtype=qw_kn.dtype, device=qw_kn.device)
     packed[:, :k] = qw_kn.t()
     return packed
 
@@ -270,7 +330,7 @@ def ptq_int8_gemm_plain(q: torch.Tensor, qweight: torch.Tensor, colscale: torch.
     return y.to(out_dtype).contiguous()
 
 
-def ptq_plan(n: int, k: int, src: int) -> dict:
+def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None) -> dict:
     """The PTQ GEMM's tiles for an (M, k) @ (k, n) site whose A comes from
     ``src`` (:data:`PTQ_ROWS`: int8 rows by TMA; :data:`PTQ_GATHER`: int8
     NHWC by cp.async, with its row tables; :data:`PTQ_ROWS_QUANT`: bf16 rows
@@ -281,19 +341,32 @@ def ptq_plan(n: int, k: int, src: int) -> dict:
     then carries A alone), ``tall`` (where W streams through the ring at bn
     = 128 from int8 A: 256-row items whose halves the two consumer pairs
     multiply against each stage's one W tile, half W's traffic) and
-    ``smem`` bytes. Independent of M: the launcher sizes the persistent
-    grid."""
-    if n <= 0 or k <= 0 or n % 4 or src not in (PTQ_ROWS, PTQ_GATHER, PTQ_ROWS_QUANT):
+    ``smem`` bytes. ``esize`` 2: bf16 operands (the spike's bf16 body; 64
+    of K a 128-byte tile), rows only. Without ``m`` (the PTQ sites, whose M
+    is tens of thousands of rows) the plan is independent of M: the launcher
+    sizes the persistent grid. With ``m`` (the spike's bodies, M of 625 ...
+    4096) a streaming W's tiles follow the items the card gets: 64 columns
+    where 128 would give fewer items than :data:`SMS`, 256-row items only
+    where they still fill the SMs :data:`TALL_FILL` times over."""
+    if (n <= 0 or k <= 0 or n % 4 or src not in (PTQ_ROWS, PTQ_GATHER, PTQ_ROWS_QUANT)
+            or esize not in (1, 2) or (esize == 2 and src != PTQ_ROWS)):
         raise ValueError(f"the PTQ GEMM takes N a positive multiple of 4, K > 0 and a source "
-                         f"0-2, got {n}, {k}, {src}")
+                         f"0-2 (bf16: rows), got {n}, {k}, {src}, {esize} bytes")
     bn = PTQ_WIDTHS[0] if n <= PTQ_WIDTHS[0] else PTQ_WIDTHS[1]
     fixed = PTQ_STAGING + (PTQ_GEOMETRY if src == PTQ_GATHER else 0)
     a_stage = PTQ_BM * PTQ_TILE_K * (3 if src == PTQ_ROWS_QUANT else 1)  # + the bf16 boxes
     w_tile = bn * PTQ_TILE_K
-    held = -(-n // bn) * -(-k // PTQ_TILE_K) * w_tile
+    held = -(-n // bn) * -(-k * esize // PTQ_TILE_K) * w_tile
     held_stages = _stages_that_fit(fixed + held, a_stage, PTQ_MAX_RING)
     resident = held <= MAX_TX_BYTES and held_stages >= PTQ_MIN_HELD_STAGES
     tall = not resident and bn == PTQ_WIDTHS[1] and src != PTQ_ROWS_QUANT
+    if m is not None and not resident:
+        n_cols, bm = -(-n // PTQ_WIDTHS[1]), PTQ_BM
+        if -(-m // bm) * n_cols < SMS:
+            bn, tall = PTQ_WIDTHS[0], False
+        else:
+            tall = tall and -(-m // (2 * bm)) * n_cols >= TALL_FILL[esize] * SMS
+        w_tile = bn * PTQ_TILE_K
     if resident:
         stages, ring = held_stages, held + held_stages * a_stage
     else:
@@ -305,8 +378,8 @@ def ptq_plan(n: int, k: int, src: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _ptq_plan_args(n: int, k: int, src: int) -> tuple:
-    p = ptq_plan(n, k, src)
+def _ptq_plan_args(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None) -> tuple:
+    p = ptq_plan(n, k, src, esize, m)
     return p["bn"], p["stages"], int(p["resident"]), int(p["tall"])
 
 
