@@ -3,8 +3,8 @@
 before a launch, and the attention-parts wrappers' CPU dispatch of the
 phase cuts, without a card.
 
-Above gN = 224 keys a group (the register-resident kernel's limit) a CTA
-keeps one (head, stripe of 16-row tiles) with that stripe's rows of the
+At every group size (gN = 1 ... 1024 keys) a CTA keeps one (head, stripe
+of 16-row tiles) with that stripe's rows of the
 bias in shared memory beside a ring of K and V, each tile's keys split over
 a few warps; the plan must fit a block's 227 KB, split the row tiles evenly
 over the stripes with no stripe empty, keep two ring stages wherever they
@@ -36,7 +36,8 @@ def _check(gn):
     return plan
 
 
-@pytest.mark.parametrize("gn", [225, 240, 294, 300, 392, 448, 449, 512, 600, 784, 1000, 1024])
+@pytest.mark.parametrize("gn", [1, 27, 49, 98, 147, 196, 224, 225, 240, 294, 300, 392, 448,
+                                449, 512, 600, 784, 1000, 1024])
 def test_stripe_plan_fits_every_streamed_group(gn):
     _check(gn)
 
@@ -49,10 +50,12 @@ def test_stripe_plan_at_the_tools_groups():
                                       smem=231040)
 
 
-@pytest.mark.parametrize("gn,stripes,stages", [(294, 3, 2), (784, 25, 1)])
+@pytest.mark.parametrize("gn,stripes,stages", [(49, 1, 2), (98, 1, 2), (294, 3, 2),
+                                               (784, 25, 1)])
 def test_stripe_plan_at_the_card_tests_edges(gn, stripes, stages):
-    """gN 294 leaves its last stripe partial (19 tiles over three of 7);
-    gN 784 keeps one K and V stage beside its bias."""
+    """gN 98 and 49 fit one stripe; gN 294 leaves its last stripe partial
+    (19 tiles over three of 7); gN 784 keeps one K and V stage beside its
+    bias."""
     plan = _check(gn)
     assert (plan["stripes"], plan["stages"]) == (stripes, stages)
 

@@ -561,8 +561,8 @@ def test_ln_mlp_rejects_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["full", "no_max", "no_bias", "no_exp", "gemm_only", "empty"])
 @pytest.mark.parametrize("b,nwin,n,c,heads,g", [
-    (3, 4, 49, 64, 2, 2),     # gN 98: the register-resident kernel
-    (2, 16, 49, 128, 4, 8),   # gN 392: the streamed-key mode, five full stripes
+    (3, 4, 49, 64, 2, 2),     # gN 98: one stripe of seven tiles
+    (2, 16, 49, 128, 4, 8),   # gN 392: five full stripes
     (2, 6, 9, 32, 1, 3),      # gN 27
     (2, 4, 49, 64, 2, 1),     # g = 1, gN 49
     (2, 6, 49, 64, 2, 6),     # gN 294: three stripes of 7 tiles, the last partial
@@ -591,11 +591,12 @@ def test_attn_parts_match_plain_on_card(cuda_device, variant, b, nwin, n, c, hea
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", range(16))
-@pytest.mark.parametrize("g", [2, 8], ids=["resident", "streamed"])
+@pytest.mark.parametrize("g", [2, 8], ids=["gN98", "gN392"])
 def test_attn_parts_every_mask_on_card(cuda_device, mask, g):
-    """Every subset of the four parts (the kernel's 16 instantiations on each
-    of the template's two paths) at a small batch, against the f32 plain
-    version within 1e-2 of max|ref|."""
+    """Every subset of the four parts (the kernel's 16 instantiations) at a
+    small batch, in one stripe with one warp a tile (gN 98) and in five
+    stripes with two (gN 392), against the f32 plain version within 1e-2 of
+    max|ref|."""
     from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A
 
     b, nwin, n, c, heads = 2, 8, 49, 64, 2

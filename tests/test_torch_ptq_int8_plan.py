@@ -129,6 +129,7 @@ def test_ptq_wrappers_take_the_plain_versions_on_cpu(shape, kernel, stride, n):
 # (M, K, N) of the spike's three shapes and of the card tests' edges
 SPIKE_SHAPES = [(625, 384, 1536), (1352, 768, 3072), (4096, 768, 3072)]
 SPIKE_EDGES = [(37, 64, 96), (130, 100, 132), (100, 200, 100), (129, 776, 260), (130, 104, 136)]
+H100_SMS = 132  # the SMs of an H100 SXM, which the wrappers read from the card
 
 
 @pytest.mark.parametrize("m,k,n,esize,bn,tall", [
@@ -140,7 +141,7 @@ SPIKE_EDGES = [(37, 64, 96), (130, 100, 132), (100, 200, 100), (129, 776, 260), 
     (4096, 768, 3072, 2, 128, True),   # ... and past bf16's two
 ])
 def test_spike_plan_at_the_spike_shapes(m, k, n, esize, bn, tall):
-    plan = Q.ptq_plan(n, k, Q.PTQ_ROWS, esize, m)
+    plan = Q.ptq_plan(n, k, Q.PTQ_ROWS, esize, m, H100_SMS)
     assert (plan["bn"], plan["tall"], plan["resident"]) == (bn, tall, False)
     assert plan["smem"] <= K.SMEM_LIMIT and 2 <= plan["stages"] <= Q.PTQ_MAX_RING
     # without M (the PTQ sites) the same W streams in tall 128-column items
@@ -161,12 +162,27 @@ def test_spike_plan_fits_at_every_body_and_edge(m, k, n, body):
         src, kk, esize = Q.PTQ_ROWS_QUANT, k, 1
     else:
         src, kk, esize = (Q.PTQ_ROWS if k % 16 == 0 else Q.PTQ_GATHER), k, 1
-    plan = Q.ptq_plan(n, kk, src, esize, m)
+    plan = Q.ptq_plan(n, kk, src, esize, m, H100_SMS)
     assert plan["smem"] <= K.SMEM_LIMIT and 2 <= plan["stages"] <= Q.PTQ_MAX_RING
     assert plan["bn"] in Q.PTQ_WIDTHS and not (plan["tall"] and src == Q.PTQ_ROWS_QUANT)
     if plan["resident"]:
         assert plan["held"] == -(-n // plan["bn"]) * -(-kk * esize // 128) * plan["bn"] * 128
         assert plan["held"] <= Q.MAX_TX_BYTES
+
+
+@pytest.mark.parametrize("sms", [None, 0])
+def test_spike_plan_needs_the_sm_count(sms):
+    """A plan sized by M needs the card's SM count; the PTQ sites' plans
+    (no M) do not."""
+    with pytest.raises(ValueError, match="SM count"):
+        Q.ptq_plan(1536, 384, Q.PTQ_ROWS, 1, 625, sms)
+    assert Q.ptq_plan(1536, 384, Q.PTQ_ROWS, 1, None, sms)["bn"] == 128
+
+
+def test_spike_plan_follows_the_sm_count():
+    """s3_fc1's 60 items of 128 columns fill a card of 60 SMs, not 132."""
+    assert Q.ptq_plan(1536, 384, Q.PTQ_ROWS, 1, 625, H100_SMS)["bn"] == 64
+    assert Q.ptq_plan(1536, 384, Q.PTQ_ROWS, 1, 625, 60)["bn"] == 128
 
 
 def test_spike_shapes_quantize_after_the_pass():

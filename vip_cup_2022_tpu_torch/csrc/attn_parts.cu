@@ -21,21 +21,20 @@
 //
 // With all four parts this is K5's function (gcvit_block.cu's
 // `window_attention`: q scaled and rounded, P normalised after P V by the sum
-// of its bf16 values, token rows), so both run one template:
-//   - gN <= 224 (g <= 4 at N = 49): the register-resident kernel K5 runs,
-//     with the parts as compile-time flags (all four on for K5 and K8);
-//   - above (the tool's g = 8: gN = 392): the template's streamed-key mode,
+// of its bf16 values, token rows), on the same template:
+//   - attn_parts: the template's streamed-key mode at every gN up to 1024,
 //     two passes over 16-key tiles in registers, persistent CTAs that each
 //     keep one (head, stripe of query rows) and its stripe of the bias in
-//     shared memory (window_attention.cuh says how);
+//     shared memory (window_attention.cuh says how), the parts as
+//     compile-time flags;
 //   - attn_parts_copy: the template header's elementwise add_kernel.
 //
 // What bounds it: it moves q, k, v and the output once and the bias once
-// (the bound the tool asks about) and does 4 gN^2 32 tensor-core FLOPs per
-// group and head (6 gN^2 32 with the streamed mode's second pass) and, with
-// the exp, gN^2 exps on the SFUs; at gN = 392 the per-score softmax work on
-// the CUDA cores and the shared-memory reads of K, V and the bias set the
-// pace (PERF.md).
+// (the bound the tool asks about) and does 6 gN^2 32 tensor-core FLOPs per
+// group and head (the second pass computes the scores again; 4 gN^2 32
+// without the max) and, with the exp, gN^2 exps on the SFUs; at gN = 392
+// the per-score softmax work on the CUDA cores and the shared-memory reads
+// of K, V and the bias set the pace (PERF.md).
 //
 // The launchers have a plain C interface for ctypes and return
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
@@ -69,13 +68,6 @@ wa::StreamParams params(const void* q, const void* k, const void* v, const void*
   return sp;
 }
 
-template <int kParts>
-cudaError_t launch(const wa::StreamParams& sp, cudaStream_t stream) {
-  if (sp.p.n <= wa::kMaxN)
-    return wa::launch<true, true, wa::Layout::kTokens, 0, kParts>(sp.p, stream);
-  return wa::launch_streamed<kParts>(sp, stream);
-}
-
 bool valid(long long groups, int heads, int gN, int C) {
   return gN > 0 && gN <= wa::kMaxStreamN && heads > 0 && C == heads * wa::kHd &&
          groups * heads <= 0x7fffffffLL;
@@ -99,7 +91,7 @@ int attn_parts(const void* q, const void* k, const void* v, const void* mb, void
                                      splits, stripes, stages);
   const cudaStream_t s = (cudaStream_t)stream;
 #define ATTN_PARTS_CASE(P) \
-  case P: return (int)launch<P>(sp, s);
+  case P: return (int)wa::launch_streamed<P>(sp, s);
   switch (parts) {
     ATTN_PARTS_CASE(0) ATTN_PARTS_CASE(1) ATTN_PARTS_CASE(2) ATTN_PARTS_CASE(3)
     ATTN_PARTS_CASE(4) ATTN_PARTS_CASE(5) ATTN_PARTS_CASE(6) ATTN_PARTS_CASE(7)
@@ -110,14 +102,14 @@ int attn_parts(const void* q, const void* k, const void* v, const void* mb, void
   return (int)cudaErrorInvalidValue;
 }
 
-// The streamed-key mode (gN > 224) with every part, stopped after a phase
-// for tools/exp_attn_parts.py: cut 1 after the loads, 2 after pass 1 (the
-// row max), 3 after pass 2's softmax (no P V). The output holds checksums.
+// attn_parts with every part, stopped after a phase for
+// tools/exp_attn_parts.py: cut 1 after the loads, 2 after pass 1 (the row
+// max), 3 after pass 2's softmax (no P V). The output holds checksums.
 int attn_parts_cut(const void* q, const void* k, const void* v, const void* mb, void* out,
                    long long groups, int heads, int gN, int C, float scale, int tiles, int splits,
                    int stripes, int stages, int cut, void* stream) {
   if (groups == 0) return 0;
-  if (!valid(groups, heads, gN, C) || gN <= wa::kMaxN) return (int)cudaErrorInvalidValue;
+  if (!valid(groups, heads, gN, C)) return (int)cudaErrorInvalidValue;
   const wa::StreamParams sp = params(q, k, v, mb, out, groups, heads, gN, C, scale, tiles,
                                      splits, stripes, stages);
   const cudaStream_t s = (cudaStream_t)stream;

@@ -1,9 +1,9 @@
 // The wmma helpers of the tool kernels for Hopper (sm_90a): cp.async
 // staging, wmma bf16 fragments and their staging through shared memory, 8-wide
-// loads and stores, and the shared-memory grant. The LN-MLP tool kernels
-// (ln_mlp.cu) use the wmma fragments; the window-attention template
-// (window_attention.cuh, with the attention-parts tool's kernels) the
-// cp.async staging, the 8-wide loads and the grant. No main-path GEMM does:
+// loads and stores, and (from smem_grant.cuh) the shared-memory grant. The
+// LN-MLP tool kernels (ln_mlp.cu) use the wmma fragments; the
+// window-attention template (window_attention.cuh, with the attention-parts
+// tool's kernels) the cp.async staging, the 8-wide loads and the grant. No main-path GEMM does:
 // every GEMM of both block families (the MLP GEMMs, ln_qkv and
 // proj_scale_residual) runs on hopper_gemm.cuh's wgmma + TMA engine, and the
 // int8 PTQ site and the int8 spike's bodies on ptq_int8.cuh. No library GEMM
@@ -16,7 +16,8 @@
 
 #include <cmath>
 #include <cstdint>
-#include <mutex>
+
+#include "smem_grant.cuh"
 
 namespace block_gemm {
 
@@ -102,32 +103,9 @@ __device__ __forceinline__ void store8(bf16* __restrict__ p, const float v[8]) {
   *reinterpret_cast<uint4*>(p) = o.u;
 }
 
-// A kernel's dynamic shared-memory limit persists in the device's context, so
-// a launcher raises it only when a launch needs more than was granted there.
-// The grant is a launcher's static, which the dynamic linker may share between
-// two libraries that instantiate the same template (ptq_int8.cuh's or the
-// window-attention template's kernels built into two sources, each library
-// with its own copy of the kernel); so it remembers which kernel it granted.
-constexpr int kMaxDevices = 64;
-struct SmemGrant {
-  std::mutex mu;
-  const void* kernel[kMaxDevices] = {};
-  size_t bytes[kMaxDevices] = {};
-};
-
-inline cudaError_t grant_smem(const void* kernel, size_t bytes, SmemGrant& grant) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(grant.mu);
-  if (kernel == grant.kernel[dev] && bytes <= grant.bytes[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) {
-    grant.kernel[dev] = kernel;
-    grant.bytes[dev] = bytes;
-  }
-  return err;
-}
+using smem_grant::grant_smem;
+using smem_grant::kMaxDevices;
+using smem_grant::kSmemLimit;
+using smem_grant::SmemGrant;
 
 }  // namespace block_gemm

@@ -53,7 +53,6 @@ namespace {
 enum Layout { kRowsLayout = 0, kBatchLane = 1, kChanFirst = 2 };
 
 constexpr int kWarps = kThreads / 32;  // 8
-constexpr int kMaxSmem = 232448;       // an H100 CTA's opt-in shared memory
 
 // shared memory of the main loop: the LN tile, the hidden tile, the weight
 // ring and a 1 KB f32 fragment stage per warp
@@ -72,12 +71,12 @@ struct Cfg {
   static constexpr int LDH = HN + kPad;         // hidden tile (bf16)
   static constexpr int LDO = C + 4;             // output tile (f32)
   static constexpr int SLICE = (HN > C ? HN : C) * kLd;  // bf16 of one ring slot
-  static constexpr int STAGES = loop_bytes(BM, C, 3) <= kMaxSmem ? 3 : 2;
+  static constexpr int STAGES = loop_bytes(BM, C, 3) <= kSmemLimit ? 3 : 2;
   static constexpr size_t epi_bytes = (size_t)BM * LDO * 4;
   static constexpr size_t smem =
       loop_bytes(BM, C, STAGES) > epi_bytes ? loop_bytes(BM, C, STAGES) : epi_bytes;
   static_assert(C % 32 == 0 && NT * 2048 == BM * C, "C must split into whole warp tiles");
-  static_assert(loop_bytes(BM, C, STAGES) <= kMaxSmem, "tile does not fit in shared memory");
+  static_assert(loop_bytes(BM, C, STAGES) <= kSmemLimit, "tile does not fit in shared memory");
 };
 
 // global offset of element (r, c) of the activation in `layout`

@@ -1,7 +1,7 @@
 // One window-attention template for Hopper (sm_90a): softmax(q k^T + bias) v
 // per (window, head) with head width 32 and N <= 224 tokens a window, the
-// scores kept in registers from the product to P.V; and, for up to 1024 keys
-// a group, a streamed-key mode (below) that walks the keys twice in
+// scores kept in registers from the product to P.V; and, for groups of up
+// to 1024 keys, a streamed-key mode (below) that walks the keys twice in
 // registers.
 //
 // Instantiated by three entry points, each replacing a TPU kernel:
@@ -19,13 +19,12 @@
 //   attn_parts.cu       `attn_parts`: the experiment tool
 //                       tools/exp_attn_parts.py::build (body `_kernel`), K5's
 //                       function on groups of g windows with each part of
-//                       the softmax removable (Part), at gN <= 224 on the
-//                       register-resident kernel, above in the streamed-key
-//                       mode.
-// The compile-time choices are the layout (Layout), the q mode (kScaleQ:
-// round the scaled q, else scale the f32 scores), the normalisation
-// (kNormAfter: after P.V over the bf16 sums, else before) and the parts of
-// the softmax (kParts: all four for K5 and K8).
+//                       the softmax removable (Part), in the streamed-key
+//                       mode at every group size.
+// The register-resident kernel's three compile-time choices are the layout
+// (Layout), the q mode (kScaleQ: round the scaled q, else scale the f32
+// scores) and the normalisation (kNormAfter: after P.V over the bf16 sums,
+// else before).
 //
 // What bounds it on this card. Per (window, head) it reads q, k, v and
 // writes the output once (256 bytes a token) and needs the (N, N) f32 bias
@@ -90,11 +89,6 @@ constexpr int kMaxN = 224;  // tokens a window (14 x 14 fits, 16 x 14 is the edg
 // (B, N, C) with a global query), or contiguous (B*nWin, H, N, 32) tiles
 enum class Layout { kTokens, kHeads };
 
-// The parts of the softmax (attn_parts prices each by removing it): the bias
-// add, the row-max subtraction, the exp and the division by the row sum.
-// K5 and K8 take all four; a removed part makes the output wrong on purpose.
-enum Part : int { kBias = 1, kMax = 2, kExp = 4, kDiv = 8, kAllParts = 15 };
-
 struct Params {
   const bf16* q;
   const bf16* k;
@@ -119,7 +113,8 @@ __host__ __device__ constexpr size_t bias_bytes(int np) {
 __host__ __device__ constexpr size_t smem_bytes(int np) {
   return bias_bytes(np) + 2 * (size_t)stage_elems(np) * sizeof(bf16);
 }
-static_assert(smem_bytes(208) <= 232448, "NP = 208 must fit one CTA's shared memory");
+static_assert(smem_bytes(208) <= block_gemm::kSmemLimit,
+              "NP = 208 must fit one CTA's shared memory");
 
 __host__ __device__ inline int padded_keys(int n) { return (n + 15) / 16 * 16; }
 
@@ -256,19 +251,9 @@ __device__ __forceinline__ void store_cut(const Params& p, long long kv, int str
 
 // One warp: query rows [rt*16, rt*16 + 16) of one item, from q fragments and
 // the staged K, V to the output rows.
-// A key's probability before rounding: exp(s - max), or without the exp the
-// shifted score itself, 0 at keys past N (their score is -inf)
-template <int kParts>
-__device__ __forceinline__ float part_p(float s, float m) {
-  if constexpr ((kParts & kExp) != 0) return __expf(s - m);
-  else return s == -INFINITY ? 0.f : s - m;
-}
-
-template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut, int kParts = kAllParts>
+template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut>
 __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, uint32_t (&qa)[2][4],
                                             const bf16* st, const float4* bias_s) {
-  static_assert(kParts == kAllParts || (kScaleQ && kNormAfter),
-                "parts are removable only in K5's mode (attn_parts)");
   constexpr int kTiles = NP / 8;  // m16n8 score tiles a warp holds
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // a fragment's row in the 8-row group, its quad lane
@@ -312,13 +297,7 @@ __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, u
   }
   // (* scale) + bias; keys past N at -inf
   const float f = kScaleQ ? 1.f : p.scale;
-  if constexpr ((kParts & kBias) == 0) {  // no bias: keys past N at -inf all the same
-#pragma unroll
-    for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (nt * 8 + t * 2 + (e & 1) >= n) s[nt][e] = -INFINITY;
-  } else if (bias_in_smem(NP)) {
+  if (bias_in_smem(NP)) {
     const float4* bt = bias_s + rt * kTiles * 32 + lane;
 #pragma unroll
     for (int nt = 0; nt < kTiles; ++nt) {
@@ -353,19 +332,16 @@ __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, u
   }
 
   // row max and exps; a row is spread over the 4 lanes of a quad
-  float m0 = 0.f, m1 = 0.f;
-  if constexpr ((kParts & kMax) != 0) {
-    m0 = m1 = -INFINITY;
+  float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < kTiles; ++nt) {
-      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
-    }
+  for (int nt = 0; nt < kTiles; ++nt) {
+    m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+    m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+  }
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-    }
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
   // P as m16k16 A fragments: accumulator tiles 2kk and 2kk + 1 are the
   // k-halves of k-step kk
@@ -374,8 +350,8 @@ __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, u
   if (kNormAfter) {  // bf16 exps into P; the sums are of the rounded values
 #pragma unroll
     for (int nt = 0; nt < kTiles; ++nt) {
-      const uint32_t lo = pack_bf16(part_p<kParts>(s[nt][0], m0), part_p<kParts>(s[nt][1], m0));
-      const uint32_t hi = pack_bf16(part_p<kParts>(s[nt][2], m1), part_p<kParts>(s[nt][3], m1));
+      const uint32_t lo = pack_bf16(__expf(s[nt][0] - m0), __expf(s[nt][1] - m0));
+      const uint32_t hi = pack_bf16(__expf(s[nt][2] - m1), __expf(s[nt][3] - m1));
       const float2 flo = unpack_bf16(lo), fhi = unpack_bf16(hi);
       l0 += flo.x + flo.y;
       l1 += fhi.x + fhi.y;
@@ -431,8 +407,7 @@ __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, u
       mma16816(o[2 * d2 + 1], pa[kk], vb[2], vb[3]);
     }
   }
-  constexpr bool kDivide = kNormAfter && (kParts & kDiv) != 0;
-  const float f0 = kDivide ? inv0 : 1.f, f1 = kDivide ? inv1 : 1.f;
+  const float f0 = kNormAfter ? inv0 : 1.f, f1 = kNormAfter ? inv1 : 1.f;
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     const int col = d * 8 + t * 2;
@@ -448,7 +423,7 @@ __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, u
 // Persistent CTAs over (window, head) items with a two-stage cp.async ring
 // of K and V; every item of a CTA has the head blockIdx.x % heads (the
 // launcher makes gridDim.x a multiple of heads or gives a CTA one item).
-template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut, int kParts = kAllParts>
+template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut>
 __global__ void __launch_bounds__(warps_for(NP) * 32)
 window_attention_kernel(const Params p) {
   constexpr int kWarps = warps_for(NP);
@@ -481,7 +456,7 @@ window_attention_kernel(const Params p) {
         load_q<L>(p, item, (rt + kWarps) * 16, qn);
       else if (next < p.items)
         load_q<L>(p, next, warp * 16, qn);
-      attend_rows<NP, kScaleQ, kNormAfter, L, kCut, kParts>(p, item, rt, qa, st,
+      attend_rows<NP, kScaleQ, kNormAfter, L, kCut>(p, item, rt, qa, st,
                                               reinterpret_cast<const float4*>(bias_s));
     }
     __syncthreads();  // the stage is free for the item after next
@@ -514,12 +489,11 @@ inline cudaError_t resident_ctas(const void* kernel, int threads, size_t smem, G
   return cudaSuccess;
 }
 
-template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut, int kParts>
+template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut>
 cudaError_t launch_np(const Params& p, cudaStream_t stream) {
   static block_gemm::SmemGrant grant;
   static GridCache cache;
-  const void* kernel =
-      (const void*)window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut, kParts>;
+  const void* kernel = (const void*)window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut>;
   constexpr int threads = warps_for(NP) * 32;
   constexpr size_t smem = smem_bytes(NP);
   cudaError_t err = block_gemm::grant_smem(kernel, smem, grant);
@@ -530,21 +504,20 @@ cudaError_t launch_np(const Params& p, cudaStream_t stream) {
   // a multiple of the head count, so that a CTA keeps one head
   ctas = ctas < p.heads ? p.heads : ctas - ctas % p.heads;
   const int grid = p.items < ctas ? p.items : ctas;
-  window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut, kParts>
-      <<<grid, threads, smem, stream>>>(p);
+  window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut><<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // N -> the key tile: 64, 208 or 224
-template <bool kScaleQ, bool kNormAfter, Layout L, int kCut = 0, int kParts = kAllParts>
+template <bool kScaleQ, bool kNormAfter, Layout L, int kCut = 0>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (p.items == 0) return cudaSuccess;
   if (p.n <= 0 || p.n > kMaxN || p.heads <= 0 || p.items % p.heads)
     return cudaErrorInvalidValue;
   const int np = padded_keys(p.n);
-  if (np <= 64) return launch_np<64, kScaleQ, kNormAfter, L, kCut, kParts>(p, stream);
-  if (np <= 208) return launch_np<208, kScaleQ, kNormAfter, L, kCut, kParts>(p, stream);
-  return launch_np<224, kScaleQ, kNormAfter, L, kCut, kParts>(p, stream);
+  if (np <= 64) return launch_np<64, kScaleQ, kNormAfter, L, kCut>(p, stream);
+  if (np <= 208) return launch_np<208, kScaleQ, kNormAfter, L, kCut>(p, stream);
+  return launch_np<224, kScaleQ, kNormAfter, L, kCut>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -578,6 +551,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 constexpr int kMaxStreamN = 1024;  // keys a group may have
 constexpr int kMaxStripeTiles = 8;
 constexpr int kMaxStreamWarps = 16;  // tiles x splits
+
+// The parts of the softmax (attn_parts prices each by removing it): the bias
+// add, the row-max subtraction, the exp and the division by the row sum; a
+// removed part makes the output wrong on purpose.
+enum Part : int { kBias = 1, kMax = 2, kExp = 4, kDiv = 8, kAllParts = 15 };
 
 struct StreamParams {
   Params p;     // items = groups * heads, n = gN, layout kTokens
@@ -667,6 +645,12 @@ __device__ __forceinline__ void stream_scores(float (&s)[2][4], const uint32_t (
   }
 }
 
+// A key's probability before rounding without the exp: the shifted score
+// itself, 0 at keys past gN (their score is -inf)
+__device__ __forceinline__ float shifted_score(float s, float m) {
+  return s == -INFINITY ? 0.f : s - m;
+}
+
 // 2^x (MUFU.EX2, as __expf's)
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
@@ -675,11 +659,11 @@ __device__ __forceinline__ float ex2_approx(float x) {
 }
 
 // The streamed mode's probability before rounding: exp(s - m) as 2^(s log2e -
-// m log2e), one FFMA and the SFU's 2^x; without the exp as part_p
+// m log2e), one FFMA and the SFU's 2^x; without the exp the shifted score
 template <int kParts>
 __device__ __forceinline__ float stream_p(float s, float m_log2e, float m) {
   if constexpr ((kParts & kExp) != 0) return ex2_approx(fmaf(s, 1.4426950408889634f, -m_log2e));
-  else return part_p<kParts>(s, m);
+  else return shifted_score(s, m);
 }
 
 // Pass 1 of one warp over key chunks [c0, c1): the row max of its 16 rows,
@@ -932,7 +916,7 @@ cudaError_t launch_streamed(const StreamParams& sp, cudaStream_t stream) {
   if ((size_t)(sp.splits - 1) * sp.tiles * 32 * 18 * sizeof(float) > stream_stage_bytes(sp.np))
     return cudaErrorInvalidValue;
   const size_t smem = stream_smem_bytes(sp.tiles, sp.splits, sp.np, sp.stages);
-  if (smem > 232448) return cudaErrorInvalidValue;
+  if (smem > block_gemm::kSmemLimit) return cudaErrorInvalidValue;
   const void* kernel = (const void*)streamed_attention_kernel<kParts, kCut>;
   cudaError_t err = block_gemm::grant_smem(kernel, smem, grant);
   if (err != cudaSuccess) return err;

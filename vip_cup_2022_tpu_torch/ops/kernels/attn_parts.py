@@ -19,10 +19,10 @@ variant, q + v.
 
 ``attn_parts`` (``csrc/attn_parts.cu``) instantiates the window-attention
 template ``csrc/window_attention.cuh`` with the parts as compile-time flags:
-with all four it is K5's function. Up to gN = 224 the register-resident
-kernel of K5 and K8 runs; above (the tool's g = 8, gN = 392) the template's
-streamed-key mode: a warp keeps 16 query rows and walks the keys 16 at a
-time in registers, a first pass for the row max and a second that computes
+with all four it is K5's function. It runs the template's streamed-key
+mode at every gN (the tool's g = 8: gN = 392, more keys than K5's
+register-resident kernel holds): a warp keeps 16 query rows and walks the
+keys 16 at a time in registers, a first pass for the row max and a second that computes
 the scores again, rounds P to bf16 and accumulates P V and sum(P)
 (``mma.sync`` bf16, f32 accumulation); persistent CTAs each keep one (head,
 stripe of query rows) with that stripe of the bias in shared memory
@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from . import build
-from .convnext_block import _check, _check_no_grad, _stream
+from .convnext_block import SMEM_LIMIT, _check, _check_no_grad, _stream
 
 LAUNCHES: Dict[str, int] = {"attn_parts": 0, "attn_parts_copy": 0}
 
@@ -55,15 +55,13 @@ PARTS = ("bias", "max", "exp", "div")  # bit i of the kernel's mask is PARTS[i]
 HEAD_DIM = 32        # the kernel's head width
 MAX_GROUP_TOKENS = 1024  # gN whose K and V tiles the kernel holds in shared memory
 # the template's streamed-key mode (csrc/window_attention.cuh)
-RESIDENT_MAX_TOKENS = 224  # up to here the register-resident kernel of K5 runs
 MAX_STRIPE_TILES = 8  # 16-row tiles of a stripe
 MAX_SPLITS = 4  # warps a row tile's keys are split over
 MAX_STREAM_WARPS = 16  # tiles x splits: the warps a CTA may have
 # the warps a CTA aims for: at gN = 392, five tiles with two splits were as
 # fast as with three and faster than with one, and four tiles lost with four
-# splits against two (tools/exp_attn_parts.py --tiles --splits, PERF.md)
+# splits against two (PERF.md)
 STREAM_WARPS = 10
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -97,11 +95,11 @@ def stripe_plan(gn: int) -> dict:
     the ring, the row tiles split evenly over ``stripes``), ``splits`` warps
     over which each tile's keys are split (one CTA fits an SM, and its warps
     hide each other's latencies: as many as bring it to about
-    :data:`STREAM_WARPS`, at most :data:`MAX_SPLITS`) and the ``smem``
-    bytes: each tile's bias row
-    block in fragment order (np / 8 float4 per lane), the ring (np rows of K
-    and of V, 64 bytes each, per stage) and the splits' row maxima (16 f32 a
-    warp)."""
+    :data:`STREAM_WARPS`, at most :data:`MAX_SPLITS`, and no more than the
+    spent stage can take the partial sums of) and the ``smem`` bytes: each
+    tile's bias row block in fragment order (np / 8 float4 per lane), the
+    ring (np rows of K and of V, 64 bytes each, per stage) and the splits'
+    row maxima (16 f32 a warp)."""
     if not 0 < gn <= MAX_GROUP_TOKENS:
         raise ValueError(f"gN = {gn}: the kernel takes 1 ... {MAX_GROUP_TOKENS} tokens a group")
     np_ = -(-gn // 16) * 16
@@ -111,7 +109,8 @@ def stripe_plan(gn: int) -> dict:
     most = min(MAX_STRIPE_TILES, (SMEM_LIMIT - stages * stage - red) // bias_tile)
     stripes = -(-row_tiles // most)
     tiles = -(-row_tiles // stripes)
-    splits = max(1, min(MAX_SPLITS, STREAM_WARPS // tiles, np_ // 16))
+    handover = tiles * 32 * 18 * 4  # a split's o and l, 18 f32 a lane, passed on in a stage
+    splits = max(1, min(MAX_SPLITS, STREAM_WARPS // tiles, np_ // 16, 1 + stage // handover))
     return dict(np=np_, tiles=tiles, splits=splits, stripes=stripes, stages=stages,
                 smem=tiles * bias_tile + stages * stage + tiles * splits * 64)
 
@@ -184,17 +183,14 @@ def attn_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask_bias: tor
 
 def attn_parts_cut(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask_bias: torch.Tensor,
                    *, heads: int, n: int, g: int, cut: int) -> torch.Tensor:
-    """The streamed-key mode (gN > :data:`RESIDENT_MAX_TOKENS`) with every
-    part, stopped after one phase for the phase timings of
+    """:func:`attn_parts` with every part, stopped after one phase for the
+    phase timings of
     ``tools/exp_attn_parts.py``: ``cut`` 1 after the loads, 2 after pass 1
     (the row max), 3 after pass 2's softmax without P V. The output holds
     checksums, not attention, and the launch is not counted in
     :data:`LAUNCHES`. CUDA tensors only, as :func:`attn_parts` takes them."""
     if q.device.type != "cuda":
         raise ValueError("the phase cuts exist only as CUDA kernels")
-    if g * n <= RESIDENT_MAX_TOKENS:
-        raise ValueError(f"gN = {g * n} runs the register-resident kernel, which has no cuts "
-                         f"here (the streamed-key mode takes gN > {RESIDENT_MAX_TOKENS})")
     out, args = _launch_args(q, k, v, mask_bias, heads, n, g)
     err = _lib().attn_parts_cut(*args[:-1], int(cut), args[-1])
     if err != 0:

@@ -87,11 +87,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ptq_int8_conv: a, w, ldw, colscale, bias, out, out_f32, M, K, N, src, inv_s, H, W, C, KW,
 # stride, pad, Ho, Wo, the plan (bn, stages, resident, tall), stream
 _PTQ_ARGS = [_P, _P, _I, _P, _P, _P, _I] + [_I] * 4 + [_F] + [_I] * 8 + [_I] * 4 + [_P]
-# the spike's small GEMMs (ptq_plan with m): the H100's SMs, and how many
-# times over 256-row items must fill them before they pay (measured at the
-# spike's shapes: bf16 operands stream twice W's bytes per K and gain from
-# tall items sooner)
-SMS = 132
+# the spike's small GEMMs (ptq_plan with m): how many times over 256-row
+# items must fill the card's SMs before they pay (measured at the spike's
+# shapes on the H100: bf16 operands stream twice W's bytes per K and gain
+# from tall items sooner)
 TALL_FILL = {1: 4, 2: 2}
 
 
@@ -227,15 +226,9 @@ def int8_spike_bf16(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype = t
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     _launched("int8_spike_bf16", _lib().int8_spike_bf16(
         x.data_ptr(), wk.data_ptr(), wk.shape[1], out.data_ptr(), int(out_dtype == torch.float32),
-        m, kx, n, *_ptq_plan_args(n, kx, PTQ_ROWS, 2, m), _stream(x.device)))
+        m, kx, n, *_ptq_plan_args(n, kx, PTQ_ROWS, 2, m, _sm_count(x.device)),
+        _stream(x.device)))
     return out
-
-
-@functools.lru_cache(maxsize=64)
-def _scale_columns(n: int, sx: float, device: torch.device) -> torch.Tensor:
-    """colscale = f32(sx) for every column: the spike's epilogue as the PTQ
-    GEMM's (cached: a tool calls the body with one scale many times)."""
-    return torch.full((n,), sx, dtype=torch.float32, device=device)
 
 
 def int8_spike_int8(x: torch.Tensor, w: torch.Tensor, sx: float,
@@ -259,11 +252,12 @@ def int8_spike_int8(x: torch.Tensor, w: torch.Tensor, sx: float,
         a, src = x, PTQ_ROWS_QUANT
     else:
         a, src = _quantize(x, inv), PTQ_GATHER if site["gather"] else PTQ_ROWS
+    colscale = torch.full((n,), float(sx), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     _launched("int8_spike_int8", _lib().ptq_int8_conv(
-        a.data_ptr(), qw.data_ptr(), site["kp"], _scale_columns(n, float(sx), x.device).data_ptr(),
-        None, out.data_ptr(), int(out_dtype == torch.float32), m, k, n, src, inv,
-        *site["geometry"], *_ptq_plan_args(n, k, src, 1, m), _stream(x.device)))
+        a.data_ptr(), qw.data_ptr(), site["kp"], colscale.data_ptr(), None, out.data_ptr(),
+        int(out_dtype == torch.float32), m, k, n, src, inv, *site["geometry"],
+        *_ptq_plan_args(n, k, src, 1, m, _sm_count(x.device)), _stream(x.device)))
     return out
 
 
@@ -280,7 +274,8 @@ def int8_spike_direct(x: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     _launched("int8_spike_direct", _lib().int8_spike_direct(
         x.data_ptr(), qw.data_ptr(), site["kp"], out.data_ptr(), m, k, n, src,
-        *site["geometry"], *_ptq_plan_args(n, k, src, 1, m), _stream(x.device)))
+        *site["geometry"], *_ptq_plan_args(n, k, src, 1, m, _sm_count(x.device)),
+        _stream(x.device)))
     return out
 
 
@@ -330,7 +325,8 @@ def ptq_int8_gemm_plain(q: torch.Tensor, qweight: torch.Tensor, colscale: torch.
     return y.to(out_dtype).contiguous()
 
 
-def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None) -> dict:
+def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None,
+             sms: Optional[int] = None) -> dict:
     """The PTQ GEMM's tiles for an (M, k) @ (k, n) site whose A comes from
     ``src`` (:data:`PTQ_ROWS`: int8 rows by TMA; :data:`PTQ_GATHER`: int8
     NHWC by cp.async, with its row tables; :data:`PTQ_ROWS_QUANT`: bf16 rows
@@ -345,13 +341,16 @@ def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None) 
     of K a 128-byte tile), rows only. Without ``m`` (the PTQ sites, whose M
     is tens of thousands of rows) the plan is independent of M: the launcher
     sizes the persistent grid. With ``m`` (the spike's bodies, M of 625 ...
-    4096) a streaming W's tiles follow the items the card gets: 64 columns
-    where 128 would give fewer items than :data:`SMS`, 256-row items only
-    where they still fill the SMs :data:`TALL_FILL` times over."""
+    4096) a streaming W's tiles follow the items the card gets, and ``sms``,
+    the card's SM count, is required: 64 columns where 128 would give fewer
+    items than ``sms``, 256-row items only where they still fill the SMs
+    :data:`TALL_FILL` times over."""
     if (n <= 0 or k <= 0 or n % 4 or src not in (PTQ_ROWS, PTQ_GATHER, PTQ_ROWS_QUANT)
             or esize not in (1, 2) or (esize == 2 and src != PTQ_ROWS)):
         raise ValueError(f"the PTQ GEMM takes N a positive multiple of 4, K > 0 and a source "
                          f"0-2 (bf16: rows), got {n}, {k}, {src}, {esize} bytes")
+    if m is not None and not (sms or 0) > 0:
+        raise ValueError(f"a plan for M = {m} rows needs the card's SM count, got {sms}")
     bn = PTQ_WIDTHS[0] if n <= PTQ_WIDTHS[0] else PTQ_WIDTHS[1]
     fixed = PTQ_STAGING + (PTQ_GEOMETRY if src == PTQ_GATHER else 0)
     a_stage = PTQ_BM * PTQ_TILE_K * (3 if src == PTQ_ROWS_QUANT else 1)  # + the bf16 boxes
@@ -362,10 +361,10 @@ def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None) 
     tall = not resident and bn == PTQ_WIDTHS[1] and src != PTQ_ROWS_QUANT
     if m is not None and not resident:
         n_cols, bm = -(-n // PTQ_WIDTHS[1]), PTQ_BM
-        if -(-m // bm) * n_cols < SMS:
+        if -(-m // bm) * n_cols < sms:
             bn, tall = PTQ_WIDTHS[0], False
         else:
-            tall = tall and -(-m // (2 * bm)) * n_cols >= TALL_FILL[esize] * SMS
+            tall = tall and -(-m // (2 * bm)) * n_cols >= TALL_FILL[esize] * sms
         w_tile = bn * PTQ_TILE_K
     if resident:
         stages, ring = held_stages, held + held_stages * a_stage
@@ -378,8 +377,16 @@ def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None) 
 
 
 @functools.lru_cache(maxsize=None)
-def _ptq_plan_args(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None) -> tuple:
-    p = ptq_plan(n, k, src, esize, m)
+def _sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` is on (the spike's plans size their
+    items by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _ptq_plan_args(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None,
+                   sms: Optional[int] = None) -> tuple:
+    p = ptq_plan(n, k, src, esize, m, sms)
     return p["bn"], p["stages"], int(p["resident"]), int(p["tall"])
 
 

@@ -2,7 +2,6 @@
 """Price each part of the grouped window-attention softmax, on one CUDA card.
 
     python3 -m vip_cup_2022_tpu_torch.tools.exp_attn_parts [l1|l2] [--batch 256] [--iters 64]
-                                                          [--tiles T --splits S]
 
 Counterpart of ``tools/exp_attn_parts.py``, with its shapes (l1: 64 windows
 of 49 tokens, C 64, 2 heads; l2: 16 windows, C 128, 4 heads; groups of
@@ -22,17 +21,13 @@ images (max|d| / max|ref| <= 1e-2, or the tool raises), then timed over
 ``--iters`` launches after a warm-up by device time (a CUDA graph of the
 launches replayed, ``bench_util.device_ms``) with the CUDA-event time
 beside; the ``full`` variant also beside its library call, SDPA with the
-group bias as a float mask, and, where gN > 224 runs the template's
-streamed-key mode, stopped after each phase (``CUTS``: the loads, pass 1's
-row max, pass 2's softmax without P V). ``--tiles`` and ``--splits`` replace
-that mode's plan (``attn_parts.stripe_plan``: 16-row tiles a stripe, warps a
-tile's keys are split over) for the run, to compare plans on the card.
-Needs a CUDA device.
+group bias as a float mask, and stopped after each phase (``CUTS``: the
+loads, pass 1's row max, pass 2's softmax without P V). Needs a CUDA
+device.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import sys
 from typing import Dict, Optional, Sequence
 
@@ -103,14 +98,13 @@ def run(shape: str, batch: int, iters: int) -> Dict[str, dict]:
         results["full"].update(library_ms=lib, library_ms_events=lib_events)
         print(f"  {'sdpa':11s} {lib:8.4f} ms device, {lib_events:8.4f} ms events   (the full "
               f"variant's library call; full/sdpa {results['full']['ms'] / lib:.2f})", flush=True)
-        if g * n > A.RESIDENT_MAX_TOKENS:  # the streamed-key mode's phases
-            cuts = {name: device_ms(lambda c=c: A.attn_parts_cut(
-                t["q"], t["k"], t["v"], t["mb"], heads=heads, n=n, g=g, cut=c), iters)
-                    for name, c in CUTS.items()}
-            results["full"]["cuts"] = cuts
-            print("  full's phases (device ms): " + ", ".join(
-                f"{name} {ms:.4f}" for name, ms in cuts.items()) + f", whole "
-                f"{results['full']['ms']:.4f}", flush=True)
+        cuts = {name: device_ms(lambda c=c: A.attn_parts_cut(
+            t["q"], t["k"], t["v"], t["mb"], heads=heads, n=n, g=g, cut=c), iters)
+                for name, c in CUTS.items()}
+        results["full"]["cuts"] = cuts
+        print("  full's phases (device ms): " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in cuts.items()) + f", whole "
+            f"{results['full']['ms']:.4f}", flush=True)
     return results
 
 
@@ -129,46 +123,16 @@ def sdpa(t: dict, heads: int, n: int, g: int):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=hd ** -0.5)
 
 
-@contextlib.contextmanager
-def plan_override(tiles: Optional[int], splits: Optional[int]):
-    """``attn_parts.stripe_plan`` with ``tiles`` and ``splits`` in place of
-    its own (the stripes re-counted), for the duration; as it is when both
-    are None."""
-    if tiles is None and splits is None:
-        yield
-        return
-    own = A.stripe_plan
-
-    def plan(gn: int) -> dict:
-        p = dict(own(gn))
-        p["tiles"] = tiles or p["tiles"]
-        p["splits"] = splits or p["splits"]
-        p["stripes"] = -(-(p["np"] // 16) // p["tiles"])
-        return p
-
-    A.stripe_plan = plan
-    try:
-        yield
-    finally:
-        A.stripe_plan = own
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("shape", nargs="?", default="l1", choices=sorted(SHAPES))
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=64)
-    ap.add_argument("--tiles", type=int, default=None)
-    ap.add_argument("--splits", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("exp_attn_parts: no CUDA device is available; the kernel has no CPU timing")
     print(f"device={torch.cuda.get_device_name(0)} [{card_line()}]", flush=True)
-    with plan_override(args.tiles, args.splits):
-        if args.tiles or args.splits:
-            nwin, n, _, _, g = SHAPES[args.shape]
-            print(f"plan {A.stripe_plan(g * n)}", flush=True)
-        return run(args.shape, args.batch, args.iters)
+    return run(args.shape, args.batch, args.iters)
 
 
 if __name__ == "__main__":
