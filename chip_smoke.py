@@ -10,8 +10,8 @@ each printing its results on earlier lines, any failure exiting non-zero:
 2. build: compile every source of ``csrc/`` (the ConvNeXt and GCViT block
    kernels, window attention, LayerNorm, depthwise, the LN-MLP, the
    attention-parts and the int8 GEMM kernels, and the phase cuts of the
-   wgmma + TMA engine's kernels and of the depthwise kernel), one nvcc per
-   source, all at once, with ``-Xptxas -v``;
+   wgmma + TMA engine's kernels, of the depthwise kernel and of the LN-MLP
+   kernel), one nvcc per source, all at once, with ``-Xptxas -v``;
 3. kernels: each of ``dwconv7x7_nhwc``, ``ln_fc1_gelu`` and
    ``fc2_scale_residual`` against its plain PyTorch version in f32 (TF32 off)
    on the same bf16-rounded inputs at the stage shapes s1-s4, with batch 8
@@ -47,13 +47,17 @@ each printing its results on earlier lines, any failure exiting non-zero:
    - ``layer_norm`` at every LN shape both members call on the unfused path
      (recorded from one forward of each); the library call is
      ``F.layer_norm`` on the f32 copy, with the casts;
-   - ``depthwise_conv_nhwc`` at the six ``exp_dw`` shapes, then the
-     ``exp_dw`` tool itself, which times the kernel, its plain version and
-     cuDNN's depthwise conv;
+   - ``depthwise_conv_nhwc`` at the six ``exp_dw`` shapes and at ragged
+     cases (C = 336, 24 and 8, k = 3, 5 and 7, asymmetric paddings), then
+     the ``exp_dw`` tool itself, which times the kernel and cuDNN's
+     depthwise conv by device time and its plain version by events;
    - the tool kernels: ``fused_ln_mlp_residual``, ``lnmlp_batchlane`` and
      ``lnmlp_chanfirst`` (one LN-MLP kernel in three layouts) at the
      ``exp_convnext_s12`` shapes s1-s4 (no library call computes LN -> MLP
-     -> residual), and ``attn_parts``'s six variants at the
+     -> residual), timed by device time beside the engine's two-launch
+     ``ln_fc1_gelu`` + ``fc2_scale_residual`` pair and cuBLAS's two
+     products alone, then the ``exp_lnmlp_dw`` tool's phase cuts of the
+     rows-layout kernel; and ``attn_parts``'s six variants at the
      ``exp_attn_parts`` shapes l1 and l2 (its ``full`` variant timed by
      device time, a CUDA graph of its launches replayed, beside SDPA with
      the group bias as a float mask, timed the same way); then both tools
@@ -126,9 +130,10 @@ CSV run for the block families, the unfused CSV run for
 computes the function) are per batch-256 forward of both members together on
 that path (phases 3-5; ``ln_fc1_gelu`` and ``fc2_scale_residual`` serve both
 members), for ``depthwise_conv_nhwc`` per pass over the six ``exp_dw``
-shapes, for the LN-MLP kernels per batch-256 launch at each of s1-s4
-summed, for ``attn_parts`` per batch-256 ``full`` launch at l1 and l2
-summed, for the spike bodies per launch at the spike's three shapes summed
+shapes (kernel and cuDNN by device time), for the LN-MLP kernels per
+batch-256 launch at each of s1-s4 summed (by device time), for
+``attn_parts`` per batch-256 ``full`` launch at l1 and l2 summed, for the
+spike bodies per launch at the spike's three shapes summed
 (library: cuBLAS bf16, and ``torch._int_mm`` on a column-major copy of w,
 the layout cuBLASLt's int8 path takes; none for the quantize-on-load body;
 the int8 body's ms is its two launches, the quantize pass and the GEMM;
@@ -173,7 +178,7 @@ from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
-                                          exp_dwconv, exp_mlp_gemm, exp_ptq_int8,
+                                          exp_dwconv, exp_lnmlp_dw, exp_mlp_gemm, exp_ptq_int8,
                                           exp_window_attention, int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms, device_ms  # noqa: E402
 
@@ -389,7 +394,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()
                     if src.endswith(".cu")}  # ptq_int8.cuh is built into int8_gemm.cu
-                   | {"mlp_gemm_cuts", "dwconv_cuts", "ptq_int8_cuts"})  # the tools' cuts
+                   | {"mlp_gemm_cuts", "dwconv_cuts", "ptq_int8_cuts", "ln_mlp_cuts"})  # the cuts
     paths = build.build_all(names, verbose=True)
     for module in KERNEL_MODULES:
         module._lib()
@@ -742,13 +747,28 @@ def phase_layernorm(card: str, stats: dict) -> None:
                       f"({sum(per_forward.values())} LNs)", card)
 
 
+# ragged depthwise cases beside the exp_dw shapes: (tag, H, W, C, k, padding);
+# C = 336 (ten 32-channel slices and a tail of 16), 24 and 8 (a tail alone)
+DW_RAGGED = (
+    ("c336_k3_asym", 28, 28, 336, 3, ((1, 0), (0, 1))),
+    ("c336_k5_asym", 28, 28, 336, 5, ((2, 1), (0, 2))),
+    ("c336_k7_asym", 14, 14, 336, 7, ((3, 2), (1, 3))),
+    ("c24_k5_asym", 13, 11, 24, 5, ((2, 0), (1, 3))),
+    ("c8_k7_asym", 13, 11, 8, 7, ((0, 3), (3, 1))),
+    ("c8_k3", 13, 11, 8, 3, ((1, 1), (1, 1))),
+)
+
+
 def phase_depthwise(card: str, stats: dict) -> int:
-    """The depthwise kernel at the six ``exp_dw`` shapes, then the ``exp_dw``
-    tool (its entry point); returns the tool's launches."""
+    """The depthwise kernel at the six ``exp_dw`` shapes and at the ragged
+    ``DW_RAGGED`` cases, batch 8 and 256, then the ``exp_dw`` tool (its entry
+    point), which times the kernel and cuDNN by device time; returns the
+    tool's launches."""
+    cases = [(tag, h, w, c, k, ((k // 2, k // 2), (k // 2, k // 2)))
+             for tag, _, h, w, c, k in exp_dw.SHAPES] + list(DW_RAGGED)
     for b in (8, BATCH):
-        for tag, _, h, w, c, k in exp_dw.SHAPES:
+        for tag, h, w, c, k, pad in cases:
             x, kern = exp_dw.inputs(b, h, w, c, k)
-            pad = ((k // 2, k // 2), (k // 2, k // 2))
             out = D.depthwise_conv_nhwc(x, kern, padding=pad)
             torch.cuda.synchronize()
             check({f"{DW} {tag}": (out, lambda: D.depthwise_conv_nhwc_plain(
@@ -766,9 +786,10 @@ def phase_depthwise(card: str, stats: dict) -> int:
                         2 * k * k * b * h * w * c, "f32")
         stats[DW]["max_abs_err"] = max(stats[DW]["max_abs_err"], r["max_abs_err"])
         print_launch(DW, r["tag"], times, bound, card)
-    print(f"[kernels] {DW} per pass over the six exp_dw shapes: kernel {stats[DW]['ms']:.2f} ms, "
-          f"plain {stats[DW]['plain_ms']:.2f} ms, cuDNN {stats[DW]['library_ms']:.2f} ms, "
-          f"bound {stats[DW]['bound_ms']:.3f} ms; {launches} launches in the exp_dw run [{card}]")
+    print(f"[kernels] {DW} per pass over the six exp_dw shapes: kernel {stats[DW]['ms']:.3f} ms "
+          f"device, plain {stats[DW]['plain_ms']:.2f} ms, cuDNN {stats[DW]['library_ms']:.3f} ms "
+          f"device, bound {stats[DW]['bound_ms']:.3f} ms; {launches} launches in the exp_dw run "
+          f"[{card}]")
     if launches <= 0:
         raise AssertionError("the exp_dw run launched no depthwise kernel")
     return launches
@@ -790,8 +811,14 @@ def lnmlp_inputs(b, h, w, c, gen) -> tuple:
 def phase_lnmlp(card: str, stats: dict) -> None:
     """K3 and K12 (one LN-MLP kernel in three layouts) at the ``exp_convnext_s12``
     shapes s1-s4, batch 8 and 256, each against its plain version; timed at
-    batch 256. No one PyTorch call computes LN -> MLP -> residual."""
+    batch 256 by device time (the plain version by CUDA events) beside the
+    engine's two-launch pair ``ln_fc1_gelu`` + ``fc2_scale_residual`` on the
+    same inputs (x as the f32 rows ``ln_fc1_gelu`` takes) and cuBLAS's two
+    products alone, both by device time. No one PyTorch call computes LN ->
+    MLP -> residual. Then the ``exp_lnmlp_dw`` tool's phase cuts of the
+    rows-layout kernel at s1-s4."""
     gen = torch.Generator(device="cuda").manual_seed(6)
+    before, pair_sum, gemm_sum = snapshot(stats), 0.0, 0.0
     for b in (8, BATCH):
         for tag, (h, w, c, n) in exp_convnext_s12.SHAPES.items():
             x, r, prm = lnmlp_inputs(b, h, w, c, gen)
@@ -806,13 +833,36 @@ def phase_lnmlp(card: str, stats: dict) -> None:
                 check({f"{name} {tag}": (out, lambda: plain(xl.float(), rl.float(), *p32))},
                       f"b{b} {tuple(xl.shape)}", stats)
                 if b == BATCH:
-                    times = time_calls(lambda: kern(xl, rl, *prm), lambda: plain(xl, rl, *prm))
+                    times = time_calls(lambda: kern(xl, rl, *prm), lambda: plain(xl, rl, *prm),
+                                       device=True)
                     nbytes = 3 * m * c * 2 + 2 * n * c * 2 + (4 * c + n) * 4
                     bound = account(stats, name, 1, times, nbytes, 4 * m * c * n, "bf16")
-                    print_launch(name, f"{tag} {tuple(xl.shape)}", times, bound, card)
+                    print_launch(name, f"{tag} {tuple(xl.shape)} device", times, bound, card)
                 del xl, rl, out
+            if b == BATCH:  # the yardsticks: the engine's pair and cuBLAS's products alone
+                g, lb, w1, b1, w2, b2, ls = prm
+                xf, r2, y = x.view(m, c).float(), r.view(m, c), x.view(m, c)
+                hid = F.linear(y, w1)
+                pair, gemm = (sum(device_ms(fn, calls=10) for _ in range(2)) / 2 for fn in (
+                    lambda: K.fc2_scale_residual(K.ln_fc1_gelu(xf, g, lb, w1, b1, 1e-6), w2, b2,
+                                                 ls, r2),
+                    lambda: (F.linear(y, w1), F.linear(hid, w2))))
+                pair_sum, gemm_sum = pair_sum + pair, gemm_sum + gemm
+                for name in LNMLP_KERNELS:
+                    stats[name]["gemm_ms"] += gemm
+                print(f"[kernels] LN-MLP yardsticks {tag} ({m}, {c}) hidden {n}: ln_fc1_gelu + "
+                      f"fc2_scale_residual {pair:.4f} ms device, cuBLAS's two products alone "
+                      f"{gemm:.4f} ms device [{card}]")
+                del xf, r2, y, hid
             del x, r
             torch.cuda.empty_cache()
+    for name in LNMLP_KERNELS:
+        k_ms = stats[name]["ms"] - before[name]["ms"]
+        print(f"[kernels] {name:26s} over s1-s4: kernel {k_ms:.4f} ms device, pair "
+              f"{pair_sum:.4f} ms device (kernel/pair {k_ms / pair_sum:.2f}), cuBLAS's products "
+              f"alone {gemm_sum:.4f} ms, bound "
+              f"{stats[name]['bound_ms'] - before[name]['bound_ms']:.3f} ms [{card}]")
+    exp_lnmlp_dw.main(["--only", "lnmlp", "--cuts", "--iters", "5"])  # the phase cuts
 
 
 def phase_attn_parts(card: str, stats: dict) -> None:

@@ -456,6 +456,35 @@ def test_depthwise_matches_plain_on_card(cuda_device, k, padding, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("c,padding", [
+    (336, ((2, 2), (2, 2))), (24, ((2, 0), (1, 3))), (8, ((0, 2), (3, 1))),
+    (12, ((1, 1), (1, 1))), (6, ((3, 0), (0, 0))),
+])
+def test_depthwise_tail_slices_on_card(cuda_device, k, c, padding):
+    """C not a multiple of the template's 32-channel slice: a tail slice
+    (C = 336: 10 slices and 16 channels; 24, 12, 8, 6: the tail alone), its
+    halo copied 16 (C % 8 = 0), 8 (C = 12) or 4 bytes (C = 6) at a time,
+    with asymmetric paddings up to the kernel's size: max|d| / max|ref| <=
+    1e-2 (the bf16 output)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+
+    g = torch.Generator(device=cuda_device).manual_seed(c + k)
+    x = torch.rand((2, 9, 13, c), generator=g, device=cuda_device).to(torch.bfloat16)
+    kern = torch.rand((k, k, c), generator=g, device=cuda_device) - 0.5
+    D.reset_launches()
+    got = D.depthwise_conv_nhwc(x, kern, padding=padding)
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == {"depthwise_conv_nhwc": 1}
+    ref = D.depthwise_conv_nhwc_plain(x.float(), kern, padding=padding)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert _rel(got, ref) <= 1e-2
+    plan = D.depthwise_plan(ref.shape[1], ref.shape[2], c)
+    assert plan["slices"] == -(-c // 32)
+    assert plan["copy_bytes"] == (16 if c % 8 == 0 else 8 if c % 4 == 0 else 4)
+
+
+@pytest.mark.cuda
 def test_exp_dw_tool_runs_on_card(cuda_device):
     from vip_cup_2022_tpu_torch.tools import exp_dw
 
@@ -528,6 +557,37 @@ def test_ln_mlp_matches_plain_on_card(cuda_device, shape, name):
     got = getattr(LM, name)(x, r, *prm)
     torch.cuda.synchronize()
     assert LM.LAUNCHES[name] == 1 and sum(LM.LAUNCHES.values()) == 1
+    ref = getattr(LM, name + "_plain")(x.float(), r.float(), *(t.float() for t in prm))
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert _rel(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 99, 99, 96), (2, 13, 13, 768), (1, 7, 9, 192),
+                                   (2, 5, 7, 512)], ids=["s1", "s4", "c192", "c512"])
+@pytest.mark.parametrize("name", ["fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst"])
+def test_ln_mlp_stage_rows_on_card(cuda_device, shape, name):
+    """The exp_convnext_s12 widths at s1's rows (19602: two row groups of
+    64, the last item's second group past M) and s4's (338: C split in two
+    halves that each compute fc1), and two more widths, each layout against
+    the f32 plain version on the same bf16 inputs: max|d| / max|ref| <= 1e-2."""
+    from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM
+
+    g = torch.Generator(device=cuda_device).manual_seed(shape[-1] + 1)
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    perm = LM.LAYOUTS[name]
+    c, n = shape[-1], 4 * shape[-1]
+    x, r = (u(shape).to(torch.bfloat16).permute(*perm).contiguous() for _ in range(2))
+    prm = (u((c,), 0.5, 1.5), u((c,), -0.1, 0.1), (u((n, c)) * c ** -0.5).to(torch.bfloat16),
+           u((n,), -0.1, 0.1), (u((c, n)) * n ** -0.5).to(torch.bfloat16), u((c,), -0.1, 0.1),
+           u((c,), 0.5, 1.5))
+    LM.reset_launches()
+    got = getattr(LM, name)(x, r, *prm)
+    torch.cuda.synchronize()
+    assert LM.LAUNCHES[name] == 1
     ref = getattr(LM, name + "_plain")(x.float(), r.float(), *(t.float() for t in prm))
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert _rel(got, ref) <= 1e-2
@@ -628,6 +688,21 @@ def test_tools_run_on_card(cuda_device):
     parts = exp_attn_parts.main(["l2", "--iters", "1", "--batch", "4"])
     assert set(parts) == set(exp_attn_parts.VARIANTS)
     assert all(LM.LAUNCHES.values()) and all(A.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_exp_lnmlp_dw_tool_runs_on_card(cuda_device):
+    """The device-time tool at batch 2: the three LN-MLP layouts, the phase
+    cuts and both yardsticks at s1-s4, and the depthwise kernel beside cuDNN
+    at the exp_dw shapes, all timed."""
+    from vip_cup_2022_tpu_torch.tools import exp_lnmlp_dw
+
+    res = exp_lnmlp_dw.main(["--iters", "1", "--batch", "2", "--cuts", "--yardsticks"])
+    assert set(res["lnmlp"]) == {"s1", "s2", "s3", "s4"} and len(res["dw"]) == 6
+    for row in res["lnmlp"].values():
+        assert {"fused_ln_mlp_residual", "pair", "cublas", "cut_loads", "cut_gelu"} <= set(row)
+        assert all(t["device"] > 0 and t["events"] > 0 for t in row.values())
+    assert all(set(row) == {"kernel", "cudnn"} for row in res["dw"].values())
 
 
 # ---------------------------------------------------------------------------

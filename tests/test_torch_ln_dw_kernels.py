@@ -143,17 +143,21 @@ def test_exp_window_attention_needs_a_card(monkeypatch):
 # ---------------------------------------------------------------------------
 # K9: depthwise conv
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("k,padding,kern_rank", [
-    (3, ((1, 1), (1, 1)), 4),
-    (5, ((2, 1), (0, 2)), 4),
-    (7, ((3, 2), (1, 3)), 3),
-    (3, ((0, 2), (2, 0)), 3),
+@pytest.mark.parametrize("k,padding,kern_rank,c", [
+    pytest.param(3, ((1, 1), (1, 1)), 4, 24, id="3-padding0-4"),
+    pytest.param(5, ((2, 1), (0, 2)), 4, 24, id="5-padding1-4"),
+    pytest.param(7, ((3, 2), (1, 3)), 3, 24, id="7-padding2-3"),
+    pytest.param(3, ((0, 2), (2, 0)), 3, 24, id="3-padding3-3"),
+    pytest.param(5, ((2, 2), (2, 2)), 4, 336, id="5-padding4-4-c336"),
+    pytest.param(3, ((1, 0), (0, 1)), 3, 336, id="3-padding5-3-c336"),
+    pytest.param(7, ((0, 3), (3, 0)), 4, 6, id="7-padding6-4-c6"),
 ])
-def test_depthwise_plain_matches_pallas(k, padding, kern_rank):
-    """Asymmetric paddings, and taps in the Flax (k, k, 1, C) and the port's
-    (k, k, C) layouts."""
+def test_depthwise_plain_matches_pallas(k, padding, kern_rank, c):
+    """Asymmetric paddings, taps in the Flax (k, k, 1, C) and the port's
+    (k, k, C) layouts, and widths that are no multiple of the CUDA kernel's
+    32-channel slice (24, 6: a tail alone; 336: ten slices and a tail of 16),
+    f32 on both sides, atol 1e-5."""
     rng = np.random.RandomState(k)
-    c = 24
     x = _u(rng, (2, 11, 9, c))
     kern = _u(rng, (k, k, 1, c), -0.5, 0.5)
     want = jax_depthwise(jnp.asarray(x), jnp.asarray(kern), padding=padding, interpret=True)

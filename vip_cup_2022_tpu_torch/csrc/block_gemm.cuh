@@ -1,43 +1,22 @@
-// The wmma helpers of the tool kernels for Hopper (sm_90a): cp.async
-// staging, wmma bf16 fragments and their staging through shared memory, 8-wide
-// loads and stores, and (from smem_grant.cuh) the shared-memory grant. The
-// LN-MLP tool kernels (ln_mlp.cu) use the wmma fragments; the
-// window-attention template (window_attention.cuh, with the attention-parts
-// tool's kernels) the cp.async staging, the 8-wide loads and the grant. No main-path GEMM does:
-// every GEMM of both block families (the MLP GEMMs, ln_qkv and
-// proj_scale_residual) runs on hopper_gemm.cuh's wgmma + TMA engine, and the
-// int8 PTQ site and the int8 spike's bodies on ptq_int8.cuh. No library GEMM
-// is called.
+// Helpers of the window-attention template (window_attention.cuh, with the
+// window-attention and attention-parts kernels) for Hopper (sm_90a):
+// 16-byte cp.async staging, 8-wide loads and stores, and (from
+// smem_grant.cuh) the shared-memory grant. No GEMM is built from this file:
+// every GEMM of both block families and the LN-MLP tool kernels runs on
+// hopper_gemm.cuh's wgmma + TMA engine, and the int8 PTQ site and the int8
+// spike's bodies on ptq_int8.cuh. No library GEMM is called.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include <cmath>
 #include <cstdint>
 
 #include "smem_grant.cuh"
 
 namespace block_gemm {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;  // 8 warps in the LN-MLP tool kernels
-constexpr int kBK = 32;        // GEMM K step staged in shared memory
-constexpr int kPad = 8;        // bf16 row padding (16 bytes) against bank conflicts
-constexpr int kLd = kBK + kPad;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float gelu_erf(float h) {  // the LN-MLP tool kernels' (ln_mlp.cu)
-  return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
-}
 
 // cp.async: 16-byte global -> shared copies that run while the warps compute.
 // With pred false the 16 bytes are zero-filled and nothing is read.
@@ -50,28 +29,10 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
 union Pack8 {  // eight bf16 = one 16-byte load or store
   uint4 u;
   __nv_bfloat162 h[4];
 };
-
-// A warp's 16x16 accumulator tile, staged through its own 1 KB of shared
-// memory: lane l gets row l/2, columns (l%2)*8 ... +8.
-__device__ __forceinline__ void stage_fragment(float* __restrict__ stage, const FragC& acc,
-                                               float v[8]) {
-  wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x % 32;
-  const float4* src = reinterpret_cast<const float4*>(stage + (lane >> 1) * 16 + (lane & 1) * 8);
-  const float4 a = src[0], b = src[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  __syncwarp();
-}
 
 __device__ __forceinline__ void load8(const float* __restrict__ p, float v[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];

@@ -1,6 +1,7 @@
 // A block's shared-memory limit on Hopper (sm_90) and the launchers' grant of
-// it, shared by the wgmma engine (hopper_gemm.cuh, ptq_int8.cuh) and the
-// tool kernels' and window-attention template's helpers (block_gemm.cuh).
+// it, shared by the wgmma engine (hopper_gemm.cuh, ptq_int8.cuh), the
+// window-attention template's helpers (block_gemm.cuh) and the tiled
+// depthwise template (depthwise.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,9 +16,10 @@ constexpr size_t kSmemLimit = 232448;  // a block's opt-in shared memory on sm_9
 // A kernel's dynamic shared-memory limit persists in the device's context, so
 // a launcher raises it only when a launch needs more than was granted there.
 // The grant is a launcher's static, which the dynamic linker may share between
-// two libraries that instantiate the same template (ptq_int8.cuh's or the
-// window-attention template's kernels built into two sources, each library
-// with its own copy of the kernel); so it remembers which kernel it granted.
+// two libraries that instantiate the same template (ptq_int8.cuh's, the
+// window-attention or the depthwise template's kernels built into two
+// sources, each library with its own copy of the kernel); so it remembers
+// which kernel it granted.
 constexpr int kMaxDevices = 64;
 struct SmemGrant {
   std::mutex mu;

@@ -8,11 +8,16 @@ x's dtype. No model calls it (the JAX package computes its models'
 depthwise convs outside Pallas); its entry point is the timing tool
 :mod:`..tools.exp_dw`.
 
-``depthwise_conv_nhwc`` (``csrc/depthwise.cu``): each thread owns two
-channels and eight output columns and reads its input row segments once per
-kernel row, the padding read as zeros; k in {3, 5, 7}. What bounds it on the
-card: memory bandwidth at k = 3, the f32 FMA rate nearly so at k = 5 and 7
-(2 k^2 FLOPs per output element for 4 bytes moved).
+``depthwise_conv_nhwc`` (``csrc/depthwise.cu``) runs the shared-memory-tiled
+template of ``csrc/depthwise.cuh`` that ``dwconv7x7_nhwc`` runs for ConvNeXt,
+at k in {3, 5, 7} with no bias, a bf16 output and the given padding: a
+persistent CTA keeps one 32-channel slice (the last one a tail where C is
+not a multiple of 32), copies each output tile's halo into shared memory by
+``cp.async`` (the padding zero-filled), and a thread owns one channel x 4
+rows x 8 columns with its k x k taps in registers. :func:`depthwise_plan`
+reports the tile plan the launcher takes at an output size. What bounds it
+on the card: the bytes at k = 3 and 5, the f32 FMAs at k = 7 (2 k^2 FLOPs
+per output element for 4 bytes moved).
 
 Dispatch: the wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back. It
@@ -36,6 +41,7 @@ KERNEL_SIZES = (3, 5, 7)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+PLAN_KEYS = ("strips", "blocks", "tiles_w", "tiles_h", "slices", "copy_bytes")
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -50,7 +56,20 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("depthwise")
     lib.depthwise_conv_nhwc.argtypes = _ARGTYPES
     lib.depthwise_conv_nhwc.restype = ctypes.c_int
+    lib.depthwise_conv_nhwc_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.depthwise_conv_nhwc_plan.restype = ctypes.c_int
     return lib
+
+
+def depthwise_plan(ho: int, wo: int, c: int) -> Dict[str, int]:
+    """The tile plan the kernel's launcher takes for a (Ho, Wo) output of C
+    channels (``PLAN_KEYS``: column strips of 8 and row blocks of 4 in a
+    tile, tiles across and down an image, 32-channel slices, bytes a halo
+    copy moves). Asks the built library, so it needs nvcc."""
+    out = (_I * len(PLAN_KEYS))()
+    if _lib().depthwise_conv_nhwc_plan(ho, wo, c, out) != 0:
+        raise ValueError(f"no plan for a {ho} x {wo} x {c} output")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _taps(kern: torch.Tensor, c: int) -> torch.Tensor:

@@ -4,18 +4,21 @@
     python3 -m vip_cup_2022_tpu_torch.tools.exp_dw [--iters 20] [--shapes TAG ...]
 
 Counterpart of ``tools/exp_dw.py``. Per shape, three variants on the same
-bf16 NHWC input, each timed with CUDA events over ``--iters`` launches after
-a warm-up, in the order kernel, plain, cudnn, cudnn, plain, kernel (each
-variant's two readings averaged):
+bf16 NHWC input, in the order kernel, plain, cudnn, cudnn, plain, kernel
+(each variant's two readings averaged): the kernel and cuDNN by device time
+(``bench_util.device_ms``: ``--iters`` launches captured in a CUDA graph and
+replayed) and by CUDA events around ``--iters`` launches, the plain version
+by events alone:
 
   kernel  the ``depthwise_conv_nhwc`` CUDA kernel (``ops/kernels/depthwise.py``)
   plain   its plain PyTorch version, the TPU kernel's f32 tap loop
   cudnn   cuDNN's depthwise conv, ``F.conv2d(groups=C)`` on channels-last bf16
 
 then the kernel's max|d| against the plain version computed in f32 on the
-first two images, and each variant's effective GB/s (the bf16 input read
-once and the output written once). The TPU-only block-diagonal variant of
-the JAX tool is not carried over. Needs a CUDA device.
+first two images, each variant's effective GB/s (the bf16 input read once
+and the output written once) and the kernel's tile plan
+(``depthwise.depthwise_plan``). The TPU-only block-diagonal variant of the
+JAX tool is not carried over. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import depthwise as D
-from .bench_util import card_line, cuda_ms
+from .bench_util import card_line, cuda_ms, device_ms
 
 # (tag, B, H, W, C, k): EfficientNetV1B4's stride-1 depthwise shapes at 224 x 224
 # input, and ConvNeXt's s1 7 x 7 (the JAX tool's SHAPES)
@@ -71,17 +74,25 @@ def run(shapes: Optional[Sequence[str]] = None, iters: int = 20) -> List[dict]:
         err = (got - ref).abs().max().item()
         order = ["kernel", "plain", "cudnn", "cudnn", "plain", "kernel"]
         readings = {name: [] for name in fns}
+        events = {name: [] for name in fns}
         for name in order:
-            readings[name].append(cuda_ms(fns[name], iters))
-        ms = {name: sum(r) / len(r) for name, r in readings.items()}
+            events[name].append(cuda_ms(fns[name], iters))
+            if name != "plain":
+                readings[name].append(device_ms(fns[name], calls=iters))
+        ms = {name: sum(r) / len(r) for name, r in readings.items() if r}
+        ev = {name: sum(r) / len(r) for name, r in events.items()}
         gb = 2 * b * h * w * c * x.element_size() / 1e9
+        plan = D.depthwise_plan(h, w, c)
         print(f"[{tag}] ({b},{h},{w},{c}) k{k}  in+out {gb:.3f} GB  kernel max|d|={err:.2e} "
-              f"(max|ref| {ref.abs().max().item():.2e})", flush=True)
-        for name, t in ms.items():
-            print(f"      {tag}:{name:8s} {t:.4f} ms  -> {gb / (t / 1e3):.0f} GB/s eff", flush=True)
+              f"(max|ref| {ref.abs().max().item():.2e})  plan {plan}", flush=True)
+        for name, t in ev.items():
+            dev = f"{ms[name]:.4f} ms device -> {gb / (ms[name] / 1e3):.0f} GB/s eff, " \
+                if name in ms else ""
+            print(f"      {tag}:{name:8s} {dev}{t:.4f} ms events", flush=True)
         results.append(dict(tag=tag, shape=(b, h, w, c), k=k, max_abs_err=err,
                             max_abs_ref=ref.abs().max().item(), ms=ms["kernel"],
-                            plain_ms=ms["plain"], cudnn_ms=ms["cudnn"]))
+                            plain_ms=ev["plain"], cudnn_ms=ms["cudnn"],
+                            ms_events=ev["kernel"], cudnn_ms_events=ev["cudnn"], plan=plan))
         del x, kern, fns, got, ref
         torch.cuda.empty_cache()
     return results
