@@ -80,6 +80,19 @@ each printing its results on earlier lines, any failure exiting non-zero:
    at batch 256, max|d| / max|ref| <= 5e-2 (bf16 activations through 18 or
    31 residual blocks), then one batch-256 forward timed on each path;
    ``--profile`` adds a torch.profiler table of each member's forward;
+   GCViT's fused forward also timed with its 11 stride-1 depthwise convs on
+   cuDNN instead of K9 (the path before K9 ran them);
+   then full-width EfficientNetV2T at 200 x 200 and EfficientNetV1B4 at
+   224 x 224 (the registry's 1000-class head) with seeded weights, each
+   BN's statistics measured on its input and the last BN of each residual
+   branch damped to U(0.1, 0.3): the kernel path (bf16, K9 at the 27 / 28
+   stride-1 depthwise sites, cuDNN convs, plain BN) against the plain f32
+   path within 5e-2 of max|ref| at batch 8 and 256, the batch-256 forward
+   timed with K9 and with cuDNN at those sites, the plain BNs timed alone
+   (their share of the forward), ``--profile`` tables; then K9 at every
+   stride-1 depthwise site of GCViT's and both EfficientNets' forwards,
+   batch 8 and 256, within 1e-2 of its plain version, timed at 256 by
+   device time beside cuDNN's grouped conv of the same input and taps;
    then full-width ResNetRS50 at 200 x 200 (the registry's 1000-class head)
    with seeded weights and each BN's statistics measured on its input, so
    activations stay O(1), on two draws: with the last BN of each residual
@@ -116,21 +129,27 @@ each printing its results on earlier lines, any failure exiting non-zero:
    ``ResNetRS50-200x200``) without int8, which launches no int8 kernel, and
    with ``VIPTPU_INT8=ResNetRS50``, which must launch ``ptq_int8_conv`` at
    every calibrated site of each batch and ``ptq_int8_quantize`` at those
-   that do not quantize in the GEMM.
+   that do not quantize in the GEMM; then the five ported members in
+   ``ckpts/ckpts.json`` order (ConvNeXt, GCViT, EfficientNetV2T,
+   EfficientNetV1B4, ResNetRS50), cold and warm, which must launch every
+   fused block kernel at each block, the LN kernel at each standalone LN and
+   ``depthwise_conv_nhwc`` at each stride-1 depthwise site (GCViT's 11, 27
+   and 28) of each batch, and no int8 kernel.
 
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
 CSV run for the block families, the unfused CSV run for
-``window_attention_bhnd`` and ``layer_norm``, the ``exp_dw`` run for
-``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
+``window_attention_bhnd`` and ``layer_norm``, the cold five-member CSV run
+for ``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
 ``int8_pallas_spike`` run for the three spike bodies and the
 ``VIPTPU_INT8=ResNetRS50`` CSV run for ``ptq_int8_quantize`` and
 ``ptq_int8_conv``.
 ``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
 computes the function) are per batch-256 forward of both members together on
 that path (phases 3-5; ``ln_fc1_gelu`` and ``fc2_scale_residual`` serve both
-members), for ``depthwise_conv_nhwc`` per pass over the six ``exp_dw``
-shapes (kernel and cuDNN by device time), for the LN-MLP kernels per
+members), for ``depthwise_conv_nhwc`` per batch-256 forward of its three
+members (GCViT and both EfficientNets; kernel and cuDNN by device time; the
+``exp_dw`` tool's times are printed on earlier lines), for the LN-MLP kernels per
 batch-256 launch at each of s1-s4 summed (by device time), for
 ``attn_parts`` per batch-256 ``full`` launch at l1 and l2 summed, for the
 spike bodies per launch at the spike's three shapes summed
@@ -274,7 +293,7 @@ def plain_blocks():
     """Route the models' kernels through the plain versions (the reference
     path on the card); the wrappers themselves never fall back."""
     mods = ([(K, n) for n in CONVNEXT_KERNELS] + [(G, n) for n in GCVIT_KERNELS]
-            + [(WA, "window_attention"), (L, "layer_norm"), (Q, PTQ)])
+            + [(WA, "window_attention"), (L, "layer_norm"), (Q, PTQ), (D, DW)])
     saved = [(m, n, getattr(m, n)) for m, n in mods]
     for m, n in mods:
         setattr(m, n, getattr(m, n + "_plain"))
@@ -283,6 +302,54 @@ def plain_blocks():
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
+
+
+def depthwise_cudnn(x: torch.Tensor, kern: torch.Tensor, *, padding) -> torch.Tensor:
+    """The library call for K9: cuDNN's grouped conv on the same bf16 input
+    and taps (the path stride-1 depthwise convs took before K9 ran them)."""
+    (pt, pb), (pl, pr) = padding
+    c = x.shape[-1]
+    w = kern.reshape(kern.shape[0], kern.shape[1], c).permute(2, 0, 1).unsqueeze(1).to(x.dtype)
+    if pt == pb and pl == pr:
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=(pt, pl), groups=c)
+    else:
+        y = F.conv2d(F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2), w, groups=c)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+@contextlib.contextmanager
+def cudnn_depthwise():
+    """Route the stride-1 depthwise convs through cuDNN instead of K9."""
+    real = D.depthwise_conv_nhwc
+    D.depthwise_conv_nhwc = depthwise_cudnn
+    try:
+        yield
+    finally:
+        D.depthwise_conv_nhwc = real
+
+
+@contextlib.contextmanager
+def recording_depthwise(calls: list):
+    """Record (input shape without the batch, k, padding) of each K9 call."""
+    real = D.depthwise_conv_nhwc
+
+    def record(x, kern, *, padding):
+        calls.append((tuple(x.shape[1:]), kern.shape[0], padding))
+        return real(x, kern, padding=padding)
+
+    D.depthwise_conv_nhwc = record
+    try:
+        yield
+    finally:
+        D.depthwise_conv_nhwc = real
+
+
+def depthwise_sites(model: torch.nn.Module, size: tuple) -> list:
+    """The stride-1 depthwise calls of one batch-1 forward of ``model``."""
+    calls = []
+    with torch.inference_mode(), recording_depthwise(calls):
+        model(torch.rand((1, *size, 3), device="cuda"))
+    return calls
 
 
 def new_stats() -> dict:
@@ -759,11 +826,12 @@ DW_RAGGED = (
 )
 
 
-def phase_depthwise(card: str, stats: dict) -> int:
+def phase_depthwise(card: str, stats: dict) -> None:
     """The depthwise kernel at the six ``exp_dw`` shapes and at the ragged
     ``DW_RAGGED`` cases, batch 8 and 256, then the ``exp_dw`` tool (its entry
-    point), which times the kernel and cuDNN by device time; returns the
-    tool's launches."""
+    point), which times the kernel and cuDNN by device time, printed beside
+    the bound (the record's K9 numbers are its model path's,
+    :func:`phase_depthwise_sites`)."""
     cases = [(tag, h, w, c, k, ((k // 2, k // 2), (k // 2, k // 2)))
              for tag, _, h, w, c, k in exp_dw.SHAPES] + list(DW_RAGGED)
     for b in (8, BATCH):
@@ -778,21 +846,60 @@ def phase_depthwise(card: str, stats: dict) -> int:
     reset_launches()
     results = exp_dw.main(["--iters", "10"])
     launches = D.LAUNCHES[DW]
+    tool = new_stats()
     for r in results:
         b, h, w, c = r["shape"]
         k = r["k"]
         times = (r["ms"], r["plain_ms"], r["cudnn_ms"])
-        bound = account(stats, DW, 1, times, 2 * b * h * w * c * 2 + k * k * c * 4,
+        bound = account(tool, DW, 1, times, 2 * b * h * w * c * 2 + k * k * c * 4,
                         2 * k * k * b * h * w * c, "f32")
         stats[DW]["max_abs_err"] = max(stats[DW]["max_abs_err"], r["max_abs_err"])
         print_launch(DW, r["tag"], times, bound, card)
-    print(f"[kernels] {DW} per pass over the six exp_dw shapes: kernel {stats[DW]['ms']:.3f} ms "
-          f"device, plain {stats[DW]['plain_ms']:.2f} ms, cuDNN {stats[DW]['library_ms']:.3f} ms "
-          f"device, bound {stats[DW]['bound_ms']:.3f} ms; {launches} launches in the exp_dw run "
+    print(f"[kernels] {DW} per pass over the six exp_dw shapes: kernel {tool[DW]['ms']:.3f} ms "
+          f"device, plain {tool[DW]['plain_ms']:.2f} ms, cuDNN {tool[DW]['library_ms']:.3f} ms "
+          f"device, bound {tool[DW]['bound_ms']:.3f} ms; {launches} launches in the exp_dw run "
           f"[{card}]")
     if launches <= 0:
         raise AssertionError("the exp_dw run launched no depthwise kernel")
-    return launches
+
+
+def phase_depthwise_sites(card: str, stats: dict, members: dict) -> None:
+    """K9 at every stride-1 depthwise site of each member's forward
+    (``members``: name -> (the sites :func:`depthwise_sites` recorded, the
+    batch-256 forward's ms)), batch 8 and 256, against its plain version
+    within 1e-2 of max|ref| (bf16 output); at batch 256 the kernel and
+    cuDNN's grouped conv of the same bf16 input and taps by device time, the
+    plain version by CUDA events, counted per forward into the record; each
+    member's K9 time beside its forward."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, (sites, forward_ms) in members.items():
+        before = snapshot(stats)
+        for b in (8, BATCH):
+            for (shape, k, pad), count in Counter(sites).items():
+                x = torch.rand((b, *shape), generator=gen, device="cuda").to(torch.bfloat16)
+                kern = (torch.rand((k, k, shape[-1]), generator=gen, device="cuda") - 0.5).to(
+                    torch.bfloat16)
+                out = D.depthwise_conv_nhwc(x, kern, padding=pad)
+                torch.cuda.synchronize()
+                label = f"{name} b{b} {(b, *shape)} k{k} pad {pad} x{count}"
+                check({DW: (out, lambda: D.depthwise_conv_nhwc_plain(x.float(), kern,
+                                                                     padding=pad))}, label, stats)
+                if b == BATCH:
+                    times = time_calls(lambda: D.depthwise_conv_nhwc(x, kern, padding=pad),
+                                       lambda: D.depthwise_conv_nhwc_plain(x, kern, padding=pad),
+                                       lambda: depthwise_cudnn(x, kern, padding=pad), device=True)
+                    bound = account(stats, DW, count, times,
+                                    (x.numel() + out.numel() + kern.numel()) * 2,
+                                    2 * k * k * out.numel(), "f32")
+                    print_launch(DW, label + " device", times, bound, card)
+                del x, kern, out
+                torch.cuda.empty_cache()
+        print_per_forward(stats, before, (DW,), f"{name} batch-256 forward ({len(sites)} sites)",
+                          card)
+        k_ms, l_ms = (stats[DW][key] - (before[DW][key] or 0.0) for key in ("ms", "library_ms"))
+        print(f"[kernels] {DW} share of the {name} batch-256 forward ({forward_ms:.2f} ms): "
+              f"K9 {100 * k_ms / forward_ms:.1f} %, cuDNN at the same sites would be "
+              f"{100 * l_ms / forward_ms:.1f} % [{card}]")
 
 
 def lnmlp_inputs(b, h, w, c, gen) -> tuple:
@@ -1022,9 +1129,42 @@ def compare_logits(name, label, kernel_model, ref_model, x: torch.Tensor) -> Non
             raise AssertionError(f"{label} b{b} logits disagree with the {path} path: {r:.3e}")
 
 
-def phase_model(name: str, card: str, profile: bool, **kw) -> None:
+def time_forward(label: str, fwd, card: str, sites: list, plain: bool = True) -> float:
+    """One batch-256 forward timed (CUDA events, in turns): the kernel path,
+    where it has stride-1 depthwise sites the same path with cuDNN's
+    grouped conv at them (the path before K9 ran them), and with ``plain``
+    the plain bf16 path; returns the kernel path's ms."""
+    paths = [("kernel path", contextlib.nullcontext)]
+    if sites:
+        paths.append(("depthwise on cuDNN", cudnn_depthwise))
+    if plain:
+        paths.append(("plain bf16 path", plain_blocks))
+    ms = {}
+    for path, ctx in paths + paths[::-1]:
+        with ctx():
+            ms.setdefault(path, []).append(cuda_ms(fwd, iters=3, warmup=1))
+    ms = {path: sum(t) / len(t) for path, t in ms.items()}
+    print(f"[model] {label} batch-{BATCH} forward: " + ", ".join(
+        f"{path} {t:.2f} ms ({BATCH * 1000 / t:.1f} img/s)" for path, t in ms.items())
+        + (f"; {len(sites)} stride-1 depthwise sites, K9 / cuDNN forward "
+           f"{ms['kernel path'] / ms['depthwise on cuDNN']:.3f}" if sites else "") + f" [{card}]")
+    return ms["kernel path"]
+
+
+def print_profile(label: str, fwd) -> None:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    print(f"[model] {label} batch-{BATCH} forward profile")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
+def phase_model(name: str, card: str, profile: bool, **kw) -> tuple:
     """One member against its plain paths, then its batch-256 forward timed;
-    ``kw`` (``fused_block``) goes to the model's config."""
+    ``kw`` (``fused_block``) goes to the model's config. Returns the
+    member's stride-1 depthwise sites and its kernel path's forward ms."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     label = name + ("" if kw.get("fused_block", True) else " unfused")
@@ -1037,25 +1177,15 @@ def phase_model(name: str, card: str, profile: bool, **kw) -> None:
     compare_logits(name, label, kernel_model, ref_model, xb)  # the main path's batch
     del ref_model
     torch.cuda.empty_cache()
+    sites = depthwise_sites(kernel_model, (h, w))
     with torch.inference_mode():
         fwd = lambda: kernel_model(xb)  # noqa: E731
-        k1 = cuda_ms(fwd, iters=3, warmup=1)
-        with plain_blocks():
-            p1 = cuda_ms(fwd, iters=3, warmup=1)
-            p2 = cuda_ms(fwd, iters=3, warmup=1)
-        k2 = cuda_ms(fwd, iters=3, warmup=1)
-        print(f"[model] {label} batch-{BATCH} forward: kernel path {(k1 + k2) / 2:.2f} ms "
-              f"({BATCH * 2000 / (k1 + k2):.1f} img/s), plain bf16 path {(p1 + p2) / 2:.2f} ms "
-              f"({BATCH * 2000 / (p1 + p2):.1f} img/s) [{card}]")
+        forward_ms = time_forward(label, fwd, card, sites)
         if profile:
-            from torch.profiler import ProfilerActivity, profile as torch_profile
-
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fwd()
-                torch.cuda.synchronize()
-            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+            print_profile(label, fwd)
     del kernel_model
     torch.cuda.empty_cache()
+    return sites, forward_ms
 
 
 RESNET_CLASSES = 1000  # the registry's head: the logits' scale spans many classes
@@ -1072,7 +1202,15 @@ def _resnet_state(damped: bool) -> dict:
     path drifts further from f32."""
     model, _ = create_model("ResNetRS50", input_size=(200, 200), nb_classes=RESNET_CLASSES,
                             classifier_activation=None, dtype=torch.float32, seed=0)
-    model = model.cuda()
+    return measured_bn_state(model.cuda(), (200, 200),
+                             lambda name: damped and name.endswith("batch_norm_3"))
+
+
+def measured_bn_state(model: torch.nn.Module, size: tuple, damped) -> dict:
+    """The f32 ``model``'s state with BN scale ~ U(0.5, 1) (U(0.1, 0.3) where
+    ``damped(name)``), shift ~ U(-0.1, 0.1), and each BN's statistics the
+    mean and variance of its input over 16 seeded random images (the plain
+    path's), so every BN output is O(1)."""
     gen = torch.Generator().manual_seed(1)
 
     def measure(bn, args):
@@ -1084,16 +1222,126 @@ def _resnet_state(damped: bool) -> dict:
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, BatchNorm):
-                lo, hi = (0.1, 0.3) if damped and name.endswith("batch_norm_3") else (0.5, 1.0)
+                lo, hi = (0.1, 0.3) if damped(name) else (0.5, 1.0)
                 m.weight.copy_(torch.rand(m.weight.shape, generator=gen) * (hi - lo) + lo)
                 m.bias.copy_(torch.rand(m.bias.shape, generator=gen) * 0.2 - 0.1)
                 hooks.append(m.register_forward_pre_hook(measure))
-        x = torch.rand((16, 200, 200, 3), generator=torch.Generator(device="cuda").manual_seed(9),
+        x = torch.rand((16, *size, 3), generator=torch.Generator(device="cuda").manual_seed(9),
                        device="cuda")
-        model(x)
+        with plain_blocks():
+            model(x)
         for h in hooks:
             h.remove()
     return model.state_dict()
+
+
+EFFNETS = {"EfficientNetV2T": (200, 200), "EfficientNetV1B4": (224, 224)}  # manifest sizes
+# stride-1 depthwise convs per forward: V2T's MBConv stages 3-5 (6 + 9 + 14
+# blocks less two strided), V1B4's 32 blocks less four strided
+EFFNET_DW_SITES = {"EfficientNetV2T": 27, "EfficientNetV1B4": 28}
+
+
+def _effnet(name: str, dtype: torch.dtype, state: dict = None) -> torch.nn.Module:
+    model, _ = create_model(name, input_size=EFFNETS[name], classifier_activation=None,
+                            dtype=dtype, seed=0)
+    if state is not None:
+        model.load_state_dict(state)
+    return model.cuda()
+
+
+def _effnet_state(name: str) -> dict:
+    """Full-width ``name`` at its manifest size (the registry's 1000-class
+    head) with seeded random weights and measured BN statistics
+    (:func:`measured_bn_state`), the last BN of each residual branch (the
+    projection's, in a block that takes the shortcut) damped to
+    U(0.1, 0.3), so the 29-39 blocks stay O(1) in bf16."""
+    model = _effnet(name, torch.float32)
+    damped = {spec.name + ("fu_bn" if spec.fused and not spec.expand else "MB_pw_bn")
+              for spec in model.blocks if spec.shortcut}
+    return measured_bn_state(model, EFFNETS[name], lambda n: n in damped)
+
+
+@contextlib.contextmanager
+def recording_batchnorms(model: torch.nn.Module, calls: list):
+    """Record (input shape without the batch, dtype) of each BN call."""
+    hooks = [m.register_forward_pre_hook(
+        lambda bn, args: calls.append((bn, tuple(args[0].shape[1:]), args[0].dtype)))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def batchnorm_ms(model: torch.nn.Module, size: tuple) -> tuple:
+    """(ms, count) of the plain BNs of one batch-256 forward: each BN call
+    recorded in a batch-1 forward, then timed alone (CUDA events) on a
+    batch-256 input of its shape."""
+    calls = []
+    with torch.inference_mode(), recording_batchnorms(model, calls):
+        model(torch.rand((1, *size, 3), device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    total = 0.0
+    with torch.inference_mode():
+        for bn, shape, dtype in calls:
+            x = torch.randn((BATCH, *shape), generator=gen, device="cuda").to(dtype)
+            total += cuda_ms(lambda: bn(x), iters=5, warmup=1)
+            del x
+    torch.cuda.empty_cache()
+    return total, len(calls)
+
+
+def phase_efficientnet(name: str, card: str, profile: bool) -> tuple:
+    """Full-width ``name`` (:func:`_effnet_state`): its kernel path (bf16,
+    K9 at every stride-1 depthwise site, cuDNN elsewhere, plain BN) against
+    the plain f32 path within 5e-2 of max|ref| at batch 8 and 256; its
+    batch-256 forward timed with K9 and with cuDNN at those sites, its plain
+    BNs' share; ``--profile`` adds a profiler table. Returns its depthwise
+    sites and the kernel path's forward ms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size = EFFNETS[name]
+    state = _effnet_state(name)
+    kernel_model, ref_model = _effnet(name, torch.bfloat16, state), _effnet(name, torch.float32,
+                                                                            state)
+    del state
+    sites = depthwise_sites(kernel_model, size)
+    print(f"[model] {name} {size[0]}x{size[1]}: {len(sites)} stride-1 depthwise sites per "
+          f"forward (expected {EFFNET_DW_SITES[name]}), {len(kernel_model.blocks)} blocks")
+    if len(sites) != EFFNET_DW_SITES[name]:
+        raise AssertionError(f"{name} runs K9 at {len(sites)} sites")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for b in (8, BATCH):
+        x = torch.rand((b, *size, 3), generator=gen, device="cuda")
+        with torch.inference_mode():
+            logits = kernel_model(x)
+            with plain_blocks():
+                ref = ref_model(x)
+            torch.cuda.synchronize()
+        if logits.shape != (b, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{name} output {tuple(logits.shape)} not finite (b, 1000)")
+        r = rel_err(logits, ref)
+        print(f"[model] {name} b{b} kernel path vs plain f32 path: max|d|/max|ref| = {r:.3e} "
+              f"(bound {MODEL_BOUND:g}), max|ref| = {ref.float().abs().max().item():.3e}")
+        if not r <= MODEL_BOUND:
+            raise AssertionError(f"{name} b{b} logits disagree with the plain f32 path: {r:.3e}")
+        del x, logits, ref
+    del ref_model
+    torch.cuda.empty_cache()
+    xb = torch.rand((BATCH, *size, 3), generator=gen, device="cuda")
+    with torch.inference_mode():
+        fwd = lambda: kernel_model(xb)  # noqa: E731
+        forward_ms = time_forward(name, fwd, card, sites, plain=False)
+        bn_ms, n_bn = batchnorm_ms(kernel_model, size)
+        print(f"[model] {name} plain BN: {n_bn} calls, {bn_ms:.2f} ms alone per batch-{BATCH} "
+              f"forward, {100 * bn_ms / forward_ms:.1f} % of the kernel path's {forward_ms:.2f} "
+              f"ms [{card}]")
+        if profile:
+            print_profile(name, fwd)
+    del kernel_model, xb
+    torch.cuda.empty_cache()
+    return sites, forward_ms
 
 
 def _resnet(dtype: torch.dtype, state: dict) -> torch.nn.Module:
@@ -1199,15 +1447,8 @@ def phase_resnet(card: str, profile: bool) -> tuple:
               f"ms ({BATCH * 2000 / (b1 + b2):.1f} img/s), int8 (ptq_int8_conv) {(i1 + i2) / 2:.2f} "
               f"ms ({BATCH * 2000 / (i1 + i2):.1f} img/s) [{card}]")
         if profile:
-            from torch.profiler import ProfilerActivity, profile as torch_profile
-
-            for label, fwd in (("bf16", fwd_b), ("int8", fwd_i)):
-                with torch_profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA]) as prof:
-                    fwd()
-                    torch.cuda.synchronize()
-                print(f"[resnet] ResNetRS50 {label} forward profile")
-                print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+            print_profile("ResNetRS50 bf16", fwd_b)
+            print_profile("ResNetRS50 int8", fwd_i)
     del bf16_model, int8_model
     torch.cuda.empty_cache()
     return calls, n_scales
@@ -1315,6 +1556,35 @@ def _write_images(img_dir: str, n: int) -> list:
     return names
 
 
+# the ported members in ckpts/ckpts.json order
+MANIFEST = [["convnext_tiny_in22k-200x200", [200, 200], 0], ["GCViTTiny-224x224", [224, 224], 0],
+            ["EfficientNetV2T-200x200", [200, 200], 0], ["EfficientNetV1B4-224x224", [224, 224], 0],
+            ["ResNetRS50-200x200", [200, 200], 0]]
+
+
+@contextlib.contextmanager
+def csv_workspace(manifest: list):
+    """A temporary workspace of ``N_IMAGES`` random JPEGs, an input CSV
+    listing them in reverse order and a random-init ``manifest``, with the
+    engine's environment pointed at it; yields (input CSV, output CSV, batch
+    times path, the image names)."""
+    with tempfile.TemporaryDirectory() as ws:
+        img_dir = os.path.join(ws, "images")
+        os.makedirs(img_dir)
+        names = _write_images(img_dir, N_IMAGES)
+        input_csv = os.path.join(img_dir, "input.csv")
+        with open(input_csv, "w") as fh:
+            fh.write("filename\n" + "".join(f"{n}\n" for n in reversed(names)))
+        os.makedirs(os.path.join(ws, "ckpts"))
+        with open(os.path.join(ws, "ckpts", "ckpts.json"), "w") as fh:
+            json.dump(manifest, fh)
+        print(f"[slice] {N_IMAGES} JPEGs written, manifest {[m[0] for m in manifest]}")
+        os.environ.update(VIPTPU_CKPT_DIR=os.path.join(ws, "ckpts"), VIPTPU_ALLOW_RANDOM_INIT="1",
+                          VIPTPU_MAX_BATCH=str(BATCH), VIPTPU_VERBOSE="1")
+        yield (input_csv, os.path.join(ws, "output.csv"), os.path.join(ws, "batch_times.json"),
+               names)
+
+
 def run_csv(input_csv: str, output_csv: str, names: list, batch_times: str = "") -> tuple:
     """One ``main_torch`` CSV run with every launch count set to 0 just
     before it; returns (launches, seconds, per-batch e2e seconds or None)
@@ -1356,24 +1626,8 @@ def phase_slice(card: str) -> dict:
     """The two-member CSV run: fused cold and warm, then unfused; returns
     each kernel's launches from the run of its path."""
     batches = -(-N_IMAGES // BATCH)
-    with tempfile.TemporaryDirectory() as ws:
-        img_dir = os.path.join(ws, "images")
-        os.makedirs(img_dir)
-        names = _write_images(img_dir, N_IMAGES)
-        input_csv = os.path.join(img_dir, "input.csv")
-        with open(input_csv, "w") as fh:
-            fh.write("filename\n" + "".join(f"{n}\n" for n in reversed(names)))
-        os.makedirs(os.path.join(ws, "ckpts"))
-        with open(os.path.join(ws, "ckpts", "ckpts.json"), "w") as fh:
-            json.dump([["convnext_tiny_in22k-200x200", [200, 200], 0],
-                       ["GCViTTiny-224x224", [224, 224], 0]], fh)
-        print(f"[slice] {N_IMAGES} JPEGs written; decode runs through the port's host pool")
-        os.environ.update(VIPTPU_CKPT_DIR=os.path.join(ws, "ckpts"), VIPTPU_ALLOW_RANDOM_INIT="1",
-                          VIPTPU_MAX_BATCH=str(BATCH), VIPTPU_VERBOSE="1")
-        os.environ.pop("VIPTPU_NO_FUSED_BLOCK", None)
-        output_csv = os.path.join(ws, "output.csv")
-        times = os.path.join(ws, "batch_times.json")
-
+    os.environ.pop("VIPTPU_NO_FUSED_BLOCK", None)
+    with csv_workspace(MANIFEST[:2]) as (input_csv, output_csv, times, names):
         fused, cold, _ = run_csv(input_csv, output_csv, names)
         _, warm, batch_s = run_csv(input_csv, output_csv, names, times)
         os.environ["VIPTPU_NO_FUSED_BLOCK"] = "1"
@@ -1417,22 +1671,7 @@ def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
     ``passes`` of them that run the pass, and nothing else of int8; returns
     the int8 run's launches of the two."""
     batches = -(-N_IMAGES // BATCH)
-    with tempfile.TemporaryDirectory() as ws:
-        img_dir = os.path.join(ws, "images")
-        os.makedirs(img_dir)
-        names = _write_images(img_dir, N_IMAGES)
-        input_csv = os.path.join(img_dir, "input.csv")
-        with open(input_csv, "w") as fh:
-            fh.write("filename\n" + "".join(f"{n}\n" for n in reversed(names)))
-        os.makedirs(os.path.join(ws, "ckpts"))
-        with open(os.path.join(ws, "ckpts", "ckpts.json"), "w") as fh:
-            json.dump([["convnext_tiny_in22k-200x200", [200, 200], 0],
-                       ["GCViTTiny-224x224", [224, 224], 0],
-                       ["ResNetRS50-200x200", [200, 200], 0]], fh)
-        os.environ.update(VIPTPU_CKPT_DIR=os.path.join(ws, "ckpts"), VIPTPU_ALLOW_RANDOM_INIT="1",
-                          VIPTPU_MAX_BATCH=str(BATCH), VIPTPU_VERBOSE="1")
-        output_csv = os.path.join(ws, "output.csv")
-        times = os.path.join(ws, "batch_times.json")
+    with csv_workspace(MANIFEST[:2] + MANIFEST[-1:]) as (input_csv, output_csv, times, names):
         plain, t_plain, batch_p = run_csv(input_csv, output_csv, names, times)
         os.environ["VIPTPU_INT8"] = "ResNetRS50"
         try:
@@ -1453,6 +1692,35 @@ def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
     return {n: int8[n] for n in (QUANT, PTQ)}
 
 
+def phase_slice_five(card: str, dw_sites: int) -> dict:
+    """The five ported members (``MANIFEST``) through ``main_torch.main``,
+    cold and warm: every kernel of the fused block families at each block,
+    the LN kernel at each standalone LN, K9 at each of the ``dw_sites``
+    stride-1 depthwise sites of one forward (GCViT's and both
+    EfficientNets'), per batch, and no int8 kernel; returns K9's launches in
+    the cold run."""
+    batches = -(-N_IMAGES // BATCH)
+    with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names):
+        cold_launches, cold, batch_c = run_csv(input_csv, output_csv, names, times)
+        warm_launches, warm, batch_w = run_csv(input_csv, output_csv, names, times)
+    for label, launches in (("five-member cold", cold_launches),
+                            ("five-member warm", warm_launches)):
+        expect_launches(launches, {**{n: None for n in GCVIT_KERNELS},
+                                   "dwconv7x7_nhwc": batches * CONVNEXT_BLOCKS,
+                                   "ln_qkv": batches * GCVIT_BLOCKS,
+                                   "proj_scale_residual": batches * GCVIT_BLOCKS,
+                                   **{n: batches * (CONVNEXT_BLOCKS + GCVIT_BLOCKS)
+                                      for n in MLP_KERNELS},
+                                   ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS),
+                                   DW: batches * dw_sites, PTQ: 0, QUANT: 0},
+                        f"{label} CSV->CSV")
+    ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
+    print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 5 members: cold {cold:.2f} s "
+          f"({N_IMAGES / cold:.1f} img/s; per-batch e2e {ms(batch_c)}), warm {warm:.2f} s "
+          f"({N_IMAGES / warm:.1f} img/s; per-batch e2e {ms(batch_w)}) [{card}]")
+    return {DW: cold_launches[DW]}
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1464,19 +1732,23 @@ def main(argv) -> None:
     phase_gcvit_kernels(card, stats)
     phase_attention(card, stats)
     phase_layernorm(card, stats)
-    dw_launches = phase_depthwise(card, stats)
+    phase_depthwise(card, stats)
     phase_lnmlp(card, stats)
     phase_attn_parts(card, stats)
     tool_launches = phase_tools(card)
     spike_launches = phase_spike(card, stats)
     profile = "--profile" in argv
-    for name, kw in (("convnext_tiny_in22k", {}), ("GCViTTiny", {"fused_block": True}),
-                     ("GCViTTiny", {"fused_block": False})):
-        phase_model(name, card, profile, **kw)
+    phase_model("convnext_tiny_in22k", card, profile)
+    dw_members = {"GCViTTiny": phase_model("GCViTTiny", card, profile, fused_block=True)}
+    phase_model("GCViTTiny", card, profile, fused_block=False)
+    for name in EFFNETS:
+        dw_members[name] = phase_efficientnet(name, card, profile)
+    phase_depthwise_sites(card, stats, dw_members)
     calls, sites = phase_resnet(card, profile)
     phase_ptq_sites(card, stats, calls)
-    launches = {**phase_slice(card), DW: dw_launches, **tool_launches, **spike_launches,
-                **phase_slice_int8(card, sites, pass_sites(calls))}
+    launches = {**phase_slice(card), **tool_launches, **spike_launches,
+                **phase_slice_int8(card, sites, pass_sites(calls)),
+                **phase_slice_five(card, sum(len(s) for s, _ in dw_members.values()))}
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],

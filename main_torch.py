@@ -18,9 +18,10 @@ otherwise, and no CUDA device is an error); ``VIPTPU_DTYPE``,
 ``VIPTPU_ALLOW_RANDOM_INIT``, ``VIPTPU_E2E_BATCH_TIMES``;
 ``VIPTPU_NO_FUSED_BLOCK=1`` runs GCViT's unfused block path.
 ``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN`` have no effect. ``VIPTPU_TTA`` > 1,
-``VIPTPU_FUSED=0``, ``VIPTPU_INT8`` other than off/auto and
-``VIPTPU_FUSE_BN`` raise ``NotImplementedError``: the port has no such path
-yet.
+``VIPTPU_FUSED=0``, ``VIPTPU_INT8`` naming a member other than ResNet-RS,
+``VIPTPU_FUSE_BN`` and a manifest member outside the ported families
+(ConvNeXt, GCViT, ResNet-RS, EfficientNet) raise ``NotImplementedError``:
+the port has no such path yet.
 """
 import os
 import sys

@@ -241,19 +241,20 @@ def test_two_member_cli_csv_equals_jax_byte_for_byte(two_member_workspace, monke
     assert_two_member_csvs_equal(two_member_workspace, monkeypatch)
 
 
-def assert_two_member_csvs_equal(workspace, monkeypatch):
+def assert_two_member_csvs_equal(workspace, monkeypatch, head="head_fc"):
     """Put the threshold between the images, then run both CLIs on the
-    workspace and compare their CSVs byte for byte."""
+    workspace and compare their CSVs byte for byte. ``head`` is the Flax
+    name of the first member's classifier, whose bias moves."""
     root, input_csv, names, members = workspace
     monkeypatch.setenv("VIPTPU_MAX_BATCH", "8")
-    # each member's probabilities from the port, then a shift of the ConvNeXt
-    # head bias that puts the 0.487 threshold on the ensemble mean as far from
-    # every image as it can while both decisions occur
+    # each member's probabilities from the port, then a shift of the first
+    # member's head bias that puts the 0.487 threshold on the ensemble mean
+    # as far from every image as it can while both decisions occur
     eng = engine.EnsembleEngine(device="cpu", verbose=0)
     p1, p2 = (eng.predict_soln_fused(_cfg(root, input_csv, f"m{i}.csv", [i]))["raw"]
               for i in range(2))
     eng.close()
-    assert np.ptp(p2) > 1e-3  # the GCViT member moves the ensemble mean
+    assert np.ptp(p2) > 1e-3  # the second member moves the ensemble mean
     z1 = np.log(p1 / (1 - p1))
     best, shift = 0.0, None
     for d in np.linspace(-8, 8, 3201):
@@ -261,10 +262,10 @@ def assert_two_member_csvs_equal(workspace, monkeypatch):
         if (r > 0).any() and (r < 0).any() and np.abs(r).min() > best:
             best, shift = np.abs(r).min(), d
     assert shift is not None and best > 1e-4
-    tree = members["convnext_tiny_in22k-200x200"][2]
-    tree["params"]["head_fc"]["bias"] = (tree["params"]["head_fc"]["bias"] + shift).astype(np.float32)
-    save_variables(str(root / "ckpts" / "convnext_tiny_in22k-200x200" / "ckpt" / "fold0.msgpack"),
-                   tree)
+    first = next(iter(members))
+    tree = members[first][2]
+    tree["params"][head]["bias"] = (tree["params"][head]["bias"] + shift).astype(np.float32)
+    save_variables(str(root / "ckpts" / first / "ckpt" / "fold0.msgpack"), tree)
 
     monkeypatch.setenv("VIPTPU_CKPT_DIR", str(root / "ckpts"))
     monkeypatch.setenv("VIPTPU_VERBOSE", "0")

@@ -485,6 +485,41 @@ def test_depthwise_tail_slices_on_card(cuda_device, k, c, padding):
 
 
 @pytest.mark.cuda
+def test_depthwise_conv_module_launches_k9_at_stride_1_only(cuda_device):
+    """EfficientNet's depthwise module: at stride 1 it launches K9, at
+    stride 2 it runs cuDNN and launches nothing; K9 at a V1B4 shape (56 x 56
+    x 192, k = 5) with the (1, 2) padding TF ``SAME`` gives a stride-2 k = 5
+    conv at 56 (55 x 55 out at stride 1), within 1e-2 of max|ref| of its
+    plain version; a width K9 does not take raises instead of falling
+    back."""
+    from vip_cup_2022_tpu_torch.ops.conv import DepthwiseConv
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.rand((4, 56, 56, 192), generator=g, device=cuda_device).to(torch.bfloat16)
+    for stride, launches in ((1, 1), (2, 0)):
+        conv = DepthwiseConv(192, 5, "same", torch.bfloat16, stride).to(cuda_device)
+        with torch.no_grad():
+            conv.weight.copy_(torch.rand((5, 5, 192), generator=g, device=cuda_device) - 0.5)
+        D.reset_launches()
+        with torch.inference_mode():
+            out = conv(x)
+        torch.cuda.synchronize()
+        assert D.LAUNCHES == {"depthwise_conv_nhwc": launches}
+        assert out.shape == (4, 56 // stride, 56 // stride, 192)
+    pad = ((1, 2), (1, 2))
+    kern = torch.rand((5, 5, 192), generator=g, device=cuda_device).to(torch.bfloat16) - 0.5
+    got = D.depthwise_conv_nhwc(x, kern, padding=pad)
+    torch.cuda.synchronize()
+    ref = D.depthwise_conv_nhwc_plain(x.float(), kern, padding=pad)
+    assert got.shape == ref.shape == (4, 55, 55, 192)
+    assert _rel(got, ref) <= 1e-2
+    odd = DepthwiseConv(7, 3, 1, torch.bfloat16).to(cuda_device)
+    with torch.inference_mode(), pytest.raises(ValueError, match="not even"):
+        odd(x[..., :7].contiguous())
+
+
+@pytest.mark.cuda
 def test_exp_dw_tool_runs_on_card(cuda_device):
     from vip_cup_2022_tpu_torch.tools import exp_dw
 

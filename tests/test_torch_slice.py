@@ -247,11 +247,20 @@ def test_cli_csv_equals_jax_byte_for_byte(workspace, monkeypatch):
     ({"VIPTPU_FUSED": "0"}, "A4b"),
     ({"VIPTPU_INT8": "all"}, "A12"),
     ({"VIPTPU_FUSE_BN": "1"}, "A13"),
+    ({"VIPTPU_INT8": "EfficientNetV2T", "VIPTPU_CKPTS_JSON": "efficientnet.json"}, "A8b"),
 ])
 def test_cli_unported_knobs_raise(workspace, monkeypatch, env, match):
+    """Each knob whose path is not ported raises before any CSV is written;
+    a ``VIPTPU_CKPTS_JSON`` case runs a random-init EfficientNetV2T manifest
+    (``VIPTPU_INT8`` reaches only the members a manifest holds)."""
     root, input_csv, *_ = workspace
     monkeypatch.setenv("VIPTPU_PLATFORM", "cpu")
     monkeypatch.setenv("VIPTPU_CKPT_DIR", str(root / "ckpts"))
+    env = dict(env)
+    if "VIPTPU_CKPTS_JSON" in env:
+        manifest = root / "ckpts" / env["VIPTPU_CKPTS_JSON"]
+        manifest.write_text(json.dumps([["EfficientNetV2T-200x200", [64, 64], 0]]))
+        env.update(VIPTPU_CKPTS_JSON=str(manifest), VIPTPU_ALLOW_RANDOM_INIT="1")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     import main_torch
@@ -267,10 +276,76 @@ def test_unported_member_raises(workspace):
     cfg.ckpt_cfg = [("ResNest50-200x200", [], (200, 200), 0)]
     eng = engine.EnsembleEngine(device="cpu", verbose=0)
     with pytest.raises(NotImplementedError,
-                       match="only ConvNeXt, GCViT and ResNet-RS are ported; ResNest is ROADMAP "
-                             "item A7"):
+                       match="only ConvNeXt, GCViT, ResNet-RS and EfficientNet are ported; "
+                             "ResNest is ROADMAP item A7"):
         eng.predict_soln_fused(cfg)
     eng.close()
+
+
+@pytest.fixture(scope="module")
+def efficientnet_workspace(tmp_path_factory):
+    """Ten 200x200 JPEGs and one odd-sized one, an input CSV, and a manifest
+    of a narrow EfficientNetV2T at 64 and a narrow EfficientNetV1B4 at 72
+    (the engine's resize to both), each with a fold checkpoint and a
+    config.json carrying its narrow widths."""
+    from test_torch_efficientnet import NARROW as NARROW_EFF
+    from test_torch_efficientnet import _tree
+
+    root = tmp_path_factory.mktemp("torch_efficientnet_e2e")
+    img_dir = root / "images"
+    img_dir.mkdir()
+    rng = np.random.RandomState(12)
+    names = []
+    for i in range(10):
+        names.append(f"e_{9 - i:03d}.jpg")
+        Image.fromarray(rng.randint(0, 255, (200, 200, 3), dtype=np.uint8)).save(
+            img_dir / names[-1], quality=92)
+    Image.fromarray(rng.randint(0, 255, (144, 256, 3), dtype=np.uint8)).save(
+        img_dir / "odd.jpg", quality=92)
+    names.append("odd.jpg")
+    input_csv = img_dir / "input.csv"
+    input_csv.write_text("filename\n" + "".join(f"{n}\n" for n in names))
+    members, manifest = {}, []
+    for seed, (name, size) in enumerate((("EfficientNetV2T", 64), ("EfficientNetV1B4", 72))):
+        base = f"{name}-200x200" if name.startswith("EfficientNetV2") else f"{name}-224x224"
+        overrides = dict(nb_classes=1, classifier_activation="sigmoid", **NARROW_EFF[name])
+        _, variables, _ = jax_create_model(name, rng=jax.random.PRNGKey(seed),
+                                           input_size=(size, size), **overrides)
+        tree = _tree(variables, 20 + seed)
+        ckpt_dir = root / "ckpts" / base / "ckpt"
+        ckpt_dir.mkdir(parents=True)
+        with open(ckpt_dir / "config.json", "w") as fh:
+            json.dump({k: list(v) if isinstance(v, tuple) else v for k, v in overrides.items()}, fh)
+        save_variables(str(ckpt_dir / "fold0.msgpack"), tree)
+        members[base] = ((size, size), overrides, tree)
+        manifest.append([base, [size, size], 0])
+    with open(root / "ckpts" / "ckpts.json", "w") as fh:
+        json.dump(manifest, fh)
+    # random weights pool noise images to nearly one feature vector: rescale
+    # each head so that its logits z = f.K + b over these images become
+    # 2 (z - mean z) / std z, and every member moves the ensemble mean
+    eng = engine.EnsembleEngine(device="cpu", verbose=0)
+    all_entries = _cfg(root, input_csv, "probe.csv").ckpt_cfg
+    for i, (base, (_, _, tree)) in enumerate(members.items()):
+        cfg = _cfg(root, input_csv, f"probe{i}.csv")
+        cfg.ckpt_cfg = [all_entries[i]]
+        p = eng.predict_soln_fused(cfg)["raw"]
+        z = np.log(p / (1 - p))
+        head = tree["params"]["predictions"]
+        scale = 2.0 / z.std()
+        head["bias"] = (-scale * (z.mean() - head["bias"])).astype(np.float32)
+        head["kernel"] = (head["kernel"] * scale).astype(np.float32)
+        save_variables(str(root / "ckpts" / base / "ckpt" / "fold0.msgpack"), tree)
+    eng.close()
+    return root, input_csv, names, members
+
+
+def test_efficientnet_cli_csv_equals_jax_byte_for_byte(efficientnet_workspace, monkeypatch):
+    """Both EfficientNet members, TF-SAME (V1B4) and torch-mode (V2T)
+    padding, through both CLIs: the CSVs equal byte for byte."""
+    from test_torch_gcvit import assert_two_member_csvs_equal
+
+    assert_two_member_csvs_equal(efficientnet_workspace, monkeypatch, head="predictions")
 
 
 def test_random_init_member_runs(workspace):
@@ -312,6 +387,7 @@ def test_port_imports_no_jax():
             "vip_cup_2022_tpu_torch.ops.kernels.gcvit_block, vip_cup_2022_tpu_torch.ops.window, "
             "vip_cup_2022_tpu_torch.ops.attention, vip_cup_2022_tpu_torch.ops.conv, main_torch, "
             "vip_cup_2022_tpu_torch.models.resnet_rs, vip_cup_2022_tpu_torch.quant, "
+            "vip_cup_2022_tpu_torch.models.efficientnet, "
             "vip_cup_2022_tpu_torch.ops.kernels.int8_gemm, "
             "vip_cup_2022_tpu_torch.tools.int8_pallas_spike; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "

@@ -28,13 +28,16 @@ every fold's eligible sites through the int8 kernel. ``auto``, the default,
 is off here as on every backend but the TPU; ``0``/``off`` is off, ``1``/
 ``all`` every member, or a comma list of registry names. Only ResNet-RS
 members are quantized: int8 for ConvNeXt and GCViT, whose fused kernel paths
-hold the Linears the JAX pass would quantize, raises (ROADMAP A12b).
+hold the Linears the JAX pass would quantize, raises (ROADMAP A12b), and so
+does int8 for EfficientNet (A8b).
 
 Not ported yet, and raising ``NotImplementedError`` rather than running
 something else: test-time augmentation (``tta > 1``), the conv-BN fold and
-members other than ConvNeXt, GCViT and ResNet-RS. Every Pallas kernel of the
-JAX package has a CUDA counterpart; those its experiment tools reach run in
-the port's tools (``vip_cup_2022_tpu_torch/tools``), not on this path.
+members other than ConvNeXt, GCViT, ResNet-RS and EfficientNet. Every Pallas
+kernel of the JAX package has a CUDA counterpart; the depthwise kernel (K9)
+runs on this path at every stride-1 depthwise conv (EfficientNet, GCViT),
+and those the JAX package's experiment tools reach run in the port's tools
+(``vip_cup_2022_tpu_torch/tools``).
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ import torch
 from ..data.decode import ImageDecoder
 from ..data.pipeline import _host_resize_uint8
 from ..models import create_model, load_weights, transfer_weights
+from ..models.efficientnet import EfficientNet
 from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
 from ..quant import calibrate, quantized
@@ -190,8 +194,8 @@ class EnsembleEngine:
         route when no checkpoint exists; otherwise overwritten)."""
         if not is_model(name):
             raise NotImplementedError(
-                f"member {name!r}: only ConvNeXt, GCViT and ResNet-RS are ported; ResNest "
-                "is ROADMAP item A7, EfficientNet A8, NFNet A9")
+                f"member {name!r}: only ConvNeXt, GCViT, ResNet-RS and EfficientNet are "
+                "ported; ResNest is ROADMAP item A7, NFNet A9")
         return create_model(name, input_size=tuple(dim), dtype=self.compute_dtype,
                             **overrides)
 
@@ -215,13 +219,18 @@ class EnsembleEngine:
     def _int8_members(ckpt_cfg, names: set) -> List[bool]:
         """Which manifest entries run int8; raises for a chosen member whose
         model class does not declare ``int8_sites_match_jax`` (its int8 sites
-        are not the JAX pass's yet, ROADMAP A12b)."""
+        are not the JAX pass's yet: ROADMAP A8b for EfficientNet, A12b for
+        ConvNeXt and GCViT)."""
         chosen = []
         for base_dir, *_ in ckpt_cfg:
             name = registry_name(base_dir)
             pick = bool(names) and ("*" in names or name in names)
-            if pick and is_model(name) and not getattr(model_entry(name)[0],
-                                                       "int8_sites_match_jax", False):
+            cls = model_entry(name)[0] if pick and is_model(name) else None
+            if cls is EfficientNet:
+                raise NotImplementedError(
+                    f"VIPTPU_INT8 selects {name!r}: int8 EfficientNet members are ROADMAP item "
+                    "A8b, not ported yet")
+            if cls is not None and not getattr(cls, "int8_sites_match_jax", False):
                 raise NotImplementedError(
                     f"VIPTPU_INT8 selects {name!r}: int8 ConvNeXt and GCViT members (their "
                     "downsample convs, FeatExtract / ReduceSize convs and the Linears the fused "

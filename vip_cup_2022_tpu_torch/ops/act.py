@@ -1,6 +1,7 @@
-"""Activations on the port's path: exact GELU, ReLU, softmax over the last
-axis and sigmoid (counterparts of ``vip_cup_2022_tpu/ops/act.py``'s
-``gelu``, ``relu``, ``softmax`` and ``sigmoid`` entries)."""
+"""Activations on the port's path: exact GELU, ReLU, swish (SiLU), softmax
+over the last axis and sigmoid (counterparts of
+``vip_cup_2022_tpu/ops/act.py``'s ``gelu``, ``relu``, ``swish`` / ``silu``,
+``softmax`` and ``sigmoid`` entries)."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +16,8 @@ ACTIVATIONS = {
     None: lambda x: x,
     "gelu": gelu_exact,
     "relu": F.relu,
+    "swish": F.silu,
+    "silu": F.silu,
     "sigmoid": torch.sigmoid,
     "softmax": lambda x: torch.softmax(x, dim=-1),
 }

@@ -6,7 +6,9 @@ Weights are held in the compute dtype, and each layer casts its input to
 it, as Flax's ``dtype=...`` computes; a :class:`Conv` built with ``dtype``
 None is Flax's ``dtype=None`` conv, f32 weights and f32 compute whatever the
 input (Flax promotes the input with its f32 parameters). Depthwise taps are
-(k, k, C), Flax's (k, k, 1, C) without its I axis.
+(k, k, C), Flax's (k, k, 1, C) without its I axis. A padding is an int (the
+same on every side), explicit ``((top, bottom), (left, right))`` pairs or
+``"same"`` (TF ``SAME`` at each call's size, :mod:`.pad`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,34 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .kernels import depthwise as D
+from .pad import PaddingSpec, resolve_padding
+
+
+def make_divisible(v, divisor: int = 4, min_value=None, limit_round_down: float = 0.9) -> int:
+    """Round a channel count to a multiple of ``divisor`` (the mobilenet
+    rule, ``vip_cup_2022_tpu/ops/conv.py::make_divisible``): to the nearest
+    multiple, at least ``min_value`` (``divisor`` when None), one multiple
+    up where that falls below ``limit_round_down`` of ``v``."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < limit_round_down * v:
+        new_v += divisor
+    return int(new_v)
+
+
+def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
+               padding: PaddingSpec, groups: int = 1) -> torch.Tensor:
+    """cuDNN's conv of NHWC x: an int padding inside the conv, pairs or
+    ``"same"`` (resolved at x's size) by ``F.pad`` before a VALID one."""
+    if not isinstance(padding, int):
+        (pt, pb), (pl, pr) = resolve_padding(padding, x.shape[1], x.shape[2], w.shape[-1],
+                                             stride)
+        x, padding = F.pad(x, (0, 0, pl, pr, pt, pb)), 0
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, bias, stride, padding, groups=groups)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 class Linear(nn.Module):
@@ -36,12 +66,13 @@ class Linear(nn.Module):
 
 
 class Conv(nn.Module):
-    """k x k conv on NHWC input with symmetric zero padding ``padding``
-    (0 = VALID); weight (O, I, kh, kw) and bias in the compute dtype
+    """k x k conv on NHWC input with zero padding ``padding`` (0 = VALID;
+    an int pads inside cuDNN's conv, pairs or ``"same"`` by ``F.pad`` before
+    a VALID one); weight (O, I, kh, kw) and bias in the compute dtype
     (``dtype``, f32 when None)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 dtype: Optional[torch.dtype] = torch.float32, padding: int = 0,
+                 dtype: Optional[torch.dtype] = torch.float32, padding: PaddingSpec = 0,
                  bias: bool = True):
         super().__init__()
         self.stride, self.padding, self.dtype = stride, padding, dtype
@@ -50,9 +81,8 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout, dtype=wdtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, self.padding)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return _conv_nhwc(x.to(self.weight.dtype), self.weight, self.bias, self.stride,
+                          self.padding)
 
 
 class DepthwiseTaps(nn.Module):
@@ -66,19 +96,28 @@ class DepthwiseTaps(nn.Module):
 
 
 class DepthwiseConv(nn.Module):
-    """Stride-1 k x k depthwise conv on NHWC input with symmetric zero
-    padding ``padding`` and no bias; taps (k, k, C) in the compute dtype."""
+    """k x k depthwise conv on NHWC input with zero padding ``padding`` and
+    no bias (``apply_depthwise_conv`` of the JAX package); taps (k, k, C) in
+    the compute dtype, as Flax's ``nn.Conv(dtype=...)`` rounds its kernel.
+    At stride 1 it is the depthwise kernel ``depthwise_conv_nhwc`` (K9) on
+    the padding resolved at the input's size: on CUDA the kernel, which
+    raises for a shape it does not take, on the CPU its plain version. At
+    stride > 1 it is cuDNN's grouped conv, as the JAX package leaves strided
+    depthwise convs to XLA."""
 
-    def __init__(self, dim: int, kernel: int, padding: int, dtype: torch.dtype):
+    def __init__(self, dim: int, kernel: int, padding: PaddingSpec, dtype: torch.dtype,
+                 stride: int = 1):
         super().__init__()
-        self.padding = padding
+        self.padding, self.stride = padding, stride
         self.weight = nn.Parameter(torch.empty(kernel, kernel, dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[-1]
+        x, k = x.to(self.weight.dtype), self.weight.shape[0]
+        if self.stride == 1:
+            return D.depthwise_conv_nhwc(x, self.weight, padding=resolve_padding(
+                self.padding, x.shape[1], x.shape[2], k, 1))
         w = self.weight.permute(2, 0, 1).unsqueeze(1)  # (C, 1, k, k)
-        y = F.conv2d(x.to(w.dtype).permute(0, 3, 1, 2), w, None, 1, self.padding, groups=c)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return _conv_nhwc(x, w, None, self.stride, self.padding, groups=x.shape[-1])
 
 
 def lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:

@@ -4,9 +4,10 @@ plain PyTorch version.
 Replaces the TPU kernel ``depthwise_conv_nhwc`` (body ``_dw_kernel``) of
 ``vip_cup_2022_tpu/ops/pallas/depthwise.py``: a k x k tap loop of f32
 multiply-adds over an explicitly padded NHWC input, no bias, the output in
-x's dtype. No model calls it (the JAX package computes its models'
-depthwise convs outside Pallas); its entry point is the timing tool
-:mod:`..tools.exp_dw`.
+x's dtype. The TPU kernel was written for EfficientNet's stride-1 MBConv
+depthwise convs; here every stride-1 :class:`..conv.DepthwiseConv` runs it
+(EfficientNet's MBConv blocks, GCViT's ReduceSize / FeatExtract branch), and
+so does the timing tool :mod:`..tools.exp_dw`.
 
 ``depthwise_conv_nhwc`` (``csrc/depthwise.cu``) runs the shared-memory-tiled
 template of ``csrc/depthwise.cuh`` that ``dwconv7x7_nhwc`` runs for ConvNeXt,
@@ -27,11 +28,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
+from ..pad import Padding
 from . import build
 from .convnext_block import _check, _check_no_grad, _stream
 
@@ -42,8 +44,6 @@ KERNEL_SIZES = (3, 5, 7)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 PLAN_KEYS = ("strips", "blocks", "tiles_w", "tiles_h", "slices", "copy_bytes")
-
-Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 
 
 def reset_launches() -> None:
