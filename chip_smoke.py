@@ -93,17 +93,24 @@ each printing its results on earlier lines, any failure exiting non-zero:
    stride-1 depthwise site of GCViT's and both EfficientNets' forwards,
    batch 8 and 256, within 1e-2 of its plain version, timed at 256 by
    device time beside cuDNN's grouped conv of the same input and taps;
-   then full-width ResNetRS50 at 200 x 200 (the registry's 1000-class head)
-   with seeded weights and each BN's statistics measured on its input, so
-   activations stay O(1), on two draws: with the last BN of each residual
-   branch damped to U(0.1, 0.3) and without. On each: its int8 path
-   (calibrated on 64 images; 52 sites, the JAX pass's count) against the
-   same quantized model with the plain int8 version within 5e-2 of max|ref|
-   at batch 8 and 256; its bf16 path (cuDNN convs, no kernel) against the
-   plain f32 path, held to 5e-2 on the damped draw and reported on the
-   undamped one; int8 against bf16 with the decision flips at 0.487
-   reported. The damped draw's batch-256 bf16 and int8 forwards are timed;
-   at every site shape that forward recorded, batch 8 and 256, the site's
+   then full-width ECA_NFNetL0 at 200 x 200 (the registry's 1000-class
+   head) with seeded weights, gains ~ U(0.5, 1.5) and biases ~ U(-0.1,
+   0.1): its bf16 path (cuDNN convs, the grouped 3 x 3s as grouped convs, no
+   kernel) against the plain f32 path within 5e-2 of max|ref| at batch 8 and
+   256, the batch-256 forward timed, ``--profile`` table;
+   then full-width ResNetRS50 and ResNest50 at 200 x 200 (the registry's
+   1000-class head) with seeded weights and each BN's statistics measured
+   on its input, so activations stay O(1): ResNetRS50 on two draws, with
+   the last BN of each residual branch damped to U(0.1, 0.3) and without,
+   ResNest50 on the damped one (its closing ``3_bn``, zero at init). On
+   each: its int8 path (calibrated on 64 images; 52 and 68 sites, the JAX
+   pass's counts) against the same quantized model with the plain int8
+   version within 5e-2 of max|ref| at batch 8 and 256; its bf16 path
+   (cuDNN convs, no kernel) against the plain f32 path, held to 5e-2 on
+   the damped draw and reported on the undamped one; int8 against bf16
+   with the decision flips at 0.487 reported. The damped draw's batch-256
+   bf16 and int8 forwards are timed, its plain BNs alone; at every site
+   shape that forward recorded, batch 8 and 256, the site's
    launches, ``ptq_int8_quantize`` (exactly its plain version) and the GEMM
    ``ptq_int8_conv`` (``int8_gemm.ptq_int8_gemm``, on x itself at the rows
    sites that quantize in the GEMM; within 1e-6 of max|ref| of its plain
@@ -111,7 +118,7 @@ each printing its results on earlier lines, any failure exiting non-zero:
    beside cuDNN's bf16 conv of the site (and, at a 1 x 1 site,
    ``torch._int_mm`` on its pre-quantized rows); then the ``exp_ptq_int8``
    tool's phase cuts of the site (loads / + quantize / + products / whole)
-   at one 1 x 1 and one 3 x 3 site of each stage;
+   at one 1 x 1 and one 3 x 3 site of each ResNetRS50 stage;
 7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
    (``convnext_tiny_in22k-200x200``, ``GCViTTiny-224x224``) run through
    ``main_torch.main`` at batch 256 (one full batch and one zero-padded
@@ -129,20 +136,24 @@ each printing its results on earlier lines, any failure exiting non-zero:
    ``ResNetRS50-200x200``) without int8, which launches no int8 kernel, and
    with ``VIPTPU_INT8=ResNetRS50``, which must launch ``ptq_int8_conv`` at
    every calibrated site of each batch and ``ptq_int8_quantize`` at those
-   that do not quantize in the GEMM; then the five ported members in
-   ``ckpts/ckpts.json`` order (ConvNeXt, GCViT, EfficientNetV2T,
-   EfficientNetV1B4, ResNetRS50), cold and warm, which must launch every
-   fused block kernel at each block, the LN kernel at each standalone LN and
-   ``depthwise_conv_nhwc`` at each stride-1 depthwise site (GCViT's 11, 27
-   and 28) of each batch, and no int8 kernel.
+   that do not quantize in the GEMM; then the product contract, the seven
+   members of ``ckpts/ckpts.json`` in its order (ConvNeXt, ResNest50, GCViT,
+   EfficientNetV2T, EfficientNetV1B4, ECA_NFNetL0, ResNetRS50), cold and
+   warm, which must launch every fused block kernel at each block, the LN
+   kernel at each standalone LN and ``depthwise_conv_nhwc`` at each
+   stride-1 depthwise site (GCViT's 11, 27 and 28) of each batch, and no
+   int8 kernel; and once more with ``VIPTPU_INT8=ResNetRS50,ResNest50``
+   (the JAX package's ``INT8_AUTO`` set), which must launch the same and
+   ``ptq_int8_conv`` at the 52 + 68 sites of each batch and
+   ``ptq_int8_quantize`` at those of them that run the pass.
 
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
 CSV run for the block families, the unfused CSV run for
-``window_attention_bhnd`` and ``layer_norm``, the cold five-member CSV run
+``window_attention_bhnd`` and ``layer_norm``, the cold seven-member CSV run
 for ``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
-``int8_pallas_spike`` run for the three spike bodies and the
-``VIPTPU_INT8=ResNetRS50`` CSV run for ``ptq_int8_quantize`` and
+``int8_pallas_spike`` run for the three spike bodies and the seven-member
+``VIPTPU_INT8=ResNetRS50,ResNest50`` CSV run for ``ptq_int8_quantize`` and
 ``ptq_int8_conv``.
 ``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
 computes the function) are per batch-256 forward of both members together on
@@ -157,8 +168,9 @@ spike bodies per launch at the spike's three shapes summed
 the layout cuBLASLt's int8 path takes; none for the quantize-on-load body;
 the int8 body's ms is its two launches, the quantize pass and the GEMM;
 ``attn_parts`` and the spike bodies, kernel and library, by device time),
-and for ``ptq_int8_quantize`` and ``ptq_int8_conv`` per batch-256 ResNetRS50
-int8 forward (no one call computes the int8 site). ``bound_ms`` is the least
+and for ``ptq_int8_quantize`` and ``ptq_int8_conv`` per batch-256 int8
+forward of ResNetRS50 and ResNest50 together, each member's part printed
+apart (no one call computes the int8 site). ``bound_ms`` is the least
 time the card could take for the same launches, each launch's bytes (inputs
 read once, outputs written once) over 3.35 TB/s or its operations over the
 peak for their type (989 TFLOP/s bf16 and 1,979 TOP/s int8 tensor-core
@@ -265,7 +277,8 @@ BATCH = 256
 # and int8 tensor-core products, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
-RESNETRS50_INT8_SITES = 52  # the JAX pass's sites (tests/test_torch_resnet_rs.py)
+# the JAX pass's int8 sites (tests/test_torch_resnet_rs.py, tests/test_torch_ptq.py)
+INT8_SITES = {"ResNetRS50": 52, "ResNest50": 68}
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1210,11 +1223,17 @@ def measured_bn_state(model: torch.nn.Module, size: tuple, damped) -> dict:
     """The f32 ``model``'s state with BN scale ~ U(0.5, 1) (U(0.1, 0.3) where
     ``damped(name)``), shift ~ U(-0.1, 0.1), and each BN's statistics the
     mean and variance of its input over 16 seeded random images (the plain
-    path's), so every BN output is O(1)."""
+    path's), so every BN output is O(1). A BN on pooled features (one
+    spatial position: ResNest's split-attention ``sa_2_bn``) keeps mean 0
+    and variance 1: random weights pool noise images to nearly one vector,
+    and the variance measured across them would have the BN blow up the
+    bf16 rounding of its input."""
     gen = torch.Generator().manual_seed(1)
 
     def measure(bn, args):
         x = args[0].float()
+        if x.shape[1] * x.shape[2] == 1:
+            return
         bn.running_mean.copy_(x.mean(dim=(0, 1, 2)))
         bn.running_var.copy_(x.var(dim=(0, 1, 2), unbiased=False))
 
@@ -1236,13 +1255,17 @@ def measured_bn_state(model: torch.nn.Module, size: tuple, damped) -> dict:
 
 
 EFFNETS = {"EfficientNetV2T": (200, 200), "EfficientNetV1B4": (224, 224)}  # manifest sizes
+# the conv members' manifest sizes
+SIZES = {**EFFNETS, "ResNetRS50": (200, 200), "ResNest50": (200, 200), "ECA_NFNetL0": (200, 200)}
 # stride-1 depthwise convs per forward: V2T's MBConv stages 3-5 (6 + 9 + 14
-# blocks less two strided), V1B4's 32 blocks less four strided
-EFFNET_DW_SITES = {"EfficientNetV2T": 27, "EfficientNetV1B4": 28}
+# blocks less two strided), V1B4's 32 blocks less four strided; none elsewhere
+DW_SITES = {"EfficientNetV2T": 27, "EfficientNetV1B4": 28}
 
 
-def _effnet(name: str, dtype: torch.dtype, state: dict = None) -> torch.nn.Module:
-    model, _ = create_model(name, input_size=EFFNETS[name], classifier_activation=None,
+def _member(name: str, dtype: torch.dtype, state: dict = None) -> torch.nn.Module:
+    """Full-width ``name`` at its manifest size with the registry's
+    1000-class head, logits out; ``state`` loaded where given."""
+    model, _ = create_model(name, input_size=SIZES[name], classifier_activation=None,
                             dtype=dtype, seed=0)
     if state is not None:
         model.load_state_dict(state)
@@ -1255,10 +1278,35 @@ def _effnet_state(name: str) -> dict:
     (:func:`measured_bn_state`), the last BN of each residual branch (the
     projection's, in a block that takes the shortcut) damped to
     U(0.1, 0.3), so the 29-39 blocks stay O(1) in bf16."""
-    model = _effnet(name, torch.float32)
+    model = _member(name, torch.float32)
     damped = {spec.name + ("fu_bn" if spec.fused and not spec.expand else "MB_pw_bn")
               for spec in model.blocks if spec.shortcut}
     return measured_bn_state(model, EFFNETS[name], lambda n: n in damped)
+
+
+def _resnest_state() -> dict:
+    """Full-width ResNest50 at 200 x 200 with seeded random weights and
+    measured BN statistics (:func:`measured_bn_state`), each block's closing
+    ``3_bn`` (zero at the JAX init, which makes every deep branch add 0)
+    damped to U(0.1, 0.3)."""
+    return measured_bn_state(_member("ResNest50", torch.float32), SIZES["ResNest50"],
+                             lambda n: n.endswith("_3_bn"))
+
+
+def _nfnet_state() -> dict:
+    """Full-width ECA_NFNetL0 at 200 x 200 with seeded random weights, each
+    standardized conv's per-filter gain ~ U(0.5, 1.5) and every bias ~
+    U(-0.1, 0.1) (off their 1 / 0 init, so every leaf matters); no BN to
+    measure: the standardized convs keep the activations O(1)."""
+    model = _member("ECA_NFNetL0", torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith(".gain"):
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
+            elif pname.endswith(".bias"):
+                p.copy_(torch.rand(p.shape, generator=gen) * 0.2 - 0.1)
+    return model.state_dict()
 
 
 @contextlib.contextmanager
@@ -1292,24 +1340,25 @@ def batchnorm_ms(model: torch.nn.Module, size: tuple) -> tuple:
     return total, len(calls)
 
 
-def phase_efficientnet(name: str, card: str, profile: bool) -> tuple:
-    """Full-width ``name`` (:func:`_effnet_state`): its kernel path (bf16,
+def phase_member(name: str, card: str, profile: bool, state: dict) -> tuple:
+    """Full-width ``name`` (an EfficientNet, :func:`_effnet_state`, or
+    ECA_NFNetL0, :func:`_nfnet_state`, as ``state``): its kernel path (bf16,
     K9 at every stride-1 depthwise site, cuDNN elsewhere, plain BN) against
     the plain f32 path within 5e-2 of max|ref| at batch 8 and 256; its
-    batch-256 forward timed with K9 and with cuDNN at those sites, its plain
-    BNs' share; ``--profile`` adds a profiler table. Returns its depthwise
-    sites and the kernel path's forward ms."""
+    batch-256 forward timed, with K9 and with cuDNN at its depthwise sites
+    where it has any, its plain BNs' share where it has BNs; ``--profile``
+    adds a profiler table. Returns its depthwise sites and the kernel path's
+    forward ms."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    size = EFFNETS[name]
-    state = _effnet_state(name)
-    kernel_model, ref_model = _effnet(name, torch.bfloat16, state), _effnet(name, torch.float32,
+    size = SIZES[name]
+    kernel_model, ref_model = _member(name, torch.bfloat16, state), _member(name, torch.float32,
                                                                             state)
     del state
     sites = depthwise_sites(kernel_model, size)
     print(f"[model] {name} {size[0]}x{size[1]}: {len(sites)} stride-1 depthwise sites per "
-          f"forward (expected {EFFNET_DW_SITES[name]}), {len(kernel_model.blocks)} blocks")
-    if len(sites) != EFFNET_DW_SITES[name]:
+          f"forward (expected {DW_SITES.get(name, 0)}), {len(kernel_model.blocks)} blocks")
+    if len(sites) != DW_SITES.get(name, 0):
         raise AssertionError(f"{name} runs K9 at {len(sites)} sites")
     gen = torch.Generator(device="cuda").manual_seed(10)
     for b in (8, BATCH):
@@ -1334,21 +1383,15 @@ def phase_efficientnet(name: str, card: str, profile: bool) -> tuple:
         fwd = lambda: kernel_model(xb)  # noqa: E731
         forward_ms = time_forward(name, fwd, card, sites, plain=False)
         bn_ms, n_bn = batchnorm_ms(kernel_model, size)
-        print(f"[model] {name} plain BN: {n_bn} calls, {bn_ms:.2f} ms alone per batch-{BATCH} "
-              f"forward, {100 * bn_ms / forward_ms:.1f} % of the kernel path's {forward_ms:.2f} "
-              f"ms [{card}]")
+        if n_bn:
+            print(f"[model] {name} plain BN: {n_bn} calls, {bn_ms:.2f} ms alone per "
+                  f"batch-{BATCH} forward, {100 * bn_ms / forward_ms:.1f} % of the kernel path's "
+                  f"{forward_ms:.2f} ms [{card}]")
         if profile:
             print_profile(name, fwd)
     del kernel_model, xb
     torch.cuda.empty_cache()
     return sites, forward_ms
-
-
-def _resnet(dtype: torch.dtype, state: dict) -> torch.nn.Module:
-    model, _ = create_model("ResNetRS50", input_size=(200, 200), nb_classes=RESNET_CLASSES,
-                            classifier_activation=None, dtype=dtype)
-    model.load_state_dict(state)
-    return model.cuda()
 
 
 @contextlib.contextmanager
@@ -1369,30 +1412,31 @@ def recording_ptq_sites(calls: list):
         Q.ptq_int8_conv = real
 
 
-def _resnet_compare(draw: str, state: dict, x8: torch.Tensor, xb: torch.Tensor,
-                    gate_bf16: bool) -> tuple:
-    """One weight draw: the f32, bf16 and int8 (calibrated on 64 images, the
-    engine's count, weights quantized from ``state``) models at batch 8 and
-    256. The int8 kernel path must equal the plain int8 version within
-    5e-2; the bf16 path is held to 5e-2 of the plain f32 path when
+def _int8_compare(name: str, draw: str, state: dict, x8: torch.Tensor, xb: torch.Tensor,
+                  gate_bf16: bool) -> tuple:
+    """One weight draw of an int8 member (ResNetRS50 or ResNest50): the f32,
+    bf16 and int8 (calibrated on 64 images, the engine's count, weights
+    quantized from ``state``) models at batch 8 and 256. The int8 kernel path
+    must equal the plain int8 version within 5e-2 and quantize the JAX
+    pass's sites; the bf16 path is held to 5e-2 of the plain f32 path when
     ``gate_bf16``, else reported; int8 against bf16 is reported with the
     decisions at 0.487 that flip between them (the sigmoid of logit 0,
     centred on the f32 path's batch median: random weights put every image
     on one side otherwise). Returns the bf16 and int8 models, the int8
     sites called in one forward and the calibrated site count."""
-    ref_model, bf16_model, int8_model = (_resnet(d, state) for d in (torch.float32, torch.bfloat16,
-                                                                     torch.bfloat16))
+    ref_model, bf16_model, int8_model = (_member(name, d, state) for d in (
+        torch.float32, torch.bfloat16, torch.bfloat16))
     scales = quant.calibrate(int8_model, [xb[:64]])
     report = {}
     quant.quantized(int8_model, scales, report=report, weights=state)
     calls = []
     with torch.inference_mode(), recording_ptq_sites(calls):
         int8_model(x8[:1])
-    print(f"[resnet] ResNetRS50 {draw}: int8 {len(scales)} calibrated sites, "
+    print(f"[resnet] {name} {draw}: int8 {len(scales)} calibrated sites, "
           f"{len(report['quantized_sites'])} quantized, {len(calls)} kernel calls per forward "
-          f"(JAX: {RESNETRS50_INT8_SITES})")
-    if not len(scales) == len(report["quantized_sites"]) == len(calls) == RESNETRS50_INT8_SITES:
-        raise AssertionError("ResNetRS50's int8 sites differ from the JAX pass's 52")
+          f"(JAX: {INT8_SITES[name]})")
+    if not len(scales) == len(report["quantized_sites"]) == len(calls) == INT8_SITES[name]:
+        raise AssertionError(f"{name}'s int8 sites differ from the JAX pass's {INT8_SITES[name]}")
     for x in (x8, xb):
         with torch.inference_mode():
             f32, bf16, i8 = ref_model(x), bf16_model(x), int8_model(x)
@@ -1403,17 +1447,17 @@ def _resnet_compare(draw: str, state: dict, x8: torch.Tensor, xb: torch.Tensor,
         for label, got, ref, gated in (("bf16 path vs plain f32", bf16, f32, gate_bf16),
                                        ("int8 kernel path vs plain int8", i8, i8_plain, True)):
             if got.shape != (b, RESNET_CLASSES) or not torch.isfinite(got).all():
-                raise AssertionError(f"ResNetRS50 {label}: output {tuple(got.shape)} not finite")
+                raise AssertionError(f"{name} {label}: output {tuple(got.shape)} not finite")
             r = rel_err(got, ref)
-            print(f"[resnet] ResNetRS50 {draw} b{b} {label}: max|d|/max|ref| = {r:.3e} "
+            print(f"[resnet] {name} {draw} b{b} {label}: max|d|/max|ref| = {r:.3e} "
                   f"({f'bound {MODEL_BOUND:g}' if gated else 'reported, not gated'}), max|ref| = "
                   f"{ref.float().abs().max().item():.3e}")
             if gated and not r <= MODEL_BOUND:
-                raise AssertionError(f"ResNetRS50 {draw} b{b} {label}: {r:.3e} > {MODEL_BOUND:g}")
+                raise AssertionError(f"{name} {draw} b{b} {label}: {r:.3e} > {MODEL_BOUND:g}")
         shift = float(np.log(0.487 / 0.513)) - f32[:, 0].median()
         p_i8, p_bf16 = (torch.sigmoid(t[:, 0].float() + shift) for t in (i8, bf16))
         flips = (p_i8 > 0.487) != (p_bf16 > 0.487)
-        print(f"[resnet] ResNetRS50 {draw} b{b} int8 vs bf16: max|d|/max|ref| = "
+        print(f"[resnet] {name} {draw} b{b} int8 vs bf16: max|d|/max|ref| = "
               f"{rel_err(i8, bf16):.3e}; {int(flips.sum())} of {b} decisions flip at 0.487 "
               f"(logit 0 centred, bf16 p in [{p_bf16.min().item():.4f}, "
               f"{p_bf16.max().item():.4f}], max|p_int8 - p_bf16| = "
@@ -1423,39 +1467,49 @@ def _resnet_compare(draw: str, state: dict, x8: torch.Tensor, xb: torch.Tensor,
     return bf16_model, int8_model, calls, len(scales)
 
 
-def phase_resnet(card: str, profile: bool) -> tuple:
-    """ResNetRS50@200 on two weight draws (``_resnet_state``): damped, whose
-    bf16 path (plain convs, no kernel) is held to the plain f32 path, and
-    undamped, whose drift is reported beside the int8 numbers it changes;
-    each through :func:`_resnet_compare`. Then the damped draw's batch-256
-    bf16 and int8 forwards timed. Returns the int8 sites called in one
-    forward and the calibrated site count."""
+def phase_int8_member(name: str, card: str, profile: bool) -> tuple:
+    """An int8 member at 200 x 200 through :func:`_int8_compare`: ResNetRS50
+    on two weight draws (``_resnet_state``), undamped, whose drift is
+    reported beside the int8 numbers it changes, then damped, whose bf16
+    path (plain convs, no kernel) is held to the plain f32 path; ResNest50
+    on its damped draw (:func:`_resnest_state`). Then the damped draw's
+    batch-256 bf16 and int8 forwards timed. Returns the int8 sites called in
+    one forward and the calibrated site count."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(7)
-    x8 = torch.rand((8, 200, 200, 3), generator=gen, device="cuda")
-    xb = torch.rand((BATCH, 200, 200, 3), generator=gen, device="cuda")
-    undamped = _resnet_compare("undamped", _resnet_state(damped=False), x8, xb, gate_bf16=False)
-    del undamped
-    torch.cuda.empty_cache()
-    bf16_model, int8_model, calls, n_scales = _resnet_compare(
-        "damped", _resnet_state(damped=True), x8, xb, gate_bf16=True)
+    x8 = torch.rand((8, *SIZES[name], 3), generator=gen, device="cuda")
+    xb = torch.rand((BATCH, *SIZES[name], 3), generator=gen, device="cuda")
+    if name == "ResNetRS50":
+        undamped = _int8_compare(name, "undamped", _resnet_state(damped=False), x8, xb,
+                                 gate_bf16=False)
+        del undamped
+        torch.cuda.empty_cache()
+        state = _resnet_state(damped=True)
+    else:
+        state = _resnest_state()
+    bf16_model, int8_model, calls, n_scales = _int8_compare(name, "damped", state, x8, xb,
+                                                            gate_bf16=True)
     with torch.inference_mode():
         fwd_b, fwd_i = (lambda: bf16_model(xb)), (lambda: int8_model(xb))
         b1, i1, i2, b2 = (cuda_ms(f, iters=5, warmup=1) for f in (fwd_b, fwd_i, fwd_i, fwd_b))
-        print(f"[resnet] ResNetRS50 batch-{BATCH} forward: bf16 (cuDNN convs) {(b1 + b2) / 2:.2f} "
+        print(f"[resnet] {name} batch-{BATCH} forward: bf16 (cuDNN convs) {(b1 + b2) / 2:.2f} "
               f"ms ({BATCH * 2000 / (b1 + b2):.1f} img/s), int8 (ptq_int8_conv) {(i1 + i2) / 2:.2f} "
               f"ms ({BATCH * 2000 / (i1 + i2):.1f} img/s) [{card}]")
+        bn_ms, n_bn = batchnorm_ms(bf16_model, SIZES[name])
+        print(f"[resnet] {name} plain BN: {n_bn} calls, {bn_ms:.2f} ms alone per batch-{BATCH} "
+              f"forward, {200 * bn_ms / (b1 + b2):.1f} % of the bf16 forward [{card}]")
         if profile:
-            print_profile("ResNetRS50 bf16", fwd_b)
-            print_profile("ResNetRS50 int8", fwd_i)
+            print_profile(f"{name} bf16", fwd_b)
+            print_profile(f"{name} int8", fwd_i)
     del bf16_model, int8_model
     torch.cuda.empty_cache()
     return calls, n_scales
 
 
-def phase_ptq_sites(card: str, stats: dict, calls: list) -> None:
-    """The int8 PTQ site at every ResNetRS50 int8 site shape (recorded from
+def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50",
+                    tool: bool = True) -> None:
+    """The int8 PTQ site at every int8 site shape of ``name`` (recorded from
     one forward), batch 8 and 256, bf16 x and output as on the path: its
     quantize pass (``ptq_int8_quantize``) exactly its plain version, its
     GEMM (``ptq_int8_conv``'s launch, ``ptq_int8_gemm``, on x quantized by
@@ -1464,8 +1518,8 @@ def phase_ptq_sites(card: str, stats: dict, calls: list) -> None:
     products summed in f64); timed at batch 256 beside their plain versions
     (the pass only at the sites that run it), and the site beside cuDNN's
     bf16 conv of the same site for context (no one call computes the int8
-    site, so no library time); then the ``exp_ptq_int8`` tool's phase
-    cuts."""
+    site, so no library time); then, with ``tool``, the ``exp_ptq_int8``
+    tool's phase cuts."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     per_forward = Counter(calls)
     before = snapshot(stats)
@@ -1488,7 +1542,7 @@ def phase_ptq_sites(card: str, stats: dict, calls: list) -> None:
             a, a_inv = (x, inv) if in_gemm else (xq, None)
             gemm = Q.ptq_int8_gemm(a, qw, cs, None, inv_s=a_inv, **gkw)
             torch.cuda.synchronize()
-            label = (f"b{b} {(b, h, w, c)} -> {n} k{kernel} s{stride} x{count}"
+            label = (f"{name} b{b} {(b, h, w, c)} -> {n} k{kernel} s{stride} x{count}"
                      + (" quantized in the GEMM" if in_gemm else ""))
             if not torch.equal(xq, Q.ptq_int8_quantize_plain(x, inv)):
                 raise AssertionError(f"{QUANT} at {label} differs from its plain version")
@@ -1528,12 +1582,13 @@ def phase_ptq_sites(card: str, stats: dict, calls: list) -> None:
                          if kernel == 1 else ""))
             del x, qw, out, xq, gemm, a
             torch.cuda.empty_cache()
-    print_per_forward(stats, before, (QUANT, PTQ), f"ResNetRS50 batch-256 int8 forward "
+    print_per_forward(stats, before, (QUANT, PTQ), f"{name} batch-256 int8 forward "
                       f"({sum(per_forward.values())} sites)", card)
-    print(f"[kernels] the {sum(per_forward.values())} int8 sites per ResNetRS50 batch-256 forward: "
+    print(f"[kernels] the {sum(per_forward.values())} int8 sites per {name} batch-256 forward: "
           f"both launches {site_total:.2f} ms; in cuDNN bf16 convs {cudnn_total:.2f} ms; the "
           f"1 x 1 sites as torch._int_mm on pre-quantized rows {int_mm_total:.2f} ms [{card}]")
-    exp_ptq_int8.main(["--iters", "10"])  # the site's phase cuts
+    if tool:
+        exp_ptq_int8.main(["--iters", "10"])  # the site's phase cuts
 
 
 def _write_images(img_dir: str, n: int) -> list:
@@ -1556,10 +1611,14 @@ def _write_images(img_dir: str, n: int) -> list:
     return names
 
 
-# the ported members in ckpts/ckpts.json order
-MANIFEST = [["convnext_tiny_in22k-200x200", [200, 200], 0], ["GCViTTiny-224x224", [224, 224], 0],
-            ["EfficientNetV2T-200x200", [200, 200], 0], ["EfficientNetV1B4-224x224", [224, 224], 0],
+# the members of ckpts/ckpts.json, all seven ported, in its order
+MANIFEST = [["convnext_tiny_in22k-200x200", [200, 200], 0], ["ResNest50-200x200", [200, 200], 0],
+            ["GCViTTiny-224x224", [224, 224], 0], ["EfficientNetV2T-200x200", [200, 200], 0],
+            ["EfficientNetV1B4-224x224", [224, 224], 0], ["ECA_NFNetL0-200x200", [200, 200], 0],
             ["ResNetRS50-200x200", [200, 200], 0]]
+ENTRY = {base: [base, dim, idx] for base, dim, idx in MANIFEST}
+TWO = [ENTRY["convnext_tiny_in22k-200x200"], ENTRY["GCViTTiny-224x224"]]
+THREE = TWO + [ENTRY["ResNetRS50-200x200"]]
 
 
 @contextlib.contextmanager
@@ -1627,7 +1686,7 @@ def phase_slice(card: str) -> dict:
     each kernel's launches from the run of its path."""
     batches = -(-N_IMAGES // BATCH)
     os.environ.pop("VIPTPU_NO_FUSED_BLOCK", None)
-    with csv_workspace(MANIFEST[:2]) as (input_csv, output_csv, times, names):
+    with csv_workspace(TWO) as (input_csv, output_csv, times, names):
         fused, cold, _ = run_csv(input_csv, output_csv, names)
         _, warm, batch_s = run_csv(input_csv, output_csv, names, times)
         os.environ["VIPTPU_NO_FUSED_BLOCK"] = "1"
@@ -1671,7 +1730,7 @@ def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
     ``passes`` of them that run the pass, and nothing else of int8; returns
     the int8 run's launches of the two."""
     batches = -(-N_IMAGES // BATCH)
-    with csv_workspace(MANIFEST[:2] + MANIFEST[-1:]) as (input_csv, output_csv, times, names):
+    with csv_workspace(THREE) as (input_csv, output_csv, times, names):
         plain, t_plain, batch_p = run_csv(input_csv, output_csv, names, times)
         os.environ["VIPTPU_INT8"] = "ResNetRS50"
         try:
@@ -1692,33 +1751,49 @@ def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
     return {n: int8[n] for n in (QUANT, PTQ)}
 
 
-def phase_slice_five(card: str, dw_sites: int) -> dict:
-    """The five ported members (``MANIFEST``) through ``main_torch.main``,
+def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: int) -> dict:
+    """The product contract: the seven members of ``ckpts/ckpts.json``
+    (``MANIFEST``, checked against the file) through ``main_torch.main``,
     cold and warm: every kernel of the fused block families at each block,
     the LN kernel at each standalone LN, K9 at each of the ``dw_sites``
     stride-1 depthwise sites of one forward (GCViT's and both
-    EfficientNets'), per batch, and no int8 kernel; returns K9's launches in
-    the cold run."""
+    EfficientNets'), per batch, and no int8 kernel. Then warm with
+    ``VIPTPU_INT8=ResNetRS50,ResNest50`` (the JAX package's ``INT8_AUTO``
+    set): the same, and ``ptq_int8_conv`` at the ``int8_sites`` of both
+    members and ``ptq_int8_quantize`` at the ``int8_passes`` of them that
+    run the pass, per batch. Returns K9's launches in the cold run and the
+    int8 kernels' in the int8 run."""
+    with open(os.path.join(REPO, "ckpts", "ckpts.json")) as fh:
+        if json.load(fh) != MANIFEST:
+            raise AssertionError("MANIFEST is not ckpts/ckpts.json")
     batches = -(-N_IMAGES // BATCH)
     with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names):
         cold_launches, cold, batch_c = run_csv(input_csv, output_csv, names, times)
         warm_launches, warm, batch_w = run_csv(input_csv, output_csv, names, times)
-    for label, launches in (("five-member cold", cold_launches),
-                            ("five-member warm", warm_launches)):
-        expect_launches(launches, {**{n: None for n in GCVIT_KERNELS},
-                                   "dwconv7x7_nhwc": batches * CONVNEXT_BLOCKS,
-                                   "ln_qkv": batches * GCVIT_BLOCKS,
-                                   "proj_scale_residual": batches * GCVIT_BLOCKS,
-                                   **{n: batches * (CONVNEXT_BLOCKS + GCVIT_BLOCKS)
-                                      for n in MLP_KERNELS},
-                                   ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS),
-                                   DW: batches * dw_sites, PTQ: 0, QUANT: 0},
-                        f"{label} CSV->CSV")
+        os.environ["VIPTPU_INT8"] = "ResNetRS50,ResNest50"
+        try:
+            int8_launches, t_int8, batch_i = run_csv(input_csv, output_csv, names, times)
+        finally:
+            del os.environ["VIPTPU_INT8"]
+    fused = {**{n: None for n in GCVIT_KERNELS}, "dwconv7x7_nhwc": batches * CONVNEXT_BLOCKS,
+             "ln_qkv": batches * GCVIT_BLOCKS, "proj_scale_residual": batches * GCVIT_BLOCKS,
+             **{n: batches * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
+             ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS), DW: batches * dw_sites}
+    for label, launches in (("seven-member cold", cold_launches),
+                            ("seven-member warm", warm_launches)):
+        expect_launches(launches, {**fused, PTQ: 0, QUANT: 0}, f"{label} CSV->CSV")
+    expect_launches(int8_launches, {**fused, PTQ: batches * int8_sites,
+                                    QUANT: batches * int8_passes,
+                                    **{n: 0 for n in SPIKE_KERNELS}},
+                    "seven-member VIPTPU_INT8=ResNetRS50,ResNest50 CSV->CSV")
     ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
-    print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 5 members: cold {cold:.2f} s "
+    print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 7 members: cold {cold:.2f} s "
           f"({N_IMAGES / cold:.1f} img/s; per-batch e2e {ms(batch_c)}), warm {warm:.2f} s "
           f"({N_IMAGES / warm:.1f} img/s; per-batch e2e {ms(batch_w)}) [{card}]")
-    return {DW: cold_launches[DW]}
+    print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 7 members, "
+          f"VIPTPU_INT8=ResNetRS50,ResNest50: {t_int8:.2f} s ({N_IMAGES / t_int8:.1f} img/s; "
+          f"per-batch e2e {ms(batch_i)}) [{card}]")
+    return {DW: cold_launches[DW], PTQ: int8_launches[PTQ], QUANT: int8_launches[QUANT]}
 
 
 def main(argv) -> None:
@@ -1742,13 +1817,18 @@ def main(argv) -> None:
     dw_members = {"GCViTTiny": phase_model("GCViTTiny", card, profile, fused_block=True)}
     phase_model("GCViTTiny", card, profile, fused_block=False)
     for name in EFFNETS:
-        dw_members[name] = phase_efficientnet(name, card, profile)
+        dw_members[name] = phase_member(name, card, profile, _effnet_state(name))
     phase_depthwise_sites(card, stats, dw_members)
-    calls, sites = phase_resnet(card, profile)
-    phase_ptq_sites(card, stats, calls)
-    launches = {**phase_slice(card), **tool_launches, **spike_launches,
-                **phase_slice_int8(card, sites, pass_sites(calls)),
-                **phase_slice_five(card, sum(len(s) for s, _ in dw_members.values()))}
+    phase_member("ECA_NFNetL0", card, profile, _nfnet_state())
+    calls = {}
+    for name in INT8_SITES:  # ResNetRS50, then ResNest50
+        calls[name] = phase_int8_member(name, card, profile)[0]
+        phase_ptq_sites(card, stats, calls[name], name, tool=name == "ResNetRS50")
+    launches = {**phase_slice(card), **tool_launches, **spike_launches}
+    phase_slice_int8(card, len(calls["ResNetRS50"]), pass_sites(calls["ResNetRS50"]))
+    every = calls["ResNetRS50"] + calls["ResNest50"]
+    launches.update(phase_slice_seven(card, sum(len(s) for s, _ in dw_members.values()),
+                                      len(every), pass_sites(every)))
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],

@@ -903,6 +903,27 @@ def test_ptq_int8_conv_every_resnetrs50_site_on_card(cuda_device, h, c, n, kerne
     _ptq_check(cuda_device, 8, h, h, c, n, kernel, stride, torch.bfloat16, torch.bfloat16, False)
 
 
+# ResNest50's 22 int8 site shapes at 200 px (68 sites), every one at stride 1:
+# (H = W, C, N, kernel); the 3 x 3 ones are the split attention's channel
+# halves (C = 32: K = 288)
+RESNEST50_SITES = [
+    (50, 64, 256, 1), (50, 64, 64, 1), (50, 32, 64, 3), (50, 256, 64, 1), (25, 256, 512, 1),
+    (50, 256, 128, 1), (50, 64, 128, 3), (25, 128, 512, 1), (25, 512, 128, 1), (25, 64, 128, 3),
+    (13, 512, 1024, 1), (25, 512, 256, 1), (25, 128, 256, 3), (13, 256, 1024, 1),
+    (13, 1024, 256, 1), (13, 128, 256, 3), (7, 1024, 2048, 1), (13, 1024, 512, 1),
+    (13, 256, 512, 3), (7, 512, 2048, 1), (7, 2048, 512, 1), (7, 256, 512, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c,n,kernel", RESNEST50_SITES)
+def test_ptq_int8_conv_every_resnest50_site_on_card(cuda_device, h, c, n, kernel):
+    """The int8 site at each of ResNest50's 22 site shapes at batch 8, bf16
+    x and output as on the path, within 1e-6 of max|ref| of the plain
+    version."""
+    _ptq_check(cuda_device, 8, h, h, c, n, kernel, 1, torch.bfloat16, torch.bfloat16, False)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,n,kernel,stride", [
     (2, 9, 7, 64, 64, 1, 1),      # N = 64, K = 64: one resident 64-wide tile, ragged M

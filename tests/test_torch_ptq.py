@@ -220,3 +220,76 @@ def test_engine_calibrates_and_quantizes_like_jax():
     eng.close()
     assert any(isinstance(m, quant.QuantizedSite) for m in port8.modules())
     assert np.abs(f32 - i8).max() < 0.02
+
+
+# ---------------------------------------------------------------------------
+# ResNest50's sites and NFNet's standardized convs
+# ---------------------------------------------------------------------------
+def _resnest_pair(size, **kw):
+    from test_torch_resnest import _pair
+
+    return _pair("ResNest50", 7, input_size=(size, size), nb_classes=1,
+                 classifier_activation=None, **kw)
+
+
+def _resnest_sites_match_jax(size, logits=True, **kw):
+    """Both packages calibrate the same sites with the same abs-max, quantize
+    them and skip the same others; with ``logits``, their int8 logits agree
+    within 1e-3 of max|ref| (f32 sums in another order upstream may move an
+    activation across a rounding boundary, and at full width such moves add
+    up past that: ``tests/test_torch_resnet_rs.py`` bounds them by site).
+    Returns the calibrated sites."""
+    module, tree, port = _resnest_pair(size, **kw)
+    x = np.random.RandomState(size).uniform(0, 1, (1, size, size, 3)).astype(np.float32)
+    apply = lambda b: module.apply(tree, b)  # noqa: E731
+    jscales = jquant.calibrate(apply, [jnp.asarray(x)])
+    scales = quant.calibrate(port, [torch.from_numpy(x)])
+    assert set(scales) == set(jscales)
+    for site, v in jscales.items():
+        assert abs(scales[site] - v) <= 1e-5 * v, site
+    jreport, report = {}, {}
+    want = np.asarray(jquant.quantized(apply, jscales, report=jreport)(jnp.asarray(x)))
+    with torch.inference_mode():
+        got = quant.quantized(port, jscales, report=report)(torch.from_numpy(x)).numpy()
+    assert report == jreport
+    assert not logits or np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+    return set(scales)
+
+
+def test_resnest_sites_match_jax():
+    """At a narrow ResNest50 (hidden 64 / 64 / 128 / 128, halves of 32 and
+    64): per block ``deep_1``, the split attention's two halves
+    (``sa_1_g1`` / ``_g2``) and ``deep_3``, and each stack's shortcut; never
+    the stem, ``sa_2`` / ``sa_3`` (one spatial position) or the head."""
+    sites = _resnest_sites_match_jax(
+        64, num_blocks=(1, 2, 1, 1), out_channels=(256, 256, 512, 512), stem_width=64)
+    blocks = ["stack1_block1_", "stack2_block1_", "stack2_block2_", "stack3_block1_",
+              "stack4_block1_"]
+    want = {b + s for b in blocks for s in ("deep_1_conv", "deep_2_sa_1_g1_conv",
+                                            "deep_2_sa_1_g2_conv", "deep_3_conv")}
+    want |= {b + "shortcut_conv" for b in blocks if b.endswith("block1_")}
+    assert sites == want
+
+
+@pytest.mark.slow
+def test_full_width_resnest50_has_68_sites():
+    assert len(_resnest_sites_match_jax(200, logits=False)) == 68
+
+
+def test_nfnet_calibration_records_no_standardized_conv():
+    """NFNet's convs are ``ScaledStdConv``s, whose raw weight is not the one
+    they convolve with: calibration must not record one as a plain conv
+    site, which would quantize the raw kernel. The JAX pass calibrates them
+    (``_handle_stdconv``); the port leaves int8 NFNet to ROADMAP A9b."""
+    from test_torch_nfnet import NARROW, _pair
+    from vip_cup_2022_tpu_torch.ops.conv import ScaledStdConv
+
+    module, tree, port = _pair("NFNetL0", 3, input_size=(64, 64), nb_classes=1, **NARROW)
+    x = np.random.RandomState(4).uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
+    jscales = jquant.calibrate(lambda b: module.apply(tree, b), [jnp.asarray(x)])
+    std = {n.replace(".", "/") for n, m in port.named_modules() if isinstance(m, ScaledStdConv)}
+    assert jscales and set(jscales) <= std
+    assert quant.calibrate(port, [torch.from_numpy(x)]) == {}
+    with pytest.raises(NotImplementedError, match="A9b"):
+        grouped = Conv(64, 64, 3, padding=1, groups=2)
+        quant.quantized(torch.nn.Sequential(grouped), {"0": 1.0})

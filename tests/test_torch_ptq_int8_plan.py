@@ -4,12 +4,15 @@ the CPU dispatch of its two wrappers, without a card.
 ``ptq_plan`` picks, per site, the column tile (a wgmma n the GEMM is built
 for), the ring's depth and whether the int8 weight stays in shared memory;
 ``csrc/ptq_int8.cuh`` checks the same limits before a launch. At each of
-ResNetRS50's 22 site shapes and at the card tests' edge shapes the plan
+ResNetRS50's and ResNest50's 22 site shapes and at the card tests' edge
+shapes the plan
 must fit a block's 227 KB of shared memory and keep four A stages beside a
 held weight. On CPU tensors ``ptq_int8_quantize``, ``ptq_int8_gemm`` and
 ``ptq_int8_conv`` run their plain versions and count no launch, and the
 site is the quantize pass followed by the GEMM.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,19 @@ RESNETRS50_SITES = [
     (7, 1024, 2048, 1, 1), (13, 1024, 512, 1, 1), (13, 512, 512, 3, 2), (7, 512, 2048, 1, 1),
     (7, 2048, 512, 1, 1), (7, 512, 512, 3, 1),
 ]
+# ResNest50's 22 int8 site shapes at 200 px and the sites of each (68 in all):
+# (H = W, C, N, kernel, stride) -> sites. Every site is at stride 1 (the split
+# attention pools after its convs, the shortcut before its conv); the 3 x 3
+# ones are the split attention's halves, C = hidden / 2
+RESNEST50_SITES = {
+    (50, 64, 256, 1, 1): 4, (50, 64, 64, 1, 1): 1, (50, 32, 64, 3, 1): 6, (50, 256, 64, 1, 1): 2,
+    (25, 256, 512, 1, 1): 1, (50, 256, 128, 1, 1): 1, (50, 64, 128, 3, 1): 2,
+    (25, 128, 512, 1, 1): 4, (25, 512, 128, 1, 1): 3, (25, 64, 128, 3, 1): 6,
+    (13, 512, 1024, 1, 1): 1, (25, 512, 256, 1, 1): 1, (25, 128, 256, 3, 1): 2,
+    (13, 256, 1024, 1, 1): 6, (13, 1024, 256, 1, 1): 5, (13, 128, 256, 3, 1): 10,
+    (7, 1024, 2048, 1, 1): 1, (13, 1024, 512, 1, 1): 1, (13, 256, 512, 3, 1): 2,
+    (7, 512, 2048, 1, 1): 3, (7, 2048, 512, 1, 1): 2, (7, 256, 512, 3, 1): 4,
+}
 # (N, K, source) of the card tests' edges
 EDGES = [(64, 64, Q.PTQ_ROWS_QUANT), (64, 576, Q.PTQ_GATHER), (128, 864, Q.PTQ_GATHER),
          (96, 288, Q.PTQ_GATHER), (40, 324, Q.PTQ_GATHER), (36, 40, Q.PTQ_GATHER),
@@ -63,6 +79,44 @@ def test_ptq_plan_fits_at_every_resnetrs50_site(h, c, n, kernel, stride):
     assert (src == Q.PTQ_ROWS_QUANT) == (kernel == 1 and n <= 256)
     if src == Q.PTQ_ROWS_QUANT:  # 48 KB stages (+ W's): three, W held where it fits
         assert plan["stages"] == 3 and plan["resident"] == (c <= 256)
+
+
+@pytest.mark.parametrize("h,c,n,kernel,stride", sorted(RESNEST50_SITES))
+def test_ptq_plan_fits_at_every_resnest50_site(h, c, n, kernel, stride):
+    """Among them 3 x 3 sites of 32 channels (K = 288, past the epilogue's
+    exact-add conversion, K <= 260) and 3 x 3 sites on 25 x 25 and 13 x 13."""
+    src = _source(h, c, n, kernel, stride)
+    plan = _check_plan(n, kernel * kernel * c, src)
+    assert (src == Q.PTQ_ROWS_QUANT) == (kernel == 1 and n <= 256)
+    assert (src == Q.PTQ_GATHER) == (kernel == 3)
+    if src == Q.PTQ_ROWS_QUANT:
+        assert plan["stages"] == 3 and plan["resident"] == (c <= 256)
+
+
+def test_resnest50_sites_are_the_models():
+    """The table above is what full-width ResNest50 at 200 px calls
+    ``ptq_int8_conv`` with, site by site, after a one-image calibration."""
+    from vip_cup_2022_tpu_torch import quant
+    from vip_cup_2022_tpu_torch.models import create_model
+
+    model, _ = create_model("ResNest50", input_size=(200, 200), nb_classes=1)
+    x = torch.rand((1, 200, 200, 3), generator=torch.Generator().manual_seed(0))
+    scales = quant.calibrate(model, [x])
+    quant.quantized(model, scales)
+    calls, real = [], Q.ptq_int8_conv
+
+    def record(a, qweight, *args, **kw):
+        calls.append((a.shape[1], a.shape[-1], qweight.shape[0], kw["kernel"], kw["stride"]))
+        return real(a, qweight, *args, **kw)
+
+    Q.ptq_int8_conv = record
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        Q.ptq_int8_conv = real
+    assert len(scales) == len(calls) == sum(RESNEST50_SITES.values()) == 68
+    assert dict(collections.Counter(calls)) == RESNEST50_SITES
 
 
 @pytest.mark.parametrize("n,k,src", EDGES)

@@ -273,31 +273,38 @@ def test_cli_unported_knobs_raise(workspace, monkeypatch, env, match):
 def test_unported_member_raises(workspace):
     root, input_csv, *_ = workspace
     cfg = _cfg(root, input_csv, "never.csv")
-    cfg.ckpt_cfg = [("ResNest50-200x200", [], (200, 200), 0)]
+    cfg.ckpt_cfg = [("ResNet50D-200x200", [], (200, 200), 0)]
     eng = engine.EnsembleEngine(device="cpu", verbose=0)
     with pytest.raises(NotImplementedError,
-                       match="only ConvNeXt, GCViT, ResNet-RS and EfficientNet are ported; "
-                             "ResNest is ROADMAP item A7"):
+                       match="only ConvNeXt, GCViT, ResNet-RS, EfficientNet, ResNest and NFNet "
+                             "are ported; the other model families .* ROADMAP item A14"):
         eng.predict_soln_fused(cfg)
     eng.close()
 
 
-@pytest.fixture(scope="module")
-def efficientnet_workspace(tmp_path_factory):
-    """Ten 200x200 JPEGs and one odd-sized one, an input CSV, and a manifest
-    of a narrow EfficientNetV2T at 64 and a narrow EfficientNetV1B4 at 72
-    (the engine's resize to both), each with a fold checkpoint and a
-    config.json carrying its narrow widths."""
-    from test_torch_efficientnet import NARROW as NARROW_EFF
-    from test_torch_efficientnet import _tree
+def _tree_of(tree_module):
+    """A member's tree maker: the JAX init drawn off its init by
+    ``tree_module._tree``."""
+    def make(name, size, overrides, seed):
+        _, variables, _ = jax_create_model(name, rng=jax.random.PRNGKey(seed),
+                                           input_size=(size, size), **overrides)
+        return tree_module._tree(variables, 20 + seed)
+    return make
 
-    root = tmp_path_factory.mktemp("torch_efficientnet_e2e")
+
+def _member_workspace(root, prefix, seed, members):
+    """Ten 200x200 JPEGs named ``prefix...`` and one odd-sized one, an input
+    CSV, and a manifest of ``members`` ((name, manifest base, size, narrow
+    overrides, tree maker, head)), each with a fold checkpoint written by the
+    JAX package (its tree from ``make(name, size, overrides, i)``) and a
+    config.json carrying its narrow widths; each head is then rescaled so
+    that its logits over these images spread."""
     img_dir = root / "images"
     img_dir.mkdir()
-    rng = np.random.RandomState(12)
+    rng = np.random.RandomState(seed)
     names = []
     for i in range(10):
-        names.append(f"e_{9 - i:03d}.jpg")
+        names.append(f"{prefix}{9 - i:03d}.jpg")
         Image.fromarray(rng.randint(0, 255, (200, 200, 3), dtype=np.uint8)).save(
             img_dir / names[-1], quality=92)
     Image.fromarray(rng.randint(0, 255, (144, 256, 3), dtype=np.uint8)).save(
@@ -305,19 +312,16 @@ def efficientnet_workspace(tmp_path_factory):
     names.append("odd.jpg")
     input_csv = img_dir / "input.csv"
     input_csv.write_text("filename\n" + "".join(f"{n}\n" for n in names))
-    members, manifest = {}, []
-    for seed, (name, size) in enumerate((("EfficientNetV2T", 64), ("EfficientNetV1B4", 72))):
-        base = f"{name}-200x200" if name.startswith("EfficientNetV2") else f"{name}-224x224"
-        overrides = dict(nb_classes=1, classifier_activation="sigmoid", **NARROW_EFF[name])
-        _, variables, _ = jax_create_model(name, rng=jax.random.PRNGKey(seed),
-                                           input_size=(size, size), **overrides)
-        tree = _tree(variables, 20 + seed)
+    trees, manifest = {}, []
+    for i, (name, base, size, narrow, make, head) in enumerate(members):
+        overrides = dict(nb_classes=1, classifier_activation="sigmoid", **narrow)
+        tree = make(name, size, overrides, i)
         ckpt_dir = root / "ckpts" / base / "ckpt"
         ckpt_dir.mkdir(parents=True)
         with open(ckpt_dir / "config.json", "w") as fh:
             json.dump({k: list(v) if isinstance(v, tuple) else v for k, v in overrides.items()}, fh)
         save_variables(str(ckpt_dir / "fold0.msgpack"), tree)
-        members[base] = ((size, size), overrides, tree)
+        trees[base] = ((size, size), overrides, tree)
         manifest.append([base, [size, size], 0])
     with open(root / "ckpts" / "ckpts.json", "w") as fh:
         json.dump(manifest, fh)
@@ -326,18 +330,33 @@ def efficientnet_workspace(tmp_path_factory):
     # 2 (z - mean z) / std z, and every member moves the ensemble mean
     eng = engine.EnsembleEngine(device="cpu", verbose=0)
     all_entries = _cfg(root, input_csv, "probe.csv").ckpt_cfg
-    for i, (base, (_, _, tree)) in enumerate(members.items()):
+    for i, ((base, (_, _, tree)), member) in enumerate(zip(trees.items(), members)):
         cfg = _cfg(root, input_csv, f"probe{i}.csv")
         cfg.ckpt_cfg = [all_entries[i]]
         p = eng.predict_soln_fused(cfg)["raw"]
         z = np.log(p / (1 - p))
-        head = tree["params"]["predictions"]
+        head = tree["params"][member[-1]]
         scale = 2.0 / z.std()
         head["bias"] = (-scale * (z.mean() - head["bias"])).astype(np.float32)
         head["kernel"] = (head["kernel"] * scale).astype(np.float32)
         save_variables(str(root / "ckpts" / base / "ckpt" / "fold0.msgpack"), tree)
     eng.close()
-    return root, input_csv, names, members
+    return root, input_csv, names, trees
+
+
+@pytest.fixture(scope="module")
+def efficientnet_workspace(tmp_path_factory):
+    """A narrow EfficientNetV2T at 64 and a narrow EfficientNetV1B4 at 72
+    (the engine's resize to both)."""
+    import test_torch_efficientnet as eff_tests
+
+    make, narrow = _tree_of(eff_tests), eff_tests.NARROW
+    return _member_workspace(
+        tmp_path_factory.mktemp("torch_efficientnet_e2e"), "e_", 12,
+        [("EfficientNetV2T", "EfficientNetV2T-200x200", 64, narrow["EfficientNetV2T"], make,
+          "predictions"),
+         ("EfficientNetV1B4", "EfficientNetV1B4-224x224", 72, narrow["EfficientNetV1B4"], make,
+          "predictions")])
 
 
 def test_efficientnet_cli_csv_equals_jax_byte_for_byte(efficientnet_workspace, monkeypatch):
@@ -346,6 +365,31 @@ def test_efficientnet_cli_csv_equals_jax_byte_for_byte(efficientnet_workspace, m
     from test_torch_gcvit import assert_two_member_csvs_equal
 
     assert_two_member_csvs_equal(efficientnet_workspace, monkeypatch, head="predictions")
+
+
+@pytest.fixture(scope="module")
+def resnest_nfnet_workspace(tmp_path_factory):
+    """A narrow ResNest50 at 64 and a narrow ECA_NFNetL0 at 72, under their
+    manifest names."""
+    import test_torch_efficientnet as eff_tests
+    import test_torch_nfnet as nf_tests
+    from test_torch_resnest import NARROW as NARROW_RESNEST
+
+    return _member_workspace(
+        tmp_path_factory.mktemp("torch_resnest_nfnet_e2e"), "r_", 13,
+        [("ResNest50", "ResNest50-200x200", 64, NARROW_RESNEST, _tree_of(eff_tests),
+          "predictions"),
+         ("ECA_NFNetL0", "ECA_NFNetL0-200x200", 72, nf_tests.NARROW, _tree_of(nf_tests),
+          "predictions")])
+
+
+def test_resnest_nfnet_cli_csv_equals_jax_byte_for_byte(resnest_nfnet_workspace, monkeypatch):
+    """ResNest50 (split attention, zero-counting and SAME average pools) and
+    ECA_NFNetL0 (grouped standardized convs, ECA) through both CLIs: the
+    CSVs equal byte for byte."""
+    from test_torch_gcvit import assert_two_member_csvs_equal
+
+    assert_two_member_csvs_equal(resnest_nfnet_workspace, monkeypatch, head="predictions")
 
 
 def test_random_init_member_runs(workspace):
@@ -387,7 +431,8 @@ def test_port_imports_no_jax():
             "vip_cup_2022_tpu_torch.ops.kernels.gcvit_block, vip_cup_2022_tpu_torch.ops.window, "
             "vip_cup_2022_tpu_torch.ops.attention, vip_cup_2022_tpu_torch.ops.conv, main_torch, "
             "vip_cup_2022_tpu_torch.models.resnet_rs, vip_cup_2022_tpu_torch.quant, "
-            "vip_cup_2022_tpu_torch.models.efficientnet, "
+            "vip_cup_2022_tpu_torch.models.efficientnet, vip_cup_2022_tpu_torch.models.aotnet, "
+            "vip_cup_2022_tpu_torch.models.nfnets, vip_cup_2022_tpu_torch.ops.pool, "
             "vip_cup_2022_tpu_torch.ops.kernels.int8_gemm, "
             "vip_cup_2022_tpu_torch.tools.int8_pallas_spike; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "

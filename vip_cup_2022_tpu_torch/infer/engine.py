@@ -26,14 +26,17 @@ post-training quantization (:mod:`..quant.ptq`): a one-batch calibration on
 the first ``VIPTPU_INT8_CALIB`` (64) images of the CSV with fold 0, then
 every fold's eligible sites through the int8 kernel. ``auto``, the default,
 is off here as on every backend but the TPU; ``0``/``off`` is off, ``1``/
-``all`` every member, or a comma list of registry names. Only ResNet-RS
-members are quantized: int8 for ConvNeXt and GCViT, whose fused kernel paths
-hold the Linears the JAX pass would quantize, raises (ROADMAP A12b), and so
-does int8 for EfficientNet (A8b).
+``all`` every member, or a comma list of registry names. ResNet-RS and
+ResNest members are quantized (the JAX package's ``INT8_AUTO`` set on a TPU
+is ``ResNetRS50,ResNest50``): int8 for ConvNeXt and GCViT, whose fused
+kernel paths hold the Linears the JAX pass would quantize, raises (ROADMAP
+A12b), and so does int8 for EfficientNet (A8b) and for NFNet (A9b: its
+grouped standardized convs).
 
 Not ported yet, and raising ``NotImplementedError`` rather than running
 something else: test-time augmentation (``tta > 1``), the conv-BN fold and
-members other than ConvNeXt, GCViT, ResNet-RS and EfficientNet. Every Pallas
+members of the families other than ConvNeXt, GCViT, ResNet-RS, EfficientNet,
+ResNest and NFNet, which are all seven of ``ckpts/ckpts.json``. Every Pallas
 kernel of the JAX package has a CUDA counterpart; the depthwise kernel (K9)
 runs on this path at every stride-1 depthwise conv (EfficientNet, GCViT),
 and those the JAX package's experiment tools reach run in the port's tools
@@ -55,6 +58,7 @@ from ..data.decode import ImageDecoder
 from ..data.pipeline import _host_resize_uint8
 from ..models import create_model, load_weights, transfer_weights
 from ..models.efficientnet import EfficientNet
+from ..models.nfnets import NFNet
 from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
 from ..quant import calibrate, quantized
@@ -194,8 +198,9 @@ class EnsembleEngine:
         route when no checkpoint exists; otherwise overwritten)."""
         if not is_model(name):
             raise NotImplementedError(
-                f"member {name!r}: only ConvNeXt, GCViT, ResNet-RS and EfficientNet are "
-                "ported; ResNest is ROADMAP item A7, NFNet A9")
+                f"member {name!r}: only ConvNeXt, GCViT, ResNet-RS, EfficientNet, ResNest and "
+                "NFNet are ported; the other model families (ResNet-D, ResNeXt, BotNet, "
+                "HaloNet, CotNet and the rest of the JAX zoo) are ROADMAP item A14")
         return create_model(name, input_size=tuple(dim), dtype=self.compute_dtype,
                             **overrides)
 
@@ -219,8 +224,8 @@ class EnsembleEngine:
     def _int8_members(ckpt_cfg, names: set) -> List[bool]:
         """Which manifest entries run int8; raises for a chosen member whose
         model class does not declare ``int8_sites_match_jax`` (its int8 sites
-        are not the JAX pass's yet: ROADMAP A8b for EfficientNet, A12b for
-        ConvNeXt and GCViT)."""
+        are not the JAX pass's yet: ROADMAP A8b for EfficientNet, A9b for
+        NFNet, A12b for ConvNeXt and GCViT)."""
         chosen = []
         for base_dir, *_ in ckpt_cfg:
             name = registry_name(base_dir)
@@ -230,6 +235,11 @@ class EnsembleEngine:
                 raise NotImplementedError(
                     f"VIPTPU_INT8 selects {name!r}: int8 EfficientNet members are ROADMAP item "
                     "A8b, not ported yet")
+            if cls is NFNet:
+                raise NotImplementedError(
+                    f"VIPTPU_INT8 selects {name!r}: NFNet's int8 sites are grouped "
+                    "weight-standardized convs (ScaledStdConv), and ptq_int8_conv takes no "
+                    "group count; int8 NFNet members are ROADMAP item A9b, not ported yet")
             if cls is not None and not getattr(cls, "int8_sites_match_jax", False):
                 raise NotImplementedError(
                     f"VIPTPU_INT8 selects {name!r}: int8 ConvNeXt and GCViT members (their "

@@ -31,12 +31,12 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.act import apply_activation
 from ..ops.conv import Conv, Linear, lecun_normal_
 from ..ops.norms import BatchNorm
 from ..ops.pad import symmetric_padding
+from ..ops.pool import avg_pool_same
 from .base import ModelConfig, preprocess_input
 from .registry import register_model
 
@@ -71,14 +71,6 @@ def fixed_padding_conv(cin: int, cout: int, kernel: int, stride: int,
     torch-style padding, held as its inner ``conv`` as Flax names it."""
     return nn.Sequential(collections.OrderedDict(conv=Conv(
         cin, cout, kernel, stride, dtype=dtype, padding=symmetric_padding(kernel), bias=False)))
-
-
-def avg_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
-    """``nn.avg_pool(x, (2, 2), (2, 2), "SAME", count_include_pad=False)`` on
-    NHWC x: an odd side pads one at the end, and that window averages only
-    the positions it covers."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True, count_include_pad=False)
-    return y.permute(0, 2, 3, 1).contiguous()
 
 
 class SE(nn.Module):
@@ -124,7 +116,7 @@ class BottleneckBlock(nn.Module):
         shortcut = x
         if self.use_projection:
             if self.strides == 2:
-                shortcut = avg_pool_2x2_same(x)
+                shortcut = avg_pool_same(x, 2)
             shortcut = self.projection_batch_norm(self.projection_conv(shortcut))
         y = apply_activation(self.batch_norm_1(self.conv_1(x)), act)
         y = apply_activation(self.batch_norm_2(self.conv_2(y)), act)

@@ -1,13 +1,17 @@
 """Window attention (counterpart of ``vip_cup_2022_tpu/ops/attention.py``):
 the relative-position bias (``relative_position_index`` and its dense
-``(heads, N, N)`` gather) and the ``WindowAttention`` module."""
+``(heads, N, N)`` gather) and the ``WindowAttention`` module; and ECA, the
+efficient channel attention of AotNet and NFNet (``_eca`` of
+``vip_cup_2022_tpu/models/aotnet.py`` and ``models/nfnets.py``)."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .conv import Linear
 from .kernels import window_attention as attention_kernel
@@ -71,3 +75,27 @@ class WindowAttention(nn.Module):
         out = attention_kernel.window_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                                 self.bias_dense, self.scale)
         return self.proj(out.transpose(1, 2).reshape(b_, n, c))
+
+
+def eca_kernel_size(channels: int) -> int:
+    """ECA's 1-D kernel: ``int((log2 C + 1) / 2)`` made odd (one up), at
+    least 3; 5 at C = 256, 512 and 1536."""
+    t = int((math.log2(float(channels)) + 1.0) / 2.0)
+    return max(t if t % 2 else t + 1, 3)
+
+
+class ECA(nn.Module):
+    """Efficient channel attention on NHWC x: the spatial mean in f32 cast
+    to x's dtype, a bias-free 1-D conv over the channels zero-padded by
+    k // 2 (the Flax ``conv1d`` kernel (k, 1, 1), held (1, 1, k) in the
+    compute dtype), sigmoid, and x times that gate."""
+
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(1, 1, eca_kernel_size(channels), dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        v = x.float().mean(dim=(1, 2)).to(self.weight.dtype)
+        k = self.weight.shape[-1]
+        v = F.conv1d(v.unsqueeze(1), self.weight, padding=k // 2).squeeze(1)
+        return x * torch.sigmoid(v)[:, None, None, :].to(x.dtype)

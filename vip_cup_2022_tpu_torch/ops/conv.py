@@ -68,21 +68,84 @@ class Linear(nn.Module):
 class Conv(nn.Module):
     """k x k conv on NHWC input with zero padding ``padding`` (0 = VALID;
     an int pads inside cuDNN's conv, pairs or ``"same"`` by ``F.pad`` before
-    a VALID one); weight (O, I, kh, kw) and bias in the compute dtype
-    (``dtype``, f32 when None)."""
+    a VALID one) in ``groups`` groups (Flax's ``feature_group_count``);
+    weight (O, I / groups, kh, kw) and bias in the compute dtype (``dtype``,
+    f32 when None)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  dtype: Optional[torch.dtype] = torch.float32, padding: PaddingSpec = 0,
-                 bias: bool = True):
+                 bias: bool = True, groups: int = 1):
         super().__init__()
-        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.stride, self.padding, self.dtype, self.groups = stride, padding, dtype, groups
         wdtype = dtype or torch.float32
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel, dtype=wdtype))
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel, kernel, dtype=wdtype))
         self.bias = nn.Parameter(torch.zeros(cout, dtype=wdtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _conv_nhwc(x.to(self.weight.dtype), self.weight, self.bias, self.stride,
-                          self.padding)
+                          self.padding, self.groups)
+
+
+class ScaledStdConv(nn.Module):
+    """NFNet's weight-standardized conv (``ScaledStdConv`` of the JAX
+    package, ``vip_cup_2022_tpu/ops/conv.py``) on NHWC input: the raw f32
+    ``weight`` (the Flax ``kernel``, (O, I / groups, kh, kw)), the f32
+    per-filter ``gain`` and f32 ``bias``. The conv's weight is
+    ``(w - mean) * rsqrt(max(var * fan_in, eps)) * (gain * gamma)`` in f32,
+    the moments over each filter's (I, kh, kw) (population variance),
+    ``fan_in`` = I * kh * kw per group, then cast to the compute dtype
+    ``dtype``: the values the JAX forward computes on every call, computed
+    here once per weight load (kept until a parameter changes) and run on
+    cuDNN with the bias cast to ``dtype``. Not a :class:`Conv`: int8
+    calibration must not take it for a plain conv site, whose weight it
+    would quantize raw."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: PaddingSpec = 0, groups: int = 1, gamma: float = 1.0,
+                 dtype: torch.dtype = torch.float32, eps: float = 1e-5):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.gamma, self.dtype, self.eps = gamma, dtype, eps
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel, kernel))
+        self.gain = nn.Parameter(torch.ones(cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self._key, self._weight = None, None
+
+    def standardized_weight(self) -> torch.Tensor:
+        """The f32 standardized, scaled weight (O, I / groups, kh, kw)."""
+        w = self.weight.float()
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
+        fan_in = float(math.prod(w.shape[1:]))
+        scale = torch.rsqrt(torch.clamp(var * fan_in, min=self.eps)) * (
+            self.gain * self.gamma).view(-1, 1, 1, 1)
+        return (w - mean) * scale
+
+    def conv_weight(self) -> torch.Tensor:
+        """The standardized weight in the compute dtype, recomputed only
+        when the raw weight or the gain moved or changed."""
+        key = tuple((p.data_ptr(), p._version) for p in (self.weight, self.gain))
+        if key != self._key:
+            with torch.no_grad():
+                self._weight = self.standardized_weight().to(self.dtype)
+            self._key = key
+        return self._weight
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv_nhwc(x.to(self.dtype), self.conv_weight(), self.bias.to(self.dtype),
+                          self.stride, self.padding, self.groups)
+
+
+class ZeroInitGain(nn.Module):
+    """A scalar f32 ``gain`` (zero at init) that scales x in x's dtype
+    (``ZeroInitGain`` of the JAX package)."""
+
+    def __init__(self):
+        super().__init__()
+        self.gain = nn.Parameter(torch.zeros(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gain.to(x.dtype)
 
 
 class DepthwiseTaps(nn.Module):

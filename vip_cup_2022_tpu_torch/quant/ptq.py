@@ -17,10 +17,15 @@ eligibility rule, scales and arithmetic, in PyTorch's idiom:
 A site is named as in the JAX package, ``"/".join`` of the Flax path of the
 intercepted ``nn.Conv`` / ``nn.Dense``: the port's modules are named after
 the Flax modules, so the site is the module's dotted name with ``/``
-(``c2_block_0/conv_1/conv``). A scale table written by either package
-loads in the other. The JAX package's weight-standardized convs
-(``ScaledStdConv``, ``StdConv``) have no counterpart in the port yet
-(NFNet, ROADMAP A9).
+(``c2_block_0/conv_1/conv``, ResNest's flat ``stack1_block1_deep_2_sa_1_g1_conv``).
+A scale table written by either package loads in the other. ResNest's
+split-attention convs read channel halves of their input, views that
+:class:`QuantizedSite` makes contiguous before the kernel. The JAX pass
+also quantizes the weight-standardized convs (``ScaledStdConv``, NFNet's);
+the port's :class:`..ops.conv.ScaledStdConv` is not a candidate, so
+calibration never records one as a plain conv site (its raw weight is not
+the weight it convolves with), and a grouped conv cannot become a site:
+``ptq_int8_conv`` takes no group count (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -87,7 +92,7 @@ def _shape_args(module: nn.Module, x: torch.Tensor) -> Tuple[int, int, int, int]
     spatial = x.shape[1] * x.shape[2]
     if isinstance(module, DepthwiseConv):
         return 1, x.shape[-1], x.shape[-1], spatial
-    return x.shape[-1], 1, module.weight.shape[0], spatial
+    return x.shape[-1] // module.groups, module.groups, module.weight.shape[0], spatial
 
 
 def _eligible(config: PTQConfig, site: str, module: nn.Module, x: torch.Tensor) -> bool:
@@ -216,6 +221,10 @@ def quantized(model: nn.Module, scales: Mapping[str, float],
     for name, module in candidates:
         site = site_name(name)
         if site in scales and not isinstance(module, DepthwiseConv):
+            if isinstance(module, Conv) and module.groups > 1:
+                raise NotImplementedError(
+                    f"int8 site {site}: a conv of {module.groups} groups; ptq_int8_conv takes "
+                    "no group count (ROADMAP A9b)")
             new = QuantizedSite(site, module, float(scales[site]),
                                 _f32_source(f"{name}.weight", module.weight, weights),
                                 _f32_source(f"{name}.bias", module.bias, weights), config, calls)

@@ -4,7 +4,9 @@ The inverse of ``vip_cup_2022_tpu/weights/torch_pt.py``'s layout rules:
 
 - conv kernel HWIO -> OIHW, except a depthwise kernel (kh, kw, 1, C), which
   keeps Flax's layout with the I axis dropped, (kh, kw, C): the layout the
-  depthwise kernel reads;
+  depthwise kernel reads; a grouped kernel (kh, kw, I / groups, O) is
+  HWIO like any other (NFNet's (3, 3, 64, C));
+- 1-D conv kernel (k, I, O) -> (O, I, k) (ECA's ``conv1d``);
 - Dense kernel (in, out) -> (out, in);
 - norm gamma / beta -> weight / bias; the BatchNorm ``batch_stats``
   ``moving_mean`` / ``moving_variance`` -> ``running_mean`` /
@@ -53,10 +55,16 @@ def _leaf_name(collection: str, leaf: str, siblings: Mapping) -> str:
 def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
     if leaf != "kernel":
         return value
-    if value.ndim == 4 and value.shape[2] == 1 and value.shape[3] > 1:  # depthwise
+    # depthwise: one input feature per group. A grouped conv's I axis is its
+    # group size, which is 1 only when the groups are the channels, so no
+    # grouped conv of a member lands here (NFNet's groups are 64 wide); a
+    # plain conv on a 1-channel input would, and no member has one
+    if value.ndim == 4 and value.shape[2] == 1 and value.shape[3] > 1:
         return value[:, :, 0, :]
-    if value.ndim == 4:  # HWIO -> OIHW
+    if value.ndim == 4:  # HWIO -> OIHW, grouped or not
         return np.transpose(value, (3, 2, 0, 1))
+    if value.ndim == 3:  # conv1d (k, I, O) -> (O, I, k)
+        return np.transpose(value, (2, 1, 0))
     if value.ndim == 2:  # (in, out) -> (out, in)
         return value.T
     raise ValueError(f"kernel of rank {value.ndim} has no torch layout rule")
@@ -70,7 +78,9 @@ def flax_to_torch(variables: Mapping) -> Dict[str, np.ndarray]:
         key = ".".join(modules + (_leaf_name(collection, leaf, siblings),))
         if key in out:
             raise ValueError(f"two Flax leaves map to the state_dict key {key!r}")
-        out[key] = np.ascontiguousarray(_to_torch_layout(leaf, np.asarray(value)))
+        value = _to_torch_layout(leaf, np.asarray(value))
+        # ascontiguousarray would make a scalar (ZeroInitGain's gain) 1-d
+        out[key] = value if value.flags.c_contiguous else np.ascontiguousarray(value)
     return out
 
 
