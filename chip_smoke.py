@@ -145,7 +145,23 @@ each printing its results on earlier lines, any failure exiting non-zero:
    int8 kernel; and once more with ``VIPTPU_INT8=ResNetRS50,ResNest50``
    (the JAX package's ``INT8_AUTO`` set), which must launch the same and
    ``ptq_int8_conv`` at the 52 + 68 sites of each batch and
-   ``ptq_int8_quantize`` at those of them that run the pass.
+   ``ptq_int8_quantize`` at those of them that run the pass;
+8. serving: the seven members again, each with a one-output sigmoid head
+   (the product checkpoints' head; the registry's softmax heads hold
+   ``1 - p[:, 0]`` near 1 whatever the features): the plain fused run;
+   ``VIPTPU_TTA=2`` in map mode, which must launch every fused-block
+   kernel, the LN kernel and K9 twice as often as the plain run; then the
+   ConvNeXt stage-1 block's three kernels, a GCViT level-1 block's five,
+   K9 at the largest stride-1 site and the LN at batch 512 against their
+   plain versions under their usual bounds; ``VIPTPU_TTA_MODE=fold``, the
+   plain run's launches with every block kernel's, K9's and the LN's
+   leading dimension twice map mode's (batch 512), its raw means within
+   1e-2 of map mode's; ``VIPTPU_FUSED=0``, each member at batch 128, the
+   plain run's launches per member's batch (three), within 1e-2 of the
+   plain run; ``VIPTPU_FUSE_BN=all``, each member's folded conv -> BN
+   pairs JAX's count (``FUSE_BN_PAIRS``), within 1e-2 of the plain run.
+   Each comparison prints its max|d| and the decisions it flips at 0.487,
+   each run its img/s, and the sequential run each member's.
 
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
@@ -197,6 +213,7 @@ sys.path.insert(0, REPO)
 
 import main_torch  # noqa: E402
 from vip_cup_2022_tpu_torch import quant  # noqa: E402
+from vip_cup_2022_tpu_torch.infer import engine  # noqa: E402
 from vip_cup_2022_tpu_torch.models import create_model  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
@@ -271,6 +288,7 @@ KERNEL_BOUND = 1e-2
 F32_KERNEL_BOUND = 1e-5
 INT8_BOUND = 1e-6  # int8 kernels: the same integer sums and f32 epilogue as the plain version
 MODEL_BOUND = 5e-2
+SERVING_BOUND = 1e-2  # raw means of two serving paths of the same bf16 ensemble
 N_IMAGES = 300
 BATCH = 256
 # the card's data-sheet peaks (NVIDIA H100 SXM, 700 W): memory, dense bf16
@@ -279,6 +297,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # the JAX pass's int8 sites (tests/test_torch_resnet_rs.py, tests/test_torch_ptq.py)
 INT8_SITES = {"ResNetRS50": 52, "ResNest50": 68}
+# conv -> BN pairs VIPTPU_FUSE_BN folds in each full-width member: the JAX
+# package's discovery on its trees (tests/test_torch_fuse_bn.py)
+FUSE_BN_PAIRS = {"convnext_tiny_in22k": 0, "ResNest50": 38, "GCViTTiny": 0, "EfficientNetV2T": 78,
+                 "EfficientNetV1B4": 64, "ECA_NFNetL0": 0, "ResNetRS50": 56}
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1646,13 +1668,13 @@ def csv_workspace(manifest: list):
 
 def run_csv(input_csv: str, output_csv: str, names: list, batch_times: str = "") -> tuple:
     """One ``main_torch`` CSV run with every launch count set to 0 just
-    before it; returns (launches, seconds, per-batch e2e seconds or None)
-    after checking the CSV."""
+    before it; returns (launches, seconds, per-batch e2e seconds or None,
+    the engine's result with its raw means) after checking the CSV."""
     if batch_times:
         os.environ["VIPTPU_E2E_BATCH_TIMES"] = batch_times
     reset_launches()
     t0 = time.perf_counter()
-    main_torch.main(["main_torch.py", input_csv, output_csv])
+    result = main_torch.main(["main_torch.py", input_csv, output_csv])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = all_launches()
@@ -1669,7 +1691,7 @@ def run_csv(input_csv: str, output_csv: str, names: list, batch_times: str = "")
     if [r[0] for r in rows] != sorted(names) or not {r[1] for r in rows} <= {"0.0", "1.0"}:
         raise AssertionError("CSV rows are not the sorted filenames with logits in {0.0, 1.0}")
     print(f"[slice] CSV: {len(rows)} sorted rows, logits {sorted({r[1] for r in rows})}")
-    return launches, seconds, batch_s
+    return launches, seconds, batch_s, result
 
 
 def expect_launches(launches: dict, want: dict, label: str) -> None:
@@ -1687,11 +1709,11 @@ def phase_slice(card: str) -> dict:
     batches = -(-N_IMAGES // BATCH)
     os.environ.pop("VIPTPU_NO_FUSED_BLOCK", None)
     with csv_workspace(TWO) as (input_csv, output_csv, times, names):
-        fused, cold, _ = run_csv(input_csv, output_csv, names)
-        _, warm, batch_s = run_csv(input_csv, output_csv, names, times)
+        fused, cold, *_ = run_csv(input_csv, output_csv, names)
+        _, warm, batch_s, _ = run_csv(input_csv, output_csv, names, times)
         os.environ["VIPTPU_NO_FUSED_BLOCK"] = "1"
         try:
-            unfused, t_unfused, batch_u = run_csv(input_csv, output_csv, names, times)
+            unfused, t_unfused, batch_u, _ = run_csv(input_csv, output_csv, names, times)
         finally:
             del os.environ["VIPTPU_NO_FUSED_BLOCK"]
 
@@ -1731,10 +1753,10 @@ def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
     the int8 run's launches of the two."""
     batches = -(-N_IMAGES // BATCH)
     with csv_workspace(THREE) as (input_csv, output_csv, times, names):
-        plain, t_plain, batch_p = run_csv(input_csv, output_csv, names, times)
+        plain, t_plain, batch_p, _ = run_csv(input_csv, output_csv, names, times)
         os.environ["VIPTPU_INT8"] = "ResNetRS50"
         try:
-            int8, t_int8, batch_i = run_csv(input_csv, output_csv, names, times)
+            int8, t_int8, batch_i, _ = run_csv(input_csv, output_csv, names, times)
         finally:
             del os.environ["VIPTPU_INT8"]
     fused = {n: None for n in CONVNEXT_KERNELS + GCVIT_KERNELS}
@@ -1768,17 +1790,14 @@ def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: in
             raise AssertionError("MANIFEST is not ckpts/ckpts.json")
     batches = -(-N_IMAGES // BATCH)
     with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names):
-        cold_launches, cold, batch_c = run_csv(input_csv, output_csv, names, times)
-        warm_launches, warm, batch_w = run_csv(input_csv, output_csv, names, times)
+        cold_launches, cold, batch_c, _ = run_csv(input_csv, output_csv, names, times)
+        warm_launches, warm, batch_w, _ = run_csv(input_csv, output_csv, names, times)
         os.environ["VIPTPU_INT8"] = "ResNetRS50,ResNest50"
         try:
-            int8_launches, t_int8, batch_i = run_csv(input_csv, output_csv, names, times)
+            int8_launches, t_int8, batch_i, _ = run_csv(input_csv, output_csv, names, times)
         finally:
             del os.environ["VIPTPU_INT8"]
-    fused = {**{n: None for n in GCVIT_KERNELS}, "dwconv7x7_nhwc": batches * CONVNEXT_BLOCKS,
-             "ln_qkv": batches * GCVIT_BLOCKS, "proj_scale_residual": batches * GCVIT_BLOCKS,
-             **{n: batches * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
-             ATTN: 0, LN: batches * (CONVNEXT_LNS + GCVIT_LNS), DW: batches * dw_sites}
+    fused = seven_launches(batches, dw_sites)
     for label, launches in (("seven-member cold", cold_launches),
                             ("seven-member warm", warm_launches)):
         expect_launches(launches, {**fused, PTQ: 0, QUANT: 0}, f"{label} CSV->CSV")
@@ -1794,6 +1813,204 @@ def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: in
           f"VIPTPU_INT8=ResNetRS50,ResNest50: {t_int8:.2f} s ({N_IMAGES / t_int8:.1f} img/s; "
           f"per-batch e2e {ms(batch_i)}) [{card}]")
     return {DW: cold_launches[DW], PTQ: int8_launches[PTQ], QUANT: int8_launches[QUANT]}
+
+
+def seven_launches(forwards: int, dw_sites: int) -> dict:
+    """The launches ``forwards`` forwards of the seven members make on the
+    fused block path, bf16: every fused-block kernel at each block, the LN
+    kernel at each standalone LN, K9 at each of the ``dw_sites``; no
+    unfused attention and no int8 kernel."""
+    return {**{n: None for n in GCVIT_KERNELS}, "dwconv7x7_nhwc": forwards * CONVNEXT_BLOCKS,
+            "ln_qkv": forwards * GCVIT_BLOCKS, "proj_scale_residual": forwards * GCVIT_BLOCKS,
+            **{n: forwards * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
+            ATTN: 0, LN: forwards * (CONVNEXT_LNS + GCVIT_LNS), DW: forwards * dw_sites,
+            PTQ: 0, QUANT: 0}
+
+
+@contextlib.contextmanager
+def knobs(**env):
+    """The engine's environment knobs set for the block, then restored."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the block kernels' wrappers whose leading dimension (the batch of a
+# (B, ...) input, the rows of an (M, C) one) the TTA runs record
+BATCHED = ((K, ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")),
+           (G, ("ln_qkv", "window_attention", "proj_scale_residual")), (L, (LN,)), (D, (DW,)))
+
+
+@contextlib.contextmanager
+def recording_leading_dims(seen: dict):
+    """Record in ``seen`` the largest leading dimension each of ``BATCHED``'s
+    wrappers is called with."""
+    saved = []
+    for module, names in BATCHED:
+        for name in names:
+            real = getattr(module, name)
+
+            def record(x, *args, _real=real, _name=name, **kw):
+                seen[_name] = max(seen.get(_name, 0), x.shape[0])
+                return _real(x, *args, **kw)
+
+            saved.append((module, name, real))
+            setattr(module, name, record)
+    try:
+        yield
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def binary_heads():
+    """Members built with one sigmoid output, the head of the product's
+    checkpoints, in place of the registry's softmax over 1000 or 21841
+    classes, whose ``1 - p[:, 0]`` sits near 1 whatever the features."""
+    real = engine.create_model
+
+    def create(name, **kw):
+        return real(name, **{"nb_classes": 1, "classifier_activation": "sigmoid", **kw})
+
+    engine.create_model = create
+    try:
+        yield
+    finally:
+        engine.create_model = real
+
+
+@contextlib.contextmanager
+def recording_folds(pairs: list):
+    """Record how many conv -> BN pairs each of the engine's folds finds."""
+    real = engine.fuse_all_conv_bn
+
+    def record(tree, *args, **kw):
+        out = real(tree, *args, **kw)
+        pairs.append(len(out[1]))
+        return out
+
+    engine.fuse_all_conv_bn = record
+    try:
+        yield
+    finally:
+        engine.fuse_all_conv_bn = real
+
+
+def check_fold_batch(card: str, stats: dict, dw_sites: list) -> None:
+    """One kernel of each family at the batch TTA's fold mode gives them
+    (2 x 256), against its plain version under its usual bound: the
+    ConvNeXt stage-1 block's three, a GCViT level-1 block's five, K9 at the
+    largest of ``dw_sites`` and the LN at ConvNeXt's stem LN."""
+    b = 2 * BATCH
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    torch.cuda.empty_cache()
+    h, w, c, _ = STAGES[0]
+    check_stage(run_stage(b, h, w, c, gen), (b, h, w, c), stats)
+    torch.cuda.empty_cache()
+    run_check_level(b, LEVELS[0], gen, stats)
+    torch.cuda.empty_cache()
+    shape, k, pad = max(dw_sites, key=lambda site: np.prod(site[0]))
+    x = torch.rand((b, *shape), generator=gen, device="cuda").to(torch.bfloat16)
+    kern = (torch.rand((k, k, shape[-1]), generator=gen, device="cuda") - 0.5).to(torch.bfloat16)
+    out = D.depthwise_conv_nhwc(x, kern, padding=pad)
+    check({DW: (out, lambda: D.depthwise_conv_nhwc_plain(x.float(), kern, padding=pad))},
+          f"b{b} {shape} k{k} pad {pad}", stats)
+    del x, kern, out
+    x = (torch.rand((b, h, w, c), generator=gen, device="cuda") * 4 - 2).to(torch.bfloat16)
+    lw = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    lb = torch.rand((c,), generator=gen, device="cuda") * 0.2 - 0.1
+    out = L.layer_norm(x, lw, lb, 1e-6)
+    check({LN: (out, lambda: L.layer_norm_plain(x.float(), lw, lb, 1e-6))},
+          f"{tuple(x.shape)} eps 1e-06", stats)
+    del x, out
+    torch.cuda.empty_cache()
+    print(f"[serving] the block kernels, K9 and the LN hold at batch {b} [{card}]")
+
+
+def compare_raw(label: str, got: dict, ref: dict, ref_label: str, bound=SERVING_BOUND) -> None:
+    """The max |d| of two runs' raw means (same sorted filenames), printed
+    with the decisions they flip at 0.487; within ``bound`` unless None."""
+    if list(got["filename"]) != list(ref["filename"]):
+        raise AssertionError(f"{label} and {ref_label} scored other filenames")
+    d = float(np.abs(got["raw"] - ref["raw"]).max())
+    flips = int(((got["raw"] > 0.487) != (ref["raw"] > 0.487)).sum())
+    print(f"[serving] raw means, {label} against {ref_label}: max|d| {d:.3e}, "
+          f"{flips} of {len(ref['raw'])} decisions flip at 0.487 (bound {bound})")
+    if bound is not None and not d <= bound:
+        raise AssertionError(f"{label} is {d:.3e} off {ref_label}, over {bound:g}")
+
+
+def phase_serving(card: str, stats: dict, dw_sites: list) -> None:
+    """The serving options on the seven-member manifest and its 300 JPEGs,
+    each member with a one-output sigmoid head (:func:`binary_heads`): the
+    plain fused run; ``VIPTPU_TTA=2`` in map mode, every block kernel, the
+    LN kernel and K9 launched twice a batch; the batch-512 kernel checks;
+    fold mode, once a batch at twice map mode's leading dimensions (batch
+    512), its raw means within 1e-2 of map mode's; ``VIPTPU_FUSED=0``, each
+    member at its own batch 128, the same kernels per member's batch,
+    within 1e-2 of the fused run; and ``VIPTPU_FUSE_BN=all``, each member's
+    folded pairs JAX's count, within 1e-2 of the unfolded run."""
+    batches = -(-N_IMAGES // BATCH)
+    seq_batch = 8 * 16  # NAME2BS's default for every member of the manifest
+    seq_batches = -(-N_IMAGES // seq_batch)
+    ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
+    dims = {"map": {}, "fold": {}}
+    pairs = []
+    with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names), binary_heads():
+        fused_launches, t_fused, batch_p, fused_result = run_csv(input_csv, output_csv, names,
+                                                                 times)
+        with knobs(VIPTPU_TTA="2", VIPTPU_TTA_MODE="map"), recording_leading_dims(dims["map"]):
+            map_launches, t_map, batch_m, map_result = run_csv(input_csv, output_csv, names, times)
+        check_fold_batch(card, stats, dw_sites)
+        with knobs(VIPTPU_TTA="2", VIPTPU_TTA_MODE="fold"), recording_leading_dims(dims["fold"]):
+            fold_launches, t_fold, batch_f, fold_result = run_csv(input_csv, output_csv, names,
+                                                                   times)
+        with knobs(VIPTPU_FUSED="0"):
+            seq_launches, t_seq, _, seq_result = run_csv(input_csv, output_csv, names)
+        with knobs(VIPTPU_FUSE_BN="all"), recording_folds(pairs):
+            bn_launches, t_bn, batch_b, bn_result = run_csv(input_csv, output_csv, names, times)
+    expect_launches(fused_launches, seven_launches(batches, len(dw_sites)),
+                    "seven-member, binary heads")
+    expect_launches(map_launches, seven_launches(2 * batches, len(dw_sites)),
+                    "seven-member VIPTPU_TTA=2 map")
+    expect_launches(fold_launches, seven_launches(batches, len(dw_sites)),
+                    "seven-member VIPTPU_TTA=2 fold")
+    print(f"[serving] largest leading dimension a wrapper took, map -> fold: {dims}")
+    short = {n: (dims["map"].get(n), dims["fold"].get(n)) for _, group in BATCHED for n in group
+             if dims["fold"].get(n) != 2 * dims["map"].get(n, -1)}
+    if short or dims["fold"][DW] != 2 * BATCH or dims["fold"]["dwconv7x7_nhwc"] != 2 * BATCH:
+        raise AssertionError(f"fold mode did not run every block kernel at batch {2 * BATCH}: "
+                             f"{short or dims['fold']}")
+    expect_launches(seq_launches, seven_launches(seq_batches, len(dw_sites)),
+                    f"seven-member VIPTPU_FUSED=0 (batch {seq_batch})")
+    expect_launches(bn_launches, seven_launches(batches, len(dw_sites)),
+                    "seven-member VIPTPU_FUSE_BN=all")
+    folded = dict(zip((engine.registry_name(base) for base, *_ in MANIFEST), pairs))
+    print(f"[serving] conv -> BN pairs folded per member: {folded}")
+    if folded != {n: FUSE_BN_PAIRS[n] for n in folded} or len(pairs) != len(MANIFEST):
+        raise AssertionError(f"VIPTPU_FUSE_BN folded {folded}, JAX's discovery finds "
+                             f"{FUSE_BN_PAIRS}")
+    compare_raw("TTA=2 fold", fold_result, map_result, "TTA=2 map")
+    compare_raw("VIPTPU_FUSED=0", seq_result, fused_result, "the fused run")
+    compare_raw("VIPTPU_FUSE_BN=all", bn_result, fused_result, "the unfolded run")
+    compare_raw("TTA=2 map", map_result, fused_result, "TTA=1", bound=None)
+    for label, t, batch_s in (("binary heads", t_fused, batch_p),
+                              ("VIPTPU_TTA=2 map", t_map, batch_m),
+                              ("VIPTPU_TTA=2 fold", t_fold, batch_f),
+                              ("VIPTPU_FUSE_BN=all", t_bn, batch_b)):
+        print(f"[serving] CSV->CSV {N_IMAGES} images, batch {BATCH}, 7 members, {label}: "
+              f"{t:.2f} s ({N_IMAGES / t:.1f} img/s; per-batch e2e {ms(batch_s)}) [{card}]")
+    print(f"[serving] CSV->CSV {N_IMAGES} images, 7 members, VIPTPU_FUSED=0 (each member at "
+          f"batch {seq_batch}, its img/s on the engine's lines above): {t_seq:.2f} s "
+          f"({N_IMAGES / t_seq:.1f} img/s) [{card}]")
 
 
 def main(argv) -> None:
@@ -1827,8 +2044,9 @@ def main(argv) -> None:
     launches = {**phase_slice(card), **tool_launches, **spike_launches}
     phase_slice_int8(card, len(calls["ResNetRS50"]), pass_sites(calls["ResNetRS50"]))
     every = calls["ResNetRS50"] + calls["ResNest50"]
-    launches.update(phase_slice_seven(card, sum(len(s) for s, _ in dw_members.values()),
-                                      len(every), pass_sites(every)))
+    dw_sites = [site for sites, _ in dw_members.values() for site in sites]
+    launches.update(phase_slice_seven(card, len(dw_sites), len(every), pass_sites(every)))
+    phase_serving(card, stats, dw_sites)
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],

@@ -16,12 +16,18 @@ Knobs: ``VIPTPU_PLATFORM=cpu`` runs the plain PyTorch path on the CPU (CUDA
 otherwise, and no CUDA device is an error); ``VIPTPU_DTYPE``,
 ``VIPTPU_MAX_BATCH`` (default 256), ``VIPTPU_DEBUG``, ``VIPTPU_VERBOSE``,
 ``VIPTPU_ALLOW_RANDOM_INIT``, ``VIPTPU_E2E_BATCH_TIMES``;
+``VIPTPU_TTA`` (test-time augmentation copies, default 1) with
+``VIPTPU_TTA_MODE`` (``map``, the default, or ``fold``);
+``VIPTPU_FUSED=0`` runs the sequential per-member path;
+``VIPTPU_FUSE_BN`` (``1``/``all`` or registry names) folds conv -> BN pairs;
+``VIPTPU_INT8`` (ResNet-RS and ResNest members) runs int8 PTQ;
 ``VIPTPU_NO_FUSED_BLOCK=1`` runs GCViT's unfused block path.
-``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN`` have no effect. ``VIPTPU_TTA`` > 1,
-``VIPTPU_FUSED=0``, ``VIPTPU_INT8`` naming a member other than ResNet-RS,
-``VIPTPU_FUSE_BN`` and a manifest member outside the ported families
-(ConvNeXt, GCViT, ResNet-RS, EfficientNet) raise ``NotImplementedError``:
-the port has no such path yet.
+``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN`` have no effect. The members of
+``ckpts/ckpts.json`` (ConvNeXt, ResNest, GCViT, EfficientNet, NFNet,
+ResNet-RS) are all ported. ``VIPTPU_INT8`` naming a ConvNeXt, GCViT,
+EfficientNet or NFNet member, f32 compute on CUDA and a manifest member
+outside those families raise ``NotImplementedError``: the port has no such
+path yet.
 """
 import os
 import sys
@@ -35,11 +41,6 @@ CWD = _paths[0] if len(_paths) > 1 else "."
 def main(argv):
     input_csv_path = argv[1]
     output_csv_path = argv[2]
-
-    if not int(os.environ.get("VIPTPU_FUSED", "1")):
-        raise NotImplementedError(
-            "VIPTPU_FUSED=0: the sequential per-member predict path is ROADMAP "
-            "item A4b, not ported yet")
 
     from vip_cup_2022_tpu_torch.core.config import Config
     from vip_cup_2022_tpu_torch.data.pipeline import seeding
@@ -83,11 +84,17 @@ def main(argv):
     engine = EnsembleEngine(verbose=verbose)
     try:
         start = time.time()
-        engine.predict_soln_fused(CFG)
+        if int(os.environ.get("VIPTPU_FUSED", "1")):
+            # the whole ensemble (members x folds x TTA) per batch
+            result = engine.predict_soln_fused(CFG)
+        else:
+            # the reference-shaped sequential path, one member at a time
+            result = engine.predict_soln(CFG, ensemble=True)
         eta = (time.time() - start) / 60
     finally:
         engine.close()
     print(f"\n> TIME TO INFER: {eta:0.2f} min")
+    return result
 
 
 if __name__ == "__main__":

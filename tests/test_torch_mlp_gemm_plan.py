@@ -198,3 +198,17 @@ def test_proj_scale_residual_takes_the_plain_version_on_cpu(m, c):
     torch.testing.assert_close(got, G.proj_scale_residual_plain(a, wp, bp, gamma, x), rtol=0,
                                atol=0)
 
+
+
+# TTA's fold mode at tta = 2, 4 and 8 on the default batch 256: the rows of
+# ConvNeXt's stage 1 (99 x 99 tokens an image) and GCViT's level 1 (56 x 56)
+@pytest.mark.parametrize("m", [512 * 99 * 99, 1024 * 99 * 99, 2048 * 99 * 99, 2048 * 56 * 56,
+                               K.MAX_ROWS])
+def test_fold_mode_rows_fit_the_engine(m):
+    K._check_rows(m)
+
+
+def test_rows_past_32_bits_raise():
+    """The launchers take M as a 32-bit int, which ctypes would wrap silently."""
+    with pytest.raises(ValueError, match="more than the GEMM engine takes"):
+        K._check_rows(K.MAX_ROWS + 1)

@@ -243,10 +243,7 @@ def test_cli_csv_equals_jax_byte_for_byte(workspace, monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"VIPTPU_TTA": "2"}, "A11"),
-    ({"VIPTPU_FUSED": "0"}, "A4b"),
     ({"VIPTPU_INT8": "all"}, "A12"),
-    ({"VIPTPU_FUSE_BN": "1"}, "A13"),
     ({"VIPTPU_INT8": "EfficientNetV2T", "VIPTPU_CKPTS_JSON": "efficientnet.json"}, "A8b"),
 ])
 def test_cli_unported_knobs_raise(workspace, monkeypatch, env, match):
@@ -268,6 +265,31 @@ def test_cli_unported_knobs_raise(workspace, monkeypatch, env, match):
     with pytest.raises(NotImplementedError, match=match):
         main_torch.main(["main_torch.py", str(input_csv), str(root / "never.csv")])
     assert not (root / "never.csv").exists()
+
+
+@pytest.mark.parametrize("env", [
+    {"VIPTPU_TTA": "2"},
+    {"VIPTPU_TTA": "2", "VIPTPU_TTA_MODE": "fold"},
+    {"VIPTPU_FUSED": "0"},
+    {"VIPTPU_FUSED": "0", "VIPTPU_TTA": "2"},
+    {"VIPTPU_FUSE_BN": "1"},
+])
+def test_cli_serving_knobs_write_the_csv(workspace, monkeypatch, env):
+    """The serving options of ``main.py`` (TTA in both modes, the sequential
+    path, the conv-BN fold) each write the sorted ``filename,logit`` CSV."""
+    root, input_csv, names, *_ = workspace
+    for k, v in dict(env, VIPTPU_PLATFORM="cpu", VIPTPU_CKPT_DIR=str(root / "ckpts"),
+                     VIPTPU_MAX_BATCH="8", VIPTPU_VERBOSE="0").items():
+        monkeypatch.setenv(k, v)
+    import main_torch
+
+    out = root / "knobs.csv"
+    result = main_torch.main(["main_torch.py", str(input_csv), str(out)])
+    lines = out.read_text().splitlines()
+    assert lines[0] == "filename,logit"
+    assert [ln.split(",")[0] for ln in lines[1:]] == sorted(names) == list(result["filename"])
+    assert {ln.split(",")[1] for ln in lines[1:]} <= {"0.0", "1.0"}
+    assert np.isfinite(result["raw"]).all()
 
 
 def test_unported_member_raises(workspace):
@@ -434,7 +456,8 @@ def test_port_imports_no_jax():
             "vip_cup_2022_tpu_torch.models.efficientnet, vip_cup_2022_tpu_torch.models.aotnet, "
             "vip_cup_2022_tpu_torch.models.nfnets, vip_cup_2022_tpu_torch.ops.pool, "
             "vip_cup_2022_tpu_torch.ops.kernels.int8_gemm, "
-            "vip_cup_2022_tpu_torch.tools.int8_pallas_spike; "
+            "vip_cup_2022_tpu_torch.tools.int8_pallas_spike, "
+            "vip_cup_2022_tpu_torch.data.augment, vip_cup_2022_tpu_torch.utils.surgery; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'vip_cup_2022_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

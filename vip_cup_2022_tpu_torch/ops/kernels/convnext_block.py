@@ -269,6 +269,16 @@ def _check_width(c: int) -> None:
         raise ValueError(f"channel width {c} is not a multiple of 32")
 
 
+# the engine's launchers take the row count as a 32-bit int (and TMA's row
+# coordinates are 32-bit); addresses are 64-bit, so the row count is the limit
+MAX_ROWS = 2 ** 31 - 1
+
+
+def _check_rows(m: int) -> None:
+    if m > MAX_ROWS:
+        raise ValueError(f"M = {m} rows is more than the GEMM engine takes ({MAX_ROWS})")
+
+
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -337,6 +347,7 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
     n = w1.shape[0]
+    _check_rows(m)
     _check_width(c)
     _check_width(n)
     _check("x", x, torch.float32, (m, c), x.device)
@@ -362,6 +373,7 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
         raise ValueError(f"hidden must be (M, N), got {tuple(hidden.shape)}")
     m, n = hidden.shape
     c = w2.shape[0]
+    _check_rows(m)
     _check_width(c)
     _check_width(n)
     _check("hidden", hidden, torch.bfloat16, (m, n), hidden.device)

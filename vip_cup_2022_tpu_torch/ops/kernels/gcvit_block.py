@@ -154,6 +154,7 @@ def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
+    CK._check_rows(m)
     _check_width(c)
     s = w.shape[0] // c
     if s not in (2, 3) or w.shape[0] != s * c:
@@ -245,6 +246,7 @@ def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
     if a.ndim != 2:
         raise ValueError(f"a must be (M, C), got {tuple(a.shape)}")
     m, c = a.shape
+    CK._check_rows(m)
     _check_width(c)
     _check("a", a, torch.bfloat16, (m, c), a.device)
     _check("wp", wp, torch.bfloat16, (c, c), a.device)
