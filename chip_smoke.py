@@ -161,7 +161,31 @@ each printing its results on earlier lines, any failure exiting non-zero:
    plain run; ``VIPTPU_FUSE_BN=all``, each member's folded conv -> BN
    pairs JAX's count (``FUSE_BN_PAIRS``), within 1e-2 of the plain run.
    Each comparison prints its max|d| and the decisions it flips at 0.487,
-   each run its img/s, and the sequential run each member's.
+   each run its img/s, and the sequential run each member's;
+9. train (``phase_train``): full-width GCViTTiny@224 (``_model``'s seeded
+   weights, one output, no activation; bf16 compute, f32 parameters) on
+   the unfused path that training takes. One step at drop rates 0 on one
+   seeded batch of 64 against the same step of the f32 model under
+   ``plain_blocks()``: the loss within 2e-2 (relative), the gradient's
+   global norm within 5e-2 of the f32 one's, the cosine of the flattened
+   gradients >= 0.99 and the worst tensor's >= 0.9 (bf16 rounds each
+   activation to 2^-9 relative; through 31 blocks forward and back the
+   logits move by up to 5e-2 of max|ref| (phase 6), and a gradient error of
+   that size is a cosine of 0.9988, of 45 % still 0.9); the step's launches
+   exactly K8 31, K9 11 and K10 71 (forward only: each backward is the plain
+   version's gradient) and none of any other kernel; the forward, the
+   backward and the optimizer's share of a step timed, a profile of one step
+   printed. Then ``Trainer.fit`` takes eight AdamW steps (lr 3e-4, weight
+   decay 1e-4, the ``tools/train_flip.py`` setting) on a repeated batch at
+   drop_path 0.2, from the registry's seeded init (the one the JAX train
+   tools start from: ``_model``'s rel-pos tables ~ U(-1, 1) and LN scales
+   ~ U(0.5, 1.5) make the loss at that lr spike and end above its start):
+   each loss finite, the last below the first; the median step ms, img/s
+   and peak memory printed; it evaluates (the fused path, K4-K7; the eval
+   loss before and after printed) and checkpoints; a fresh trainer resumes
+   from the checkpoint to the same parameters and step; and a fresh bf16
+   GCViTTiny loaded from the checkpoint serves on the fused path within
+   5e-2 of max|ref| of the trained model's own eval logits.
 
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
@@ -214,7 +238,7 @@ sys.path.insert(0, REPO)
 import main_torch  # noqa: E402
 from vip_cup_2022_tpu_torch import quant  # noqa: E402
 from vip_cup_2022_tpu_torch.infer import engine  # noqa: E402
-from vip_cup_2022_tpu_torch.models import create_model  # noqa: E402
+from vip_cup_2022_tpu_torch.models import create_model, transfer_weights  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K  # noqa: E402
@@ -229,6 +253,10 @@ from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_
                                           exp_dwconv, exp_lnmlp_dw, exp_mlp_gemm, exp_ptq_int8,
                                           exp_window_attention, int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms, device_ms  # noqa: E402
+from vip_cup_2022_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
+from vip_cup_2022_tpu_torch.train.losses import binary_cross_entropy_timm  # noqa: E402
+from vip_cup_2022_tpu_torch.train.sam import value_and_grad  # noqa: E402
+from vip_cup_2022_tpu_torch.utils.checkpoint import load_variables  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
 GCVIT_KERNELS = ("ln_qkv", "window_attention", "proj_scale_residual")
@@ -2013,6 +2041,198 @@ def phase_serving(card: str, stats: dict, dw_sites: list) -> None:
           f"({N_IMAGES / t_seq:.1f} img/s) [{card}]")
 
 
+TRAIN_BATCH, TRAIN_STEPS = 64, 8
+# the training step's launches: each forward's (the backwards are plain)
+TRAIN_LAUNCHES = {ATTN: GCVIT_BLOCKS, DW: 11, LN: GCVIT_LNS + 2 * GCVIT_BLOCKS}
+# the kernel step against the plain f32 step (phase 9 of the docstring)
+TRAIN_LOSS_BOUND, TRAIN_NORM_BOUND = 2e-2, 5e-2
+TRAIN_COS_BOUND, TRAIN_TENSOR_COS_BOUND = 0.99, 0.9
+
+
+def _train_model(dtype: torch.dtype) -> torch.nn.Module:
+    """Full-width GCViTTiny@224 with ``_model``'s seeded weights, one output,
+    no activation, drop rates 0, the parameters in f32 whatever the compute
+    dtype."""
+    return _model("GCViTTiny", dtype, nb_classes=1, drop_path_rate=0.0, param_dtype=torch.float32)
+
+
+def _trainable_model(drop_path_rate: float) -> torch.nn.Module:
+    """Full-width GCViTTiny@224 with the registry's seeded init (rel-pos
+    tables std 0.02, LN scales 1), one output, no activation, bf16 compute,
+    f32 parameters."""
+    model, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1,
+                            classifier_activation=None, dtype=torch.bfloat16,
+                            drop_path_rate=drop_path_rate, param_dtype=torch.float32)
+    return model.cuda()
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    na, nb = a.norm(), b.norm()
+    if na == 0 and nb == 0:
+        return 1.0
+    return (torch.dot(a, b) / (na * nb)).item()
+
+
+def compare_train_step(card: str, x: torch.Tensor, y: torch.Tensor, tr: Trainer) -> None:
+    """The trainer's kernel step (forward and backward) against the plain
+    f32 step on the same batch, and the kernel step's launches."""
+    model = tr.model
+    loss_fn = lambda: tr._loss(y, model(x).float())  # noqa: E731
+    model.train()
+    reset_launches()
+    loss, grads = value_and_grad(loss_fn, tr.params)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = {n: TRAIN_LAUNCHES.get(n, 0) for n in KERNELS}
+    print(f"[train] launches in one training step (forward and backward): "
+          f"{ {n: c for n, c in launches.items() if c} }")
+    bad = {n: launches[n] for n in KERNELS if launches[n] != want[n]}
+    if bad:
+        raise AssertionError(f"the training step launched {bad}; expected {TRAIN_LAUNCHES} and "
+                             "no other kernel")
+    ref = _train_model(torch.float32).train()
+    ref_params = dict(ref.named_parameters())
+    with plain_blocks():
+        ref_loss, ref_grads = value_and_grad(
+            lambda: binary_cross_entropy_timm(y, ref(x).float()).mean(), ref_params)
+    torch.cuda.synchronize()
+    flat = torch.cat([grads[k].flatten() for k in grads])
+    ref_flat = torch.cat([ref_grads[k].flatten() for k in grads])
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    norm_ratio = (flat.norm() / ref_flat.norm()).item()
+    cos = _cos(flat, ref_flat)
+    per = {k: _cos(grads[k].flatten(), ref_grads[k].flatten()) for k in grads}
+    worst = min(per, key=per.get)
+    table_norms = [grads[k].norm().item() for k in grads if k.endswith("bias_table")]
+    print(f"[train] one step, batch {TRAIN_BATCH}, drop rates 0, kernel path (bf16 compute, "
+          f"f32 parameters) vs the plain f32 path: loss {loss.item():.6f} vs "
+          f"{ref_loss.item():.6f} (rel {loss_rel:.3e}, bound {TRAIN_LOSS_BOUND:g}); gradient "
+          f"global norm {flat.norm().item():.4e} vs {ref_flat.norm().item():.4e} (ratio "
+          f"{norm_ratio:.4f}, bound 1 +- {TRAIN_NORM_BOUND:g}); cosine {cos:.6f} (bound "
+          f"{TRAIN_COS_BOUND:g}); worst tensor {worst} cosine {per[worst]:.4f} (bound "
+          f"{TRAIN_TENSOR_COS_BOUND:g}) of {len(per)}; rel-pos tables' gradient norms "
+          f"{min(table_norms):.3e} .. {max(table_norms):.3e} [{card}]")
+    if not (loss_rel <= TRAIN_LOSS_BOUND and abs(norm_ratio - 1) <= TRAIN_NORM_BOUND
+            and cos >= TRAIN_COS_BOUND and per[worst] >= TRAIN_TENSOR_COS_BOUND
+            and min(table_norms) > 0):
+        raise AssertionError("the kernel training step disagrees with the plain f32 step")
+    del ref, ref_params, ref_grads
+
+
+def time_train_step(card: str, x: torch.Tensor, y: torch.Tensor, tr: Trainer,
+                    profile: bool) -> None:
+    """The forward (with its graph), forward + backward and whole step
+    (with the AdamW update) timed in turns, and one step's profile."""
+    model = tr.model
+    model.train()
+    state = tr.opt_state  # lr-0 steps leave the parameters as they are, not this
+
+    def fwd():
+        return tr._loss(y, model(x).float())
+
+    parts = {"forward": fwd, "forward + backward": lambda: value_and_grad(fwd, tr.params),
+             "step": lambda: tr.train_step(x, y, 0.0)}
+    ms = {}
+    for name, fn in list(parts.items()) + list(parts.items())[::-1]:
+        ms.setdefault(name, []).append(cuda_ms(fn, iters=3, warmup=1))
+    ms = {n: sum(t) / len(t) for n, t in ms.items()}
+    fw, fb, st = ms["forward"], ms["forward + backward"], ms["step"]
+    print(f"[train] batch-{TRAIN_BATCH} step: forward {fw:.2f} ms, backward {fb - fw:.2f} ms "
+          f"({(fb - fw) / st:.1%} of the step), optimizer and the rest {st - fb:.2f} ms, step "
+          f"{st:.2f} ms ({TRAIN_BATCH * 1000 / st:.1f} img/s) [{card}]")
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.train_step(x, y, 0.0)
+        torch.cuda.synchronize()
+    tr.opt_state = state
+    print(f"[train] batch-{TRAIN_BATCH} training step profile (device time)")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40 if profile else 20))
+
+
+def phase_train(card: str, profile: bool) -> None:
+    """Full-width GCViTTiny@224 trained on the card: one kernel step against
+    the plain f32 step and its launches, the step's parts timed, then
+    ``Trainer.fit`` for eight AdamW steps, evaluation, checkpoint, resume
+    and the trained weights served on the fused path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((TRAIN_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    y = (torch.rand((TRAIN_BATCH, 1), generator=gen, device="cuda") > 0.5).float()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = TrainConfig(epochs=1, steps_per_epoch=TRAIN_STEPS, lr_base=3e-4,
+                          lr_schedule="constant", optimizer="adamw", weight_decay=1e-4,
+                          loss="bce_timm", monitor="loss", ckpt_dir=ckpt_dir,
+                          basic_save_name="gcvit", seed=0)
+        tr = Trainer(_train_model(torch.bfloat16), cfg)
+        compare_train_step(card, x, y, tr)
+        time_train_step(card, x, y, tr, profile)
+        del tr
+        torch.cuda.empty_cache()
+
+        tr = Trainer(_trainable_model(0.2), cfg)
+        eval_before = tr.eval_step(x, y)[0].item()
+        losses, step_ms = [], []
+        train_step = tr.train_step
+
+        def timed_step(images, labels, lr):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = train_step(images, labels, lr)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1000)
+            losses.append(loss.item())
+            return loss
+
+        tr.train_step = timed_step
+        batch = lambda: iter([(x, y)] * TRAIN_STEPS)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        history = tr.fit(batch, lambda: iter([(x, y)]), verbose=1)
+        peak = torch.cuda.max_memory_allocated()
+        median = float(np.median(step_ms[1:]))
+        fmt = lambda vs, f: ", ".join(format(v, f) for v in vs)  # noqa: E731
+        print(f"[train] Trainer.fit, {TRAIN_STEPS} AdamW steps (lr 3e-4, weight decay 1e-4, "
+              f"drop_path 0.2) on one batch of {TRAIN_BATCH}: losses {fmt(losses, '.4f')}; "
+              f"step ms {fmt(step_ms, '.1f')}, median after the first {median:.2f} ms "
+              f"({TRAIN_BATCH * 1000 / median:.1f} img/s); "
+              f"peak memory {peak / 2 ** 30:.2f} GiB; eval loss on the batch {eval_before:.4f} "
+              f"before, {history['val_loss'][0]:.4f} after; history {history} [{card}]")
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the {TRAIN_STEPS} training losses {losses} are not finite or "
+                                 "did not fall")
+        path = os.path.join(ckpt_dir, "gcvit_latest.msgpack")
+        resumed = Trainer(_trainable_model(0.2), cfg)
+        if not resumed.restore_latest() or resumed.global_step != TRAIN_STEPS:
+            raise AssertionError("the trainer did not resume from its latest checkpoint")
+        moved = max((resumed.params[k] - p).abs().max().item() for k, p in tr.params.items())
+        count = int(resumed.opt_state["count"])
+        print(f"[train] resumed from {os.path.basename(path)}: step {resumed.global_step}, "
+              f"optimizer count {count}, max|param - trained| {moved:.1e}")
+        if moved != 0 or count != TRAIN_STEPS:
+            raise AssertionError("the resumed parameters or optimizer state differ")
+        del resumed
+
+        served, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1,
+                                 classifier_activation=None, dtype=torch.bfloat16)
+        state = load_variables(path)  # the trainer's: also opt_state and meta
+        transfer_weights({k: state[k] for k in ("params", "batch_stats")}, served, strict=True)
+        served = served.cuda().eval()
+        tr.model.eval()
+        reset_launches()
+        with torch.inference_mode():
+            got = served(x)
+            want = tr.model(x)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        r = rel_err(got, want)
+        print(f"[train] the checkpoint served by a fresh bf16 GCViTTiny on the fused path vs the "
+              f"trained model's eval logits: max|d|/max|ref| = {r:.3e} (bound {MODEL_BOUND:g}); "
+              f"fused-block launches {({n: launches[n] for n in GCVIT_KERNELS})} [{card}]")
+        if not r <= MODEL_BOUND or any(launches[n] != 2 * GCVIT_BLOCKS for n in GCVIT_KERNELS):
+            raise AssertionError("the trained weights do not serve on the fused path")
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -2047,6 +2267,7 @@ def main(argv) -> None:
     dw_sites = [site for sites, _ in dw_members.values() for site in sites]
     launches.update(phase_slice_seven(card, len(dw_sites), len(every), pass_sites(every)))
     phase_serving(card, stats, dw_sites)
+    phase_train(card, profile)
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],

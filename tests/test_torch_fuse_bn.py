@@ -30,6 +30,7 @@ from vip_cup_2022_tpu_torch.infer import engine
 from vip_cup_2022_tpu_torch.models import create_model, transfer_weights
 from vip_cup_2022_tpu_torch.utils import surgery
 from vip_cup_2022_tpu_torch.weights.from_jax import flax_to_torch
+from vip_cup_2022_tpu_torch.weights.to_flax import torch_to_flax
 
 # name -> (narrow overrides, input side)
 MEMBERS = {
@@ -101,7 +102,7 @@ def test_pairs_and_folded_arrays_equal_jax(name):
     assert len(set(eps.values())) == 1  # one eps a member: JAX's fold can be asked for it
     want_pairs = jax_surgery.discover_conv_bn_pairs(tree)
     assert surgery.discover_conv_bn_pairs(tree) == want_pairs and want_pairs
-    assert surgery.discover_conv_bn_pairs(surgery.module_tree(port)) == want_pairs
+    assert surgery.discover_conv_bn_pairs(torch_to_flax(port)) == want_pairs
     got, pairs = surgery.fuse_all_conv_bn(tree, eps)
     want, _ = jax_surgery.fuse_all_conv_bn(tree, eps=next(iter(eps.values())))
     assert pairs == want_pairs

@@ -978,3 +978,105 @@ def test_exp_ptq_int8_tool_runs_on_card(cuda_device):
         assert r["rel_err"] <= 1e-6
         assert set(r["ms"]) == set(exp_ptq_int8.CUTS) | {"cudnn"}
         assert all(t > 0 for t in r["ms"].values())
+
+
+# ---------------------------------------------------------------------------
+# K8, K9 and K10 under autograd, at GCViTTiny's training shapes (batch 64)
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 64
+# GCViTTiny@224's 11 stride-1 3 x 3 depthwise sites: the stem's ReduceSize,
+# each level's FeatExtracts and downsample ReduceSize (H, W, C)
+GCVIT_DW_SITES = ((112, 112, 64), (56, 56, 64), (28, 28, 64), (14, 14, 64), (56, 56, 64),
+                  (28, 28, 128), (14, 14, 128), (28, 28, 128), (14, 14, 256), (14, 14, 256),
+                  (7, 7, 512))
+
+
+def _grads(out, dout, inputs):
+    return torch.autograd.grad(out, inputs, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", range(4))
+def test_window_attention_function_backward_on_card(cuda_device, level):
+    """The kernel forward within 1e-2 of the plain version, and its
+    backward (the plain version's gradient recomputed from the saved
+    inputs) equal to the plain version's own autograd on the same bf16
+    q, k, v and f32 bias, at each level's (B * windows, heads, N, 32)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+    from vip_cup_2022_tpu_torch.tools.exp_window_attention import LEVELS
+
+    grid, _, heads, ws, *_ = LEVELS[level]
+    n, nwin = ws * ws, (grid // ws) ** 2
+    g = torch.Generator(device=cuda_device).manual_seed(level)
+    shape = (TRAIN_BATCH * nwin, heads, n, 32)
+    q, k, v = ((torch.rand(shape, generator=g, device=cuda_device) * 2 - 1).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    bias = (torch.rand((heads, n, n), generator=g, device=cuda_device) * 2 - 1).requires_grad_()
+    dout = (torch.rand(shape, generator=g, device=cuda_device) * 2 - 1).to(torch.bfloat16)
+    inputs = (q, k, v, bias)
+    before = WA.LAUNCHES["window_attention_bhnd"]
+    out = WA.window_attention_fn(q, k, v, bias, 32 ** -0.5)
+    got = _grads(out, dout, inputs)
+    ref_out = WA.window_attention_plain(q, k, v, bias, 32 ** -0.5)
+    want = _grads(ref_out, dout, inputs)
+    torch.cuda.synchronize()
+    assert WA.LAUNCHES["window_attention_bhnd"] == before + 1
+    assert _rel(out, ref_out.float()) <= 1e-2
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _rel(a, b.float()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", range(len(GCVIT_DW_SITES)))
+def test_depthwise_function_backward_on_card(cuda_device, site):
+    """dx and the taps' gradient of the closed form, on bf16 x and bf16 taps
+    (the model casts its f32 taps to the compute dtype), against the plain
+    version's autograd in f32 on the same values: within 1e-2 of max|ref|
+    (the closed form sums in f32 and rounds once to bf16; the plain
+    version's autograd in bf16 would round each tap's share of dx to bf16
+    and add them in bf16, 9 roundings); the forward within 1e-2 too."""
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+
+    h, w, c = GCVIT_DW_SITES[site]
+    g = torch.Generator(device=cuda_device).manual_seed(site)
+    x = (torch.rand((TRAIN_BATCH, h, w, c), generator=g, device=cuda_device) * 2 - 1).to(
+        torch.bfloat16).requires_grad_()
+    kern = ((torch.rand((3, 3, c), generator=g, device=cuda_device) * 2 - 1) / 3).to(
+        torch.bfloat16).requires_grad_()
+    dy = (torch.rand((TRAIN_BATCH, h, w, c), generator=g, device=cuda_device) * 2 - 1).to(
+        torch.bfloat16)
+    pad = ((1, 1), (1, 1))
+    out = D.depthwise_conv_fn(x, kern, padding=pad)
+    got = _grads(out, dy, (x, kern))
+    x32, kern32 = (t.detach().float().requires_grad_() for t in (x, kern))
+    ref_out = D.depthwise_conv_nhwc_plain(x32, kern32, padding=pad)
+    want = _grads(ref_out, dy.float(), (x32, kern32))
+    torch.cuda.synchronize()
+    assert _rel(out, ref_out) <= 1e-2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _rel(a, b) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", [(112, 64), (56, 64), (28, 128), (14, 256), (7, 512)])
+def test_layer_norm_function_backward_on_card(cuda_device, h, c):
+    """The LN function on bf16 activations at each level's width: the kernel
+    forward within 1e-2 of the plain version, the backward (the plain LN's
+    gradient recomputed) equal to the plain LN's own autograd."""
+    from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L
+
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x = (torch.rand((TRAIN_BATCH, h, h, c), generator=g, device=cuda_device) * 4 - 2).to(
+        torch.bfloat16).requires_grad_()
+    weight = (torch.rand(c, generator=g, device=cuda_device) + 0.5).requires_grad_()
+    bias = (torch.rand(c, generator=g, device=cuda_device) * 0.2 - 0.1).requires_grad_()
+    dy = (torch.rand(x.shape, generator=g, device=cuda_device) * 2 - 1).to(torch.bfloat16)
+    out = L.fused_layernorm(x, weight, bias, 1e-5)
+    got = _grads(out, dy, (x, weight, bias))
+    ref_out = L.layer_norm_plain(x, weight, bias, 1e-5)
+    want = _grads(ref_out, dy, (x, weight, bias))
+    torch.cuda.synchronize()
+    assert _rel(out, ref_out.float()) <= 1e-2
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _rel(a, b.float()) <= 1e-6

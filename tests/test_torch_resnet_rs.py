@@ -66,8 +66,10 @@ def _tree(variables, seed):
 
 
 def _load(port, tree):
+    """``tree`` loaded into ``port``, in eval mode (a BN in training mode
+    normalises with its batch's statistics)."""
     port.load_state_dict(state_dict_from_flax(tree, port.state_dict(), strict=True))
-    return port
+    return port.eval()
 
 
 def _run(port, *xs):

@@ -83,8 +83,9 @@ from ..models.nfnets import NFNet
 from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
 from ..quant import calibrate, quantized
-from ..utils.surgery import bn_eps, fuse_all_conv_bn, module_tree
+from ..utils.surgery import bn_eps, fuse_all_conv_bn
 from ..weights.from_jax import flax_to_torch
+from ..weights.to_flax import torch_to_flax
 
 # Per-model batch-size table (reference main.py:43-56): 8 * NAME2BS.get(name, 16).
 NAME2BS: Dict[str, int] = {
@@ -322,7 +323,7 @@ class EnsembleEngine:
     def _fuse_bn_module(self, module: torch.nn.Module, name: str) -> None:
         """Fold the values a random-init member holds, in place."""
         state = module.state_dict()
-        fused = flax_to_torch(self._fuse_bn(module_tree(module), module, name))
+        fused = flax_to_torch(self._fuse_bn(torch_to_flax(module), module, name))
         with torch.no_grad():
             for key, value in fused.items():
                 state[key].copy_(torch.from_numpy(value))

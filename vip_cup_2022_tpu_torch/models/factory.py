@@ -18,10 +18,14 @@ def create_model(name: str, *, in_channels: Optional[int] = None,
                  nb_classes: Optional[int] = None,
                  input_size: Optional[Tuple[int, int]] = None,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
+                 param_dtype: Optional[torch.dtype] = None,
                  **kwargs) -> Tuple[nn.Module, ModelConfig]:
-    """Build ``(module, cfg)`` for a registered model on the CPU, its weights
-    drawn from a ``torch.Generator`` seeded with ``seed``. JSON lists among
-    the overrides become tuples."""
+    """Build ``(module, cfg)`` for a registered model on the CPU in eval
+    mode, its weights drawn from a ``torch.Generator`` seeded with ``seed``.
+    ``dtype`` is the compute dtype; the floating parameters are held in
+    ``param_dtype`` (``dtype`` when None, as serving holds them; f32 for
+    training, Flax's ``param_dtype``). JSON lists among the overrides become
+    tuples."""
     if not is_model(name):
         raise KeyError(f"unknown model '{name}'")
     cls, cfg = model_entry(name)
@@ -40,6 +44,8 @@ def create_model(name: str, *, in_channels: Optional[int] = None,
         raise TypeError(f"unknown config overrides for {name}: {sorted(unknown)}")
     cfg = cfg.replace(**overrides)
     module = cls(cfg)
+    if param_dtype is not None:
+        module.to(param_dtype)
     module.init_weights(torch.Generator().manual_seed(seed))
     return module.eval(), cfg
 

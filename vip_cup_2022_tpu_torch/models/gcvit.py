@@ -19,6 +19,17 @@ Counterpart of ``vip_cup_2022_tpu/models/gcvit.py``, NHWC throughout:
     in the compute dtype, then LN2 -> :class:`..ops.mlp.Mlp` -> residual;
 - head: LN -> global average pool in f32 -> f32 Linear -> activation.
 
+Training (``model.train()``) runs the unfused path, as the JAX package
+does: each block's branches through DropPath at the rates ``linspace(0,
+drop_path_rate, sum(depths))`` in block order, dropout at ``drop_rate``
+after the stem, in the MLP and after the attention's projection, and at
+``attn_drop`` on the attention's probabilities; the rel-pos bias gathered
+from each table inside the graph; K8, K9 and K10 under autograd. Returning
+to eval mode regathers every dense bias from its table
+(:meth:`..ops.attention.WindowAttention.train`), so serving after training
+reads the trained tables. The fused path casts the weights to the compute
+dtype, so a model trained with f32 parameters serves on it too.
+
 Module and parameter names follow the Flax paths (``patch_embed.conv_down.
 conv_2.fc_0``, ``levels_0.blocks_1.attn.relative_position_bias_table``, ...),
 so the weight bridge maps a Flax variables tree onto :meth:`state_dict` by
@@ -35,6 +46,7 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -42,6 +54,7 @@ import torch.nn.functional as F
 from ..ops.act import apply_activation, gelu_exact
 from ..ops.attention import WindowAttention
 from ..ops.conv import Conv, DepthwiseConv, Linear, lecun_normal_
+from ..ops.drop import DropPath, Dropout
 from ..ops.kernels.gcvit_block import window_transformer_block
 from ..ops.mlp import Mlp
 from ..ops.norms import LayerNorm
@@ -154,13 +167,17 @@ class Stem(nn.Module):
 
 
 class GCViTBlock(nn.Module):
-    def __init__(self, cfg: GCViTConfig, dim: int, heads: int, window: int, global_query: bool):
+    def __init__(self, cfg: GCViTConfig, dim: int, heads: int, window: int, global_query: bool,
+                 path_drop: float = 0.0):
         super().__init__()
-        self.window = window
+        self.window, self.dtype = window, cfg.dtype
         self.norm1 = LayerNorm(dim, eps=EPS)
-        self.attn = WindowAttention(dim, heads, window, global_query, cfg.dtype, cfg.qk_scale)
+        self.attn = WindowAttention(dim, heads, window, global_query, cfg.dtype, cfg.qk_scale,
+                                    attn_drop=cfg.attn_drop, proj_drop=cfg.drop_rate)
         self.norm2 = LayerNorm(dim, eps=EPS)
-        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), dtype=cfg.dtype)
+        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), dtype=cfg.dtype, drop_rate=cfg.drop_rate)
+        self.drop_path1 = DropPath(path_drop)
+        self.drop_path2 = DropPath(path_drop)
         self.layer_scale = cfg.layer_scale is not None
         if self.layer_scale:
             self.gamma1 = nn.Parameter(torch.full((dim,), cfg.layer_scale))
@@ -175,39 +192,40 @@ class GCViTBlock(nn.Module):
         (B, H, W, C). q_global (B, N, C) or None."""
         if not fused:
             return self._unfused(x, q_global)
-        a = self.attn
+        a, dt = self.attn, self.dtype
         return window_transformer_block(
             x, q_global, n=self.window * self.window,
             ln1_weight=self.norm1.weight, ln1_bias=self.norm1.bias,
-            wqkv=a.qkv.weight, bqkv=a.qkv.bias, bias=a.bias_dense,
-            wp=a.proj.weight, bp=a.proj.bias, gamma1=self.gamma1,
+            wqkv=a.qkv.weight.to(dt), bqkv=a.qkv.bias, bias=a.bias_dense,
+            wp=a.proj.weight.to(dt), bp=a.proj.bias, gamma1=self.gamma1,
             ln2_weight=self.norm2.weight, ln2_bias=self.norm2.bias,
-            w1=self.mlp.fc1.weight, b1=self.mlp.fc1.bias,
-            w2=self.mlp.fc2.weight, b2=self.mlp.fc2.bias, gamma2=self.gamma2,
+            w1=self.mlp.fc1.weight.to(dt), b1=self.mlp.fc1.bias,
+            w2=self.mlp.fc2.weight.to(dt), b2=self.mlp.fc2.bias, gamma2=self.gamma2,
             scale=a.scale, eps=EPS)
 
     def _unfused(self, x: torch.Tensor, q_global: Optional[torch.Tensor]) -> torch.Tensor:
-        """The Flax block: both residuals in x's dtype; gamma multiplies only
-        with a layer scale (a Python 1.0 in the JAX package otherwise, which
-        keeps the bf16 residual bf16)."""
+        """The Flax block: both residuals in x's dtype, each branch through
+        its DropPath; gamma multiplies only with a layer scale (a Python 1.0
+        in the JAX package otherwise, which keeps the bf16 residual bf16)."""
         b, h, w, c = x.shape
         ws = self.window
         y = window_partition(self.norm1(x), ws).reshape(-1, ws * ws, c)
         y = window_reverse(self.attn(y, q_global).reshape(-1, ws, ws, c), ws, h, w)
-        x = x + (y * self.gamma1 if self.layer_scale else y)
+        x = x + self.drop_path1(y * self.gamma1 if self.layer_scale else y)
         m = self.mlp(self.norm2(x))
-        return x + (self.gamma2 * m if self.layer_scale else m)
+        return x + self.drop_path2(self.gamma2 * m if self.layer_scale else m)
 
 
 class GCViTLevel(nn.Module):
     def __init__(self, cfg: GCViTConfig, dim: int, depth: int, heads: int, window: int,
-                 keep_dims: Tuple[bool, ...], downsample: bool):
+                 keep_dims: Tuple[bool, ...], downsample: bool, path_drops: Tuple[float, ...]):
         super().__init__()
         self.window, self.depth, self.n_feat = window, depth, len(keep_dims)
         for i, keep in enumerate(keep_dims):
             self.add_module(f"q_global_gen_to_q_global_{i}", FeatExtract(dim, keep, cfg.dtype))
         for i in range(depth):
-            self.add_module(f"blocks_{i}", GCViTBlock(cfg, dim, heads, window, bool(i % 2)))
+            self.add_module(f"blocks_{i}", GCViTBlock(cfg, dim, heads, window, bool(i % 2),
+                                                      path_drops[i]))
         self.downsample = ReduceSize(dim, False, cfg.dtype) if downsample else None
 
     def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
@@ -238,11 +256,15 @@ class GCViT(nn.Module):
                                       "registered variant has one")
         self.cfg = cfg
         self.patch_embed = Stem(cfg.in_channels, cfg.dim, cfg.dtype, cfg.first_strides)
+        self.drop = Dropout(cfg.drop_rate)
         keep_dims = [(False, False, False), (False, False), (True,), (True,)]
+        path_drops = np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
         for i, depth in enumerate(cfg.depths):
+            lo = sum(cfg.depths[:i])
             self.add_module(f"levels_{i}", GCViTLevel(
                 cfg, cfg.dim * 2 ** i, depth, cfg.num_heads[i], cfg.window_size[i],
-                keep_dims[i], downsample=i < len(cfg.depths) - 1))
+                keep_dims[i], downsample=i < len(cfg.depths) - 1,
+                path_drops=tuple(path_drops[lo:lo + depth])))
         dim_out = cfg.dim * 2 ** (len(cfg.depths) - 1)
         self.norm = LayerNorm(dim_out, eps=EPS)
         if cfg.nb_classes > 0:
@@ -281,7 +303,7 @@ class GCViT(nn.Module):
         """x: (B, H, W, 3) in [0, 1]; returns (B, nb_classes) f32."""
         cfg = self.cfg
         x = preprocess_input(x, cfg).to(cfg.dtype)
-        x = self.patch_embed(x)
+        x = self.drop(self.patch_embed(x))
         fused = _use_fused_block(cfg, self.training)
         for i in range(len(cfg.depths)):
             x = getattr(self, f"levels_{i}")(x, fused)

@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .conv import Linear
+from .drop import Dropout
 from .kernels import window_attention as attention_kernel
 
 
@@ -39,17 +40,30 @@ class WindowAttention(nn.Module):
     """Windowed multi-head self-attention with a relative-position bias, on
     (B*nW, N, C) tokens. With ``global_query`` the qkv projection emits k and
     v only and the per-image query (B, N, C) is repeated over each image's
-    windows. The dense (heads, N, N) bias is gathered from the table once,
-    by :meth:`gather_bias`, and kept as a buffer outside the state dict."""
+    windows.
+
+    The dense (heads, N, N) bias: in eval mode the buffer ``bias_dense``
+    (outside the state dict), gathered from the table by :meth:`gather_bias`
+    after a weight load and on every return to eval mode; in training mode
+    gathered from ``relative_position_bias_table`` inside the graph on every
+    forward, so the table gets its gradient. The attention is the
+    window-attention kernel (under autograd, :func:`..kernels.
+    window_attention.window_attention_fn`), except with ``attn_drop`` > 0 in
+    training, where it is the JAX package's plain path: scaled q times k in
+    the compute dtype, f32 softmax with the bias, dropout, times v.
+    ``proj_drop`` drops after the projection in training."""
 
     def __init__(self, dim: int, heads: int, window: int, global_query: bool,
-                 dtype: torch.dtype, qk_scale: Optional[float] = None):
+                 dtype: torch.dtype, qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.window, self.heads, self.global_query = window, heads, global_query
         self.scale = qk_scale or (dim // heads) ** -0.5
         self.qkv = Linear(dim, dim * (2 if global_query else 3), dtype)
         self.proj = Linear(dim, dim, dtype)
         self.relative_position_bias_table = nn.Parameter(torch.zeros((2 * window - 1) ** 2, heads))
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
         n = window * window
         self.register_buffer("bias_dense", torch.zeros(heads, n, n), persistent=False)
 
@@ -58,6 +72,12 @@ class WindowAttention(nn.Module):
         """(Re)build the dense (heads, N, N) bias from the table."""
         self.bias_dense.copy_(dense_relative_position_bias(self.relative_position_bias_table,
                                                            self.window))
+
+    def train(self, mode: bool = True) -> "WindowAttention":
+        super().train(mode)
+        if not mode:  # the table may have moved while training
+            self.gather_bias()
+        return self
 
     def forward(self, x: torch.Tensor, q_global: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B*nW, N, C) -> (B*nW, N, C); ``q_global`` (B, N, C) in
@@ -72,9 +92,18 @@ class WindowAttention(nn.Module):
             q = q.reshape(b_, n, self.heads, hd).transpose(1, 2)
         else:
             q, k, v = qkv[0], qkv[1], qkv[2]
-        out = attention_kernel.window_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                                self.bias_dense, self.scale)
-        return self.proj(out.transpose(1, 2).reshape(b_, n, c))
+        if not self.training:
+            bias = self.bias_dense
+        else:
+            bias = dense_relative_position_bias(self.relative_position_bias_table, self.window)
+        if self.training and self.attn_drop.rate > 0:
+            attn = torch.matmul(q * self.scale, k.transpose(-1, -2)).float() + bias
+            attn = self.attn_drop(torch.softmax(attn, dim=-1).to(x.dtype))
+            out = torch.matmul(attn, v)
+        else:
+            out = attention_kernel.window_attention_fn(q.contiguous(), k.contiguous(),
+                                                       v.contiguous(), bias, self.scale)
+        return self.proj_drop(self.proj(out.transpose(1, 2).reshape(b_, n, c)))
 
 
 def eca_kernel_size(channels: int) -> int:
@@ -92,10 +121,11 @@ class ECA(nn.Module):
 
     def __init__(self, channels: int, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(1, 1, eca_kernel_size(channels), dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        v = x.float().mean(dim=(1, 2)).to(self.weight.dtype)
+        v = x.float().mean(dim=(1, 2)).to(self.dtype)
         k = self.weight.shape[-1]
-        v = F.conv1d(v.unsqueeze(1), self.weight, padding=k // 2).squeeze(1)
+        v = F.conv1d(v.unsqueeze(1), self.weight.to(self.dtype), padding=k // 2).squeeze(1)
         return x * torch.sigmoid(v)[:, None, None, :].to(x.dtype)

@@ -2,10 +2,14 @@
 families (counterparts of Flax's ``nn.Conv`` and ``nn.Dense`` as the JAX
 package uses them).
 
-Weights are held in the compute dtype, and each layer casts its input to
-it, as Flax's ``dtype=...`` computes; a :class:`Conv` built with ``dtype``
-None is Flax's ``dtype=None`` conv, f32 weights and f32 compute whatever the
-input (Flax promotes the input with its f32 parameters). Depthwise taps are
+Each layer computes in its ``dtype`` (the compute dtype): it casts its input
+and its weights to it at each call, as Flax's ``dtype=...`` computes with
+``param_dtype`` f32 parameters. Serving holds the weights in the compute
+dtype, so the casts do nothing; training holds them in f32 (``create_model(...,
+param_dtype=torch.float32)``), so the optimizer updates f32 values. A
+:class:`Conv` built with ``dtype`` None is Flax's ``dtype=None`` conv, f32
+weights and f32 compute whatever the input (Flax promotes the input with its
+f32 parameters). Depthwise taps are
 (k, k, C), Flax's (k, k, 1, C) without its I axis. A padding is an int (the
 same on every side), explicit ``((top, bottom), (left, right))`` pairs or
 ``"same"`` (TF ``SAME`` at each call's size, :mod:`.pad`).
@@ -49,9 +53,9 @@ def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], s
 
 
 class Linear(nn.Module):
-    """y = x W^T (+ b) with W (out, in) in the compute dtype and b in f32;
-    x is cast to W's dtype first, as Flax's ``Dense(dtype=...)`` casts its
-    input."""
+    """y = x W^T (+ b) in the compute dtype ``dtype``, with W (out, in) and
+    b cast to it, as Flax's ``Dense(dtype=...)`` casts its input and
+    parameters."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  bias: bool = True):
@@ -61,8 +65,8 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(self.weight.dtype)
-        return F.linear(x.to(self.weight.dtype), self.weight, b)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
 class Conv(nn.Module):
@@ -82,8 +86,10 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout, dtype=wdtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_nhwc(x.to(self.weight.dtype), self.weight, self.bias, self.stride,
-                          self.padding, self.groups)
+        dt = self.dtype or torch.float32
+        b = None if self.bias is None else self.bias.to(dt)
+        return _conv_nhwc(x.to(dt), self.weight.to(dt), b, self.stride, self.padding,
+                          self.groups)
 
 
 class ScaledStdConv(nn.Module):
@@ -166,20 +172,21 @@ class DepthwiseConv(nn.Module):
     the padding resolved at the input's size: on CUDA the kernel, which
     raises for a shape it does not take, on the CPU its plain version. At
     stride > 1 it is cuDNN's grouped conv, as the JAX package leaves strided
-    depthwise convs to XLA."""
+    depthwise convs to XLA. In training K9 runs under autograd
+    (:func:`..kernels.depthwise.depthwise_conv_fn`)."""
 
     def __init__(self, dim: int, kernel: int, padding: PaddingSpec, dtype: torch.dtype,
                  stride: int = 1):
         super().__init__()
-        self.padding, self.stride = padding, stride
+        self.padding, self.stride, self.dtype = padding, stride, dtype
         self.weight = nn.Parameter(torch.empty(kernel, kernel, dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, k = x.to(self.weight.dtype), self.weight.shape[0]
+        x, w, k = x.to(self.dtype), self.weight.to(self.dtype), self.weight.shape[0]
         if self.stride == 1:
-            return D.depthwise_conv_nhwc(x, self.weight, padding=resolve_padding(
+            return D.depthwise_conv_fn(x, w, padding=resolve_padding(
                 self.padding, x.shape[1], x.shape[2], k, 1))
-        w = self.weight.permute(2, 0, 1).unsqueeze(1)  # (C, 1, k, k)
+        w = w.permute(2, 0, 1).unsqueeze(1)  # (C, 1, k, k)
         return _conv_nhwc(x, w, None, self.stride, self.padding, groups=x.shape[-1])
 
 

@@ -261,7 +261,7 @@ def _check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} has no backward kernel; run it under torch.no_grad() or "
-            "torch.inference_mode() (training through it is ROADMAP item A14)")
+            "torch.inference_mode(), or train through its autograd function where it has one")
 
 
 def _check_width(c: int) -> None:

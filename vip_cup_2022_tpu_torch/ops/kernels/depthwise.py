@@ -20,6 +20,14 @@ reports the tile plan the launcher takes at an output size. What bounds it
 on the card: the bytes at k = 3 and 5, the f32 FMAs at k = 7 (2 k^2 FLOPs
 per output element for 4 bytes moved).
 
+Training: :func:`depthwise_conv_fn` (:class:`DepthwiseConvFunction`) runs
+:func:`depthwise_conv_nhwc` forward and, backward, the plain version's
+gradient in closed form (:func:`depthwise_conv_nhwc_plain_grad`: the
+output gradient correlated with the taps into the padded input, and the
+taps' gradient summed tap by tap, in f32), which keeps no k^2 copies of
+the input as the plain version's autograd would (no backward kernel; the
+JAX package trains through XLA's conv).
+
 Dispatch: the wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back. It
 counts its launches in :data:`LAUNCHES`.
@@ -101,8 +109,9 @@ def depthwise_conv_nhwc(x: torch.Tensor, kern: torch.Tensor, *,
     """Stride-1 depthwise conv over NHWC x with taps ``kern`` (kh, kw, 1, C)
     (Flax's layout) or (kh, kw, C) and ``padding`` ((top, bottom), (left,
     right)). CUDA: x bf16 (B, H, W, C), C even, square k in {3, 5, 7} ->
-    bf16 (B, Ho, Wo, C); the taps are cast to f32. No backward, so it raises
-    where autograd would need one."""
+    bf16 (B, Ho, Wo, C); the taps are cast to f32. No backward of its own,
+    so it raises where autograd would need one: train through
+    :func:`depthwise_conv_fn`."""
     if x.device.type == "cpu":
         return depthwise_conv_nhwc_plain(x, kern, padding=padding)
     if x.ndim != 4:
@@ -130,3 +139,51 @@ def depthwise_conv_nhwc(x: torch.Tensor, kern: torch.Tensor, *,
         raise RuntimeError(f"depthwise_conv_nhwc: CUDA launch failed with cudaError {err}")
     LAUNCHES["depthwise_conv_nhwc"] += 1
     return out
+
+
+def depthwise_conv_nhwc_plain_grad(x: torch.Tensor, kern: torch.Tensor, dy: torch.Tensor, *,
+                                   padding: Padding):
+    """The gradient of :func:`depthwise_conv_nhwc_plain` at (x, kern) for
+    the output gradient ``dy``: ``(dx, dkern)``, dx in x's dtype, dkern in
+    kern's dtype and shape. Per tap, dy times the tap's (C,) weights is
+    added into the padded input's gradient at the tap's shift, and the
+    tap's gradient is the sum over (B, Ho, Wo) of dy times the shifted
+    input, all in f32; the padding is cropped off at the end."""
+    b, h, w, c = x.shape
+    wf = _taps(kern, c)
+    kh, kw = wf.shape[0], wf.shape[1]
+    (pt, pb), (pl, pr) = padding
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    ho, wo = dy.shape[1], dy.shape[2]
+    g = dy.float()
+    dxp = torch.zeros(xp.shape, dtype=torch.float32, device=x.device)
+    dw = torch.empty_like(wf)
+    for ty in range(kh):
+        for tx in range(kw):
+            dxp[:, ty:ty + ho, tx:tx + wo, :] += g * wf[ty, tx]
+            dw[ty, tx] = (xp[:, ty:ty + ho, tx:tx + wo, :].float() * g).sum(dim=(0, 1, 2))
+    dx = dxp[:, pt:pt + h, pl:pl + w, :]
+    return dx.to(x.dtype), dw.reshape(kern.shape).to(kern.dtype)
+
+
+class DepthwiseConvFunction(torch.autograd.Function):
+    """Forward :func:`depthwise_conv_nhwc`; backward
+    :func:`depthwise_conv_nhwc_plain_grad` at the saved (x, kern)."""
+
+    @staticmethod
+    def forward(ctx, x, kern, padding):
+        ctx.save_for_backward(x, kern)
+        ctx.padding = padding
+        return depthwise_conv_nhwc(x, kern, padding=padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kern = ctx.saved_tensors
+        dx, dkern = depthwise_conv_nhwc_plain_grad(x, kern, dy, padding=ctx.padding)
+        return dx, dkern, None
+
+
+def depthwise_conv_fn(x: torch.Tensor, kern: torch.Tensor, *, padding: Padding) -> torch.Tensor:
+    """:func:`depthwise_conv_nhwc` through :class:`DepthwiseConvFunction`,
+    differentiable in x and the taps."""
+    return DepthwiseConvFunction.apply(x, kern, padding)

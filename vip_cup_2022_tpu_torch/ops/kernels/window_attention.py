@@ -18,6 +18,12 @@ keys. What bounds it on the card: at N = 49 the bytes of q, k, v and the
 output; at N = 196 the softmax between the two products (~4 N D FLOPs per
 token and head are far below the tensor cores' rate).
 
+Training: :func:`window_attention_fn` (:class:`WindowAttentionFunction`)
+runs :func:`window_attention` forward and, backward, the gradient of
+:func:`window_attention_plain` with respect to q, k, v and the bias,
+recomputed from the saved inputs, as ``LayerNormFunction`` does for the LN
+(no backward kernel; the JAX package trains through the XLA attention).
+
 Dispatch: the wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back. It
 counts its launches in :data:`LAUNCHES`.
@@ -72,8 +78,8 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
                      scale: float) -> torch.Tensor:
     """Fused softmax(q k^T * scale + bias) v with windows folded into B.
     CUDA: q, k, v bf16 (B, H, N, 32) contiguous, bias f32 (H, N, N),
-    N <= 224 -> bf16 (B, H, N, 32); no backward, so it raises where autograd
-    would need one."""
+    N <= 224 -> bf16 (B, H, N, 32). No backward of its own, so it raises
+    where autograd would need one: train through :func:`window_attention_fn`."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, scale)
     b, heads, n = _check_inputs(q, k, v, bias)
@@ -86,6 +92,31 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
         raise RuntimeError(f"window_attention_bhnd: CUDA launch failed with cudaError {err}")
     LAUNCHES["window_attention_bhnd"] += 1
     return out
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """Forward :func:`window_attention`; backward the plain version's
+    gradient, recomputed from the saved (q, k, v, bias)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return window_attention(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = window_attention_plain(*saved, ctx.scale)
+        return (*torch.autograd.grad(out, saved, dout), None)
+
+
+def window_attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """:func:`window_attention` through :class:`WindowAttentionFunction`,
+    differentiable in q, k, v and the bias."""
+    return WindowAttentionFunction.apply(q, k, v, bias, scale)
 
 
 def window_attention_cut(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,

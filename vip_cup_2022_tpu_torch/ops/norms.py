@@ -1,5 +1,4 @@
-"""LayerNorm over the last axis with f32 statistics, and BatchNorm in its
-inference form.
+"""LayerNorm over the last axis with f32 statistics, and BatchNorm.
 
 ``LayerNorm`` is the counterpart of ``vip_cup_2022_tpu/ops/norms.py::
 LayerNorm`` in its f32 form: the input is read in f32, normalised with
@@ -10,8 +9,10 @@ every dtype. Every call goes through
 :func:`..ops.kernels.layernorm.fused_layernorm`: the LN kernel on CUDA, its
 plain version on the CPU, the plain version's gradient backward.
 
-``BatchNorm`` is ``norms.py::BatchNorm`` with ``training=False``: the moving
-statistics normalise the channel axis in f32.
+``BatchNorm`` is ``norms.py::BatchNorm``: in eval mode the moving
+statistics normalise the channel axis in f32; in training mode the f32 batch
+mean and population variance over every axis but the last do, and the moving
+statistics move towards them (momentum 0.9).
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import torch
 import torch.nn as nn
 
 from .kernels.layernorm import fused_layernorm
+
+MOMENTUM = 0.9  # of BatchNorm's running statistics
 
 
 class LayerNorm(nn.Module):
@@ -39,7 +42,9 @@ class BatchNorm(nn.Module):
     axis, cast to ``dtype`` (x's dtype when None). gamma / beta are the f32
     ``weight`` / ``bias``; the statistics are the f32 buffers
     ``running_mean`` / ``running_var``, which the weight bridge fills from
-    the Flax ``batch_stats`` ``moving_mean`` / ``moving_variance``."""
+    the Flax ``batch_stats`` ``moving_mean`` / ``moving_variance``, or in
+    training mode the batch's, after which ``running = 0.9 * running + 0.1 *
+    batch`` (the JAX package's ``BATCH_NORM_DECAY``)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -50,6 +55,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * inv + self.bias
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(dim=axes)
+            var = xf.var(dim=axes, unbiased=False)
+            with torch.no_grad():
+                self.running_mean.copy_(MOMENTUM * self.running_mean + (1.0 - MOMENTUM) * mean)
+                self.running_var.copy_(MOMENTUM * self.running_var + (1.0 - MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * inv + self.bias
         return y.to(self.dtype or x.dtype)

@@ -8,8 +8,8 @@ the same f32 arrays. The one difference: ``fuse_all_conv_bn`` takes the
 eps of each pair's BN (a mapping from the BN's path), as the JAX docstring
 asks, where the JAX engine passes one default eps for every member.
 
-:func:`module_tree` gives the tree of a module's convs and BNs, so a
-member built with random weights folds the values it holds.
+A member built with random weights folds the values it holds, read as a
+tree by :func:`..weights.to_flax.torch_to_flax`.
 """
 from __future__ import annotations
 
@@ -18,7 +18,6 @@ from typing import Dict, Mapping, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.conv import Conv, DepthwiseConv
 from ..ops.norms import BatchNorm
 from ..weights import from_jax
 
@@ -122,26 +121,3 @@ def bn_eps(module: torch.nn.Module) -> Dict[Path, float]:
     """The eps of each of the module's BNs, by its Flax path."""
     return {tuple(name.split(".")): m.eps for name, m in module.named_modules()
             if isinstance(m, BatchNorm)}
-
-
-def module_tree(module: torch.nn.Module) -> Dict:
-    """The Flax tree (f32 numpy, Flax layouts and names) of the module's
-    convs and BNs, the leaves the fold reads and writes; the weight bridge
-    maps it back onto the module's state dict."""
-    params, stats = {}, {}
-    for name, m in module.named_modules():
-        path = tuple(name.split("."))
-        if isinstance(m, Conv):
-            params[path + ("kernel",)] = m.weight.detach().float().permute(2, 3, 1, 0).numpy()
-        elif isinstance(m, DepthwiseConv):
-            params[path + ("kernel",)] = m.weight.detach().float().unsqueeze(2).numpy()
-        elif isinstance(m, BatchNorm):
-            params[path + ("gamma",)] = m.weight.detach().float().numpy()
-            stats[path + ("moving_mean",)] = m.running_mean.float().numpy()
-            stats[path + ("moving_variance",)] = m.running_var.float().numpy()
-        else:
-            continue
-        if getattr(m, "bias", None) is not None:
-            leaf = "beta" if isinstance(m, BatchNorm) else "bias"
-            params[path + (leaf,)] = m.bias.detach().float().numpy()
-    return {"params": _unflatten(params), "batch_stats": _unflatten(stats)}
