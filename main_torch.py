@@ -21,7 +21,7 @@ otherwise, and no CUDA device is an error); ``VIPTPU_DTYPE``,
 ``VIPTPU_FUSED=0`` runs the sequential per-member path;
 ``VIPTPU_FUSE_BN`` (``1``/``all`` or registry names) folds conv -> BN pairs;
 ``VIPTPU_INT8`` (ResNet-RS and ResNest members) runs int8 PTQ;
-``VIPTPU_NO_FUSED_BLOCK=1`` runs GCViT's unfused block path.
+``VIPTPU_NO_FUSED_BLOCK=1`` runs GCViT's and ConvNeXt's unfused block paths.
 ``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN`` have no effect. The members of
 ``ckpts/ckpts.json`` (ConvNeXt, ResNest, GCViT, EfficientNet, NFNet,
 ResNet-RS) are all ported. ``VIPTPU_INT8`` naming a ConvNeXt, GCViT,

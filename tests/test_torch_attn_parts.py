@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A
 from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G
 from vip_cup_2022_tpu_torch.tools import exp_attn_parts as T

@@ -14,6 +14,7 @@ partial sums.
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A
 
 

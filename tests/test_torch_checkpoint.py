@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.utils.checkpoint import save_variables
 from vip_cup_2022_tpu_torch.models import create_model, transfer_weights

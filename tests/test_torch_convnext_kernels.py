@@ -12,6 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.ops.pallas.convnext_block import (
     fused_convnext_block,
     fused_convnext_block_batchlane,

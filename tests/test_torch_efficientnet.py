@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.models import efficientnet as jeff
 from vip_cup_2022_tpu.models import list_models, model_entry as jax_model_entry

@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_slice import NARROW, REPO, _cfg, _jax_variables, _member_workspace, _tree_of
 
 from vip_cup_2022_tpu.utils.checkpoint import save_variables

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 import test_torch_efficientnet as eff_tests
 from test_torch_resnest import NARROW as NARROW_RESNEST
 from test_torch_tta import port_cfg

@@ -15,6 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.ops.attention import relative_position_index as jax_rel_index
 from vip_cup_2022_tpu.ops.window import window_partition as jax_partition

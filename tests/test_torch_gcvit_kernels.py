@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.ops.pallas.gcvit_block import (
     grouped_window_attention,
     ln_dense,

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
 from vip_cup_2022_tpu_torch.tools import int8_pallas_spike as T
 

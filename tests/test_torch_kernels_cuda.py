@@ -9,6 +9,7 @@ where there is no CUDA device. The file itself needs only torch and the port
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K
 from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.ops.norms import LayerNorm as JaxLayerNorm
 from vip_cup_2022_tpu.ops.pallas.depthwise import depthwise_conv_nhwc as jax_depthwise
 from vip_cup_2022_tpu.ops.pallas.norms import _bwd as jax_ln_bwd

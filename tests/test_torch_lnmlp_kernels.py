@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.ops.pallas.convnext_block import fused_ln_mlp_residual as jax_lnmlp
 from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM
 from vip_cup_2022_tpu_torch.tools import exp_convnext_s12 as T

@@ -12,6 +12,7 @@ C = 768), and refuse what the kernel cannot take.
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM
 from vip_cup_2022_tpu_torch.tools import exp_convnext_s12
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K
 from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G
 

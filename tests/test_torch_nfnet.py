@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_efficientnet import _close, _flax_shapes, _run
 
 from vip_cup_2022_tpu.models import create_model as jax_create_model

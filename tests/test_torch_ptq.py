@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from flax import linen as fnn
 from test_quant import TinyNet
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu import quant as jquant
 from vip_cup_2022_tpu.infer.engine import EnsembleEngine as JaxEngine
 from vip_cup_2022_tpu_torch import quant

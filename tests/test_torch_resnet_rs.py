@@ -25,6 +25,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu import quant as jquant
 from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.models import resnet_rs as jrs

@@ -12,6 +12,7 @@ import json
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_slice import NARROW, _member_workspace
 from test_torch_tta import jax_tta_masks, mini_manifest, port_cfg
 from vip_cup_2022_tpu.infer import engine as jax_engine

@@ -15,6 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.data.decode import decode_image as jax_decode_image
 from vip_cup_2022_tpu.data.pipeline import _host_resize_uint8 as jax_host_resize
 from vip_cup_2022_tpu.infer import engine as jax_engine
@@ -457,7 +458,27 @@ def test_port_imports_no_jax():
             "vip_cup_2022_tpu_torch.models.nfnets, vip_cup_2022_tpu_torch.ops.pool, "
             "vip_cup_2022_tpu_torch.ops.kernels.int8_gemm, "
             "vip_cup_2022_tpu_torch.tools.int8_pallas_spike, "
-            "vip_cup_2022_tpu_torch.data.augment, vip_cup_2022_tpu_torch.utils.surgery; "
+            "vip_cup_2022_tpu_torch.data.augment, vip_cup_2022_tpu_torch.utils.surgery, "
+            "vip_cup_2022_tpu_torch.eval, vip_cup_2022_tpu_torch.tools.train_flip, "
+            "vip_cup_2022_tpu_torch.tools.train_bench, "
+            "vip_cup_2022_tpu_torch.ops.kernels.reference, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'vip_cup_2022_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_no_port_file_imports_jax():
+    """No module of the port, nor ``main_torch.py`` or ``chip_smoke.py``,
+    has an import statement naming jax, jaxlib, flax or the JAX package
+    (``vip_cup_2022_tpu``, not ``vip_cup_2022_tpu_torch``), at any depth of
+    the file: the check above sees only what importing runs."""
+    import glob
+    import re
+
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|vip_cup_2022_tpu)(?![\w])",
+                         re.MULTILINE)
+    files = glob.glob(os.path.join(REPO, "vip_cup_2022_tpu_torch", "**", "*.py"), recursive=True)
+    files += [os.path.join(REPO, f) for f in ("main_torch.py", "chip_smoke.py")]
+    assert len(files) > 60
+    bad = {f: pattern.findall(open(f).read()) for f in files}
+    assert not {f: m for f, m in bad.items() if m}

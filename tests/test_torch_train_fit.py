@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.ops import BatchNorm as JaxBatchNorm
 from vip_cup_2022_tpu.parallel.mesh import get_mesh
 from vip_cup_2022_tpu.train import TrainConfig as JaxTrainConfig

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.ops.drop import DropPath as JaxDropPath
 from vip_cup_2022_tpu.ops.norms import BatchNorm as JaxBatchNorm
 from vip_cup_2022_tpu.ops.pallas.norms import _bwd as jax_ln_bwd

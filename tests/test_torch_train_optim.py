@@ -15,6 +15,7 @@ import optax
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.train import create_optimizer as jax_create_optimizer
 from vip_cup_2022_tpu.train import sam_gradient as jax_sam_gradient

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.parallel.mesh import get_mesh, replicated
 from vip_cup_2022_tpu.train import TrainConfig as JaxTrainConfig

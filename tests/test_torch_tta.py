@@ -17,6 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_slice import NARROW, _perturb
 from vip_cup_2022_tpu.data.augment import apply_augment as jax_apply_augment
 from vip_cup_2022_tpu.infer import engine as jax_engine

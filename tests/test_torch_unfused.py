@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.ops.attention import WindowAttention as JaxWindowAttention
 from vip_cup_2022_tpu.ops.mlp import Mlp as JaxMlp
 from vip_cup_2022_tpu_torch.models import create_model, transfer_weights
@@ -157,6 +158,8 @@ def test_port_unfused_path_equals_its_fused_path(narrow_gcvit):
     ("GCViTTiny", 224, NARROW, False, 9 + 2 * 8),
     # stem, three downsamples and the head: the blocks' LNs are in their kernels
     ("convnext_tiny_in22k", 64, NARROW_CONVNEXT, None, 5),
+    # unfused, each of the 4 blocks' LN too
+    ("convnext_tiny_in22k", 64, NARROW_CONVNEXT, False, 5 + 4),
 ])
 def test_every_standalone_layer_norm_runs_the_ln_function(monkeypatch, name, size, kw,
                                                           fused_block, expected):
@@ -180,8 +183,18 @@ def test_every_standalone_layer_norm_runs_the_ln_function(monkeypatch, name, siz
 # the CLI with two members on the unfused path
 # ---------------------------------------------------------------------------
 def test_two_member_cli_unfused_csv_equals_jax_byte_for_byte(two_member_workspace, monkeypatch):
+    """Both members on their unfused block paths under the knob, as the
+    JAX CLI runs them off the TPU: GCViT's and, since the port's ConvNeXt
+    honours it too, ConvNeXt's (every block through its unfused form)."""
+    from vip_cup_2022_tpu_torch.models.convnext import ConvNeXtBlock
+
+    unfused = []
+    original = ConvNeXtBlock._unfused
+    monkeypatch.setattr(ConvNeXtBlock, "_unfused",
+                        lambda self, x: unfused.append(1) or original(self, x))
     monkeypatch.setenv("VIPTPU_NO_FUSED_BLOCK", "1")
     assert_two_member_csvs_equal(two_member_workspace, monkeypatch)
+    assert unfused
 
 
 def test_unfused_layer_scale_block_runs_in_bf16():

@@ -30,10 +30,11 @@ registry names) folds each conv -> BN pair into the conv on the fused path
 bridge, with that BN's eps; the BN stays in the model, neutral, and still
 runs its passes.
 
-GCViT's block path follows ``VIPTPU_NO_FUSED_BLOCK``, which the model reads
-at each forward: unset, the fused window block; set, the unfused block (LN,
-the window-attention kernel, Linears, MLP), the path the JAX package takes
-off the TPU. Every LN of both members runs the LN kernel on CUDA.
+GCViT's and ConvNeXt's block paths follow ``VIPTPU_NO_FUSED_BLOCK``, which
+the models read at each forward: unset, the fused blocks; set, the unfused
+blocks (GCViT: LN, the window-attention kernel, Linears, MLP; ConvNeXt: the
+depthwise kernel, LN, Linears), the paths the JAX package takes off the
+TPU. Every LN of both members runs the LN kernel on CUDA.
 ``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN``, the JAX package's TPU A/B
 switches for those two kernels, and its other TPU tuning switches (the
 ``VIPTPU_GCVIT_*`` and ``VIPTPU_DW_*`` family) choose among TPU kernels and

@@ -1,7 +1,6 @@
 """ResNet-RS (ensemble member ``ResNetRS50-200x200``).
 
-Counterpart of ``vip_cup_2022_tpu/models/resnet_rs.py``, NHWC throughout,
-inference only:
+Counterpart of ``vip_cup_2022_tpu/models/resnet_rs.py``, NHWC throughout:
 
 - ResNet-D stem: four 3 x 3 convs (32, 32, 64, 64 filters; the first at
   ``first_strides``, the last at stride 2), each with BN and ReLU;
@@ -9,9 +8,17 @@ inference only:
   filters), BN after each, the conv-style SE, then ReLU(y + shortcut); the
   first block of a stage projects its shortcut with a 1 x 1 conv, after a
   2 x 2 average pool when it strides (TF ``SAME``: at an odd input the last
-  window averages what is there);
-- head: global average pool in f32 -> f32 ``predictions`` Linear ->
-  activation. Dropout and stochastic depth are training-only and absent.
+  window averages what is there); the residual branch passes a DropPath
+  (``drop``) at ``drop_path_rate * (stage + 2) / 5``, the JAX package's
+  rate (0 in every registry entry);
+- head: global average pool in f32 -> dropout at ``drop_rate`` (0.25) ->
+  f32 ``predictions`` Linear -> activation.
+
+Training (``model.train()``): every BN normalises with the batch's
+statistics and moves its running statistics by the config's
+``bn_momentum``, 0.0 as in the JAX package, so after a step they are that
+step's batch statistics; DropPath and dropout draw as in
+:mod:`..ops.drop`. No kernel is on this model's training path.
 
 Every conv pads ``k // 2`` on each side (``Conv2DFixedPadding``), in the
 compute dtype, except the projection conv, which the JAX package builds
@@ -34,6 +41,7 @@ import torch.nn as nn
 
 from ..ops.act import apply_activation
 from ..ops.conv import Conv, Linear, lecun_normal_
+from ..ops.drop import DropPath, Dropout
 from ..ops.norms import BatchNorm
 from ..ops.pad import symmetric_padding
 from ..ops.pool import avg_pool_same
@@ -93,10 +101,10 @@ class SE(nn.Module):
 
 class BottleneckBlock(nn.Module):
     def __init__(self, cfg: ResNetRSConfig, cin: int, filters: int, strides: int,
-                 use_projection: bool):
+                 use_projection: bool, path_drop: float = 0.0):
         super().__init__()
         self.cfg, self.strides, self.use_projection = cfg, strides, use_projection
-        bn = lambda c: BatchNorm(c, cfg.bn_epsilon, cfg.dtype)  # noqa: E731
+        bn = lambda c: BatchNorm(c, cfg.bn_epsilon, cfg.dtype, cfg.bn_momentum)  # noqa: E731
         if use_projection:
             # built without a dtype in the JAX package: f32 compute
             self.projection_conv = fixed_padding_conv(cin, 4 * filters, 1,
@@ -110,6 +118,7 @@ class BottleneckBlock(nn.Module):
         self.batch_norm_3 = bn(4 * filters)
         if 0 < cfg.se_ratio < 1:
             self.se = SE(filters, cfg.se_ratio, cfg.dtype)
+        self.drop = DropPath(path_drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = self.cfg.activation
@@ -123,7 +132,7 @@ class BottleneckBlock(nn.Module):
         y = self.batch_norm_3(self.conv_3(y))
         if hasattr(self, "se"):
             y = self.se(y)
-        return apply_activation(y + shortcut, act)
+        return apply_activation(self.drop(y) + shortcut, act)
 
 
 class ResNetRS(nn.Module):
@@ -142,19 +151,23 @@ class ResNetRS(nn.Module):
         cin = cfg.in_channels
         for i, (f, s) in enumerate([(32, cfg.first_strides), (32, 1), (64, 1), (64, 2)]):
             self.add_module(f"stem_conv_{i + 1}", fixed_padding_conv(cin, f, 3, s, cfg.dtype))
-            self.add_module(f"stem_batch_norm_{i + 1}", BatchNorm(f, cfg.bn_epsilon, cfg.dtype))
+            self.add_module(f"stem_batch_norm_{i + 1}",
+                            BatchNorm(f, cfg.bn_epsilon, cfg.dtype, cfg.bn_momentum))
             cin = f
         self.block_names = []
-        for i, args in enumerate(BLOCK_ARGS[cfg.depth]):
+        stages = BLOCK_ARGS[cfg.depth]
+        for i, args in enumerate(stages):
             filters = args["input_filters"]
+            path_drop = cfg.drop_path_rate * float(i + 2) / (len(stages) + 1)
             for j in range(args["num_repeats"]):
                 name = f"c{i + 2}_block_{j}"
                 self.add_module(name, BottleneckBlock(
-                    cfg, cin, filters, (1 if i == 0 else 2) if j == 0 else 1, j == 0))
+                    cfg, cin, filters, (1 if i == 0 else 2) if j == 0 else 1, j == 0, path_drop))
                 self.block_names.append(name)
                 cin = 4 * filters
         self.num_features = cin
         if cfg.pool and cfg.nb_classes > 0:
+            self.drop = Dropout(cfg.drop_rate)
             self.predictions = Linear(cin, cfg.nb_classes, torch.float32)
 
     @torch.no_grad()
@@ -193,7 +206,7 @@ class ResNetRS(nn.Module):
             return x
         if cfg.nb_classes <= 0:
             return x.to(cfg.dtype)
-        return apply_activation(self.predictions(x), cfg.classifier_activation)
+        return apply_activation(self.predictions(self.drop(x)), cfg.classifier_activation)
 
 
 def _cfg(depth: int, name: str, **kw):

@@ -12,7 +12,9 @@ plain version on the CPU, the plain version's gradient backward.
 ``BatchNorm`` is ``norms.py::BatchNorm``: in eval mode the moving
 statistics normalise the channel axis in f32; in training mode the f32 batch
 mean and population variance over every axis but the last do, and the moving
-statistics move towards them (momentum 0.9).
+statistics move towards them by the layer's ``momentum``: 0.9, the JAX
+package's ``BATCH_NORM_DECAY``, unless the model passes its own (ResNet-RS
+passes its config's ``bn_momentum``, 0.0).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch.nn as nn
 
 from .kernels.layernorm import fused_layernorm
 
-MOMENTUM = 0.9  # of BatchNorm's running statistics
+BATCH_NORM_DECAY = 0.9  # BatchNorm's default momentum
 
 
 class LayerNorm(nn.Module):
@@ -43,12 +45,14 @@ class BatchNorm(nn.Module):
     ``weight`` / ``bias``; the statistics are the f32 buffers
     ``running_mean`` / ``running_var``, which the weight bridge fills from
     the Flax ``batch_stats`` ``moving_mean`` / ``moving_variance``, or in
-    training mode the batch's, after which ``running = 0.9 * running + 0.1 *
-    batch`` (the JAX package's ``BATCH_NORM_DECAY``)."""
+    training mode the batch's, after which ``running = momentum * running +
+    (1 - momentum) * batch``: at momentum 0 they are the last training
+    batch's."""
 
-    def __init__(self, channels: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
+    def __init__(self, channels: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
+                 momentum: float = BATCH_NORM_DECAY):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.dtype, self.momentum = eps, dtype, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -60,9 +64,10 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.ndim - 1))
             mean = xf.mean(dim=axes)
             var = xf.var(dim=axes, unbiased=False)
+            m = self.momentum
             with torch.no_grad():
-                self.running_mean.copy_(MOMENTUM * self.running_mean + (1.0 - MOMENTUM) * mean)
-                self.running_var.copy_(MOMENTUM * self.running_var + (1.0 - MOMENTUM) * var)
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
