@@ -250,6 +250,12 @@ sys.path.insert(0, REPO)
 
 import main_torch  # noqa: E402
 from vip_cup_2022_tpu_torch import quant  # noqa: E402
+from vip_cup_2022_tpu_torch.data import augment as AUG  # noqa: E402
+from vip_cup_2022_tpu_torch.data import randaugment as RA  # noqa: E402
+from vip_cup_2022_tpu_torch.data.tfds import init_dataset, post_process_batch  # noqa: E402
+from vip_cup_2022_tpu_torch.data.train_pipeline import (  # noqa: E402
+    EvalLoader, loaders_from_custom_json, recognition_dataset_from_custom_json)
+from vip_cup_2022_tpu_torch.eval import evaluation  # noqa: E402
 from vip_cup_2022_tpu_torch.infer import engine  # noqa: E402
 from vip_cup_2022_tpu_torch.models import create_model, transfer_weights  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
@@ -268,9 +274,11 @@ from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_
                                           exp_window_attention, int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms, device_ms  # noqa: E402
 from vip_cup_2022_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
+from vip_cup_2022_tpu_torch.train import history as train_history  # noqa: E402
 from vip_cup_2022_tpu_torch.train.losses import binary_cross_entropy_timm  # noqa: E402
 from vip_cup_2022_tpu_torch.train.sam import value_and_grad  # noqa: E402
 from vip_cup_2022_tpu_torch.utils.checkpoint import load_variables  # noqa: E402
+from vip_cup_2022_tpu_torch.weights.to_flax import torch_to_flax  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
 GCVIT_KERNELS = ("ln_qkv", "window_attention", "proj_scale_residual")
@@ -2307,6 +2315,292 @@ def phase_train_flip(card: str) -> None:
         raise AssertionError(f"train_flip's int8 arm launched no {PTQ}: {launches}")
 
 
+DATA_TRAIN, DATA_VAL = 192, 64  # JPEGs of the task, two classes
+DATA_SIDES = (160, 320)
+DATA_BATCH, DATA_EPOCHS, DATA_STEPS = 64, 2, 3
+DATA_SIZE = (224, 224)
+DATA_AUG_TOL = 1e-4  # of [0, 1]: the CPU tests' bound
+DATA_BOUNDARY_SHARE = 1e-3  # pixels an integer cast or a round may move
+# one fused GCViTTiny forward (an eval batch): the five block kernels at
+# every block, K9 at its stride-1 sites, K10 at its standalone LNs
+GCVIT_FUSED_FORWARD = {**{n: GCVIT_BLOCKS for n in GCVIT_KERNELS + MLP_KERNELS},
+                       DW: GCVIT_DW_SITES, LN: GCVIT_LNS}
+
+
+def device_ms_of(prof) -> float:
+    """The device time a CUDA-only profile recorded, in ms."""
+    return sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages()) / 1000
+
+
+def idle_share(device_ms: float, wall_ms: float) -> str:
+    if not device_ms:
+        return "not measured (no device time profiled)"
+    return f"{1 - device_ms / wall_ms:.1%} (device {device_ms:.1f} ms of {wall_ms:.1f} ms)"
+
+
+def write_task_dataset(root: str) -> str:
+    """``DATA_TRAIN`` + ``DATA_VAL`` JPEGs of ``tools/train_flip.py``'s
+    task (8 x 8 grey blocks and noise, the fakes with a faint 2 x 2
+    checkerboard), sides drawn in ``DATA_SIDES`` and never square, and
+    their custom JSON; returns the JSON's path."""
+    import cv2
+
+    from vip_cup_2022_tpu_torch.tools.train_flip import make_batch
+
+    gen = torch.Generator().manual_seed(11)
+    rng = np.random.RandomState(11)
+    items = {"train": [], "validation": [], "info": {"num_classes": 2}}
+    for split, n in (("train", DATA_TRAIN), ("validation", DATA_VAL)):
+        for i in range(n):
+            h, w = (int(v) for v in rng.randint(DATA_SIDES[0], DATA_SIDES[1], 2))
+            w += h == w
+            img, label = make_batch(gen, 1, (h, w), torch.device("cpu"))
+            rgb = (img[0] * 255.0).round().to(torch.uint8).numpy()
+            path = os.path.join(root, f"{split}_{i:03d}.jpg")
+            if not cv2.imwrite(path, np.ascontiguousarray(rgb[:, :, ::-1]),
+                               [cv2.IMWRITE_JPEG_QUALITY, 95]):
+                raise RuntimeError(f"cv2 could not write {path}")
+            items[split].append({"image": path, "label": int(label.item())})
+    path = os.path.join(root, "data.json")
+    with open(path, "w") as fh:
+        json.dump(items, fh)
+    return path
+
+
+def check_augment_ops(card: str, x_u8: np.ndarray) -> None:
+    """RandAugment, AutoAugment and the five device augment ops on one
+    loader batch on the card against the same ops on the CPU with the same
+    draws, each timed (CUDA events). The [0, 1] input is made once on the
+    CPU, so both sides start from the same values."""
+    x = torch.from_numpy(x_u8).float() / 255.0
+    xd = x.cuda()
+    b, h, w = x.shape[:3]
+    g = torch.Generator().manual_seed(5)
+    rand = RA.draw_rand_augment(g, b, (h, w), num_layers=2, magnitude=6.0, magnitude_std=0.5)
+    auto = RA.draw_auto_augment(g, b, "v0")
+    bgr, jitter, blur = AUG.draw_gate(g, b, 0.5), AUG.draw_jitter(g, b), AUG.draw_gate(g, b, 0.5)
+    affine, (jpeg_gate, jpeg_q) = AUG.draw_affine(g, b), AUG.draw_jpeg_quality(g, b)
+    ops = {  # name: (op, bound: "equal", "tol" or "boundary")
+        "rand_augment m6 x2": (lambda t: RA.rand_augment(t, rand), "boundary"),
+        "auto_augment v0": (lambda t: RA.auto_augment(t, auto, "v0"), "boundary"),
+        "random_bgr": (lambda t: AUG.random_bgr(t, bgr), "equal"),
+        "random_jitter": (lambda t: AUG.random_jitter(t, jitter), "tol"),
+        "blur": (lambda t: AUG.blur(t, blur), "tol"),
+        "shift_scale_shear_rotate": (lambda t: AUG.shift_scale_shear_rotate(t, affine), "tol"),
+        "random_jpeg_quality": (lambda t: AUG.random_jpeg_quality(t, jpeg_gate, jpeg_q),
+                                "boundary"),
+    }
+    for name, (op, bound) in ops.items():
+        got = op(xd).cpu()
+        want = op(x)
+        d = (got - want).abs()
+        off = int((d > DATA_AUG_TOL).sum())
+        ms = cuda_ms(lambda: op(xd), iters=5, warmup=1)
+        print(f"[train_data] {name} on {b} x {h} x {w}: {ms:.2f} ms a batch on the card; vs the "
+              f"CPU on the same draws max|d| {d.max().item():.3e}, {off} of {d.numel()} pixels "
+              f"beyond {DATA_AUG_TOL:g} [{card}]")
+        ok = {"equal": torch.equal(got, want), "tol": off == 0,
+              "boundary": off <= DATA_BOUNDARY_SHARE * d.numel()}[bound]
+        if not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} on the card disagrees with the CPU ({bound})")
+
+
+def phase_train_data(card: str) -> None:
+    """GCViTTiny@224 trained and evaluated from JPEGs on disk through the
+    port's data path (phase 10 of the docstring)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        path = write_task_dataset(root)
+        info = init_dataset(path, batch_size=DATA_BATCH, info_only=True)
+        train_fn, val_fn, *_ = init_dataset(path, input_shape=DATA_SIZE, batch_size=DATA_BATCH)
+        xv, yv = next(val_fn())
+        print(f"[train_data] {DATA_TRAIN} + {DATA_VAL} JPEGs and their JSON written in "
+              f"{time.perf_counter() - t0:.1f} s; init_dataset info (images, classes, steps, "
+              f"channels) {info}; its validation batch {xv.dtype} {tuple(xv.shape)}")
+        if info != (DATA_TRAIN, 2, DATA_TRAIN // DATA_BATCH, 3) or xv.shape != (
+                DATA_BATCH, *DATA_SIZE, 3) or yv.shape != (DATA_BATCH, 2):
+            raise AssertionError("init_dataset's JSON route gave another dataset")
+        train, val, classes = loaders_from_custom_json(
+            path, batch_size=DATA_BATCH, target_shape=DATA_SIZE, random_crop_min=0.08,
+            random_erasing_prob=0.25)
+        x_u8, _ = next(iter(train))
+        check_augment_ops(card, x_u8)
+
+        model, _ = create_model("GCViTTiny", input_size=DATA_SIZE, nb_classes=classes,
+                                classifier_activation=None, dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+        ckpt_dir = os.path.join(root, "ckpt")
+        cfg = TrainConfig(epochs=DATA_EPOCHS, steps_per_epoch=DATA_STEPS, lr_base=3e-4,
+                          lr_schedule="constant", optimizer="adamw", weight_decay=1e-4,
+                          loss="bce_timm", monitor="val_loss", ckpt_dir=ckpt_dir,
+                          basic_save_name="data", seed=0)
+        tr = Trainer(model.cuda(), cfg)
+        gen = torch.Generator().manual_seed(0)
+        ms = {"loader": [], "augment": [], "validation": [], "checkpoint": []}
+        losses, last = [], {}
+
+        def train_iter():
+            it = iter(train)
+            while True:
+                t = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                ms["loader"].append((time.perf_counter() - t) * 1000)
+                t = time.perf_counter()
+                last["batch"] = post_process_batch(
+                    batch[0], batch[1].argmax(-1), classes, train=True, rescale_mode="raw01",
+                    magnitude=6, num_layers=2, generator=gen, device="cuda")
+                ms["augment"].append((time.perf_counter() - t) * 1000)
+                yield last["batch"]
+
+        def val_iter():
+            t = time.perf_counter()
+            yield from val
+            ms["validation"].append((time.perf_counter() - t) * 1000)
+
+        train_step, save, evals = tr.train_step, tr._save, []
+
+        def counted_step(images, labels, lr):
+            losses.append(train_step(images, labels, lr))
+            return losses[-1]
+
+        def timed_save(tag):
+            t = time.perf_counter()
+            out = save(tag)
+            ms["checkpoint"].append((time.perf_counter() - t) * 1000)
+            return out
+
+        tr.train_step, tr._save = counted_step, timed_save
+        tr.eval_step = lambda *a, f=tr.eval_step: evals.append(1) or f(*a)
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        reset_launches()
+        # the clocks inside the profile: its start and its teardown are not
+        # the fit's
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            history = tr.fit(train_iter, val_iter, verbose=1)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1000
+        launches = all_launches()
+        steps, forwards = len(losses), len(evals)
+        want = {n: 0 for n in KERNELS}
+        for n, c in TRAIN_MEMBERS["GCViTTiny"][1].items():
+            want[n] += steps * c
+        for n, c in GCVIT_FUSED_FORWARD.items():
+            want[n] += forwards * c
+        print(f"[train_data] launches over the fit ({steps} steps, {forwards} validation "
+              f"batches): { {n: c for n, c in launches.items() if c} }")
+        val_batches = -(-DATA_VAL // DATA_BATCH)
+        if steps != DATA_EPOCHS * DATA_STEPS or forwards != DATA_EPOCHS * val_batches:
+            raise AssertionError(f"the fit ran {steps} steps and {forwards} validation batches")
+        bad = {n: (launches[n], want[n]) for n in KERNELS if launches[n] != want[n]}
+        if bad:
+            raise AssertionError(f"the fit from disk launched (got, expected) {bad}")
+        step_losses = [v.item() for v in losses]
+        latest = os.path.join(ckpt_dir, "data_latest.msgpack")
+        if (not all(np.isfinite(step_losses)) or len(history["loss"]) != DATA_EPOCHS
+                or not os.path.isfile(latest)):
+            raise AssertionError(f"the fit from disk gave losses {step_losses}, history "
+                                 f"{history}, latest checkpoint {os.path.isfile(latest)}")
+        fit_device = device_ms_of(prof)
+
+        # steady state: three more batches from disk through the same step
+        # (no validation, no checkpoint), profiled alone, each part's host
+        # time apart
+        parts = {"loader": [], "augment": [], "step": []}
+        loader_it = iter(train)
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DATA_STEPS):
+                t = [time.perf_counter()]
+                images, onehot = next(loader_it)
+                t.append(time.perf_counter())
+                x, y = post_process_batch(images, onehot.argmax(-1), classes, train=True,
+                                          rescale_mode="raw01", magnitude=6, num_layers=2,
+                                          generator=gen, device="cuda")
+                t.append(time.perf_counter())
+                tr.train_step(x, y, cfg.lr_base)
+                t.append(time.perf_counter())
+                for part, a, b in zip(parts, t, t[1:]):
+                    parts[part].append((b - a) * 1000)
+            t = time.perf_counter()
+            torch.cuda.synchronize()
+            drain_ms = (time.perf_counter() - t) * 1000
+            steady_ms = (time.perf_counter() - t0) * 1000 / DATA_STEPS
+        steady_device = device_ms_of(prof)
+        x_mem, y_mem = last["batch"]
+        in_memory = cuda_ms(lambda: tr.train_step(x_mem, y_mem, 0.0), iters=3, warmup=1)
+        med = lambda v: float(np.median(v))  # noqa: E731
+        print(f"[train_data] GCViTTiny@224 Trainer.fit from disk, {DATA_EPOCHS} x {DATA_STEPS} "
+              f"steps of {DATA_BATCH}: losses {', '.join(f'{v:.4f}' for v in step_losses)}; "
+              f"history {history}; TrainLoader host ms a batch {med(ms['loader']):.1f} (median "
+              f"of {len(ms['loader'])}), post_process_batch (RandAugment on the card) host ms "
+              f"{med(ms['augment']):.1f}; fit wall {fit_ms:.1f} ms (the first step's warm-up "
+              f"in it), of it validation {sum(ms['validation']):.1f} and checkpoints "
+              f"{sum(ms['checkpoint']):.1f}; the card idle {idle_share(fit_device, fit_ms)} "
+              f"over the fit [{card}]")
+        split = ", ".join(f"{part} {np.mean(v):.1f}" for part, v in parts.items())
+        print(f"[train_data] steady state, {DATA_STEPS} more batches from disk: "
+              f"{steady_ms:.1f} ms a step ({DATA_BATCH * 1000 / steady_ms:.1f} img/s; host ms "
+              f"a step: {split}, then {drain_ms:.1f} waiting for the card), the card idle "
+              f"{idle_share(steady_device, steady_ms * DATA_STEPS)}; the same step on a batch "
+              f"already on the card {in_memory:.1f} ms ({DATA_BATCH * 1000 / in_memory:.1f} "
+              f"img/s) [{card}]")
+
+        val_paths, val_labels = recognition_dataset_from_custom_json(path)["validation"]
+        outs = []
+        hook = tr.model.register_forward_hook(lambda m, i, o: outs.append(o.float()))
+        reset_launches()
+        t0 = time.perf_counter()
+        result = evaluation(tr.model, val_paths, val_labels, classes, batch_size=DATA_BATCH,
+                            target_shape=DATA_SIZE)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        hook.remove()
+        launches = all_launches()
+        ref, _ = create_model("GCViTTiny", input_size=DATA_SIZE, nb_classes=classes,
+                              classifier_activation=None, dtype=torch.float32)
+        transfer_weights(torch_to_flax(tr.model), ref, strict=True)
+        ref = ref.cuda().eval()
+        loader = EvalLoader(val_paths, val_labels, classes, DATA_BATCH, DATA_SIZE)
+        with torch.no_grad(), plain_kernels():
+            want = torch.cat([ref(torch.from_numpy(xb).cuda().float() / 255.0) for xb, _ in loader])
+        got = torch.cat(outs)
+        r = rel_err(got, want)
+        print(f"[train_data] evaluation on the {DATA_VAL} validation JPEGs (fused path): "
+              f"top-1 {result['top1']:.4f}, top-5 {result['top5']:.4f}, n {result['n']} in "
+              f"{eval_s:.2f} s; its logits vs the same weights in f32 under plain_kernels(): "
+              f"max|d|/max|ref| = {r:.3e} (bound {MODEL_BOUND:g}); launches "
+              f"{ {n: c for n, c in launches.items() if c} } [{card}]")
+        if (result["n"] != DATA_VAL or not r <= MODEL_BOUND or not torch.isfinite(got).all()
+                or any(launches[n] != val_batches * c for n, c in GCVIT_FUSED_FORWARD.items())):
+            raise AssertionError("evaluation on the card disagrees with the plain f32 path or "
+                                 "did not run the fused kernels")
+
+        combined = train_history.combine_hist_into_one(
+            [os.path.join(ckpt_dir, "data_hist.json")])
+        per_step = train_history.combine_hist_into_one(
+            [{"loss": step_losses[:DATA_STEPS]}, {"loss": step_losses[DATA_STEPS:]}])["loss"]
+        fitted = train_history.curve_fit(per_step, target_len=3, skip=1)
+        print(f"[train_data] combine_hist_into_one of the history file: {combined}; curve_fit "
+              f"of the {len(per_step)} step losses, 3 ahead: "
+              f"{', '.join(f'{v:.4f}' for v in fitted)}")
+        if combined != history or len(fitted) != len(per_step) + 3 or not all(
+                np.isfinite(fitted)):
+            raise AssertionError("the history tools gave another history")
+        train.close()
+        val.close()
+    print(f"[train_data] phase wall time {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -2344,6 +2638,7 @@ def main(argv) -> None:
     for name in TRAIN_MEMBERS:
         phase_train(card, profile, name)
     phase_train_flip(card)
+    phase_train_data(card)
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],

@@ -2,17 +2,25 @@
 
 ``eval.metrics`` and ``eval.harness`` against the JAX package's functions on
 the same arrays and CSVs (every ``pred_format``, ``parity_diff`` on arrays
-and on CSVs); the trainer's on-device balanced accuracy against
-``eval.metrics``; and ``tools/train_flip.py --cpu`` and
+and on CSVs); ``evaluation`` (top-1 / top-5 over an image list) against the
+JAX function on ``tests/test_torch_train_fit.py``'s tiny model with carried
+weights: the same accuracies, probabilities within 1e-4; the trainer's
+on-device balanced accuracy against ``eval.metrics``; and
+``tools/train_flip.py --cpu`` and
 ``tools/train_bench.py --cpu`` at a narrowed size, whose JSON carries the
 JAX tools' keys."""
 import json
 
+import cv2
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+from test_torch_train_fit import JaxTiny, _port
+from vip_cup_2022_tpu.data.train_pipeline import EvalLoader as JaxEvalLoader
 from vip_cup_2022_tpu.eval import harness as jax_harness
 from vip_cup_2022_tpu.eval import metrics as jax_metrics
 from vip_cup_2022_tpu_torch.eval import harness, metrics
@@ -86,6 +94,33 @@ def test_parity_diff_equals_jax(csvs):
     x = np.random.RandomState(5).rand(20)
     y = x + np.random.RandomState(6).normal(0, 1e-4, 20)
     assert harness.parity_diff(x, y, atol=5e-5) == jax_harness.parity_diff(x, y, atol=5e-5)
+
+
+def test_evaluation_matches_jax(tmp_path):
+    """Seven JPEGs of three classes at batch 3 (a short last batch), the
+    central crop at 0.9: top-1, top-5 and n as JAX's, and the logits the
+    model gave within 1e-4 of JAX's forward on JAX's loader."""
+    rng = np.random.RandomState(7)
+    paths, labels = [], []
+    for i in range(7):
+        h, w = rng.randint(36, 60, 2)
+        paths.append(str(tmp_path / f"e{i}.jpg"))
+        cv2.imwrite(paths[-1], rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+        labels.append(int(rng.randint(0, 3)))
+    module = JaxTiny()
+    variables = jax.tree_util.tree_map(
+        np.asarray, dict(module.init(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))))
+    kw = dict(batch_size=3, target_shape=(32, 32), central_crop=0.9)
+    want = jax_harness.evaluation(module, variables, paths, labels, 3, **kw)
+    model = _port(variables)
+    outputs = []
+    model.register_forward_hook(lambda m, i, o: outputs.append(o.detach().numpy()))
+    got = harness.evaluation(model, paths, labels, 3, **kw)
+    assert got == want and got["n"] == 7 and 0 < got["top1"] < 1
+    fwd = jax.jit(lambda v, x: module.apply(v, x.astype(jnp.float32) / 255.0))
+    loader = JaxEvalLoader(paths, labels, 3, 3, (32, 32), central_crop=0.9)
+    ref = np.concatenate([np.asarray(fwd(variables, x)) for x, _ in loader])
+    np.testing.assert_allclose(np.concatenate(outputs), ref, rtol=0, atol=1e-4)
 
 
 # the last line of the JAX tools' output

@@ -47,5 +47,9 @@ class ImageDecoder:
             return [self._pool.submit(decode_image, p) for p in paths]
         return [self._pool.submit(lambda p=p: postprocess(decode_image(p))) for p in paths]
 
+    def map(self, fn, *iterables) -> list:
+        """``fn`` over the items on the pool, the results in order."""
+        return list(self._pool.map(fn, *iterables))
+
     def close(self):
         self._pool.shutdown(wait=False)

@@ -1,6 +1,8 @@
-"""The CSV harness (counterpart of ``vip_cup_2022_tpu/eval/harness.py``):
+"""Evaluation harnesses (counterpart of ``vip_cup_2022_tpu/eval/harness.py``):
 :func:`evaluate_csv` scores a prediction CSV against a labeled input CSV,
-:func:`parity_diff` compares two prediction CSVs or arrays."""
+:func:`parity_diff` compares two prediction CSVs or arrays, and
+:func:`evaluation` takes the top-1 / top-5 accuracy of a model over an
+image list through the central-crop eval loader."""
 from __future__ import annotations
 
 import os
@@ -9,7 +11,7 @@ from typing import Dict, Optional
 import numpy as np
 import pandas as pd
 
-from .metrics import balanced_accuracy_score
+from .metrics import balanced_accuracy_score, top_k_accuracy
 
 
 def evaluate_csv(input_csv: str, label_column: str = "label", pred_csv: Optional[str] = None,
@@ -53,3 +55,35 @@ def parity_diff(ours, reference, atol: float = 1e-4) -> Dict[str, float]:
             "mean_abs_diff": float(diff.mean()),
             "n_exceed_atol": int((diff > atol).sum()),
             "n": int(diff.size)}
+
+
+def evaluation(model, paths, labels, nb_classes: int, batch_size: int = 64,
+               target_shape=(224, 224), central_crop: float = 0.95,
+               resize_method: str = "bilinear") -> Dict[str, float]:
+    """Top-1 and top-5 accuracy of ``model`` (a port module; its weights
+    carry what the JAX function's ``variables`` do) over ``paths`` with
+    class ids ``labels``: an ``EvalLoader`` (central crop, resize), the
+    forward in eval mode without gradients on the model's device, on the
+    uint8 batch / 255."""
+    import torch
+
+    from ..data.train_pipeline import EvalLoader
+
+    loader = EvalLoader(paths, labels, nb_classes, batch_size, target_shape,
+                        central_crop=central_crop, resize_method=resize_method)
+    device = next(model.parameters()).device
+    model.eval()
+    probs, trues = [], []
+    try:
+        with torch.no_grad():
+            for images, onehot in loader:
+                x = torch.from_numpy(images).to(device).float() / 255.0
+                probs.append(model(x).float().cpu().numpy())
+                trues.append(onehot.argmax(-1))
+    finally:
+        loader.close()
+    probs = np.concatenate(probs)
+    trues = np.concatenate(trues)
+    return {"top1": float(np.mean(probs.argmax(-1) == trues)),
+            "top5": top_k_accuracy(trues, probs, k=5),
+            "n": int(len(trues))}
