@@ -164,41 +164,54 @@ each printing its results on earlier lines, any failure exiting non-zero:
    Each comparison prints its max|d| and the decisions it flips at 0.487,
    each run its img/s, and the sequential run each member's;
 9. train (``phase_train``, once a member): full-width GCViTTiny@224
-   (``_model``'s seeded weights), convnext_tiny_in22k@200 (``_model``'s)
-   and ResNetRS50@200 (the registry's seeded init, the scale of each
-   residual branch's last BN ~ U(0.1, 0.3)), one output, no activation,
-   bf16 compute, f32 parameters, on the path training takes: GCViT's and
-   ConvNeXt's unfused blocks, ResNetRS50's BNs in batch statistics. One
-   step at drop rates 0 on one seeded batch of 64 against the same step of
-   the f32 model under ``plain_kernels()``: the loss within 2e-2
-   (relative), the gradient's global norm within 5e-2 of the f32 one's,
-   the cosine of the flattened gradients >= 0.99 and the worst tensor's
-   >= 0.9 (bf16 rounds each activation to 2^-9 relative; through 31 blocks
-   forward and back the logits move by up to 5e-2 of max|ref| (phase 6),
-   and a gradient error of that size is a cosine of 0.9988, of 45 % still
-   0.9); ResNetRS50's undamped draw is compared first and printed only (a
-   BN network at full branch scale in training amplifies the rounding: a
-   cosine of 0.61 on the card); the step's launches exactly GCViT's K8 31,
-   K9 11 and K10 71, ConvNeXt's K9 18 and K10 23, none for ResNetRS50
-   (forward only: each backward is the plain version's gradient) and none
-   of any other kernel; the forward, the backward and the optimizer's
-   share of a step timed, a profile of one step printed. Then
-   ``Trainer.fit`` takes eight AdamW steps (lr 3e-4, weight decay 1e-4,
-   the ``tools/train_flip.py`` setting) on a repeated batch from the
-   registry's seeded init and drop rates (the JAX train tools' start:
-   GCViT drop_path 0.2, ConvNeXt 0.1, ResNetRS50's head dropout 0.25; for
-   GCViT ``_model``'s rel-pos tables ~ U(-1, 1) and LN scales ~ U(0.5,
-   1.5) make the loss at that lr spike and end above its start): each loss
-   finite, GCViT's last below its first; the median step ms, img/s and
-   peak memory printed; it evaluates (GCViT and ConvNeXt on the fused
-   path; the eval loss before and after printed) and checkpoints; a fresh
-   trainer resumes from the checkpoint to the same parameters, running
-   statistics and step; and a fresh bf16 model loaded from the checkpoint
-   serves on the fused path within 5e-2 of max|ref| of the trained model's
-   own eval logits. Last, a short run of the port's ``tools/train_flip.py``
-   (``--epochs 1 --steps 40 --n-eval 512``: the three members trained on
-   its checkerboard task, then the f32, bf16 and int8 arms on held-out
-   images), its JSON printed, each number finite.
+   (``_model``'s seeded weights), convnext_tiny_in22k@200 (``_model``'s),
+   ResNetRS50@200, ResNest50@200, EfficientNetV2T@200, EfficientNetV1B4@224
+   and ECA_NFNetL0@200 (the registry's seeded init; in the BN members the
+   scale of each residual branch's last BN ~ U(0.1, 0.3): ResNetRS50's
+   ``batch_norm_3``, ResNest50's zero-gamma ``3_bn``, the EfficientNets'
+   ``MB_pw_bn`` / ``fu_bn`` where the block takes the shortcut), one
+   output, no activation, bf16 compute, f32 parameters, on the path
+   training takes: GCViT's and ConvNeXt's unfused blocks, the BNs in batch
+   statistics, K9 under autograd at the EfficientNets' stride-1 depthwise
+   convs, ECA_NFNetL0's standardized weights in the graph. One step at drop
+   rates 0 on one seeded batch of 64 (noise images; for the last four
+   members each with a colour cast, ``CAST_MEMBERS``) against the same step
+   of the f32 model under ``plain_kernels()``: the loss within 2e-2
+   (relative), the gradient's global norm within 5e-2 of the f32 one's, the
+   cosine of the flattened gradients >= 0.99 and the worst tensor's >= 0.9
+   over the tensors whose plain f32 gradient is above the kernel path's
+   rounding in the tensors whose true gradient is 0 (bf16 rounds each
+   activation to 2^-9 relative; through 31 blocks forward and back the
+   logits move by up to 5e-2 of max|ref| (phase 6), and a gradient error of
+   that size is a cosine of 0.9988, of 45 % still 0.9); each BN member's
+   undamped draw is compared first and printed only (a BN network at full
+   branch scale in training amplifies the rounding: a cosine of 0.61 on
+   ResNetRS50); the step's launches exactly GCViT's K8 31, K9 11 and K10
+   71, ConvNeXt's K9 18 and K10 23, V2T's K9 27, V1B4's K9 28, none for
+   ResNetRS50, ResNest50 and ECA_NFNetL0 (forward only: each backward is
+   the plain version's gradient) and none of any other kernel; the forward,
+   the backward and the optimizer's share of a step timed, a profile of one
+   step printed, then one step by host clock beside its device time (a
+   CUDA-only profile) and, where it runs K9, K9's plain backward at the
+   step's sites (device time and its share). Then ``Trainer.fit`` takes
+   eight AdamW steps (lr 3e-4, weight decay 1e-4, the
+   ``tools/train_flip.py`` setting) on a repeated batch from the registry's
+   seeded init and drop rates (the JAX train tools' start: GCViT drop_path
+   0.2, ConvNeXt 0.1, ResNetRS50's head dropout 0.25; V2T's dropout 0.2,
+   V1B4's drop-connect 0.2 and dropout 0.4, ECA_NFNetL0's dropout 0.2; for
+   GCViT ``_model``'s rel-pos tables ~ U(-1, 1) and LN scales ~ U(0.5, 1.5)
+   make the loss at that lr spike and end above its start): each loss
+   finite, GCViT's last below its first; the median step ms, img/s and peak
+   memory printed; it evaluates (GCViT and ConvNeXt on the fused path; the
+   eval loss before and after printed) and checkpoints; a fresh trainer
+   resumes from the checkpoint to the same parameters, running statistics
+   and step; and a fresh bf16 model loaded from the checkpoint serves
+   within 5e-2 of max|ref| of the trained model's own eval logits, the two
+   forwards launching exactly GCViT's and ConvNeXt's fused-block kernels
+   and the EfficientNets' K9 twice a site. Last, a short run of the port's
+   ``tools/train_flip.py`` (``--epochs 1 --steps 40 --n-eval 512``: the
+   three members trained on its checkerboard task, then the f32, bf16 and
+   int8 arms on held-out images), its JSON printed, each number finite.
 
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
@@ -258,6 +271,7 @@ from vip_cup_2022_tpu_torch.data.train_pipeline import (  # noqa: E402
 from vip_cup_2022_tpu_torch.eval import evaluation  # noqa: E402
 from vip_cup_2022_tpu_torch.infer import engine  # noqa: E402
 from vip_cup_2022_tpu_torch.models import create_model, transfer_weights  # noqa: E402
+from vip_cup_2022_tpu_torch.models.registry import model_entry  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K  # noqa: E402
@@ -2053,49 +2067,93 @@ def phase_serving(card: str, stats: dict, dw_sites: list) -> None:
 TRAIN_BATCH, TRAIN_STEPS = 64, 8
 # the members trained on the card, at their manifest sizes, and each one's
 # launches in one training step: each forward's (the backwards are plain);
-# ResNetRS50's step runs no kernel (cuDNN convs, BN in batch statistics)
+# the EfficientNets run K9 at their stride-1 depthwise sites; ResNetRS50's,
+# ResNest50's and ECA_NFNetL0's steps run no kernel (cuDNN convs, BN in
+# batch statistics, the standardized weights in the graph)
 TRAIN_MEMBERS = {
     "GCViTTiny": ((224, 224), {ATTN: GCVIT_BLOCKS, DW: GCVIT_DW_SITES,
                                LN: GCVIT_LNS + 2 * GCVIT_BLOCKS}),
     "convnext_tiny_in22k": ((200, 200), {DW: CONVNEXT_BLOCKS, LN: CONVNEXT_LNS + CONVNEXT_BLOCKS}),
     "ResNetRS50": ((200, 200), {}),
+    "ResNest50": ((200, 200), {}),
+    "EfficientNetV2T": ((200, 200), {DW: DW_SITES["EfficientNetV2T"]}),
+    "EfficientNetV1B4": ((224, 224), {DW: DW_SITES["EfficientNetV1B4"]}),
+    "ECA_NFNetL0": ((200, 200), {}),
 }
+# each member's launches in one eval forward of its served checkpoint
+SERVED_LAUNCHES = {"GCViTTiny": {n: GCVIT_BLOCKS for n in GCVIT_KERNELS},
+                   "convnext_tiny_in22k": {n: CONVNEXT_BLOCKS for n in CONVNEXT_KERNELS},
+                   **{n: {DW: DW_SITES[n]} for n in EFFNETS}}
 # members whose eight fit steps must end below their first loss (each run
 # so far fell; the others' falls are printed)
 FALLS_IN_FIT = ("GCViTTiny",)
+# BN members: the registry's draw is compared first and printed only, then
+# the damped one is held to the bounds (ECA_NFNetL0 has no BN: its registry
+# draw is held to them)
+DAMPED_MEMBERS = ("ResNetRS50", "ResNest50", "EfficientNetV2T", "EfficientNetV1B4")
+# members trained on noise images with a colour cast each (U(0, 0.3) plus
+# U(0, 0.7) per image and channel): images of one distribution pool to
+# nearly one vector through random weights, and a BN over pooled features in
+# batch statistics (ResNest50's sa_2_bn) divides their bf16 rounding by the
+# batch's spread (ResNest50's damped draw: a cosine of 0.9458 on plain
+# noise, 0.9969 with the casts). The others keep plain U(0, 1) noise, on
+# which GCViT's eight fit steps fall (on the cast batch they did not).
+CAST_MEMBERS = ("ResNest50", "EfficientNetV2T", "EfficientNetV1B4", "ECA_NFNetL0")
 # the kernel step against the plain f32 step (phase 9 of the docstring)
 TRAIN_LOSS_BOUND, TRAIN_NORM_BOUND = 2e-2, 5e-2
 TRAIN_COS_BOUND, TRAIN_TENSOR_COS_BOUND = 0.99, 0.9
+ZERO_GRADIENT = 1e-6  # of the plain f32 gradient's global norm: a tensor's true gradient is 0
 # the short tools/train_flip.py run of phase 9 (the full run is the tool's defaults)
 TRAIN_FLIP_ARGS = ["--members", "3", "--epochs", "1", "--steps", "40", "--n-eval", "512"]
+
+
+def branch_end_bns(model: torch.nn.Module) -> list:
+    """The module names of the last BN of each residual branch: ResNetRS50's
+    ``batch_norm_3``, ResNest50's zero-gamma ``3_bn``, the EfficientNets'
+    ``MB_pw_bn`` / ``fu_bn`` in the blocks that take the shortcut; none in
+    an NFNet (no BN)."""
+    if hasattr(model, "block_names"):  # ResNet-RS
+        return [f"{b}.batch_norm_3" for b in model.block_names]
+    blocks = getattr(model, "blocks", [])
+    if blocks and hasattr(blocks[0], "shortcut"):  # EfficientNet
+        return [s.name + ("fu_bn" if s.fused and not s.expand else "MB_pw_bn")
+                for s in blocks if s.shortcut]
+    if blocks and hasattr(blocks[0], "radix"):  # ResNest
+        return [s.name + "3_bn" for s in blocks]
+    return []
 
 
 def _train_model(name: str, dtype: torch.dtype, damped: bool = True) -> torch.nn.Module:
     """A full-width member to compare one step on, one output, no
     activation, drop rates 0, the parameters in f32 whatever the compute
-    dtype: ConvNeXt and GCViT with ``_model``'s seeded weights, ResNetRS50
-    with the registry's seeded init (its BNs normalise with the batch's
+    dtype: ConvNeXt and GCViT with ``_model``'s seeded weights, the others
+    with the registry's seeded init (the BNs normalise with the batch's
     statistics in training) and, ``damped``, the scale of each residual
-    branch's last BN ~ U(0.1, 0.3), as ``_resnet_state`` damps it."""
+    branch's last BN (:func:`branch_end_bns`) ~ U(0.1, 0.3), as
+    ``_resnet_state`` damps it (ResNest50's, 0 at init, so that the
+    gradient reaches the branches)."""
     if name in MEMBERS:
         return _model(name, dtype, nb_classes=1, drop_path_rate=0.0, param_dtype=torch.float32)
+    zero = {f: 0.0 for f in ("drop_rate", "drop_connect_rate", "drop_path_rate")
+            if hasattr(model_entry(name)[1], f)}
     model, _ = create_model(name, input_size=TRAIN_MEMBERS[name][0], nb_classes=1,
-                            classifier_activation=None, dtype=dtype, seed=0, drop_rate=0.0,
-                            param_dtype=torch.float32)
+                            classifier_activation=None, dtype=dtype, seed=0,
+                            param_dtype=torch.float32, **zero)
     if damped:
         gen = torch.Generator().manual_seed(1)
         with torch.no_grad():
-            for pname, p in model.named_parameters():
-                if pname.endswith("batch_norm_3.weight"):
-                    p.copy_(torch.rand(p.shape, generator=gen) * 0.2 + 0.1)
+            for bn in branch_end_bns(model):
+                p = model.get_submodule(bn).weight
+                p.copy_(torch.rand(p.shape, generator=gen) * 0.2 + 0.1)
     return model.cuda()
 
 
 def _trainable_model(name: str) -> torch.nn.Module:
     """A full-width member with the registry's seeded init and drop rates
     (the JAX train tools start from it: GCViT drop_path 0.2, ConvNeXt 0.1,
-    ResNetRS50 head dropout 0.25), one output, no activation, bf16 compute,
-    f32 parameters."""
+    ResNetRS50 head dropout 0.25; V2T head dropout 0.2, V1B4 drop-connect
+    0.2 and dropout 0.4, ECA_NFNetL0 dropout 0.2, ResNest50 none), one
+    output, no activation, bf16 compute, f32 parameters."""
     model, _ = create_model(name, input_size=TRAIN_MEMBERS[name][0], nb_classes=1,
                             classifier_activation=None, dtype=torch.bfloat16,
                             param_dtype=torch.float32)
@@ -2112,8 +2170,9 @@ def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
 def compare_train_step(card: str, name: str, x: torch.Tensor, y: torch.Tensor, tr: Trainer,
                        damped: bool = True) -> None:
     """The trainer's kernel step (forward and backward) against the plain
-    f32 step on the same batch (held to the bounds unless it is ResNetRS50's
-    undamped draw, which is printed only), and the kernel step's launches."""
+    f32 step on the same batch (held to the bounds unless it is a BN
+    member's undamped draw, which is printed only), and the kernel step's
+    launches."""
     model = tr.model
     loss_fn = lambda: tr._loss(y, model(x).float())  # noqa: E731
     model.train()
@@ -2140,19 +2199,43 @@ def compare_train_step(card: str, name: str, x: torch.Tensor, y: torch.Tensor, t
     loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
     norm_ratio = (flat.norm() / ref_flat.norm()).item()
     cos = _cos(flat, ref_flat)
-    per = {k: _cos(grads[k].flatten(), ref_grads[k].flatten()) for k in grads}
+    # a tensor whose true gradient is 0 (a bias that a BN in batch
+    # statistics subtracts again: ResNest50's sa_2_conv.bias, the BN shift
+    # before a 1 x 1 conv and BN) has rounding for a gradient on both
+    # paths; the largest the kernel path leaves in those is its rounding
+    # floor, and a tensor whose plain f32 gradient is below it (V1B4's
+    # stack_0_block0_MB_pw_bn.bias, which reaches the loss only through
+    # the next depthwise conv's border) cannot be judged by its own cosine.
+    # Both kinds stay in the global cosine and norm.
+    norms = {k: ref_grads[k].norm() / ref_flat.norm() for k in grads}
+    zero = [k for k in grads if norms[k] <= ZERO_GRADIENT]
+    floor = max([(grads[k].norm() / ref_flat.norm()).item() for k in zero], default=0.0)
+    per = {k: _cos(grads[k].flatten(), ref_grads[k].flatten()) for k in grads
+           if norms[k] > max(ZERO_GRADIENT, floor)}
+    below = [k for k in grads if k not in per and k not in zero]
     worst = min(per, key=per.get)
+    zero_note = ""
+    if zero:
+        zero_note = (f"; {len(zero)} tensors with a zero true gradient (plain f32 at most "
+                     f"{ZERO_GRADIENT:g} of the norm), the kernel path's rounding in them up to "
+                     f"{floor:.2e} of it")
+    if below:
+        low = min(below, key=lambda k: _cos(grads[k].flatten(), ref_grads[k].flatten()))
+        zero_note += (f"; {len(below)} tensors below that floor left out of the per-tensor "
+                      f"cosine (worst {low}: {norms[low].item():.2e} of the norm, cosine "
+                      f"{_cos(grads[low].flatten(), ref_grads[low].flatten()):.4f}, not gated)")
     table_norms = [grads[k].norm().item() for k in grads if k.endswith("bias_table")]
     tables = (f"; rel-pos tables' gradient norms {min(table_norms):.3e} .. "
               f"{max(table_norms):.3e}" if table_norms else "")
-    draw = "" if name in MEMBERS else (" damped" if damped else " undamped (printed only)")
+    draw = ("" if name not in DAMPED_MEMBERS else
+            " damped" if damped else " undamped (printed only)")
     print(f"[train] {name}{draw}: one step, batch {TRAIN_BATCH}, drop rates 0, kernel path (bf16 "
           f"compute, f32 parameters) vs the plain f32 path: loss {loss.item():.6f} vs "
           f"{ref_loss.item():.6f} (rel {loss_rel:.3e}, bound {TRAIN_LOSS_BOUND:g}); gradient "
           f"global norm {flat.norm().item():.4e} vs {ref_flat.norm().item():.4e} (ratio "
           f"{norm_ratio:.4f}, bound 1 +- {TRAIN_NORM_BOUND:g}); cosine {cos:.6f} (bound "
           f"{TRAIN_COS_BOUND:g}); worst tensor {worst} cosine {per[worst]:.4f} (bound "
-          f"{TRAIN_TENSOR_COS_BOUND:g}) of {len(per)}{tables} [{card}]")
+          f"{TRAIN_TENSOR_COS_BOUND:g}) of {len(per)}{zero_note}{tables} [{card}]")
     if not damped:
         return
     if not (loss_rel <= TRAIN_LOSS_BOUND and abs(norm_ratio - 1) <= TRAIN_NORM_BOUND
@@ -2189,9 +2272,51 @@ def time_train_step(card: str, name: str, x: torch.Tensor, y: torch.Tensor, tr: 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         tr.train_step(x, y, 0.0)
         torch.cuda.synchronize()
-    tr.opt_state = state
     print(f"[train] {name}: batch-{TRAIN_BATCH} training step profile (device time)")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40 if profile else 20))
+    sites = []
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof, recording_depthwise(sites):
+        t0 = time.perf_counter()
+        tr.train_step(x, y, 0.0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    tr.opt_state = state
+    dev = device_ms_of(prof)
+    k9 = ""
+    if sites:
+        k9_dev, k9_ms = depthwise_backward_ms(sites, TRAIN_BATCH)
+        k9 = (f"; K9's plain backward (depthwise_conv_nhwc_plain_grad) at its {len(sites)} "
+              f"sites: {k9_dev:.2f} device ms ({k9_dev / dev:.1%} of the step's device time), "
+              f"{k9_ms:.2f} ms by events")
+    print(f"[train] {name}: one batch-{TRAIN_BATCH} step: {wall:.2f} ms by host clock, device "
+          f"{dev:.2f} ms (CUDA-only profile; idle {idle_share(dev, wall)}){k9} [{card}]")
+
+
+def depthwise_backward_ms(sites: list, batch: int) -> tuple:
+    """(device ms by a CUDA-only profile, ms by events) of K9's plain
+    backward, ``depthwise_conv_nhwc_plain_grad``, once at each recorded
+    site (input shape without the batch, k, padding) on bf16 inputs, taps
+    and output gradient at ``batch``."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(  # noqa: E731
+        torch.bfloat16)
+    args = []
+    for (h, w, c), k, pad in sites:
+        (pt, pb), (pl, pr) = pad
+        ho, wo = h + pt + pb - k + 1, w + pl + pr - k + 1
+        args.append((rand(batch, h, w, c), rand(k, k, c), rand(batch, ho, wo, c), pad))
+
+    def run():
+        for xs, kern, dy, pad in args:
+            D.depthwise_conv_nhwc_plain_grad(xs, kern, dy, padding=pad)
+
+    ms = cuda_ms(run, iters=3, warmup=1)
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return device_ms_of(prof), ms
 
 
 def phase_train(card: str, profile: bool, name: str) -> None:
@@ -2203,14 +2328,18 @@ def phase_train(card: str, profile: bool, name: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     size, _ = TRAIN_MEMBERS[name]
     gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.rand((TRAIN_BATCH, *size, 3), generator=gen, device="cuda")
+    if name in CAST_MEMBERS:
+        cast = torch.rand((TRAIN_BATCH, 1, 1, 3), generator=gen, device="cuda") * 0.7
+        x = torch.rand((TRAIN_BATCH, *size, 3), generator=gen, device="cuda") * 0.3 + cast
+    else:
+        x = torch.rand((TRAIN_BATCH, *size, 3), generator=gen, device="cuda")
     y = (torch.rand((TRAIN_BATCH, 1), generator=gen, device="cuda") > 0.5).float()
     with tempfile.TemporaryDirectory() as ckpt_dir:
         cfg = TrainConfig(epochs=1, steps_per_epoch=TRAIN_STEPS, lr_base=3e-4,
                           lr_schedule="constant", optimizer="adamw", weight_decay=1e-4,
                           loss="bce_timm", monitor="loss", ckpt_dir=ckpt_dir,
                           basic_save_name="member", seed=0)
-        if name not in MEMBERS:  # ResNetRS50: the registry's draw first, printed only
+        if name in DAMPED_MEMBERS:  # the registry's draw first, printed only
             compare_train_step(card, name, x, y,
                                Trainer(_train_model(name, torch.bfloat16, False), cfg), False)
         tr = Trainer(_train_model(name, torch.bfloat16), cfg)
@@ -2283,13 +2412,13 @@ def phase_train(card: str, profile: bool, name: str) -> None:
         torch.cuda.synchronize()
         launches = all_launches()
         r = rel_err(got, want)
-        fused = {"GCViTTiny": GCVIT_KERNELS, "convnext_tiny_in22k": CONVNEXT_KERNELS}.get(name, ())
-        blocks = GCVIT_BLOCKS if name == "GCViTTiny" else CONVNEXT_BLOCKS
+        served = SERVED_LAUNCHES.get(name, {})
         print(f"[train] {name}: the checkpoint served by a fresh bf16 model on the fused path "
               f"vs the trained model's eval logits: max|d|/max|ref| = {r:.3e} (bound "
-              f"{MODEL_BOUND:g}); fused-block launches { {n: launches[n] for n in fused} } "
-              f"[{card}]")
-        if not r <= MODEL_BOUND or any(launches[n] != 2 * blocks for n in fused):
+              f"{MODEL_BOUND:g}); launches of the two forwards "
+              f"{ {n: launches[n] for n in served} } (expected "
+              f"{ {n: 2 * c for n, c in served.items()} }) [{card}]")
+        if not r <= MODEL_BOUND or any(launches[n] != 2 * c for n, c in served.items()):
             raise AssertionError(f"the trained {name} weights do not serve on the fused path")
 
 

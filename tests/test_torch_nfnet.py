@@ -97,9 +97,11 @@ def test_scaled_std_conv_matches_jax(groups, stride, kernel, padding):
 
 
 def test_standardized_weight_once_per_load():
-    """The f32 standardized weight is the JAX expression's; it is computed
-    at the first forward and again only after the parameters change."""
-    port = ScaledStdConv(64, 32, 3, 1, 1, 2, 1.7, torch.float32)
+    """The f32 standardized weight is the JAX expression's; in eval mode it
+    is computed at the first forward and again only after the parameters
+    change (in training, under autograd, at every call:
+    ``test_torch_train_nfnet.py``)."""
+    port = ScaledStdConv(64, 32, 3, 1, 1, 2, 1.7, torch.float32).eval()
     port.weight.data.normal_(generator=torch.Generator().manual_seed(0))
     port.gain.data.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(1))
     k = port.weight.detach().permute(2, 3, 1, 0).numpy()  # HWIO

@@ -1,16 +1,19 @@
 """AotNet in its ResNest configuration (ensemble member ``ResNest50-200x200``).
 
 Counterpart of ``vip_cup_2022_tpu/models/aotnet.py`` for the four ResNest
-registry names, NHWC throughout, inference only:
+registry names, NHWC throughout:
 
 - deep stem: 3 x 3 convs of ``stem_width // 2`` (at ``first_strides``),
   ``stem_width // 2`` and ``stem_width`` filters, BN and ReLU after the
   first two, ``stem_bn`` and ReLU after the third, then one zero of padding
   on each side and a 3 x 3 max pool at stride 2;
 - blocks 1 x 1 (``deep_1``, BN, ReLU) -> split attention -> 1 x 1
-  (``deep_3``) -> the zero-gamma ``3_bn``, then ReLU(deep + shortcut). The
-  first block of a stack projects its shortcut with a 1 x 1 conv and BN,
-  after a SAME average pool (``count_include_pad=False``) where it strides;
+  (``deep_3``) -> the zero-gamma ``3_bn`` -> a DropPath
+  (``stack{i}_block{j}_drop``) at the block's rate of
+  ``drop_connect_rates_split(num_blocks, 0, drop_connect_rate)``, then
+  ReLU(deep + shortcut). The first block of a stack projects its shortcut
+  with a 1 x 1 conv and BN, after a SAME average pool
+  (``count_include_pad=False``) where it strides;
 - split attention of radix r >= 2 (``attn_params["groups"]``, 2 in every
   ResNest): one 3 x 3 conv per 1 / r of the channels (``sa_1_g{i}``, each
   to the full hidden width, always at stride 1), BN and ReLU over the r
@@ -20,8 +23,14 @@ registry names, NHWC throughout, inference only:
   radix in f32; the radix sum of gate times part in the compute dtype;
   where the block strides, one zero of padding and a 3 x 3 average pool at
   stride 2 that counts the zeros;
-- head: the global mean in f32, the f32 ``predictions`` Linear, the
-  activation. Dropout and stochastic depth are training-only and absent.
+- head: the global mean in f32, dropout at ``drop_rate`` (``drop``, Flax's
+  ``Dropout_0``), the f32 ``predictions`` Linear, the activation.
+
+Training (``model.train()``): every BN normalises with the batch's
+statistics and moves its running statistics by 0.9, the JAX package's
+momentum; DropPath and dropout draw as in :mod:`..ops.drop` (both rates
+are 0 in the registry); the radix softmax stays in f32. No kernel is on
+this model's training path.
 
 Every conv pads ``k // 2`` on each side in the compute dtype and runs on
 cuDNN, as the JAX package leaves them to XLA; under int8 post-training
@@ -46,6 +55,7 @@ import torch.nn as nn
 
 from ..ops.act import get_activation
 from ..ops.conv import Conv, Linear, lecun_normal_
+from ..ops.drop import DropPath, Dropout, drop_connect_rates_split
 from ..ops.norms import BatchNorm
 from ..ops.pool import avg_pool_3x3_s2_pad1, avg_pool_same, max_pool_3x3_s2_zero_pad
 from .base import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ModelConfig, preprocess_input
@@ -154,6 +164,7 @@ class AotNet(nn.Module):
         bn("stem_bn", sw)
         self.blocks: List[BlockSpec] = []
         cin = sw
+        rates = drop_connect_rates_split(cfg.num_blocks, 0.0, cfg.drop_connect_rate)
         for sid, (num_block, out, stride) in enumerate(zip(cfg.num_blocks, cfg.out_channels,
                                                            cfg.strides)):
             params = {"kernel_size": 3, "groups": 2, **(_per_stack(cfg.attn_params, sid) or {})}
@@ -184,10 +195,12 @@ class AotNet(nn.Module):
                 conv(sa + "3_conv", inter, hidden * radix, 1, bias=True)
                 conv(name + "deep_3_conv", hidden, out, 1)
                 bn(name + "3_bn", out)
+                self.add_module(name + "drop", DropPath(rates[sid][bid]))
                 self.blocks.append(spec)
                 cin = out
         self.num_features = cin
         if cfg.nb_classes > 0:
+            self.drop = Dropout(cfg.drop_rate)
             self.predictions = Linear(cin, cfg.nb_classes, torch.float32)
 
     @torch.no_grad()
@@ -237,7 +250,7 @@ class AotNet(nn.Module):
         deep = self._conv_bn(x, name + "deep_1_conv", name + "deep_1_bn")
         deep = self.split_attention(deep, spec)
         deep = self._conv_bn(deep, name + "deep_3_conv", name + "3_bn", act=False)
-        return self.act(shortcut + deep)
+        return self.act(shortcut + getattr(self, name + "drop")(deep))
 
     def forward(self, x: torch.Tensor, features_only: bool = False,
                 feature_names: Tuple[str, ...] = ()):
@@ -264,7 +277,7 @@ class AotNet(nn.Module):
         x = x.float().mean(dim=(1, 2))
         if cfg.nb_classes <= 0:
             return x
-        return get_activation(cfg.classifier_activation)(self.predictions(x))
+        return get_activation(cfg.classifier_activation)(self.predictions(self.drop(x)))
 
 
 def _resnest(name: str, num_blocks, stem_width: int, input_size):

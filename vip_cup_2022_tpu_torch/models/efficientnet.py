@@ -1,8 +1,7 @@
 """EfficientNet V1 and V2 (ensemble members ``EfficientNetV2T-200x200`` and
 ``EfficientNetV1B4-224x224``).
 
-Counterpart of ``vip_cup_2022_tpu/models/efficientnet.py``, NHWC throughout,
-inference only:
+Counterpart of ``vip_cup_2022_tpu/models/efficientnet.py``, NHWC throughout:
 
 - stem: a 3 x 3 conv of ``make_divisible(first_conv_filter, 8)`` filters at
   ``first_strides``, BN, the activation (swish);
@@ -15,10 +14,19 @@ inference only:
   ``make_divisible(C * se / expand, 1)``, swish, 1 x 1 conv, sigmoid); the
   projection (``fu_conv``, 3 x 3 with BN and swish, where a fused block has
   no expansion; else the 1 x 1 ``MB_pw_conv`` and BN) and, where the block
-  keeps its width at stride 1, the shortcut, added in the compute dtype;
+  keeps its width at stride 1, the shortcut, added in the compute dtype
+  after the branch passes a DropPath (``stack_{i}_block{j}_drop``) at
+  ``drop_connect_rate * gid / total``, gid counting every block before it
+  and total the blocks of all stages (the JAX package's drop-connect);
 - head: the 1 x 1 ``post_conv`` with BN and swish, the global mean in f32,
-  the f32 ``predictions`` Linear, the activation. Dropout and drop-connect
-  are training-only and absent.
+  dropout at ``drop_rate`` (``drop``, Flax's ``Dropout_0``), the f32
+  ``predictions`` Linear, the activation.
+
+Training (``model.train()``): every BN normalises with the batch's
+statistics and moves its running statistics by 0.9, the JAX package's
+momentum; DropPath and dropout draw as in :mod:`..ops.drop` (the registry:
+V2T 0 and 0.2, V1B4 0.2 and 0.4). The stride-1 depthwise convs run K9
+under autograd, its backward the plain version's gradient.
 
 kecam's torch mode (``is_torch_mode``, EfficientNetV2T) pads every conv
 ``k // 2`` on each side and sets the BN epsilon to 1e-5; TF mode (V1,
@@ -46,6 +54,7 @@ import torch.nn as nn
 
 from ..ops.act import get_activation
 from ..ops.conv import Conv, DepthwiseConv, Linear, lecun_normal_, make_divisible
+from ..ops.drop import DropPath, Dropout
 from ..ops.norms import BatchNorm
 from ..ops.pad import PaddingSpec
 from .base import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ModelConfig, preprocess_input
@@ -133,6 +142,7 @@ class EfficientNet(nn.Module):
         self.stem_bn = BatchNorm(stem, eps, dt)
         self.blocks: List[BlockSpec] = []
         cin = pre_out = stem
+        gid, total = 0, sum(cfg.depthes)
         for sid, (expand, out_c, depth, stride0, se_ratio, ksize) in enumerate(zip(
                 cfg.expands, cfg.out_channels, cfg.depthes, cfg.strides, cfg.se_ratios,
                 cfg.kernel_sizes)):
@@ -173,8 +183,11 @@ class EfficientNet(nn.Module):
                 else:
                     self.add_module(name + "MB_pw_conv", Conv(width, out, 1, 1, dt, 0, bias=False))
                     self.add_module(name + "MB_pw_bn", BatchNorm(out, eps, dt))
+                if spec.shortcut:
+                    self.add_module(name + "drop", DropPath(cfg.drop_connect_rate * gid / total))
                 self.blocks.append(spec)
                 cin = pre_out = out
+                gid += 1
         if cfg.output_conv_filter > 0:
             post = make_divisible(cfg.output_conv_filter, 8)
             self.post_conv = Conv(cin, post, 1, 1, dt, 0, bias=False)
@@ -182,6 +195,7 @@ class EfficientNet(nn.Module):
             cin = post
         self.num_features = cin
         if cfg.nb_classes > 0:
+            self.drop = Dropout(cfg.drop_rate)
             self.predictions = Linear(cin, cfg.nb_classes, torch.float32)
 
     @torch.no_grad()
@@ -216,7 +230,7 @@ class EfficientNet(nn.Module):
             x = self._conv_bn(x, name + "fu_conv", name + "fu_bn", True)
         else:
             x = self._conv_bn(x, name + "MB_pw_conv", name + "MB_pw_bn", False)
-        return x + inp if spec.shortcut else x
+        return getattr(self, name + "drop")(x) + inp if spec.shortcut else x
 
     def forward(self, x: torch.Tensor, features_only: bool = False,
                 feature_names: Tuple[str, ...] = ()):
@@ -243,7 +257,7 @@ class EfficientNet(nn.Module):
         x = x.float().mean(dim=(1, 2))
         if cfg.nb_classes <= 0:
             return x
-        return get_activation(cfg.classifier_activation)(self.predictions(x))
+        return get_activation(cfg.classifier_activation)(self.predictions(self.drop(x)))
 
 
 def _v2(name: str, **kw):

@@ -1,7 +1,7 @@
 """NFNets, normalizer-free networks (ensemble member ``ECA_NFNetL0-200x200``).
 
 Counterpart of ``vip_cup_2022_tpu/models/nfnets.py``, the whole ``NFNet``
-class, NHWC throughout, inference only:
+class, NHWC throughout:
 
 - every conv a :class:`..ops.conv.ScaledStdConv` (weight-standardized,
   per-filter gain, f32 bias), padded ``k // 2`` on each side in the L
@@ -18,12 +18,19 @@ class, NHWC throughout, inference only:
   conv of preact (after a SAME average pool, ``count_include_pad=False``,
   where it strides), else x; the deep branch 1 x 1 -> act -> grouped 3 x 3
   (the block's stride, ``hidden // group_size`` groups) -> act -> grouped
-  3 x 3 -> act -> 1 x 1, then SE or ECA times ``attn_gain`` 2.0, then the
+  3 x 3 -> act -> 1 x 1, then SE or ECA times ``attn_gain`` 2.0, a
+  DropPath (``stack{i}_block{j}_drop``) at the block's rate of
+  ``drop_connect_rates_split(num_blocks, 0, drop_connect_rate)``, then the
   ``ZeroInitGain`` where the config has one; x = shortcut + deep * alpha;
 - head: the 1 x 1 ``post_conv`` (``num_features_factor`` x the last width:
   1.5 x 1536 = 2304 in the L series), the activation, the global mean in
-  f32, the f32 ``predictions`` Linear, the activation. Dropout and
-  stochastic depth are training-only and absent.
+  f32, dropout at ``drop_rate`` (``drop``, Flax's ``Dropout_0``), the f32
+  ``predictions`` Linear, the activation.
+
+Training (``model.train()``): DropPath and dropout draw as in
+:mod:`..ops.drop` (the registry: stochastic depth 0, dropout 0.2 in the L
+series); each standardized conv computes its weight in the graph, so the
+raw weights and gains get their gradients. No BN, no kernel.
 
 Every conv runs on cuDNN in the compute dtype (the grouped ones as grouped
 convs), as the JAX package leaves them to XLA. Module names are the Flax
@@ -43,6 +50,7 @@ import torch.nn as nn
 from ..ops.act import NON_LINEAR_GAMMA, get_activation
 from ..ops.attention import ECA
 from ..ops.conv import Conv, Linear, ScaledStdConv, ZeroInitGain, lecun_normal_, make_divisible
+from ..ops.drop import DropPath, Dropout, drop_connect_rates_split
 from ..ops.pool import avg_pool_same
 from .base import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ModelConfig, preprocess_input
 from .efficientnet import squeeze_excite
@@ -115,6 +123,7 @@ class NFNet(nn.Module):
         attn = ("se" if cfg.se_ratio > 0 else None) if cfg.attn_type == "se" else (
             "eca" if cfg.attn_type == "eca" else None)
         self.blocks: List[BlockSpec] = []
+        rates = drop_connect_rates_split(cfg.num_blocks, 0.0, cfg.drop_connect_rate)
         pre_beta = 1.0
         for sid, (num_block, out_c, stride) in enumerate(zip(cfg.num_blocks, cfg.out_channels,
                                                              cfg.strides)):
@@ -138,6 +147,7 @@ class NFNet(nn.Module):
                     self.add_module(name + "se_2_conv", Conv(reduction, out, 1, 1, dt))
                 elif attn == "eca":
                     self.add_module(name + "eca_conv1d", ECA(out, dt))
+                self.add_module(name + "drop", DropPath(rates[sid][bid]))
                 if cfg.use_zero_init_gain:
                     self.add_module(name + "deep_gain", ZeroInitGain())
                 self.blocks.append(spec)
@@ -150,6 +160,7 @@ class NFNet(nn.Module):
             cin = post
         self.num_features = cin
         if cfg.nb_classes > 0:
+            self.drop = Dropout(cfg.drop_rate)
             self.predictions = Linear(cin, cfg.nb_classes, torch.float32)
 
     @torch.no_grad()
@@ -188,6 +199,7 @@ class NFNet(nn.Module):
                                   getattr(self, name + "se_2_conv"), torch.relu) * ATTN_GAIN
         elif spec.attn == "eca":
             deep = getattr(self, name + "eca_conv1d")(deep) * ATTN_GAIN
+        deep = getattr(self, name + "drop")(deep)
         if cfg.use_zero_init_gain:
             deep = getattr(self, name + "deep_gain")(deep)
         return shortcut + deep * cfg.alpha
@@ -212,7 +224,7 @@ class NFNet(nn.Module):
         x = x.float().mean(dim=(1, 2))
         if cfg.nb_classes <= 0:
             return x
-        return get_activation(cfg.classifier_activation)(self.predictions(x))
+        return get_activation(cfg.classifier_activation)(self.predictions(self.drop(x)))
 
 
 def _f(name: str, num_blocks, input_size, drop_rate: float):

@@ -100,11 +100,13 @@ class ScaledStdConv(nn.Module):
     ``(w - mean) * rsqrt(max(var * fan_in, eps)) * (gain * gamma)`` in f32,
     the moments over each filter's (I, kh, kw) (population variance),
     ``fan_in`` = I * kh * kw per group, then cast to the compute dtype
-    ``dtype``: the values the JAX forward computes on every call, computed
-    here once per weight load (kept until a parameter changes) and run on
-    cuDNN with the bias cast to ``dtype``. Not a :class:`Conv`: int8
-    calibration must not take it for a plain conv site, whose weight it
-    would quantize raw."""
+    ``dtype``: the values the JAX forward computes on every call, run on
+    cuDNN with the bias cast to ``dtype``. In training mode with grad
+    enabled they are computed in the graph at every call, so the weight and
+    the gain get their gradients; otherwise (eval mode, or no grad) once per
+    weight load, kept until a parameter changes or the module's mode does.
+    Not a :class:`Conv`: int8 calibration must not take it for a plain conv
+    site, whose weight it would quantize raw."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: PaddingSpec = 0, groups: int = 1, gamma: float = 1.0,
@@ -127,9 +129,16 @@ class ScaledStdConv(nn.Module):
             self.gain * self.gamma).view(-1, 1, 1, 1)
         return (w - mean) * scale
 
+    def train(self, mode: bool = True) -> "ScaledStdConv":
+        self._key, self._weight = None, None
+        return super().train(mode)
+
     def conv_weight(self) -> torch.Tensor:
-        """The standardized weight in the compute dtype, recomputed only
+        """The standardized weight in the compute dtype: in the graph in
+        training mode with grad enabled, else cached and recomputed only
         when the raw weight or the gain moved or changed."""
+        if self.training and torch.is_grad_enabled():
+            return self.standardized_weight().to(self.dtype)
         key = tuple((p.data_ptr(), p._version) for p in (self.weight, self.gain))
         if key != self._key:
             with torch.no_grad():

@@ -1,5 +1,6 @@
 """Stochastic depth and dropout (counterparts of ``DropPath`` of
-``vip_cup_2022_tpu/ops/drop.py`` and of Flax's ``nn.Dropout``).
+``vip_cup_2022_tpu/ops/drop.py`` and of Flax's ``nn.Dropout``), and the
+per-stack stochastic-depth schedule ``drop_connect_rates_split``.
 
 Both are the identity in eval mode and at rate 0. In training they draw
 their uniforms from the module's ``generator`` (a ``torch.Generator`` on
@@ -10,8 +11,9 @@ reproduced in torch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -68,3 +70,17 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> Non
     for m in model.modules():
         if isinstance(m, (DropPath, Dropout)):
             m.generator = generator
+
+
+def drop_connect_rates_split(num_blocks: Sequence[int], start: float = 0.0,
+                             end: float = 0.0) -> List[List[float]]:
+    """The linear stochastic-depth schedule from ``start`` to ``end`` over
+    every block, split per stack (``drop_connect_rates_split`` of the JAX
+    package, kecam's): ``np.linspace(start, end, sum(num_blocks))`` cut
+    into ``num_blocks``-long lists."""
+    rates = np.linspace(start, end, sum(num_blocks)).tolist()
+    out, pos = [], 0
+    for n in num_blocks:
+        out.append(rates[pos:pos + n])
+        pos += n
+    return out
