@@ -46,7 +46,10 @@ each printing its results on earlier lines, any failure exiting non-zero:
      the ``exp_window_attention`` tool's phase cuts of the kernel at L1-L4;
    - ``layer_norm`` at every LN shape both members call on the unfused path
      (recorded from one forward of each); the library call is
-     ``F.layer_norm`` on the f32 copy, with the casts;
+     ``F.layer_norm`` on the f32 copy, with the casts; beside it, by device
+     time, the kernel, ``F.layer_norm`` on the bf16 input itself (the same
+     function: f32 statistics, bf16 out; weight and bias in bf16, as CUDA's
+     takes them) and on the f32 copy;
    - ``depthwise_conv_nhwc`` at the six ``exp_dw`` shapes and at ragged
      cases (C = 336, 24 and 8, k = 3, 5 and 7, asymmetric paddings), then
      the ``exp_dw`` tool itself, which times the kernel and cuDNN's
@@ -116,7 +119,10 @@ each printing its results on earlier lines, any failure exiting non-zero:
    sites that quantize in the GEMM; within 1e-6 of max|ref| of its plain
    version, and the whole site too), timed at 256
    beside cuDNN's bf16 conv of the site (and, at a 1 x 1 site,
-   ``torch._int_mm`` on its pre-quantized rows); then the ``exp_ptq_int8``
+   ``torch._int_mm`` on its pre-quantized rows), the pass beside
+   ``torch.quantize_per_tensor`` on the f32 copy (its codes compared: it
+   clamps to -128, the pass to -127, and a probe past the range shows
+   it); then the ``exp_ptq_int8``
    tool's phase cuts of the site (loads / + quantize / + products / whole)
    at one 1 x 1 and one 3 x 3 site of each ResNetRS50 stage;
 7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
@@ -163,7 +169,18 @@ each printing its results on earlier lines, any failure exiting non-zero:
    pairs JAX's count (``FUSE_BN_PAIRS``), within 1e-2 of the plain run.
    Each comparison prints its max|d| and the decisions it flips at 0.487,
    each run its img/s, and the sequential run each member's;
-9. train (``phase_train``, once a member): full-width GCViTTiny@224
+9. pth (``phase_pth``): the timm ``.pth`` weight route at full width. The
+   seeded convnext_tiny_in22k@200 weights of phase 6, its 21,841-class
+   head included, written as a timm state dict (``timm_convnext_state``,
+   ``torch.save``), converted by ``load_weights`` and loaded by
+   ``create_model(model_path=..., nb_classes=1)``: every leaf but the
+   swapped head equal to the source's bit for bit, in f32 and in the
+   served bf16; the served model's batch-256 forward on the fused path
+   launching the three ConvNeXt kernels at each of its 18 blocks and the LN
+   kernel at its 5 LNs, its logits equal (max|d| = 0) to those of the same
+   weights from ``.msgpack``; the host seconds to write, convert and load
+   printed; neither h5py nor TensorFlow imported;
+10. train (``phase_train``, once a member): full-width GCViTTiny@224
    (``_model``'s seeded weights), convnext_tiny_in22k@200 (``_model``'s),
    ResNetRS50@200, ResNest50@200, EfficientNetV2T@200, EfficientNetV1B4@224
    and ECA_NFNetL0@200 (the registry's seeded init; in the BN members the
@@ -248,6 +265,7 @@ phases 3-6. Before it the script prints its own wall time. The last line is
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -270,7 +288,8 @@ from vip_cup_2022_tpu_torch.data.train_pipeline import (  # noqa: E402
     EvalLoader, loaders_from_custom_json, recognition_dataset_from_custom_json)
 from vip_cup_2022_tpu_torch.eval import evaluation  # noqa: E402
 from vip_cup_2022_tpu_torch.infer import engine  # noqa: E402
-from vip_cup_2022_tpu_torch.models import create_model, transfer_weights  # noqa: E402
+from vip_cup_2022_tpu_torch.models import (create_model, load_weights,  # noqa: E402
+                                           transfer_weights)
 from vip_cup_2022_tpu_torch.models.registry import model_entry  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
@@ -291,7 +310,8 @@ from vip_cup_2022_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from vip_cup_2022_tpu_torch.train import history as train_history  # noqa: E402
 from vip_cup_2022_tpu_torch.train.losses import binary_cross_entropy_timm  # noqa: E402
 from vip_cup_2022_tpu_torch.train.sam import value_and_grad  # noqa: E402
-from vip_cup_2022_tpu_torch.utils.checkpoint import load_variables  # noqa: E402
+from vip_cup_2022_tpu_torch.utils.checkpoint import load_variables, save_variables  # noqa: E402
+from vip_cup_2022_tpu_torch.weights.from_jax import flax_to_torch  # noqa: E402
 from vip_cup_2022_tpu_torch.weights.to_flax import torch_to_flax  # noqa: E402
 
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
@@ -873,6 +893,8 @@ def phase_layernorm(card: str, stats: dict) -> None:
     per_forward = Counter(calls["convnext_tiny_in22k"] + calls["GCViTTiny unfused"])
     gen = torch.Generator(device="cuda").manual_seed(5)
     before = snapshot(stats)
+    device_totals = {"kernel": 0.0, "F.layer_norm on the input": 0.0,
+                     "F.layer_norm on the f32 copy": 0.0}
     for b in (8, BATCH):
         for (shape, dtype, eps), count in per_forward.items():
             c = shape[-1]
@@ -892,10 +914,38 @@ def phase_layernorm(card: str, stats: dict) -> None:
                 bound = account(stats, LN, count, times, 2 * x.numel() * x.element_size()
                                 + 2 * c * 4, 8 * x.numel(), "f32")
                 print_launch(LN, label, times, bound, card)
+                layernorm_yardsticks(x, w, bb, eps, count, label, device_totals)
             del x, out
             torch.cuda.empty_cache()
     print_per_forward(stats, before, (LN,), "two-member batch-256 forward, GCViT unfused "
                       f"({sum(per_forward.values())} LNs)", card)
+    print(f"[kernels] {LN} per two-member batch-256 forward by device time: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in device_totals.items())
+        + f"; kernel / F.layer_norm on the input "
+        f"{device_totals['kernel'] / device_totals['F.layer_norm on the input']:.2f} [{card}]")
+
+
+def layernorm_yardsticks(x, w, bb, eps, count: int, label: str, totals: dict) -> None:
+    """K10 by device time beside ``F.layer_norm`` on its own input (bf16 in,
+    f32 statistics, bf16 out: the same function, its weight and bias cast
+    to the input's dtype beforehand, as CUDA's takes them) and on the f32
+    copy (the record's library call, which adds the casts); ``count`` times
+    each into ``totals``, and the bf16 call's output against the plain
+    version."""
+    c = x.shape[-1]
+    wl, bl = w.to(x.dtype), bb.to(x.dtype)
+    lib = F.layer_norm(x, (c,), wl, bl, eps)
+    ref = L.layer_norm_plain(x.float(), w, bb, eps)
+    ms = {"kernel": device_ms(lambda: L.layer_norm(x, w, bb, eps)),
+          "F.layer_norm on the input": device_ms(lambda: F.layer_norm(x, (c,), wl, bl, eps)),
+          "F.layer_norm on the f32 copy": device_ms(
+              lambda: F.layer_norm(x.float(), (c,), w, bb, eps).to(x.dtype))}
+    for k, v in ms.items():
+        totals[k] += count * v
+    print(f"[kernels] {LN:26s} {label} device: " + ", ".join(f"{k} {v:.4f} ms"
+                                                                for k, v in ms.items())
+          + f"; F.layer_norm on the input ({lib.dtype}) vs plain: max|d|/max|ref| = "
+          f"{rel_err(lib, ref):.3e}")
 
 
 # ragged depthwise cases beside the exp_dw shapes: (tag, H, W, C, k, padding);
@@ -1595,6 +1645,7 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
     per_forward = Counter(calls)
     before = snapshot(stats)
     cudnn_total = int_mm_total = site_total = 0.0
+    per_tensor = {"ms": 0.0, "codes": 0, "differ": 0}
     for b in (8, BATCH):
         for (shape, kernel, stride, padding, n), count in per_forward.items():
             h, w, c = shape
@@ -1643,6 +1694,7 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
                     q_bound = account(stats, QUANT, count, q_times, x.numel() * 3, x.numel(),
                                       "f32")
                     print_launch(QUANT, label, q_times, q_bound, card)
+                    quantize_per_tensor_yardstick(x, inv, xq, count, per_tensor)
                 a_bytes = x.numel() * a.element_size()  # int8 after the pass, else bf16
                 g_bound = account(stats, PTQ, count, g_times, a_bytes + k * n + m * n * 2 + n * 4,
                                   2 * m * k * n, "int8")
@@ -1658,8 +1710,36 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
     print(f"[kernels] the {sum(per_forward.values())} int8 sites per {name} batch-256 forward: "
           f"both launches {site_total:.2f} ms; in cuDNN bf16 convs {cudnn_total:.2f} ms; the "
           f"1 x 1 sites as torch._int_mm on pre-quantized rows {int_mm_total:.2f} ms [{card}]")
+    print(f"[kernels] {QUANT} beside torch.quantize_per_tensor (f32 copy, qint8, scale 1 / "
+          f"inv_s) at the {name} sites that run the pass: {per_tensor['ms']:.3f} ms per forward "
+          f"(events), {per_tensor['differ']} of {per_tensor['codes']} codes differ; clamp "
+          f"probe {quantize_clamp_probe()} [{card}]")
     if tool:
         exp_ptq_int8.main(["--iters", "10"])  # the site's phase cuts
+
+
+def _quantize_per_tensor(x: torch.Tensor, inv: float) -> torch.Tensor:
+    return torch.quantize_per_tensor(x.float(), 1.0 / inv, 0, torch.qint8).int_repr()
+
+
+def quantize_per_tensor_yardstick(x, inv: float, xq, count: int, totals: dict) -> None:
+    """``torch.quantize_per_tensor``, the one PyTorch call nearest the PTQ
+    pass: its codes against the kernel's on the same x (it rounds half to
+    even too, but takes f32 only and clamps to [-128, 127], the pass to
+    [-127, 127]) and its time (CUDA events, as the pass's), ``count`` times
+    into ``totals``."""
+    codes = _quantize_per_tensor(x, inv)
+    totals["differ"] += count * int((codes != xq).sum().item())
+    totals["codes"] += count * xq.numel()
+    totals["ms"] += count * cuda_ms(lambda: _quantize_per_tensor(x, inv))
+
+
+def quantize_clamp_probe() -> str:
+    """The pass and ``torch.quantize_per_tensor`` at inv_s 1 on values past
+    the range and on half steps."""
+    x = torch.tensor([-130.0, -127.6, 127.6, 0.5, 1.5, 2.5, -2.5, 3.0], device="cuda")
+    return (f"x {x.tolist()}: pass {Q.ptq_int8_quantize(x, 1.0).tolist()}, "
+            f"quantize_per_tensor {_quantize_per_tensor(x, 1.0).tolist()}")
 
 
 def _write_images(img_dir: str, n: int) -> list:
@@ -2070,6 +2150,142 @@ TRAIN_BATCH, TRAIN_STEPS = 64, 8
 # the EfficientNets run K9 at their stride-1 depthwise sites; ResNetRS50's,
 # ResNest50's and ECA_NFNetL0's steps run no kernel (cuDNN convs, BN in
 # batch statistics, the standardized weights in the graph)
+def _timm_name(path: tuple, bare_head: bool) -> str:
+    """The timm module name of a ConvNeXt Flax module path."""
+    top = path[0]
+    if top in ("stem_conv", "stem_norm"):
+        return "stem.0" if top == "stem_conv" else "stem.1"
+    if top in ("head_norm", "head_fc"):
+        return {"head_norm": "norm", "head_fc": "head"}[top] if bare_head else top.replace("_", ".")
+    stage, block, which = re.fullmatch(r"stages_(\d+)_(?:blocks_(\d+)|downsample_(norm|conv))",
+                                       top).groups()
+    if which:
+        return f"stages.{stage}.downsample.{0 if which == 'norm' else 1}"
+    rest = [{"mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2"}.get(p, p) for p in path[1:]]
+    return ".".join([f"stages.{stage}.blocks.{block}"] + rest)
+
+
+def timm_convnext_state(tree: dict, bare_head: bool = False) -> dict:
+    """A ConvNeXt Flax variables tree as a timm state dict of f32 tensors,
+    the inverse of ``weights/torch_pt.py::map_convnext_torch``: kernels
+    HWIO -> OIHW (the depthwise (7, 7, 1, C) -> (C, 1, 7, 7)), Dense
+    (in, out) -> (out, in), a norm's gamma / beta -> weight / bias; the head
+    as ``head.norm`` / ``head.fc``, or ``norm`` / ``head`` (``bare_head``)."""
+    out = {}
+
+    def walk(node: dict, path: tuple) -> None:
+        for leaf, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + (leaf,))
+                continue
+            value = np.asarray(value, np.float32)
+            if leaf == "kernel":
+                leaf, value = "weight", (np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4
+                                         else value.T)
+            elif leaf == "gamma" and "beta" in node:
+                leaf = "weight"
+            elif leaf == "beta":
+                leaf = "bias"
+            out[f"{_timm_name(path, bare_head)}.{leaf}"] = torch.tensor(value)
+
+    for top, node in tree["params"].items():
+        walk(node, (top,))
+    return out
+
+
+PTH_MEMBER = "convnext_tiny_in22k"
+
+
+def phase_pth(card: str) -> None:
+    """The timm ``.pth`` weight route at full width: the seeded
+    ``_model`` weights of convnext_tiny_in22k@200, its 21,841-class head
+    included, written as a timm state dict (``torch.save``), converted by
+    ``load_weights`` and loaded by ``create_model(model_path=...)`` with one
+    output. Every leaf but the swapped head equals the source's bit for bit
+    (f32, and the served bf16 model against the source cast to bf16); the
+    swapped head is the one-output model's own seeded init. The served model's
+    batch-256 forward on the card, on the fused path, launches the ConvNeXt
+    kernels at each of its 18 blocks and the LN kernel at its 5 LNs, and its
+    logits equal those of the same weights loaded from ``.msgpack`` (max|d|
+    = 0). Prints the host seconds to write, convert and load. Reads no h5
+    and imports neither h5py nor TensorFlow."""
+    before = {m for m in ("h5py", "tensorflow") if m in sys.modules}
+    size, classes = MEMBERS[PTH_MEMBER]
+    src = _model(PTH_MEMBER, torch.float32)
+    tree = torch_to_flax(src)
+    del src
+    torch.cuda.empty_cache()
+    source = flax_to_torch(tree)
+    kw = dict(input_size=size, nb_classes=1, classifier_activation=None)
+    head = tuple(k for k in source if k.startswith("head_fc."))
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, msgpack = os.path.join(tmp, "fold0.pth"), os.path.join(tmp, "fold0.msgpack")
+        t0 = time.perf_counter()
+        torch.save(timm_convnext_state(tree), pth)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        converted = load_weights(pth, PTH_MEMBER)
+        t_convert = time.perf_counter() - t0
+        if converted["params"]["head_fc"]["kernel"].shape != (768, classes):
+            raise AssertionError(f"the .pth head converted to "
+                                 f"{converted['params']['head_fc']['kernel'].shape}")
+        t0 = time.perf_counter()
+        f32, _ = create_model(PTH_MEMBER, model_path=pth, **kw)
+        t_f32 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served, _ = create_model(PTH_MEMBER, model_path=pth, dtype=torch.bfloat16, **kw)
+        t_served = time.perf_counter() - t0
+        for label, model, dtype in (("f32", f32, torch.float32), ("bf16", served, torch.bfloat16)):
+            state = model.state_dict()
+            if set(state) != set(source):
+                raise AssertionError(f"the {label} model's leaves are not the source's")
+            # each leaf in the dtype the model holds it in (the fused kernels
+            # take the depthwise taps and layer scales in f32)
+            differ = [k for k in state if k not in head and not torch.equal(
+                state[k], torch.from_numpy(source[k]).to(state[k].dtype))]
+            fresh = create_model(PTH_MEMBER, dtype=dtype, **kw)[0].state_dict()
+            kept = all(torch.equal(state[k], fresh[k]) for k in head)
+            print(f"[pth] {PTH_MEMBER} {label} from .pth: {len(state) - len(head)} leaves, "
+                  f"{len(differ)} differ from the source (bit for bit); head "
+                  f"{tuple(state['head_fc.weight'].shape)} swapped from ({classes}, 768), the "
+                  f"one-output init kept: {kept}")
+            if differ or not kept or state["head_fc.weight"].shape != (1, 768):
+                raise AssertionError(f"the {label} .pth load differs at {differ[:4]} or its "
+                                     "head was not swapped")
+        del f32, fresh
+        save_variables(msgpack, tree)
+        ref, _ = create_model(PTH_MEMBER, model_path=msgpack, dtype=torch.bfloat16, **kw)
+    served, ref = served.cuda(), ref.cuda()
+    x = torch.rand((BATCH, *size, 3), generator=torch.Generator(device="cuda").manual_seed(19),
+                   device="cuda")
+    want = {n: CONVNEXT_BLOCKS for n in CONVNEXT_KERNELS}
+    want[LN] = CONVNEXT_LNS
+    reset_launches()
+    with torch.inference_mode():
+        got = served(x)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        other = ref(x)
+    torch.cuda.synchronize()
+    d = abs_err(got, other)
+    print(f"[pth] {PTH_MEMBER} batch-{BATCH} forward from .pth vs from .msgpack: max|d| = {d!r}, "
+          f"max|logit| = {got.float().abs().max().item():.3e}; launches "
+          f"{ {n: launches[n] for n in want} } (expected {want})")
+    extra = {n: c for n, c in launches.items() if c and n not in want}
+    if (got.shape != (BATCH, 1) or not torch.isfinite(got).all() or d != 0
+            or any(launches[n] != c for n, c in want.items()) or extra):
+        raise AssertionError(f"the .pth-loaded {PTH_MEMBER} forward differs from the .msgpack "
+                             f"one ({d!r}) or launched {launches}")
+    new = {m for m in ("h5py", "tensorflow") if m in sys.modules} - before
+    if new:
+        raise AssertionError(f"the .pth route imported {sorted(new)}")
+    print(f"[pth] host seconds: write (torch.save) {t_write:.3f} s, convert (load_weights) "
+          f"{t_convert:.3f} s, create_model(model_path=...) f32 {t_f32:.3f} s, bf16 "
+          f"{t_served:.3f} s [{card}]")
+    del served, ref
+    torch.cuda.empty_cache()
+
+
 TRAIN_MEMBERS = {
     "GCViTTiny": ((224, 224), {ATTN: GCVIT_BLOCKS, DW: GCVIT_DW_SITES,
                                LN: GCVIT_LNS + 2 * GCVIT_BLOCKS}),
@@ -2764,6 +2980,7 @@ def main(argv) -> None:
     dw_sites = [site for sites, _ in dw_members.values() for site in sites]
     launches.update(phase_slice_seven(card, len(dw_sites), len(every), pass_sites(every)))
     phase_serving(card, stats, dw_sites)
+    phase_pth(card)
     for name in TRAIN_MEMBERS:
         phase_train(card, profile, name)
     phase_train_flip(card)

@@ -8,7 +8,9 @@ the PyTorch port (``vip_cup_2022_tpu_torch``):
 
 - the input CSV has a ``filename`` column; the images live next to it;
 - checkpoints are resolved from ``<script_dir>/ckpts/ckpts.json``
-  (``VIPTPU_CKPT_DIR``, ``VIPTPU_CKPTS_JSON``);
+  (``VIPTPU_CKPT_DIR``, ``VIPTPU_CKPTS_JSON``): each member's ``.msgpack``
+  folds, else its Keras ``.h5`` folds (``h5py`` needed), else a SavedModel
+  (TensorFlow needed);
 - the output CSV is ``filename,logit`` with logit ``1.0`` where the ensemble
   mean exceeds 0.487, sorted by filename.
 

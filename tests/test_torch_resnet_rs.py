@@ -359,12 +359,13 @@ def test_load_members_quantizes_from_the_tree_it_read(workspace, monkeypatch):
     _, _, _, ckpt_dir, _ = workspace
     path = str(ckpt_dir / "fold0.msgpack")
     real, reads = engine.load_weights, []
-    monkeypatch.setattr(engine, "load_weights", lambda p: reads.append(p) or real(p))
+    monkeypatch.setattr(engine, "load_weights",
+                        lambda p, name: reads.append((p, name)) or real(p, name))
     cfg = [("ResNetRS50-200x200", [path], (100, 100), 0)]
     eng = engine.EnsembleEngine(device="cpu", compute_dtype=torch.bfloat16, verbose=0)
     try:
         members, f32 = eng.load_members(cfg, keep_f32=[True])
-        assert reads == [path]
+        assert reads == [(path, "ResNetRS50")]
         assert eng.load_members(cfg)[1] == [None]
     finally:
         eng.close()

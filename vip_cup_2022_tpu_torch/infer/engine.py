@@ -3,7 +3,11 @@
 Counterpart of ``vip_cup_2022_tpu/infer/engine.py``, with the same contract:
 
 - ckpts.json manifest of ``[base_dir, [H, W], idx]`` entries, checkpoints
-  under ``<model_dir>/<base_dir>/ckpt/``;
+  under ``<model_dir>/<base_dir>/ckpt/``: the ``.msgpack`` files, else the
+  Keras ``.h5`` files, else a SavedModel's ``saved_model.pb``, each fold
+  converted by the weight mapper of the member's registry name
+  (:func:`..models.factory.load_weights`; ``.h5`` needs ``h5py``, a
+  SavedModel TensorFlow) and loaded strictly, its head included;
 - each JPEG decoded once on a host thread pool into a 200 x 200 uint8
   image (odd sizes resized on the host with the TF bicubic);
 - on the device, per batch: / 255, the TF bicubic resize to each member's
@@ -51,7 +55,8 @@ member, or a comma list of registry names. ResNet-RS and ResNest members
 are quantized (the JAX package's ``INT8_AUTO`` set on a TPU is
 ``ResNetRS50,ResNest50``).
 
-Still raising ``NotImplementedError`` rather than running something else:
+Still raising ``NotImplementedError`` rather than running something else
+(a SavedModel checkpoint without TensorFlow installed raises it too):
 ``VIPTPU_INT8`` on a ConvNeXt or GCViT member (ROADMAP A12b: their fused
 kernel paths hold the Linears the JAX pass would quantize), on an
 EfficientNet member (A8b) or an NFNet member (A9b: its grouped standardized
@@ -338,7 +343,7 @@ class EnsembleEngine:
         folds, f32 = [], []
         for ckpt in sorted(ckpt_paths):
             module, _ = self._create_member(name, dim, overrides)
-            tree = load_weights(ckpt)
+            tree = load_weights(ckpt, name)
             if fuse_bn:
                 tree = self._fuse_bn(tree, module, name)
             folds.append(transfer_weights(tree, module, strict=True).to(self.device))
