@@ -125,6 +125,21 @@ each printing its results on earlier lines, any failure exiting non-zero:
    it); then the ``exp_ptq_int8``
    tool's phase cuts of the site (loads / + quantize / + products / whole)
    at one 1 x 1 and one 3 x 3 site of each ResNetRS50 stage;
+   then int8 on the other five members (``phase_int8_other``: ConvNeXt and
+   GCViT on their fused block path with ``_model``'s weights, the
+   EfficientNets and ECA_NFNetL0 with the weights of their phase 6 runs),
+   each calibrated on 64 images at batch 256 and quantized from its f32
+   weights: its site count the JAX pass's full-width count
+   (``INT8_SITES``, ``tests/test_torch_int8_members.py``), its int8 path
+   against the same quantized model under ``plain_kernels()`` within 5e-2
+   of max|ref| at batch 8, int8 against bf16 at batch 256 (max|d| and the
+   decisions that flip at 0.487, printed), its bf16 and int8 batch-256
+   forwards timed; ECA_NFNetL0's grouped 3 x 3 sites through the PTQ site
+   phase above (``ptq_int8_conv`` in groups, within 1e-6 of its plain
+   version, timed beside cuDNN's grouped bf16 conv); and the LN kernel at
+   EfficientNetV2T_GC's ``gc_ln`` widths (12, 26, 32, 52: its 29 LNs of a
+   full-width bf16 forward at 200 x 200) and at one odd width (13), bf16,
+   against its plain version (``phase_layernorm_gc``);
 7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
    (``convnext_tiny_in22k-200x200``, ``GCViTTiny-224x224``) run through
    ``main_torch.main`` at batch 256 (one full batch and one zero-padded
@@ -152,7 +167,14 @@ each printing its results on earlier lines, any failure exiting non-zero:
    int8 kernel; and once more with ``VIPTPU_INT8=ResNetRS50,ResNest50``
    (the JAX package's ``INT8_AUTO`` set), which must launch the same and
    ``ptq_int8_conv`` at the 52 + 68 sites of each batch and
-   ``ptq_int8_quantize`` at those of them that run the pass;
+   ``ptq_int8_quantize`` at those of them that run the pass; and once more
+   with ``VIPTPU_INT8=all``, every member calibrated (one bf16 forward of
+   the 64 calibration images, which launches each member's block kernels,
+   K9 and the LN once more) and quantized, which must launch
+   ``ptq_int8_conv`` at every site of the seven members (``INT8_SITES``
+   summed) of each batch and ``ptq_int8_quantize`` at those that run the
+   pass, its img/s and per-batch ms printed beside the bf16
+   run's;
 8. serving: the seven members again, each with a one-output sigmoid head
    (the product checkpoints' head; the registry's softmax heads hold
    ``1 - p[:, 0]`` near 1 whatever the features): the plain fused run;
@@ -233,10 +255,11 @@ each printing its results on earlier lines, any failure exiting non-zero:
 The line before the last is the kernels' JSON record. ``launches`` come from
 the run of each kernel's path, counted from 0 just before it: the first fused
 CSV run for the block families, the unfused CSV run for
-``window_attention_bhnd`` and ``layer_norm``, the cold seven-member CSV run
+``window_attention_bhnd`` and ``layer_norm`` (plus the 29 of the V2T_GC
+forward of ``phase_layernorm_gc``), the cold seven-member CSV run
 for ``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
 ``int8_pallas_spike`` run for the three spike bodies and the seven-member
-``VIPTPU_INT8=ResNetRS50,ResNest50`` CSV run for ``ptq_int8_quantize`` and
+``VIPTPU_INT8=all`` CSV run for ``ptq_int8_quantize`` and
 ``ptq_int8_conv``.
 ``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
 computes the function) are per batch-256 forward of both members together on
@@ -252,8 +275,9 @@ the layout cuBLASLt's int8 path takes; none for the quantize-on-load body;
 the int8 body's ms is its two launches, the quantize pass and the GEMM;
 ``attn_parts`` and the spike bodies, kernel and library, by device time),
 and for ``ptq_int8_quantize`` and ``ptq_int8_conv`` per batch-256 int8
-forward of ResNetRS50 and ResNest50 together, each member's part printed
-apart (no one call computes the int8 site). ``bound_ms`` is the least
+forward of ResNetRS50 and ResNest50 together plus ECA_NFNetL0's grouped
+sites, each member's part printed apart (no one call computes the int8
+site); the LN's row adds the V2T_GC widths' launches to the two members'. ``bound_ms`` is the least
 time the card could take for the same launches, each launch's bytes (inputs
 read once, outputs written once) over 3.35 TB/s or its operations over the
 peak for their type (989 TFLOP/s bf16 and 1,979 TOP/s int8 tensor-core
@@ -261,8 +285,10 @@ products, 67 TFLOP/s f32 elsewhere; NVIDIA's H100 SXM data sheet), whichever
 is larger, summed; ``bound_by`` says which of the two made most of it. ``max_abs_err`` is over every check of
 phases 3-6. Before it the script prints its own wall time. The last line is
 ``{"ok": true, "device": {...}}``.
+Before the wall time it prints the wall seconds of each group of phases.
 """
 import contextlib
+import copy
 import json
 import os
 import re
@@ -381,7 +407,15 @@ BATCH = 256
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # the JAX pass's int8 sites (tests/test_torch_resnet_rs.py, tests/test_torch_ptq.py)
-INT8_SITES = {"ResNetRS50": 52, "ResNest50": 68}
+# the JAX pass's int8 sites of each member at full width and its manifest size
+# (tests/test_torch_resnet_rs.py, test_torch_ptq.py, test_torch_int8_members.py, -m slow);
+# ConvNeXt and GCViT on the fused block path
+INT8_SITES = {"ResNetRS50": 52, "ResNest50": 68, "convnext_tiny_in22k": 2, "GCViTTiny": 27,
+              "EfficientNetV2T": 74, "EfficientNetV1B4": 60, "ECA_NFNetL0": 53}
+INT8_RESNETS = ("ResNetRS50", "ResNest50")
+GC_NAME, GC_SIZE = "EfficientNetV2T_GC", (200, 200)
+GC_LN_WIDTHS = {12: 1, 26: 6, 32: 9, 52: 13}  # V2T_GC's gc_ln widths: LNs a forward
+GC_ODD_WIDTH = 13
 # conv -> BN pairs VIPTPU_FUSE_BN folds in each full-width member: the JAX
 # package's discovery on its trees (tests/test_torch_fuse_bn.py)
 FUSE_BN_PAIRS = {"convnext_tiny_in22k": 0, "ResNest50": 38, "GCViTTiny": 0, "EfficientNetV2T": 78,
@@ -1517,13 +1551,13 @@ def phase_member(name: str, card: str, profile: bool, state: dict) -> tuple:
 
 @contextlib.contextmanager
 def recording_ptq_sites(calls: list):
-    """Record (input shape without the batch, kernel, stride, padding, N) of
-    each ``ptq_int8_conv`` call."""
+    """Record (input shape without the batch, kernel, stride, padding,
+    groups, N) of each ``ptq_int8_conv`` call."""
     real = Q.ptq_int8_conv
 
     def record(x, qweight, *args, **kw):
         calls.append((tuple(x.shape[1:]), kw["kernel"], kw["stride"], kw["padding"],
-                      qweight.shape[0]))
+                      kw.get("groups", 1), qweight.shape[0]))
         return real(x, qweight, *args, **kw)
 
     Q.ptq_int8_conv = record
@@ -1575,14 +1609,7 @@ def _int8_compare(name: str, draw: str, state: dict, x8: torch.Tensor, xb: torch
                   f"{ref.float().abs().max().item():.3e}")
             if gated and not r <= MODEL_BOUND:
                 raise AssertionError(f"{name} {draw} b{b} {label}: {r:.3e} > {MODEL_BOUND:g}")
-        shift = float(np.log(0.487 / 0.513)) - f32[:, 0].median()
-        p_i8, p_bf16 = (torch.sigmoid(t[:, 0].float() + shift) for t in (i8, bf16))
-        flips = (p_i8 > 0.487) != (p_bf16 > 0.487)
-        print(f"[resnet] {name} {draw} b{b} int8 vs bf16: max|d|/max|ref| = "
-              f"{rel_err(i8, bf16):.3e}; {int(flips.sum())} of {b} decisions flip at 0.487 "
-              f"(logit 0 centred, bf16 p in [{p_bf16.min().item():.4f}, "
-              f"{p_bf16.max().item():.4f}], max|p_int8 - p_bf16| = "
-              f"{(p_i8 - p_bf16).abs().max().item():.2e})")
+        _int8_flips(f"{name} {draw}", i8, bf16, b, f32)
     del ref_model
     torch.cuda.empty_cache()
     return bf16_model, int8_model, calls, len(scales)
@@ -1628,6 +1655,162 @@ def phase_int8_member(name: str, card: str, profile: bool) -> tuple:
     return calls, n_scales
 
 
+def _int8_flips(label: str, i8: torch.Tensor, bf16: torch.Tensor, b: int,
+                centre: torch.Tensor) -> None:
+    """Print int8 against bf16: max|d| and the decisions at 0.487 that flip
+    between them (the sigmoid of logit 0, centred on ``centre``'s batch
+    median: random weights put every image on one side otherwise)."""
+    shift = float(np.log(0.487 / 0.513)) - centre[:, 0].float().median()
+    p_i8, p_bf16 = (torch.sigmoid(t[:, 0].float() + shift) for t in (i8, bf16))
+    flips = (p_i8 > 0.487) != (p_bf16 > 0.487)
+    print(f"[int8] {label} b{b} int8 vs bf16: max|d|/max|ref| = {rel_err(i8, bf16):.3e}; "
+          f"{int(flips.sum())} of {b} decisions flip at 0.487 (logit 0 centred, bf16 p in "
+          f"[{p_bf16.min().item():.4f}, {p_bf16.max().item():.4f}], max|p_int8 - p_bf16| = "
+          f"{(p_i8 - p_bf16).abs().max().item():.2e})")
+
+
+@contextlib.contextmanager
+def plain_ptq_sites():
+    """The int8 PTQ site (``ptq_int8_conv``) alone on its plain version; every
+    other kernel as it is."""
+    real = Q.ptq_int8_conv
+    Q.ptq_int8_conv = Q.ptq_int8_conv_plain
+    try:
+        yield
+    finally:
+        Q.ptq_int8_conv = real
+
+
+def phase_int8_other(name: str, card: str, profile: bool, state: dict = None) -> list:
+    """int8 on a member beyond ResNetRS50 / ResNest50: ConvNeXt or GCViT
+    (``_model``'s weights, the fused block path; ``state`` None) or an
+    EfficientNet or ECA_NFNetL0 (``state``, its phase-6 f32 weights). The
+    bf16 model and a second copy calibrated on 64 images of the batch-256
+    input and quantized from the f32 weights: the calibrated, quantized and
+    kernel-called sites per forward (at batch 2: GCViT's SE Linears take
+    the batch as rows) all ``INT8_SITES[name]``; at batch 8 and 256 the int8
+    kernel path within ``INT8_BOUND`` of max|ref| of the same model with
+    its int8 sites alone on their plain version (the same integer sums and
+    f32 epilogue), and within 5e-2 of it with every kernel plain (its other
+    kernels, bf16, differ from their plain versions by rounding); int8
+    against bf16 printed; the batch-256 bf16 and int8 forwards timed.
+    Returns the int8 sites called in one forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size = MEMBERS[name][0] if name in MEMBERS else SIZES[name]
+    width = MEMBERS[name][1] if name in MEMBERS else 1000
+    if state is None:
+        f32_model = _model(name, torch.float32, fused_block=True)
+        state = {k: v.detach().clone() for k, v in f32_model.state_dict().items()}
+        del f32_model
+        build = lambda: _model(name, torch.bfloat16, fused_block=True)  # noqa: E731
+    else:
+        build = lambda: _member(name, torch.bfloat16, state)  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x8 = torch.rand((8, *size, 3), generator=gen, device="cuda")
+    xb = torch.rand((BATCH, *size, 3), generator=gen, device="cuda")
+    bf16_model = build()
+    int8_model = copy.deepcopy(bf16_model)
+    scales = quant.calibrate(int8_model, [xb[:64]])
+    report, calls = {}, []
+    quant.quantized(int8_model, scales, report=report, weights=state)
+    del state
+    with torch.inference_mode(), recording_ptq_sites(calls):
+        int8_model(x8[:2])
+    groups = sum(c[4] > 1 for c in calls)
+    print(f"[int8] {name}: {len(scales)} calibrated sites, {len(report['quantized_sites'])} "
+          f"quantized, {len(calls)} kernel calls per forward ({groups} grouped) (JAX: "
+          f"{INT8_SITES[name]})")
+    if not len(scales) == len(report["quantized_sites"]) == len(calls) == INT8_SITES[name]:
+        raise AssertionError(f"{name}'s int8 sites differ from the JAX pass's {INT8_SITES[name]}")
+    for x in (x8, xb):
+        b = x.shape[0]
+        with torch.inference_mode():
+            bf16, i8 = bf16_model(x), int8_model(x)
+            with plain_ptq_sites():
+                i8_sites_plain = int8_model(x)
+            with plain_kernels():
+                i8_plain = int8_model(x)
+            torch.cuda.synchronize()
+        for label, got in (("bf16", bf16), ("int8", i8)):
+            if got.shape != (b, width) or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {label} b{b}: output {tuple(got.shape)} not finite")
+        for label, ref, bound in (("int8 sites plain", i8_sites_plain, INT8_BOUND),
+                                  ("every kernel plain", i8_plain, MODEL_BOUND)):
+            r = rel_err(i8, ref)
+            print(f"[int8] {name} b{b} int8 kernel path vs {label}: max|d|/max|ref| = {r:.3e} "
+                  f"(bound {bound:g}), max|ref| = {ref.float().abs().max().item():.3e}")
+            if not r <= bound:
+                raise AssertionError(f"{name} b{b} int8 kernel path vs {label}: {r:.3e}")
+        _int8_flips(name, i8, bf16, b, bf16)
+        del bf16, i8, i8_sites_plain, i8_plain
+    with torch.inference_mode():
+        fwd_b, fwd_i = (lambda: bf16_model(xb)), (lambda: int8_model(xb))
+        b1, i1, i2, b2 = (cuda_ms(f, iters=3, warmup=1) for f in (fwd_b, fwd_i, fwd_i, fwd_b))
+        print(f"[int8] {name} batch-{BATCH} forward: bf16 {(b1 + b2) / 2:.2f} ms "
+              f"({BATCH * 2000 / (b1 + b2):.1f} img/s), int8 {(i1 + i2) / 2:.2f} ms "
+              f"({BATCH * 2000 / (i1 + i2):.1f} img/s), int8 / bf16 {(i1 + i2) / (b1 + b2):.3f} "
+              f"[{card}]")
+        if profile:
+            print_profile(f"{name} int8", fwd_i)
+    del bf16_model, int8_model, x8, xb
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_layernorm_gc(card: str) -> None:
+    """The LN kernel at EfficientNetV2T_GC's ``gc_ln`` widths (not multiples
+    of the kernel's 16-byte vector but 32: its scalar path), recorded from
+    one full-width bf16 forward at 200 x 200 (whose launches are counted),
+    and at one odd width, on (256, 1, 1, C) rows in bf16: within 1e-2 of
+    max|ref| of the plain version, timed beside it and ``F.layer_norm``.
+    V2T_GC is no member of the manifest: its launches, times and bounds are
+    printed on lines of their own and kept out of the LN kernel's record."""
+    model, _ = create_model(GC_NAME, input_size=GC_SIZE, classifier_activation=None,
+                            dtype=torch.bfloat16, seed=0)
+    model = model.cuda()
+    calls = []
+    L.reset_launches()
+    with torch.inference_mode(), recording_layer_norms(calls):
+        out = model(torch.rand((2, *GC_SIZE, 3), device="cuda"))
+        torch.cuda.synchronize()
+    launches = L.LAUNCHES[LN]
+    del model
+    torch.cuda.empty_cache()
+    widths = Counter(shape[-1] for shape, _, _ in calls)
+    print(f"[kernels] {GC_NAME} {GC_SIZE[0]}x{GC_SIZE[1]} forward: {launches} {LN} launches, "
+          f"widths {dict(sorted(widths.items()))} (expected {GC_LN_WIDTHS}); output "
+          f"{tuple(out.shape)} finite {bool(torch.isfinite(out).all())}")
+    if dict(widths) != GC_LN_WIDTHS or launches != sum(GC_LN_WIDTHS.values()) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"{GC_NAME}: LN widths {dict(widths)}, {launches} launches")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    eps = calls[0][2]
+    own = new_stats()  # the check's error, apart from the record's
+    per_forward = [0.0, 0.0, 0.0, 0.0]  # kernel, plain, library, bound: ms per forward
+    for c, count in [*sorted(GC_LN_WIDTHS.items()), (GC_ODD_WIDTH, 0)]:
+        x = (torch.rand((BATCH, 1, 1, c), generator=gen, device="cuda") * 4 - 2).to(torch.bfloat16)
+        w = torch.rand((c,), generator=gen, device="cuda") + 0.5
+        bb = torch.rand((c,), generator=gen, device="cuda") * 0.2 - 0.1
+        out = L.layer_norm(x, w, bb, eps)
+        torch.cuda.synchronize()
+        label = f"{GC_NAME} gc_ln {tuple(x.shape)} x{count}" if count else f"odd width {c}"
+        check({LN: (out, lambda: L.layer_norm_plain(x.float(), w, bb, eps))}, label, own)
+        times = time_calls(lambda: L.layer_norm(x, w, bb, eps),
+                           lambda: L.layer_norm_plain(x, w, bb, eps),
+                           lambda: F.layer_norm(x.float(), (c,), w, bb, eps).to(x.dtype))
+        nbytes, ops = 2 * x.numel() * x.element_size() + 2 * c * 4, 8 * x.numel()
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["f32"]) * 1e3
+        print(f"[kernels] {LN:26s} {label} kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, "
+              f"library {times[2]:.4f} ms, bound {bound:.2e} ms per launch [{card}]")
+        for i, t in enumerate((*times, bound)):
+            per_forward[i] += count * t
+    k_ms, p_ms, l_ms, b_ms = per_forward
+    print(f"[kernels] {LN} per {GC_NAME} batch-{BATCH} forward ({launches} launches, not in the "
+          f"record): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library {l_ms:.3f} ms, bound "
+          f"{b_ms:.2e} ms; max|d| {own[LN]["max_abs_err"]:.3e} [{card}]")
+
+
 def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50",
                     tool: bool = True) -> None:
     """The int8 PTQ site at every int8 site shape of ``name`` (recorded from
@@ -1638,24 +1821,25 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
     whole site within 1e-6 of max|ref| of their plain versions (int8
     products summed in f64); timed at batch 256 beside their plain versions
     (the pass only at the sites that run it), and the site beside cuDNN's
-    bf16 conv of the same site for context (no one call computes the int8
-    site, so no library time); then, with ``tool``, the ``exp_ptq_int8``
-    tool's phase cuts."""
+    bf16 conv (a Linear site: ``F.linear``) of the same site for context (no
+    one call computes the int8 site, so no library time); then, with
+    ``tool``, the ``exp_ptq_int8`` tool's phase cuts."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     per_forward = Counter(calls)
     before = snapshot(stats)
     cudnn_total = int_mm_total = site_total = 0.0
+    int_mm_refused = 0
     per_tensor = {"ms": 0.0, "codes": 0, "differ": 0}
     for b in (8, BATCH):
-        for (shape, kernel, stride, padding, n), count in per_forward.items():
-            h, w, c = shape
-            x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
-            k = kernel * kernel * c
+        for (shape, kernel, stride, padding, groups, n), count in per_forward.items():
+            c = shape[-1]  # a conv's x (B, H, W, C), a Linear's (B, C) (GCViT's SE)
+            x = torch.randn((b, *shape), generator=gen, device="cuda").to(torch.bfloat16)
+            k = (kernel or 1) ** 2 * c // groups
             qw = Q.pack_weight(torch.randint(-127, 128, (k, n), generator=gen, device="cuda")
                                .to(torch.int8))
             cs = torch.rand((n,), generator=gen, device="cuda") * 1e-3
             inv = Q.f32_reciprocal(x.float().abs().max().item() / 127.0)
-            kw = dict(kernel=kernel, stride=stride, padding=padding)
+            kw = dict(kernel=kernel, stride=stride, padding=padding, groups=groups)
             gkw = dict(kw, out_dtype=torch.bfloat16)
             out = Q.ptq_int8_conv(x, qw, cs, None, inv, **kw)
             xq = Q.ptq_int8_quantize(x, inv)
@@ -1664,7 +1848,9 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
             a, a_inv = (x, inv) if in_gemm else (xq, None)
             gemm = Q.ptq_int8_gemm(a, qw, cs, None, inv_s=a_inv, **gkw)
             torch.cuda.synchronize()
-            label = (f"{name} b{b} {(b, h, w, c)} -> {n} k{kernel} s{stride} x{count}"
+            label = (f"{name} b{b} {(b, *shape)} -> {n} "
+                     + (f"k{kernel} s{stride}" if kernel else "Linear")
+                     + (f" g{groups}" if groups > 1 else "") + f" x{count}"
                      + (" quantized in the GEMM" if in_gemm else ""))
             if not torch.equal(xq, Q.ptq_int8_quantize_plain(x, inv)):
                 raise AssertionError(f"{QUANT} at {label} differs from its plain version")
@@ -1678,16 +1864,28 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
                                      lambda: Q.ptq_int8_gemm_plain(xq, qw, cs, None, **gkw))
                 site = cuda_ms(lambda: Q.ptq_int8_conv(x, qw, cs, None, inv, **kw))
                 site_total += count * site
-                wc = torch.randn((n, c, kernel, kernel), generator=gen, device="cuda").to(
-                    torch.bfloat16)
-                xc = x.permute(0, 3, 1, 2)
-                cudnn = cuda_ms(lambda: torch.nn.functional.conv2d(xc, wc, None, stride, padding))
+                if kernel is None:  # a Linear site: cuBLAS's bf16 product
+                    wl = torch.randn((n, c), generator=gen, device="cuda").to(torch.bfloat16)
+                    cudnn = cuda_ms(lambda: F.linear(x, wl))
+                else:
+                    wc = torch.randn((n, c // groups, kernel, kernel), generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                    (pt, pb), (pl, pr) = Q.padding_pairs(padding)
+                    xc = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+                    cudnn = cuda_ms(lambda: F.conv2d(xc, wc, None, stride, 0, groups=groups))
                 cudnn_total += count * cudnn
-                if kernel == 1:  # a 1 x 1 site is an (M, K) @ (K, N) product
+                rows = kernel in (None, 1) and groups == 1
+                int_mm = None
+                if rows:  # a 1 x 1 or Linear site is an (M, K) @ (K, N) product
                     xr = xq.view(-1, c)
                     wq = qw[:, :c].contiguous()  # (N, K): the column-major B cuBLASLt takes
-                    int_mm = cuda_ms(lambda: torch._int_mm(xr, wq.t()))
-                    int_mm_total += count * int_mm
+                    try:  # a yardstick: cuBLASLt refuses some int8 shapes (N = 40, K = 96)
+                        int_mm = cuda_ms(lambda: torch._int_mm(xr, wq.t()))
+                        int_mm_total += count * int_mm
+                    except RuntimeError as err:
+                        int_mm_refused += count
+                        print(f"[kernels] {'':26s} torch._int_mm refuses {label}: "
+                              f"{str(err).splitlines()[0][:80]}")
                 if not in_gemm:  # the pass: bf16 x read, int8 written
                     q_times = time_calls(lambda: Q.ptq_int8_quantize(x, inv),
                                          lambda: Q.ptq_int8_quantize_plain(x, inv))
@@ -1699,17 +1897,18 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
                 g_bound = account(stats, PTQ, count, g_times, a_bytes + k * n + m * n * 2 + n * 4,
                                   2 * m * k * n, "int8")
                 print_launch(PTQ, label, g_times, g_bound, card)
-                print(f"[kernels] {'':26s} the site (both launches) {site:.3f} ms; cuDNN bf16 conv "
-                      f"of the same site {cudnn:.3f} ms"
+                print(f"[kernels] {'':26s} the site (both launches) {site:.3f} ms; bf16 "
+                      f"{'conv' if kernel else 'F.linear'} of the same site {cudnn:.3f} ms"
                       + (f", torch._int_mm on its pre-quantized rows {int_mm:.3f} ms"
-                         if kernel == 1 else ""))
+                         if int_mm is not None else ""))
             del x, qw, out, xq, gemm, a
             torch.cuda.empty_cache()
     print_per_forward(stats, before, (QUANT, PTQ), f"{name} batch-256 int8 forward "
                       f"({sum(per_forward.values())} sites)", card)
     print(f"[kernels] the {sum(per_forward.values())} int8 sites per {name} batch-256 forward: "
-          f"both launches {site_total:.2f} ms; in cuDNN bf16 convs {cudnn_total:.2f} ms; the "
-          f"1 x 1 sites as torch._int_mm on pre-quantized rows {int_mm_total:.2f} ms [{card}]")
+          f"both launches {site_total:.2f} ms; in bf16 convs / F.linear {cudnn_total:.2f} ms; the "
+          f"1 x 1 and Linear sites as torch._int_mm on pre-quantized rows {int_mm_total:.2f} ms "
+          f"(refused at {int_mm_refused}) [{card}]")
     print(f"[kernels] {QUANT} beside torch.quantize_per_tensor (f32 copy, qint8, scale 1 / "
           f"inv_s) at the {name} sites that run the pass: {per_tensor['ms']:.3f} ms per forward "
           f"(events), {per_tensor['differ']} of {per_tensor['codes']} codes differ; clamp "
@@ -1872,8 +2071,8 @@ def pass_sites(calls: list) -> int:
     """How many of one forward's int8 sites (bf16 x and output, as the
     model runs them) run the quantize pass: the rest quantize in the GEMM."""
     return sum(not Q.quantizes_in_gemm(torch.bfloat16, torch.bfloat16, kernel, stride, padding,
-                                       (kernel or 1) ** 2 * shape[-1], n)
-               for shape, kernel, stride, padding, n in calls)
+                                       (kernel or 1) ** 2 * shape[-1] // groups, n, groups)
+               for shape, kernel, stride, padding, groups, n in calls)
 
 
 def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
@@ -1904,7 +2103,8 @@ def phase_slice_int8(card: str, sites: int, passes: int) -> dict:
     return {n: int8[n] for n in (QUANT, PTQ)}
 
 
-def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: int) -> dict:
+def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: int,
+                      all_sites: int, all_passes: int) -> dict:
     """The product contract: the seven members of ``ckpts/ckpts.json``
     (``MANIFEST``, checked against the file) through ``main_torch.main``,
     cold and warm: every kernel of the fused block families at each block,
@@ -1914,8 +2114,12 @@ def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: in
     ``VIPTPU_INT8=ResNetRS50,ResNest50`` (the JAX package's ``INT8_AUTO``
     set): the same, and ``ptq_int8_conv`` at the ``int8_sites`` of both
     members and ``ptq_int8_quantize`` at the ``int8_passes`` of them that
-    run the pass, per batch. Returns K9's launches in the cold run and the
-    int8 kernels' in the int8 run."""
+    run the pass, per batch. Then with ``VIPTPU_INT8=all``: the fused-path
+    launches of one forward more (the calibration forward of each member,
+    before any site is swapped), ``ptq_int8_conv`` at the ``all_sites`` of
+    the seven members and ``ptq_int8_quantize`` at the ``all_passes`` of
+    them, per batch. Returns K9's launches in the cold run and the int8 kernels' in
+    the ``all`` run."""
     with open(os.path.join(REPO, "ckpts", "ckpts.json")) as fh:
         if json.load(fh) != MANIFEST:
             raise AssertionError("MANIFEST is not ckpts/ckpts.json")
@@ -1923,11 +2127,10 @@ def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: in
     with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names):
         cold_launches, cold, batch_c, _ = run_csv(input_csv, output_csv, names, times)
         warm_launches, warm, batch_w, _ = run_csv(input_csv, output_csv, names, times)
-        os.environ["VIPTPU_INT8"] = "ResNetRS50,ResNest50"
-        try:
+        with knobs(VIPTPU_INT8="ResNetRS50,ResNest50"):
             int8_launches, t_int8, batch_i, _ = run_csv(input_csv, output_csv, names, times)
-        finally:
-            del os.environ["VIPTPU_INT8"]
+        with knobs(VIPTPU_INT8="all"):
+            all_launches_, t_all, batch_a, _ = run_csv(input_csv, output_csv, names, times)
     fused = seven_launches(batches, dw_sites)
     for label, launches in (("seven-member cold", cold_launches),
                             ("seven-member warm", warm_launches)):
@@ -1936,6 +2139,11 @@ def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: in
                                     QUANT: batches * int8_passes,
                                     **{n: 0 for n in SPIKE_KERNELS}},
                     "seven-member VIPTPU_INT8=ResNetRS50,ResNest50 CSV->CSV")
+    expect_launches(all_launches_, {**seven_launches(batches + 1, dw_sites),
+                                    PTQ: batches * all_sites,
+                                    QUANT: batches * all_passes,
+                                    **{n: 0 for n in SPIKE_KERNELS}},
+                    "seven-member VIPTPU_INT8=all CSV->CSV")
     ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
     print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 7 members: cold {cold:.2f} s "
           f"({N_IMAGES / cold:.1f} img/s; per-batch e2e {ms(batch_c)}), warm {warm:.2f} s "
@@ -1943,7 +2151,11 @@ def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: in
     print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 7 members, "
           f"VIPTPU_INT8=ResNetRS50,ResNest50: {t_int8:.2f} s ({N_IMAGES / t_int8:.1f} img/s; "
           f"per-batch e2e {ms(batch_i)}) [{card}]")
-    return {DW: cold_launches[DW], PTQ: int8_launches[PTQ], QUANT: int8_launches[QUANT]}
+    print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, 7 members, VIPTPU_INT8=all: "
+          f"{t_all:.2f} s ({N_IMAGES / t_all:.1f} img/s; per-batch e2e {ms(batch_a)}) beside "
+          f"bf16 warm {warm:.2f} s ({N_IMAGES / warm:.1f} img/s; per-batch e2e {ms(batch_w)}) "
+          f"[{card}]")
+    return {DW: cold_launches[DW], PTQ: all_launches_[PTQ], QUANT: all_launches_[QUANT]}
 
 
 def seven_launches(forwards: int, dw_sites: int) -> dict:
@@ -2950,8 +3162,16 @@ def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(label: str) -> None:  # the wall seconds since the last lap, printed at the end
+        now = time.perf_counter()
+        laps[label] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     card = phase_device()
     phase_build()
+    lap("build")
     stats = new_stats()
     phase_kernels(card, stats)
     phase_gcvit_kernels(card, stats)
@@ -2962,35 +3182,61 @@ def main(argv) -> None:
     phase_attn_parts(card, stats)
     tool_launches = phase_tools(card)
     spike_launches = phase_spike(card, stats)
+    lap("kernels and tools")
     profile = "--profile" in argv
     phase_model("convnext_tiny_in22k", card, profile)
     dw_members = {"GCViTTiny": phase_model("GCViTTiny", card, profile, fused_block=True)}
     phase_model("GCViTTiny", card, profile, fused_block=False)
+    states = {name: _effnet_state(name) for name in EFFNETS}
+    states["ECA_NFNetL0"] = _nfnet_state()
     for name in EFFNETS:
-        dw_members[name] = phase_member(name, card, profile, _effnet_state(name))
+        dw_members[name] = phase_member(name, card, profile, states[name])
     phase_depthwise_sites(card, stats, dw_members)
-    phase_member("ECA_NFNetL0", card, profile, _nfnet_state())
+    phase_member("ECA_NFNetL0", card, profile, states["ECA_NFNetL0"])
+    lap("models")
     calls = {}
-    for name in INT8_SITES:  # ResNetRS50, then ResNest50
+    for name in INT8_RESNETS:
         calls[name] = phase_int8_member(name, card, profile)[0]
         phase_ptq_sites(card, stats, calls[name], name, tool=name == "ResNetRS50")
+    lap("int8 ResNetRS50 and ResNest50")
+    for name in INT8_SITES:
+        if name not in calls:
+            calls[name] = phase_int8_other(name, card, profile, states.pop(name, None))
+            if name == "ECA_NFNetL0":  # its grouped sites apart, for their own line
+                for part, grouped in (("grouped", True), ("ungrouped", False)):
+                    phase_ptq_sites(card, stats, [c for c in calls[name] if (c[4] > 1) == grouped],
+                                    f"{name} {part}", tool=False)
+            else:
+                phase_ptq_sites(card, stats, calls[name], name, tool=False)
+    del states
+    phase_layernorm_gc(card)
+    lap("int8 other members, their sites, gc_ln")
     launches = {**phase_slice(card), **tool_launches, **spike_launches}
     phase_slice_int8(card, len(calls["ResNetRS50"]), pass_sites(calls["ResNetRS50"]))
     every = calls["ResNetRS50"] + calls["ResNest50"]
+    every_member = [c for name in INT8_SITES for c in calls[name]]
     dw_sites = [site for sites, _ in dw_members.values() for site in sites]
-    launches.update(phase_slice_seven(card, len(dw_sites), len(every), pass_sites(every)))
+    launches.update(phase_slice_seven(card, len(dw_sites), len(every), pass_sites(every),
+                                      len(every_member), pass_sites(every_member)))
+    lap("CSV slices")
     phase_serving(card, stats, dw_sites)
+    lap("serving")
     phase_pth(card)
+    lap("pth")
     for name in TRAIN_MEMBERS:
         phase_train(card, profile, name)
+        lap(f"train {name}")
     phase_train_flip(card)
+    lap("train_flip")
     phase_train_data(card)
+    lap("train_data")
     record = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                "launches": launches[n], "max_abs_err": stats[n]["max_abs_err"],
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],
                "bound_ms": stats[n]["bound_ms"],
                "bound_by": "bytes" if stats[n]["bytes_ms"] >= stats[n]["ops_ms"] else "operations",
                "library_ms": stats[n]["library_ms"]} for n in KERNELS]
+    print(f"[smoke] wall seconds by phase: {laps}")
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -271,7 +271,7 @@ def _flax_shapes(name):
     return out
 
 
-@pytest.mark.parametrize("name", [n for n in _jax_names() if not n.endswith("_GC")])
+@pytest.mark.parametrize("name", _jax_names())
 def test_every_registered_name_builds_the_jax_tree(name):
     """Each registered config builds a module whose state_dict keys and
     shapes are the JAX tree's, under the weight bridge's layout rules."""
@@ -282,8 +282,27 @@ def test_every_registered_name_builds_the_jax_tree(name):
 
 
 def test_global_context_variant_raises():
-    with pytest.raises(NotImplementedError, match="A8b"):
-        create_model("EfficientNetV2T_GC", input_size=(64, 64))
+    """EfficientNetV2T_GC builds (it raised before its global-context
+    module was ported): narrow, in f32, its logits and features within 1e-4
+    of the JAX model's, and its gc_* leaves (the 1-channel attention conv,
+    the two MLP convs, the LN's gamma / beta at the narrow widths 4 / 6 / 8) back to the Flax tree unchanged through ``torch_to_flax``."""
+    from vip_cup_2022_tpu_torch.weights.to_flax import torch_to_flax
+
+    kw = dict(input_size=(64, 64), nb_classes=3, classifier_activation="softmax",
+              **NARROW["EfficientNetV2T"])
+    module, tree, port = _pair("EfficientNetV2T_GC", 5, **kw)
+    x = np.random.RandomState(9).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    _close(_run(port, x), np.asarray(module.apply(tree, jnp.asarray(x))))
+    _close(_run(port, x, features_only=True),
+           np.asarray(module.apply(tree, jnp.asarray(x), features_only=True)))
+    widths = sorted({m.weight.shape[0] for n, m in port.named_modules() if n.endswith("gc_ln")})
+    assert widths == [4, 6, 8]
+    back = torch_to_flax(port)["params"]
+    gc = [k for k in tree["params"] if "_gc_" in k]
+    assert len(gc) == 4 * sum(spec.se for spec in port.blocks)
+    for k in gc:
+        for leaf, v in tree["params"][k].items():
+            np.testing.assert_array_equal(back[k][leaf], v)
 
 
 def test_strict_load_needs_every_statistic():

@@ -365,12 +365,15 @@ def test_gcvit_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 # LayerNorm (K10), window attention on (B, H, N, D) (K8), depthwise conv (K9)
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768,
+                               12, 26, 32, 52, 1, 13, 1023])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_layer_norm_matches_plain_on_card(cuda_device, c, dtype):
     """A ragged row count (1001 rows: no tile divides it) at every LN width
-    of both members; the plain version in f32 on the same inputs. bf16:
-    max|d| / max|ref| <= 1e-2 (the output's rounding); f32 <= 1e-5."""
+    of both members, EfficientNetV2T_GC's gc_ln widths (12, 26, 32, 52) and
+    odd ones (the scalar path past the 16-byte vector); the plain version in
+    f32 on the same inputs. bf16: max|d| / max|ref| <= 1e-2 (the output's
+    rounding); f32 <= 1e-5."""
     from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L
 
     g = torch.Generator(device=cuda_device).manual_seed(c)
@@ -949,6 +952,62 @@ def test_ptq_int8_conv_edges_on_card(cuda_device, b, h, w, c, n, kernel, stride,
                           "f32-bf16": (torch.float32, torch.bfloat16)}[types]
     _ptq_check(cuda_device, b, h, w, c, n, kernel, stride, x_dtype, out_dtype, with_bias,
                seed=h * w + c)
+
+
+# ECA_NFNetL0's grouped 3 x 3 sites at 200 px (groups of 64 channels), an F
+# series site (groups of 128, TF SAME at stride 2: pads (0, 1)) and
+# ungrouped asymmetric pairs: (B, H = W, C = N, groups, stride, padding)
+GROUPED_SITES = [
+    (8, 50, 128, 2, 2, 1),                 # stack2_block1_deep_2
+    (8, 25, 128, 2, 1, 1),                 # stack2 deep_3
+    (8, 25, 384, 6, 2, 1),                 # stack3_block1_deep_2
+    (8, 13, 384, 6, 1, 1),                 # stack3 deep_3
+    (8, 7, 384, 6, 1, 1),                  # stack4 deep_3
+    (3, 16, 256, 2, 2, ((0, 1), (0, 1))),  # NFNetF0-like: TF SAME at stride 2
+    (2, 9, 96, 1, 2, ((1, 1), (0, 1))),    # ungrouped, asymmetric pairs
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,c,groups,stride,padding", GROUPED_SITES)
+@pytest.mark.parametrize("types", ["bf16-bf16", "f32-f32"])
+def test_ptq_int8_conv_grouped_and_padded_on_card(cuda_device, b, h, c, groups, stride, padding,
+                                                  types):
+    """The gathered site in ``groups`` groups and with (top, bottom), (left,
+    right) pads, with a bias: within 1e-6 of max|ref| of the plain version
+    (XLA's ``feature_group_count`` conv's integer sums, the same epilogue)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    x_dtype, out_dtype = {"bf16-bf16": (torch.bfloat16, torch.bfloat16),
+                          "f32-f32": (torch.float32, torch.float32)}[types]
+    g = torch.Generator(device=cuda_device).manual_seed(h * c + groups)
+    x = torch.randn((b, h, h, c), generator=g, device=cuda_device).to(x_dtype)
+    qw = Q.pack_weight(torch.randint(-127, 128, (9 * c // groups, c), generator=g,
+                                     device=cuda_device).to(torch.int8))
+    cs = torch.rand((c,), generator=g, device=cuda_device) * 1e-3
+    bias = torch.randn((c,), generator=g, device=cuda_device)
+    inv = Q.f32_reciprocal(x.float().abs().max().item() / 127.0)
+    kw = dict(kernel=3, stride=stride, padding=padding, groups=groups, out_dtype=out_dtype)
+    Q.reset_launches()
+    got = Q.ptq_int8_conv(x, qw, cs, bias, inv, **kw)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES["ptq_int8_conv"] == 1
+    ref = Q.ptq_int8_conv_plain(x, qw, cs, bias, inv, **kw)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert _rel(got, ref) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_ptq_int8_conv_rejects_groups_narrower_than_a_tile(cuda_device):
+    """A group of 32 output columns would split a 64-column tile: refused
+    before any launch."""
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+
+    x = torch.randn((1, 8, 8, 64), device=cuda_device)
+    qw = Q.pack_weight(torch.zeros((9 * 32, 64), dtype=torch.int8, device=cuda_device))
+    cs = torch.ones((64,), device=cuda_device)
+    with pytest.raises(ValueError, match="tile"):
+        Q.ptq_int8_conv(x, qw, cs, None, 1.0, kernel=3, padding=1, groups=2)
 
 
 @pytest.mark.cuda

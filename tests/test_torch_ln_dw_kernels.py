@@ -87,6 +87,21 @@ def test_layer_norm_module_keeps_its_names_and_matches_the_flax_module():
     assert L.LAUNCHES == {"layer_norm": 0}  # CPU tensors take the plain version
 
 
+@pytest.mark.parametrize("c", [12, 26, 52, 13, 1])
+def test_layer_norm_at_any_width_matches_the_flax_module(c):
+    """EfficientNetV2T_GC's ``gc_ln`` widths (12, 26, 52) and odd ones, which
+    the kernel takes on its scalar path: the wrapper's plain version (what it
+    runs on the CPU) against the JAX package's f32 LayerNorm, eps 1e-5, on
+    pooled (B, 1, 1, C) rows."""
+    rng = np.random.RandomState(c)
+    x = _u(rng, (33, 1, 1, c), -2, 3)
+    params = {"gamma": _u(rng, (c,), 0.5, 1.5), "beta": _u(rng, (c,), -0.1, 0.1)}
+    want = JaxLayerNorm(epsilon=1e-5).apply({"params": params}, jnp.asarray(x))
+    got = L.layer_norm(_t(x), _t(params["gamma"]), _t(params["beta"]), 1e-5)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
 def test_layer_norm_keeps_the_input_dtype():
     x = torch.randn(4, 32, dtype=torch.bfloat16)
     out = L.layer_norm(x, torch.ones(32), torch.zeros(32), 1e-5)

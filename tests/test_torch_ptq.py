@@ -277,20 +277,62 @@ def test_full_width_resnest50_has_68_sites():
     assert len(_resnest_sites_match_jax(200, logits=False)) == 68
 
 
+class _JaxGrouped(fnn.Module):
+    @fnn.compact
+    def __call__(self, x):
+        return fnn.Conv(128, (3, 3), strides=(2, 2), padding=((0, 1), (0, 1)),
+                        feature_group_count=2, name="grouped")(x)
+
+
+class _TorchGrouped(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.grouped = Conv(64, 128, 3, stride=2, padding=((0, 1), (0, 1)), groups=2)
+
+    def forward(self, x):
+        return self.grouped(x)
+
+
 def test_nfnet_calibration_records_no_standardized_conv():
-    """NFNet's convs are ``ScaledStdConv``s, whose raw weight is not the one
-    they convolve with: calibration must not record one as a plain conv
-    site, which would quantize the raw kernel. The JAX pass calibrates them
-    (``_handle_stdconv``); the port leaves int8 NFNet to ROADMAP A9b."""
+    """NFNet's convs are ``ScaledStdConv``s, sites of the JAX pass
+    (``_handle_stdconv``) and now of the port's: calibration records the
+    same sites with the same abs-max (every one a standardized conv), and
+    the quantized model reports the same sites. A grouped conv site (a plain
+    ``Conv`` of two groups of 32 input channels, TF-SAME pads at stride 2)
+    quantizes as JAX's ``feature_group_count`` int8 conv, bit for bit in
+    f32. (The name is the one this test had while the port refused both.)"""
     from test_torch_nfnet import NARROW, _pair
     from vip_cup_2022_tpu_torch.ops.conv import ScaledStdConv
 
     module, tree, port = _pair("NFNetL0", 3, input_size=(64, 64), nb_classes=1, **NARROW)
     x = np.random.RandomState(4).uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
-    jscales = jquant.calibrate(lambda b: module.apply(tree, b), [jnp.asarray(x)])
+    apply = lambda b: module.apply(tree, b)  # noqa: E731
+    jscales = jquant.calibrate(apply, [jnp.asarray(x)])
     std = {n.replace(".", "/") for n, m in port.named_modules() if isinstance(m, ScaledStdConv)}
     assert jscales and set(jscales) <= std
-    assert quant.calibrate(port, [torch.from_numpy(x)]) == {}
-    with pytest.raises(NotImplementedError, match="A9b"):
-        grouped = Conv(64, 64, 3, padding=1, groups=2)
-        quant.quantized(torch.nn.Sequential(grouped), {"0": 1.0})
+    scales = quant.calibrate(port, [torch.from_numpy(x)])
+    assert set(scales) == set(jscales)
+    for site, v in jscales.items():
+        assert abs(scales[site] - v) <= 1e-5 * v, site
+    jreport, report = {}, {}
+    jquant.quantized(apply, jscales, report=jreport)(jnp.asarray(x))
+    with torch.inference_mode():
+        quant.quantized(port, jscales, report=report)(torch.from_numpy(x))
+    assert report == jreport
+
+    rng = np.random.RandomState(6)
+    xg = rng.randn(2, 10, 10, 64).astype(np.float32)
+    gmod = _JaxGrouped()
+    gtree = jax.tree_util.tree_map(np.asarray, flax.core.unfreeze(
+        gmod.init(jax.random.PRNGKey(1), xg)))
+    gtree["params"]["grouped"]["bias"] = rng.randn(128).astype(np.float32)
+    gport = _TorchGrouped()
+    gport.load_state_dict(state_dict_from_flax(gtree, gport.state_dict(), strict=True))
+    gapply = lambda b: gmod.apply(gtree, b)  # noqa: E731
+    gscales = jquant.calibrate(gapply, [jnp.asarray(xg)])
+    assert set(gscales) == {"grouped"}
+    want = jquant.quantized(gapply, gscales)(jnp.asarray(xg))
+    quant.quantized(gport, gscales)
+    with torch.inference_mode():
+        got = gport(torch.from_numpy(xg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -244,20 +244,23 @@ def test_cli_csv_equals_jax_byte_for_byte(workspace, monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"VIPTPU_INT8": "all"}, "A12"),
-    ({"VIPTPU_INT8": "EfficientNetV2T", "VIPTPU_CKPTS_JSON": "efficientnet.json"}, "A8b"),
+    ({"VIPTPU_INT8": "all", "VIPTPU_CKPTS_JSON": "botnet.json"}, "A14"),
+    ({"VIPTPU_INT8": "BotNet26T", "VIPTPU_CKPTS_JSON": "botnet.json"}, "A14"),
 ])
 def test_cli_unported_knobs_raise(workspace, monkeypatch, env, match):
-    """Each knob whose path is not ported raises before any CSV is written;
-    a ``VIPTPU_CKPTS_JSON`` case runs a random-init EfficientNetV2T manifest
-    (``VIPTPU_INT8`` reaches only the members a manifest holds)."""
+    """A member whose family is not ported raises before any CSV is
+    written, with int8 chosen for every member or for it by name (int8 runs
+    on every ported family: ``test_torch_int8_members.py``); the
+    ``VIPTPU_CKPTS_JSON`` manifest holds a random-init BotNet26T beside the
+    workspace's ConvNeXt."""
     root, input_csv, *_ = workspace
     monkeypatch.setenv("VIPTPU_PLATFORM", "cpu")
     monkeypatch.setenv("VIPTPU_CKPT_DIR", str(root / "ckpts"))
     env = dict(env)
     if "VIPTPU_CKPTS_JSON" in env:
         manifest = root / "ckpts" / env["VIPTPU_CKPTS_JSON"]
-        manifest.write_text(json.dumps([["EfficientNetV2T-200x200", [64, 64], 0]]))
+        manifest.write_text(json.dumps([["convnext_tiny_in22k-200x200", [32, 32], 0],
+                                        ["BotNet26T-200x200", [64, 64], 0]]))
         env.update(VIPTPU_CKPTS_JSON=str(manifest), VIPTPU_ALLOW_RANDOM_INIT="1")
     for k, v in env.items():
         monkeypatch.setenv(k, v)

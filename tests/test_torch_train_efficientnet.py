@@ -1,8 +1,11 @@
-"""EfficientNetV2T's and EfficientNetV1B4's training forms in the port
-against the JAX package, on the CPU: ``test_torch_train_members.py``'s
-tests of a member (the narrow ``test_torch_efficientnet.NARROW``, V2T at
-64 px with a second block in stage 3 and drop-connect 0.2, V1B4 at 57 px
-with the registry's 0.2 / 0.4), and the training forward's K9 calls: every
+"""EfficientNetV2T's, EfficientNetV2T_GC's and EfficientNetV1B4's training
+forms in the port against the JAX package, on the CPU:
+``test_torch_train_members.py``'s tests of a member (the narrow
+``test_torch_efficientnet.NARROW``, V2T and V2T_GC at 64 px with a second
+block in stage 3 and drop-connect 0.2, V2T_GC's ``gc_ln`` through the LN
+function (K10's forward, the plain LN's gradient) at its narrow widths,
+V1B4 at 57 px with the registry's 0.2 / 0.4), and the training forward's
+K9 calls: every
 stride-1 depthwise conv reaches the depthwise wrapper with its padding
 resolved at the call's size, the strided ones do not."""
 import os
@@ -22,6 +25,10 @@ from test_torch_train_members import MemberTraining, _kw  # noqa: E402
 
 class TestEfficientNetV2T(MemberTraining):
     NAME = "EfficientNetV2T"
+
+
+class TestEfficientNetV2T_GC(MemberTraining):
+    NAME = "EfficientNetV2T_GC"
 
 
 class TestEfficientNetV1B4(MemberTraining):

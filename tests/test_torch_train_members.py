@@ -74,6 +74,8 @@ MEMBERS = {
     "EfficientNetV2T": (64, dict(eff_tests.NARROW["EfficientNetV2T"], depthes=(1, 1, 1, 2, 1, 1)),
                         dict(drop_connect_rate=0.2)),
     "EfficientNetV1B4": (57, eff_tests.NARROW["EfficientNetV1B4"], {}),
+    "EfficientNetV2T_GC": (64, dict(eff_tests.NARROW["EfficientNetV2T"], depthes=(1, 1, 1, 2, 1, 1)),
+                           dict(drop_connect_rate=0.2)),
     "ECA_NFNetL0": (64, nf_tests.NARROW, dict(drop_connect_rate=0.2)),
 }
 BN_MEMBERS = [n for n in MEMBERS if n != "ECA_NFNetL0"]

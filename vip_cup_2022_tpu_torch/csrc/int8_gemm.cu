@@ -9,9 +9,10 @@
 //                      (N, Kp), s32 accumulation -> f32(acc) * colscale[n]
 //                      (+ bias[n]) -> f32 or bf16. A is either rows of an
 //                      (M, K) matrix (a Dense site, a 1x1 stride-1 conv) or
-//                      an implicit-GEMM gather from NHWC x (a k x k or
-//                      strided conv): row m = (b, oh, ow), column
-//                      k = (kh, kw, c), zeros in the symmetric padding.
+//                      an implicit-GEMM gather from NHWC x (a k x k,
+//                      strided, padded or grouped conv): row m =
+//                      (b, oh, ow), column k = (kh, kw, c) of the column's
+//                      group, zeros in the padding.
 //
 // The three spike bodies replace the TPU kernel `_call` of
 // tools/int8_pallas_spike.py (`_bf16_kernel`, `_int8_direct_kernel` and
@@ -62,8 +63,9 @@ extern "C" {
 // past K; the plan (bn, stages, resident, tall) from int8_gemm.py: ptq_plan
 int int8_spike_bf16(const void* x, const void* w, int ldw, void* out, int out_f32, int M, int K,
                     int N, int bn, int stages, int resident, int tall, void* stream) {
-  const ptq_int8::Params p{(const int8_t*)x, 0.f, nullptr, nullptr, out, M, K, N, ldw, 1, 1, K,
-                           1, 1, 0, 1, 1, stages, resident};
+  const ptq_int8::Params p = ptq_int8::site_params(x, 0.f, nullptr, nullptr, out, M, K, N, ldw,
+                                                   1, 1, K, 1, 1, 0, 0, 1, 1, 1, stages,
+                                                   resident);
   const cudaStream_t st = (cudaStream_t)stream;
   const int src = ptq_int8::kRows;
   return (int)(out_f32 ? ptq_int8::launch_gemm<float, kWhole, bf16, false>(p, w, src, bn,
@@ -76,10 +78,12 @@ int int8_spike_bf16(const void* x, const void* w, int ldw, void* out, int out_f3
 // rows gathered as M images of 1 x 1 x K (src 1, C = K); w (N, ldw) int8
 // K-major; -> s32 (M, N)
 int int8_spike_direct(const void* a, const void* w, int ldw, void* out, int M, int K, int N,
-                      int src, int H, int W, int C, int KW, int stride, int pad, int Ho, int Wo,
-                      int bn, int stages, int resident, int tall, void* stream) {
-  const ptq_int8::Params p{(const int8_t*)a, 0.f, nullptr, nullptr, out, M, K, N, ldw, H, W, C,
-                           KW, stride, pad, Ho, Wo, stages, resident};
+                      int src, int H, int W, int C, int KW, int stride, int pad_h, int pad_w,
+                      int groups, int Ho, int Wo, int bn, int stages, int resident, int tall,
+                      void* stream) {
+  const ptq_int8::Params p = ptq_int8::site_params(a, 0.f, nullptr, nullptr, out, M, K, N, ldw,
+                                                   H, W, C, KW, stride, pad_h, pad_w, groups, Ho,
+                                                   Wo, stages, resident);
   return (int)ptq_int8::launch_gemm<int, kWhole, int8_t, false>(p, w, src, bn, tall != 0,
                                                                 (cudaStream_t)stream);
 }
@@ -92,17 +96,20 @@ int ptq_int8_quantize(const void* x, int x_f32, void* q, long long n, float inv_
 }
 
 // a: the quantized x (src 0: (M, K) rows; src 1: NHWC (B, H, W, C), the conv
-// KH x KW at `stride` with symmetric `pad`, output (B, Ho, Wo, N) with M = B
-// Ho Wo and K = KH KW C) or, with src 2, the bf16 x rows themselves,
+// KH x KW at `stride` with top / left pads pad_h / pad_w in `groups` groups,
+// output (B, Ho, Wo, N) with M = B Ho Wo and K = KH KW C / groups; N /
+// groups a multiple of bn) or, with src 2, the bf16 x rows themselves,
 // quantized in the GEMM with inv_s (bf16 output only); w (N, ldw) int8,
 // K-major; the plan from ops/kernels/int8_gemm.py:
 // ptq_plan (bn, stages, resident, tall)
 int ptq_int8_conv(const void* a, const void* w, int ldw, const float* colscale,
                   const float* bias, void* out, int out_f32, int M, int K, int N, int src,
-                  float inv_s, int H, int W, int C, int KW, int stride, int pad, int Ho, int Wo,
-                  int bn, int stages, int resident, int tall, void* stream) {
-  const ptq_int8::Params p{(const int8_t*)a, inv_s, colscale, bias, out, M, K, N, ldw, H, W,
-                           C, KW, stride, pad, Ho, Wo, stages, resident};
+                  float inv_s, int H, int W, int C, int KW, int stride, int pad_h, int pad_w,
+                  int groups, int Ho, int Wo, int bn, int stages, int resident, int tall,
+                  void* stream) {
+  const ptq_int8::Params p = ptq_int8::site_params(a, inv_s, colscale, bias, out, M, K, N, ldw,
+                                                   H, W, C, KW, stride, pad_h, pad_w, groups, Ho,
+                                                   Wo, stages, resident);
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(out_f32 ? ptq_int8::launch_gemm<float, kWhole>(p, w, src, bn, tall != 0, st)
                        : ptq_int8::launch_gemm<bf16, kWhole>(p, w, src, bn, tall != 0, st));

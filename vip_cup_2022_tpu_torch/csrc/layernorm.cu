@@ -17,6 +17,11 @@
 // rows at once, with 8 lanes per row. Rows past M (the ragged last block)
 // compute on zeros and store nothing.
 //
+// Any other width (C not a multiple of the vector, e.g. the 12 / 26 / 52
+// channels of EfficientNetV2T_GC's gc_ln): the same kernel on scalar
+// elements (layernorm_any_kernel), a lane holding up to MAXE of them, so the
+// row is still read once and both passes run from registers.
+//
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
 
@@ -142,6 +147,94 @@ layernorm_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// One element of T as f32, and back (round to nearest even for bf16).
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ void from_f32(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
+
+// Any C: a segment of LPR lanes owns a row, lane sl holding its elements
+// sl + i LPR (i < MAXE) in registers; the same two-pass f32 statistics and
+// apply as layernorm_kernel, one element a load and a store.
+template <typename T, int LPR, int MAXE>
+__global__ void __launch_bounds__(kThreads)
+layernorm_any_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ b, T* __restrict__ out, long long M, int C,
+                     float eps) {
+  constexpr int kRowsPerWarp = 32 / LPR;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sl = lane % LPR;
+  const long long row =
+      ((long long)blockIdx.x * kWarps + warp) * kRowsPerWarp + lane / LPR;
+  const bool valid = row < M;
+  const T* xr = x + (valid ? row : 0) * C;
+
+  float v[MAXE];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < MAXE; ++i) {
+    const int j = sl + i * LPR;
+    v[i] = valid && j < C ? to_f32(xr[j]) : 0.f;
+    s += v[i];
+  }
+  const float inv_c = 1.0f / (float)C;
+  const float mean = segment_sum<LPR>(s) * inv_c;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < MAXE; ++i) {
+    if (sl + i * LPR < C) {
+      const float d = v[i] - mean;
+      q += d * d;
+    }
+  }
+  const float rstd = rsqrtf(segment_sum<LPR>(q) * inv_c + eps);
+  if (!valid) return;  // after the last shuffle: every lane took part in both
+
+  T* orow = out + row * C;
+#pragma unroll
+  for (int i = 0; i < MAXE; ++i) {
+    const int j = sl + i * LPR;
+    if (j < C) from_f32(orow + j, (v[i] - mean) * rstd * g[j] + b[j]);
+  }
+}
+
+template <typename T, int LPR, int MAXE>
+void launch_any(const T* x, const float* g, const float* b, T* out, long long M, int C,
+                float eps, cudaStream_t stream) {
+  constexpr long long kRowsPerBlock = (long long)kWarps * (32 / LPR);
+  const long long blocks = (M + kRowsPerBlock - 1) / kRowsPerBlock;
+  layernorm_any_kernel<T, LPR, MAXE><<<(unsigned)blocks, kThreads, 0, stream>>>(x, g, b, out, M,
+                                                                               C, eps);
+}
+
+// The segment and the elements a lane holds for a width that is not a
+// multiple of the vector: up to 32 lanes x 64 elements.
+template <typename T>
+int launch_layernorm_any(const T* x, const float* g, const float* b, T* out, long long M, int C,
+                         float eps, cudaStream_t stream) {
+  int lpr = 1;
+  while (lpr < C && lpr < 32) lpr *= 2;
+  const int per_lane = (C + lpr - 1) / lpr;
+  int maxe = 1;
+  while (maxe < per_lane) maxe *= 2;
+  switch (lpr * 128 + maxe) {
+    case 1 * 128 + 1: launch_any<T, 1, 1>(x, g, b, out, M, C, eps, stream); break;
+    case 2 * 128 + 1: launch_any<T, 2, 1>(x, g, b, out, M, C, eps, stream); break;
+    case 4 * 128 + 1: launch_any<T, 4, 1>(x, g, b, out, M, C, eps, stream); break;
+    case 8 * 128 + 1: launch_any<T, 8, 1>(x, g, b, out, M, C, eps, stream); break;
+    case 16 * 128 + 1: launch_any<T, 16, 1>(x, g, b, out, M, C, eps, stream); break;
+    case 32 * 128 + 1: launch_any<T, 32, 1>(x, g, b, out, M, C, eps, stream); break;
+    case 32 * 128 + 2: launch_any<T, 32, 2>(x, g, b, out, M, C, eps, stream); break;
+    case 32 * 128 + 4: launch_any<T, 32, 4>(x, g, b, out, M, C, eps, stream); break;
+    case 32 * 128 + 8: launch_any<T, 32, 8>(x, g, b, out, M, C, eps, stream); break;
+    case 32 * 128 + 16: launch_any<T, 32, 16>(x, g, b, out, M, C, eps, stream); break;
+    case 32 * 128 + 32: launch_any<T, 32, 32>(x, g, b, out, M, C, eps, stream); break;
+    case 32 * 128 + 64: launch_any<T, 32, 64>(x, g, b, out, M, C, eps, stream); break;
+    default: return (int)cudaErrorInvalidValue;  // C above 32 * 64
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int LPR, int MAXV>
 void launch(const T* x, const float* g, const float* b, T* out, long long M, int C, float eps,
             cudaStream_t stream) {
@@ -157,14 +250,15 @@ int launch_layernorm(const T* x, const float* g, const float* b, T* out, long lo
                      float eps, cudaStream_t stream) {
   constexpr int VN = Vec<T>::N;
   if (M == 0) return 0;
-  if (C <= 0 || C % VN) return (int)cudaErrorInvalidValue;
+  if (C <= 0) return (int)cudaErrorInvalidValue;
+  if ((M + kWarps - 1) / kWarps > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (C % VN) return launch_layernorm_any<T>(x, g, b, out, M, C, eps, stream);
   const int nvec = C / VN;
   int lpr = 1;
   while (lpr < nvec && lpr < 32) lpr *= 2;
   const int per_lane = (nvec + lpr - 1) / lpr;
   int maxv = 1;
   while (maxv < per_lane) maxv *= 2;
-  if ((M + kWarps - 1) / kWarps > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   switch (lpr * 16 + maxv) {
     case 1 * 16 + 1: launch<T, 1, 1>(x, g, b, out, M, C, eps, stream); break;
     case 2 * 16 + 1: launch<T, 2, 1>(x, g, b, out, M, C, eps, stream); break;

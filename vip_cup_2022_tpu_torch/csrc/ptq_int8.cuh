@@ -9,14 +9,18 @@
 //                         (M, N). A is the rows of q (M, K) (a Dense site or a
 //                         1x1 stride-1 conv; kRows) or the implicit-GEMM
 //                         gather of NHWC q (kGather): row m = (b, oh, ow),
-//                         column k = (kh, kw, c), zeros in the symmetric
-//                         padding. A bf16 rows site whose output spans at
+//                         column k = (kh, kw, c), zeros in the padding (its
+//                         own top / left pads; bottom / right follow from
+//                         Ho, Wo), in G groups: the columns of group g read
+//                         the input channels [g C / G, (g + 1) C / G) with
+//                         K = KH KW C / G. A bf16 rows site whose output spans at
 //                         most two column tiles skips the pass (kRowsQuant):
 //                         its consumers quantize A themselves.
 //
-// They replace XLA's int8 conv_general_dilated and dot_general of the JAX
-// package's PTQ pass (vip_cup_2022_tpu/quant/ptq.py: _int8_conv,
-// _handle_dense), which the port first ran on K13's mma.sync template.
+// They replace XLA's int8 conv_general_dilated (with its feature_group_count
+// and (lo, hi) padding pairs) and dot_general of the JAX package's PTQ pass
+// (vip_cup_2022_tpu/quant/ptq.py: _int8_conv, _handle_dense,
+// _handle_stdconv), which the port first ran on K13's mma.sync template.
 //
 // The same GEMM runs the three bodies of K13's TPU kernel (`_call` of
 // tools/int8_pallas_spike.py; int8_gemm.cu's entry points):
@@ -70,8 +74,8 @@
 //   top-left input pixel and a mask of the taps inside the image, so that a
 //   stage's address is that pointer plus the tap's offset, and its bounds
 //   check one bit), then per stage pieces of 16 bytes (16 channels of one
-//   tap; 4 bytes where C is not a multiple of 16), two adjacent pieces of a
-//   row a thread where C is a multiple of 32, the lanes of a warp along K
+//   tap; 4 bytes where C / G is not a multiple of 16), two adjacent pieces
+//   of a row a thread where C / G is a multiple of 32, the lanes of a warp along K
 //   so that each row's 128 bytes are read whole, each a cp.async.ca
 //   (neighbouring rows' 3x3 windows overlap in L1) with zero fill for the
 //   padding, straight into the swizzled A tile. The stage's barrier is
@@ -79,6 +83,12 @@
 //   proxy before their products read the tile. The gather is bound by the
 //   producer's issue of addresses and copies more than by its bytes (the
 //   loads cut of tools/exp_ptq_int8.py, PERF.md).
+// - Groups (NFNet's grouped 3x3 convs): a column tile lies inside one
+//   group (N / G a multiple of BN, which the wrapper picks), so an item's
+//   gather reads its group's channel slice of every pixel (the pixel's
+//   offset plus g C / G) and W's rows of those columns hold that group's
+//   K = KH KW C / G weights: the same GEMM, its K per group, no copy of x
+//   per group.
 // - Epilogue: the accumulators, scaled in f32 in their own layout (an exact
 //   integer-to-float by the bits of 1.5 * 2^23 where |acc| < 2^22), go 32
 //   columns at a time through a 2 KB f32 staging tile per warp to lanes that
@@ -129,10 +139,23 @@ struct Params {
   const float* colscale;  // unused where the sums are stored unscaled
   const float* bias;  // or nullptr
   void* out;          // OutT (M, N)
-  int M, K, N, Kp;    // K = KH KW C; W is (N, Kp), K-major, zeros past K
-  int H, W, C, KW, stride, pad, Ho, Wo;  // the conv's geometry (kGather)
+  int M, K, N, Kp;    // K = KH KW C / G; W is (N, Kp), K-major, zeros past K
+  // the conv's geometry (kGather): the top and left zero pads (the bottom
+  // and right ones follow from Ho and Wo), and of each of the G groups its
+  // input channels Cg = C / G and output columns Ng = N / G
+  int H, W, C, KW, stride, pad_h, pad_w, Ho, Wo, Cg, Ng;
   int stages, resident;
 };
+
+// A site's Params; groups 1 for an ungrouped conv or rows
+inline Params site_params(const void* x, float inv, const float* colscale, const float* bias,
+                          void* out, int M, int K, int N, int Kp, int H, int W, int C, int KW,
+                          int stride, int pad_h, int pad_w, int groups, int Ho, int Wo,
+                          int stages, int resident) {
+  const int g = groups > 0 ? groups : 1;
+  return Params{(const int8_t*)x, inv, colscale, bias, out, M, K, N, Kp, H, W, C, KW, stride,
+                pad_h, pad_w, Ho, Wo, C / g, N / g, stages, resident};
+}
 
 // The operands' element type: int8 (s8 wgmma, s32 sums) or bf16 (f32 sums).
 // A K tile is one 128-byte swizzle row of either.
@@ -254,7 +277,8 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 }
 
 // Where a producer thread's pieces of a stage's K tile lie: tap (kh, kw)
-// and channel c; `advance` moves them to the next K tile.
+// and channel c of the group's C (Cg); `advance` moves them to the next K
+// tile.
 struct TapPos {
   int tap, kh, kw, c;
 
@@ -284,7 +308,7 @@ __device__ __forceinline__ RowWindow row_window(const Params& p, long long m) {
   if (m >= p.M) return {p.x, 0ull};  // past M: every tap is padding
   const int r = (int)(m / p.Wo), ow = (int)(m - (long long)r * p.Wo);
   const int b = r / p.Ho, oh = r - b * p.Ho;
-  const int ih0 = oh * p.stride - p.pad, iw0 = ow * p.stride - p.pad;
+  const int ih0 = oh * p.stride - p.pad_h, iw0 = ow * p.stride - p.pad_w;
   unsigned long long taps = 0;
   for (int kh = 0, t = 0; kh < p.KW; ++kh)
     for (int kw = 0; kw < p.KW; ++kw, ++t)
@@ -308,15 +332,17 @@ struct GatherShape {
 // pt / kPerRow + kStep i of the item, whose windows are in `win`. Each piece
 // is a cp.async into its swizzled place, zero-filled where the tap falls in
 // the padding or past K. kRows: the item's rows (a tall item's 256 rows
-// fill its two A tiles, which lie back to back).
+// fill its two A tiles, which lie back to back); goff: the first input
+// channel of the item's group.
 template <int kVec, int kPieces, int kRows>
 __device__ __forceinline__ void gather_stage(const Params& p, const RowWindow* win,
-                                             uint32_t a_tile, const TapPos& pos, int pt) {
+                                             uint32_t a_tile, const TapPos& pos, int pt,
+                                             int goff) {
   typedef GatherShape<kVec, kPieces> Shape;
   const int kb = Shape::first_byte(pt);
   const bool k_ok = pos.tap < p.KW * p.KW;
   const int tap = k_ok ? pos.tap : 0;
-  const long long off = ((long long)pos.kh * p.W + pos.kw) * p.C + pos.c;
+  const long long off = ((long long)pos.kh * p.W + pos.kw) * p.C + goff + pos.c;
 #pragma unroll
   for (int i = 0; i < kRows / Shape::kStep; ++i) {
     const int r = pt / Shape::kPerRow + Shape::kStep * i;
@@ -547,18 +573,19 @@ ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
     }
     if (!kGat && pt != 0) return;
     // a gathered A: the shape of the pieces, and where this thread's lie in the first K tile
-    const int shape = p.C % 32 == 0 ? 2 : p.C % 16 == 0 ? 1 : 0;
+    const int shape = p.Cg % 32 == 0 ? 2 : p.Cg % 16 == 0 ? 1 : 0;
     TapPos first{0, 0, 0, 0};
     if (kGat)
       first.advance(shape == 2   ? GatherShape<16, 2>::first_byte(pt)
                     : shape == 1 ? GatherShape<16, 1>::first_byte(pt)
                                  : GatherShape<4, 1>::first_byte(pt),
-                    p.C, p.KW);
+                    p.Cg, p.KW);
     long long g = 0;
     int lt = 0;
     for (long long t = blockIdx.x; t < items; t += gridDim.x, ++lt) {
       const long long row0 = (t / n_cols) * kItemRows;
       const int col0 = (int)(t % n_cols) * BN;
+      const int goff = (col0 / p.Ng) * p.Cg;  // the item's group's first input channel
       RowWindow* win = win_base + (lt & 1) * kTallBM;
       if constexpr (kGat) {  // the item's rows: thread pt computes rows pt (and pt + 128)
 #pragma unroll
@@ -588,11 +615,11 @@ ptq_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         }
         if constexpr (kGat) {
           const uint32_t a_tile = hg::smem_u32(stage);
-          if (shape == 2) gather_stage<16, 2, kItemRows>(p, win, a_tile, pos, pt);
-          else if (shape == 1) gather_stage<16, 1, kItemRows>(p, win, a_tile, pos, pt);
-          else gather_stage<4, 1, kItemRows>(p, win, a_tile, pos, pt);
+          if (shape == 2) gather_stage<16, 2, kItemRows>(p, win, a_tile, pos, pt, goff);
+          else if (shape == 1) gather_stage<16, 1, kItemRows>(p, win, a_tile, pos, pt, goff);
+          else gather_stage<4, 1, kItemRows>(p, win, a_tile, pos, pt, goff);
           cp_async_arrive(&ring.full[s]);
-          pos.advance(kTileK, p.C, p.KW);
+          pos.advance(kTileK, p.Cg, p.KW);
         }
       }
     }
@@ -643,11 +670,15 @@ cudaError_t launch_gemm_bn(const Params& p, const void* w, cudaStream_t stream) 
   static hg::SmemGrant grant;
   constexpr int esize = sizeof(ET);
   typedef Operand<ET, BN> Op;
-  // TMA: 16-byte row strides, W's rows padded to Kp
+  // TMA: 16-byte row strides, W's rows padded to Kp; groups: gathered only, each group's
+  // columns whole column tiles
+  const bool grouped = p.Cg != p.C || p.Ng != p.N;
   if (p.stages < 2 || p.stages > hg::kMaxStages || p.N % 4 || p.K > p.Kp ||
       (long long)p.Kp * esize % 16 ||
       (kSrc == kRows && (long long)p.K * esize % 16) || (kSrc == kRowsQuant && p.K % 8) ||
-      (kSrc == kGather && (p.C % 4 || p.C <= 0 || p.KW <= 0 || p.KW > 8)))
+      (kSrc == kGather && (p.C % 4 || p.C <= 0 || p.KW <= 0 || p.KW > 8)) ||
+      p.Cg <= 0 || p.Ng <= 0 || p.Cg % 4 || p.C % p.Cg || p.N % p.Ng ||
+      p.C / p.Cg != p.N / p.Ng || (grouped && (kSrc != kGather || p.Ng % BN)))
     return cudaErrorInvalidValue;
   if (p.resident && held_bytes(BN, p.N, p.K, esize) > hg::kMaxTxBytes)
     return cudaErrorInvalidValue;

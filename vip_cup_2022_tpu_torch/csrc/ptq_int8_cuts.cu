@@ -21,10 +21,12 @@ extern "C" {
 // the arguments of int8_gemm.cu's ptq_int8_conv with a bf16 output, + the cut
 int ptq_int8_conv_cut(const void* a, const void* w, int ldw, const float* colscale,
                       const float* bias, void* out, int M, int K, int N, int src, float inv_s,
-                      int H, int W, int C, int KW, int stride, int pad, int Ho, int Wo, int bn,
-                      int stages, int resident, int tall, int cut, void* stream) {
-  const ptq_int8::Params p{(const int8_t*)a, inv_s, colscale, bias, out, M, K, N, ldw, H, W,
-                           C, KW, stride, pad, Ho, Wo, stages, resident};
+                      int H, int W, int C, int KW, int stride, int pad_h, int pad_w, int groups,
+                      int Ho, int Wo, int bn, int stages, int resident, int tall, int cut,
+                      void* stream) {
+  const ptq_int8::Params p = ptq_int8::site_params(a, inv_s, colscale, bias, out, M, K, N, ldw,
+                                                   H, W, C, KW, stride, pad_h, pad_w, groups, Ho,
+                                                   Wo, stages, resident);
   const cudaStream_t st = (cudaStream_t)stream;
   const bool t = tall != 0;
   switch (cut) {

@@ -51,16 +51,16 @@ one-batch calibration on the first ``VIPTPU_INT8_CALIB`` (64) images of the
 CSV with fold 0 (folded, under ``VIPTPU_FUSE_BN``), then every fold's
 eligible sites through the int8 kernel. ``auto``, the default, is off here
 as on every backend but the TPU; ``0``/``off`` is off, ``1``/``all`` every
-member, or a comma list of registry names. ResNet-RS and ResNest members
-are quantized (the JAX package's ``INT8_AUTO`` set on a TPU is
+member, or a comma list of registry names. Every ported family quantizes
+the JAX pass's sites (each model class declares ``int8_sites_match_jax``):
+ResNet-RS, ResNest, EfficientNet (V2T_GC too), NFNet (its grouped
+standardized convs, in their groups), ConvNeXt and GCViT on either block
+path (the JAX package's ``INT8_AUTO`` set on a TPU is
 ``ResNetRS50,ResNest50``).
 
 Still raising ``NotImplementedError`` rather than running something else
 (a SavedModel checkpoint without TensorFlow installed raises it too):
-``VIPTPU_INT8`` on a ConvNeXt or GCViT member (ROADMAP A12b: their fused
-kernel paths hold the Linears the JAX pass would quantize), on an
-EfficientNet member (A8b) or an NFNet member (A9b: its grouped standardized
-convs); f32 compute on CUDA (A15); and members of families other than
+f32 compute on CUDA (A15); and members of families other than
 ConvNeXt, GCViT, ResNet-RS, EfficientNet, ResNest and NFNet (A14), which
 are all seven of ``ckpts/ckpts.json``. Every Pallas kernel of the JAX
 package has a CUDA counterpart; the depthwise kernel (K9) runs on this path
@@ -84,8 +84,6 @@ from ..data.augment import TTAMasks, apply_augment, draw_masks
 from ..data.decode import ImageDecoder
 from ..data.pipeline import _host_resize_uint8
 from ..models import create_model, load_weights, transfer_weights
-from ..models.efficientnet import EfficientNet
-from ..models.nfnets import NFNet
 from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
 from ..quant import calibrate, quantized
@@ -376,29 +374,19 @@ class EnsembleEngine:
 
     @staticmethod
     def _int8_members(ckpt_cfg, names: set) -> List[bool]:
-        """Which manifest entries run int8; raises for a chosen member whose
-        model class does not declare ``int8_sites_match_jax`` (its int8 sites
-        are not the JAX pass's yet: ROADMAP A8b for EfficientNet, A9b for
-        NFNet, A12b for ConvNeXt and GCViT)."""
+        """Which manifest entries run int8: every one with ``{"*"}``, else
+        those whose registry name is in ``names``; raises for a chosen member
+        whose model class does not declare ``int8_sites_match_jax`` (its
+        int8 sites are not held to the JAX pass's)."""
         chosen = []
         for base_dir, *_ in ckpt_cfg:
             name = registry_name(base_dir)
             pick = bool(names) and ("*" in names or name in names)
-            cls = model_entry(name)[0] if pick and is_model(name) else None
-            if cls is EfficientNet:
+            if pick and is_model(name) and not getattr(model_entry(name)[0],
+                                                       "int8_sites_match_jax", False):
                 raise NotImplementedError(
-                    f"VIPTPU_INT8 selects {name!r}: int8 EfficientNet members are ROADMAP item "
-                    "A8b, not ported yet")
-            if cls is NFNet:
-                raise NotImplementedError(
-                    f"VIPTPU_INT8 selects {name!r}: NFNet's int8 sites are grouped "
-                    "weight-standardized convs (ScaledStdConv), and ptq_int8_conv takes no "
-                    "group count; int8 NFNet members are ROADMAP item A9b, not ported yet")
-            if cls is not None and not getattr(cls, "int8_sites_match_jax", False):
-                raise NotImplementedError(
-                    f"VIPTPU_INT8 selects {name!r}: int8 ConvNeXt and GCViT members (their "
-                    "downsample convs, FeatExtract / ReduceSize convs and the Linears the fused "
-                    "block kernels hold) are ROADMAP item A12b, not ported yet")
+                    f"VIPTPU_INT8 selects {name!r}, whose model class does not declare "
+                    "int8_sites_match_jax: its int8 sites are not held to the JAX pass's")
             chosen.append(pick)
         return chosen
 

@@ -30,6 +30,16 @@ Module and parameter names follow the Flax module names
 a Flax variables tree onto :meth:`state_dict` by renaming leaves only.
 The stem, downsample convs and the head stay plain PyTorch, as the JAX
 package leaves them to XLA; every LN runs the LN kernel.
+
+int8 PTQ (:mod:`..quant.ptq`) finds the JAX pass's sites on either block
+path (``int8_sites_match_jax``): on the fused path the MLP Linears are read
+by the block kernels and never called, so only the downsample convs are
+sites, and of those only where the JAX model calls ``nn.Conv``: its fused
+path runs stages narrower than :data:`BATCH_LANE_WIDTH` batch-last and the
+downsample between two such stages by ``lax.conv`` directly, outside the
+pass, which the port mirrors by running that conv without its module's
+hooks (:meth:`ConvNeXt._downsample`). On the unfused path the MLP Linears
+are sites too. The stem and head are skipped by name.
 """
 from __future__ import annotations
 
@@ -45,7 +55,6 @@ from ..ops.act import apply_activation, gelu_exact
 from ..ops.conv import Conv, DepthwiseTaps, Linear, lecun_normal_
 from ..ops.drop import DropPath, Dropout
 from ..ops.kernels.convnext_block import convnext_block
-from ..ops.kernels.depthwise import depthwise_conv_fn
 from ..ops.norms import LayerNorm
 from .base import ModelConfig, preprocess_input
 from .registry import register_model
@@ -84,6 +93,8 @@ def _use_fused_block(cfg: ConvNeXtConfig, training: bool) -> bool:
 
 
 DW_PADDING = ((3, 3), (3, 3))  # the 7 x 7 depthwise conv's zero padding
+# the JAX package's fused path runs a stage narrower than this batch-last
+BATCH_LANE_WIDTH = 256
 
 
 class ConvNeXtBlock(nn.Module):
@@ -113,13 +124,14 @@ class ConvNeXtBlock(nn.Module):
 
     def _unfused(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = depthwise_conv_fn(x, self.conv_dw.weight.to(dt), padding=DW_PADDING)
-        y = self.norm(y + self.conv_dw.bias.to(dt))
+        y = self.norm(self.conv_dw(x, DW_PADDING, dt))
         y = self.drop2(self.mlp_fc2(self.drop1(gelu_exact(self.mlp_fc1(y)))))
         return x + self.drop_path(y * self.gamma.to(dt))
 
 
 class ConvNeXt(nn.Module):
+    int8_sites_match_jax = True
+
     def __init__(self, cfg: ConvNeXtConfig):
         super().__init__()
         if cfg.conv_mlp_block or cfg.act_layer != "gelu":
@@ -161,6 +173,18 @@ class ConvNeXt(nn.Module):
             elif isinstance(module, ConvNeXtBlock):
                 module.gamma.fill_(self.cfg.init_scale)
 
+    def _downsample(self, x: torch.Tensor, j: int, fused: bool) -> torch.Tensor:
+        """Stage j's downsample conv. Between two batch-last stages of the
+        fused path the JAX model convolves with the parameters directly,
+        outside its int8 pass: there the conv runs without its module's
+        hooks (:meth:`..ops.conv.Conv.conv`), so calibration never sees it
+        and it is no int8 site."""
+        conv = getattr(self, f"stages_{j}_downsample_conv")
+        dims = self.cfg.embed_dim
+        if fused and dims[j - 1] < BATCH_LANE_WIDTH and dims[j] < BATCH_LANE_WIDTH:
+            return conv.conv(x)
+        return conv(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) in [0, 1]; returns (B, nb_classes) f32."""
         cfg = self.cfg
@@ -169,8 +193,7 @@ class ConvNeXt(nn.Module):
         fused = _use_fused_block(cfg, self.training)
         for j, nb in enumerate(cfg.nb_blocks):
             if j > 0:
-                x = getattr(self, f"stages_{j}_downsample_norm")(x)
-                x = getattr(self, f"stages_{j}_downsample_conv")(x)
+                x = self._downsample(getattr(self, f"stages_{j}_downsample_norm")(x), j, fused)
             for i in range(nb):
                 x = getattr(self, f"stages_{j}_blocks_{i}")(x, fused)
         x = x.float().mean(dim=(1, 2))

@@ -1,5 +1,5 @@
 """EfficientNet V1 and V2 (ensemble members ``EfficientNetV2T-200x200`` and
-``EfficientNetV1B4-224x224``).
+``EfficientNetV1B4-224x224``; ``EfficientNetV2T_GC`` too).
 
 Counterpart of ``vip_cup_2022_tpu/models/efficientnet.py``, NHWC throughout:
 
@@ -40,8 +40,20 @@ inner ``conv``, so the weight bridge maps ``stem_conv/kernel`` onto
 ``stem_conv.weight``.
 
 The global-context variant (``use_global_context_instead_of_se``,
-EfficientNetV2T_GC) runs a LayerNorm at widths the LN kernel does not take
-and is not ported (ROADMAP A8b); building it raises.
+``EfficientNetV2T_GC``; kecam's ``global_context_module``) replaces SE by:
+``gc_attn_conv`` (1 x 1 to one channel, with bias), a softmax over the H W
+positions in f32 cast back, the context ``attn @ x`` (a plain
+``torch.matmul`` over (B, 1, 1, HW) x (B, 1, HW, C), as the JAX package
+leaves it to XLA), ``gc_mlp_1_conv`` to ``make_divisible(C * se / expand, 1,
+limit_round_down=0)`` channels, ``gc_ln`` (the LN kernel K10, at V2T's
+widths 12 / 26 / 32 / 52, most of them not a multiple of its vector), the
+activation, ``gc_mlp_2_conv`` back to C, a sigmoid gate on x.
+
+int8 PTQ (:mod:`..quant.ptq`) finds the JAX pass's sites
+(``int8_sites_match_jax``): the depthwise convs are skipped by their one
+input feature a group, the SE and global-context convs by their one
+position (or one output channel), the stem by name; every other conv with
+32 or more input and output channels is a site (V1B4's all 1 x 1).
 """
 from __future__ import annotations
 
@@ -55,13 +67,14 @@ import torch.nn as nn
 from ..ops.act import get_activation
 from ..ops.conv import Conv, DepthwiseConv, Linear, lecun_normal_, make_divisible
 from ..ops.drop import DropPath, Dropout
-from ..ops.norms import BatchNorm
+from ..ops.norms import BatchNorm, LayerNorm
 from ..ops.pad import PaddingSpec
 from .base import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ModelConfig, preprocess_input
 from .registry import register_model
 
 TF_BN_EPS = 1e-3
 TORCH_BN_EPS = 1e-5
+GC_LN_EPS = 1e-5  # the global-context LayerNorm's (the JAX package's LayerNorm default)
 
 RESCALE_STATS = {
     "torch": (IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD),
@@ -124,14 +137,24 @@ def squeeze_excite(x: torch.Tensor, reduce: Conv, expand: Conv, act) -> torch.Te
     return x * torch.sigmoid(expand(act(reduce(se))))
 
 
+def global_context(x: torch.Tensor, attn_conv: Conv, mlp_1: Conv, ln: LayerNorm, mlp_2: Conv,
+                   act) -> torch.Tensor:
+    """kecam's ``global_context_module`` as the JAX package computes it:
+    the softmax of ``attn_conv(x)`` over the positions in f32, cast back,
+    the context ``attn @ x``, then ``mlp_1``, ``ln``, ``act``, ``mlp_2``,
+    sigmoid, times x."""
+    b, h, w, c = x.shape
+    attn = attn_conv(x).reshape(b, 1, 1, h * w)
+    attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+    context = torch.matmul(attn, x.reshape(b, 1, h * w, c))  # (B, 1, 1, C)
+    return x * torch.sigmoid(mlp_2(act(ln(mlp_1(context)))))
+
+
 class EfficientNet(nn.Module):
+    int8_sites_match_jax = True
+
     def __init__(self, cfg: EfficientNetConfig):
         super().__init__()
-        if cfg.use_global_context_instead_of_se:
-            raise NotImplementedError(
-                f"{cfg.name or 'EfficientNet'} with use_global_context_instead_of_se: the "
-                "global-context module's LayerNorm runs at widths the LN kernel does not take; "
-                "ROADMAP item A8b, not ported yet")
         self.cfg = cfg
         self.act = get_activation(cfg.activation)
         dt, tm = cfg.dtype, cfg.is_torch_mode
@@ -172,7 +195,14 @@ class EfficientNet(nn.Module):
                     pad = ksize // 2 if tm and ksize // 2 > 0 else "same"
                     self.add_module(name + "MB_dw_", DepthwiseConv(width, ksize, pad, dt, stride))
                     self.add_module(name + "MB_dw_bn", BatchNorm(width, eps, dt))
-                if spec.se:
+                if spec.se and cfg.use_global_context_instead_of_se:
+                    reduction = make_divisible(width * se_ratio / expand, 1,
+                                               limit_round_down=0.0)
+                    self.add_module(name + "gc_attn_conv", Conv(width, 1, 1, 1, dt))
+                    self.add_module(name + "gc_mlp_1_conv", Conv(width, reduction, 1, 1, dt))
+                    self.add_module(name + "gc_ln", LayerNorm(reduction, GC_LN_EPS))
+                    self.add_module(name + "gc_mlp_2_conv", Conv(reduction, width, 1, 1, dt))
+                elif spec.se:
                     reduction = make_divisible(width * se_ratio / expand, 1)
                     self.add_module(name + "se_1_conv", Conv(width, reduction, 1, 1, dt))
                     self.add_module(name + "se_2_conv", Conv(reduction, width, 1, 1, dt))
@@ -202,10 +232,14 @@ class EfficientNet(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init from ``generator``: conv, depthwise and dense weights
         normal with variance 1 / fan_in (Flax's lecun_normal without its
-        truncation), biases 0, BN scale 1, shift 0, mean 0, variance 1."""
+        truncation), biases 0, BN scale 1, shift 0, mean 0, variance 1, LN
+        scale 1, shift 0."""
         for module in self.modules():
             if isinstance(module, (Conv, DepthwiseConv, Linear)):
                 lecun_normal_(module, generator)
+            elif isinstance(module, LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
             elif isinstance(module, BatchNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
@@ -223,7 +257,10 @@ class EfficientNet(nn.Module):
             x = self._conv_bn(x, name + "sortcut_conv", name + "sortcut_bn", True)
         if not spec.fused:
             x = self._conv_bn(x, name + "MB_dw_", name + "MB_dw_bn", True)
-        if spec.se:
+        if spec.se and self.cfg.use_global_context_instead_of_se:
+            x = global_context(x, *(getattr(self, name + part) for part in (
+                "gc_attn_conv", "gc_mlp_1_conv", "gc_ln", "gc_mlp_2_conv")), self.act)
+        elif spec.se:
             x = squeeze_excite(x, getattr(self, name + "se_1_conv"),
                                getattr(self, name + "se_2_conv"), self.act)
         if spec.fused and not spec.expand:

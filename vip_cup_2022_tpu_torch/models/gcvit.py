@@ -39,6 +39,16 @@ a buffer outside the state dict. Every LN runs the LN kernel of
 :mod:`..ops.kernels.layernorm`; the convs, SE, the qkv / proj / MLP Linears
 of the unfused block and the head stay plain PyTorch, as the JAX package
 leaves them to XLA.
+
+int8 PTQ (:mod:`..quant.ptq`) finds the JAX pass's sites on either block
+path (``int8_sites_match_jax``): the ReduceSize ``reduction`` and the
+``conv_3`` of each ReduceSize / FeatExtract branch, the SE's ``fc_0`` /
+``fc_2`` where they pass the width rule at a batch of two or more (their
+rows are the batch), and on the unfused path each block's MLP ``fc1`` /
+``fc2``; the attention's Linears are skipped by name, and on the fused path
+the block kernels read the block's Linears without calling them, so they
+are no sites, as the JAX pass never sees the parameters a Pallas block
+reads.
 """
 from __future__ import annotations
 
@@ -249,6 +259,8 @@ class GCViTLevel(nn.Module):
 
 
 class GCViT(nn.Module):
+    int8_sites_match_jax = True
+
     def __init__(self, cfg: GCViTConfig):
         super().__init__()
         if not cfg.qkv_bias:

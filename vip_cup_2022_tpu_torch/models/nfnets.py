@@ -35,9 +35,16 @@ raw weights and gains get their gradients. No BN, no kernel.
 Every conv runs on cuDNN in the compute dtype (the grouped ones as grouped
 convs), as the JAX package leaves them to XLA. Module names are the Flax
 tree's flat kecam names (``stack2_block1_deep_2_conv``,
-``stack1_block1_eca_conv1d``). int8 post-training quantization of these
-members, whose 3 x 3 sites are grouped standardized convs, is ROADMAP item
-A9b: the engine raises for it.
+``stack1_block1_eca_conv1d``).
+
+int8 PTQ (:mod:`..quant.ptq`) finds the JAX pass's sites
+(``int8_sites_match_jax``): every standardized conv but the stem's (skipped
+by name), its weight standardized from the f32 values; the grouped 3 x 3
+``deep_2`` / ``deep_3`` where a group has 32 or more input channels (64 in
+the L series, 128 in the F series), run in their groups, the F series'
+TF-SAME padding as its (top, bottom), (left, right) pairs. The SE convs are
+skipped by name and one position, ECA's 1-D conv is no candidate (the JAX
+pass lets a kernel that is not 2-D through).
 """
 from __future__ import annotations
 
@@ -97,6 +104,8 @@ class BlockSpec:
 
 
 class NFNet(nn.Module):
+    int8_sites_match_jax = True
+
     def __init__(self, cfg: NFNetConfig):
         super().__init__()
         self.cfg = cfg

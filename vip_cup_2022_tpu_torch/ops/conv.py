@@ -86,6 +86,12 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout, dtype=wdtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv without the module's hooks: what a model calls where the
+        JAX model convolves with the parameters directly (``lax.conv``),
+        outside any pass that intercepts ``nn.Conv``."""
         dt = self.dtype or torch.float32
         b = None if self.bias is None else self.bias.to(dt)
         return _conv_nhwc(x.to(dt), self.weight.to(dt), b, self.stride, self.padding,
@@ -105,8 +111,8 @@ class ScaledStdConv(nn.Module):
     enabled they are computed in the graph at every call, so the weight and
     the gain get their gradients; otherwise (eval mode, or no grad) once per
     weight load, kept until a parameter changes or the module's mode does.
-    Not a :class:`Conv`: int8 calibration must not take it for a plain conv
-    site, whose weight it would quantize raw."""
+    Not a :class:`Conv`: int8 PTQ quantizes its standardized weight
+    (:func:`standardize_weight` of the f32 values), never the raw one."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: PaddingSpec = 0, groups: int = 1, gamma: float = 1.0,
@@ -121,13 +127,7 @@ class ScaledStdConv(nn.Module):
 
     def standardized_weight(self) -> torch.Tensor:
         """The f32 standardized, scaled weight (O, I / groups, kh, kw)."""
-        w = self.weight.float()
-        mean = w.mean(dim=(1, 2, 3), keepdim=True)
-        var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
-        fan_in = float(math.prod(w.shape[1:]))
-        scale = torch.rsqrt(torch.clamp(var * fan_in, min=self.eps)) * (
-            self.gain * self.gamma).view(-1, 1, 1, 1)
-        return (w - mean) * scale
+        return standardize_weight(self.weight, self.gain, self.gamma, self.eps)
 
     def train(self, mode: bool = True) -> "ScaledStdConv":
         self._key, self._weight = None, None
@@ -151,6 +151,21 @@ class ScaledStdConv(nn.Module):
                           self.stride, self.padding, self.groups)
 
 
+def standardize_weight(weight: torch.Tensor, gain: torch.Tensor, gamma: float,
+                       eps: float) -> torch.Tensor:
+    """NFNet's standardized weight in f32 from a raw (O, I / groups, kh, kw)
+    weight and the per-filter gain (the JAX package's
+    ``_standardized_weight``): ``(w - mean) * rsqrt(max(var * fan_in, eps))
+    * (gain * gamma)``, the moments over each filter's (I, kh, kw)."""
+    w = weight.float()
+    mean = w.mean(dim=(1, 2, 3), keepdim=True)
+    var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
+    fan_in = float(math.prod(w.shape[1:]))
+    scale = torch.rsqrt(torch.clamp(var * fan_in, min=eps)) * (
+        gain.float() * gamma).view(-1, 1, 1, 1)
+    return (w - mean) * scale
+
+
 class ZeroInitGain(nn.Module):
     """A scalar f32 ``gain`` (zero at init) that scales x in x's dtype
     (``ZeroInitGain`` of the JAX package)."""
@@ -165,12 +180,19 @@ class ZeroInitGain(nn.Module):
 
 class DepthwiseTaps(nn.Module):
     """A depthwise conv's f32 taps, (k, k, C) as the depthwise kernel reads
-    them, and its f32 (C,) bias; the kernel that owns them applies them."""
+    them, and its f32 (C,) bias; a fused kernel that owns them applies them,
+    or a call applies them alone."""
 
     def __init__(self, dim: int, kernel: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(kernel, kernel, dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor, padding, dtype: torch.dtype) -> torch.Tensor:
+        """The stride-1 depthwise conv of x with the taps and bias rounded to
+        ``dtype``, the depthwise kernel (K9) under autograd with ``padding``
+        pairs."""
+        return D.depthwise_conv_fn(x, self.weight.to(dtype), padding=padding) + self.bias.to(dtype)
 
 
 class DepthwiseConv(nn.Module):

@@ -25,10 +25,14 @@ tiles of :func:`ptq_plan`:
   per-output-channel weights, ``(N, Kp)`` with K = (kh, kw, c) contiguous and
   zero-padded to ``Kp``, a multiple of 64 (:func:`pack_weight`), by int8
   wgmma with s32 sums; the epilogue is ``f32(acc) * colscale[n] (+
-  bias[n])`` in f32, cast to ``out_dtype``. A Dense site or a 1 x 1 stride-1
-  conv reads the int8 x as (M, K) rows by TMA; any other conv (and a rows
-  site whose K is not a multiple of 16) gathers its windows from the NHWC
-  int8 x inside the kernel (implicit GEMM, zeros in the symmetric padding).
+  bias[n])`` in f32, cast to ``out_dtype``. A Dense site or an unpadded 1 x 1
+  stride-1 ungrouped conv reads the int8 x as (M, K) rows by TMA; any other
+  conv (and a rows site whose K is not a multiple of 16) gathers its windows
+  from the NHWC int8 x inside the kernel (implicit GEMM, zeros in the
+  padding, which is a symmetric int or ``((top, bottom), (left, right))``
+  pairs, as XLA's TF ``SAME`` pads), in ``groups`` groups: the output columns
+  of group g read its input channels [g C / G, (g + 1) C / G) with K = kh kw
+  C / G, XLA's ``feature_group_count`` (NFNet's grouped 3 x 3 convs).
   A bf16 rows site whose output spans one or two column tiles skips the
   pass: the GEMM reads its bf16 rows and quantizes them itself
   (:func:`quantizes_in_gemm`). The tiles come from :func:`ptq_plan`.
@@ -84,9 +88,11 @@ PTQ_QUANT_MAX_COLUMN_TILES = 2  # a bf16 rows site this narrow is quantized in t
 MAX_TX_BYTES = (1 << 20) - 1  # what one mbarrier's transaction count takes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# ptq_int8_conv: a, w, ldw, colscale, bias, out, out_f32, M, K, N, src, inv_s, H, W, C, KW,
-# stride, pad, Ho, Wo, the plan (bn, stages, resident, tall), stream
-_PTQ_ARGS = [_P, _P, _I, _P, _P, _P, _I] + [_I] * 4 + [_F] + [_I] * 8 + [_I] * 4 + [_P]
+# ptq_int8_conv: a, w, ldw, colscale, bias, out, out_f32, M, K, N, src, inv_s, the geometry
+# (H, W, C, KW, stride, pad_h, pad_w, groups, Ho, Wo), the plan (bn, stages, resident, tall),
+# stream
+GEOMETRY_ARGS = 10
+_PTQ_ARGS = [_P, _P, _I, _P, _P, _P, _I] + [_I] * 4 + [_F] + [_I] * GEOMETRY_ARGS + [_I] * 4 + [_P]
 # the spike's small GEMMs (ptq_plan with m): how many times over 256-row
 # items must fill the card's SMs before they pay (measured at the spike's
 # shapes on the H100: bf16 operands stream twice W's bytes per K and gain
@@ -105,9 +111,8 @@ def _lib() -> ctypes.CDLL:
     argtypes = {
         # x, w, ldw, out, out_f32, M, K, N, the plan, stream
         "int8_spike_bf16": [_P, _P, _I, _P] + [_I] * 4 + [_I] * 4 + [_P],
-        # a, w, ldw, out, M, K, N, src, the geometry (H, W, C, KW, stride, pad, Ho, Wo),
-        # the plan, stream
-        "int8_spike_direct": [_P, _P, _I, _P] + [_I] * 4 + [_I] * 8 + [_I] * 4 + [_P],
+        # a, w, ldw, out, M, K, N, src, the geometry, the plan, stream
+        "int8_spike_direct": [_P, _P, _I, _P] + [_I] * 4 + [_I] * GEOMETRY_ARGS + [_I] * 4 + [_P],
         "ptq_int8_quantize": [_P, _I, _P, ctypes.c_longlong, _F, _P],
         "ptq_int8_conv": _PTQ_ARGS,
     }
@@ -246,7 +251,7 @@ def int8_spike_int8(x: torch.Tensor, w: torch.Tensor, sx: float,
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype {out_dtype}: the kernel writes bf16 or f32")
     qw = _spike_weight("int8_spike_int8", w, w_packed, k, n)
-    site = _site_of((m, k), tuple(qw.shape), None, 1, 0)
+    site = _site_of((m, k), tuple(qw.shape), None, 1, NO_PADDING, 1)
     inv = f32_reciprocal(sx)
     if quantizes_in_gemm(x.dtype, out_dtype, None, 1, 0, k, n):
         a, src = x, PTQ_ROWS_QUANT
@@ -269,7 +274,7 @@ def int8_spike_direct(x: torch.Tensor, w: torch.Tensor, *,
         return int8_spike_direct_plain(x, w)
     m, k, n = _check_spike("int8_spike_direct", x, (torch.int8,), w, torch.int8)
     qw = _spike_weight("int8_spike_direct", w, w_packed, k, n)
-    site = _site_of((m, k), tuple(qw.shape), None, 1, 0)
+    site = _site_of((m, k), tuple(qw.shape), None, 1, NO_PADDING, 1)
     src = PTQ_GATHER if site["gather"] else PTQ_ROWS
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     _launched("int8_spike_direct", _lib().int8_spike_direct(
@@ -293,31 +298,46 @@ def pack_weight(qw_kn: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-def _conv_out(size: int, kernel: int, stride: int, padding: int) -> int:
-    return (size + 2 * padding - kernel) // stride + 1
+NO_PADDING = ((0, 0), (0, 0))
+
+
+def padding_pairs(padding) -> tuple:
+    """``((top, bottom), (left, right))`` of a symmetric int or of pairs."""
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (pt, pb), (pl, pr) = padding
+    return (int(pt), int(pb)), (int(pl), int(pr))
+
+
+def _conv_out(size: int, kernel: int, stride: int, pads: tuple) -> int:
+    return (size + pads[0] + pads[1] - kernel) // stride + 1
 
 
 def ptq_int8_conv_plain(x: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor,
                         bias: Optional[torch.Tensor], inv_s: float, *, kernel: Optional[int],
-                        stride: int = 1, padding: int = 0,
+                        stride: int = 1, padding=0, groups: int = 1,
                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The site's function in plain PyTorch: see :func:`ptq_int8_conv`."""
     return ptq_int8_gemm_plain(quantize(x, inv_s), qweight, colscale, bias, kernel=kernel,
-                               stride=stride, padding=padding, out_dtype=out_dtype or x.dtype)
+                               stride=stride, padding=padding, groups=groups,
+                               out_dtype=out_dtype or x.dtype)
 
 
 def ptq_int8_gemm_plain(q: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor,
                         bias: Optional[torch.Tensor], *, kernel: Optional[int], stride: int = 1,
-                        padding: int = 0, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                        padding=0, groups: int = 1,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The site's GEMM on x quantized beforehand (int8 q in x's shape), in
     plain PyTorch: see :func:`ptq_int8_gemm`."""
     n = qweight.shape[0]
     if kernel is None:
         acc = _exact_matmul(q, qweight[:, :q.shape[-1]].t())
     else:
-        c = q.shape[-1]
-        w = qweight[:, :kernel * kernel * c].reshape(n, kernel, kernel, c).permute(0, 3, 1, 2)
-        acc = F.conv2d(q.double().permute(0, 3, 1, 2), w.double(), None, stride, padding)
+        cg = q.shape[-1] // groups
+        w = qweight[:, :kernel * kernel * cg].reshape(n, kernel, kernel, cg).permute(0, 3, 1, 2)
+        (pt, pb), (pl, pr) = padding_pairs(padding)
+        xq = F.pad(q.double().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+        acc = F.conv2d(xq, w.double(), None, stride, 0, groups=groups)
         acc = _to_int32(acc.permute(0, 2, 3, 1))
     y = acc.float() * colscale
     if bias is not None:
@@ -326,7 +346,7 @@ def ptq_int8_gemm_plain(q: torch.Tensor, qweight: torch.Tensor, colscale: torch.
 
 
 def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None,
-             sms: Optional[int] = None) -> dict:
+             sms: Optional[int] = None, group_n: Optional[int] = None) -> dict:
     """The PTQ GEMM's tiles for an (M, k) @ (k, n) site whose A comes from
     ``src`` (:data:`PTQ_ROWS`: int8 rows by TMA; :data:`PTQ_GATHER`: int8
     NHWC by cp.async, with its row tables; :data:`PTQ_ROWS_QUANT`: bf16 rows
@@ -344,7 +364,9 @@ def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None,
     4096) a streaming W's tiles follow the items the card gets, and ``sms``,
     the card's SM count, is required: 64 columns where 128 would give fewer
     items than ``sms``, 256-row items only where they still fill the SMs
-    :data:`TALL_FILL` times over."""
+    :data:`TALL_FILL` times over. ``group_n``: a grouped conv's output
+    columns a group, which its column tiles must not straddle (128 where it
+    is a multiple of 128, else 64; ``k`` is then a group's K)."""
     if (n <= 0 or k <= 0 or n % 4 or src not in (PTQ_ROWS, PTQ_GATHER, PTQ_ROWS_QUANT)
             or esize not in (1, 2) or (esize == 2 and src != PTQ_ROWS)):
         raise ValueError(f"the PTQ GEMM takes N a positive multiple of 4, K > 0 and a source "
@@ -352,6 +374,11 @@ def ptq_plan(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None,
     if m is not None and not (sms or 0) > 0:
         raise ValueError(f"a plan for M = {m} rows needs the card's SM count, got {sms}")
     bn = PTQ_WIDTHS[0] if n <= PTQ_WIDTHS[0] else PTQ_WIDTHS[1]
+    if group_n is not None:
+        if group_n % PTQ_WIDTHS[0] or n % group_n or src != PTQ_GATHER or m is not None:
+            raise ValueError(f"a grouped site gathers whole {PTQ_WIDTHS[0]}-column tiles a group, "
+                             f"got {n} columns in groups of {group_n}, source {src}")
+        bn = PTQ_WIDTHS[1] if group_n % PTQ_WIDTHS[1] == 0 else PTQ_WIDTHS[0]
     fixed = PTQ_STAGING + (PTQ_GEOMETRY if src == PTQ_GATHER else 0)
     a_stage = PTQ_BM * PTQ_TILE_K * (3 if src == PTQ_ROWS_QUANT else 1)  # + the bf16 boxes
     w_tile = bn * PTQ_TILE_K
@@ -385,18 +412,20 @@ def _sm_count(device: torch.device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _ptq_plan_args(n: int, k: int, src: int, esize: int = 1, m: Optional[int] = None,
-                   sms: Optional[int] = None) -> tuple:
-    p = ptq_plan(n, k, src, esize, m, sms)
+                   sms: Optional[int] = None, group_n: Optional[int] = None) -> tuple:
+    p = ptq_plan(n, k, src, esize, m, sms, group_n)
     return p["bn"], p["stages"], int(p["resident"]), int(p["tall"])
 
 
 def quantizes_in_gemm(x_dtype: torch.dtype, out_dtype: torch.dtype, kernel: Optional[int],
-                      stride: int, padding: int, k: int, n: int) -> bool:
+                      stride: int, padding, k: int, n: int, groups: int = 1) -> bool:
     """Whether a site skips the quantize pass: a bf16 rows site (a Dense site
-    or a 1 x 1 stride-1 conv) with a bf16 output, K a multiple of 8 (TMA's
-    16-byte row stride) and N within :data:`PTQ_QUANT_MAX_COLUMN_TILES`
-    column tiles (wider, each column tile would quantize A again)."""
-    rows = kernel is None or (kernel == 1 and stride == 1 and padding == 0)
+    or an unpadded, ungrouped 1 x 1 stride-1 conv) with a bf16 output, K a
+    multiple of 8 (TMA's 16-byte row stride) and N within
+    :data:`PTQ_QUANT_MAX_COLUMN_TILES` column tiles (wider, each column tile
+    would quantize A again)."""
+    rows = kernel is None or (kernel == 1 and stride == 1 and groups == 1
+                              and padding_pairs(padding) == NO_PADDING)
     bn = PTQ_WIDTHS[0] if n <= PTQ_WIDTHS[0] else PTQ_WIDTHS[1]
     return (rows and x_dtype == torch.bfloat16 and out_dtype == torch.bfloat16 and k % 8 == 0
             and -(-n // bn) <= PTQ_QUANT_MAX_COLUMN_TILES)
@@ -430,17 +459,18 @@ def _quantize(x: torch.Tensor, inv_s: float) -> torch.Tensor:
 
 
 def _site(x: torch.Tensor, qweight: torch.Tensor, kernel: Optional[int], stride: int,
-          padding: int) -> dict:
+          padding, groups: int = 1) -> dict:
     """A site's GEMM: its output's leading shape, M, K, N, Kp, and the gather
     geometry (a rows site whose K is not a multiple of 16, which TMA cannot
     stride, is gathered as M images of 1 x 1 x K). Cached by shape: a model
     calls each site with the same shapes every batch."""
-    return _site_of(tuple(x.shape), tuple(qweight.shape), kernel, stride, padding)
+    return _site_of(tuple(x.shape), tuple(qweight.shape), kernel, stride,
+                    padding_pairs(padding), groups)
 
 
 @functools.lru_cache(maxsize=1024)
 def _site_of(x_shape: tuple, w_shape: tuple, kernel: Optional[int], stride: int,
-             padding: int) -> dict:
+             pads: tuple, groups: int) -> dict:
     n, kp = w_shape
     if kernel is None:
         lead, c = x_shape[:-1], x_shape[-1]
@@ -450,45 +480,56 @@ def _site_of(x_shape: tuple, w_shape: tuple, kernel: Optional[int], stride: int,
         if len(x_shape) != 4:
             raise ValueError(f"a conv site takes NHWC x (B, H, W, C), got {x_shape}")
         b, h, w, c = x_shape
-        ho, wo = (_conv_out(h, kernel, stride, padding), _conv_out(w, kernel, stride, padding))
+        ho, wo = _conv_out(h, kernel, stride, pads[0]), _conv_out(w, kernel, stride, pads[1])
         if ho <= 0 or wo <= 0:
-            raise ValueError(f"a {kernel} x {kernel} conv at stride {stride}, padding {padding} "
+            raise ValueError(f"a {kernel} x {kernel} conv at stride {stride}, padding {pads} "
                              f"gives no output on {h} x {w}")
         lead, kw = (b, ho, wo), kernel
-        gather = not (kernel == 1 and stride == 1 and padding == 0)
-    k = kw * kw * c
+        gather = not (kernel == 1 and stride == 1 and groups == 1 and pads == NO_PADDING)
+    if groups < 1 or c % groups or n % groups:
+        raise ValueError(f"{groups} groups do not divide the input width {c} and the output "
+                         f"width {n}")
+    cg = c // groups
+    k = kw * kw * cg
     m = int(np.prod(lead))
     if not gather and k % 16:
         b, h, w, ho, wo, gather = m, 1, 1, 1, 1, True
-    return dict(lead=lead, m=m, k=k, n=n, kp=kp, c=c, gather=gather,
-                geometry=(h, w, c, kw, stride if gather else 1, padding if gather else 0, ho, wo))
+    pt, pl = (pads[0][0], pads[1][0]) if gather else (0, 0)
+    return dict(lead=lead, m=m, k=k, n=n, kp=kp, c=c, cg=cg, groups=groups, gather=gather,
+                group_n=n // groups,
+                geometry=(h, w, c, kw, stride if gather else 1, pt, pl, groups, ho, wo))
 
 
 def ptq_int8_conv(x: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor,
                   bias: Optional[torch.Tensor], inv_s: float, *, kernel: Optional[int],
-                  stride: int = 1, padding: int = 0,
+                  stride: int = 1, padding=0, groups: int = 1,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One int8 PTQ site. ``kernel`` None: a Dense site, x (..., K) ->
-    (..., N); else a ``kernel`` x ``kernel`` conv at ``stride`` with
-    symmetric zero ``padding`` on NHWC x (B, H, W, C) -> (B, Ho, Wo, N).
-    ``qweight`` int8 (N, Kp) from :func:`pack_weight`, ``colscale`` f32 (N,)
-    = ``f32(s_x) * s_w``, ``bias`` f32 (N,) or None, ``inv_s`` the f32
-    reciprocal of the activation scale; the output is ``out_dtype`` (x's
-    dtype when None). CUDA: x f32 or bf16, K and N multiples of 4 (C for a
-    gathered conv); :func:`ptq_int8_quantize`, then :func:`ptq_int8_gemm`,
-    or the GEMM alone where it quantizes x itself (:func:`quantizes_in_gemm`)."""
+    (..., N); else a ``kernel`` x ``kernel`` conv at ``stride`` with zero
+    ``padding`` (an int on every side, or ``((top, bottom), (left, right))``)
+    in ``groups`` groups on NHWC x (B, H, W, C) -> (B, Ho, Wo, N).
+    ``qweight`` int8 (N, Kp) from :func:`pack_weight` (K = kernel^2 C /
+    groups a row), ``colscale`` f32 (N,) = ``f32(s_x) * s_w``, ``bias`` f32
+    (N,) or None, ``inv_s`` the f32 reciprocal of the activation scale; the
+    output is ``out_dtype`` (x's dtype when None). CUDA: x f32 or bf16, K and
+    N multiples of 4 (C / groups for a gathered conv), N / groups a multiple
+    of 64 for a grouped conv; :func:`ptq_int8_quantize`, then
+    :func:`ptq_int8_gemm`, or the GEMM alone where it quantizes x itself
+    (:func:`quantizes_in_gemm`)."""
     if x.device.type == "cpu":
         return ptq_int8_conv_plain(x, qweight, colscale, bias, inv_s, kernel=kernel,
-                                   stride=stride, padding=padding, out_dtype=out_dtype)
+                                   stride=stride, padding=padding, groups=groups,
+                                   out_dtype=out_dtype)
     out_dtype = out_dtype or x.dtype
     if x.dtype not in (torch.float32, torch.bfloat16) or out_dtype not in (torch.float32,
                                                                            torch.bfloat16):
         raise TypeError(f"ptq_int8_conv takes f32 or bf16 x and output, got {x.dtype} -> "
                         f"{out_dtype}")
-    site = _check_site(x, qweight, colscale, bias, kernel, stride, padding)
+    site = _check_site(x, qweight, colscale, bias, kernel, stride, padding, groups)
     _check("x", x, x.dtype, tuple(x.shape), x.device)
     _check_no_grad("ptq_int8_conv", x)
-    if quantizes_in_gemm(x.dtype, out_dtype, kernel, stride, padding, site["k"], site["n"]):
+    if quantizes_in_gemm(x.dtype, out_dtype, kernel, stride, padding, site["k"], site["n"],
+                         groups):
         return _gemm(x, qweight, colscale, bias, site, PTQ_ROWS_QUANT, out_dtype, inv_s, 3)
     q = _quantize(x, inv_s)
     return _gemm(q, qweight, colscale, bias, site, PTQ_GATHER if site["gather"] else PTQ_ROWS,
@@ -497,16 +538,19 @@ def ptq_int8_conv(x: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor
 
 def _check_site(x: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor,
                 bias: Optional[torch.Tensor], kernel: Optional[int], stride: int,
-                padding: int) -> dict:
-    site = _site(x, qweight, kernel, stride, padding)
+                padding, groups: int = 1) -> dict:
+    site = _site(x, qweight, kernel, stride, padding, groups)
     m, k, n, kp = site["m"], site["k"], site["n"], site["kp"]
     if (kernel or 1) > MAX_KERNEL:
         raise ValueError(f"a {kernel} x {kernel} conv has more taps than the gather's mask holds "
                          f"(at most {MAX_KERNEL} x {MAX_KERNEL})")
     if kp % K_ALIGN or kp < k:
         raise ValueError(f"qweight (N, Kp) = {tuple(qweight.shape)} is not packed for K = {k}")
-    if site["c"] % 4:
-        raise ValueError(f"the input width {site['c']} is not a multiple of 4")
+    if site["cg"] % 4:
+        raise ValueError(f"the input width of a group {site['cg']} is not a multiple of 4")
+    if groups > 1 and site["group_n"] % PTQ_WIDTHS[0]:
+        raise ValueError(f"a group's {site['group_n']} output columns are not a multiple of the "
+                         f"kernel's {PTQ_WIDTHS[0]}-column tile")
     _check_rows(m, k, n)
     _check("qweight", qweight, torch.int8, (n, kp), x.device)
     _check("colscale", colscale, torch.float32, (n,), x.device)
@@ -517,7 +561,7 @@ def _check_site(x: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor,
 
 def ptq_int8_gemm(a: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor,
                   bias: Optional[torch.Tensor], *, kernel: Optional[int], stride: int = 1,
-                  padding: int = 0, out_dtype: torch.dtype = torch.float32,
+                  padding=0, groups: int = 1, out_dtype: torch.dtype = torch.float32,
                   inv_s: Optional[float] = None, cut: int = 3) -> torch.Tensor:
     """The site's GEMM, :func:`ptq_int8_conv`'s launch after the quantize
     pass: int8 wgmma with s32 sums, ``f32(acc) * colscale (+ bias)`` ->
@@ -530,16 +574,16 @@ def ptq_int8_gemm(a: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor
     if a.device.type == "cpu":
         q = a if inv_s is None else quantize(a, inv_s)
         return ptq_int8_gemm_plain(q, qweight, colscale, bias, kernel=kernel, stride=stride,
-                                   padding=padding, out_dtype=out_dtype)
+                                   padding=padding, groups=groups, out_dtype=out_dtype)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ptq_int8_gemm writes f32 or bf16, got {out_dtype}")
-    site = _check_site(a, qweight, colscale, bias, kernel, stride, padding)
+    site = _check_site(a, qweight, colscale, bias, kernel, stride, padding, groups)
     if inv_s is None:
         _check("a", a, torch.int8, tuple(a.shape), a.device)
         src = PTQ_GATHER if site["gather"] else PTQ_ROWS
     else:
         if not quantizes_in_gemm(a.dtype, out_dtype, kernel, stride, padding, site["k"],
-                                 site["n"]):
+                                 site["n"], groups):
             raise ValueError("this site does not quantize in the GEMM (quantizes_in_gemm): pass "
                              "x quantized by ptq_int8_quantize")
         _check("a", a, torch.bfloat16, tuple(a.shape), a.device)
@@ -555,7 +599,8 @@ def _gemm(a: torch.Tensor, qweight: torch.Tensor, colscale: torch.Tensor,
     args = (a.data_ptr(), qweight.data_ptr(), site["kp"], colscale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), site["m"], site["k"],
             site["n"], src, float(inv_s or 0.0), *site["geometry"],
-            *_ptq_plan_args(site["n"], site["k"], src))
+            *_ptq_plan_args(site["n"], site["k"], src,
+                            group_n=site["group_n"] if site["groups"] > 1 else None))
     stream = _stream(a.device)
     if cut == 3:
         _launched("ptq_int8_conv", _lib().ptq_int8_conv(

@@ -10,8 +10,10 @@ reference LN, recomputed from the saved (x, g, b).
 - ``layer_norm`` (``csrc/layernorm.cu``): x (M, C) bf16 or f32 with f32
   weight and bias -> the same dtype as x. A segment of lanes owns a row and
   keeps it in registers, so x is read once; narrow rows (C = 64) share a
-  warp. What bounds it on the card: memory bandwidth (it moves
-  2 * M * C * itemsize bytes for ~8 f32 operations per element).
+  warp; a width that is not a multiple of the 16-byte vector (8 bf16, 4
+  f32) takes the same kernel on scalar elements. What bounds it on the
+  card: memory bandwidth (it moves 2 * M * C * itemsize bytes for ~8 f32
+  operations per element).
 - :class:`LayerNormFunction`: forward through :func:`layer_norm` (the kernel
   on CUDA, the plain version on the CPU), backward the gradient of
   :func:`layer_norm_plain` at the saved inputs, as the JAX ``custom_vjp``.
@@ -34,7 +36,6 @@ from .convnext_block import _check, _stream
 LAUNCHES: Dict[str, int] = {"layer_norm": 0}
 
 MAX_WIDTH = {torch.bfloat16: 2048, torch.float32: 1024}  # 32 lanes x 8 vectors of 16 bytes
-_VECTOR = {torch.bfloat16: 8, torch.float32: 4}  # elements per 16-byte load
 _SYMBOL = {torch.bfloat16: "layer_norm_bf16", torch.float32: "layer_norm_f32"}
 
 _P = ctypes.c_void_p
@@ -70,16 +71,14 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LN over the last axis of x (..., C). CUDA: x bf16 or f32, contiguous,
-    C a multiple of 8 (bf16) or 4 (f32), weight and bias f32 (C,) -> x's
-    dtype."""
+    1 <= C <= :data:`MAX_WIDTH`, weight and bias f32 (C,) -> x's dtype."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
     c = x.shape[-1]
     if x.dtype not in _SYMBOL:
         raise TypeError(f"x has dtype {x.dtype}, the kernel takes bfloat16 or float32")
-    if c % _VECTOR[x.dtype] or c > MAX_WIDTH[x.dtype]:
-        raise ValueError(f"channel width {c} is not a multiple of {_VECTOR[x.dtype]} up to "
-                         f"{MAX_WIDTH[x.dtype]} for {x.dtype}")
+    if not 1 <= c <= MAX_WIDTH[x.dtype]:
+        raise ValueError(f"channel width {c} is not in 1 ... {MAX_WIDTH[x.dtype]} for {x.dtype}")
     _check("x", x, x.dtype, x.shape, x.device)
     _check("weight", weight, torch.float32, (c,), x.device)
     _check("bias", bias, torch.float32, (c,), x.device)

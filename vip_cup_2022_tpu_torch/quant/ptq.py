@@ -4,8 +4,10 @@ Counterpart of ``vip_cup_2022_tpu/quant/ptq.py`` with the same sites,
 eligibility rule, scales and arithmetic, in PyTorch's idiom:
 
 - **calibration** (:func:`calibrate`): forward pre-hooks on every candidate
-  (``Conv``, ``Linear``, ``DepthwiseConv``) record the f32 abs-max of each
-  eligible site's input over the batches;
+  (``Conv``, ``Linear``, ``DepthwiseConv``, ``DepthwiseTaps``,
+  ``ScaledStdConv``) record the f32 abs-max of each eligible site's input
+  over the batches (the depthwise ones never pass the rule, and are
+  reported skipped as the JAX pass reports its grouped ``nn.Conv``);
 - **quantized inference** (:func:`quantized`): each calibrated site's module
   is swapped for a :class:`QuantizedSite`, which quantizes the activation
   with the frozen scale (symmetric per-tensor int8), holds the weight
@@ -15,17 +17,26 @@ eligibility rule, scales and arithmetic, in PyTorch's idiom:
   module's dtype, or x's when it has none.
 
 A site is named as in the JAX package, ``"/".join`` of the Flax path of the
-intercepted ``nn.Conv`` / ``nn.Dense``: the port's modules are named after
-the Flax modules, so the site is the module's dotted name with ``/``
-(``c2_block_0/conv_1/conv``, ResNest's flat ``stack1_block1_deep_2_sa_1_g1_conv``).
+intercepted ``nn.Conv`` / ``nn.Dense`` / ``ScaledStdConv``: the port's
+modules are named after the Flax modules, so the site is the module's dotted
+name with ``/`` (``c2_block_0/conv_1/conv``, ResNest's flat
+``stack1_block1_deep_2_sa_1_g1_conv``, NFNet's ``stack2_block1_deep_2_conv``).
 A scale table written by either package loads in the other. ResNest's
 split-attention convs read channel halves of their input, views that
-:class:`QuantizedSite` makes contiguous before the kernel. The JAX pass
-also quantizes the weight-standardized convs (``ScaledStdConv``, NFNet's);
-the port's :class:`..ops.conv.ScaledStdConv` is not a candidate, so
-calibration never records one as a plain conv site (its raw weight is not
-the weight it convolves with), and a grouped conv cannot become a site:
-``ptq_int8_conv`` takes no group count (ROADMAP A9b).
+:class:`QuantizedSite` makes contiguous before the kernel.
+
+NFNet's weight-standardized convs (:class:`..ops.conv.ScaledStdConv`) are
+sites as in the JAX pass (``_handle_stdconv``): the weight quantized is the
+standardized one, computed in f32 from the f32 ``weight`` and ``gain``
+(:func:`..ops.conv.standardize_weight`, JAX's ``_standardized_weight``),
+never the raw weight or the compute-dtype copy the module caches. A grouped
+conv runs the kernel in its groups (XLA's ``feature_group_count``), and a
+padding of pairs or TF ``"same"`` is resolved at each call's size into the
+(top, bottom), (left, right) pairs the kernel takes. A module whose block
+reads its parameters into a fused kernel without calling it (ConvNeXt's and
+GCViT's MLP Linears on the fused block path) is never called, so it is
+neither calibrated nor swapped, as the JAX pass never intercepts the
+parameters a Pallas block reads.
 """
 from __future__ import annotations
 
@@ -37,10 +48,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.conv import Conv, DepthwiseConv, Linear
+from ..ops.conv import (Conv, DepthwiseConv, DepthwiseTaps, Linear, ScaledStdConv,
+                        standardize_weight)
 from ..ops.kernels import int8_gemm
+from ..ops.pad import resolve_padding
 
-CANDIDATES = (Conv, Linear, DepthwiseConv)
+CANDIDATES = (Conv, Linear, DepthwiseConv, DepthwiseTaps, ScaledStdConv)
+DEPTHWISE = (DepthwiseConv, DepthwiseTaps)  # one input feature a group: never a site
+CONVS = (Conv, ScaledStdConv)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +105,7 @@ def _shape_args(module: nn.Module, x: torch.Tensor) -> Tuple[int, int, int, int]
         positions = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
         return x.shape[-1], 1, module.weight.shape[0], positions
     spatial = x.shape[1] * x.shape[2]
-    if isinstance(module, DepthwiseConv):
+    if isinstance(module, DEPTHWISE):
         return 1, x.shape[-1], x.shape[-1], spatial
     return x.shape[-1] // module.groups, module.groups, module.weight.shape[0], spatial
 
@@ -149,9 +164,11 @@ def quantize_weight(w_kn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class QuantizedSite(nn.Module):
-    """A calibrated Conv or Linear running the int8 kernel. A call that is
-    not eligible (its input shape fails the rule) runs the float module it
-    replaced, as the JAX pass falls through to the original op."""
+    """A calibrated Conv, ScaledStdConv or Linear running the int8 kernel,
+    ``weight`` the f32 (O, I / groups, kh, kw) or (out, in) values to
+    quantize. A call that is not eligible (its input shape fails the rule)
+    runs the float module it replaced, as the JAX pass falls through to the
+    original op."""
 
     def __init__(self, site: str, module: nn.Module, amax: float, weight: torch.Tensor,
                  bias: Optional[torch.Tensor], config: PTQConfig, report: Optional[_Report]):
@@ -161,11 +178,12 @@ class QuantizedSite(nn.Module):
         s_x = max(amax, 1e-8) / 127.0
         self.inv_s = int8_gemm.f32_reciprocal(s_x)
         n = weight.shape[0]
-        if isinstance(module, Conv):
+        if isinstance(module, CONVS):
             self.kernel, self.stride, self.padding = weight.shape[-1], module.stride, module.padding
-            w_kn = weight.permute(2, 3, 1, 0).reshape(-1, n)  # HWIO -> (kh kw I, O)
+            self.groups = module.groups
+            w_kn = weight.permute(2, 3, 1, 0).reshape(-1, n)  # HWIO -> (kh kw I / groups, O)
         else:
-            self.kernel, self.stride, self.padding = None, 1, 0
+            self.kernel, self.stride, self.padding, self.groups = None, 1, 0, 1
             w_kn = weight.t()
         qw, s_w = quantize_weight(w_kn.float())
         device = module.weight.device
@@ -174,6 +192,11 @@ class QuantizedSite(nn.Module):
         self.register_buffer("bias_f32", None if bias is None else bias.float().to(device))
         self.out_dtype = module.dtype
 
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The replaced conv's own call without hooks (:meth:`..ops.conv.Conv.conv`),
+        float: a call the JAX pass never sees is no int8 site."""
+        return self.float_module.conv(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         eligible = _eligible(self.config, self.site, self.float_module, x)
         if self._report is not None:
@@ -181,9 +204,12 @@ class QuantizedSite(nn.Module):
                 self.site)
         if not eligible:
             return self.float_module(x)
+        padding = self.padding
+        if self.kernel is not None and not isinstance(padding, int):
+            padding = resolve_padding(padding, x.shape[1], x.shape[2], self.kernel, self.stride)
         return int8_gemm.ptq_int8_conv(
             x.contiguous(), self.qweight, self.colscale, self.bias_f32, self.inv_s,
-            kernel=self.kernel, stride=self.stride, padding=self.padding,
+            kernel=self.kernel, stride=self.stride, padding=padding, groups=self.groups,
             out_dtype=self.out_dtype or x.dtype)
 
 
@@ -208,11 +234,13 @@ def _f32_source(key: str, param: Optional[torch.Tensor],
 def quantized(model: nn.Module, scales: Mapping[str, float],
               config: Optional[PTQConfig] = None, report: Optional[dict] = None,
               weights: Optional[Mapping[str, Any]] = None) -> nn.Module:
-    """Swap each Conv / Linear of ``model`` whose site has a scale for a
-    :class:`QuantizedSite`, in place, and return ``model``. ``weights``
-    maps state_dict keys to the f32 values the parameters were cast from (a
-    bf16 model's checkpoint, :func:`..weights.from_jax.flax_to_torch`); a
-    parameter without one must itself be f32. ``report``, if given,
+    """Swap each Conv / ScaledStdConv / Linear of ``model`` whose site has a
+    scale for a :class:`QuantizedSite`, in place, and return ``model``.
+    ``weights`` maps state_dict keys to the f32 values the parameters were
+    cast from (a bf16 model's checkpoint,
+    :func:`..weights.from_jax.flax_to_torch`); a parameter without one must
+    itself be f32. A ScaledStdConv's int8 weight is standardized from its
+    f32 ``weight`` and ``gain``. ``report``, if given,
     receives ``quantized_sites`` / ``skipped_sites`` after every forward
     (recorded by hooks that exist only then)."""
     config = config or PTQConfig()
@@ -220,13 +248,13 @@ def quantized(model: nn.Module, scales: Mapping[str, float],
     candidates = [(name, m) for name, m in model.named_modules() if isinstance(m, CANDIDATES)]
     for name, module in candidates:
         site = site_name(name)
-        if site in scales and not isinstance(module, DepthwiseConv):
-            if isinstance(module, Conv) and module.groups > 1:
-                raise NotImplementedError(
-                    f"int8 site {site}: a conv of {module.groups} groups; ptq_int8_conv takes "
-                    "no group count (ROADMAP A9b)")
-            new = QuantizedSite(site, module, float(scales[site]),
-                                _f32_source(f"{name}.weight", module.weight, weights),
+        if site in scales and not isinstance(module, DEPTHWISE):
+            weight = _f32_source(f"{name}.weight", module.weight, weights)
+            if isinstance(module, ScaledStdConv):
+                weight = standardize_weight(
+                    weight, _f32_source(f"{name}.gain", module.gain, weights), module.gamma,
+                    module.eps)
+            new = QuantizedSite(site, module, float(scales[site]), weight,
                                 _f32_source(f"{name}.bias", module.bias, weights), config, calls)
             parent, _, child = name.rpartition(".")
             setattr(model.get_submodule(parent), child, new)
