@@ -74,6 +74,18 @@ each printing its results on earlier lines, any failure exiting non-zero:
      (which times each body by device time beside cuBLAS bf16 and
      ``torch._int_mm`` on a column-major w, with w packed once outside the
      timing), which must launch all three;
+   - the fused blocks' int8 GEMMs (``VIPTPU_INT8_KERNELS=1``,
+     ``phase_int8_kernels``): ``ln_fc1_gelu_int8``, ``quantize_rows`` and
+     ``fc2_scale_residual_int8`` at ConvNeXt's s1-s4, ``ln_qkv_int8``
+     (local q / k / v and global k / v), ``quantize_rows`` of the attention
+     output and of the hidden, ``proj_scale_residual_int8``,
+     ``ln_fc1_gelu_int8`` and ``fc2_scale_residual_int8`` at GCViT's L2-L4,
+     batch 256, weights quantized from f32: ``quantize_rows``' codes and row
+     scales and the residual GEMMs' outputs equal to their plain versions bit
+     for bit, the LN GEMMs within 1e-2 of max|ref|; each timed by device time
+     beside its plain version (events), ``torch._int_mm`` on the same s8
+     operands with the quantize of A in PyTorch ops, and its bf16 variant
+     (per launch, then per forward);
 6. model: full-width convnext_tiny_in22k at 200 x 200 with seeded random
    weights and layer scale ~ U(0.5, 1.5), and full-width GCViTTiny at
    224 x 224, on its fused and on its unfused block path, with seeded random
@@ -139,7 +151,15 @@ each printing its results on earlier lines, any failure exiting non-zero:
    version, timed beside cuDNN's grouped bf16 conv); and the LN kernel at
    EfficientNetV2T_GC's ``gc_ln`` widths (12, 26, 32, 52: its 29 LNs of a
    full-width bf16 forward at 200 x 200) and at one odd width (13), bf16,
-   against its plain version (``phase_layernorm_gc``);
+   against its plain version (``phase_layernorm_gc``); the PTQ sites' cuDNN
+   and ``torch._int_mm`` yardsticks summed over the seven members; then
+   ConvNeXt and GCViTTiny under ``VIPTPU_INT8_KERNELS=1``
+   (``phase_int8_models``: ``_model``'s weights, the int8 weights quantized
+   from the f32 model's): one batch-256 forward's int8 launches (ConvNeXt's
+   18 blocks, GCViT's 28 at L2-L4, L1's 3 on the bf16 kernels), the logits
+   within 5e-2 of max|ref| of the bf16 kernel path, the decisions int8 and
+   bf16 each flip at 0.487 against the plain f32 forward, the int8 / bf16
+   forward ratio;
 7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
    (``convnext_tiny_in22k-200x200``, ``GCViTTiny-224x224``) run through
    ``main_torch.main`` at batch 256 (one full batch and one zero-padded
@@ -174,7 +194,13 @@ each printing its results on earlier lines, any failure exiting non-zero:
    ``ptq_int8_conv`` at every site of the seven members (``INT8_SITES``
    summed) of each batch and ``ptq_int8_quantize`` at those that run the
    pass, its img/s and per-batch ms printed beside the bf16
-   run's;
+   run's; then ``VIPTPU_INT8_KERNELS=1`` with one-output sigmoid heads
+   (``phase_slice_int8_kernels``): the two-member and the seven-member
+   manifests each beside its bf16 run, then the seven with ``VIPTPU_INT8=all``
+   too (the calibration forward's launches once more): the int8 block
+   kernels at each ConvNeXt and L2-L4 GCViT block of each batch, the bf16
+   ones at L1, ``ptq_int8_conv`` at the 336 sites, the raw means within 5e-2
+   of the bf16 run's, img/s printed;
 8. serving: the seven members again, each with a one-output sigmoid head
    (the product checkpoints' head; the registry's softmax heads hold
    ``1 - p[:, 0]`` near 1 whatever the features): the plain fused run;
@@ -258,9 +284,13 @@ CSV run for the block families, the unfused CSV run for
 ``window_attention_bhnd`` and ``layer_norm`` (plus the 29 of the V2T_GC
 forward of ``phase_layernorm_gc``), the cold seven-member CSV run
 for ``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
-``int8_pallas_spike`` run for the three spike bodies and the seven-member
+``int8_pallas_spike`` run for the three spike bodies, the seven-member
 ``VIPTPU_INT8=all`` CSV run for ``ptq_int8_quantize`` and
-``ptq_int8_conv``.
+``ptq_int8_conv`` and the seven-member ``VIPTPU_INT8_KERNELS=1`` CSV run
+for the five int8 block kernels, whose ``ms`` (kernel and library by
+device time), ``plain_ms`` and ``library_ms`` (``torch._int_mm`` with the
+quantize of A; none for ``quantize_rows``) are per batch-256 forward of
+ConvNeXt's 18 and GCViT's 28 int8 blocks.
 ``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
 computes the function) are per batch-256 forward of both members together on
 that path (phases 3-5; ``ln_fc1_gelu`` and ``fc2_scale_residual`` serve both
@@ -318,6 +348,7 @@ from vip_cup_2022_tpu_torch.models import (create_model, load_weights,  # noqa: 
                                            transfer_weights)
 from vip_cup_2022_tpu_torch.models.registry import model_entry  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import attn_parts as A  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import build  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import convnext_block as K  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D  # noqa: E402
@@ -328,6 +359,7 @@ from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels.reference import plain_kernels  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
+from vip_cup_2022_tpu_torch.quant import dyn_int8  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
                                           exp_dwconv, exp_lnmlp_dw, exp_mlp_gemm, exp_ptq_int8,
                                           exp_window_attention, int8_pallas_spike)
@@ -347,8 +379,14 @@ LNMLP_KERNELS = ("fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst")
 PARTS = "attn_parts"
 SPIKE_KERNELS = ("int8_spike_bf16", "int8_spike_int8", "int8_spike_direct")
 PTQ, QUANT = "ptq_int8_conv", "ptq_int8_quantize"  # the PTQ site's GEMM and quantize pass
+# the fused blocks' int8 GEMMs (VIPTPU_INT8_KERNELS=1) and each one's bf16 variant
+INT8_KERNELS = ("ln_fc1_gelu_int8", "ln_qkv_int8", "quantize_rows", "fc2_scale_residual_int8",
+                "proj_scale_residual_int8")
+BF16_VARIANT = {"ln_fc1_gelu_int8": "ln_fc1_gelu", "ln_qkv_int8": "ln_qkv",
+                "fc2_scale_residual_int8": "fc2_scale_residual",
+                "proj_scale_residual_int8": "proj_scale_residual"}
 KERNELS = (CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
-           + SPIKE_KERNELS + (QUANT, PTQ))
+           + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS)
 CSRC = "vip_cup_2022_tpu_torch/csrc"
 SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
 SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
@@ -357,6 +395,7 @@ SOURCES.update({ATTN: f"{CSRC}/window_attention.cu", LN: f"{CSRC}/layernorm.cu",
 SOURCES.update({n: f"{CSRC}/ln_mlp.cu" for n in LNMLP_KERNELS})
 SOURCES.update({n: f"{CSRC}/int8_gemm.cu" for n in SPIKE_KERNELS})
 SOURCES.update({n: f"{CSRC}/ptq_int8.cuh" for n in (QUANT, PTQ)})  # built into int8_gemm.cu's
+SOURCES.update({n: f"{CSRC}/block_int8.cu" for n in INT8_KERNELS})
 PALLAS = "vip_cup_2022_tpu/ops/pallas"
 TPU = f"{PALLAS}/convnext_block.py"
 GTPU = f"{PALLAS}/gcvit_block.py"
@@ -382,6 +421,12 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
     PTQ: "tools/int8_pallas_spike.py:55, vip_cup_2022_tpu/quant/ptq.py:172, "
          "vip_cup_2022_tpu/quant/ptq.py:258",
     QUANT: "vip_cup_2022_tpu/quant/ptq.py:172, vip_cup_2022_tpu/quant/ptq.py:258",
+    # the int8 mode of K1, K2, K4, K6, K7
+    "ln_fc1_gelu_int8": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
+    "fc2_scale_residual_int8": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
+    "quantize_rows": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
+    "ln_qkv_int8": f"{GTPU}:247, {GTPU}:906",
+    "proj_scale_residual_int8": f"{GTPU}:667, {GTPU}:906",
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
@@ -430,7 +475,7 @@ def abs_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     return (a.float() - ref.float()).abs().max().item()
 
 
-KERNEL_MODULES = (K, G, WA, L, D, LM, A, Q)
+KERNEL_MODULES = (K, G, WA, L, D, LM, A, Q, B8)
 
 
 def reset_launches() -> None:
@@ -1252,6 +1297,249 @@ def phase_spike(card: str, stats: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the fused blocks' int8 GEMMs (VIPTPU_INT8_KERNELS=1)
+# ---------------------------------------------------------------------------
+# GCViTTiny's levels whose blocks run int8 at the default VIPTPU_GCVIT_INT8_MIN_C: L2-L4
+INT8_LEVELS = tuple(lv for lv in LEVELS if lv[1] >= dyn_int8.GCVIT_INT8_MIN_C)
+GCVIT_INT8_BLOCKS = sum(lv[4] + lv[5] for lv in INT8_LEVELS)  # 28; L1's 3 stay bf16
+
+
+def int8_forward_launches(forwards: int, members=("convnext", "gcvit")) -> dict:
+    """The fused-block launches of ``forwards`` forwards of ConvNeXt and / or
+    GCViTTiny under ``VIPTPU_INT8_KERNELS=1``: ConvNeXt's 18 blocks and
+    GCViT's 28 at C >= 128 on the int8 kernels (a GCViT int8 block quantizes
+    two rows a token: the attention output and the hidden), GCViT's 3 at
+    L1 on the bf16 ones, the depthwise and the attention as they were."""
+    cx, gc = "convnext" in members, "gcvit" in members
+    bf16_gc = GCVIT_BLOCKS - GCVIT_INT8_BLOCKS
+    return {n: forwards * v for n, v in {
+        "dwconv7x7_nhwc": CONVNEXT_BLOCKS * cx, "window_attention": GCVIT_BLOCKS * gc,
+        "ln_qkv": bf16_gc * gc, "proj_scale_residual": bf16_gc * gc,
+        "ln_fc1_gelu": bf16_gc * gc, "fc2_scale_residual": bf16_gc * gc,
+        "ln_fc1_gelu_int8": CONVNEXT_BLOCKS * cx + GCVIT_INT8_BLOCKS * gc,
+        "fc2_scale_residual_int8": CONVNEXT_BLOCKS * cx + GCVIT_INT8_BLOCKS * gc,
+        "quantize_rows": CONVNEXT_BLOCKS * cx + 2 * GCVIT_INT8_BLOCKS * gc,
+        "ln_qkv_int8": GCVIT_INT8_BLOCKS * gc, "proj_scale_residual_int8": GCVIT_INT8_BLOCKS * gc,
+    }.items()}
+
+
+def torch_row_quantize(a: torch.Tensor) -> torch.Tensor:
+    """Per-row dynamic int8 of ``a`` in plain PyTorch ops, capturable (no
+    host synchronisation): the quantize half of the int8 kernels' yardstick."""
+    af = a.float()
+    s = af.abs().amax(-1, keepdim=True).clamp_min(dyn_int8.MIN_AMAX) * dyn_int8.INV_127
+    return torch.clamp(torch.round(af * torch.reciprocal(s)), -127, 127).to(torch.int8)
+
+
+def int_mm_yardstick(a: torch.Tensor, w_q: torch.Tensor):
+    """The library yardstick of an int8 GEMM kernel: ``a`` quantized per row
+    in PyTorch ops, then ``torch._int_mm`` of the codes and the (N, K)
+    weight codes (column-major, the layout cuBLASLt's int8 path takes); and
+    ``torch._int_mm`` alone on codes made beforehand. (None, None) where
+    cuBLASLt refuses the shape."""
+    wt, a_q = w_q.t(), torch_row_quantize(a)
+    try:
+        torch._int_mm(a_q, wt)
+    except RuntimeError as err:
+        print(f"[int8k] torch._int_mm refuses {tuple(a.shape)} x {tuple(wt.shape)}: "
+              f"{str(err).splitlines()[0][:80]}")
+        return None, None
+    return (lambda: torch._int_mm(torch_row_quantize(a), wt)), (lambda: torch._int_mm(a_q, wt))
+
+
+def check_int8(label: str, stats: dict, outs: dict) -> None:
+    """Each int8 kernel output in ``outs`` (name -> (output, reference
+    maker, exact)) against its plain version on the same inputs: a
+    (codes, row scales) pair equal to the plain one; an ``exact`` output
+    equal bit for bit (the same integer sums and f32 steps); else within
+    1e-2 of max|ref| (an LN output an ulp off the plain one moves a code on a
+    .5 tie)."""
+    for name, (got, make_ref, exact) in outs.items():
+        ref = make_ref()
+        pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+        kernel = name.split(" ")[0]
+        err = max(abs_err(a, b) for a, b in pairs)
+        stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], err)
+        same = all(torch.equal(a, b) for a, b in pairs)
+        r = max(rel_err(a, b) for a, b in pairs)
+        print(f"[int8k] {name:26s} {label} max|d|/max|ref| = {r:.3e}, "
+              f"{'equal to' if same else 'not equal to'} the plain version"
+              f"{' (must be equal)' if exact else f' (bound {KERNEL_BOUND:g})'}")
+        if (exact and not same) or not r <= KERNEL_BOUND:
+            raise AssertionError(f"{name} at {label} disagrees with its plain version")
+        del ref
+
+
+def time_int8(kern, plain, lib) -> tuple:
+    """Kernel and library ms per launch by device time (``device_ms``), the
+    plain version's by CUDA events, in turns k, p, l, l, p, k."""
+    fns = [(kern, lambda f: device_ms(f, calls=5, replays=4)), (plain, lambda f: cuda_ms(f, 3, 1))]
+    if lib is not None:
+        fns.append((lib, lambda f: device_ms(f, calls=5, replays=4)))
+    first = [t(f) for f, t in fns]
+    second = [t(f) for f, t in reversed(fns)][::-1]
+    ms = [(a + b) / 2 for a, b in zip(first, second)]
+    return ms[0], ms[1], (ms[2] if lib is not None else None)
+
+
+def run_int8_calls(calls: dict, label: str, stats: dict, apart: dict, card: str) -> None:
+    """Time each int8 kernel launch of ``calls`` (name -> (count, kernel,
+    plain, (library, ``torch._int_mm`` alone) or None, bytes, operations,
+    their type, bf16 variant or None)) and add it ``count`` times to the
+    kernel's per-forward numbers, the bf16 variant's and ``torch._int_mm``'s
+    device times to ``apart``'s two Counters."""
+    for name, (count, kern, plain, yardsticks, nbytes, ops, kind, bf16) in calls.items():
+        kernel = name.split(" ")[0]
+        lib, int_mm = yardsticks or (None, None)
+        times = time_int8(kern, plain, lib)
+        bound = account(stats, kernel, count, times, nbytes, ops, kind)
+        b_ms = device_ms(bf16, calls=5, replays=4) if bf16 is not None else None
+        m_ms = device_ms(int_mm, calls=5, replays=4) if int_mm is not None else None
+        if b_ms is not None:
+            apart["bf16"][kernel] += count * b_ms
+        if m_ms is not None:
+            apart["int_mm"][kernel] += count * m_ms
+        k_ms, p_ms, l_ms = times
+        print(f"[int8k] {name:26s} {label} x{count}: kernel {k_ms:.3f} ms (device), plain "
+              f"{p_ms:.3f} ms, torch._int_mm + quantize {fmt_ms(l_ms)} (_int_mm alone "
+              f"{fmt_ms(m_ms)}), bound {bound:.3f} ms per launch"
+              + (f"; bf16 variant {b_ms:.3f} ms, int8 / bf16 {k_ms / b_ms:.2f}" if b_ms else "")
+              + f" [{card}]")
+
+
+def phase_int8_kernels(card: str, stats: dict) -> None:
+    """The five int8 kernels at the main path's batch-256 shapes (ConvNeXt
+    s1-s4; GCViT L2-L4, ``ln_qkv_int8`` local q / k / v and global k / v):
+    each against its plain version (:func:`check_int8`), then timed
+    (:func:`time_int8`) beside torch._int_mm with the quantize and its bf16
+    variant, per launch and per forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    before, apart = snapshot(stats), {"bf16": Counter(), "int_mm": Counter()}
+    bf16 = torch.bfloat16
+    for h, w, c, nblocks in STAGES:
+        p = block_inputs(BATCH, h, w, c, gen)
+        m, n = BATCH * h * w, 4 * c
+        x2 = p["x"].view(m, c)
+        fc1, fc2 = (dyn_int8.quantize_linear(p[k].float()) for k in ("w1", "w2"))
+        d = K.dwconv7x7_nhwc(p["x"], p["dw"], p["dwb"]).view(m, c)
+        hid = B8.ln_fc1_gelu_int8(d, p["lg"], p["lb"], fc1.q, fc1.s, p["b1"], 1e-6)
+        h_q, h_s = B8.quantize_rows(hid)
+        out = B8.fc2_scale_residual_int8(h_q, h_s, fc2.q, fc2.s, p["b2"], p["ls"], x2, bf16)
+        torch.cuda.synchronize()
+        label = f"({BATCH},{h},{w},{c})"
+        check_int8(label, stats, {
+            "ln_fc1_gelu_int8": (hid, lambda: B8.ln_fc1_gelu_int8_plain(
+                d, p["lg"], p["lb"], fc1.q, fc1.s, p["b1"], 1e-6), False),
+            "quantize_rows": ((h_q, h_s), lambda: B8.quantize_rows_plain(hid), True),
+            "fc2_scale_residual_int8": (out, lambda: B8.fc2_scale_residual_int8_plain(
+                h_q, h_s, fc2.q, fc2.s, p["b2"], p["ls"], x2, bf16), True)})
+        hid16 = hid.to(bf16)
+        run_int8_calls({
+            "ln_fc1_gelu_int8": (
+                nblocks, lambda: B8.ln_fc1_gelu_int8(d, p["lg"], p["lb"], fc1.q, fc1.s, p["b1"], 1e-6),
+                lambda: B8.ln_fc1_gelu_int8_plain(d, p["lg"], p["lb"], fc1.q, fc1.s, p["b1"], 1e-6),
+                int_mm_yardstick(d, fc1.q), m * c * 4 + n * c + (2 * n + 2 * c) * 4 + m * n * 4,
+                2 * m * c * n, "int8",
+                lambda: K.ln_fc1_gelu(d, p["lg"], p["lb"], p["w1"], p["b1"], 1e-6)),
+            "quantize_rows": (nblocks, lambda: B8.quantize_rows(hid),
+                              lambda: B8.quantize_rows_plain(hid), None, m * n * 5 + m * 4,
+                              m * n, "f32", None),
+            "fc2_scale_residual_int8": (
+                nblocks, lambda: B8.fc2_scale_residual_int8(h_q, h_s, fc2.q, fc2.s, p["b2"],
+                                                            p["ls"], x2, bf16),
+                lambda: B8.fc2_scale_residual_int8_plain(h_q, h_s, fc2.q, fc2.s, p["b2"], p["ls"],
+                                                         x2, bf16),
+                int_mm_yardstick(hid, fc2.q), m * n + m * 4 + n * c + 3 * c * 4 + 2 * m * c * 2,
+                2 * m * n * c, "int8",
+                lambda: K.fc2_scale_residual(hid16, p["w2"], p["b2"], p["ls"], x2)),
+        }, label, stats, apart, card)
+        del p, x2, d, hid, hid16, h_q, h_s, out
+        torch.cuda.empty_cache()
+    for grid, c, heads, ws, n_local, n_global in INT8_LEVELS:
+        p = gcvit_level_inputs(BATCH, grid, c, heads, ws, gen)
+        n, m, x, count = p["n"], p["m"], p["x"], n_local + n_global
+        qkv8, kv8, p8, f1, f2 = (dyn_int8.quantize_linear(wt.float()) for wt in (
+            p["wqkv"], p["wqkv"][c:], p["wp"], p["w1"], p["w2"]))
+        t = lambda a: a.view(BATCH, -1, c)  # noqa: E731
+        qkv = B8.ln_qkv_int8(x, p["lg"], p["lb"], qkv8.q, qkv8.s, p["bqkv"], 1e-5)
+        kv = B8.ln_qkv_int8(x, p["lg"], p["lb"], kv8.q, kv8.s, p["bqkv"][c:], 1e-5)
+        attn = G.window_attention(*(t(a) for a in qkv), p["bias"], n, p["scale"]).view(m, c)
+        a_q, a_s = B8.quantize_rows(attn)
+        r1 = B8.proj_scale_residual_int8(a_q, a_s, p8.q, p8.s, p["bp"], p["g1"], x)
+        hid = B8.ln_fc1_gelu_int8(r1, p["lg2"], p["lb2"], f1.q, f1.s, p["b1"], 1e-5)
+        h_q, h_s = B8.quantize_rows(hid)
+        out = B8.fc2_scale_residual_int8(h_q, h_s, f2.q, f2.s, p["b2"], p["g2"], r1, bf16)
+        torch.cuda.synchronize()
+        label = f"({BATCH},{grid},{grid},{c}) w{ws}"
+        check_int8(label, stats, {
+            "ln_qkv_int8 local": (torch.cat(qkv, 1), lambda: torch.cat(B8.ln_qkv_int8_plain(
+                x.float(), p["lg"], p["lb"], qkv8.q, qkv8.s, p["bqkv"], 1e-5), 1), False),
+            "ln_qkv_int8 global": (torch.cat(kv, 1), lambda: torch.cat(B8.ln_qkv_int8_plain(
+                x.float(), p["lg"], p["lb"], kv8.q, kv8.s, p["bqkv"][c:], 1e-5), 1), False),
+            "quantize_rows attention": ((a_q, a_s), lambda: B8.quantize_rows_plain(attn), True),
+            "proj_scale_residual_int8": (r1, lambda: B8.proj_scale_residual_int8_plain(
+                a_q, a_s, p8.q, p8.s, p["bp"], p["g1"], x), True),
+            "ln_fc1_gelu_int8": (hid, lambda: B8.ln_fc1_gelu_int8_plain(
+                r1, p["lg2"], p["lb2"], f1.q, f1.s, p["b1"], 1e-5), False),
+            "quantize_rows hidden": ((h_q, h_s), lambda: B8.quantize_rows_plain(hid), True),
+            "fc2_scale_residual_int8": (out, lambda: B8.fc2_scale_residual_int8_plain(
+                h_q, h_s, f2.q, f2.s, p["b2"], p["g2"], r1, bf16), True)})
+        hid16, act = hid.to(bf16), m * c * 2  # one bf16 (M, C) activation's bytes
+        run_int8_calls({
+            "ln_qkv_int8 local": (
+                n_local, lambda: B8.ln_qkv_int8(x, p["lg"], p["lb"], qkv8.q, qkv8.s, p["bqkv"], 1e-5),
+                lambda: B8.ln_qkv_int8_plain(x, p["lg"], p["lb"], qkv8.q, qkv8.s, p["bqkv"], 1e-5),
+                int_mm_yardstick(x, qkv8.q), 4 * act + 3 * c * c + (6 * c + 2 * c) * 4,
+                2 * m * c * 3 * c, "int8",
+                lambda: G.ln_qkv(x, p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5)),
+            "ln_qkv_int8 global": (
+                n_global, lambda: B8.ln_qkv_int8(x, p["lg"], p["lb"], kv8.q, kv8.s, p["bqkv"][c:],
+                                                 1e-5),
+                lambda: B8.ln_qkv_int8_plain(x, p["lg"], p["lb"], kv8.q, kv8.s, p["bqkv"][c:],
+                                             1e-5),
+                int_mm_yardstick(x, kv8.q), 3 * act + 2 * c * c + (4 * c + 2 * c) * 4,
+                2 * m * c * 2 * c, "int8",
+                lambda: G.ln_qkv(x, p["lg"], p["lb"], p["wqkv"][c:], p["bqkv"][c:], 1e-5)),
+            "quantize_rows attention": (count, lambda: B8.quantize_rows(attn),
+                                        lambda: B8.quantize_rows_plain(attn), None,
+                                        m * c * 3 + m * 4, m * c, "f32", None),
+            "proj_scale_residual_int8": (
+                count, lambda: B8.proj_scale_residual_int8(a_q, a_s, p8.q, p8.s, p["bp"], p["g1"], x),
+                lambda: B8.proj_scale_residual_int8_plain(a_q, a_s, p8.q, p8.s, p["bp"], p["g1"], x),
+                int_mm_yardstick(attn, p8.q), m * c + m * 4 + c * c + 3 * c * 4 + act + m * c * 4,
+                2 * m * c * c, "int8",
+                lambda: G.proj_scale_residual(attn, p["wp"], p["bp"], p["g1"], x)),
+            "ln_fc1_gelu_int8": (
+                count, lambda: B8.ln_fc1_gelu_int8(r1, p["lg2"], p["lb2"], f1.q, f1.s, p["b1"], 1e-5),
+                lambda: B8.ln_fc1_gelu_int8_plain(r1, p["lg2"], p["lb2"], f1.q, f1.s, p["b1"], 1e-5),
+                int_mm_yardstick(r1, f1.q), m * c * 4 + 3 * c * c + (6 * c + 2 * c) * 4 + m * 3 * c * 4,
+                2 * m * c * 3 * c, "int8",
+                lambda: K.ln_fc1_gelu(r1, p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5)),
+            "quantize_rows hidden": (count, lambda: B8.quantize_rows(hid),
+                                     lambda: B8.quantize_rows_plain(hid), None,
+                                     m * 3 * c * 5 + m * 4, m * 3 * c, "f32", None),
+            "fc2_scale_residual_int8": (
+                count, lambda: B8.fc2_scale_residual_int8(h_q, h_s, f2.q, f2.s, p["b2"], p["g2"], r1,
+                                                          bf16),
+                lambda: B8.fc2_scale_residual_int8_plain(h_q, h_s, f2.q, f2.s, p["b2"], p["g2"], r1,
+                                                         bf16),
+                int_mm_yardstick(hid, f2.q), m * 3 * c + m * 4 + 3 * c * c + 3 * c * 4 + m * c * 4 + act,
+                2 * m * 3 * c * c, "int8",
+                lambda: K.fc2_scale_residual(hid16, p["w2"], p["b2"], p["g2"], r1)),
+        }, label, stats, apart, card)
+        del p, x, qkv, kv, attn, a_q, a_s, r1, hid, hid16, h_q, h_s, out
+        torch.cuda.empty_cache()
+    print_per_forward(stats, before, INT8_KERNELS, "ConvNeXt + GCViTTiny batch-256 forward "
+                      f"({CONVNEXT_BLOCKS} + {GCVIT_INT8_BLOCKS} int8 blocks)", card)
+    for name, b_ms in apart["bf16"].items():
+        k_ms = stats[name]["ms"] - before[name]["ms"]
+        print(f"[int8k] {name:26s} per forward: int8 {k_ms:.2f} ms against its bf16 variant "
+              f"{BF16_VARIANT[name]} {b_ms:.2f} ms on the same blocks (device), int8 / bf16 "
+              f"{k_ms / b_ms:.3f}; torch._int_mm alone {apart['int_mm'][name]:.2f} ms [{card}]")
+
+
 MEMBERS = {  # name: (input size, output width)
     "convnext_tiny_in22k": ((200, 200), 21841),
     "GCViTTiny": ((224, 224), 1000),
@@ -1656,17 +1944,74 @@ def phase_int8_member(name: str, card: str, profile: bool) -> tuple:
 
 
 def _int8_flips(label: str, i8: torch.Tensor, bf16: torch.Tensor, b: int,
-                centre: torch.Tensor) -> None:
-    """Print int8 against bf16: max|d| and the decisions at 0.487 that flip
-    between them (the sigmoid of logit 0, centred on ``centre``'s batch
-    median: random weights put every image on one side otherwise)."""
+                centre: torch.Tensor, names=("int8", "bf16")) -> None:
+    """Print int8 against bf16 (or the two paths ``names``): max|d| and the
+    decisions at 0.487 that flip between them (the sigmoid of logit 0,
+    centred on ``centre``'s batch median: random weights put every image on
+    one side otherwise)."""
     shift = float(np.log(0.487 / 0.513)) - centre[:, 0].float().median()
     p_i8, p_bf16 = (torch.sigmoid(t[:, 0].float() + shift) for t in (i8, bf16))
     flips = (p_i8 > 0.487) != (p_bf16 > 0.487)
-    print(f"[int8] {label} b{b} int8 vs bf16: max|d|/max|ref| = {rel_err(i8, bf16):.3e}; "
-          f"{int(flips.sum())} of {b} decisions flip at 0.487 (logit 0 centred, bf16 p in "
-          f"[{p_bf16.min().item():.4f}, {p_bf16.max().item():.4f}], max|p_int8 - p_bf16| = "
+    a, r = names
+    print(f"[int8] {label} b{b} {a} vs {r}: max|d|/max|ref| = {rel_err(i8, bf16):.3e}; "
+          f"{int(flips.sum())} of {b} decisions flip at 0.487 (logit 0 centred, {r} p in "
+          f"[{p_bf16.min().item():.4f}, {p_bf16.max().item():.4f}], max|p_{a} - p_{r}| = "
           f"{(p_i8 - p_bf16).abs().max().item():.2e})")
+
+
+def phase_int8_models(card: str) -> None:
+    """ConvNeXt@200 and GCViTTiny@224 at full width (``_model``'s weights)
+    on the fused path at batch 256 under ``VIPTPU_INT8_KERNELS=1``, the
+    int8 weights quantized from the f32 model's (``dyn_int8.attach``, as
+    the engine does): the int8 blocks' launches of one forward, the logits
+    within 5e-2 of max|ref| of the same model's bf16 kernel path, the
+    decisions int8 and bf16 each flip at 0.487 against the plain f32
+    forward under ``plain_kernels()`` (logit 0 centred on its batch median),
+    and the int8 / bf16 forward ratio (CUDA events, in turns)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for name, member in (("convnext_tiny_in22k", "convnext"), ("GCViTTiny", "gcvit")):
+        xb = torch.rand((BATCH, *MEMBERS[name][0], 3), generator=gen, device="cuda")
+        f32_model = _model(name, torch.float32, fused_block=True)
+        state = {k: v.detach().clone() for k, v in f32_model.state_dict().items()}
+        model = _model(name, torch.bfloat16, fused_block=True)
+        blocks = dyn_int8.attach(model, state)
+        del state
+        with torch.inference_mode():
+            with plain_kernels():
+                ref = f32_model(xb)
+            del f32_model
+            torch.cuda.empty_cache()
+            bf16 = model(xb)
+            with knobs(VIPTPU_INT8_KERNELS="1"):
+                reset_launches()
+                i8 = model(xb)
+                torch.cuda.synchronize()
+                launches = all_launches()
+        want = int8_forward_launches(1, (member,))
+        expect_launches({n: launches[n] for n in want}, want, f"{name} int8 forward")
+        if i8.shape != bf16.shape or not torch.isfinite(i8).all():
+            raise AssertionError(f"{name} int8 logits {tuple(i8.shape)} not finite")
+        r = rel_err(i8, bf16)
+        print(f"[int8k] {name} b{BATCH} int8 blocks ({blocks} quantized from f32) vs the bf16 "
+              f"kernel path: max|d|/max|ref| = {r:.3e} (bound {MODEL_BOUND:g})")
+        if not r <= MODEL_BOUND:
+            raise AssertionError(f"{name} int8 logits disagree with the bf16 path: {r:.3e}")
+        _int8_flips(name, i8, ref, BATCH, ref, names=("int8", "plain f32"))
+        _int8_flips(name, bf16, ref, BATCH, ref, names=("bf16", "plain f32"))
+        with torch.inference_mode():
+            fwd = lambda: model(xb)  # noqa: E731
+            b1 = cuda_ms(fwd, iters=3, warmup=1)
+            with knobs(VIPTPU_INT8_KERNELS="1"):
+                i1, i2 = cuda_ms(fwd, iters=3, warmup=1), cuda_ms(fwd, iters=3, warmup=1)
+            b2 = cuda_ms(fwd, iters=3, warmup=1)
+        print(f"[int8k] {name} batch-{BATCH} forward: bf16 {(b1 + b2) / 2:.2f} ms "
+              f"({BATCH * 2000 / (b1 + b2):.1f} img/s), VIPTPU_INT8_KERNELS=1 {(i1 + i2) / 2:.2f} "
+              f"ms ({BATCH * 2000 / (i1 + i2):.1f} img/s), int8 / bf16 {(i1 + i2) / (b1 + b2):.3f} "
+              f"[{card}]")
+        del model, xb, ref, bf16, i8
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1905,6 +2250,8 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
             torch.cuda.empty_cache()
     print_per_forward(stats, before, (QUANT, PTQ), f"{name} batch-256 int8 forward "
                       f"({sum(per_forward.values())} sites)", card)
+    PTQ_YARDSTICKS.update(sites=sum(per_forward.values()), cudnn=cudnn_total, int_mm=int_mm_total,
+                          refused=int_mm_refused)
     print(f"[kernels] the {sum(per_forward.values())} int8 sites per {name} batch-256 forward: "
           f"both launches {site_total:.2f} ms; in bf16 convs / F.linear {cudnn_total:.2f} ms; the "
           f"1 x 1 and Linear sites as torch._int_mm on pre-quantized rows {int_mm_total:.2f} ms "
@@ -1915,6 +2262,12 @@ def phase_ptq_sites(card: str, stats: dict, calls: list, name: str = "ResNetRS50
           f"probe {quantize_clamp_probe()} [{card}]")
     if tool:
         exp_ptq_int8.main(["--iters", "10"])  # the site's phase cuts
+
+
+# the PTQ site's yardsticks summed over the members phase_ptq_sites saw: their
+# sites, cuDNN's bf16 convs (F.linear at a Linear site) and torch._int_mm at
+# the 1 x 1 and Linear sites, ms per batch-256 forward
+PTQ_YARDSTICKS = Counter()
 
 
 def _quantize_per_tensor(x: torch.Tensor, inv: float) -> torch.Tensor:
@@ -2158,16 +2511,70 @@ def phase_slice_seven(card: str, dw_sites: int, int8_sites: int, int8_passes: in
     return {DW: cold_launches[DW], PTQ: all_launches_[PTQ], QUANT: all_launches_[QUANT]}
 
 
+def phase_slice_int8_kernels(card: str, dw_sites: int, all_sites: int,
+                             all_passes: int) -> dict:
+    """``VIPTPU_INT8_KERNELS=1`` through ``main_torch.main``, every member
+    with a one-output sigmoid head (:func:`binary_heads`): the two-member
+    manifest (ConvNeXt, GCViT), then the seven members, each run between two
+    runs of the same manifest without the knob (the first a warm-up, the
+    second the yardstick); the seven also with ``VIPTPU_INT8=all``. Each must launch the int8 block kernels at each
+    block of ConvNeXt and of GCViT's L2-L4, the bf16 ones at L1
+    (:func:`int8_forward_launches`) and everything else as without the
+    knob; its raw means within 5e-2 of the bf16 run's (decisions flipped
+    printed); its img/s printed. Returns the int8 kernels' launches of the
+    seven-member run."""
+    batches = -(-N_IMAGES // BATCH)
+    fused_two = {**{n: 0 for n in (ATTN, PTQ, QUANT)}, LN: batches * (CONVNEXT_LNS + GCVIT_LNS)}
+    with binary_heads():  # each manifest's bf16 run first (warm-up) and last, in turns
+        with csv_workspace(TWO) as (input_csv, output_csv, times, names):
+            run_csv(input_csv, output_csv, names)
+            with knobs(VIPTPU_INT8_KERNELS="1"):
+                two, t_two, batch_2, two_int8 = run_csv(input_csv, output_csv, names, times)
+            _, t_b2, _, two_bf16 = run_csv(input_csv, output_csv, names, times)
+        expect_launches(two, {**fused_two, **int8_forward_launches(batches)},
+                        "two-member VIPTPU_INT8_KERNELS=1 CSV->CSV")
+        compare_raw("two members VIPTPU_INT8_KERNELS=1", two_int8, two_bf16, "bf16",
+                    bound=MODEL_BOUND, tag="slice")
+        with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names):
+            run_csv(input_csv, output_csv, names)
+            with knobs(VIPTPU_INT8_KERNELS="1"):
+                seven, t_seven, batch_s, seven_int8 = run_csv(input_csv, output_csv, names, times)
+            with knobs(VIPTPU_INT8_KERNELS="1", VIPTPU_INT8="all"):
+                both, t_both, batch_a, both_int8 = run_csv(input_csv, output_csv, names, times)
+            _, t_bf16, batch_b, seven_bf16 = run_csv(input_csv, output_csv, names, times)
+    expect_launches(seven, {**seven_launches(batches, dw_sites),
+                            **int8_forward_launches(batches)},
+                    "seven-member VIPTPU_INT8_KERNELS=1 CSV->CSV")
+    expect_launches(both, {**seven_launches(batches + 1, dw_sites),
+                           **int8_forward_launches(batches + 1),
+                           PTQ: batches * all_sites, QUANT: batches * all_passes},
+                    "seven-member VIPTPU_INT8_KERNELS=1 VIPTPU_INT8=all CSV->CSV")
+    compare_raw("seven members VIPTPU_INT8_KERNELS=1", seven_int8, seven_bf16, "bf16",
+                bound=MODEL_BOUND, tag="slice")
+    compare_raw("seven members VIPTPU_INT8_KERNELS=1 VIPTPU_INT8=all", both_int8, seven_bf16,
+                "bf16", bound=None, tag="slice")
+    ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
+    for label, t, batch_t, ref in (("2 members", t_two, batch_2, t_b2),
+                                   ("7 members", t_seven, batch_s, t_bf16),
+                                   ("7 members, VIPTPU_INT8=all", t_both, batch_a, t_bf16)):
+        print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, {label}, "
+              f"VIPTPU_INT8_KERNELS=1 (sigmoid heads): {t:.2f} s ({N_IMAGES / t:.1f} img/s; "
+              f"per-batch e2e {ms(batch_t)}) beside bf16 {ref:.2f} s ({N_IMAGES / ref:.1f} img/s) "
+              f"[{card}]")
+    print(f"[slice] seven-member bf16 per-batch e2e {ms(batch_b)} [{card}]")
+    return {n: seven[n] for n in INT8_KERNELS}
+
+
 def seven_launches(forwards: int, dw_sites: int) -> dict:
     """The launches ``forwards`` forwards of the seven members make on the
     fused block path, bf16: every fused-block kernel at each block, the LN
     kernel at each standalone LN, K9 at each of the ``dw_sites``; no
-    unfused attention and no int8 kernel."""
+    unfused attention and no int8 kernel (PTQ or block)."""
     return {**{n: None for n in GCVIT_KERNELS}, "dwconv7x7_nhwc": forwards * CONVNEXT_BLOCKS,
             "ln_qkv": forwards * GCVIT_BLOCKS, "proj_scale_residual": forwards * GCVIT_BLOCKS,
             **{n: forwards * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
             ATTN: 0, LN: forwards * (CONVNEXT_LNS + GCVIT_LNS), DW: forwards * dw_sites,
-            PTQ: 0, QUANT: 0}
+            PTQ: 0, QUANT: 0, **{n: 0 for n in INT8_KERNELS}}
 
 
 @contextlib.contextmanager
@@ -2278,14 +2685,15 @@ def check_fold_batch(card: str, stats: dict, dw_sites: list) -> None:
     print(f"[serving] the block kernels, K9 and the LN hold at batch {b} [{card}]")
 
 
-def compare_raw(label: str, got: dict, ref: dict, ref_label: str, bound=SERVING_BOUND) -> None:
+def compare_raw(label: str, got: dict, ref: dict, ref_label: str, bound=SERVING_BOUND,
+                tag: str = "serving") -> None:
     """The max |d| of two runs' raw means (same sorted filenames), printed
     with the decisions they flip at 0.487; within ``bound`` unless None."""
     if list(got["filename"]) != list(ref["filename"]):
         raise AssertionError(f"{label} and {ref_label} scored other filenames")
     d = float(np.abs(got["raw"] - ref["raw"]).max())
     flips = int(((got["raw"] > 0.487) != (ref["raw"] > 0.487)).sum())
-    print(f"[serving] raw means, {label} against {ref_label}: max|d| {d:.3e}, "
+    print(f"[{tag}] raw means, {label} against {ref_label}: max|d| {d:.3e}, "
           f"{flips} of {len(ref['raw'])} decisions flip at 0.487 (bound {bound})")
     if bound is not None and not d <= bound:
         raise AssertionError(f"{label} is {d:.3e} off {ref_label}, over {bound:g}")
@@ -3183,6 +3591,8 @@ def main(argv) -> None:
     tool_launches = phase_tools(card)
     spike_launches = phase_spike(card, stats)
     lap("kernels and tools")
+    phase_int8_kernels(card, stats)
+    lap("int8 block kernels")
     profile = "--profile" in argv
     phase_model("convnext_tiny_in22k", card, profile)
     dw_members = {"GCViTTiny": phase_model("GCViTTiny", card, profile, fused_block=True)}
@@ -3209,8 +3619,14 @@ def main(argv) -> None:
             else:
                 phase_ptq_sites(card, stats, calls[name], name, tool=False)
     del states
+    print(f"[kernels] the {PTQ_YARDSTICKS['sites']} int8 sites of a seven-member batch-256 "
+          f"forward: in bf16 convs / F.linear {PTQ_YARDSTICKS['cudnn']:.2f} ms; the 1 x 1 and "
+          f"Linear sites as torch._int_mm on pre-quantized rows {PTQ_YARDSTICKS['int_mm']:.2f} ms "
+          f"(refused at {PTQ_YARDSTICKS['refused']}) [{card}]")
     phase_layernorm_gc(card)
     lap("int8 other members, their sites, gc_ln")
+    phase_int8_models(card)
+    lap("int8 block models")
     launches = {**phase_slice(card), **tool_launches, **spike_launches}
     phase_slice_int8(card, len(calls["ResNetRS50"]), pass_sites(calls["ResNetRS50"]))
     every = calls["ResNetRS50"] + calls["ResNest50"]
@@ -3219,6 +3635,9 @@ def main(argv) -> None:
     launches.update(phase_slice_seven(card, len(dw_sites), len(every), pass_sites(every),
                                       len(every_member), pass_sites(every_member)))
     lap("CSV slices")
+    launches.update(phase_slice_int8_kernels(card, len(dw_sites), len(every_member),
+                                             pass_sites(every_member)))
+    lap("CSV slices int8 blocks")
     phase_serving(card, stats, dw_sites)
     lap("serving")
     phase_pth(card)

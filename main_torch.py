@@ -22,14 +22,22 @@ otherwise, and no CUDA device is an error); ``VIPTPU_DTYPE``,
 ``VIPTPU_TTA_MODE`` (``map``, the default, or ``fold``);
 ``VIPTPU_FUSED=0`` runs the sequential per-member path;
 ``VIPTPU_FUSE_BN`` (``1``/``all`` or registry names) folds conv -> BN pairs;
-``VIPTPU_INT8`` (ResNet-RS and ResNest members) runs int8 PTQ;
+``VIPTPU_INT8`` (``1``/``all`` or registry names; any of the seven members)
+runs int8 PTQ of their convs and Linears;
+``VIPTPU_INT8_KERNELS=1`` runs the dense GEMMs inside ConvNeXt's and
+GCViT's fused blocks as s8 wgmma kernels (GCViT's only at the levels at
+least ``VIPTPU_GCVIT_INT8_MIN_C``, default 128, wide; its attention stays
+bf16; ConvNeXt's narrow stages only while ``VIPTPU_BATCHLANE_FOLD`` is
+``1``), composing with ``VIPTPU_INT8`` as in ``main.py``;
+``VIPTPU_CONVNEXT_FUSED_MIN_C`` sends ConvNeXt's stages from 256 up to it
+to the unfused block, as ``main.py``'s model does;
 ``VIPTPU_NO_FUSED_BLOCK=1`` runs GCViT's and ConvNeXt's unfused block paths.
 ``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN`` have no effect. The members of
 ``ckpts/ckpts.json`` (ConvNeXt, ResNest, GCViT, EfficientNet, NFNet,
-ResNet-RS) are all ported. ``VIPTPU_INT8`` naming a ConvNeXt, GCViT,
-EfficientNet or NFNet member, f32 compute on CUDA and a manifest member
-outside those families raise ``NotImplementedError``: the port has no such
-path yet.
+ResNet-RS) are all ported. ``VIPTPU_LN_BF16_SQ=1`` (a bf16 square in the
+JAX bf16 LN's statistics, which the port's two-pass f32 LN does not take),
+f32 compute on CUDA and a manifest member outside those families raise
+``NotImplementedError``: the port has no such path.
 """
 import os
 import sys

@@ -1140,3 +1140,133 @@ def test_layer_norm_function_backward_on_card(cuda_device, h, c):
     assert _rel(out, ref_out.float()) <= 1e-2
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and _rel(a, b.float()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the fused blocks' in-kernel int8 GEMMs (VIPTPU_INT8_KERNELS=1)
+# ---------------------------------------------------------------------------
+def _int8_weight(g, n, k, device):
+    from vip_cup_2022_tpu_torch.quant import dyn_int8
+
+    return dyn_int8.quantize_linear((torch.rand((n, k), generator=g, device=device) * 2 - 1)
+                                    * k ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("ratio", [3, 4])
+@pytest.mark.parametrize("rows", ["one", "tile+1", "ragged"])
+@pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32], ids=["bf16res", "f32res"])
+def test_int8_mlp_kernels_match_plain_on_card(cuda_device, c, ratio, rows, res_dtype):
+    """``ln_fc1_gelu_int8``, ``quantize_rows`` and ``fc2_scale_residual_int8``
+    at every block width of both members, N = 3C and 4C, against their plain
+    versions on the card: the hidden within 1e-2 of max|ref| (its LN can
+    differ from the plain one's by an ulp, which moves a code on a .5 tie);
+    the hidden's codes and row scales equal; fc2's output, given the same
+    codes, equal to its plain version's bit for bit (the same integer sums
+    and f32 steps, one rounding to bf16)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+
+    g = torch.Generator(device=cuda_device).manual_seed(c * ratio)
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    n = ratio * c
+    m = {"one": 1, "tile+1": 129, "ragged": 2 * 132 * 128 + 77}[rows]
+    x, lg, lb = u((m, c)), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    fc1, b1 = _int8_weight(g, n, c, cuda_device), u((n,), -0.1, 0.1)
+    fc2, b2, gamma = _int8_weight(g, c, n, cuda_device), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    res = u((m, c)).to(res_dtype)
+    B8.reset_launches()
+    hid = B8.ln_fc1_gelu_int8(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)
+    h_q, h_s = B8.quantize_rows(hid)
+    out = B8.fc2_scale_residual_int8(h_q, h_s, fc2.q, fc2.s, b2, gamma, res, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert B8.LAUNCHES == {"ln_fc1_gelu_int8": 1, "ln_qkv_int8": 0, "quantize_rows": 1,
+                           "fc2_scale_residual_int8": 1, "proj_scale_residual_int8": 0}
+    assert hid.dtype == torch.float32 and out.shape == (m, c) and out.dtype == torch.bfloat16
+    assert _rel(hid, B8.ln_fc1_gelu_int8_plain(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)) <= 1e-2
+    p_q, p_s = B8.quantize_rows_plain(hid)
+    assert torch.equal(h_q, p_q) and torch.equal(h_s, p_s)
+    want = B8.fc2_scale_residual_int8_plain(h_q, h_s, fc2.q, fc2.s, b2, gamma, res, torch.bfloat16)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("s", [2, 3])
+@pytest.mark.parametrize("rows", ["one", "tile+1", "ragged"])
+def test_int8_qkv_and_proj_kernels_match_plain_on_card(cuda_device, c, s, rows):
+    """``ln_qkv_int8`` (q, k, v or k, v) within 1e-2 of max|ref| of its
+    plain version; ``quantize_rows`` on a bf16 attention output and
+    ``proj_scale_residual_int8`` (f32 r1) equal to their plain versions bit
+    for bit, at GCViT's widths."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+
+    g = torch.Generator(device=cuda_device).manual_seed(c * s)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    m = {"one": 1, "tile+1": 129, "ragged": 2 * 132 * 128 + 77}[rows]
+    x, lg, lb = u((m, c)).to(torch.bfloat16), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    qkv, bqkv = _int8_weight(g, s * c, c, cuda_device), u((s * c,), -0.1, 0.1)
+    proj, bp, gamma = _int8_weight(g, c, c, cuda_device), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    attn = u((m, c)).to(torch.bfloat16)
+    B8.reset_launches()
+    parts = B8.ln_qkv_int8(x, lg, lb, qkv.q, qkv.s, bqkv, 1e-5)
+    a_q, a_s = B8.quantize_rows(attn)
+    r1 = B8.proj_scale_residual_int8(a_q, a_s, proj.q, proj.s, bp, gamma, x)
+    torch.cuda.synchronize()
+    assert B8.LAUNCHES == {"ln_fc1_gelu_int8": 0, "ln_qkv_int8": 1, "quantize_rows": 1,
+                           "fc2_scale_residual_int8": 0, "proj_scale_residual_int8": 1}
+    want = B8.ln_qkv_int8_plain(x.float(), lg, lb, qkv.q, qkv.s, bqkv, 1e-5)
+    assert len(parts) == s and all(p.dtype == torch.bfloat16 for p in parts)
+    assert _rel(torch.cat(parts, 1), torch.cat(want, 1)) <= 1e-2
+    p_q, p_s = B8.quantize_rows_plain(attn)
+    assert torch.equal(a_q, p_q) and torch.equal(a_s, p_s)
+    assert r1.dtype == torch.float32
+    assert torch.equal(r1, B8.proj_scale_residual_int8_plain(a_q, a_s, proj.q, proj.s, bp, gamma, x))
+
+
+@pytest.mark.cuda
+def test_int8_blocks_match_plain_on_card(cuda_device):
+    """One ConvNeXt block at s1's width and one GCViT global-query block at
+    L3's through the int8 block functions, against the same functions under
+    ``plain_kernels()``: within 1e-2 of max|ref| (bf16 activations between
+    the launches)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+    from vip_cup_2022_tpu_torch.ops.kernels.reference import plain_kernels
+
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    c = 96
+    x = u((2, 33, 35, c)).to(torch.bfloat16)
+    args = (u((7, 7, c), -0.2, 0.2), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1),
+            _int8_weight(g, 4 * c, c, cuda_device), u((4 * c,), -0.1, 0.1),
+            _int8_weight(g, c, 4 * c, cuda_device), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5))
+    got = B8.convnext_block_int8(x, *args)
+    with plain_kernels():
+        want = B8.convnext_block_int8(x, *args)
+    assert got.dtype == torch.bfloat16 and _rel(got, want.float()) <= 1e-2
+
+    c, heads, ws, b = 256, 8, 14, 2
+    n = ws * ws
+    x = u((b, n, c)).to(torch.bfloat16)
+    kw = dict(n=n, ln1_weight=u((c,), 0.5, 1.5), ln1_bias=u((c,), -0.1, 0.1),
+              qkv=_int8_weight(g, 2 * c, c, cuda_device), bqkv=u((2 * c,), -0.1, 0.1),
+              bias=u((heads, n, n)), proj=_int8_weight(g, c, c, cuda_device), bp=u((c,), -0.1, 0.1),
+              gamma1=u((c,), 0.5, 1.5), ln2_weight=u((c,), 0.5, 1.5), ln2_bias=u((c,), -0.1, 0.1),
+              fc1=_int8_weight(g, 3 * c, c, cuda_device), b1=u((3 * c,), -0.1, 0.1),
+              fc2=_int8_weight(g, c, 3 * c, cuda_device), b2=u((c,), -0.1, 0.1),
+              gamma2=u((c,), 0.5, 1.5))
+    qg = u((b, n, c)).to(torch.bfloat16)
+    got = B8.window_transformer_block_int8(x, qg, **kw)
+    with plain_kernels():
+        want = B8.window_transformer_block_int8(x, qg, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and _rel(got, want.float()) <= 1e-2

@@ -39,33 +39,57 @@ the models read at each forward: unset, the fused blocks; set, the unfused
 blocks (GCViT: LN, the window-attention kernel, Linears, MLP; ConvNeXt: the
 depthwise kernel, LN, Linears), the paths the JAX package takes off the
 TPU. Every LN of both members runs the LN kernel on CUDA.
+
+Knobs of the JAX package's fused kernels that change what is computed, read
+as the JAX package reads them:
+- ``VIPTPU_INT8_KERNELS=1`` (any other value: off) runs the dense GEMMs of
+  the fused blocks int8 (:mod:`..ops.kernels.block_int8`): ConvNeXt's MLP
+  at every stage, GCViT's qkv, proj and MLP at the levels at least
+  ``VIPTPU_GCVIT_INT8_MIN_C`` (default 128) wide, so GCViTTiny's first
+  level and every attention product stay bf16. Weights are quantized per
+  output channel once per fold, from the checkpoint's f32 values
+  (:func:`..quant.dyn_int8.attach`), activations per row by a dynamic
+  abs-max; no calibration. ``VIPTPU_BATCHLANE_FOLD`` other than ``1``
+  keeps ConvNeXt's stages narrower than 256 in bf16, as it turns off the
+  JAX kernel's int8 there. It composes with ``VIPTPU_INT8``: the PTQ sites
+  lie outside the fused blocks, whose Linears the blocks read without
+  calling them. The unfused path and training never run it.
+- ``VIPTPU_CONVNEXT_FUSED_MIN_C`` (default 256) sends ConvNeXt's stages at
+  least 256 wide but narrower than it to the unfused block (and their MLP
+  Linears into the PTQ sites), as the JAX model sends them off its
+  whole-image kernel.
+- ``VIPTPU_LN_BF16_SQ=1`` is refused with ``NotImplementedError``: it
+  squares in bf16 for the E[x^2] - E[x]^2 statistics of the JAX bf16 LN,
+  and the port's LN kernel takes two-pass f32 statistics in every dtype, so
+  there is no such square to make.
 ``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN``, the JAX package's TPU A/B
 switches for those two kernels, and its other TPU tuning switches (the
-``VIPTPU_GCVIT_*`` and ``VIPTPU_DW_*`` family) choose among TPU kernels and
-layouts and are not read: on CUDA the kernels run wherever their module is
-on the path.
+rest of the ``VIPTPU_GCVIT_*`` family and the ``VIPTPU_DW_*`` family)
+choose among TPU kernels and layouts and are not read: on CUDA the kernels
+run wherever their module is on the path.
 
 ``VIPTPU_INT8`` names the members whose convs and Linears run int8
 post-training quantization (:mod:`..quant.ptq`) on the fused path: a
 one-batch calibration on the first ``VIPTPU_INT8_CALIB`` (64) images of the
-CSV with fold 0 (folded, under ``VIPTPU_FUSE_BN``), then every fold's
-eligible sites through the int8 kernel. ``auto``, the default, is off here
-as on every backend but the TPU; ``0``/``off`` is off, ``1``/``all`` every
-member, or a comma list of registry names. Every ported family quantizes
-the JAX pass's sites (each model class declares ``int8_sites_match_jax``):
-ResNet-RS, ResNest, EfficientNet (V2T_GC too), NFNet (its grouped
-standardized convs, in their groups), ConvNeXt and GCViT on either block
-path (the JAX package's ``INT8_AUTO`` set on a TPU is
+CSV with fold 0 (folded, under ``VIPTPU_FUSE_BN``; its blocks int8 under
+``VIPTPU_INT8_KERNELS=1``), then every fold's eligible sites through the
+int8 kernel. ``auto``, the default, is off here as on every backend but the
+TPU; ``0``/``off`` is off, ``1``/``all`` every member, or a comma list of
+registry names. All seven members of ``ckpts/ckpts.json`` quantize, every
+ported family the JAX pass's sites (each model class declares
+``int8_sites_match_jax``): ResNet-RS, ResNest, EfficientNet (V2T_GC too),
+NFNet (its grouped standardized convs, in their groups), ConvNeXt and GCViT
+on either block path (the JAX package's ``INT8_AUTO`` set on a TPU is
 ``ResNetRS50,ResNest50``).
 
 Still raising ``NotImplementedError`` rather than running something else
 (a SavedModel checkpoint without TensorFlow installed raises it too):
-f32 compute on CUDA (A15); and members of families other than
-ConvNeXt, GCViT, ResNet-RS, EfficientNet, ResNest and NFNet (A14), which
-are all seven of ``ckpts/ckpts.json``. Every Pallas kernel of the JAX
-package has a CUDA counterpart; the depthwise kernel (K9) runs on this path
-at every stride-1 depthwise conv (EfficientNet, GCViT), and those the JAX
-package's experiment tools reach run in the port's tools
+f32 compute on CUDA (A15); ``VIPTPU_LN_BF16_SQ=1``; and members of families
+other than ConvNeXt, GCViT, ResNet-RS, EfficientNet, ResNest and NFNet
+(A14), which are all seven of ``ckpts/ckpts.json``. Every Pallas kernel of
+the JAX package has a CUDA counterpart; the depthwise kernel (K9) runs on
+this path at every stride-1 depthwise conv (EfficientNet, GCViT), and
+those the JAX package's experiment tools reach run in the port's tools
 (``vip_cup_2022_tpu_torch/tools``).
 """
 from __future__ import annotations
@@ -86,7 +110,7 @@ from ..data.pipeline import _host_resize_uint8
 from ..models import create_model, load_weights, transfer_weights
 from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
-from ..quant import calibrate, quantized
+from ..quant import calibrate, dyn_int8, quantized
 from ..utils.surgery import bn_eps, fuse_all_conv_bn
 from ..weights.from_jax import flax_to_torch
 from ..weights.to_flax import torch_to_flax
@@ -235,6 +259,10 @@ class EnsembleEngine:
             raise NotImplementedError(
                 "f32 compute on CUDA: the block kernels take bf16 activations; "
                 "f32 kernels are ROADMAP item A15")
+        if os.environ.get("VIPTPU_LN_BF16_SQ", "0") == "1":
+            raise NotImplementedError(
+                "VIPTPU_LN_BF16_SQ=1 squares in bf16 for the JAX bf16 LN's E[x^2] - E[x]^2 "
+                "statistics; the port's LN takes two-pass f32 statistics in every dtype")
         self.verbose = verbose
         self._decoder = ImageDecoder(num_threads=num_decode_threads)
         # the decoded set, kept by the sequential path for its members (and
@@ -390,6 +418,13 @@ class EnsembleEngine:
             chosen.append(pick)
         return chosen
 
+    def _attach_int8_blocks(self, base_dir: str, folds, f32) -> None:
+        """VIPTPU_INT8_KERNELS=1: each fold's fused blocks' int8 weights,
+        quantized once from the fold's f32 values ``f32``."""
+        blocks = [dyn_int8.attach(model, weights) for model, weights in zip(folds, f32)]
+        if self.verbose and blocks and blocks[0]:
+            print(f"> INT8_KERNELS {registry_name(base_dir)}: {blocks[0]} blocks a fold")
+
     def _unit_input(self, u8: np.ndarray) -> torch.Tensor:
         """The uint8 batch on the device in f32, / 255."""
         return torch.from_numpy(u8).to(self.device).float() / 255.0
@@ -513,7 +548,12 @@ class EnsembleEngine:
         test_names, test_paths = self._test_names(cfg)
 
         int8 = self._int8_members(cfg.ckpt_cfg, self._int8_names())
-        members, f32_weights = self.load_members(cfg.ckpt_cfg, keep_f32=int8)
+        int8_kernels = dyn_int8.int8_kernels_enabled()
+        members, f32_weights = self.load_members(
+            cfg.ckpt_cfg, keep_f32=[pick or int8_kernels for pick in int8])
+        if int8_kernels:  # before calibration: JAX calibrates with its blocks int8
+            for (folds, _), f32, (base_dir, *_) in zip(members, f32_weights, cfg.ckpt_cfg):
+                self._attach_int8_blocks(base_dir, folds, f32)
         quant_scales = None
         if any(int8):
             # one-batch calibration on the head of the CSV, with fold 0
@@ -577,7 +617,11 @@ class EnsembleEngine:
         max_batch = int(os.environ.get("VIPTPU_MAX_BATCH", "0"))
         if max_batch:
             batch_size = min(batch_size, max_batch)
-        folds, _ = self._load_folds(model_dir_name, ckpt_paths, dim)
+        int8_kernels = dyn_int8.int8_kernels_enabled()
+        folds, f32 = self._load_folds(model_dir_name, ckpt_paths, dim, keep_f32=int8_kernels)
+        if int8_kernels:
+            self._attach_int8_blocks(model_dir_name, folds, f32)
+            del f32
         imgs = self._decode_all(paths)
         masks = self.tta_masks(seed, tta, batch_size, fused=False) if tta > 1 else None
         fold_preds = []

@@ -19,6 +19,12 @@ Counterpart of ``vip_cup_2022_tpu/models/convnext.py``, NHWC throughout:
 - head: global average pool in f32 -> LN -> dropout at ``drop_rate`` -> f32
   Linear -> activation.
 
+On the fused path ``VIPTPU_CONVNEXT_FUSED_MIN_C`` sends the stages at
+least 256 wide but narrower than it to the unfused block, as the JAX model
+sends them off its whole-image kernel (:func:`fused_min_c`), and
+``VIPTPU_INT8_KERNELS=1`` runs each fused block's MLP GEMMs int8
+(:class:`ConvNeXtBlock`).
+
 Training (``model.train()``) runs the unfused path, as the JAX package
 does, with K9 and K10 under autograd (their backwards the plain versions'
 gradients); so does serving under ``VIPTPU_NO_FUSED_BLOCK``. The fused path
@@ -54,8 +60,10 @@ import torch.nn as nn
 from ..ops.act import apply_activation, gelu_exact
 from ..ops.conv import Conv, DepthwiseTaps, Linear, lecun_normal_
 from ..ops.drop import DropPath, Dropout
+from ..ops.kernels.block_int8 import convnext_block_int8
 from ..ops.kernels.convnext_block import convnext_block
 from ..ops.norms import LayerNorm
+from ..quant import dyn_int8
 from .base import ModelConfig, preprocess_input
 from .registry import register_model
 
@@ -97,11 +105,28 @@ DW_PADDING = ((3, 3), (3, 3))  # the 7 x 7 depthwise conv's zero padding
 BATCH_LANE_WIDTH = 256
 
 
-class ConvNeXtBlock(nn.Module):
+def fused_min_c() -> int:
+    """``VIPTPU_CONVNEXT_FUSED_MIN_C`` (default 256): on the fused path the
+    stages at least ``BATCH_LANE_WIDTH`` wide run the fused block only from
+    this width up, the others between the two the unfused block, as the
+    JAX model sends them off its whole-image kernel."""
+    return int(os.environ.get("VIPTPU_CONVNEXT_FUSED_MIN_C", str(BATCH_LANE_WIDTH)))
+
+
+class ConvNeXtBlock(nn.Module, dyn_int8.Int8Block):
+    """One block on the fused or the unfused path. Under
+    ``VIPTPU_INT8_KERNELS=1`` the fused block runs its two MLP GEMMs int8
+    (:func:`..ops.kernels.block_int8.convnext_block_int8`; at a width below
+    ``BATCH_LANE_WIDTH`` only while ``VIPTPU_BATCHLANE_FOLD`` is ``1``, as
+    in the JAX package), the weights quantized once from their f32 values
+    (:class:`..quant.dyn_int8.Int8Block`)."""
+
+    INT8_LINEARS = ("mlp_fc1", "mlp_fc2")
+
     def __init__(self, cfg: ConvNeXtConfig, dim: int, path_drop: float = 0.0):
         super().__init__()
         hidden = int(cfg.mlp_ratio * dim)
-        self.eps, self.dtype = cfg.norm_eps, cfg.dtype
+        self.dim, self.eps, self.dtype = dim, cfg.norm_eps, cfg.dtype
         # depthwise taps and every non-GEMM parameter stay f32, as the TPU
         # kernel keeps them; the two GEMM weights take the compute dtype
         self.conv_dw = DepthwiseTaps(dim, 7)
@@ -116,6 +141,12 @@ class ConvNeXtBlock(nn.Module):
     def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
         if not fused:
             return self._unfused(x)
+        if dyn_int8.convnext_int8(self.dim, BATCH_LANE_WIDTH):
+            w = self.int8_weights()
+            return convnext_block_int8(
+                x, self.conv_dw.weight, self.conv_dw.bias, self.norm.weight, self.norm.bias,
+                w["mlp_fc1"], self.mlp_fc1.bias, w["mlp_fc2"], self.mlp_fc2.bias, self.gamma,
+                eps=self.eps)
         dt = self.dtype  # the GEMM weights in the compute dtype, held in f32 when trained
         return convnext_block(
             x, self.conv_dw.weight, self.conv_dw.bias, self.norm.weight, self.norm.bias,
@@ -191,11 +222,14 @@ class ConvNeXt(nn.Module):
         x = preprocess_input(x, cfg)
         x = self.stem_norm(self.stem_conv(x))
         fused = _use_fused_block(cfg, self.training)
+        min_c = fused_min_c()
         for j, nb in enumerate(cfg.nb_blocks):
             if j > 0:
                 x = self._downsample(getattr(self, f"stages_{j}_downsample_norm")(x), j, fused)
+            dim = cfg.embed_dim[j]
+            fused_stage = fused and (dim < BATCH_LANE_WIDTH or dim >= min_c)
             for i in range(nb):
-                x = getattr(self, f"stages_{j}_blocks_{i}")(x, fused)
+                x = getattr(self, f"stages_{j}_blocks_{i}")(x, fused_stage)
         x = x.float().mean(dim=(1, 2))
         x = self.head_drop(self.head_norm(x))
         if cfg.nb_classes <= 0:

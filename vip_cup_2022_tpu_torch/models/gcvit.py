@@ -12,7 +12,10 @@ Counterpart of ``vip_cup_2022_tpu/models/gcvit.py``, NHWC throughout:
   the same parameters (:func:`_use_fused_block` picks):
   - fused: on window-ordered tokens (partitioned once per level), through
     the kernels of :mod:`..ops.kernels.gcvit_block`; the residual after
-    attention stays f32 into LN2, as on the TPU;
+    attention stays f32 into LN2, as on the TPU; under
+    ``VIPTPU_INT8_KERNELS=1`` the blocks at least
+    ``VIPTPU_GCVIT_INT8_MIN_C`` (128) wide run their dense GEMMs int8
+    (:class:`GCViTBlock`);
   - unfused (the JAX package's Flax path): on NHWC, LN1 -> window partition
     -> :class:`..ops.attention.WindowAttention` (the window-attention kernel
     of :mod:`..ops.kernels.window_attention`) -> window reverse -> residual
@@ -65,10 +68,12 @@ from ..ops.act import apply_activation, gelu_exact
 from ..ops.attention import WindowAttention
 from ..ops.conv import Conv, DepthwiseConv, Linear, lecun_normal_
 from ..ops.drop import DropPath, Dropout
+from ..ops.kernels.block_int8 import window_transformer_block_int8
 from ..ops.kernels.gcvit_block import window_transformer_block
 from ..ops.mlp import Mlp
 from ..ops.norms import LayerNorm
 from ..ops.window import crop_from_window, fit_window_pad, window_partition, window_reverse
+from ..quant import dyn_int8
 from .base import ModelConfig, preprocess_input
 from .registry import register_model
 
@@ -176,11 +181,20 @@ class Stem(nn.Module):
         return self.conv_down(self.proj(x))
 
 
-class GCViTBlock(nn.Module):
+class GCViTBlock(nn.Module, dyn_int8.Int8Block):
+    """One block on the fused or the unfused path. Under
+    ``VIPTPU_INT8_KERNELS=1`` a fused block at least
+    ``VIPTPU_GCVIT_INT8_MIN_C`` (128) wide runs its qkv, proj, fc1 and fc2
+    GEMMs int8 (:func:`..ops.kernels.block_int8.window_transformer_block_int8`;
+    the attention stays in the compute dtype), the weights quantized once
+    from their f32 values (:class:`..quant.dyn_int8.Int8Block`)."""
+
+    INT8_LINEARS = ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
+
     def __init__(self, cfg: GCViTConfig, dim: int, heads: int, window: int, global_query: bool,
                  path_drop: float = 0.0):
         super().__init__()
-        self.window, self.dtype = window, cfg.dtype
+        self.dim, self.window, self.dtype = dim, window, cfg.dtype
         self.norm1 = LayerNorm(dim, eps=EPS)
         self.attn = WindowAttention(dim, heads, window, global_query, cfg.dtype, cfg.qk_scale,
                                     attn_drop=cfg.attn_drop, proj_drop=cfg.drop_rate)
@@ -203,6 +217,15 @@ class GCViTBlock(nn.Module):
         if not fused:
             return self._unfused(x, q_global)
         a, dt = self.attn, self.dtype
+        if dyn_int8.gcvit_int8(self.dim):
+            w = self.int8_weights()
+            return window_transformer_block_int8(
+                x, q_global, n=self.window * self.window,
+                ln1_weight=self.norm1.weight, ln1_bias=self.norm1.bias, qkv=w["attn.qkv"],
+                bqkv=a.qkv.bias, bias=a.bias_dense, proj=w["attn.proj"], bp=a.proj.bias,
+                gamma1=self.gamma1, ln2_weight=self.norm2.weight, ln2_bias=self.norm2.bias,
+                fc1=w["mlp.fc1"], b1=self.mlp.fc1.bias, fc2=w["mlp.fc2"], b2=self.mlp.fc2.bias,
+                gamma2=self.gamma2, scale=a.scale, eps=EPS)
         return window_transformer_block(
             x, q_global, n=self.window * self.window,
             ln1_weight=self.norm1.weight, ln1_bias=self.norm1.bias,
