@@ -75,17 +75,25 @@ each printing its results on earlier lines, any failure exiting non-zero:
      ``torch._int_mm`` on a column-major w, with w packed once outside the
      timing), which must launch all three;
    - the fused blocks' int8 GEMMs (``VIPTPU_INT8_KERNELS=1``,
-     ``phase_int8_kernels``): ``ln_fc1_gelu_int8``, ``quantize_rows`` and
-     ``fc2_scale_residual_int8`` at ConvNeXt's s1-s4, ``ln_qkv_int8``
+     ``phase_int8_kernels``): first the MLP pair's GELU against
+     ``ln_fc1_gelu_int8``'s over all 2^32 f32 inputs (bit for bit) and the
+     two facts pass 1 leans on (``block_int8.gelu_mono_check``); then the
+     MLP pair ``ln_fc1_rowmax_int8`` -> ``mlp_int8_scale_residual`` and the
+     chain it replaced, ``ln_fc1_gelu_int8`` -> ``quantize_rows`` ->
+     ``fc2_scale_residual_int8``, at ConvNeXt's s1-s4, ``ln_qkv_int8``
      (local q / k / v and global k / v), ``quantize_rows`` of the attention
-     output and of the hidden, ``proj_scale_residual_int8``,
-     ``ln_fc1_gelu_int8`` and ``fc2_scale_residual_int8`` at GCViT's L2-L4,
-     batch 256, weights quantized from f32: ``quantize_rows``' codes and row
-     scales and the residual GEMMs' outputs equal to their plain versions bit
-     for bit, the LN GEMMs within 1e-2 of max|ref|; each timed by device time
-     beside its plain version (events), ``torch._int_mm`` on the same s8
-     operands with the quantize of A in PyTorch ops, and its bf16 variant
-     (per launch, then per forward);
+     output, ``proj_scale_residual_int8`` and both MLPs at GCViT's L2-L4,
+     batch 256, weights quantized from f32: the pair's output and hidden row
+     scales equal to the chain's bit for bit; pass 1's codes equal to the
+     plain LN's but within 2^-11 of a .5 tie (``codes_equal_off_ties``),
+     its scales within 1e-6 of theirs; pass 2 within 1e-2 of max|ref| of
+     its plain version; ``quantize_rows``'
+     codes and row scales and the residual GEMMs' outputs equal to their
+     plain versions bit for bit, the LN GEMMs within 1e-2 of max|ref|; each
+     timed by device time beside its plain version (events), ``torch._int_mm``
+     on the same s8 operands with the quantize of A in PyTorch ops, and its
+     bf16 variant (per launch, then per forward); the MLP per forward on the
+     pair, on the chain and on the bf16 pair, in this call;
 6. model: full-width convnext_tiny_in22k at 200 x 200 with seeded random
    weights and layer scale ~ U(0.5, 1.5), and full-width GCViTTiny at
    224 x 224, on its fused and on its unfused block path, with seeded random
@@ -156,8 +164,11 @@ each printing its results on earlier lines, any failure exiting non-zero:
    ConvNeXt and GCViTTiny under ``VIPTPU_INT8_KERNELS=1``
    (``phase_int8_models``: ``_model``'s weights, the int8 weights quantized
    from the f32 model's): one batch-256 forward's int8 launches (ConvNeXt's
-   18 blocks, GCViT's 28 at L2-L4, L1's 3 on the bf16 kernels), the logits
-   within 5e-2 of max|ref| of the bf16 kernel path, the decisions int8 and
+   18 blocks, GCViT's 28 at L2-L4 on the MLP pair and none on the chain,
+   L1's 3 on the bf16 kernels), the peak device memory of the forward on
+   the pair and on the chain (ConvNeXt's must differ by at least half its
+   s1 f32 hidden) and their logits (equal), the logits within 5e-2 of
+   max|ref| of the bf16 kernel path, the decisions int8 and
    bf16 each flip at 0.487 against the plain f32 forward, the int8 / bf16
    forward ratio;
 7. slice: 300 random 200 x 200 JPEGs, an input CSV and a two-member manifest
@@ -196,11 +207,13 @@ each printing its results on earlier lines, any failure exiting non-zero:
    pass, its img/s and per-batch ms printed beside the bf16
    run's; then ``VIPTPU_INT8_KERNELS=1`` with one-output sigmoid heads
    (``phase_slice_int8_kernels``): the two-member and the seven-member
-   manifests each beside its bf16 run, then the seven with ``VIPTPU_INT8=all``
-   too (the calibration forward's launches once more): the int8 block
-   kernels at each ConvNeXt and L2-L4 GCViT block of each batch, the bf16
-   ones at L1, ``ptq_int8_conv`` at the 336 sites, the raw means within 5e-2
-   of the bf16 run's, img/s printed;
+   manifests each beside its bf16 run, the seven also with the blocks' MLP
+   on the chain the pair replaced (``mlp_chain``: 0 of 300 decisions may
+   flip), then the seven with ``VIPTPU_INT8=all`` too (the calibration
+   forward's launches once more): the int8 block kernels at each ConvNeXt
+   and L2-L4 GCViT block of each batch, the bf16 ones at L1,
+   ``ptq_int8_conv`` at the 336 sites, the raw means within 5e-2 of the
+   bf16 run's, img/s printed;
 8. serving: the seven members again, each with a one-output sigmoid head
    (the product checkpoints' head; the registry's softmax heads hold
    ``1 - p[:, 0]`` near 1 whatever the features): the plain fused run;
@@ -287,10 +300,17 @@ for ``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
 ``int8_pallas_spike`` run for the three spike bodies, the seven-member
 ``VIPTPU_INT8=all`` CSV run for ``ptq_int8_quantize`` and
 ``ptq_int8_conv`` and the seven-member ``VIPTPU_INT8_KERNELS=1`` CSV run
-for the five int8 block kernels, whose ``ms`` (kernel and library by
+for the int8 block kernels, whose ``ms`` (kernel and library by
 device time), ``plain_ms`` and ``library_ms`` (``torch._int_mm`` with the
-quantize of A; none for ``quantize_rows``) are per batch-256 forward of
-ConvNeXt's 18 and GCViT's 28 int8 blocks.
+quantize of A; for ``mlp_int8_scale_residual`` two ``torch._int_mm`` with
+the GELU and the hidden's quantize between; none for ``quantize_rows``)
+are per batch-256 forward of ConvNeXt's 18 and GCViT's 28 int8 blocks
+(``quantize_rows``' of GCViT's attention output alone). The chain the MLP
+pair replaced (``ln_fc1_gelu_int8``, ``quantize_rows`` of the hidden as
+``quantize_rows_hidden``, ``fc2_scale_residual_int8``) is off the model path
+and not in the record: its per-forward times and its launches in the
+seven-member CSV run on the chain are printed on their own ``[int8k]``
+lines as the pair's yardstick.
 ``ms``, ``plain_ms`` and ``library_ms`` (null where no one PyTorch call
 computes the function) are per batch-256 forward of both members together on
 that path (phases 3-5; ``ln_fc1_gelu`` and ``fc2_scale_residual`` serve both
@@ -379,14 +399,21 @@ LNMLP_KERNELS = ("fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst")
 PARTS = "attn_parts"
 SPIKE_KERNELS = ("int8_spike_bf16", "int8_spike_int8", "int8_spike_direct")
 PTQ, QUANT = "ptq_int8_conv", "ptq_int8_quantize"  # the PTQ site's GEMM and quantize pass
-# the fused blocks' int8 GEMMs (VIPTPU_INT8_KERNELS=1) and each one's bf16 variant
-INT8_KERNELS = ("ln_fc1_gelu_int8", "ln_qkv_int8", "quantize_rows", "fc2_scale_residual_int8",
-                "proj_scale_residual_int8")
+# the fused blocks' int8 GEMMs (VIPTPU_INT8_KERNELS=1) and each one's bf16 variant: the MLP
+# pair, and GCViT's qkv, attention-output quantize and proj
+PAIR = ("ln_fc1_rowmax_int8", "mlp_int8_scale_residual")
+INT8_KERNELS = ("ln_qkv_int8", "quantize_rows", "proj_scale_residual_int8") + PAIR
+# the three-launch MLP chain the pair replaced: its yardstick, off the model path and out of
+# the kernels record (its quantize of the hidden timed apart from quantize_rows)
+QROWS_HIDDEN = "quantize_rows_hidden"
+CHAIN_KERNELS = ("ln_fc1_gelu_int8", "fc2_scale_residual_int8")
+CHAIN = ("ln_fc1_gelu_int8", QROWS_HIDDEN, "fc2_scale_residual_int8")
 BF16_VARIANT = {"ln_fc1_gelu_int8": "ln_fc1_gelu", "ln_qkv_int8": "ln_qkv",
                 "fc2_scale_residual_int8": "fc2_scale_residual",
                 "proj_scale_residual_int8": "proj_scale_residual"}
 KERNELS = (CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
            + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS)
+COUNTED = KERNELS + CHAIN_KERNELS  # every launch counter the launch checks read
 CSRC = "vip_cup_2022_tpu_torch/csrc"
 SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
 SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
@@ -422,11 +449,10 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
          "vip_cup_2022_tpu/quant/ptq.py:258",
     QUANT: "vip_cup_2022_tpu/quant/ptq.py:172, vip_cup_2022_tpu/quant/ptq.py:258",
     # the int8 mode of K1, K2, K4, K6, K7
-    "ln_fc1_gelu_int8": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
-    "fc2_scale_residual_int8": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
     "quantize_rows": f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906",
     "ln_qkv_int8": f"{GTPU}:247, {GTPU}:906",
     "proj_scale_residual_int8": f"{GTPU}:667, {GTPU}:906",
+    **{n: f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906" for n in PAIR},
 }
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
@@ -443,6 +469,11 @@ KERNEL_BOUND = 1e-2
 # pass (its f32 sums of 49 products in another order than the plain conv's)
 F32_KERNEL_BOUND = 1e-5
 INT8_BOUND = 1e-6  # int8 kernels: the same integer sums and f32 epilogue as the plain version
+# f32 operations a hidden element of each pass of the MLP pair, an FMA two: the value
+# f32(acc) * (s_x * s_w1) + b1 (3), then pass 1 the row's largest (1; the GELU of one value
+# a row and item, and of values below 0 where they could matter, not counted), pass 2 the
+# GELU as gelu_rn computes it (34) and the code's product (1); floor over PEAK_OPS_PER_S["f32"]
+PAIR_F32_OPS = {"ln_fc1_rowmax_int8": 4, "mlp_int8_scale_residual": 38}
 MODEL_BOUND = 5e-2
 SERVING_BOUND = 1e-2  # raw means of two serving paths of the same bf16 ensemble
 N_IMAGES = 300
@@ -537,7 +568,8 @@ def depthwise_sites(model: torch.nn.Module, size: tuple) -> list:
 
 def new_stats() -> dict:
     return {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "gemm_ms": 0.0} for n in KERNELS}
+                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "gemm_ms": 0.0}
+            for n in KERNELS + CHAIN}
 
 
 def account(stats: dict, name: str, count: int, times: tuple, nbytes: float, ops: float,
@@ -1305,23 +1337,40 @@ INT8_LEVELS = tuple(lv for lv in LEVELS if lv[1] >= dyn_int8.GCVIT_INT8_MIN_C)
 GCVIT_INT8_BLOCKS = sum(lv[4] + lv[5] for lv in INT8_LEVELS)  # 28; L1's 3 stay bf16
 
 
-def int8_forward_launches(forwards: int, members=("convnext", "gcvit")) -> dict:
+def int8_forward_launches(forwards: int, members=("convnext", "gcvit"),
+                          chain: bool = False) -> dict:
     """The fused-block launches of ``forwards`` forwards of ConvNeXt and / or
     GCViTTiny under ``VIPTPU_INT8_KERNELS=1``: ConvNeXt's 18 blocks and
-    GCViT's 28 at C >= 128 on the int8 kernels (a GCViT int8 block quantizes
-    two rows a token: the attention output and the hidden), GCViT's 3 at
-    L1 on the bf16 ones, the depthwise and the attention as they were."""
+    GCViT's 28 at C >= 128 on the int8 kernels (their MLP on the pair, none
+    on the chain it replaced; a GCViT int8 block quantizes the attention
+    output), GCViT's 3 at L1 on the bf16 ones, the depthwise and the
+    attention as they were. ``chain``: under :func:`mlp_chain`, the MLP on
+    the three-launch chain, none on the pair."""
     cx, gc = "convnext" in members, "gcvit" in members
     bf16_gc = GCVIT_BLOCKS - GCVIT_INT8_BLOCKS
     return {n: forwards * v for n, v in {
         "dwconv7x7_nhwc": CONVNEXT_BLOCKS * cx, "window_attention": GCVIT_BLOCKS * gc,
         "ln_qkv": bf16_gc * gc, "proj_scale_residual": bf16_gc * gc,
         "ln_fc1_gelu": bf16_gc * gc, "fc2_scale_residual": bf16_gc * gc,
-        "ln_fc1_gelu_int8": CONVNEXT_BLOCKS * cx + GCVIT_INT8_BLOCKS * gc,
-        "fc2_scale_residual_int8": CONVNEXT_BLOCKS * cx + GCVIT_INT8_BLOCKS * gc,
-        "quantize_rows": CONVNEXT_BLOCKS * cx + 2 * GCVIT_INT8_BLOCKS * gc,
+        **{n: 0 if chain else CONVNEXT_BLOCKS * cx + GCVIT_INT8_BLOCKS * gc for n in PAIR},
+        **{n: CONVNEXT_BLOCKS * cx + GCVIT_INT8_BLOCKS * gc if chain else 0
+           for n in ("ln_fc1_gelu_int8", "fc2_scale_residual_int8")},
+        "quantize_rows": (CONVNEXT_BLOCKS * cx + GCVIT_INT8_BLOCKS * gc) * chain
+                         + GCVIT_INT8_BLOCKS * gc,
         "ln_qkv_int8": GCVIT_INT8_BLOCKS * gc, "proj_scale_residual_int8": GCVIT_INT8_BLOCKS * gc,
     }.items()}
+
+
+@contextlib.contextmanager
+def mlp_chain():
+    """The int8 blocks' MLP on the three-launch chain the pair replaced
+    (``block_int8.mlp_int8_chain``), for the pair's yardstick runs."""
+    real = B8.mlp_int8
+    B8.mlp_int8 = B8.mlp_int8_chain
+    try:
+        yield
+    finally:
+        B8.mlp_int8 = real
 
 
 def torch_row_quantize(a: torch.Tensor) -> torch.Tensor:
@@ -1383,12 +1432,114 @@ def time_int8(kern, plain, lib) -> tuple:
     return ms[0], ms[1], (ms[2] if lib is not None else None)
 
 
-def run_int8_calls(calls: dict, label: str, stats: dict, apart: dict, card: str) -> None:
+def pair_floor(name: str, int8_ops: float, elements: float) -> tuple:
+    """(operations, their type) of an MLP pass's larger floor: its s8
+    products at the int8 peak, or its epilogue's f32 operations
+    (``PAIR_F32_OPS`` an element of the (M, N) hidden) at the f32 peak."""
+    f32_ops = PAIR_F32_OPS[name] * elements
+    if f32_ops / PEAK_OPS_PER_S["f32"] >= int8_ops / PEAK_OPS_PER_S["int8"]:
+        return f32_ops, "f32"
+    return int8_ops, "int8"
+
+
+def pair_calls(count: int, d, lg, lb, fc1, b1, fc2, b2, gamma, residual, eps: float,
+               pass1: tuple) -> dict:
+    """``run_int8_calls``' entries for the MLP pair at one shape: pass 1 on
+    the LN input ``d`` (M, C) and pass 2 on pass 1's outputs; library: pass
+    1 as the old fc1's (``torch._int_mm`` with the quantize of A), pass 2 as
+    ``torch._int_mm`` of x's codes, the dequant and GELU, the hidden's
+    quantize in PyTorch ops and ``torch._int_mm`` again (no residual);
+    bounds by ``pair_floor``."""
+    m, c = d.shape
+    n = fc1.q.shape[0]
+    x_q, x_s, h_s = pass1
+    w1t, w2t = fc1.q.t(), fc2.q.t()
+    res_bytes = residual.element_size()
+
+    def library2():
+        h = F.gelu(torch._int_mm(x_q, w1t).float() * (x_s.view(-1, 1) * fc1.s) + b1)
+        return torch._int_mm(torch_row_quantize(h), w2t)
+
+    return {
+        "ln_fc1_rowmax_int8": (
+            count, lambda: B8.ln_fc1_rowmax_int8(d, lg, lb, fc1.q, fc1.s, b1, eps),
+            lambda: B8.ln_fc1_rowmax_int8_plain(d, lg, lb, fc1.q, fc1.s, b1, eps),
+            int_mm_yardstick(d, fc1.q), m * c * 4 + m * c + 2 * m * 4 + n * c + (2 * n + 2 * c) * 4,
+            *pair_floor("ln_fc1_rowmax_int8", 2 * m * c * n, m * n), None),
+        "mlp_int8_scale_residual": (
+            count, lambda: B8.mlp_int8_scale_residual(x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s,
+                                                      b2, gamma, residual, torch.bfloat16),
+            lambda: B8.mlp_int8_scale_residual_plain(x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s,
+                                                     b2, gamma, residual, torch.bfloat16),
+            (library2, None),
+            m * c + 2 * m * 4 + 2 * n * c + 2 * n * 4 + 3 * c * 4 + m * c * res_bytes + m * c * 2,
+            *pair_floor("mlp_int8_scale_residual", 4 * m * c * n, m * n), None),
+    }
+
+
+# pass 1's codes may differ from its plain version's only where the plain value before
+# rounding lies within 2^-11 of k + 0.5 (64 ulps of a code near 127: the kernel's LN is a few
+# ulps from torch's), at most 4 or 0.4 % of the values lying there
+TIE_WINDOW = 2.0 ** -11
+
+
+def codes_equal_off_ties(label: str, stats: dict, got: tuple, ln: torch.Tensor,
+                         want: tuple) -> None:
+    """Pass 1's x codes and scales ``got`` against its plain version's
+    ``want`` (codes of the plain LN output ``ln`` with the plain scales):
+    the scales within 1e-6 relative, the codes equal but within
+    ``TIE_WINDOW`` of a .5 tie, where they may move by one."""
+    (x_q, x_s), (p_q, p_s) = got, want
+    v = ln.float() * (1.0 / p_s.view(-1, 1))
+    near = ((v - torch.floor(v)) - 0.5).abs() <= TIE_WINDOW
+    diff = x_q.int() - p_q.int()
+    off, n_near = int(torch.count_nonzero(diff[~near])), int(near.sum())
+    s_err = ((x_s - p_s).abs() / p_s).max().item()
+    d_max = diff.abs().max().item()
+    st = stats["ln_fc1_rowmax_int8"]
+    st["max_abs_err"] = max(st["max_abs_err"], float(d_max), abs_err(x_s, p_s))
+    print(f"[int8k] ln_fc1_rowmax_int8 codes, scales {label}: {int(torch.count_nonzero(diff))} of "
+          f"{diff.numel()} codes differ from the plain version's (max {d_max}), {off} of them "
+          f"off a .5 tie (must be 0); {n_near} values within {TIE_WINDOW:g} of a tie; scales "
+          f"max rel err {s_err:.3e} (bound 1e-6)")
+    if off or d_max > 1 or n_near > max(4, 4e-3 * v.numel()) or not s_err <= 1e-6:
+        raise AssertionError(f"ln_fc1_rowmax_int8's codes or scales at {label} disagree with "
+                             "its plain version")
+
+
+def check_pair(label: str, stats: dict, d, lg, lb, fc1, b1, fc2, b2, gamma, residual, eps: float,
+               chain: tuple) -> tuple:
+    """The MLP pair at one shape against the chain's (h_s, out) on the same
+    inputs: pass 2's output and pass 1's hidden row scales equal bit for
+    bit; pass 1's codes and scales against its plain version
+    (:func:`codes_equal_off_ties`), pass 2 within 1e-2 of its plain version
+    given pass 1's outputs (the plain GELU is torch's, a few ulps off the
+    kernels'). Returns pass 1's outputs."""
+    x_q, x_s, h_s = B8.ln_fc1_rowmax_int8(d, lg, lb, fc1.q, fc1.s, b1, eps)
+    out = B8.mlp_int8_scale_residual(x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s, b2, gamma,
+                                     residual, torch.bfloat16)
+    torch.cuda.synchronize()
+    c_s, c_out = chain
+    check_int8(label, stats, {
+        "ln_fc1_rowmax_int8 hidden scales vs the chain": (h_s, lambda: c_s, True),
+        "mlp_int8_scale_residual vs the chain": (out, lambda: c_out, True),
+        "mlp_int8_scale_residual": (out, lambda: B8.mlp_int8_scale_residual_plain(
+            x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s, b2, gamma, residual, torch.bfloat16),
+            False)})
+    ln = B8._layer_norm(d, lg, lb, eps)
+    codes_equal_off_ties(label, stats, (x_q, x_s), ln, B8.quantize_rows_plain(ln))
+    del out, ln
+    return x_q, x_s, h_s
+
+
+def run_int8_calls(calls: dict, label: str, stats: dict, apart: dict, card: str) -> dict:
     """Time each int8 kernel launch of ``calls`` (name -> (count, kernel,
     plain, (library, ``torch._int_mm`` alone) or None, bytes, operations,
     their type, bf16 variant or None)) and add it ``count`` times to the
     kernel's per-forward numbers, the bf16 variant's and ``torch._int_mm``'s
-    device times to ``apart``'s two Counters."""
+    device times to ``apart``'s two Counters; returns each name's kernel ms
+    times ``count``."""
+    spent = {}
     for name, (count, kern, plain, yardsticks, nbytes, ops, kind, bf16) in calls.items():
         kernel = name.split(" ")[0]
         lib, int_mm = yardsticks or (None, None)
@@ -1401,22 +1552,36 @@ def run_int8_calls(calls: dict, label: str, stats: dict, apart: dict, card: str)
         if m_ms is not None:
             apart["int_mm"][kernel] += count * m_ms
         k_ms, p_ms, l_ms = times
+        spent[name] = count * k_ms
+        by = "bytes" if nbytes / HBM_BYTES_PER_S * 1e3 >= bound else kind
         print(f"[int8k] {name:26s} {label} x{count}: kernel {k_ms:.3f} ms (device), plain "
               f"{p_ms:.3f} ms, torch._int_mm + quantize {fmt_ms(l_ms)} (_int_mm alone "
-              f"{fmt_ms(m_ms)}), bound {bound:.3f} ms per launch"
+              f"{fmt_ms(m_ms)}), bound {bound:.3f} ms ({by}) per launch"
               + (f"; bf16 variant {b_ms:.3f} ms, int8 / bf16 {k_ms / b_ms:.2f}" if b_ms else "")
               + f" [{card}]")
+    return spent
 
 
 def phase_int8_kernels(card: str, stats: dict) -> None:
-    """The five int8 kernels at the main path's batch-256 shapes (ConvNeXt
+    """The seven int8 kernels at the main path's batch-256 shapes (ConvNeXt
     s1-s4; GCViT L2-L4, ``ln_qkv_int8`` local q / k / v and global k / v):
-    each against its plain version (:func:`check_int8`), then timed
+    each against its plain version (:func:`check_int8`), the MLP pair also
+    against the chain it replaced (:func:`check_pair`), then timed
     (:func:`time_int8`) beside torch._int_mm with the quantize and its bf16
-    variant, per launch and per forward."""
+    variant, per launch and per forward; the pair's MLP per forward beside
+    the chain's and the bf16 pair's, all by device time in this call."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    differ, first = B8.gelu_bits_check(dev)
+    facts = B8.gelu_mono_check(dev)
+    print(f"[int8k] the pair's GELU over all 2^32 f32 inputs: {differ} differ from "
+          f"ln_fc1_gelu_int8's (first {first}); pass 1's facts: {facts} (all but at_peak "
+          f"must be 0)")
+    if differ or facts["below_zero"] or facts["descents"] or facts["over_peak"]:
+        raise AssertionError(f"the pair's GELU: {differ} inputs off the chain's, facts {facts}")
     gen = torch.Generator(device="cuda").manual_seed(9)
     before, apart = snapshot(stats), {"bf16": Counter(), "int_mm": Counter()}
+    mlp = Counter()  # ms a forward: the pair, the chain (fc1, the hidden's quantize, fc2)
     bf16 = torch.bfloat16
     for h, w, c, nblocks in STAGES:
         p = block_inputs(BATCH, h, w, c, gen)
@@ -1432,20 +1597,22 @@ def phase_int8_kernels(card: str, stats: dict) -> None:
         check_int8(label, stats, {
             "ln_fc1_gelu_int8": (hid, lambda: B8.ln_fc1_gelu_int8_plain(
                 d, p["lg"], p["lb"], fc1.q, fc1.s, p["b1"], 1e-6), False),
-            "quantize_rows": ((h_q, h_s), lambda: B8.quantize_rows_plain(hid), True),
+            QROWS_HIDDEN: ((h_q, h_s), lambda: B8.quantize_rows_plain(hid), True),
             "fc2_scale_residual_int8": (out, lambda: B8.fc2_scale_residual_int8_plain(
                 h_q, h_s, fc2.q, fc2.s, p["b2"], p["ls"], x2, bf16), True)})
+        mlp_args = (d, p["lg"], p["lb"], fc1, p["b1"], fc2, p["b2"], p["ls"], x2, 1e-6)
+        pass1 = check_pair(label, stats, *mlp_args, (h_s, out))
         hid16 = hid.to(bf16)
-        run_int8_calls({
+        spent = run_int8_calls({
             "ln_fc1_gelu_int8": (
                 nblocks, lambda: B8.ln_fc1_gelu_int8(d, p["lg"], p["lb"], fc1.q, fc1.s, p["b1"], 1e-6),
                 lambda: B8.ln_fc1_gelu_int8_plain(d, p["lg"], p["lb"], fc1.q, fc1.s, p["b1"], 1e-6),
                 int_mm_yardstick(d, fc1.q), m * c * 4 + n * c + (2 * n + 2 * c) * 4 + m * n * 4,
                 2 * m * c * n, "int8",
                 lambda: K.ln_fc1_gelu(d, p["lg"], p["lb"], p["w1"], p["b1"], 1e-6)),
-            "quantize_rows": (nblocks, lambda: B8.quantize_rows(hid),
-                              lambda: B8.quantize_rows_plain(hid), None, m * n * 5 + m * 4,
-                              m * n, "f32", None),
+            QROWS_HIDDEN: (nblocks, lambda: B8.quantize_rows(hid),
+                           lambda: B8.quantize_rows_plain(hid), None, m * n * 5 + m * 4,
+                           m * n, "f32", None),
             "fc2_scale_residual_int8": (
                 nblocks, lambda: B8.fc2_scale_residual_int8(h_q, h_s, fc2.q, fc2.s, p["b2"],
                                                             p["ls"], x2, bf16),
@@ -1454,8 +1621,11 @@ def phase_int8_kernels(card: str, stats: dict) -> None:
                 int_mm_yardstick(hid, fc2.q), m * n + m * 4 + n * c + 3 * c * 4 + 2 * m * c * 2,
                 2 * m * n * c, "int8",
                 lambda: K.fc2_scale_residual(hid16, p["w2"], p["b2"], p["ls"], x2)),
+            **pair_calls(nblocks, *mlp_args, pass1),
         }, label, stats, apart, card)
-        del p, x2, d, hid, hid16, h_q, h_s, out
+        mlp["pair"] += sum(spent[n] for n in PAIR)
+        mlp["chain"] += sum(spent[n] for n in CHAIN)
+        del p, x2, d, hid, hid16, h_q, h_s, out, pass1, mlp_args
         torch.cuda.empty_cache()
     for grid, c, heads, ws, n_local, n_global in INT8_LEVELS:
         p = gcvit_level_inputs(BATCH, grid, c, heads, ws, gen)
@@ -1483,11 +1653,13 @@ def phase_int8_kernels(card: str, stats: dict) -> None:
                 a_q, a_s, p8.q, p8.s, p["bp"], p["g1"], x), True),
             "ln_fc1_gelu_int8": (hid, lambda: B8.ln_fc1_gelu_int8_plain(
                 r1, p["lg2"], p["lb2"], f1.q, f1.s, p["b1"], 1e-5), False),
-            "quantize_rows hidden": ((h_q, h_s), lambda: B8.quantize_rows_plain(hid), True),
+            QROWS_HIDDEN: ((h_q, h_s), lambda: B8.quantize_rows_plain(hid), True),
             "fc2_scale_residual_int8": (out, lambda: B8.fc2_scale_residual_int8_plain(
                 h_q, h_s, f2.q, f2.s, p["b2"], p["g2"], r1, bf16), True)})
+        mlp_args = (r1, p["lg2"], p["lb2"], f1, p["b1"], f2, p["b2"], p["g2"], r1, 1e-5)
+        pass1 = check_pair(label, stats, *mlp_args, (h_s, out))
         hid16, act = hid.to(bf16), m * c * 2  # one bf16 (M, C) activation's bytes
-        run_int8_calls({
+        spent = run_int8_calls({
             "ln_qkv_int8 local": (
                 n_local, lambda: B8.ln_qkv_int8(x, p["lg"], p["lb"], qkv8.q, qkv8.s, p["bqkv"], 1e-5),
                 lambda: B8.ln_qkv_int8_plain(x, p["lg"], p["lb"], qkv8.q, qkv8.s, p["bqkv"], 1e-5),
@@ -1517,9 +1689,9 @@ def phase_int8_kernels(card: str, stats: dict) -> None:
                 int_mm_yardstick(r1, f1.q), m * c * 4 + 3 * c * c + (6 * c + 2 * c) * 4 + m * 3 * c * 4,
                 2 * m * c * 3 * c, "int8",
                 lambda: K.ln_fc1_gelu(r1, p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5)),
-            "quantize_rows hidden": (count, lambda: B8.quantize_rows(hid),
-                                     lambda: B8.quantize_rows_plain(hid), None,
-                                     m * 3 * c * 5 + m * 4, m * 3 * c, "f32", None),
+            QROWS_HIDDEN: (count, lambda: B8.quantize_rows(hid),
+                           lambda: B8.quantize_rows_plain(hid), None,
+                           m * 3 * c * 5 + m * 4, m * 3 * c, "f32", None),
             "fc2_scale_residual_int8": (
                 count, lambda: B8.fc2_scale_residual_int8(h_q, h_s, f2.q, f2.s, p["b2"], p["g2"], r1,
                                                           bf16),
@@ -1528,16 +1700,28 @@ def phase_int8_kernels(card: str, stats: dict) -> None:
                 int_mm_yardstick(hid, f2.q), m * 3 * c + m * 4 + 3 * c * c + 3 * c * 4 + m * c * 4 + act,
                 2 * m * 3 * c * c, "int8",
                 lambda: K.fc2_scale_residual(hid16, p["w2"], p["b2"], p["g2"], r1)),
+            **pair_calls(count, *mlp_args, pass1),
         }, label, stats, apart, card)
-        del p, x, qkv, kv, attn, a_q, a_s, r1, hid, hid16, h_q, h_s, out
+        mlp["pair"] += sum(spent[n] for n in PAIR)
+        mlp["chain"] += sum(spent[n] for n in CHAIN)
+        del p, x, qkv, kv, attn, a_q, a_s, r1, hid, hid16, h_q, h_s, out, pass1, mlp_args
         torch.cuda.empty_cache()
-    print_per_forward(stats, before, INT8_KERNELS, "ConvNeXt + GCViTTiny batch-256 forward "
+    print_per_forward(stats, before, INT8_KERNELS,
+                      "ConvNeXt + GCViTTiny batch-256 forward "
                       f"({CONVNEXT_BLOCKS} + {GCVIT_INT8_BLOCKS} int8 blocks)", card)
+    print_per_forward(stats, before, CHAIN, "ConvNeXt + GCViTTiny batch-256 forward, the "
+                      "chain the MLP pair replaced (yardstick, off the model path)", card)
     for name, b_ms in apart["bf16"].items():
         k_ms = stats[name]["ms"] - before[name]["ms"]
         print(f"[int8k] {name:26s} per forward: int8 {k_ms:.2f} ms against its bf16 variant "
               f"{BF16_VARIANT[name]} {b_ms:.2f} ms on the same blocks (device), int8 / bf16 "
               f"{k_ms / b_ms:.3f}; torch._int_mm alone {apart['int_mm'][name]:.2f} ms [{card}]")
+    bf16_pair = apart["bf16"]["ln_fc1_gelu_int8"] + apart["bf16"]["fc2_scale_residual_int8"]
+    passes = ", ".join(f"{n} {stats[n]['ms'] - before[n]['ms']:.2f}" for n in PAIR)
+    print(f"[int8k] the MLP per ConvNeXt + GCViTTiny batch-256 forward (device, this call): the "
+          f"pair {mlp['pair']:.2f} ms ({passes}), the chain it replaced {mlp['chain']:.2f} ms, "
+          f"the bf16 pair {bf16_pair:.2f} ms; pair / chain {mlp['pair'] / mlp['chain']:.3f}, "
+          f"pair / bf16 {mlp['pair'] / bf16_pair:.3f} [{card}]")
 
 
 MEMBERS = {  # name: (input size, output width)
@@ -1985,12 +2169,33 @@ def phase_int8_models(card: str) -> None:
             torch.cuda.empty_cache()
             bf16 = model(xb)
             with knobs(VIPTPU_INT8_KERNELS="1"):
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
                 reset_launches()
                 i8 = model(xb)
                 torch.cuda.synchronize()
                 launches = all_launches()
+                peak = torch.cuda.max_memory_allocated() - base
+                with mlp_chain():
+                    torch.cuda.reset_peak_memory_stats()
+                    i8_chain = model(xb)
+                    torch.cuda.synchronize()
+                    chain_peak = torch.cuda.max_memory_allocated() - base
         want = int8_forward_launches(1, (member,))
         expect_launches({n: launches[n] for n in want}, want, f"{name} int8 forward")
+        # ConvNeXt's s1 hidden in f32 (the chain's fc1 output): (B 50 50, 4 96) at 200 px
+        hidden = BATCH * (MEMBERS[name][0][0] // 4) ** 2 * 4 * 96 * 4
+        print(f"[int8k] {name} b{BATCH} int8 forward: peak device memory above its input "
+              f"{peak / 2 ** 20:.1f} MiB on the pair, {chain_peak / 2 ** 20:.1f} MiB on the chain"
+              + (f" (ConvNeXt's s1 f32 hidden alone {hidden / 2 ** 20:.1f} MiB)"
+                 if member == "convnext" else "")
+              + f"; logits pair against chain max|d| {abs_err(i8, i8_chain):.3e} "
+              f"({'equal' if torch.equal(i8, i8_chain) else 'not equal'}) [{card}]")
+        if not torch.equal(i8, i8_chain):  # the pair is the chain's bits; the rest too
+            raise AssertionError(f"{name}: the pair's logits differ from the chain's")
+        if member == "convnext" and not chain_peak - peak >= hidden / 2:
+            raise AssertionError(f"{name}: the pair's forward peaks at {peak} bytes, the chain's "
+                                 f"at {chain_peak}: not an s1 hidden ({hidden}) apart")
         if i8.shape != bf16.shape or not torch.isfinite(i8).all():
             raise AssertionError(f"{name} int8 logits {tuple(i8.shape)} not finite")
         r = rel_err(i8, bf16)
@@ -2010,7 +2215,7 @@ def phase_int8_models(card: str) -> None:
               f"({BATCH * 2000 / (b1 + b2):.1f} img/s), VIPTPU_INT8_KERNELS=1 {(i1 + i2) / 2:.2f} "
               f"ms ({BATCH * 2000 / (i1 + i2):.1f} img/s), int8 / bf16 {(i1 + i2) / (b1 + b2):.3f} "
               f"[{card}]")
-        del model, xb, ref, bf16, i8
+        del model, xb, ref, bf16, i8, i8_chain
         torch.cuda.empty_cache()
 
 
@@ -2517,7 +2722,9 @@ def phase_slice_int8_kernels(card: str, dw_sites: int, all_sites: int,
     with a one-output sigmoid head (:func:`binary_heads`): the two-member
     manifest (ConvNeXt, GCViT), then the seven members, each run between two
     runs of the same manifest without the knob (the first a warm-up, the
-    second the yardstick); the seven also with ``VIPTPU_INT8=all``. Each must launch the int8 block kernels at each
+    second the yardstick); the seven also with the MLP on the chain the pair
+    replaced (:func:`mlp_chain`, no decision may flip against the pair's
+    run) and with ``VIPTPU_INT8=all``. Each must launch the int8 block kernels at each
     block of ConvNeXt and of GCViT's L2-L4, the bf16 ones at L1
     (:func:`int8_forward_launches`) and everything else as without the
     knob; its raw means within 5e-2 of the bf16 run's (decisions flipped
@@ -2539,6 +2746,9 @@ def phase_slice_int8_kernels(card: str, dw_sites: int, all_sites: int,
             run_csv(input_csv, output_csv, names)
             with knobs(VIPTPU_INT8_KERNELS="1"):
                 seven, t_seven, batch_s, seven_int8 = run_csv(input_csv, output_csv, names, times)
+                with mlp_chain():  # the MLP on the chain the pair replaced: the yardstick run
+                    chain, t_chain, batch_c, seven_chain = run_csv(input_csv, output_csv, names,
+                                                                   times)
             with knobs(VIPTPU_INT8_KERNELS="1", VIPTPU_INT8="all"):
                 both, t_both, batch_a, both_int8 = run_csv(input_csv, output_csv, names, times)
             _, t_bf16, batch_b, seven_bf16 = run_csv(input_csv, output_csv, names, times)
@@ -2549,19 +2759,32 @@ def phase_slice_int8_kernels(card: str, dw_sites: int, all_sites: int,
                            **int8_forward_launches(batches + 1),
                            PTQ: batches * all_sites, QUANT: batches * all_passes},
                     "seven-member VIPTPU_INT8_KERNELS=1 VIPTPU_INT8=all CSV->CSV")
+    expect_launches(chain, {**seven_launches(batches, dw_sites),
+                            **int8_forward_launches(batches, chain=True)},
+                    "seven-member VIPTPU_INT8_KERNELS=1 CSV->CSV on the MLP chain")
     compare_raw("seven members VIPTPU_INT8_KERNELS=1", seven_int8, seven_bf16, "bf16",
                 bound=MODEL_BOUND, tag="slice")
+    compare_raw("seven members VIPTPU_INT8_KERNELS=1 (the MLP pair)", seven_int8, seven_chain,
+                "the MLP chain", bound=None, tag="slice")
+    flips = int(((seven_int8["raw"] > 0.487) != (seven_chain["raw"] > 0.487)).sum())
+    if flips:
+        raise AssertionError(f"the MLP pair flips {flips} decisions against the chain")
     compare_raw("seven members VIPTPU_INT8_KERNELS=1 VIPTPU_INT8=all", both_int8, seven_bf16,
                 "bf16", bound=None, tag="slice")
     ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
     for label, t, batch_t, ref in (("2 members", t_two, batch_2, t_b2),
                                    ("7 members", t_seven, batch_s, t_bf16),
+                                   ("7 members, the MLP chain", t_chain, batch_c, t_bf16),
                                    ("7 members, VIPTPU_INT8=all", t_both, batch_a, t_bf16)):
         print(f"[slice] CSV->CSV {N_IMAGES} images, batch {BATCH}, {label}, "
               f"VIPTPU_INT8_KERNELS=1 (sigmoid heads): {t:.2f} s ({N_IMAGES / t:.1f} img/s; "
               f"per-batch e2e {ms(batch_t)}) beside bf16 {ref:.2f} s ({N_IMAGES / ref:.1f} img/s) "
               f"[{card}]")
     print(f"[slice] seven-member bf16 per-batch e2e {ms(batch_b)} [{card}]")
+    print(f"[int8k] the MLP chain (yardstick, off the model path) in the seven-member "
+          f"VIPTPU_INT8_KERNELS=1 CSV run on it: launches "
+          f"{ {n: chain[n] for n in CHAIN_KERNELS + ('quantize_rows',)} }; on the pair's run "
+          f"{ {n: seven[n] for n in CHAIN_KERNELS} } [{card}]")
     return {n: seven[n] for n in INT8_KERNELS}
 
 
@@ -2574,7 +2797,7 @@ def seven_launches(forwards: int, dw_sites: int) -> dict:
             "ln_qkv": forwards * GCVIT_BLOCKS, "proj_scale_residual": forwards * GCVIT_BLOCKS,
             **{n: forwards * (CONVNEXT_BLOCKS + GCVIT_BLOCKS) for n in MLP_KERNELS},
             ATTN: 0, LN: forwards * (CONVNEXT_LNS + GCVIT_LNS), DW: forwards * dw_sites,
-            PTQ: 0, QUANT: 0, **{n: 0 for n in INT8_KERNELS}}
+            PTQ: 0, QUANT: 0, **{n: 0 for n in INT8_KERNELS + CHAIN_KERNELS}}
 
 
 @contextlib.contextmanager
@@ -3017,10 +3240,10 @@ def compare_train_step(card: str, name: str, x: torch.Tensor, y: torch.Tensor, t
     torch.cuda.synchronize()
     launches = all_launches()
     expected = TRAIN_MEMBERS[name][1]
-    want = {n: expected.get(n, 0) for n in KERNELS}
+    want = {n: expected.get(n, 0) for n in COUNTED}
     print(f"[train] {name}: launches in one training step (forward and backward): "
           f"{ {n: c for n, c in launches.items() if c} }")
-    bad = {n: launches[n] for n in KERNELS if launches[n] != want[n]}
+    bad = {n: launches[n] for n in COUNTED if launches[n] != want[n]}
     if bad:
         raise AssertionError(f"the {name} training step launched {bad}; expected {expected} "
                              "and no other kernel")
@@ -3455,7 +3678,7 @@ def phase_train_data(card: str) -> None:
             fit_ms = (time.perf_counter() - t0) * 1000
         launches = all_launches()
         steps, forwards = len(losses), len(evals)
-        want = {n: 0 for n in KERNELS}
+        want = {n: 0 for n in COUNTED}
         for n, c in TRAIN_MEMBERS["GCViTTiny"][1].items():
             want[n] += steps * c
         for n, c in GCVIT_FUSED_FORWARD.items():
@@ -3465,7 +3688,7 @@ def phase_train_data(card: str) -> None:
         val_batches = -(-DATA_VAL // DATA_BATCH)
         if steps != DATA_EPOCHS * DATA_STEPS or forwards != DATA_EPOCHS * val_batches:
             raise AssertionError(f"the fit ran {steps} steps and {forwards} validation batches")
-        bad = {n: (launches[n], want[n]) for n in KERNELS if launches[n] != want[n]}
+        bad = {n: (launches[n], want[n]) for n in COUNTED if launches[n] != want[n]}
         if bad:
             raise AssertionError(f"the fit from disk launched (got, expected) {bad}")
         step_losses = [v.item() for v in losses]

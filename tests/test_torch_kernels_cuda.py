@@ -1184,7 +1184,8 @@ def test_int8_mlp_kernels_match_plain_on_card(cuda_device, c, ratio, rows, res_d
     out = B8.fc2_scale_residual_int8(h_q, h_s, fc2.q, fc2.s, b2, gamma, res, torch.bfloat16)
     torch.cuda.synchronize()
     assert B8.LAUNCHES == {"ln_fc1_gelu_int8": 1, "ln_qkv_int8": 0, "quantize_rows": 1,
-                           "fc2_scale_residual_int8": 1, "proj_scale_residual_int8": 0}
+                           "fc2_scale_residual_int8": 1, "proj_scale_residual_int8": 0,
+                           "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0}
     assert hid.dtype == torch.float32 and out.shape == (m, c) and out.dtype == torch.bfloat16
     assert _rel(hid, B8.ln_fc1_gelu_int8_plain(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)) <= 1e-2
     p_q, p_s = B8.quantize_rows_plain(hid)
@@ -1220,7 +1221,8 @@ def test_int8_qkv_and_proj_kernels_match_plain_on_card(cuda_device, c, s, rows):
     r1 = B8.proj_scale_residual_int8(a_q, a_s, proj.q, proj.s, bp, gamma, x)
     torch.cuda.synchronize()
     assert B8.LAUNCHES == {"ln_fc1_gelu_int8": 0, "ln_qkv_int8": 1, "quantize_rows": 1,
-                           "fc2_scale_residual_int8": 0, "proj_scale_residual_int8": 1}
+                           "fc2_scale_residual_int8": 0, "proj_scale_residual_int8": 1,
+                           "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0}
     want = B8.ln_qkv_int8_plain(x.float(), lg, lb, qkv.q, qkv.s, bqkv, 1e-5)
     assert len(parts) == s and all(p.dtype == torch.bfloat16 for p in parts)
     assert _rel(torch.cat(parts, 1), torch.cat(want, 1)) <= 1e-2
@@ -1228,6 +1230,134 @@ def test_int8_qkv_and_proj_kernels_match_plain_on_card(cuda_device, c, s, rows):
     assert torch.equal(a_q, p_q) and torch.equal(a_s, p_s)
     assert r1.dtype == torch.float32
     assert torch.equal(r1, B8.proj_scale_residual_int8_plain(a_q, a_s, proj.q, proj.s, bp, gamma, x))
+
+
+# the MLP pair's shapes on the main path: ConvNeXt s1-s4 (N = 4C, bf16
+# residual), GCViT L2-L4 (N = 3C, f32 r1); and L1 (C = 64, N = 192: a last
+# hidden chunk of 64 columns; int8 where VIPTPU_GCVIT_INT8_MIN_C <= 64)
+PAIR_SHAPES = [(96, 4, "bf16"), (192, 4, "bf16"), (384, 4, "bf16"), (768, 4, "bf16"),
+               (128, 3, "f32"), (256, 3, "f32"), (512, 3, "f32"), (64, 3, "f32")]
+# pass 1's codes may differ from the plain version's only where the plain
+# value before rounding lies within 2^-11 of k + 0.5 (64 ulps of a code near
+# 127; the kernel's LN is a few ulps from torch's), and such values are few
+TIE_WINDOW = 2.0 ** -11
+
+
+def _codes_equal_off_ties(got_q, y, s):
+    """Codes ``got_q`` of rows ``y`` (M, C) with plain scales ``s`` (M,)
+    against ``round(y * (1 / s))``: equal but within ``TIE_WINDOW`` of a .5
+    tie, off by at most one there, and at most 4 or 0.4 % of the elements
+    that near a tie. Returns (codes that differ, values near a tie)."""
+    v = y.float() * (1.0 / s.view(-1, 1))
+    want = torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+    near = ((v - torch.floor(v)) - 0.5).abs() <= TIE_WINDOW
+    diff = got_q.int() - want.int()
+    assert torch.count_nonzero(diff[~near]) == 0
+    assert diff.abs().max().item() <= 1
+    n_near = int(near.sum())
+    assert n_near <= max(4, 4e-3 * v.numel()), (n_near, v.numel())
+    return int(torch.count_nonzero(diff)), n_near
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ratio,res", PAIR_SHAPES)
+@pytest.mark.parametrize("rows", ["one", "tile+1", "ragged"])
+def test_int8_mlp_pair_matches_chain_on_card(cuda_device, c, ratio, res, rows):
+    """``ln_fc1_rowmax_int8`` -> ``mlp_int8_scale_residual`` against the
+    three-launch chain on the same inputs: the output bit for bit, pass 1's
+    hidden row scales equal ``quantize_rows``' of the chain's hidden; pass
+    1's codes and scales against its plain version (the LN's and the GELU's
+    last ulps apart from torch's: scales within 1e-6, the hidden's taken
+    from the kernel's codes; codes equal to the plain LN's but within
+    ``TIE_WINDOW`` of a .5 tie, :func:`_codes_equal_off_ties`); pass 2 given
+    pass 1's outputs within 1e-2 of max|ref| of its plain version (a hidden
+    code on a tie)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+
+    g = torch.Generator(device=cuda_device).manual_seed(c * ratio + 7)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    n = ratio * c
+    m = {"one": 1, "tile+1": 129, "ragged": 2 * 132 * 128 + 77}[rows]
+    x, lg, lb = u((m, c)), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    fc1, b1 = _int8_weight(g, n, c, cuda_device), u((n,), -0.1, 0.1)
+    fc2, b2, gamma = _int8_weight(g, c, n, cuda_device), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    residual = u((m, c)).to(torch.bfloat16 if res == "bf16" else torch.float32)
+    B8.reset_launches()
+    x_q, x_s, h_s = B8.ln_fc1_rowmax_int8(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)
+    out = B8.mlp_int8_scale_residual(x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s, b2, gamma,
+                                     residual, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert B8.LAUNCHES["ln_fc1_rowmax_int8"] == 1 and B8.LAUNCHES["mlp_int8_scale_residual"] == 1
+    hid = B8.ln_fc1_gelu_int8(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)
+    c_q, c_s = B8.quantize_rows(hid)
+    want = B8.fc2_scale_residual_int8(c_q, c_s, fc2.q, fc2.s, b2, gamma, residual, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, c)
+    assert torch.equal(h_s, c_s) and torch.equal(out, want)
+    _, p_s, _ = B8.ln_fc1_rowmax_int8_plain(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)
+    _, p_h = B8.quantize_rows_plain(B8._fc1_gelu(x_q, x_s, fc1.q, fc1.s, b1))  # from its codes
+    for got, ref in ((x_s, p_s), (h_s, p_h)):
+        assert ((got - ref).abs() / ref).max().item() <= 1e-6
+    _codes_equal_off_ties(x_q, B8._layer_norm(x, lg, lb, 1e-6), p_s)
+    plain = B8.mlp_int8_scale_residual_plain(x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s, b2,
+                                             gamma, residual, torch.bfloat16)
+    assert _rel(out, plain.float()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_int8_pair_gelu_has_the_chain_bits_on_card(cuda_device):
+    """The pair's GELU (every rounding explicit) gives ``ln_fc1_gelu_int8``'s
+    epilogue GELU bit for bit at all 2^32 f32 inputs (NaN for NaN)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+
+    assert B8.gelu_bits_check(cuda_device) == (0, None)
+
+
+@pytest.mark.cuda
+def test_int8_pair_gelu_facts_pass_1_leans_on_on_card(cuda_device):
+    """``ln_fc1_rowmax_int8`` takes the GELU at a row's largest value and
+    below 0 only while it can matter: over all f32 inputs the kernels' GELU
+    is >= 0 and nondecreasing on [0, inf) and at most 0.169971228 in
+    magnitude below 0, a bound it reaches."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+
+    facts = B8.gelu_mono_check(cuda_device)
+    assert facts["below_zero"] == facts["descents"] == facts["over_peak"] == 0, facts
+    assert facts["at_peak"] >= 1
+
+
+@pytest.mark.cuda
+def test_exp_int8_mlp_tool_runs_on_card(cuda_device):
+    """The int8 MLP measurement tool end to end at batch 2: the GELU's
+    throughput, the monotone scan (its facts as ``gelu_mono_check``'s), the
+    pass-2 cuts (the whole cut equal to the kernel) and pass 1's widths (each
+    equal to the plan's launch)."""
+    from vip_cup_2022_tpu_torch.tools import exp_int8_mlp
+
+    r = exp_int8_mlp.main(["--batch", "2"])
+    assert r["scan"]["pos_descents"] == r["scan"]["pos_negative"] == 0
+    peak = torch.tensor(0.169971228, dtype=torch.float32).item()  # the kernel's kGeluNegPeak
+    assert r["scan"]["neg_positive"] == 0 and r["scan"]["peak"] == peak
+    assert set(r["cuts"]) == {"s1", "s2", "s3", "s4"}
+    assert all(set(ms) == set(exp_int8_mlp.CUTS) for ms in r["cuts"].values())
+    assert set(r["widths"]) == set(exp_int8_mlp.SHAPES) and len(r["gelu"]) == 6
+
+
+@pytest.mark.cuda
+def test_exp_int8_parity_tool_runs_on_card(cuda_device, tmp_path):
+    """The parity tool at batch 2, this checkout against itself: every
+    output's digest equal, the pair equal to the chain at every stage and
+    level (L1's hidden of 192 ends in a 64-column chunk)."""
+    from vip_cup_2022_tpu_torch.tools import exp_int8_parity
+
+    out = str(tmp_path / "a.json")
+    exp_int8_parity.main(["--batch", "2", "--out", out])
+    r = exp_int8_parity.main(["--batch", "2", "--against", out])
+    assert r["equal_to_against"] and all(r["equal_to_against"].values())
+    assert all(row["pair_equals_chain"] for row in r["shapes"].values())
 
 
 @pytest.mark.cuda
@@ -1249,7 +1379,9 @@ def test_int8_blocks_match_plain_on_card(cuda_device):
     args = (u((7, 7, c), -0.2, 0.2), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1),
             _int8_weight(g, 4 * c, c, cuda_device), u((4 * c,), -0.1, 0.1),
             _int8_weight(g, c, 4 * c, cuda_device), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5))
+    B8.reset_launches()
     got = B8.convnext_block_int8(x, *args)
+    assert B8.LAUNCHES["mlp_int8_scale_residual"] == 1 and B8.LAUNCHES["ln_fc1_gelu_int8"] == 0
     with plain_kernels():
         want = B8.convnext_block_int8(x, *args)
     assert got.dtype == torch.bfloat16 and _rel(got, want.float()) <= 1e-2

@@ -25,7 +25,8 @@ MODEL_KERNELS = (
     + [(window_attention, "window_attention"), (layernorm, "layer_norm"),
        (int8_gemm, "ptq_int8_conv"), (depthwise, "depthwise_conv_nhwc")]
     + [(block_int8, n) for n in ("ln_fc1_gelu_int8", "ln_qkv_int8", "quantize_rows",
-                                 "fc2_scale_residual_int8", "proj_scale_residual_int8")])
+                                 "fc2_scale_residual_int8", "proj_scale_residual_int8",
+                                 "ln_fc1_rowmax_int8", "mlp_int8_scale_residual")])
 
 
 @contextlib.contextmanager

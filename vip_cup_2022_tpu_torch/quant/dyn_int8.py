@@ -73,15 +73,21 @@ def quant_cols(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
+def quant_rows_with(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Codes of an (M, K) activation with given row scales ``s`` (M, 1):
+    ``clip(round(y * f32(1 / s)), -127, 127)``, int8."""
+    yf = y.float()
+    inv = _f32(1.0, yf) / s
+    return torch.clamp(torch.round(yf * inv), -127, 127).to(torch.int8)
+
+
 def dyn_quant_rows(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row int8 of an (M, K) activation, taken in f32: (codes
     (M, K) int8, scales (M, 1) f32)."""
     yf = y.float()
     amax = yf.abs().amax(dim=-1, keepdim=True)
     s = torch.clamp(amax, min=MIN_AMAX) * _f32(INV_127, yf)
-    inv = _f32(1.0, yf) / s
-    q = torch.clamp(torch.round(yf * inv), -127, 127).to(torch.int8)
-    return q, s
+    return quant_rows_with(yf, s), s
 
 
 def int_matmul(q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
