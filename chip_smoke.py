@@ -241,7 +241,38 @@ each printing its results on earlier lines, any failure exiting non-zero:
    kernel at its 5 LNs, its logits equal (max|d| = 0) to those of the same
    weights from ``.msgpack``; the host seconds to write, convert and load
    printed; neither h5py nor TensorFlow imported;
-10. train (``phase_train``, once a member): full-width GCViTTiny@224
+10. f32 (``phase_f32``, ``VIPTPU_DTYPE=float32``): each of the seven members
+   in f32 as the engine builds it (on the card GCViT and ConvNeXt take
+   their unfused blocks by the models' rule), seeded weights, one output:
+   its batch-8 logits
+   on the kernel path against ``plain_kernels()`` with TF32 off within
+   2e-4 of max(1, max|ref|), the decisions at 0.487 equal but within 1e-4
+   of it; its batch-256 f32 forward timed; every K9 call (84) and LN call
+   (94, all f32) of one forward recorded. Then ``window_attention_bhnd_f32``
+   at GCViTTiny's L1-L4 (local and global query), ``depthwise_conv_nhwc_f32``
+   at every recorded K9 site and ``layer_norm_f32`` at every recorded LN
+   shape, batch 8 and 256, against their plain versions within 1e-5 of
+   max|ref|, timed at 256 (K8 by events beside SDPA in f32 with the bias as
+   a float mask; K9 by device time beside cuDNN's f32 grouped conv; K10 by
+   device time beside ``F.layer_norm``), per seven-member f32 forward into
+   the record. Then the seven members with sigmoid heads through
+   ``main_torch.main`` with ``VIPTPU_DTYPE=float32``, cold and warm, both
+   TF32 flags set on before each run: K8, K9 and K10 in f32 at each of
+   their sites a batch (31, 84 and 94), no other kernel, no plain version
+   called, every forward with both flags off and the flags on again after;
+   then the same CSV in bf16, the decisions that flip between the dtypes
+   printed (no gate). Last, ``Trainer.eval_step`` and one
+   ``Trainer.train_step`` (batch 16, drop rates 0, SGD at lr 1) of an f32
+   GCViTTiny and of an f32 ConvNeXt against the same calls of a second
+   trainer under ``plain_kernels()``, both TF32 flags on before each call:
+   inside each call both off and on again after; the eval loss (on the
+   unfused block), the step's loss and the norm of the gradients its
+   closure took within 1e-4 (relative), their cosine >= 0.9999, the
+   parameters moved by minus the gradient (cosine >= 0.9999, and against
+   the plain step's moves); the eval's and the step's launches each exactly
+   K8 31, K9 11 and K10 71 (GCViT), K9 18 and K10 23 (ConvNeXt), all f32,
+   the plain trainer's none;
+11. train (``phase_train``, once a member): full-width GCViTTiny@224
    (``_model``'s seeded weights), convnext_tiny_in22k@200 (``_model``'s),
    ResNetRS50@200, ResNest50@200, EfficientNetV2T@200, EfficientNetV1B4@224
    and ECA_NFNetL0@200 (the registry's seeded init; in the BN members the
@@ -300,8 +331,13 @@ for ``depthwise_conv_nhwc``, the two tools' runs for the four tool kernels, the
 ``int8_pallas_spike`` run for the three spike bodies, the seven-member
 ``VIPTPU_INT8=all`` CSV run for ``ptq_int8_quantize`` and
 ``ptq_int8_conv`` and the seven-member ``VIPTPU_INT8_KERNELS=1`` CSV run
-for the int8 block kernels, whose ``ms`` (kernel and library by
-device time), ``plain_ms`` and ``library_ms`` (``torch._int_mm`` with the
+for the int8 block kernels and the cold seven-member ``VIPTPU_DTYPE=float32``
+CSV run for ``window_attention_bhnd_f32``, ``depthwise_conv_nhwc_f32`` and
+``layer_norm_f32`` (whose ``ms``, ``plain_ms`` and ``library_ms`` are per
+batch-256 f32 forward of the seven members; the LN wrapper keeps one
+counter for both dtypes, so ``layer_norm_f32``'s launches are that run's
+``layer_norm`` launches, each of its recorded LN calls f32), the int8 block kernels' ``ms``
+(kernel and library by device time), ``plain_ms`` and ``library_ms`` (``torch._int_mm`` with the
 quantize of A; for ``mlp_int8_scale_residual`` two ``torch._int_mm`` with
 the GELU and the hidden's quantize between; none for ``quantize_rows``)
 are per batch-256 forward of ConvNeXt's 18 and GCViT's 28 int8 blocks
@@ -333,7 +369,7 @@ read once, outputs written once) over 3.35 TB/s or its operations over the
 peak for their type (989 TFLOP/s bf16 and 1,979 TOP/s int8 tensor-core
 products, 67 TFLOP/s f32 elsewhere; NVIDIA's H100 SXM data sheet), whichever
 is larger, summed; ``bound_by`` says which of the two made most of it. ``max_abs_err`` is over every check of
-phases 3-6. Before it the script prints its own wall time. The last line is
+phases 3-6 (the f32 kernels': phase 10). Before it the script prints its own wall time. The last line is
 ``{"ok": true, "device": {...}}``.
 Before the wall time it prints the wall seconds of each group of phases.
 """
@@ -377,7 +413,8 @@ from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
-from vip_cup_2022_tpu_torch.ops.kernels.reference import plain_kernels  # noqa: E402
+from vip_cup_2022_tpu_torch.ops.kernels.reference import (MODEL_KERNELS,  # noqa: E402
+                                                           plain_kernels)
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.quant import dyn_int8  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
@@ -386,6 +423,7 @@ from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms, device_ms  # noqa: E402
 from vip_cup_2022_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from vip_cup_2022_tpu_torch.train import history as train_history  # noqa: E402
+from vip_cup_2022_tpu_torch.train import trainer as trainer_module  # noqa: E402
 from vip_cup_2022_tpu_torch.train.losses import binary_cross_entropy_timm  # noqa: E402
 from vip_cup_2022_tpu_torch.train.sam import value_and_grad  # noqa: E402
 from vip_cup_2022_tpu_torch.utils.checkpoint import load_variables, save_variables  # noqa: E402
@@ -395,6 +433,9 @@ from vip_cup_2022_tpu_torch.weights.to_flax import torch_to_flax  # noqa: E402
 CONVNEXT_KERNELS = ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")
 GCVIT_KERNELS = ("ln_qkv", "window_attention", "proj_scale_residual")
 ATTN, LN, DW = "window_attention_bhnd", "layer_norm", "depthwise_conv_nhwc"
+# their f32 modes (VIPTPU_DTYPE=float32): K8's and K9's a symbol and a launch counter each;
+# K10's one counter counts both dtypes, so LN32's launches are read from its recorded calls
+ATTN32, DW32, LN32 = ATTN + "_f32", DW + "_f32", LN + "_f32"
 LNMLP_KERNELS = ("fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst")
 PARTS = "attn_parts"
 SPIKE_KERNELS = ("int8_spike_bf16", "int8_spike_int8", "int8_spike_direct")
@@ -412,13 +453,15 @@ BF16_VARIANT = {"ln_fc1_gelu_int8": "ln_fc1_gelu", "ln_qkv_int8": "ln_qkv",
                 "fc2_scale_residual_int8": "fc2_scale_residual",
                 "proj_scale_residual_int8": "proj_scale_residual"}
 KERNELS = (CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
-           + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS)
+           + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS + (ATTN32, DW32))
 COUNTED = KERNELS + CHAIN_KERNELS  # every launch counter the launch checks read
+RECORDED = KERNELS + (LN32,)  # the kernels record's entries
 CSRC = "vip_cup_2022_tpu_torch/csrc"
 SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
 SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
 SOURCES.update({ATTN: f"{CSRC}/window_attention.cu", LN: f"{CSRC}/layernorm.cu",
                 DW: f"{CSRC}/depthwise.cu", PARTS: f"{CSRC}/attn_parts.cu"})
+SOURCES.update({ATTN32: SOURCES[ATTN], LN32: SOURCES[LN], DW32: SOURCES[DW]})
 SOURCES.update({n: f"{CSRC}/ln_mlp.cu" for n in LNMLP_KERNELS})
 SOURCES.update({n: f"{CSRC}/int8_gemm.cu" for n in SPIKE_KERNELS})
 SOURCES.update({n: f"{CSRC}/ptq_int8.cuh" for n in (QUANT, PTQ)})  # built into int8_gemm.cu's
@@ -454,6 +497,7 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
     "proj_scale_residual_int8": f"{GTPU}:667, {GTPU}:906",
     **{n: f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906" for n in PAIR},
 }
+REPLACES.update({ATTN32: REPLACES[ATTN], LN32: REPLACES[LN], DW32: REPLACES[DW]})  # f32 modes
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
 CONVNEXT_BLOCKS, GCVIT_BLOCKS = 18, 31
@@ -569,7 +613,7 @@ def depthwise_sites(model: torch.nn.Module, size: tuple) -> list:
 def new_stats() -> dict:
     return {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                 "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "gemm_ms": 0.0}
-            for n in KERNELS + CHAIN}
+            for n in RECORDED + CHAIN}
 
 
 def account(stats: dict, name: str, count: int, times: tuple, nbytes: float, ops: float,
@@ -2815,6 +2859,399 @@ def knobs(**env):
                 os.environ[k] = v
 
 
+# ---------------------------------------------------------------------------
+# f32 compute on the card (VIPTPU_DTYPE=float32): K8, K9 and K10 in f32
+# ---------------------------------------------------------------------------
+F32_KERNELS = (ATTN32, DW32, LN32)
+F32_LOGIT_BOUND = 2e-4  # of max(1, max|ref|): a member's f32 kernel path against plain f32
+F32_TIE = 1e-4  # a decision may differ only for a score this close to 0.487
+F32_TRAIN_BOUND, F32_TRAIN_COS = 1e-4, 0.9999  # one f32 step against the plain f32 step
+F32_TRAIN_BATCH = 16
+F32_TRAIN_LR = 1.0  # SGD at lr 1 moves each parameter by minus its gradient
+THR = 0.487
+# the f32 kernels' launches in one seven-member forward: GCViT's 31 unfused blocks, K9 at
+# GCViT's 11, V2T's 27, V1B4's 28 and ConvNeXt's 18 unfused blocks, every LN of ConvNeXt
+# and GCViT on their unfused blocks
+F32_FORWARD = {ATTN32: GCVIT_BLOCKS,
+               DW32: GCVIT_DW_SITES + sum(DW_SITES.values()) + CONVNEXT_BLOCKS,
+               LN32: CONVNEXT_LNS + CONVNEXT_BLOCKS + GCVIT_LNS + 2 * GCVIT_BLOCKS}
+# an f32 training step's launches (forward only: the backwards are plain), and an f32
+# eval step's on the unfused block
+F32_TRAIN_LAUNCHES = {"GCViTTiny": {ATTN32: GCVIT_BLOCKS, DW32: GCVIT_DW_SITES,
+                                    LN: GCVIT_LNS + 2 * GCVIT_BLOCKS},
+                      "convnext_tiny_in22k": {DW32: CONVNEXT_BLOCKS,
+                                              LN: CONVNEXT_LNS + CONVNEXT_BLOCKS}}
+
+
+@contextlib.contextmanager
+def counting_plain(counts: Counter):
+    """Count in ``counts`` the calls of every model kernel's plain version
+    (``reference.MODEL_KERNELS``)."""
+    saved = []
+    for module, name in MODEL_KERNELS:
+        real = getattr(module, name + "_plain")
+
+        def counted(*args, _real=real, _name=name, **kw):
+            counts[_name] += 1
+            return _real(*args, **kw)
+
+        saved.append((module, name + "_plain", real))
+        setattr(module, name + "_plain", counted)
+    try:
+        yield
+    finally:
+        for module, attr, real in saved:
+            setattr(module, attr, real)
+
+
+@contextlib.contextmanager
+def recording_tf32(seen: set):
+    """Record in ``seen`` the (cuBLAS, cuDNN) TF32 flags at each LN call:
+    the state the forward around it runs in."""
+    real = L.layer_norm
+
+    def record(x, weight, bias, eps):
+        seen.add((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return real(x, weight, bias, eps)
+
+    L.layer_norm = record
+    try:
+        yield
+    finally:
+        L.layer_norm = real
+
+
+def f32_member(name: str, dim) -> torch.nn.Module:
+    """Full-width ``name`` at ``dim`` in f32 as the engine builds it (on the
+    card GCViT and ConvNeXt take their unfused blocks by themselves),
+    seeded weights, one output, logits out."""
+    model, _ = create_model(name, input_size=tuple(dim), nb_classes=1, classifier_activation=None,
+                            dtype=torch.float32, seed=0)
+    return model.cuda().eval()
+
+
+def f32_members(card: str, gen) -> tuple:
+    """Each member of ``MANIFEST`` in f32: its batch-8 logits on the kernel
+    path against ``plain_kernels()`` (TF32 off), within ``F32_LOGIT_BOUND``
+    of max(1, max|ref|), the decisions at 0.487 equal but within
+    ``F32_TIE`` of it; its batch-256 f32 forward timed (CUDA events, a
+    warm-up and two runs). Returns each member's K9 sites and every LN call
+    (shape without the batch, dtype, eps) of one forward."""
+    sites, lns, forward_ms = {}, Counter(), {}
+    for base, dim, _ in MANIFEST:
+        name = engine.registry_name(base)
+        model = f32_member(name, dim)
+        x = torch.rand((8, *dim, 3), generator=gen, device="cuda")
+        dw_calls, ln_calls = [], []
+        with torch.inference_mode():
+            with recording_depthwise(dw_calls), recording_layer_norms(ln_calls):
+                model(x[:1])
+            got = model(x)
+            with plain_kernels():
+                ref = model(x)
+        torch.cuda.synchronize()
+        sites[name] = Counter(dw_calls)
+        lns.update(ln_calls)
+        top = ref.abs().max().item()
+        d = (got - ref).abs().max().item() / max(1.0, top)
+        p, p_ref = torch.sigmoid(got), torch.sigmoid(ref)
+        flips = int((((p > THR) != (p_ref > THR)) & ((p_ref - THR).abs() > F32_TIE)).sum())
+        print(f"[f32] {name} {dim[0]}x{dim[1]} b8: the f32 kernel path vs plain f32 (TF32 off): "
+              f"max|d| / max(1, max|ref|) = {d:.3e} (bound {F32_LOGIT_BOUND:g}), max|ref| "
+              f"{top:.3e}; decisions at {THR} that differ away from it: {flips}; "
+              f"{len(dw_calls)} K9 calls, {len(ln_calls)} LNs a forward [{card}]")
+        if (got.shape != (8, 1) or not torch.isfinite(got).all() or not d <= F32_LOGIT_BOUND
+                or flips):
+            raise AssertionError(f"{name}'s f32 kernel path disagrees with plain f32")
+        del got, ref
+        xb = torch.rand((BATCH, *dim, 3), generator=gen, device="cuda")
+        with torch.inference_mode():
+            forward_ms[name] = cuda_ms(lambda: model(xb), iters=2, warmup=1)
+        del model, xb
+        torch.cuda.empty_cache()
+    print(f"[f32] batch-{BATCH} f32 forward on the f32 kernels (TF32 off), ms: " + ", ".join(
+        f"{n} {t:.2f}" for n, t in forward_ms.items())
+        + f"; seven members {sum(forward_ms.values()):.2f} [{card}]")
+    n_sites = sum(sum(c.values()) for c in sites.values())
+    if n_sites != F32_FORWARD[DW32] or sum(lns.values()) != F32_FORWARD[LN32] or any(
+            dtype != torch.float32 for _, dtype, _ in lns):
+        raise AssertionError(f"the f32 forwards called K9 {n_sites} and the LN "
+                             f"{sum(lns.values())} times, expected {F32_FORWARD}")
+    return sites, lns
+
+
+def f32_kernels(card: str, stats: dict, gen, sites: dict, lns: Counter) -> None:
+    """The three f32 kernels against their plain versions at batch 8 and
+    256 (``F32_KERNEL_BOUND``) at the f32 path's shapes, timed at 256:
+    ``window_attention_bhnd_f32`` at GCViTTiny's L1-L4 (local and global
+    query; events; library SDPA in f32 with the bias as a float mask),
+    ``depthwise_conv_nhwc_f32`` at every recorded K9 site (kernel and
+    cuDNN's f32 grouped conv by device time, plain by events) and
+    ``layer_norm_f32`` at every recorded LN shape (kernel and
+    ``F.layer_norm`` by device time); per seven-member f32 forward into the
+    record."""
+    before = snapshot(stats)
+    u = lambda *shape: torch.rand(shape, generator=gen, device="cuda") * 2 - 1  # noqa: E731
+    for b in (8, BATCH):
+        for grid, c, heads, ws, n_local, n_global in LEVELS:
+            n, nwin = ws * ws, (grid // ws) ** 2
+            q, k, v = (u(b * nwin, heads, n, 32) for _ in range(3))
+            qg = u(b, heads, n, 32).repeat_interleave(nwin, 0)
+            bias, scale = u(heads, n, n), 32 ** -0.5
+            outs = {kind: WA.window_attention(qq, k, v, bias, scale)
+                    for kind, qq in (("local", q), ("global", qg))}
+            torch.cuda.synchronize()
+            check({f"{ATTN32} {kind}": (outs[kind], lambda qq=qq: WA.window_attention_plain(
+                qq, k, v, bias, scale)) for kind, qq in (("local", q), ("global", qg))},
+                f"b{b} {tuple(q.shape)}", stats, F32_KERNEL_BOUND)
+            if b == BATCH:
+                nbytes, ops = 4 * q.numel() * 4 + bias.numel() * 4, 4 * q.numel() * n
+                for kind, qq, count in (("local", q, n_local), ("global", qg, n_global)):
+                    times = time_calls(
+                        lambda: WA.window_attention(qq, k, v, bias, scale),
+                        lambda: WA.window_attention_plain(qq, k, v, bias, scale),
+                        lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=bias,
+                                                               scale=scale))
+                    bound = account(stats, ATTN32, count, times, nbytes, ops, "f32")
+                    print_launch(f"{ATTN32} {kind}", f"{tuple(qq.shape)} L{grid}x{grid}", times,
+                                 bound, card)
+            del q, k, v, qg, outs
+    torch.cuda.empty_cache()
+    for name, member_sites in sites.items():
+        dw_before = dict(stats[DW32])
+        for b in (8, BATCH):
+            for (shape, k, pad), count in member_sites.items():
+                x = u(b, *shape)
+                kern = u(k, k, shape[-1]) * 0.5
+                out = D.depthwise_conv_nhwc(x, kern, padding=pad)
+                torch.cuda.synchronize()
+                label = f"{name} b{b} {(b, *shape)} k{k} pad {pad} x{count}"
+                check({DW32: (out, lambda: D.depthwise_conv_nhwc_plain(x, kern, padding=pad))},
+                      label, stats, F32_KERNEL_BOUND)
+                if b == BATCH:
+                    times = (device_ms(lambda: D.depthwise_conv_nhwc(x, kern, padding=pad)),
+                             cuda_ms(lambda: D.depthwise_conv_nhwc_plain(x, kern, padding=pad),
+                                     iters=2, warmup=1),
+                             device_ms(lambda: depthwise_cudnn(x, kern, padding=pad)))
+                    bound = account(stats, DW32, count, times,
+                                    (x.numel() + out.numel() + kern.numel()) * 4,
+                                    2 * k * k * out.numel(), "f32")
+                    print_launch(DW32, label + " device", times, bound, card)
+                del x, kern, out
+        part = {key: stats[DW32][key] - (dw_before[key] or 0.0)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"[f32] {DW32} per {name} batch-256 f32 forward ({sum(member_sites.values())} "
+              f"sites): kernel {part['ms']:.3f} ms, plain {part['plain_ms']:.2f} ms, cuDNN "
+              f"{part['library_ms']:.3f} ms (device), bound {part['bound_ms']:.3f} ms [{card}]")
+        torch.cuda.empty_cache()
+    for b in (8, BATCH):
+        for (shape, dtype, eps), count in lns.items():
+            c = shape[-1]
+            x = u(b, *shape) * 2
+            w, bb = u(c) * 0.5 + 1.0, u(c) * 0.1
+            out = L.layer_norm(x, w, bb, eps)
+            torch.cuda.synchronize()
+            label = f"{tuple(x.shape)} eps {eps:g} x{count}"
+            check({LN32: (out, lambda: L.layer_norm_plain(x, w, bb, eps))}, label, stats,
+                  F32_KERNEL_BOUND)
+            if b == BATCH:
+                times = time_calls(lambda: L.layer_norm(x, w, bb, eps),
+                                   lambda: L.layer_norm_plain(x, w, bb, eps),
+                                   lambda: F.layer_norm(x, (c,), w, bb, eps), device=True)
+                bound = account(stats, LN32, count, times, 2 * x.numel() * 4 + 2 * c * 4,
+                                8 * x.numel(), "f32")
+                print_launch(LN32, label + " device", times, bound, card)
+            del x, out
+    torch.cuda.empty_cache()
+    print_per_forward(stats, before, F32_KERNELS, "seven-member batch-256 f32 forward", card)
+
+
+def f32_csv(card: str) -> dict:
+    """The seven members of ``ckpts/ckpts.json`` with one-output sigmoid
+    heads through ``main_torch.main`` with ``VIPTPU_DTYPE=float32``, cold and
+    warm, with both TF32 flags on (PyTorch's cuDNN default) before each run:
+    the f32 kernels at each of their sites a batch (``F32_FORWARD``), no
+    other kernel, no plain version called, the forwards with both flags off
+    and the flags restored after, every LN call in f32 (so that each of the
+    LN counter's launches is ``layer_norm_f32``'s); then the same CSV in
+    bf16, the decisions the two dtypes flip printed (no gate). Returns the
+    cold run's launches of the f32 kernels."""
+    batches = -(-N_IMAGES // BATCH)
+    want = {**{n: 0 for n in COUNTED}, ATTN32: batches * F32_FORWARD[ATTN32],
+            DW32: batches * F32_FORWARD[DW32], LN: batches * F32_FORWARD[LN32]}
+    plain, seen, runs = Counter(), set(), {}
+    with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names), binary_heads():
+        for run in ("f32 cold", "f32 warm"):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            ln_calls = []
+            with (knobs(VIPTPU_DTYPE="float32"), counting_plain(plain), recording_tf32(seen),
+                  recording_layer_norms(ln_calls)):
+                runs[run] = run_csv(input_csv, output_csv, names, times)
+            after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            if after != (True, True):
+                raise AssertionError(f"the f32 CSV run left the TF32 flags at {after}")
+            expect_launches(runs[run][0], want, f"seven-member {run} CSV->CSV")
+            dtypes = Counter(dtype for _, dtype, _ in ln_calls)
+            if dtypes != {torch.float32: runs[run][0][LN]}:
+                raise AssertionError(f"the {run} CSV's LN calls by dtype {dict(dtypes)} are not "
+                                     f"its {runs[run][0][LN]} LN launches, all f32")
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        runs["bf16"] = run_csv(input_csv, output_csv, names, times)
+    if sum(plain.values()) or seen != {(False, False)}:
+        raise AssertionError(f"the f32 runs called plain versions {dict(plain)} or ran a forward "
+                             f"with TF32 flags {seen}")
+    raw32, raw16 = runs["f32 warm"][3]["raw"], runs["bf16"][3]["raw"]
+    flips = int(((raw32 > THR) != (raw16 > THR)).sum())
+    ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
+    for run in ("f32 cold", "f32 warm", "bf16"):
+        sec, batch_s = runs[run][1], runs[run][2]
+        print(f"[f32] CSV->CSV {N_IMAGES} images, batch {BATCH}, 7 members (sigmoid heads), "
+              f"{run}: {sec:.2f} s ({N_IMAGES / sec:.1f} img/s; per-batch e2e {ms(batch_s)}) "
+              f"[{card}]")
+    print(f"[f32] f32 vs bf16 on the seven-member CSV: {flips} of {N_IMAGES} decisions flip at "
+          f"{THR}, max|d| of the ensemble means {np.abs(raw32 - raw16).max():.3e}, f32 cold vs "
+          f"warm max|d| {np.abs(runs['f32 cold'][3]['raw'] - raw32).max():.1e}; plain calls "
+          f"{sum(plain.values())}, TF32 flags in the forwards {sorted(seen)} [{card}]")
+    cold = runs["f32 cold"][0]
+    return {ATTN32: cold[ATTN32], DW32: cold[DW32], LN32: cold[LN]}
+
+
+@contextlib.contextmanager
+def recording_gradients(seen: list):
+    """Record in ``seen`` the (loss, gradients) of each ``value_and_grad``
+    the trainer takes: the gradients of its own step's closure."""
+    real = trainer_module.value_and_grad
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out)
+        return out
+
+    trainer_module.value_and_grad = record
+    try:
+        yield
+    finally:
+        trainer_module.value_and_grad = real
+
+
+def f32_trainer_run(name: str, x: torch.Tensor, y: torch.Tensor, plain: bool) -> dict:
+    """A fresh f32 ``Trainer`` of ``name`` (``_train_model``'s seeded
+    weights, drop rates 0, SGD at ``F32_TRAIN_LR``, no decay): its
+    ``eval_step`` and then its ``train_step`` on the batch, both TF32 flags
+    on before each call, on the kernels or, ``plain``, under
+    ``plain_kernels()``. Returns each call's loss, launches and host
+    seconds, the TF32 flags seen at the LN calls and left after each call,
+    the gradients the step's own closure took and each parameter's move."""
+    tr = Trainer(_train_model(name, torch.float32),
+                 TrainConfig(loss="bce_timm", optimizer="sgd", weight_decay=0.0))
+    if tr.model.cfg.fused_block is not None:
+        raise AssertionError(f"{name}'s config forces a block path; the f32 check wants the auto")
+    before = {k: p.detach().clone() for k, p in tr.params.items()}
+    out, grads = {"flags": set(), "after": set()}, []
+    calls = (("eval", lambda: tr.eval_step(x, y)[0]),
+             ("step", lambda: tr.train_step(x, y, F32_TRAIN_LR)))
+    with (plain_kernels() if plain else contextlib.nullcontext()), \
+            recording_tf32(out["flags"]), recording_gradients(grads):
+        for part, call in calls:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            reset_launches()
+            t0 = time.perf_counter()
+            out[part] = call().item()
+            out[part + " s"] = time.perf_counter() - t0
+            out[part + " launches"] = all_launches()
+            out["after"].add((torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    (_, out["grads"]), = grads
+    out["moves"] = {k: p.detach() - before[k] for k, p in tr.params.items()}
+    del tr, before
+    return out
+
+
+def f32_train_step(card: str, name: str) -> None:
+    """``Trainer.eval_step`` and one ``Trainer.train_step`` of an f32
+    ``name`` on the card (:func:`f32_trainer_run`) against the same calls
+    of a second trainer under ``plain_kernels()``: inside each call both
+    TF32 flags off, restored on after; the eval loss on the unfused block
+    (the auto path of an f32 model on CUDA), the step's loss and the norm
+    of the gradients its closure took within ``F32_TRAIN_BOUND``
+    (relative), their cosine >= ``F32_TRAIN_COS``; the step moved each
+    parameter by minus its gradient (cosine >= ``F32_TRAIN_COS``, and
+    against the plain step's moves); eval and step each launched exactly
+    ``F32_TRAIN_LAUNCHES`` (the backwards are plain), the plain trainer
+    nothing."""
+    size = TRAIN_MEMBERS[name][0]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.rand((F32_TRAIN_BATCH, *size, 3), generator=gen, device="cuda")
+    y = (torch.rand((F32_TRAIN_BATCH, 1), generator=gen, device="cuda") > 0.5).float()
+    got = f32_trainer_run(name, x, y, plain=False)
+    torch.cuda.empty_cache()
+    ref = f32_trainer_run(name, x, y, plain=True)
+    torch.cuda.synchronize()
+    flat = lambda d: torch.cat([d[k].flatten() for k in got["grads"]])  # noqa: E731
+    g, g_ref = flat(got["grads"]), flat(ref["grads"])
+    move, move_ref = flat(got["moves"]), flat(ref["moves"])
+    rel = {part: abs(got[part] - ref[part]) / abs(ref[part]) for part in ("eval", "step")}
+    norm_rel = abs(g.norm().item() / g_ref.norm().item() - 1)
+    cos, move_cos, move_ref_cos = _cos(g, g_ref), _cos(move, -F32_TRAIN_LR * g), _cos(move,
+                                                                                     move_ref)
+    want = {**{n: 0 for n in COUNTED}, **F32_TRAIN_LAUNCHES[name]}
+    zero = {n: 0 for n in COUNTED}
+    bad = {f"{who} {part}": {n: (run[part + " launches"][n], c) for n, c in w.items()
+                             if run[part + " launches"][n] != c}
+           for who, run, w in (("kernels", got, want), ("plain", ref, zero))
+           for part in ("eval", "step")}
+    bad = {k: v for k, v in bad.items() if v}
+    flags = {who: (run["flags"], run["after"]) for who, run in (("kernels", got), ("plain", ref))}
+    print(f"[f32] {name}: Trainer.eval_step + one Trainer.train_step (SGD, lr {F32_TRAIN_LR:g}), "
+          f"batch {F32_TRAIN_BATCH}, drop rates 0, the f32 kernels vs plain f32: eval loss "
+          f"{got['eval']:.6f} vs {ref['eval']:.6f} (rel {rel['eval']:.3e}); step loss "
+          f"{got['step']:.6f} vs {ref['step']:.6f} (rel {rel['step']:.3e}); the closure's "
+          f"gradient norm rel {norm_rel:.3e} (bounds {F32_TRAIN_BOUND:g}), cosine {cos:.7f}; "
+          f"the moves vs -lr x gradient cosine {move_cos:.7f}, vs the plain step's moves "
+          f"{move_ref_cos:.7f} (bounds {F32_TRAIN_COS}); TF32 flags (at the LNs, after) "
+          f"{flags}; launches eval "
+          f"{ {n: c for n, c in got['eval launches'].items() if c} }, step "
+          f"{ {n: c for n, c in got['step launches'].items() if c} }; host s eval "
+          f"{got['eval s']:.2f}, step {got['step s']:.2f} [{card}]")
+    if (bad or any(f != ({(False, False)}, {(True, True)}) for f in flags.values())
+            or not all(r <= F32_TRAIN_BOUND for r in rel.values())
+            or not norm_rel <= F32_TRAIN_BOUND or g.norm().item() == 0
+            or not min(cos, move_cos, move_ref_cos) >= F32_TRAIN_COS):
+        raise AssertionError(f"the {name} f32 trainer disagrees with plain f32, ran with TF32 "
+                             f"flags {flags} or launched (got, expected) {bad}")
+    del got, ref, g, g_ref, move, move_ref
+    torch.cuda.empty_cache()
+
+
+def phase_f32(card: str, stats: dict) -> dict:
+    """f32 compute on the card: each member against plain f32
+    (:func:`f32_members`), the three f32 kernels at their shapes
+    (:func:`f32_kernels`), the seven-member f32 CSV (:func:`f32_csv`, whose
+    cold run's launches the record takes), one f32 training step of GCViTTiny
+    and of ConvNeXt (:func:`f32_train_step`). Returns the f32 kernels'
+    launches."""
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(label: str) -> None:
+        laps[label] = round(time.perf_counter() - t0 - sum(laps.values()), 1)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    sites, lns = f32_members(card, gen)
+    lap("members")
+    f32_kernels(card, stats, gen, sites, lns)
+    lap("kernels")
+    launches = f32_csv(card)
+    lap("CSV")
+    for name in ("GCViTTiny", "convnext_tiny_in22k"):
+        f32_train_step(card, name)
+    lap("train steps")
+    print(f"[f32] phase wall time {time.perf_counter() - t0:.1f} s, by part {laps} [{card}]")
+    return launches
+
+
 # the block kernels' wrappers whose leading dimension (the batch of a
 # (B, ...) input, the rows of an (M, C) one) the TTA runs record
 BATCHED = ((K, ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")),
@@ -3865,6 +4302,8 @@ def main(argv) -> None:
     lap("serving")
     phase_pth(card)
     lap("pth")
+    launches.update(phase_f32(card, stats))
+    lap("f32")
     for name in TRAIN_MEMBERS:
         phase_train(card, profile, name)
         lap(f"train {name}")
@@ -3877,7 +4316,7 @@ def main(argv) -> None:
                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"],
                "bound_ms": stats[n]["bound_ms"],
                "bound_by": "bytes" if stats[n]["bytes_ms"] >= stats[n]["ops_ms"] else "operations",
-               "library_ms": stats[n]["library_ms"]} for n in KERNELS]
+               "library_ms": stats[n]["library_ms"]} for n in RECORDED]
     print(f"[smoke] wall seconds by phase: {laps}")
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": record}))

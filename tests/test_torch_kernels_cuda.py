@@ -213,7 +213,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         K.dwconv7x7_nhwc(x, taps, torch.zeros(48, device=cuda_device))
     x = torch.zeros((1, 5, 5, 32), dtype=torch.float32, device=cuda_device)
     taps = torch.zeros((7, 7, 32), device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(NotImplementedError, match="A15b"):  # f32: the fused blocks' f32 mode
         K.dwconv7x7_nhwc(x, taps, torch.zeros(32, device=cuda_device))
     w1 = torch.zeros((128, 32), dtype=torch.bfloat16, device=cuda_device).t()
     with pytest.raises(ValueError):
@@ -353,7 +353,7 @@ def test_gcvit_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     t = torch.zeros((1, 49, 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="heads"):  # head width 16, not 32
         G.window_attention(t, t, t, torch.zeros((4, 49, 49), device=dev), 49, 0.25)
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(NotImplementedError, match="A15b"):  # f32: the fused blocks' f32 mode
         G.window_attention(t.float(), t, t, torch.zeros((2, 49, 49), device=dev), 49, 0.2)
     with pytest.raises(ValueError, match="2C or 3C"):
         G.ln_qkv(t.view(49, 64), torch.ones(64, device=dev), torch.zeros(64, device=dev),
@@ -429,7 +429,7 @@ def test_window_attention_bhnd_matches_plain_on_card(cuda_device, b, heads, n):
     got = WA.window_attention(q, k, v, bias, 32 ** -0.5)
     torch.cuda.synchronize()
     assert got.shape == q.shape and got.dtype == torch.bfloat16
-    assert WA.LAUNCHES == {"window_attention_bhnd": 1}
+    assert WA.LAUNCHES == {"window_attention_bhnd": 1, "window_attention_bhnd_f32": 0}
     ref = WA.window_attention_plain(q.float(), k.float(), v.float(), bias, 32 ** -0.5)
     assert _rel(got, ref) <= 1e-2
     with pytest.raises(ValueError, match="head width"):
@@ -453,7 +453,7 @@ def test_depthwise_matches_plain_on_card(cuda_device, k, padding, c):
     D.reset_launches()
     got = D.depthwise_conv_nhwc(x, kern, padding=padding)
     torch.cuda.synchronize()
-    assert D.LAUNCHES == {"depthwise_conv_nhwc": 1}
+    assert D.LAUNCHES == {"depthwise_conv_nhwc": 1, "depthwise_conv_nhwc_f32": 0}
     ref = D.depthwise_conv_nhwc_plain(x.float(), kern, padding=padding)
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     assert _rel(got, ref) <= 1e-2
@@ -479,7 +479,7 @@ def test_depthwise_tail_slices_on_card(cuda_device, k, c, padding):
     D.reset_launches()
     got = D.depthwise_conv_nhwc(x, kern, padding=padding)
     torch.cuda.synchronize()
-    assert D.LAUNCHES == {"depthwise_conv_nhwc": 1}
+    assert D.LAUNCHES == {"depthwise_conv_nhwc": 1, "depthwise_conv_nhwc_f32": 0}
     ref = D.depthwise_conv_nhwc_plain(x.float(), kern, padding=padding)
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     assert _rel(got, ref) <= 1e-2
@@ -509,7 +509,7 @@ def test_depthwise_conv_module_launches_k9_at_stride_1_only(cuda_device):
         with torch.inference_mode():
             out = conv(x)
         torch.cuda.synchronize()
-        assert D.LAUNCHES == {"depthwise_conv_nhwc": launches}
+        assert D.LAUNCHES == {"depthwise_conv_nhwc": launches, "depthwise_conv_nhwc_f32": 0}
         assert out.shape == (4, 56 // stride, 56 // stride, 192)
     pad = ((1, 2), (1, 2))
     kern = torch.rand((5, 5, 192), generator=g, device=cuda_device).to(torch.bfloat16) - 0.5
@@ -521,6 +521,159 @@ def test_depthwise_conv_module_launches_k9_at_stride_1_only(cuda_device):
     odd = DepthwiseConv(7, 3, 1, torch.bfloat16).to(cuda_device)
     with torch.inference_mode(), pytest.raises(ValueError, match="not even"):
         odd(x[..., :7].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the f32 modes of K8 and K9 (VIPTPU_DTYPE=float32)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,n", [
+    (512, 2, 49), (128, 4, 49), (8, 8, 196), (8, 16, 49),  # GCViTTiny's L1-L4 at batch 8
+    (1, 1, 1), (3, 2, 16), (2, 3, 33), (7, 3, 64), (3, 5, 65), (5, 2, 100), (1, 3, 113),
+    (2, 1, 224),
+])
+def test_window_attention_bhnd_f32_matches_plain_on_card(cuda_device, b, heads, n):
+    """f32 q/k/v (B, H, N, 32) through ``window_attention_bhnd_f32`` against
+    the plain version in f32 on the same inputs (TF32 off): max|d| /
+    max|ref| <= 1e-5. The GCViTTiny sites, and N around the kernel's two key
+    tiles (64, 224) and their ragged edges."""
+    from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+
+    g = torch.Generator(device=cuda_device).manual_seed(n * heads)
+    q, k, v = (torch.rand((b, heads, n, 32), generator=g, device=cuda_device) * 2 - 1
+               for _ in range(3))
+    bias = torch.rand((heads, n, n), generator=g, device=cuda_device) * 2 - 1
+    WA.reset_launches()
+    got = WA.window_attention(q, k, v, bias, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert WA.LAUNCHES == {"window_attention_bhnd": 0, "window_attention_bhnd_f32": 1}
+    assert _rel(got, WA.window_attention_plain(q, k, v, bias, 32 ** -0.5)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,padding", [
+    ((2, 50, 50, 96), 7, ((3, 3), (3, 3))),     # ConvNeXt@200's stage 1, unfused
+    ((2, 12, 12, 768), 7, ((3, 3), (3, 3))),    # its stage 4
+    ((2, 56, 56, 64), 3, ((1, 1), (1, 1))),     # GCViTTiny's FeatExtract / ReduceSize widths
+    ((2, 7, 7, 512), 3, ((1, 1), (1, 1))),
+    ((2, 25, 25, 192), 3, ((1, 1), (1, 1))),    # EfficientNetV2T
+    ((2, 28, 28, 240), 5, ((2, 2), (2, 2))),    # EfficientNetV1B4
+    ((2, 7, 7, 1632), 5, ((2, 2), (2, 2))),
+    ((2, 9, 13, 336), 5, ((2, 1), (0, 2))),     # a tail slice of 16
+    ((2, 9, 13, 24), 7, ((3, 2), (1, 3))),      # the tail alone
+    ((2, 9, 13, 12), 3, ((0, 2), (2, 0))),      # 16-byte copies (C % 4 = 0)
+    ((2, 9, 13, 6), 5, ((2, 2), (2, 2))),       # 8-byte copies
+    ((2, 9, 13, 5), 7, ((3, 0), (0, 3))),       # 4-byte copies: an odd width, f32 only
+])
+def test_depthwise_f32_matches_plain_on_card(cuda_device, shape, k, padding):
+    """f32 x through ``depthwise_conv_nhwc_f32`` at the f32 path's sites
+    and at tail slices, against the plain version: max|d| / max|ref| <= 1e-5
+    (the same f32 taps summed in the same (dy, dx) order, fused multiply-
+    adds against the plain version's rounded products); the f32 plan's
+    copies and shared memory."""
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+
+    g = torch.Generator(device=cuda_device).manual_seed(shape[-1] + k)
+    x = torch.rand(shape, generator=g, device=cuda_device) * 2 - 1
+    kern = torch.rand((k, k, shape[-1]), generator=g, device=cuda_device) - 0.5
+    D.reset_launches()
+    got = D.depthwise_conv_nhwc(x, kern, padding=padding)
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == {"depthwise_conv_nhwc": 0, "depthwise_conv_nhwc_f32": 1}
+    ref = D.depthwise_conv_nhwc_plain(x, kern, padding=padding)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert _rel(got, ref) <= 1e-5
+    c = shape[-1]
+    plan = D.depthwise_plan(ref.shape[1], ref.shape[2], c, torch.float32, k)
+    assert plan["copy_bytes"] == (16 if c % 4 == 0 else 8 if c % 2 == 0 else 4)
+    assert plan["smem_bytes"] == 2 * 128 * (4 * plan["blocks"] + k - 1) * (
+        8 * plan["strips"] + k - 1)
+
+
+@pytest.mark.cuda
+def test_f32_autograd_functions_on_card(cuda_device):
+    """K8's and K9's autograd functions in f32: the kernel forward and the
+    plain backward, against the plain versions' autograd on the same
+    inputs (forward 1e-5 of max|ref|, gradients within 1e-5 of each
+    gradient's max)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+    from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def leaves(*shapes):
+        return [(torch.rand(s, generator=g, device=cuda_device) * 2 - 1).requires_grad_()
+                for s in shapes]
+
+    def check(fn, plain, args, dy):
+        refs = [t.detach().clone().requires_grad_() for t in args]
+        got, want = fn(*args), plain(*refs)
+        assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
+        got.backward(dy)
+        want.backward(dy)
+        for a, r in zip(args, refs):
+            assert _rel(a.grad, r.grad) <= 1e-5
+
+    WA.reset_launches()
+    q, k, v, bias = leaves((16, 4, 49, 32), (16, 4, 49, 32), (16, 4, 49, 32), (4, 49, 49))
+    dy = torch.randn((16, 4, 49, 32), generator=g, device=cuda_device)
+    check(lambda *a: WA.window_attention_fn(*a, 32 ** -0.5),
+          lambda *a: WA.window_attention_plain(*a, 32 ** -0.5), [q, k, v, bias], dy)
+    assert WA.LAUNCHES["window_attention_bhnd_f32"] == 1
+    D.reset_launches()
+    pad = ((1, 1), (1, 1))
+    x, kern = leaves((4, 28, 28, 128), (3, 3, 128))
+    dy = torch.randn((4, 28, 28, 128), generator=g, device=cuda_device)
+    check(lambda *a: D.depthwise_conv_fn(*a, padding=pad),
+          lambda *a: D.depthwise_conv_nhwc_plain(*a, padding=pad), [x, kern], dy)
+    assert D.LAUNCHES["depthwise_conv_nhwc_f32"] == 1
+
+
+@pytest.mark.cuda
+def test_f32_int8_member_matches_plain_on_card(cuda_device):
+    """``VIPTPU_INT8`` composes with f32: a narrow GCViT in f32 on its
+    unfused block (K8, K9 and K10 in f32) with its PTQ sites calibrated and
+    quantized, TF32 off. Against the same model with its int8 sites on
+    their plain version (the f32 kernels as they are): max|d| / max|ref| <=
+    1e-6, the same codes and integer sums. (The f32 kernels themselves are
+    held to their plain versions by the tests above; against the model with
+    every kernel plain an f32 kernel's last-bit difference moves a code
+    that lies at a .5 tie a step of 1/127 of its site's abs-max, so that
+    comparison bounds nothing.) The sites took f32 inputs, and the f32
+    kernels launched."""
+    from vip_cup_2022_tpu_torch.models import create_model
+    from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
+    from vip_cup_2022_tpu_torch.ops.kernels import int8_gemm as Q
+    from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L
+    from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+    from vip_cup_2022_tpu_torch.quant import calibrate, quantized
+
+    model, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1,
+                            classifier_activation=None, dim=32, num_heads=(1, 2, 4, 8),
+                            depths=(2, 2, 2, 2), fused_block=False, seed=0)
+    model = model.to(cuda_device).eval()
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.rand((4, 224, 224, 3), generator=g, device=cuda_device)
+    with torch.no_grad():
+        quantized(model, calibrate(model, [x]))
+    with torch.inference_mode():
+        for module in (D, L, WA, Q):
+            module.reset_launches()
+        got = model(x)
+        launches = {**D.LAUNCHES, **L.LAUNCHES, **WA.LAUNCHES, **Q.LAUNCHES}
+        real = Q.ptq_int8_conv
+        Q.ptq_int8_conv = Q.ptq_int8_conv_plain
+        try:
+            sites_plain = model(x)
+        finally:
+            Q.ptq_int8_conv = real
+    torch.cuda.synchronize()
+    assert launches["window_attention_bhnd_f32"] == 8 and launches["layer_norm"] > 0
+    assert launches["depthwise_conv_nhwc_f32"] > 0 and launches["ptq_int8_conv"] > 0
+    assert launches["window_attention_bhnd"] == launches["depthwise_conv_nhwc"] == 0
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel(got, sites_plain) <= 1e-6
 
 
 @pytest.mark.cuda

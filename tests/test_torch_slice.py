@@ -28,6 +28,7 @@ from vip_cup_2022_tpu_torch.data.decode import decode_image
 from vip_cup_2022_tpu_torch.data.pipeline import _host_resize_uint8
 from vip_cup_2022_tpu_torch.infer import engine
 from vip_cup_2022_tpu_torch.models import create_model, transfer_weights
+from vip_cup_2022_tpu_torch.models.convnext import ConvNeXtConfig, _use_fused_block
 from vip_cup_2022_tpu_torch.ops.resize import resize, resize_matrix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -443,8 +444,17 @@ def test_device_and_dtype_selection(monkeypatch):
     monkeypatch.setenv("VIPTPU_DTYPE", "half")
     with pytest.raises(ValueError, match="not recognized"):
         engine.default_compute_dtype(torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A15"):
-        engine.EnsembleEngine(device="cuda", compute_dtype=torch.float32)
+    # f32 compute on CUDA is served (ROADMAP A15): the engine builds, a
+    # member with a fused block path takes the unfused one there, and the
+    # forwards run with TF32 off
+    eng = engine.EnsembleEngine(device="cuda", compute_dtype=torch.float32, verbose=0)
+    assert eng.compute_dtype == torch.float32
+    assert not _use_fused_block(ConvNeXtConfig(dtype=torch.float32), False, eng.device)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with eng._precision():
+        assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.allow_tf32
+    eng.close()
     monkeypatch.setenv("VIPTPU_PLATFORM", "")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

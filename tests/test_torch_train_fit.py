@@ -274,14 +274,20 @@ def test_mixup_and_cutmix_in_the_step(variables):
 
 
 def test_where_the_trainer_runs(variables, monkeypatch):
-    """On the card unless the CPU is asked for; no CUDA is an error, and f32
-    compute on CUDA is refused (ROADMAP A15)."""
+    """On the card unless the CPU is asked for; no CUDA is an error. f32
+    compute on CUDA is taken (ROADMAP A15): the steps run with TF32 off."""
     monkeypatch.delenv("VIPTPU_PLATFORM", raising=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(_port(variables), TrainConfig())
-    with pytest.raises(NotImplementedError, match="A15"):
-        Trainer(_port(variables), TrainConfig(), device="cuda")
+        # f32 on CUDA is not refused: the trainer gets as far as moving the
+        # model to the card, which this build cannot do
+        with pytest.raises((AssertionError, RuntimeError)) as err:
+            Trainer(_port(variables), TrainConfig(), device="cuda")
+        assert not isinstance(err.value, NotImplementedError)
+    else:
+        tr = Trainer(_port(variables), TrainConfig(), device="cuda")
+        assert tr.device.type == "cuda" and tr.compute_dtype == torch.float32
     monkeypatch.setenv("VIPTPU_PLATFORM", "cpu")
     assert Trainer(_port(variables), TrainConfig()).device.type == "cpu"
     with pytest.raises(ValueError, match="lr_schedule"):

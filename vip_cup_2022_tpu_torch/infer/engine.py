@@ -82,12 +82,25 @@ NFNet (its grouped standardized convs, in their groups), ConvNeXt and GCViT
 on either block path (the JAX package's ``INT8_AUTO`` set on a TPU is
 ``ResNetRS50,ResNest50``).
 
+``VIPTPU_DTYPE=float32`` (f32 compute; bf16 is CUDA's default) runs every
+member in f32 on CUDA, as the JAX package's f32 reference arm runs: GCViT
+and ConvNeXt take their unfused blocks there unless their config forces a
+path (the models' ``_use_fused_block``; the unfused blocks' kernels are the
+f32 window attention, depthwise and LN kernels; a forced fused block
+raises ``NotImplementedError`` in the fused kernels, whose f32 mode is
+ROADMAP item A15b), and the forwards run with TF32 off for cuDNN and
+cuBLAS (:func:`..utils.precision.f32_scope`), so every conv and Linear
+computes in f32; the flags are restored after each forward.
+``VIPTPU_INT8_KERNELS=1`` with f32 on CUDA raises (A15b); ``VIPTPU_INT8``
+composes (the PTQ site takes f32).
+
 Still raising ``NotImplementedError`` rather than running something else
 (a SavedModel checkpoint without TensorFlow installed raises it too):
-f32 compute on CUDA (A15); ``VIPTPU_LN_BF16_SQ=1``; and members of families
-other than ConvNeXt, GCViT, ResNet-RS, EfficientNet, ResNest and NFNet
-(A14), which are all seven of ``ckpts/ckpts.json``. Every Pallas kernel of
-the JAX package has a CUDA counterpart; the depthwise kernel (K9) runs on
+``VIPTPU_LN_BF16_SQ=1``; the fused blocks in f32 on CUDA (A15b); and
+members of families other than ConvNeXt, GCViT, ResNet-RS, EfficientNet,
+ResNest and NFNet (A14), which are all seven of ``ckpts/ckpts.json``.
+Every Pallas kernel of the JAX package has a CUDA counterpart (K8's and
+K9's f32 modes too); the depthwise kernel (K9) runs on
 this path at every stride-1 depthwise conv (EfficientNet, GCViT), and
 those the JAX package's experiment tools reach run in the port's tools
 (``vip_cup_2022_tpu_torch/tools``).
@@ -111,6 +124,7 @@ from ..models import create_model, load_weights, transfer_weights
 from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
 from ..quant import calibrate, dyn_int8, quantized
+from ..utils.precision import f32_scope
 from ..utils.surgery import bn_eps, fuse_all_conv_bn
 from ..weights.from_jax import flax_to_torch
 from ..weights.to_flax import torch_to_flax
@@ -255,10 +269,9 @@ class EnsembleEngine:
                  num_decode_threads: int = 16, verbose: int = 1):
         self.device = torch.device(device) if device is not None else default_device()
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
-        if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "f32 compute on CUDA: the block kernels take bf16 activations; "
-                "f32 kernels are ROADMAP item A15")
+        if verbose and self.device.type == "cuda" and self.compute_dtype == torch.float32:
+            print("> F32: every forward with TF32 off; GCViT and ConvNeXt on their unfused blocks "
+                  "(the fused blocks' f32 mode is A15b)")
         if os.environ.get("VIPTPU_LN_BF16_SQ", "0") == "1":
             raise NotImplementedError(
                 "VIPTPU_LN_BF16_SQ=1 squares in bf16 for the JAX bf16 LN's E[x^2] - E[x]^2 "
@@ -272,6 +285,21 @@ class EnsembleEngine:
 
     def close(self) -> None:
         self._decoder.close()
+
+    def _precision(self):
+        """The context of every forward: TF32 off for f32 on CUDA
+        (:func:`..utils.precision.f32_scope`)."""
+        return f32_scope(self.device, self.compute_dtype)
+
+    def _int8_kernels(self) -> bool:
+        """``VIPTPU_INT8_KERNELS=1``; raises for f32 on CUDA, where the fused
+        blocks it runs int8 have no f32 mode (ROADMAP item A15b)."""
+        on = dyn_int8.int8_kernels_enabled()
+        if on and self.device.type == "cuda" and self.compute_dtype == torch.float32:
+            raise NotImplementedError(
+                "VIPTPU_INT8_KERNELS=1 with f32 compute on CUDA: the int8 GEMMs live in the fused "
+                "blocks, whose f32 mode is ROADMAP item A15b")
+        return on
 
     # ------------------------------------------------------------------
     # data
@@ -437,7 +465,8 @@ class EnsembleEngine:
     def _calibrate_member(self, model: torch.nn.Module, dim, calib_u8: np.ndarray):
         """The per-site activation abs-max table of one member (fold 0) on the
         calibration images, at the member's size and the compute dtype."""
-        return calibrate(model, [self._member_input(self._unit_input(calib_u8), dim)])
+        with self._precision():
+            return calibrate(model, [self._member_input(self._unit_input(calib_u8), dim)])
 
     # ------------------------------------------------------------------
     # forwards
@@ -479,6 +508,10 @@ class EnsembleEngine:
 
         @torch.inference_mode()
         def forward(u8: np.ndarray, masks: Optional[Sequence[TTAMasks]] = None) -> torch.Tensor:
+            with self._precision():
+                return fused_forward(u8, masks)
+
+        def fused_forward(u8: np.ndarray, masks: Optional[Sequence[TTAMasks]]) -> torch.Tensor:
             if tta > 1 and (masks is None or len(masks) != tta):
                 raise ValueError(f"tta={tta} takes one TTAMasks a replica")
             # one resize per distinct member size, one augment per size and replica
@@ -506,11 +539,12 @@ class EnsembleEngine:
 
         @torch.inference_mode()
         def forward(u8: np.ndarray, masks: Optional[Sequence[TTAMasks]] = None) -> torch.Tensor:
-            x = self._member_input(self._unit_input(u8), dim)
-            if tta > 1:
-                xs = [apply_augment(x, m.to(self.device)) for m in masks]
-                return self._tta_forward(model, xs, "map", agg_fn)
-            return model(x).float()
+            with self._precision():
+                x = self._member_input(self._unit_input(u8), dim)
+                if tta > 1:
+                    xs = [apply_augment(x, m.to(self.device)) for m in masks]
+                    return self._tta_forward(model, xs, "map", agg_fn)
+                return model(x).float()
 
         return forward
 
@@ -548,7 +582,7 @@ class EnsembleEngine:
         test_names, test_paths = self._test_names(cfg)
 
         int8 = self._int8_members(cfg.ckpt_cfg, self._int8_names())
-        int8_kernels = dyn_int8.int8_kernels_enabled()
+        int8_kernels = self._int8_kernels()
         members, f32_weights = self.load_members(
             cfg.ckpt_cfg, keep_f32=[pick or int8_kernels for pick in int8])
         if int8_kernels:  # before calibration: JAX calibrates with its blocks int8
@@ -617,7 +651,7 @@ class EnsembleEngine:
         max_batch = int(os.environ.get("VIPTPU_MAX_BATCH", "0"))
         if max_batch:
             batch_size = min(batch_size, max_batch)
-        int8_kernels = dyn_int8.int8_kernels_enabled()
+        int8_kernels = self._int8_kernels()
         folds, f32 = self._load_folds(model_dir_name, ckpt_paths, dim, keep_f32=int8_kernels)
         if int8_kernels:
             self._attach_int8_blocks(model_dir_name, folds, f32)

@@ -87,16 +87,20 @@ class ConvNeXtConfig(ModelConfig):
     fused_block: Optional[bool] = None
 
 
-def _use_fused_block(cfg: ConvNeXtConfig, training: bool) -> bool:
+def _use_fused_block(cfg: ConvNeXtConfig, training: bool,
+                     device: Optional[torch.device] = None) -> bool:
     """Whether the blocks take the fused path, as the JAX package decides:
     never when training or with dropout, else ``cfg.fused_block`` when set,
-    else not when ``VIPTPU_NO_FUSED_BLOCK`` is set. The auto case differs as
-    GCViT's does: the port is fused on the CPU and on CUDA alike, where the
-    JAX package is fused only on a TPU."""
+    else not in f32 on CUDA (``device``, the input's; only the unfused
+    block has f32 kernels there), else not when ``VIPTPU_NO_FUSED_BLOCK``
+    is set. The auto case differs as GCViT's does: the port is fused on the
+    CPU and on CUDA alike, where the JAX package is fused only on a TPU."""
     if training or cfg.drop_rate:
         return False
     if cfg.fused_block is not None:
         return cfg.fused_block
+    if cfg.dtype == torch.float32 and device is not None and device.type == "cuda":
+        return False  # the fused blocks' f32 mode is ROADMAP item A15b
     return not os.environ.get("VIPTPU_NO_FUSED_BLOCK")
 
 
@@ -221,7 +225,7 @@ class ConvNeXt(nn.Module):
         cfg = self.cfg
         x = preprocess_input(x, cfg)
         x = self.stem_norm(self.stem_conv(x))
-        fused = _use_fused_block(cfg, self.training)
+        fused = _use_fused_block(cfg, self.training, x.device)
         min_c = fused_min_c()
         for j, nb in enumerate(cfg.nb_blocks):
             if j > 0:

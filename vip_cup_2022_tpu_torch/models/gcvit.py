@@ -101,16 +101,21 @@ class GCViTConfig(ModelConfig):
     fused_block: Optional[bool] = None
 
 
-def _use_fused_block(cfg: GCViTConfig, training: bool) -> bool:
+def _use_fused_block(cfg: GCViTConfig, training: bool,
+                     device: Optional[torch.device] = None) -> bool:
     """Whether the blocks take the fused path, as the JAX package decides:
     never when training or with dropout, else ``cfg.fused_block`` when set,
-    else not when ``VIPTPU_NO_FUSED_BLOCK`` is set. The auto case differs:
-    the port is fused on the CPU and on CUDA alike, where the JAX package is
-    fused only on a TPU, so on the CPU it runs the unfused path."""
+    else not in f32 on CUDA (``device``, the input's; only the unfused
+    block has f32 kernels there), else not when ``VIPTPU_NO_FUSED_BLOCK``
+    is set. The auto case differs: the port is fused on the CPU and on CUDA
+    alike, where the JAX package is fused only on a TPU, so on the CPU it
+    runs the unfused path."""
     if training or cfg.drop_rate or cfg.attn_drop:
         return False
     if cfg.fused_block is not None:
         return cfg.fused_block
+    if cfg.dtype == torch.float32 and device is not None and device.type == "cuda":
+        return False  # the fused blocks' f32 mode is ROADMAP item A15b
     return not os.environ.get("VIPTPU_NO_FUSED_BLOCK")
 
 
@@ -339,7 +344,7 @@ class GCViT(nn.Module):
         cfg = self.cfg
         x = preprocess_input(x, cfg).to(cfg.dtype)
         x = self.drop(self.patch_embed(x))
-        fused = _use_fused_block(cfg, self.training)
+        fused = _use_fused_block(cfg, self.training, x.device)
         for i in range(len(cfg.depths)):
             x = getattr(self, f"levels_{i}")(x, fused)
         x = self.norm(x).float().mean(dim=(1, 2))

@@ -55,6 +55,9 @@ wrapper counts its launches in :data:`LAUNCHES`. The plain versions compute
 the int8 products in f64, exact at these magnitudes, and the same f32
 epilogue step by step, so a kernel given the same codes and scales agrees
 with its plain version bit for bit before its output's last rounding.
+Given the f32 compute dtype's activations on CUDA (a bf16 block's bf16
+input or output in f32) a wrapper raises ``NotImplementedError`` naming
+ROADMAP item A15b (:func:`.convnext_block.refuse_f32`).
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ from ...quant.dyn_int8 import Int8Weight
 from . import build
 from . import convnext_block as CK
 from . import gcvit_block as G
-from .convnext_block import _check, _check_rows, _check_width, _stream
+from .convnext_block import _check, _check_rows, _check_width, _stream, refuse_f32
 
 LAUNCHES: Dict[str, int] = {"ln_fc1_gelu_int8": 0, "ln_qkv_int8": 0, "quantize_rows": 0,
                             "fc2_scale_residual_int8": 0, "proj_scale_residual_int8": 0,
@@ -430,6 +433,7 @@ def mlp_int8_scale_residual(x_q: torch.Tensor, x_scale: torch.Tensor, h_scale: t
     if x_q.device.type == "cpu":
         return mlp_int8_scale_residual_plain(x_q, x_scale, h_scale, w1_q, w1_scale, b1, w2_q,
                                              w2_scale, b2, gamma, residual, out_dtype)
+    refuse_f32("mlp_int8_scale_residual", out_dtype)
     if x_q.ndim != 2:
         raise ValueError(f"x_q must be (M, C), got {tuple(x_q.shape)}")
     m, c = x_q.shape
@@ -495,6 +499,7 @@ def ln_qkv_int8(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     (S C,) -> bf16."""
     if x.device.type == "cpu":
         return ln_qkv_int8_plain(x, ln_weight, ln_bias, w_q, w_scale, b, eps)
+    refuse_f32("ln_qkv_int8", x)
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -575,6 +580,7 @@ def fc2_scale_residual_int8(a_q: torch.Tensor, a_scale: torch.Tensor, w_q: torch
     if a_q.device.type == "cpu":
         return fc2_scale_residual_int8_plain(a_q, a_scale, w_q, w_scale, b2, gamma, residual,
                                              out_dtype)
+    refuse_f32("fc2_scale_residual_int8", out_dtype)
     if out_dtype != torch.bfloat16:
         raise TypeError(f"fc2_scale_residual_int8 writes bf16 on CUDA, not {out_dtype}")
     return _res_gemm("fc2_scale_residual_int8", "res", a_q, a_scale, w_q, w_scale, b2, gamma,
@@ -589,6 +595,7 @@ def proj_scale_residual_int8(a_q: torch.Tensor, a_scale: torch.Tensor, wp_q: tor
     f32 (C,), x bf16 (M, C) -> f32 (M, C)."""
     if a_q.device.type == "cpu":
         return proj_scale_residual_int8_plain(a_q, a_scale, wp_q, wp_scale, bp, gamma, x)
+    refuse_f32("proj_scale_residual_int8", x)
     if wp_q.shape[0] != a_q.shape[-1]:
         raise ValueError(f"wp_q must be (C, C) for C = {a_q.shape[-1]}, got {tuple(wp_q.shape)}")
     if x.dtype != torch.bfloat16:

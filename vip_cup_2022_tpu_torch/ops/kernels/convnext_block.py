@@ -46,7 +46,11 @@ per block); the depthwise output also makes a f32 round trip.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
-wrapper counts its launches in :data:`LAUNCHES`.
+wrapper counts its launches in :data:`LAUNCHES`. The kernels take bf16
+activations: given the f32 activations of ``VIPTPU_DTYPE=float32`` on CUDA
+(an f32 block input, weights or hidden), a wrapper raises
+``NotImplementedError`` (:func:`refuse_f32`): f32 members take the unfused
+block, and the fused blocks' f32 mode is ROADMAP item A15b.
 """
 from __future__ import annotations
 
@@ -256,6 +260,18 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must start on a 16-byte boundary (the kernels load 16 bytes at a time)")
 
 
+def refuse_f32(name: str, *tensors) -> None:
+    """A fused-block kernel given the f32 compute dtype's activations on
+    CUDA (``tensors``: the activations and weights, or an output dtype,
+    that are bf16 in a bf16 block): raise ``NotImplementedError`` before
+    any dtype check, and run no plain version in its place."""
+    if any((t if isinstance(t, torch.dtype) else t.dtype) == torch.float32 for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the fused block kernels take bf16 activations; f32 members run the "
+            "unfused block (fused_block=False), and the fused blocks' f32 mode is ROADMAP item "
+            "A15b")
+
+
 def _check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     """A kernel without a backward must not cut an autograd graph silently."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -324,6 +340,7 @@ def dwconv7x7_nhwc(x: torch.Tensor, dw_kernel: torch.Tensor,
     CUDA: x bf16 (B, H, W, C), taps f32 (7, 7, C), bias f32 (C,) -> f32."""
     if x.device.type == "cpu":
         return dwconv7x7_nhwc_plain(x, dw_kernel, dw_bias)
+    refuse_f32("dwconv7x7_nhwc", x)
     if x.ndim != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -343,6 +360,7 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     params f32 (C,), w1 bf16 (N, C), b1 f32 (N,) -> bf16 (M, N)."""
     if x.device.type == "cpu":
         return ln_fc1_gelu_plain(x, ln_weight, ln_bias, w1, b1, eps)
+    refuse_f32("ln_fc1_gelu", w1)  # x is f32 in bf16 blocks too: the depthwise sum, GCViT's r1
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -369,6 +387,7 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     (M, C) -> bf16."""
     if hidden.device.type == "cpu":
         return fc2_scale_residual_plain(hidden, w2, b2, gamma, residual)
+    refuse_f32("fc2_scale_residual", hidden, w2)
     if hidden.ndim != 2:
         raise ValueError(f"hidden must be (M, N), got {tuple(hidden.shape)}")
     m, n = hidden.shape

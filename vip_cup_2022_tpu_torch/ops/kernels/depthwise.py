@@ -11,14 +11,17 @@ so does the timing tool :mod:`..tools.exp_dw`.
 
 ``depthwise_conv_nhwc`` (``csrc/depthwise.cu``) runs the shared-memory-tiled
 template of ``csrc/depthwise.cuh`` that ``dwconv7x7_nhwc`` runs for ConvNeXt,
-at k in {3, 5, 7} with no bias, a bf16 output and the given padding: a
-persistent CTA keeps one 32-channel slice (the last one a tail where C is
-not a multiple of 32), copies each output tile's halo into shared memory by
-``cp.async`` (the padding zero-filled), and a thread owns one channel x 4
-rows x 8 columns with its k x k taps in registers. :func:`depthwise_plan`
-reports the tile plan the launcher takes at an output size. What bounds it
-on the card: the bytes at k = 3 and 5, the f32 FMAs at k = 7 (2 k^2 FLOPs
-per output element for 4 bytes moved).
+at k in {3, 5, 7} with no bias, the output in x's dtype and the given
+padding: a persistent CTA keeps one 32-channel slice (the last one a tail
+where C is not a multiple of 32), copies each output tile's halo into shared
+memory by ``cp.async`` (the padding zero-filled), and a thread owns one
+channel x 4 rows x 8 columns with its k x k taps in registers. A bf16 x
+launches the symbol ``depthwise_conv_nhwc``, an f32 x (``VIPTPU_DTYPE=
+float32``) ``depthwise_conv_nhwc_f32``: the same tiles, a halo pixel of 128
+bytes instead of 64. :func:`depthwise_plan` reports the tile plan the
+launcher takes at an output size. What bounds it on the card: the bytes at
+k = 3 and 5, the f32 FMAs at k = 7 (2 k^2 FLOPs per output element for 4
+bytes moved in bf16, 8 in f32).
 
 Training: :func:`depthwise_conv_fn` (:class:`DepthwiseConvFunction`) runs
 :func:`depthwise_conv_nhwc` forward and, backward, the plain version's
@@ -30,7 +33,7 @@ JAX package trains through XLA's conv).
 
 Dispatch: the wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back. It
-counts its launches in :data:`LAUNCHES`.
+counts its launches in :data:`LAUNCHES`, one count a symbol.
 """
 from __future__ import annotations
 
@@ -45,13 +48,15 @@ from ..pad import Padding
 from . import build
 from .convnext_block import _check, _check_no_grad, _stream
 
-LAUNCHES: Dict[str, int] = {"depthwise_conv_nhwc": 0}
+# the kernel's symbol for each input dtype (the output takes x's dtype)
+SYMBOL = {torch.bfloat16: "depthwise_conv_nhwc", torch.float32: "depthwise_conv_nhwc_f32"}
+LAUNCHES: Dict[str, int] = {name: 0 for name in SYMBOL.values()}
 
 KERNEL_SIZES = (3, 5, 7)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-PLAN_KEYS = ("strips", "blocks", "tiles_w", "tiles_h", "slices", "copy_bytes")
+PLAN_KEYS = ("strips", "blocks", "tiles_w", "tiles_h", "slices", "copy_bytes", "smem_bytes")
 
 
 def reset_launches() -> None:
@@ -62,21 +67,26 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("depthwise")
-    lib.depthwise_conv_nhwc.argtypes = _ARGTYPES
-    lib.depthwise_conv_nhwc.restype = ctypes.c_int
-    lib.depthwise_conv_nhwc_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    for name in SYMBOL.values():
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.depthwise_conv_nhwc_plan.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.depthwise_conv_nhwc_plan.restype = ctypes.c_int
     return lib
 
 
-def depthwise_plan(ho: int, wo: int, c: int) -> Dict[str, int]:
+def depthwise_plan(ho: int, wo: int, c: int, dtype: torch.dtype = torch.bfloat16,
+                   k: int = 7) -> Dict[str, int]:
     """The tile plan the kernel's launcher takes for a (Ho, Wo) output of C
-    channels (``PLAN_KEYS``: column strips of 8 and row blocks of 4 in a
-    tile, tiles across and down an image, 32-channel slices, bytes a halo
-    copy moves). Asks the built library, so it needs nvcc."""
+    channels of ``dtype`` (``PLAN_KEYS``: column strips of 8 and row blocks
+    of 4 in a tile, tiles across and down an image, 32-channel slices, bytes
+    a halo copy moves, and the two halo buffers' shared memory at kernel
+    size ``k``). Asks the built library, so it needs nvcc."""
     out = (_I * len(PLAN_KEYS))()
-    if _lib().depthwise_conv_nhwc_plan(ho, wo, c, out) != 0:
-        raise ValueError(f"no plan for a {ho} x {wo} x {c} output")
+    elem = torch.empty((), dtype=dtype).element_size()
+    if _lib().depthwise_conv_nhwc_plan(ho, wo, c, elem, k, out) != 0:
+        raise ValueError(f"no plan for a {ho} x {wo} x {c} {dtype} output")
     return dict(zip(PLAN_KEYS, out))
 
 
@@ -108,10 +118,10 @@ def depthwise_conv_nhwc(x: torch.Tensor, kern: torch.Tensor, *,
                         padding: Padding) -> torch.Tensor:
     """Stride-1 depthwise conv over NHWC x with taps ``kern`` (kh, kw, 1, C)
     (Flax's layout) or (kh, kw, C) and ``padding`` ((top, bottom), (left,
-    right)). CUDA: x bf16 (B, H, W, C), C even, square k in {3, 5, 7} ->
-    bf16 (B, Ho, Wo, C); the taps are cast to f32. No backward of its own,
-    so it raises where autograd would need one: train through
-    :func:`depthwise_conv_fn`."""
+    right)). CUDA: x bf16 (B, H, W, C) with C even, or f32 with any C,
+    square k in {3, 5, 7} -> x's dtype (B, Ho, Wo, C); the taps are cast to
+    f32. No backward of its own, so it raises where autograd would need
+    one: train through :func:`depthwise_conv_fn`."""
     if x.device.type == "cpu":
         return depthwise_conv_nhwc_plain(x, kern, padding=padding)
     if x.ndim != 4:
@@ -121,23 +131,26 @@ def depthwise_conv_nhwc(x: torch.Tensor, kern: torch.Tensor, *,
     if kh != kw or kh not in KERNEL_SIZES:
         raise ValueError(f"the kernel takes square k x k taps with k in {KERNEL_SIZES}, "
                          f"got {kh} x {kw}")
-    if c % 2:
-        raise ValueError(f"channel width {c} is not even")
+    if x.dtype not in SYMBOL:
+        raise TypeError(f"x has dtype {x.dtype}, the kernel takes bfloat16 or float32")
+    if x.dtype == torch.bfloat16 and c % 2:
+        raise ValueError(f"channel width {c} is not even (a bf16 pixel must fill 4-byte copies)")
     (pt, pb), (pl, pr) = padding
     ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
     if min(pt, pb, pl, pr) < 0 or ho < 0 or wo < 0:
         raise ValueError(f"padding {padding} with k = {kh} on {h} x {w} gives no output")
-    _check("x", x, torch.bfloat16, (b, h, w, c), x.device)
+    _check("x", x, x.dtype, (b, h, w, c), x.device)
     if kern.device != x.device:
         raise ValueError(f"kern is on {kern.device}, expected {x.device}")
     _check_no_grad("depthwise_conv_nhwc", x, kern)
     taps = _taps(kern, c)
-    out = torch.empty((b, ho, wo, c), dtype=torch.bfloat16, device=x.device)
-    err = _lib().depthwise_conv_nhwc(x.data_ptr(), taps.data_ptr(), out.data_ptr(), b, h, w, c,
-                                     kh, pt, pb, pl, pr, _stream(x.device))
+    out = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
+    name = SYMBOL[x.dtype]
+    err = getattr(_lib(), name)(x.data_ptr(), taps.data_ptr(), out.data_ptr(), b, h, w, c, kh, pt,
+                                pb, pl, pr, _stream(x.device))
     if err != 0:
-        raise RuntimeError(f"depthwise_conv_nhwc: CUDA launch failed with cudaError {err}")
-    LAUNCHES["depthwise_conv_nhwc"] += 1
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[name] += 1
     return out
 
 

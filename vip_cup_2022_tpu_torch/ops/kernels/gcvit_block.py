@@ -49,7 +49,9 @@ VMEM.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
-wrapper counts its launches in :data:`LAUNCHES`.
+wrapper counts its launches in :data:`LAUNCHES`. Given f32 activations on
+CUDA a wrapper raises ``NotImplementedError`` naming ROADMAP item A15b
+(:func:`.convnext_block.refuse_f32`).
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ import torch.nn.functional as F
 
 from . import build
 from . import convnext_block as CK
-from .convnext_block import _check, _check_width, _stream
+from .convnext_block import _check, _check_width, _stream, refuse_f32
 
 LAUNCHES: Dict[str, int] = {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0}
 
@@ -151,6 +153,7 @@ def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     w bf16 (S*C, C), b f32 (S*C,) -> bf16."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_weight, ln_bias, w, b, eps)
+    refuse_f32("ln_qkv", x, w)
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -218,6 +221,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
     head width 32, N <= 224 -> bf16 (B, nWin*N, C)."""
     if k.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, n, scale, q_is_global)
+    refuse_f32("window_attention", q, k, v)
     if k.ndim != 3:
         raise ValueError(f"k must be (B, nWin*N, C), got {tuple(k.shape)}")
     b, toks, c = k.shape
@@ -243,6 +247,7 @@ def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
     bf16 (C, C), bp and gamma f32 (C,) -> f32 (M, C)."""
     if a.device.type == "cpu":
         return proj_scale_residual_plain(a, wp, bp, gamma, x)
+    refuse_f32("proj_scale_residual", a, wp, x)
     if a.ndim != 2:
         raise ValueError(f"a must be (M, C), got {tuple(a.shape)}")
     m, c = a.shape

@@ -20,7 +20,7 @@ reference LN, recomputed from the saved (x, g, b).
 
 Dispatch: the wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back. It
-counts its launches in :data:`LAUNCHES`.
+counts its launches in :data:`LAUNCHES`, in either dtype.
 """
 from __future__ import annotations
 

@@ -18,6 +18,12 @@ keys. What bounds it on the card: at N = 49 the bytes of q, k, v and the
 output; at N = 196 the softmax between the two products (~4 N D FLOPs per
 token and head are far below the tensor cores' rate).
 
+In f32 (``VIPTPU_DTYPE=float32``) the wrapper launches
+``window_attention_bhnd_f32`` (``csrc/window_attention.cu``), the TPU
+kernel's f32 mode: its f32 dots cannot run on the tensor cores, so a CTA
+of four warps computes one (window, head) with f32 FMAs on the CUDA cores,
+q, k and v in shared memory, four query rows a warp at a time, P in f32.
+
 Training: :func:`window_attention_fn` (:class:`WindowAttentionFunction`)
 runs :func:`window_attention` forward and, backward, the gradient of
 :func:`window_attention_plain` with respect to q, k, v and the bias,
@@ -26,7 +32,7 @@ recomputed from the saved inputs, as ``LayerNormFunction`` does for the LN
 
 Dispatch: the wrapper runs the plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back. It
-counts its launches in :data:`LAUNCHES`.
+counts its launches in :data:`LAUNCHES`, one count a symbol.
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ import torch
 from . import build
 from .convnext_block import _check, _check_no_grad, _stream
 
-LAUNCHES: Dict[str, int] = {"window_attention_bhnd": 0}
+# the kernel's symbol for each dtype of q, k, v (the output takes v's)
+SYMBOL = {torch.bfloat16: "window_attention_bhnd", torch.float32: "window_attention_bhnd_f32"}
+LAUNCHES: Dict[str, int] = {name: 0 for name in SYMBOL.values()}
 
 HEAD_DIM = 32  # the kernel's head width; every GCViT variant has dim / heads = 32
 MAX_WINDOW_TOKENS = 224  # keys per window the kernel holds (N <= 224: 14 x 14 fits)
@@ -57,8 +65,10 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("window_attention")
-    lib.window_attention_bhnd.argtypes = _ARGTYPES
-    lib.window_attention_bhnd.restype = ctypes.c_int
+    for name in SYMBOL.values():
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
     lib.window_attention_bhnd_cut.argtypes = _ARGTYPES[:-1] + [ctypes.c_int, _P]
     lib.window_attention_bhnd_cut.restype = ctypes.c_int
     return lib
@@ -77,20 +87,22 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                      scale: float) -> torch.Tensor:
     """Fused softmax(q k^T * scale + bias) v with windows folded into B.
-    CUDA: q, k, v bf16 (B, H, N, 32) contiguous, bias f32 (H, N, N),
-    N <= 224 -> bf16 (B, H, N, 32). No backward of its own, so it raises
-    where autograd would need one: train through :func:`window_attention_fn`."""
+    CUDA: q, k, v (B, H, N, 32) contiguous, all bf16 or all f32, bias f32
+    (H, N, N), N <= 224 -> (B, H, N, 32) in q's dtype. No backward of its
+    own, so it raises where autograd would need one: train through
+    :func:`window_attention_fn`."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, scale)
-    b, heads, n = _check_inputs(q, k, v, bias)
-    _check_no_grad("window_attention_bhnd", q, k, v, bias)
+    b, heads, n = _check_inputs(q, k, v, bias, q.dtype)
+    name = SYMBOL[q.dtype]
+    _check_no_grad(name, q, k, v, bias)
     out = torch.empty_like(q)
-    err = _lib().window_attention_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                                       out.data_ptr(), b * heads, heads, n, float(scale),
-                                       _stream(q.device))
+    err = getattr(_lib(), name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                out.data_ptr(), b * heads, heads, n, float(scale),
+                                _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"window_attention_bhnd: CUDA launch failed with cudaError {err}")
-    LAUNCHES["window_attention_bhnd"] += 1
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[name] += 1
     return out
 
 
@@ -139,16 +151,19 @@ def window_attention_cut(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias
     return out
 
 
-def _check_inputs(q, k, v, bias):
-    """(B, H, N) of bf16 q, k, v (B, H, N, 32) and an f32 (H, N, N) bias the
-    kernel takes; raises on anything else."""
+def _check_inputs(q, k, v, bias, dtype=torch.bfloat16):
+    """(B, H, N) of ``dtype`` q, k, v (B, H, N, 32) and an f32 (H, N, N) bias
+    the kernel takes (bf16, or f32 for the f32 kernel); raises on anything
+    else."""
     if q.ndim != 4:
         raise ValueError(f"q must be (B, H, N, D), got {tuple(q.shape)}")
+    if dtype not in SYMBOL:
+        raise TypeError(f"q has dtype {dtype}, the kernel takes bfloat16 or float32")
     b, heads, n, d = q.shape
     if d != HEAD_DIM or n > MAX_WINDOW_TOKENS:
         raise ValueError(f"window attention takes head width {HEAD_DIM} and N <= "
                          f"{MAX_WINDOW_TOKENS}; got D = {d}, N = {n}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, torch.bfloat16, (b, heads, n, d), q.device)
+        _check(name, t, dtype, (b, heads, n, d), q.device)
     _check("bias", bias, torch.float32, (heads, n, n), q.device)
     return b, heads, n

@@ -29,9 +29,11 @@ Evaluation: ``--n-eval`` held-out images at 200 x 200 as uint8, through
 three arms, each the ensemble mean of the members' sigmoid scores after the
 engine's resize to each member's size:
 - f32: the members in f32 on the device with every kernel routed through
-  its plain version (:func:`..ops.kernels.reference.plain_kernels`) and the
-  unfused block paths, the reference (the engine itself takes no f32
-  compute on CUDA, ROADMAP A15);
+  its plain version (:func:`..ops.kernels.reference.plain_kernels`), the
+  unfused block paths and TF32 off, the reference (the engine serves f32
+  on the card too, ``VIPTPU_DTYPE=float32``, through the f32 kernels of the
+  unfused blocks; this arm keeps the plain versions so that it stays a
+  reference apart from every kernel);
 - bf16: ``EnsembleEngine.build_fused_ensemble`` in bf16, the serving path;
 - int8: the same with the members of the JAX engine's ``INT8_AUTO`` set
   (ResNetRS50 of the three) quantized after calibration on the first eval
@@ -66,6 +68,7 @@ from ..ops.resize import resize
 from ..quant import QuantizedSite
 from ..train import TrainConfig, Trainer
 from ..utils.checkpoint import load_variables, save_variables
+from ..utils.precision import tf32_off
 from ..weights.from_jax import flax_to_torch
 from ..weights.to_flax import torch_to_flax
 from .bench_util import card_line
@@ -169,7 +172,7 @@ def eval_arms(spec, ckpt_dir: str, n_eval: int, batch: int, device: torch.device
 
     results = {}
     # f32: plain versions of every kernel, the unfused block paths
-    with plain_kernels(), torch.inference_mode():
+    with plain_kernels(), torch.inference_mode(), tf32_off():
         members = [(_trained(name, dim, {**kw, **_unfused(name)}, ckpt_dir, torch.float32,
                              device)[0], tuple(dim)) for name, dim, kw in spec]
         outs = []

@@ -3,8 +3,12 @@
 ``Trainer(model, cfg).fit(train_iter_fn, val_iter_fn)`` trains a port model
 on the card (``infer/engine.py::default_device``; the CPU only when
 ``VIPTPU_PLATFORM=cpu`` or a ``device`` says so). The model computes in its
-config's dtype (bf16 on CUDA; f32 compute on CUDA raises, ROADMAP item A15)
-with its parameters held in f32, as Flax's ``param_dtype``. A step: uint8
+config's dtype (bf16 or f32, on CUDA as on the CPU) with its parameters held
+in f32, as Flax's ``param_dtype``. In f32 on CUDA every step and evaluation
+runs with TF32 off for cuDNN and cuBLAS (``utils/precision.py::f32_scope``),
+and a GCViT or ConvNeXt whose config leaves the block path to the default
+evaluates on its unfused block, as it trains (the models' rule; the fused
+blocks' f32 mode is ROADMAP item A15b). A step: uint8
 batches / 255, mixup / cutmix, the forward in training mode (GCViT's
 unfused path: K8, K9 and K10 under autograd), the loss in f32 (plus the
 teacher's distillation KL), the gradient (SAM's second pass with
@@ -40,6 +44,7 @@ import torch.nn.functional as F
 from ..infer.engine import default_device
 from ..ops.drop import set_generator
 from ..utils.checkpoint import load_variables, save_variables
+from ..utils.precision import f32_scope
 from ..weights.from_jax import state_dict_from_flax
 from ..weights.to_flax import flax_paths, torch_to_flax
 from .logging import MetricLogger
@@ -111,11 +116,7 @@ class Trainer:
                  device: Optional[torch.device] = None):
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else default_device()
-        compute = getattr(getattr(model, "cfg", None), "dtype", torch.float32)
-        if self.device.type == "cuda" and compute != torch.bfloat16:
-            raise NotImplementedError(
-                "f32 compute on CUDA: the kernels take bf16 activations; f32 kernels are "
-                "ROADMAP item A15")
+        self.compute_dtype = getattr(getattr(model, "cfg", None), "dtype", torch.float32)
         # the parameters in f32 from here on, Flax's param_dtype
         self.model = model.to(device=self.device, dtype=torch.float32)
         self.params = dict(self.model.named_parameters())
@@ -191,6 +192,10 @@ class Trainer:
     def train_step(self, images, labels, lr: float) -> torch.Tensor:
         """One step on a batch at learning rate ``lr``; returns the loss (a
         0-d f32 tensor on the device, not fetched)."""
+        with f32_scope(self.device, self.compute_dtype):
+            return self._train_step(images, labels, lr)
+
+    def _train_step(self, images, labels, lr: float) -> torch.Tensor:
         cfg = self.cfg
         x = self._input(images)
         y = self._tensor(labels)
@@ -223,7 +228,7 @@ class Trainer:
         """(loss, accuracy) of one batch in eval mode; the accuracy is NaN
         where the label layout defines none."""
         self.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), f32_scope(self.device, self.compute_dtype):
             out = self.model(self._input(images)).float()
         y = self._tensor(labels)
         loss = self._loss(y, out)
