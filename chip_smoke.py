@@ -436,6 +436,11 @@ ATTN, LN, DW = "window_attention_bhnd", "layer_norm", "depthwise_conv_nhwc"
 # their f32 modes (VIPTPU_DTYPE=float32): K8's and K9's a symbol and a launch counter each;
 # K10's one counter counts both dtypes, so LN32's launches are read from its recorded calls
 ATTN32, DW32, LN32 = ATTN + "_f32", DW + "_f32", LN + "_f32"
+# the fused blocks' f32 modes: a symbol and a launch counter each, launched by the bf16
+# kernels' wrappers when the weights (the depthwise: x, the attention: k) are f32
+CONVNEXT_F32 = tuple(n + "_f32" for n in CONVNEXT_KERNELS)
+GCVIT_F32 = tuple(n + "_f32" for n in GCVIT_KERNELS)
+BLOCK_F32 = CONVNEXT_F32 + GCVIT_F32
 LNMLP_KERNELS = ("fused_ln_mlp_residual", "lnmlp_batchlane", "lnmlp_chanfirst")
 PARTS = "attn_parts"
 SPIKE_KERNELS = ("int8_spike_bf16", "int8_spike_int8", "int8_spike_direct")
@@ -453,7 +458,7 @@ BF16_VARIANT = {"ln_fc1_gelu_int8": "ln_fc1_gelu", "ln_qkv_int8": "ln_qkv",
                 "fc2_scale_residual_int8": "fc2_scale_residual",
                 "proj_scale_residual_int8": "proj_scale_residual"}
 KERNELS = (CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
-           + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS + (ATTN32, DW32))
+           + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS + (ATTN32, DW32) + BLOCK_F32)
 COUNTED = KERNELS + CHAIN_KERNELS  # every launch counter the launch checks read
 RECORDED = KERNELS + (LN32,)  # the kernels record's entries
 CSRC = "vip_cup_2022_tpu_torch/csrc"
@@ -462,6 +467,7 @@ SOURCES.update({n: f"{CSRC}/gcvit_block.cu" for n in GCVIT_KERNELS})
 SOURCES.update({ATTN: f"{CSRC}/window_attention.cu", LN: f"{CSRC}/layernorm.cu",
                 DW: f"{CSRC}/depthwise.cu", PARTS: f"{CSRC}/attn_parts.cu"})
 SOURCES.update({ATTN32: SOURCES[ATTN], LN32: SOURCES[LN], DW32: SOURCES[DW]})
+SOURCES.update({n + "_f32": SOURCES[n] for n in CONVNEXT_KERNELS + GCVIT_KERNELS})
 SOURCES.update({n: f"{CSRC}/ln_mlp.cu" for n in LNMLP_KERNELS})
 SOURCES.update({n: f"{CSRC}/int8_gemm.cu" for n in SPIKE_KERNELS})
 SOURCES.update({n: f"{CSRC}/ptq_int8.cuh" for n in (QUANT, PTQ)})  # built into int8_gemm.cu's
@@ -498,6 +504,7 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
     **{n: f"{TPU}:602, {TPU}:443, {GTPU}:667, {GTPU}:906" for n in PAIR},
 }
 REPLACES.update({ATTN32: REPLACES[ATTN], LN32: REPLACES[LN], DW32: REPLACES[DW]})  # f32 modes
+REPLACES.update({n + "_f32": REPLACES[n] for n in CONVNEXT_KERNELS + GCVIT_KERNELS})
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
 CONVNEXT_BLOCKS, GCVIT_BLOCKS = 18, 31
@@ -691,18 +698,19 @@ def time_calls(kern, plain, library=None, device: bool = False) -> tuple:
     return ms[0], ms[1], (ms[2] if library is not None else None)
 
 
-def block_inputs(b, h, w, c, gen):
+def block_inputs(b, h, w, c, gen, dtype=torch.bfloat16):
+    """A ConvNeXt block's inputs, x and the two GEMM weights in ``dtype``."""
     dev = "cuda"
 
     def u(shape, lo, hi):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
 
     return dict(
-        x=u((b, h, w, c), -1, 1).to(torch.bfloat16),
+        x=u((b, h, w, c), -1, 1).to(dtype),
         dw=u((7, 7, c), -0.2, 0.2), dwb=u((c,), -0.1, 0.1),
         lg=u((c,), 0.5, 1.5), lb=u((c,), -0.1, 0.1),
-        w1=(u((4 * c, c), -1, 1) * c ** -0.5).to(torch.bfloat16), b1=u((4 * c,), -0.1, 0.1),
-        w2=(u((c, 4 * c), -1, 1) * (4 * c) ** -0.5).to(torch.bfloat16),
+        w1=(u((4 * c, c), -1, 1) * c ** -0.5).to(dtype), b1=u((4 * c,), -0.1, 0.1),
+        w2=(u((c, 4 * c), -1, 1) * (4 * c) ** -0.5).to(dtype),
         b2=u((c,), -0.1, 0.1), ls=u((c,), 0.5, 1.5),  # layer scale of order 1, not 1e-6
     )
 
@@ -727,9 +735,10 @@ def phase_build() -> None:
     print(f"[build] {sorted(paths.values())} ready in {time.perf_counter() - t0:.1f} s")
 
 
-def run_stage(b, h, w, c, gen) -> dict:
-    """One stage's block inputs at batch ``b`` and the three kernels' outputs."""
-    p = block_inputs(b, h, w, c, gen)
+def run_stage(b, h, w, c, gen, dtype=torch.bfloat16) -> dict:
+    """One stage's block inputs at batch ``b`` and the three kernels' outputs
+    (their f32 modes for ``dtype`` f32)."""
+    p = block_inputs(b, h, w, c, gen, dtype)
     m = b * h * w
     p["x2"] = p["x"].view(m, c)
     p["d"] = K.dwconv7x7_nhwc(p["x"], p["dw"], p["dwb"]).view(m, c)
@@ -757,15 +766,20 @@ def check(refs: dict, label: str, stats: dict, bound: float = KERNEL_BOUND) -> N
 
 
 def check_stage(p: dict, shape: tuple, stats: dict) -> None:
+    """The three kernels' outputs of :func:`run_stage` against their plain
+    versions in f32; in the f32 mode (f32 x) under ``F32_KERNEL_BOUND``
+    and in the ``_f32`` symbols' records."""
     c = shape[-1]
-    check({"dwconv7x7_nhwc": (p["d"], lambda: K.dwconv7x7_nhwc_plain(
+    f32 = p["x"].dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    check({"dwconv7x7_nhwc" + sfx: (p["d"], lambda: K.dwconv7x7_nhwc_plain(
         p["x"].float(), p["dw"], p["dwb"]).view(-1, c))}, str(shape), stats, F32_KERNEL_BOUND)
     check({
-        "ln_fc1_gelu": (p["hid"], lambda: K.ln_fc1_gelu_plain(
+        "ln_fc1_gelu" + sfx: (p["hid"], lambda: K.ln_fc1_gelu_plain(
             p["d"], p["lg"], p["lb"], p["w1"].float(), p["b1"], 1e-6)),
-        "fc2_scale_residual": (p["out"], lambda: K.fc2_scale_residual_plain(
+        "fc2_scale_residual" + sfx: (p["out"], lambda: K.fc2_scale_residual_plain(
             p["hid"].float(), p["w2"].float(), p["b2"], p["ls"], p["x2"].float())),
-    }, str(shape), stats)
+    }, str(shape), stats, F32_KERNEL_BOUND if f32 else KERNEL_BOUND)
 
 
 def phase_kernels(card: str, stats: dict) -> None:
@@ -813,9 +827,10 @@ def phase_kernels(card: str, stats: dict) -> None:
     exp_dwconv.main(["--iters", "10"])  # the depthwise kernel's phase cuts at s1-s4
 
 
-def gcvit_level_inputs(b, grid, c, heads, ws, gen) -> dict:
-    """One GCViT level's block inputs at batch ``b``, window-ordered tokens."""
-    dev, bf = "cuda", torch.bfloat16
+def gcvit_level_inputs(b, grid, c, heads, ws, gen, bf=torch.bfloat16) -> dict:
+    """One GCViT level's block inputs at batch ``b``, window-ordered tokens;
+    the activations and GEMM weights in ``bf`` (bf16, or f32)."""
+    dev = "cuda"
     n = ws * ws
 
     def u(shape, lo=-1.0, hi=1.0):
@@ -837,56 +852,64 @@ def gcvit_level_inputs(b, grid, c, heads, ws, gen) -> dict:
 def gcvit_calls(p: dict, b: int, c: int, heads: int) -> dict:
     """name -> (kernel call, plain call, library call or None, bytes,
     operations) for every GCViT launch of one level, both block kinds; the
-    plain versions run on the same bf16 inputs. The library call of the
-    attention is SDPA on the same (window, head) tiles, the global query
-    repeated over the windows beforehand."""
+    plain versions run on the same bf16 (or f32) inputs. The library call of
+    the attention is SDPA on the same (window, head) tiles, the global query
+    repeated over the windows beforehand; in f32 each GEMM's is cuBLAS's
+    f32 product alone (``F.linear``, TF32 off), and each name takes the
+    ``_f32`` suffix of its symbol."""
     n, m = p["n"], p["m"]
+    f32 = p["x"].dtype == torch.float32
+    sfx, e = ("_f32", 4) if f32 else ("", 2)  # the symbols' suffix, bytes an element
     wkv, bkv = p["wqkv"][c:], p["bqkv"][c:]
     t = lambda a: a.view(b, -1, c)  # noqa: E731
     heads_view = lambda a: a.reshape(-1, n, heads, 32).transpose(1, 2)  # noqa: E731
     q, k, v = p["qkv"]
     q_rep = p["qg"].repeat_interleave(m // (b * n), 0)
-    mask = p["bias"].to(torch.bfloat16)
+    mask = p["bias"].to(p["x"].dtype)
     sdpa = lambda qq: F.scaled_dot_product_attention(  # noqa: E731
         heads_view(qq), heads_view(k), heads_view(v), attn_mask=mask, scale=p["scale"])
-    act, weights = m * c * 2, c * c * 2  # bytes of one bf16 (M, C) activation, one C x C weight
+    gemm = (lambda a, w: lambda: F.linear(a, w)) if f32 else (lambda a, w: None)  # noqa: E731
+    act, weights = m * c * e, c * c * e  # bytes of one (M, C) activation, one C x C weight
     attn_ops, bias_bytes = 4 * m * n * c, heads * n * n * 4
     return {
-        "ln_qkv local": (lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5),
-                         lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"],
-                                                1e-5),
-                         None, 4 * act + 3 * weights, 2 * m * c * 3 * c),
-        "ln_qkv global": (lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
-                          lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
-                          None, 3 * act + 2 * weights, 2 * m * c * 2 * c),
-        "window_attention local": (
+        "ln_qkv" + sfx + " local": (
+            lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5),
+            lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5),
+            gemm(p["x"], p["wqkv"]), 4 * act + 3 * weights, 2 * m * c * 3 * c),
+        "ln_qkv" + sfx + " global": (
+            lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
+            lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
+            gemm(p["x"], wkv), 3 * act + 2 * weights, 2 * m * c * 2 * c),
+        "window_attention" + sfx + " local": (
             lambda: G.window_attention(t(q), t(k), t(v), p["bias"], n, p["scale"]),
             lambda: G.window_attention_plain(t(q), t(k), t(v), p["bias"], n, p["scale"]),
             lambda: sdpa(q), 4 * act + bias_bytes, attn_ops),
-        "window_attention global": (
+        "window_attention" + sfx + " global": (
             lambda: G.window_attention(p["qg"], t(k), t(v), p["bias"], n, p["scale"], True),
             lambda: G.window_attention_plain(p["qg"], t(k), t(v), p["bias"], n, p["scale"], True),
-            lambda: sdpa(q_rep), 3 * act + b * n * c * 2 + bias_bytes, attn_ops),
-        "proj_scale_residual": (
+            lambda: sdpa(q_rep), 3 * act + b * n * c * e + bias_bytes, attn_ops),
+        "proj_scale_residual" + sfx: (
             lambda: G.proj_scale_residual(p["attn"], p["wp"], p["bp"], p["g1"], p["x"]),
             lambda: G.proj_scale_residual_plain(p["attn"], p["wp"], p["bp"], p["g1"], p["x"]),
-            None, 2 * act + weights + m * c * 4, 2 * m * c * c),
-        "ln_fc1_gelu": (
+            gemm(p["attn"], p["wp"]), 2 * act + weights + m * c * 4, 2 * m * c * c),
+        "ln_fc1_gelu" + sfx: (
             lambda: K.ln_fc1_gelu(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5),
             lambda: K.ln_fc1_gelu_plain(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5),
-            None, m * c * 4 + 3 * weights + 3 * act, 2 * m * c * 3 * c),
-        "fc2_scale_residual": (
+            gemm(p["r1"], p["w1"]), m * c * 4 + 3 * weights + 3 * act, 2 * m * c * 3 * c),
+        "fc2_scale_residual" + sfx: (
             lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"]),
             lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"]),
-            None, 3 * act + 3 * weights + m * c * 4 + act, 2 * m * 3 * c * c),
+            gemm(p["hid"], p["w2"]), 3 * act + 3 * weights + m * c * 4 + act,
+            2 * m * 3 * c * c),
     }
 
 
-def run_check_level(b, level, gen, stats) -> tuple:
+def run_check_level(b, level, gen, stats, dtype=torch.bfloat16) -> tuple:
     """Run every GCViT launch of one level at batch ``b`` and check each
-    against its plain version in f32; returns the inputs and the calls."""
+    against its plain version in f32; returns the inputs and the calls.
+    ``dtype`` f32: the kernels' f32 modes, under ``F32_KERNEL_BOUND``."""
     grid, c, heads, ws, _, _ = level
-    p = gcvit_level_inputs(b, grid, c, heads, ws, gen)
+    p = gcvit_level_inputs(b, grid, c, heads, ws, gen, dtype)
     n = p["n"]
     p["qkv"] = G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5)
     kv = G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"][c:], p["bqkv"][c:], 1e-5)
@@ -900,22 +923,24 @@ def run_check_level(b, level, gen, stats) -> tuple:
     out = K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"])
     torch.cuda.synchronize()
     f = lambda a: a.float()  # noqa: E731
+    f32 = dtype == torch.float32
+    sfx = "_f32" if f32 else ""
     check({
-        "ln_qkv local": (torch.cat(p["qkv"], 1), lambda: torch.cat(G.ln_qkv_plain(
+        "ln_qkv" + sfx + " local": (torch.cat(p["qkv"], 1), lambda: torch.cat(G.ln_qkv_plain(
             p["x"], p["lg"], p["lb"], f(p["wqkv"]), p["bqkv"], 1e-5), 1)),
-        "ln_qkv global": (torch.cat(kv, 1), lambda: torch.cat(G.ln_qkv_plain(
+        "ln_qkv" + sfx + " global": (torch.cat(kv, 1), lambda: torch.cat(G.ln_qkv_plain(
             p["x"], p["lg"], p["lb"], f(p["wqkv"][c:]), p["bqkv"][c:], 1e-5), 1)),
-        "window_attention local": (attn_l, lambda: G.window_attention_plain(
+        "window_attention" + sfx + " local": (attn_l, lambda: G.window_attention_plain(
             f(t(q)), f(t(k)), f(t(v)), p["bias"], n, p["scale"])),
-        "window_attention global": (attn_g, lambda: G.window_attention_plain(
+        "window_attention" + sfx + " global": (attn_g, lambda: G.window_attention_plain(
             f(p["qg"]), f(t(k)), f(t(v)), p["bias"], n, p["scale"], True)),
-        "proj_scale_residual": (p["r1"], lambda: G.proj_scale_residual_plain(
+        "proj_scale_residual" + sfx: (p["r1"], lambda: G.proj_scale_residual_plain(
             f(p["attn"]), f(p["wp"]), p["bp"], p["g1"], f(p["x"]))),
-        "ln_fc1_gelu": (p["hid"], lambda: K.ln_fc1_gelu_plain(
+        "ln_fc1_gelu" + sfx: (p["hid"], lambda: K.ln_fc1_gelu_plain(
             p["r1"], p["lg2"], p["lb2"], f(p["w1"]), p["b1"], 1e-5)),
-        "fc2_scale_residual": (out, lambda: K.fc2_scale_residual_plain(
+        "fc2_scale_residual" + sfx: (out, lambda: K.fc2_scale_residual_plain(
             f(p["hid"]), f(p["w2"]), p["b2"], p["g2"], p["r1"])),
-    }, f"L b{b} {grid}x{grid}x{c} w{ws}", stats)
+    }, f"L b{b} {grid}x{grid}x{c} w{ws}", stats, F32_KERNEL_BOUND if f32 else KERNEL_BOUND)
     return p
 
 
@@ -2860,23 +2885,33 @@ def knobs(**env):
 
 
 # ---------------------------------------------------------------------------
-# f32 compute on the card (VIPTPU_DTYPE=float32): K8, K9 and K10 in f32
+# f32 compute on the card (VIPTPU_DTYPE=float32): the fused blocks' f32 modes
+# (K1/K2, K4, K5, K6), and K8, K9 and K10 in f32
 # ---------------------------------------------------------------------------
-F32_KERNELS = (ATTN32, DW32, LN32)
 F32_LOGIT_BOUND = 2e-4  # of max(1, max|ref|): a member's f32 kernel path against plain f32
+F32_PROB_BOUND = 1e-4  # a member's f32 probabilities against plain f32 and its unfused path
 F32_TIE = 1e-4  # a decision may differ only for a score this close to 0.487
 F32_TRAIN_BOUND, F32_TRAIN_COS = 1e-4, 0.9999  # one f32 step against the plain f32 step
 F32_TRAIN_BATCH = 16
 F32_TRAIN_LR = 1.0  # SGD at lr 1 moves each parameter by minus its gradient
 THR = 0.487
-# the f32 kernels' launches in one seven-member forward: GCViT's 31 unfused blocks, K9 at
-# GCViT's 11, V2T's 27, V1B4's 28 and ConvNeXt's 18 unfused blocks, every LN of ConvNeXt
-# and GCViT on their unfused blocks
-F32_FORWARD = {ATTN32: GCVIT_BLOCKS,
-               DW32: GCVIT_DW_SITES + sum(DW_SITES.values()) + CONVNEXT_BLOCKS,
-               LN32: CONVNEXT_LNS + CONVNEXT_BLOCKS + GCVIT_LNS + 2 * GCVIT_BLOCKS}
-# an f32 training step's launches (forward only: the backwards are plain), and an f32
-# eval step's on the unfused block
+FUSED_MEMBERS = ("GCViTTiny", "convnext_tiny_in22k")
+# one seven-member f32 forward's launches: GCViT's 31 and ConvNeXt's 18 fused blocks on the
+# f32 block kernels (the MLP pair in both), K9 at GCViT's 11, V2T's 27 and V1B4's 28
+# stride-1 depthwise sites, the LNs outside the blocks (K8 f32 runs only on the unfused
+# block: in training, or with VIPTPU_NO_FUSED_BLOCK)
+F32_BLOCKS = {**{n: GCVIT_BLOCKS for n in GCVIT_F32},
+              "dwconv7x7_nhwc_f32": CONVNEXT_BLOCKS,
+              **{n + "_f32": GCVIT_BLOCKS + CONVNEXT_BLOCKS for n in MLP_KERNELS}}
+F32_FORWARD = {**F32_BLOCKS, DW32: GCVIT_DW_SITES + sum(DW_SITES.values()),
+               LN32: CONVNEXT_LNS + GCVIT_LNS}
+# an f32 eval step's launches (the fused block), and an f32 training step's (the unfused
+# block, forward only: the backwards are plain)
+F32_EVAL_LAUNCHES = {"GCViTTiny": {**{n: GCVIT_BLOCKS for n in GCVIT_F32},
+                                   **{n + "_f32": GCVIT_BLOCKS for n in MLP_KERNELS},
+                                   DW32: GCVIT_DW_SITES, LN: GCVIT_LNS},
+                     "convnext_tiny_in22k": {**{n: CONVNEXT_BLOCKS for n in CONVNEXT_F32},
+                                             LN: CONVNEXT_LNS}}
 F32_TRAIN_LAUNCHES = {"GCViTTiny": {ATTN32: GCVIT_BLOCKS, DW32: GCVIT_DW_SITES,
                                     LN: GCVIT_LNS + 2 * GCVIT_BLOCKS},
                       "convnext_tiny_in22k": {DW32: CONVNEXT_BLOCKS,
@@ -2922,8 +2957,8 @@ def recording_tf32(seen: set):
 
 
 def f32_member(name: str, dim) -> torch.nn.Module:
-    """Full-width ``name`` at ``dim`` in f32 as the engine builds it (on the
-    card GCViT and ConvNeXt take their unfused blocks by themselves),
+    """Full-width ``name`` at ``dim`` in f32 as the engine builds it (GCViT
+    and ConvNeXt on the auto block path: their fused blocks on the card),
     seeded weights, one output, logits out."""
     model, _ = create_model(name, input_size=tuple(dim), nb_classes=1, classifier_activation=None,
                             dtype=torch.float32, seed=0)
@@ -2933,11 +2968,16 @@ def f32_member(name: str, dim) -> torch.nn.Module:
 def f32_members(card: str, gen) -> tuple:
     """Each member of ``MANIFEST`` in f32: its batch-8 logits on the kernel
     path against ``plain_kernels()`` (TF32 off), within ``F32_LOGIT_BOUND``
-    of max(1, max|ref|), the decisions at 0.487 equal but within
-    ``F32_TIE`` of it; its batch-256 f32 forward timed (CUDA events, a
-    warm-up and two runs). Returns each member's K9 sites and every LN call
-    (shape without the batch, dtype, eps) of one forward."""
-    sites, lns, forward_ms = {}, Counter(), {}
+    of max(1, max|ref|), its probabilities within ``F32_PROB_BOUND``, the
+    decisions at 0.487 equal but within ``F32_TIE`` of it; GCViT's and
+    ConvNeXt's (on their fused f32 blocks, only the f32 block kernels
+    launched) also against their unfused f32 forward
+    (``VIPTPU_NO_FUSED_BLOCK=1``) under the same bounds; its batch-256 f32
+    forward timed (CUDA events, a warm-up and two runs; the fused members'
+    fused and unfused forwards in turns, fused, unfused, unfused, fused).
+    Returns each member's K9 sites and every LN call (shape without the
+    batch, dtype, eps) of one forward."""
+    sites, lns, forward_ms, unfused_ms = {}, Counter(), {}, {}
     for base, dim, _ in MANIFEST:
         name = engine.registry_name(base)
         model = f32_member(name, dim)
@@ -2946,32 +2986,61 @@ def f32_members(card: str, gen) -> tuple:
         with torch.inference_mode():
             with recording_depthwise(dw_calls), recording_layer_norms(ln_calls):
                 model(x[:1])
+            reset_launches()
             got = model(x)
+            launches = all_launches()
             with plain_kernels():
                 ref = model(x)
+            refs = {"plain f32": ref}
+            if name in FUSED_MEMBERS:
+                with knobs(VIPTPU_NO_FUSED_BLOCK="1"):
+                    refs["unfused f32"] = model(x)
         torch.cuda.synchronize()
         sites[name] = Counter(dw_calls)
         lns.update(ln_calls)
         top = ref.abs().max().item()
-        d = (got - ref).abs().max().item() / max(1.0, top)
-        p, p_ref = torch.sigmoid(got), torch.sigmoid(ref)
-        flips = int((((p > THR) != (p_ref > THR)) & ((p_ref - THR).abs() > F32_TIE)).sum())
-        print(f"[f32] {name} {dim[0]}x{dim[1]} b8: the f32 kernel path vs plain f32 (TF32 off): "
-              f"max|d| / max(1, max|ref|) = {d:.3e} (bound {F32_LOGIT_BOUND:g}), max|ref| "
-              f"{top:.3e}; decisions at {THR} that differ away from it: {flips}; "
+        # the block kernels launched, bf16 or f32, against one forward's f32 block launches
+        blocks = {n: c for n, c in launches.items()
+                  if c and n in BLOCK_F32 + CONVNEXT_KERNELS + GCVIT_KERNELS}
+        want = {n: c for n, c in F32_EVAL_LAUNCHES.get(name, {}).items() if n in BLOCK_F32}
+        line, bad = [], blocks != want
+        for path, other in refs.items():
+            d = (got - other).abs().max().item() / max(1.0, top)
+            dp = (torch.sigmoid(got) - torch.sigmoid(other)).abs().max().item()
+            p, p_ref = torch.sigmoid(got), torch.sigmoid(other)
+            flips = int((((p > THR) != (p_ref > THR)) & ((p_ref - THR).abs() > F32_TIE)).sum())
+            line.append(f"vs {path}: max|d| / max(1, max|ref|) = {d:.3e} (bound "
+                        f"{F32_LOGIT_BOUND:g}), max|dp| = {dp:.3e} (bound {F32_PROB_BOUND:g}), "
+                        f"decisions at {THR} that differ away from it: {flips}")
+            bad = bad or not d <= F32_LOGIT_BOUND or not dp <= F32_PROB_BOUND or flips > 0
+        print(f"[f32] {name} {dim[0]}x{dim[1]} b8, the f32 kernel path "
+              f"{'; '.join(line)}; max|ref| {top:.3e}; block launches {blocks}; "
               f"{len(dw_calls)} K9 calls, {len(ln_calls)} LNs a forward [{card}]")
-        if (got.shape != (8, 1) or not torch.isfinite(got).all() or not d <= F32_LOGIT_BOUND
-                or flips):
-            raise AssertionError(f"{name}'s f32 kernel path disagrees with plain f32")
-        del got, ref
+        if got.shape != (8, 1) or not torch.isfinite(got).all() or bad:
+            raise AssertionError(f"{name}'s f32 kernel path disagrees with plain f32 or its "
+                                 f"unfused path, or launched {blocks}")
+        del got, ref, refs, want
         xb = torch.rand((BATCH, *dim, 3), generator=gen, device="cuda")
         with torch.inference_mode():
-            forward_ms[name] = cuda_ms(lambda: model(xb), iters=2, warmup=1)
+            if name in FUSED_MEMBERS:
+                ms = {"fused": [], "unfused": []}
+                for path in ("fused", "unfused", "unfused", "fused"):
+                    with (knobs(VIPTPU_NO_FUSED_BLOCK="1") if path == "unfused"
+                          else contextlib.nullcontext()):
+                        ms[path].append(cuda_ms(lambda: model(xb), iters=2, warmup=1))
+                forward_ms[name] = sum(ms["fused"]) / 2
+                unfused_ms[name] = sum(ms["unfused"]) / 2
+            else:
+                forward_ms[name] = cuda_ms(lambda: model(xb), iters=2, warmup=1)
         del model, xb
         torch.cuda.empty_cache()
     print(f"[f32] batch-{BATCH} f32 forward on the f32 kernels (TF32 off), ms: " + ", ".join(
         f"{n} {t:.2f}" for n, t in forward_ms.items())
         + f"; seven members {sum(forward_ms.values()):.2f} [{card}]")
+    print(f"[f32] batch-{BATCH} f32 forward, fused blocks vs unfused blocks "
+          f"(VIPTPU_NO_FUSED_BLOCK=1), in turns: " + ", ".join(
+              f"{n} {forward_ms[n]:.2f} vs {unfused_ms[n]:.2f} ms (fused / unfused "
+              f"{forward_ms[n] / unfused_ms[n]:.3f})" for n in unfused_ms) + f" [{card}]")
     n_sites = sum(sum(c.values()) for c in sites.values())
     if n_sites != F32_FORWARD[DW32] or sum(lns.values()) != F32_FORWARD[LN32] or any(
             dtype != torch.float32 for _, dtype, _ in lns):
@@ -2980,12 +3049,70 @@ def f32_members(card: str, gen) -> tuple:
     return sites, lns
 
 
+def f32_block_kernels(card: str, stats: dict, gen) -> None:
+    """The six f32 block kernels against their plain versions in f32
+    (``F32_KERNEL_BOUND``) at ConvNeXt's s1-s4 and GCViTTiny's L1-L4, batch
+    8 (ragged row tiles) and 256, timed at 256 (CUDA events, in turns)
+    beside the library: cuDNN's f32 depthwise conv, cuBLAS's f32 product
+    alone (``F.linear``, TF32 off) for the GEMMs, SDPA in f32 for the
+    attention; bounds at the f32 peak; per forward into the record."""
+    before = snapshot(stats)
+    for h, w, c, _ in STAGES:
+        check_stage(run_stage(8, h, w, c, gen, torch.float32), (8, h, w, c), stats)
+        torch.cuda.empty_cache()
+    for h, w, c, nblocks in STAGES:
+        p = run_stage(BATCH, h, w, c, gen, torch.float32)
+        check_stage(p, (BATCH, h, w, c), stats)
+        m, n = BATCH * h * w, 4 * c
+        xc, wc = p["x"].permute(0, 3, 1, 2), p["dw"].permute(2, 0, 1).unsqueeze(1)
+        calls = {  # name: (kernel, plain, library, bytes, f32 operations)
+            "dwconv7x7_nhwc_f32": (
+                lambda: K.dwconv7x7_nhwc(p["x"], p["dw"], p["dwb"]),
+                lambda: K.dwconv7x7_nhwc_plain(p["x"], p["dw"], p["dwb"]),
+                lambda: F.conv2d(xc, wc, p["dwb"], padding=3, groups=c),
+                2 * m * c * 4 + 50 * c * 4, 2 * 49 * m * c),
+            "ln_fc1_gelu_f32": (
+                lambda: K.ln_fc1_gelu(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6),
+                lambda: K.ln_fc1_gelu_plain(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6),
+                lambda: F.linear(p["d"], p["w1"]),
+                m * c * 4 + n * c * 4 + (n + 2 * c) * 4 + m * n * 4, 2 * m * c * n),
+            "fc2_scale_residual_f32": (
+                lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"]),
+                lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"]),
+                lambda: F.linear(p["hid"], p["w2"]),
+                m * n * 4 + n * c * 4 + 2 * c * 4 + 2 * m * c * 4, 2 * m * n * c),
+        }
+        for name, (kern, plain, lib, nbytes, ops) in calls.items():
+            times = time_calls(kern, plain, lib)
+            bound = account(stats, name, nblocks, times, nbytes, ops, "f32")
+            print_launch(name, f"({BATCH},{h},{w},{c})", times, bound, card)
+        del p, calls, xc, wc
+        torch.cuda.empty_cache()
+    for level in LEVELS:
+        run_check_level(8, level, gen, stats, torch.float32)
+        torch.cuda.empty_cache()
+    for level in LEVELS:
+        grid, c, heads, ws, n_local, n_global = level
+        p = run_check_level(BATCH, level, gen, stats, torch.float32)
+        for name, (kern, plain, lib, nbytes, ops) in gcvit_calls(p, BATCH, c, heads).items():
+            times = time_calls(kern, plain, lib)
+            count = (n_local if name.endswith("local") else n_global if name.endswith("global")
+                     else n_local + n_global)
+            bound = account(stats, name.split(" ")[0], count, times, nbytes, ops, "f32")
+            print_launch(name, f"({BATCH},{grid},{grid},{c}) w{ws}", times, bound, card)
+        del p
+        torch.cuda.empty_cache()
+    print_per_forward(stats, before, BLOCK_F32,
+                      "ConvNeXt + GCViTTiny batch-256 f32 forward (18 + 31 fused blocks)", card)
+
+
 def f32_kernels(card: str, stats: dict, gen, sites: dict, lns: Counter) -> None:
-    """The three f32 kernels against their plain versions at batch 8 and
-    256 (``F32_KERNEL_BOUND``) at the f32 path's shapes, timed at 256:
-    ``window_attention_bhnd_f32`` at GCViTTiny's L1-L4 (local and global
-    query; events; library SDPA in f32 with the bias as a float mask),
-    ``depthwise_conv_nhwc_f32`` at every recorded K9 site (kernel and
+    """The three f32 kernels of the unfused path and the blocks' surroundings
+    against their plain versions at batch 8 and 256 (``F32_KERNEL_BOUND``),
+    timed at 256: ``window_attention_bhnd_f32`` at GCViTTiny's L1-L4 (local
+    and global query; events; library SDPA in f32 with the bias as a float
+    mask; per batch-256 forward of GCViT's unfused block, the f32 training
+    path), ``depthwise_conv_nhwc_f32`` at every recorded K9 site (kernel and
     cuDNN's f32 grouped conv by device time, plain by events) and
     ``layer_norm_f32`` at every recorded LN shape (kernel and
     ``F.layer_norm`` by device time); per seven-member f32 forward into the
@@ -3018,6 +3145,8 @@ def f32_kernels(card: str, stats: dict, gen, sites: dict, lns: Counter) -> None:
             del q, k, v, qg, outs
     torch.cuda.empty_cache()
     for name, member_sites in sites.items():
+        if not member_sites:  # ConvNeXt on its fused blocks, the members without a dw site
+            continue
         dw_before = dict(stats[DW32])
         for b in (8, BATCH):
             for (shape, k, pad), count in member_sites.items():
@@ -3063,21 +3192,24 @@ def f32_kernels(card: str, stats: dict, gen, sites: dict, lns: Counter) -> None:
                 print_launch(LN32, label + " device", times, bound, card)
             del x, out
     torch.cuda.empty_cache()
-    print_per_forward(stats, before, F32_KERNELS, "seven-member batch-256 f32 forward", card)
+    print_per_forward(stats, before, (ATTN32,), "GCViTTiny batch-256 f32 forward on the unfused "
+                      "block (training)", card)
+    print_per_forward(stats, before, (DW32, LN32), "seven-member batch-256 f32 forward", card)
 
 
 def f32_csv(card: str) -> dict:
     """The seven members of ``ckpts/ckpts.json`` with one-output sigmoid
     heads through ``main_torch.main`` with ``VIPTPU_DTYPE=float32``, cold and
     warm, with both TF32 flags on (PyTorch's cuDNN default) before each run:
-    the f32 kernels at each of their sites a batch (``F32_FORWARD``), no
-    other kernel, no plain version called, the forwards with both flags off
-    and the flags restored after, every LN call in f32 (so that each of the
-    LN counter's launches is ``layer_norm_f32``'s); then the same CSV in
-    bf16, the decisions the two dtypes flip printed (no gate). Returns the
-    cold run's launches of the f32 kernels."""
+    the f32 kernels at each of their sites a batch (``F32_FORWARD``: GCViT
+    and ConvNeXt on the six f32 block kernels), no other kernel (no bf16
+    block kernel, no K8), no plain version called, the forwards with both
+    flags off and the flags restored after, every LN call in f32 (so that
+    each of the LN counter's launches is ``layer_norm_f32``'s); then the
+    same CSV in bf16, the decisions the two dtypes flip printed (no gate).
+    Returns the cold run's launches of the f32 kernels."""
     batches = -(-N_IMAGES // BATCH)
-    want = {**{n: 0 for n in COUNTED}, ATTN32: batches * F32_FORWARD[ATTN32],
+    want = {**{n: 0 for n in COUNTED}, **{n: batches * c for n, c in F32_BLOCKS.items()},
             DW32: batches * F32_FORWARD[DW32], LN: batches * F32_FORWARD[LN32]}
     plain, seen, runs = Counter(), set(), {}
     with csv_workspace(MANIFEST) as (input_csv, output_csv, times, names), binary_heads():
@@ -3113,7 +3245,7 @@ def f32_csv(card: str) -> dict:
           f"warm max|d| {np.abs(runs['f32 cold'][3]['raw'] - raw32).max():.1e}; plain calls "
           f"{sum(plain.values())}, TF32 flags in the forwards {sorted(seen)} [{card}]")
     cold = runs["f32 cold"][0]
-    return {ATTN32: cold[ATTN32], DW32: cold[DW32], LN32: cold[LN]}
+    return {**{n: cold[n] for n in BLOCK_F32}, DW32: cold[DW32], LN32: cold[LN]}
 
 
 @contextlib.contextmanager
@@ -3168,18 +3300,19 @@ def f32_trainer_run(name: str, x: torch.Tensor, y: torch.Tensor, plain: bool) ->
     return out
 
 
-def f32_train_step(card: str, name: str) -> None:
+def f32_train_step(card: str, name: str) -> dict:
     """``Trainer.eval_step`` and one ``Trainer.train_step`` of an f32
     ``name`` on the card (:func:`f32_trainer_run`) against the same calls
     of a second trainer under ``plain_kernels()``: inside each call both
-    TF32 flags off, restored on after; the eval loss on the unfused block
-    (the auto path of an f32 model on CUDA), the step's loss and the norm
-    of the gradients its closure took within ``F32_TRAIN_BOUND``
-    (relative), their cosine >= ``F32_TRAIN_COS``; the step moved each
-    parameter by minus its gradient (cosine >= ``F32_TRAIN_COS``, and
-    against the plain step's moves); eval and step each launched exactly
-    ``F32_TRAIN_LAUNCHES`` (the backwards are plain), the plain trainer
-    nothing."""
+    TF32 flags off, restored on after; the eval loss on the fused block
+    (the auto path of an f32 model in eval mode), the step's loss (the
+    unfused block) and the norm of the gradients its closure took within
+    ``F32_TRAIN_BOUND`` (relative), their cosine >= ``F32_TRAIN_COS``; the
+    step moved each parameter by minus its gradient (cosine >=
+    ``F32_TRAIN_COS``, and against the plain step's moves); eval launched
+    exactly ``F32_EVAL_LAUNCHES`` and the step ``F32_TRAIN_LAUNCHES`` (the
+    backwards are plain), the plain trainer nothing. Returns the step's
+    launches."""
     size = TRAIN_MEMBERS[name][0]
     gen = torch.Generator(device="cuda").manual_seed(31)
     x = torch.rand((F32_TRAIN_BATCH, *size, 3), generator=gen, device="cuda")
@@ -3195,11 +3328,12 @@ def f32_train_step(card: str, name: str) -> None:
     norm_rel = abs(g.norm().item() / g_ref.norm().item() - 1)
     cos, move_cos, move_ref_cos = _cos(g, g_ref), _cos(move, -F32_TRAIN_LR * g), _cos(move,
                                                                                      move_ref)
-    want = {**{n: 0 for n in COUNTED}, **F32_TRAIN_LAUNCHES[name]}
     zero = {n: 0 for n in COUNTED}
-    bad = {f"{who} {part}": {n: (run[part + " launches"][n], c) for n, c in w.items()
+    want = {"eval": {**zero, **F32_EVAL_LAUNCHES[name]},
+            "step": {**zero, **F32_TRAIN_LAUNCHES[name]}}
+    bad = {f"{who} {part}": {n: (run[part + " launches"][n], c) for n, c in w[part].items()
                              if run[part + " launches"][n] != c}
-           for who, run, w in (("kernels", got, want), ("plain", ref, zero))
+           for who, run, w in (("kernels", got, want), ("plain", ref, {"eval": zero, "step": zero}))
            for part in ("eval", "step")}
     bad = {k: v for k, v in bad.items() if v}
     flags = {who: (run["flags"], run["after"]) for who, run in (("kernels", got), ("plain", ref))}
@@ -3220,17 +3354,22 @@ def f32_train_step(card: str, name: str) -> None:
             or not min(cos, move_cos, move_ref_cos) >= F32_TRAIN_COS):
         raise AssertionError(f"the {name} f32 trainer disagrees with plain f32, ran with TF32 "
                              f"flags {flags} or launched (got, expected) {bad}")
+    step = got["step launches"]
     del got, ref, g, g_ref, move, move_ref
     torch.cuda.empty_cache()
+    return step
 
 
 def phase_f32(card: str, stats: dict) -> dict:
-    """f32 compute on the card: each member against plain f32
-    (:func:`f32_members`), the three f32 kernels at their shapes
-    (:func:`f32_kernels`), the seven-member f32 CSV (:func:`f32_csv`, whose
-    cold run's launches the record takes), one f32 training step of GCViTTiny
-    and of ConvNeXt (:func:`f32_train_step`). Returns the f32 kernels'
-    launches."""
+    """f32 compute on the card: each member against plain f32 and the fused
+    members against their unfused f32 forward (:func:`f32_members`), the
+    six f32 block kernels (:func:`f32_block_kernels`) and the three f32
+    kernels of the unfused path and around the blocks (:func:`f32_kernels`)
+    at their shapes, the seven-member f32 CSV (:func:`f32_csv`, whose cold
+    run's launches the record takes), one f32 training step of GCViTTiny and
+    of ConvNeXt (:func:`f32_train_step`; K8 f32's launches in the record are
+    GCViT's step's: the f32 serving path runs the fused block). Returns the
+    f32 kernels' launches."""
     laps, t0 = {}, time.perf_counter()
 
     def lap(label: str) -> None:
@@ -3241,12 +3380,16 @@ def phase_f32(card: str, stats: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(23)
     sites, lns = f32_members(card, gen)
     lap("members")
+    f32_block_kernels(card, stats, gen)
+    lap("block kernels")
     f32_kernels(card, stats, gen, sites, lns)
     lap("kernels")
     launches = f32_csv(card)
     lap("CSV")
-    for name in ("GCViTTiny", "convnext_tiny_in22k"):
-        f32_train_step(card, name)
+    for name in FUSED_MEMBERS:
+        step = f32_train_step(card, name)
+        if name == "GCViTTiny":
+            launches[ATTN32] = step[ATTN32]
     lap("train steps")
     print(f"[f32] phase wall time {time.perf_counter() - t0:.1f} s, by part {laps} [{card}]")
     return launches

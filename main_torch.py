@@ -17,8 +17,11 @@ the PyTorch port (``vip_cup_2022_tpu_torch``):
 Knobs: ``VIPTPU_PLATFORM=cpu`` runs the plain PyTorch path on the CPU (CUDA
 otherwise, and no CUDA device is an error); ``VIPTPU_DTYPE`` (bf16 on CUDA
 by default; ``float32`` runs every member in f32 on the card, GCViT and
-ConvNeXt on their unfused blocks through the f32 window-attention,
-depthwise and LN kernels, with TF32 off in the forwards),
+ConvNeXt on their fused blocks through the f32 modes of the block kernels,
+as ``main.py`` does, with TF32 off in the forwards);
+``VIPTPU_GCVIT_MM`` (``bf16`` or ``f32``, GCViT's fused GEMM dtype in
+``main.py``) equal to the compute dtype changes nothing, the other dtype
+raises (ROADMAP A15c);
 ``VIPTPU_MAX_BATCH`` (default 256), ``VIPTPU_DEBUG``, ``VIPTPU_VERBOSE``,
 ``VIPTPU_ALLOW_RANDOM_INIT``, ``VIPTPU_E2E_BATCH_TIMES``;
 ``VIPTPU_TTA`` (test-time augmentation copies, default 1) with
@@ -39,8 +42,8 @@ to the unfused block, as ``main.py``'s model does;
 ``ckpts/ckpts.json`` (ConvNeXt, ResNest, GCViT, EfficientNet, NFNet,
 ResNet-RS) are all ported. ``VIPTPU_LN_BF16_SQ=1`` (a bf16 square in the
 JAX bf16 LN's statistics, which the port's two-pass f32 LN does not take),
-``VIPTPU_INT8_KERNELS=1`` or a forced fused block with f32 compute on CUDA
-(the fused blocks' f32 mode, ROADMAP A15b) and a manifest member outside
+``VIPTPU_INT8_KERNELS=1`` with f32 compute on CUDA (the int8 block
+kernels' f32 inputs and outputs, ROADMAP A15c) and a manifest member outside
 those families raise ``NotImplementedError``: the port has no such path.
 """
 import os

@@ -135,8 +135,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     p = _block_params(32, 3, 1, 9, rng)
     out = _port_block(_u(rng, (1, 18, 32)), None, p, 9)
     assert out.shape == (1, 18, 32)
-    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0}
-    assert CK.LAUNCHES == {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0}
+    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
+                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0}
+    assert CK.LAUNCHES == {
+        "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
 
 
 def test_fc2_plain_keeps_the_hidden_dtype_with_an_f32_residual():

@@ -87,7 +87,9 @@ def test_mlp_kernels_match_plain_on_card(cuda_device, c, ratio, rows, res_dtype)
     hid = K.ln_fc1_gelu(x, lg, lb, w1, b1, 1e-6)
     out = K.fc2_scale_residual(hid, w2, b2, gamma, res)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1}
+    assert K.LAUNCHES == {
+        "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1,
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
     assert hid.shape == (m, n) and out.shape == (m, c) and out.dtype == torch.bfloat16
     assert _rel(hid, K.ln_fc1_gelu_plain(x, lg, lb, w1.float(), b1, 1e-6)) <= 1e-2
     ref = K.fc2_scale_residual_plain(hid.float(), w2.float(), b2, gamma, res.float())
@@ -211,9 +213,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     taps = torch.zeros((7, 7, 48), device=cuda_device)
     with pytest.raises(ValueError, match="not a multiple of 32"):
         K.dwconv7x7_nhwc(x, taps, torch.zeros(48, device=cuda_device))
-    x = torch.zeros((1, 5, 5, 32), dtype=torch.float32, device=cuda_device)
+    x = torch.zeros((1, 5, 5, 32), dtype=torch.float16, device=cuda_device)
     taps = torch.zeros((7, 7, 32), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="A15b"):  # f32: the fused blocks' f32 mode
+    with pytest.raises(TypeError, match="bfloat16"):  # f16: neither the bf16 nor the f32 kernel
         K.dwconv7x7_nhwc(x, taps, torch.zeros(32, device=cuda_device))
     w1 = torch.zeros((128, 32), dtype=torch.bfloat16, device=cuda_device).t()
     with pytest.raises(ValueError):
@@ -236,7 +238,9 @@ def test_each_wrapper_counts_its_launches(cuda_device):
                          torch.zeros(c, device=dev), torch.ones(c, device=dev),
                          torch.zeros((m, c), dtype=torch.bfloat16, device=dev))
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"dwconv7x7_nhwc": 1, "ln_fc1_gelu": 1, "fc2_scale_residual": 1}
+    assert K.LAUNCHES == {
+        "dwconv7x7_nhwc": 1, "ln_fc1_gelu": 1, "fc2_scale_residual": 1,
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -246,14 +250,15 @@ def _rel(a, ref):
     return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-def _gcvit_inputs(dev, b, nwin, n, c, heads, global_query, seed=0):
+def _gcvit_inputs(dev, b, nwin, n, c, heads, global_query, seed=0, bf=torch.bfloat16):
+    """A GCViT block's inputs, activations and the four GEMM weights in
+    ``bf`` (bf16, or f32 for the f32 kernels)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def u(s, lo=-1.0, hi=1.0):
         return torch.rand(s, generator=g, device=dev) * (hi - lo) + lo
 
     s = 2 if global_query else 3
-    bf = torch.bfloat16
     return dict(
         x=u((b, nwin * n, c)).to(bf), qg=u((b, n, c)).to(bf) if global_query else None,
         ln1_weight=u((c,), 0.5, 1.5), ln1_bias=u((c,), -0.1, 0.1),
@@ -343,8 +348,11 @@ def test_gcvit_block_counts_its_launches(cuda_device):
     out = G.window_transformer_block(x, qg, n=49, **p)
     torch.cuda.synchronize()
     assert out.shape == x.shape and out.dtype == torch.bfloat16
-    assert G.LAUNCHES == {"ln_qkv": 1, "window_attention": 1, "proj_scale_residual": 1}
-    assert K.LAUNCHES == {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1}
+    assert G.LAUNCHES == {"ln_qkv": 1, "window_attention": 1, "proj_scale_residual": 1,
+                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0}
+    assert K.LAUNCHES == {
+        "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1,
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
 
 
 @pytest.mark.cuda
@@ -353,7 +361,7 @@ def test_gcvit_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     t = torch.zeros((1, 49, 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="heads"):  # head width 16, not 32
         G.window_attention(t, t, t, torch.zeros((4, 49, 49), device=dev), 49, 0.25)
-    with pytest.raises(NotImplementedError, match="A15b"):  # f32: the fused blocks' f32 mode
+    with pytest.raises(TypeError, match="bfloat16"):  # an f32 q beside bf16 k and v
         G.window_attention(t.float(), t, t, torch.zeros((2, 49, 49), device=dev), 49, 0.2)
     with pytest.raises(ValueError, match="2C or 3C"):
         G.ln_qkv(t.view(49, 64), torch.ones(64, device=dev), torch.zeros(64, device=dev),
@@ -628,6 +636,170 @@ def test_f32_autograd_functions_on_card(cuda_device):
     check(lambda *a: D.depthwise_conv_fn(*a, padding=pad),
           lambda *a: D.depthwise_conv_nhwc_plain(*a, padding=pad), [x, kern], dy)
     assert D.LAUNCHES["depthwise_conv_nhwc_f32"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the f32 modes of the fused blocks' kernels (K1/K2, K4, K5, K6)
+# ---------------------------------------------------------------------------
+F32_BOUND = 1e-5  # of max|ref|: f32 on both sides, sums in another order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("ratio", [3, 4])
+@pytest.mark.parametrize("rows", ["one", "tile-1", "tile+1", "ragged"])
+def test_mlp_kernels_f32_match_plain_on_card(cuda_device, c, ratio, rows):
+    """``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (by the weights'
+    dtype) at every block width with N = 3C and 4C (K = 96 and 288 among
+    them), against the plain versions in f32 on the same inputs (TF32
+    off): max|d| / max|ref| <= 1e-5. Row counts at the edges of the
+    128-row tile and a ragged one."""
+    g = torch.Generator(device=cuda_device).manual_seed(c * ratio + 1)
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    n = ratio * c
+    m = {"one": 1, "tile-1": 127, "tile+1": 129, "ragged": 40 * 128 + 77}[rows]
+    x, lg, lb = u((m, c)) * 2, u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    w1, b1 = u((n, c)) * c ** -0.5, u((n,), -0.1, 0.1)
+    w2, b2, gamma = u((c, n)) * n ** -0.5, u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    res = u((m, c))
+    K.reset_launches()
+    hid = K.ln_fc1_gelu(x, lg, lb, w1, b1, 1e-6)
+    out = K.fc2_scale_residual(hid, w2, b2, gamma, res)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {
+        "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 1, "fc2_scale_residual_f32": 1}
+    assert hid.dtype == out.dtype == torch.float32 and hid.shape == (m, n)
+    assert _rel(hid, K.ln_fc1_gelu_plain(x, lg, lb, w1, b1, 1e-6)) <= F32_BOUND
+    assert _rel(out, K.fc2_scale_residual_plain(hid, w2, b2, gamma, res)) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 96, 192, 384, 768])
+@pytest.mark.parametrize("grid", ["tiny", "ragged", "rounds"])
+def test_dwconv_f32_matches_plain_on_card(cuda_device, c, grid):
+    """``dwconv7x7_nhwc_f32`` on f32 x against its plain version: max|d| /
+    max|ref| <= 1e-5 (the same f32 taps in (dy, dx) order, by FMA); H and W
+    below 7, ragged tiles, more tiles than a round of the persistent CTAs."""
+    b, h, w = {"tiny": (2, 5, 6), "ragged": (3, 13, 11),
+               "rounds": (24 * 96 // c + 40, 24, 24)}[grid]
+    g = torch.Generator(device=cuda_device).manual_seed(c + h + 1)
+    x = torch.rand((b, h, w, c), generator=g, device=cuda_device) * 2 - 1
+    dw = (torch.rand((7, 7, c), generator=g, device=cuda_device) - 0.5) * 0.4
+    dwb = torch.rand((c,), generator=g, device=cuda_device) * 0.2 - 0.1
+    K.reset_launches()
+    got = K.dwconv7x7_nhwc(x, dw, dwb)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["dwconv7x7_nhwc_f32"] == 1 and K.LAUNCHES["dwconv7x7_nhwc"] == 0
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert _rel(got, K.dwconv7x7_nhwc_plain(x, dw, dwb)) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nwin,n,c,heads", [
+    (2, 64, 49, 64, 2), (3, 16, 49, 128, 4), (2, 1, 196, 256, 8), (5, 1, 49, 512, 16),
+    (1, 4, 9, 32, 1), (1, 3, 49, 96, 3),
+])
+@pytest.mark.parametrize("global_query", [False, True])
+def test_gcvit_kernels_f32_match_plain_on_card(cuda_device, b, nwin, n, c, heads, global_query):
+    """``ln_qkv_f32``, ``window_attention_f32`` and
+    ``proj_scale_residual_f32`` (and the f32 MLP at N = 3C) at the
+    GCViTTiny level shapes, a 3 x 3 window and C = 96 (K = 96; M = 147,
+    ragged), against the plain versions in f32: max|d| / max|ref| <= 1e-5.
+    The attention divides P.V by the row sum after, as the plain version's
+    softmax does before: the two agree within the bound."""
+    p = _gcvit_inputs(cuda_device, b, nwin, n, c, heads, global_query, seed=1,
+                      bf=torch.float32)
+    m = b * nwin * n
+    x2 = p["x"].view(m, c)
+    G.reset_launches()
+    parts = G.ln_qkv(x2, p["ln1_weight"], p["ln1_bias"], p["wqkv"], p["bqkv"], 1e-5)
+    refs = G.ln_qkv_plain(x2, p["ln1_weight"], p["ln1_bias"], p["wqkv"], p["bqkv"], 1e-5)
+    assert len(parts) == (2 if global_query else 3)
+    for got, ref in zip(parts, refs):
+        assert got.dtype == torch.float32 and _rel(got, ref) <= F32_BOUND
+    q = p["qg"] if global_query else parts[0].view(b, -1, c)
+    k, v = (t.view(b, -1, c) for t in parts[-2:])
+    scale = 32 ** -0.5
+    attn = G.window_attention(q, k, v, p["bias"], n, scale, q_is_global=global_query)
+    ref = G.window_attention_plain(q, k, v, p["bias"], n, scale, global_query)
+    assert attn.dtype == torch.float32 and _rel(attn, ref) <= F32_BOUND
+    r1 = G.proj_scale_residual(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], x2)
+    ref = G.proj_scale_residual_plain(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], x2)
+    assert r1.dtype == torch.float32 and _rel(r1, ref) <= F32_BOUND
+    torch.cuda.synchronize()
+    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
+                          "ln_qkv_f32": 1, "window_attention_f32": 1,
+                          "proj_scale_residual_f32": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nwin,n,heads", [
+    (1, 1, 1, 2), (2, 3, 16, 3), (1, 7, 49, 3), (2, 2, 64, 2), (3, 2, 65, 4), (1, 1, 196, 8),
+    (1, 1, 224, 2), (13, 64, 49, 2),
+])
+@pytest.mark.parametrize("global_query", [False, True])
+def test_gcvit_window_attention_f32_shapes_on_card(cuda_device, b, nwin, n, heads,
+                                                   global_query):
+    """K5 in f32 at the key-tile edges (N = 1 ... 224 over the 64 / 224
+    tiles), one and several windows with a global query, against the plain
+    version in f32: max|d| / max|ref| <= 1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(n * 7 + heads + 1)
+    c = heads * 32
+
+    def u(s):
+        return torch.rand(s, generator=g, device=cuda_device) * 2 - 1
+
+    k, v = (u((b, nwin * n, c)) for _ in range(2))
+    q = u((b, n, c) if global_query else (b, nwin * n, c))
+    bias = u((heads, n, n))
+    G.reset_launches()
+    got = G.window_attention(q, k, v, bias, n, 32 ** -0.5, q_is_global=global_query)
+    torch.cuda.synchronize()
+    assert got.shape == k.shape and got.dtype == torch.float32
+    assert G.LAUNCHES["window_attention_f32"] == 1 and G.LAUNCHES["window_attention"] == 0
+    ref = G.window_attention_plain(q, k, v, bias, n, 32 ** -0.5, global_query)
+    assert _rel(got, ref) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size", [("GCViTTiny", 224), ("convnext_tiny_in22k", 64)])
+def test_f32_member_on_its_fused_blocks_matches_plain_on_card(cuda_device, name, size):
+    """A narrow f32 member on its fused blocks (the auto path) launches only
+    the f32 block kernels and matches the same model under
+    ``plain_kernels()`` (TF32 off) within 1e-4 of max(1, max|ref|), and
+    its unfused f32 forward within the same."""
+    from vip_cup_2022_tpu_torch.models import create_model
+    from vip_cup_2022_tpu_torch.ops.kernels.reference import plain_kernels
+
+    narrow = (dict(dim=32, num_heads=(1, 2, 4, 8), depths=(2, 2, 2, 2)) if name == "GCViTTiny"
+              else dict(nb_blocks=(1, 1, 1, 1), embed_dim=(32, 64, 256, 512)))
+    model, _ = create_model(name, input_size=(size, size), nb_classes=1,
+                            classifier_activation=None, dtype=torch.float32, seed=0, **narrow)
+    model = model.to(cuda_device).eval()
+    unfused, _ = create_model(name, input_size=(size, size), nb_classes=1,
+                              classifier_activation=None, dtype=torch.float32, seed=0,
+                              fused_block=False, **narrow)
+    unfused = unfused.to(cuda_device).eval()
+    x = torch.rand((4, size, size, 3), generator=torch.Generator(device=cuda_device)
+                   .manual_seed(3), device=cuda_device)
+    K.reset_launches()
+    G.reset_launches()
+    with torch.inference_mode():
+        got = model(x)
+        launches = {**K.LAUNCHES, **G.LAUNCHES}
+        with plain_kernels():
+            ref = model(x)
+        other = unfused(x)
+    torch.cuda.synchronize()
+    assert all(n == 0 for s, n in launches.items() if not s.endswith("_f32"))
+    assert launches["ln_fc1_gelu_f32"] == launches["fc2_scale_residual_f32"] > 0
+    top = max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() / top <= 1e-4
+    assert (got - other).abs().max().item() / top <= 1e-4
 
 
 @pytest.mark.cuda

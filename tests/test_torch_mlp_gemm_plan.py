@@ -78,7 +78,9 @@ def test_wrappers_take_the_plain_versions_on_cpu(m, c, n, f32_residual):
     K.reset_launches()
     hid = K.ln_fc1_gelu(x, lg, lb, w1, b1, 1e-6)
     out = K.fc2_scale_residual(hid, w2, b2, gamma, res)
-    assert K.LAUNCHES == {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0}
+    assert K.LAUNCHES == {
+        "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
     torch.testing.assert_close(hid, K.ln_fc1_gelu_plain(x, lg, lb, w1, b1, 1e-6), rtol=0, atol=0)
     torch.testing.assert_close(out, K.fc2_scale_residual_plain(hid, w2, b2, gamma, res), rtol=0,
                                atol=0)
@@ -129,7 +131,8 @@ def test_ln_qkv_takes_the_plain_version_on_cpu(m, c, s):
     w, b = t(s * c, c, scale=c ** -0.5), t(s * c)
     G.reset_launches()
     got = G.ln_qkv(x, lg, lb, w, b, 1e-5)
-    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0}
+    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
+                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0}
     assert len(got) == s and all(o.shape == (m, c) for o in got)
     for o, ref in zip(got, G.ln_qkv_plain(x, lg, lb, w, b, 1e-5)):
         torch.testing.assert_close(o, ref, rtol=0, atol=0)
@@ -194,7 +197,8 @@ def test_proj_scale_residual_takes_the_plain_version_on_cpu(m, c):
     wp, bp, gamma = t(c, c, scale=c ** -0.5), t(c), t(c) + 1
     G.reset_launches()
     got = G.proj_scale_residual(a, wp, bp, gamma, x)
-    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0}
+    assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
+                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0}
     assert got.dtype == torch.float32 and got.shape == (m, c)
     torch.testing.assert_close(got, G.proj_scale_residual_plain(a, wp, bp, gamma, x), rtol=0,
                                atol=0)

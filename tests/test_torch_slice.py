@@ -445,11 +445,12 @@ def test_device_and_dtype_selection(monkeypatch):
     with pytest.raises(ValueError, match="not recognized"):
         engine.default_compute_dtype(torch.device("cpu"))
     # f32 compute on CUDA is served (ROADMAP A15): the engine builds, a
-    # member with a fused block path takes the unfused one there, and the
-    # forwards run with TF32 off
+    # member with a fused block path keeps it there (its kernels' f32
+    # modes), and the forwards run with TF32 off
     eng = engine.EnsembleEngine(device="cuda", compute_dtype=torch.float32, verbose=0)
     assert eng.compute_dtype == torch.float32
-    assert not _use_fused_block(ConvNeXtConfig(dtype=torch.float32), False, eng.device)
+    monkeypatch.delenv("VIPTPU_NO_FUSED_BLOCK", raising=False)
+    assert _use_fused_block(ConvNeXtConfig(dtype=torch.float32), False, eng.device)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     with eng._precision():
         assert not torch.backends.cudnn.allow_tf32

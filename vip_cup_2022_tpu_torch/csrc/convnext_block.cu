@@ -29,11 +29,22 @@
 // depthwise.cuh's shared-memory-tiled template (bound by its bytes, with its
 // 49 f32 FMAs an element close behind); its note says how.
 //
+// The f32 mode (VIPTPU_DTYPE=float32), in which the TPU kernels take f32
+// activations and weights, is three more launchers on f32 (M, C) rows:
+//
+//   dwconv7x7_nhwc_f32      f32 NHWC x -> f32 (the same depthwise template,
+//                           f32 halo tiles: at k = 7 a 16 x 16-output tile's
+//                           halo is 22 x 22 pixels of 128 bytes, two buffers
+//                           124 KB, one CTA an SM)
+//   ln_fc1_gelu_f32         f32 x, f32 W1 -> f32 hidden (f32_gemm.cuh, kGelu)
+//   fc2_scale_residual_f32  f32 hidden, f32 W2, f32 residual -> f32 (kResidual)
+//
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a plan the kernels do not
 // take) as an int, so a refused launch reaches the caller.
 
 #include "depthwise.cuh"
+#include "f32_gemm.cuh"
 #include "hopper_gemm.cuh"
 
 using hopper_gemm::bf16;
@@ -72,6 +83,43 @@ int fc2_scale_residual_f32res(const void* hidden, const void* w2, const void* b2
                                  M, K, C, stages};
   return (int)hopper_gemm::launch_res<float, hopper_gemm::kWhole, true>(p, hidden, w2, bn,
                                                                          (cudaStream_t)stream);
+}
+
+int dwconv7x7_nhwc_f32(const void* x, const void* w, const void* bias, void* out, int B, int H,
+                       int W, int C, void* stream) {
+  return (int)depthwise::run<7, true, float, depthwise::kWhole, false, float>(
+      x, w, bias, out, B, H, W, C, H, W, 3, 3, (cudaStream_t)stream);
+}
+
+int ln_fc1_gelu_f32(const void* x, const void* ln_g, const void* ln_b, const void* w1,
+                    const void* b1, void* hidden, int M, int C, int N, float eps, void* stream) {
+  f32_gemm::Params p{};
+  p.a = (const float*)x;
+  p.w = (const float*)w1;
+  p.bias = (const float*)b1;
+  p.ln_g = (const float*)ln_g;
+  p.ln_b = (const float*)ln_b;
+  p.out[0] = (float*)hidden;
+  p.M = M;
+  p.N = N;
+  p.K = C;
+  p.eps = eps;
+  return (int)f32_gemm::launch<f32_gemm::kGelu>(p, (cudaStream_t)stream);
+}
+
+int fc2_scale_residual_f32(const void* hidden, const void* w2, const void* b2, const void* gamma,
+                           const void* res, void* out, int M, int K, int C, void* stream) {
+  f32_gemm::Params p{};
+  p.a = (const float*)hidden;
+  p.w = (const float*)w2;
+  p.bias = (const float*)b2;
+  p.gamma = (const float*)gamma;
+  p.res = (const float*)res;
+  p.out[0] = (float*)out;
+  p.M = M;
+  p.N = C;
+  p.K = K;
+  return (int)f32_gemm::launch<f32_gemm::kResidual>(p, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -51,9 +51,23 @@
 // per (window, head) and reads the bias from shared memory; its note says
 // how.
 //
+// The f32 mode (VIPTPU_DTYPE=float32: f32 activations and weights, as the
+// TPU kernels take them when x is f32) is three more launchers:
+//
+//   ln_qkv_f32               f32 x, f32 W_qkv -> S f32 (M, C) outputs
+//                            (f32_gemm.cuh, kSplit)
+//   window_attention_f32     f32 q, k, v -> f32 (f32_attention.cuh on token
+//                            rows, P.V divided by the row sum after, as the
+//                            TPU kernel's default "mxu" softmax does)
+//   proj_scale_residual_f32  f32 attn, f32 W_p, f32 x -> f32 r1 (kResidual)
+//
+// then ln_fc1_gelu_f32 and fc2_scale_residual_f32 of convnext_block.cu.
+//
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
 
+#include "f32_attention.cuh"
+#include "f32_gemm.cuh"
 #include "hopper_gemm.cuh"
 #include "window_attention.cuh"
 
@@ -101,6 +115,59 @@ int proj_scale_residual(const void* a, const void* wp, const void* bp, const voi
                                  resident};
   return (int)hopper_gemm::launch_res<bf16, hopper_gemm::kWhole, true, float>(
       p, a, wp, bn, (cudaStream_t)stream);
+}
+
+int ln_qkv_f32(const void* x, const void* ln_g, const void* ln_b, const void* w, const void* bias,
+               void* q, void* k, void* v, int M, int C, int S, float eps, void* stream) {
+  f32_gemm::Params p{};
+  p.a = (const float*)x;
+  p.w = (const float*)w;
+  p.bias = (const float*)bias;
+  p.ln_g = (const float*)ln_g;
+  p.ln_b = (const float*)ln_b;
+  p.out[0] = (float*)q;
+  p.out[1] = (float*)k;
+  p.out[2] = (float*)v;
+  p.M = M;
+  p.N = S * C;
+  p.K = C;
+  p.split = C;
+  p.eps = eps;
+  return (int)f32_gemm::launch<f32_gemm::kSplit>(p, (cudaStream_t)stream);
+}
+
+int window_attention_f32(const void* q, const void* k, const void* v, const void* bias,
+                         void* out, int B, int nwin, int N, int C, int heads, float scale,
+                         int q_is_global, void* stream) {
+  f32_attn::Params p{};
+  p.q = (const float*)q;
+  p.k = (const float*)k;
+  p.v = (const float*)v;
+  p.bias = (const float*)bias;
+  p.out = (float*)out;
+  p.items = (long long)B * nwin * heads;
+  p.heads = heads;
+  p.n = N;
+  p.nwin = nwin;
+  p.c = C;
+  p.scale = scale;
+  p.q_is_global = q_is_global;
+  return (int)f32_attn::launch<f32_attn::Layout::kTokens, true>(p, (cudaStream_t)stream);
+}
+
+int proj_scale_residual_f32(const void* a, const void* wp, const void* bp, const void* gamma,
+                            const void* x, void* out, int M, int C, void* stream) {
+  f32_gemm::Params p{};
+  p.a = (const float*)a;
+  p.w = (const float*)wp;
+  p.bias = (const float*)bp;
+  p.gamma = (const float*)gamma;
+  p.res = (const float*)x;
+  p.out[0] = (float*)out;
+  p.M = M;
+  p.N = C;
+  p.K = C;
+  return (int)f32_gemm::launch<f32_gemm::kResidual>(p, (cudaStream_t)stream);
 }
 
 }  // extern "C"

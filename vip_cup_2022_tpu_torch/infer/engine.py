@@ -84,23 +84,26 @@ on either block path (the JAX package's ``INT8_AUTO`` set on a TPU is
 
 ``VIPTPU_DTYPE=float32`` (f32 compute; bf16 is CUDA's default) runs every
 member in f32 on CUDA, as the JAX package's f32 reference arm runs: GCViT
-and ConvNeXt take their unfused blocks there unless their config forces a
-path (the models' ``_use_fused_block``; the unfused blocks' kernels are the
-f32 window attention, depthwise and LN kernels; a forced fused block
-raises ``NotImplementedError`` in the fused kernels, whose f32 mode is
-ROADMAP item A15b), and the forwards run with TF32 off for cuDNN and
-cuBLAS (:func:`..utils.precision.f32_scope`), so every conv and Linear
-computes in f32; the flags are restored after each forward.
-``VIPTPU_INT8_KERNELS=1`` with f32 on CUDA raises (A15b); ``VIPTPU_INT8``
-composes (the PTQ site takes f32).
+and ConvNeXt on their fused blocks, as ``main.py`` on a TPU, unless
+``VIPTPU_NO_FUSED_BLOCK`` or their config says otherwise (the models'
+``_use_fused_block``; the fused blocks' kernels in their f32 modes, the
+unfused blocks' the f32 window attention, depthwise and LN kernels), and
+the forwards run with TF32 off for cuDNN and cuBLAS
+(:func:`..utils.precision.f32_scope`), so every conv and Linear computes
+in f32; the flags are restored after each forward.
+``VIPTPU_INT8_KERNELS=1`` with f32 on CUDA raises (its kernels' f32 inputs
+and outputs are ROADMAP item A15c); ``VIPTPU_INT8`` composes (the PTQ site
+takes f32). ``VIPTPU_GCVIT_MM`` set to the other dtype than the compute
+dtype raises on GCViT's fused path (A15c; the models' ``check_gcvit_mm``).
 
 Still raising ``NotImplementedError`` rather than running something else
 (a SavedModel checkpoint without TensorFlow installed raises it too):
-``VIPTPU_LN_BF16_SQ=1``; the fused blocks in f32 on CUDA (A15b); and
+``VIPTPU_LN_BF16_SQ=1``; ``VIPTPU_INT8_KERNELS=1`` with f32 on CUDA and
+``VIPTPU_GCVIT_MM`` against the compute dtype (A15c); and
 members of families other than ConvNeXt, GCViT, ResNet-RS, EfficientNet,
 ResNest and NFNet (A14), which are all seven of ``ckpts/ckpts.json``.
-Every Pallas kernel of the JAX package has a CUDA counterpart (K8's and
-K9's f32 modes too); the depthwise kernel (K9) runs on
+Every Pallas kernel of the JAX package has a CUDA counterpart (the f32
+modes of K1/K2, K4, K5, K6, K8 and K9 too); the depthwise kernel (K9) runs on
 this path at every stride-1 depthwise conv (EfficientNet, GCViT), and
 those the JAX package's experiment tools reach run in the port's tools
 (``vip_cup_2022_tpu_torch/tools``).
@@ -270,8 +273,8 @@ class EnsembleEngine:
         self.device = torch.device(device) if device is not None else default_device()
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
         if verbose and self.device.type == "cuda" and self.compute_dtype == torch.float32:
-            print("> F32: every forward with TF32 off; GCViT and ConvNeXt on their unfused blocks "
-                  "(the fused blocks' f32 mode is A15b)")
+            print("> F32: every forward with TF32 off; GCViT and ConvNeXt on the f32 kernels of "
+                  "their fused blocks")
         if os.environ.get("VIPTPU_LN_BF16_SQ", "0") == "1":
             raise NotImplementedError(
                 "VIPTPU_LN_BF16_SQ=1 squares in bf16 for the JAX bf16 LN's E[x^2] - E[x]^2 "
@@ -292,13 +295,14 @@ class EnsembleEngine:
         return f32_scope(self.device, self.compute_dtype)
 
     def _int8_kernels(self) -> bool:
-        """``VIPTPU_INT8_KERNELS=1``; raises for f32 on CUDA, where the fused
-        blocks it runs int8 have no f32 mode (ROADMAP item A15b)."""
+        """``VIPTPU_INT8_KERNELS=1``; raises for f32 on CUDA, where the int8
+        block kernels it runs take bf16 activations (their f32 inputs and
+        outputs are ROADMAP item A15c)."""
         on = dyn_int8.int8_kernels_enabled()
         if on and self.device.type == "cuda" and self.compute_dtype == torch.float32:
             raise NotImplementedError(
-                "VIPTPU_INT8_KERNELS=1 with f32 compute on CUDA: the int8 GEMMs live in the fused "
-                "blocks, whose f32 mode is ROADMAP item A15b")
+                "VIPTPU_INT8_KERNELS=1 with f32 compute on CUDA: the int8 block kernels take bf16 "
+                "activations; their f32 inputs and outputs are ROADMAP item A15c")
         return on
 
     # ------------------------------------------------------------------

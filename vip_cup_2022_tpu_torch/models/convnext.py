@@ -91,16 +91,16 @@ def _use_fused_block(cfg: ConvNeXtConfig, training: bool,
                      device: Optional[torch.device] = None) -> bool:
     """Whether the blocks take the fused path, as the JAX package decides:
     never when training or with dropout, else ``cfg.fused_block`` when set,
-    else not in f32 on CUDA (``device``, the input's; only the unfused
-    block has f32 kernels there), else not when ``VIPTPU_NO_FUSED_BLOCK``
-    is set. The auto case differs as GCViT's does: the port is fused on the
-    CPU and on CUDA alike, where the JAX package is fused only on a TPU."""
+    else not when ``VIPTPU_NO_FUSED_BLOCK`` is set. The same in either
+    compute dtype on any ``device`` (the input's): the fused blocks have f32
+    kernels on CUDA. The auto case differs as GCViT's does: the port is
+    fused on the CPU and on CUDA alike, where the JAX package is fused only
+    on a TPU."""
+    del device
     if training or cfg.drop_rate:
         return False
     if cfg.fused_block is not None:
         return cfg.fused_block
-    if cfg.dtype == torch.float32 and device is not None and device.type == "cuda":
-        return False  # the fused blocks' f32 mode is ROADMAP item A15b
     return not os.environ.get("VIPTPU_NO_FUSED_BLOCK")
 
 

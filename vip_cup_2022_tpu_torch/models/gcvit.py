@@ -15,7 +15,9 @@ Counterpart of ``vip_cup_2022_tpu/models/gcvit.py``, NHWC throughout:
     attention stays f32 into LN2, as on the TPU; under
     ``VIPTPU_INT8_KERNELS=1`` the blocks at least
     ``VIPTPU_GCVIT_INT8_MIN_C`` (128) wide run their dense GEMMs int8
-    (:class:`GCViTBlock`);
+    (:class:`GCViTBlock`); in f32 every kernel has its f32 mode;
+    ``VIPTPU_GCVIT_MM`` is read here as the JAX model reads it
+    (:func:`check_gcvit_mm`);
   - unfused (the JAX package's Flax path): on NHWC, LN1 -> window partition
     -> :class:`..ops.attention.WindowAttention` (the window-attention kernel
     of :mod:`..ops.kernels.window_attention`) -> window reverse -> residual
@@ -105,18 +107,35 @@ def _use_fused_block(cfg: GCViTConfig, training: bool,
                      device: Optional[torch.device] = None) -> bool:
     """Whether the blocks take the fused path, as the JAX package decides:
     never when training or with dropout, else ``cfg.fused_block`` when set,
-    else not in f32 on CUDA (``device``, the input's; only the unfused
-    block has f32 kernels there), else not when ``VIPTPU_NO_FUSED_BLOCK``
-    is set. The auto case differs: the port is fused on the CPU and on CUDA
-    alike, where the JAX package is fused only on a TPU, so on the CPU it
-    runs the unfused path."""
+    else not when ``VIPTPU_NO_FUSED_BLOCK`` is set. The same in either
+    compute dtype on any ``device`` (the input's): the fused blocks have f32
+    kernels on CUDA. The auto case differs: the port is fused on the CPU and
+    on CUDA alike, where the JAX package is fused only on a TPU, so on the
+    CPU it runs the unfused path."""
+    del device
     if training or cfg.drop_rate or cfg.attn_drop:
         return False
     if cfg.fused_block is not None:
         return cfg.fused_block
-    if cfg.dtype == torch.float32 and device is not None and device.type == "cuda":
-        return False  # the fused blocks' f32 mode is ROADMAP item A15b
     return not os.environ.get("VIPTPU_NO_FUSED_BLOCK")
+
+
+# VIPTPU_GCVIT_MM's values as the JAX model reads them on its fused path
+GCVIT_MM = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def check_gcvit_mm(dtype: torch.dtype) -> None:
+    """``VIPTPU_GCVIT_MM``, which the JAX model's fused path reads to force
+    its kernels' GEMM dtype: unset, any other value than ``bf16`` or
+    ``f32`` (which the JAX model ignores too) or the compute ``dtype``
+    itself changes nothing; the other dtype raises ``NotImplementedError``:
+    the fused kernels' mixed-dtype GEMMs are ROADMAP item A15c, and the port
+    serves no result other than ``main.py``'s."""
+    forced = GCVIT_MM.get(os.environ.get("VIPTPU_GCVIT_MM", ""))
+    if forced is not None and forced != dtype:
+        raise NotImplementedError(
+            f"VIPTPU_GCVIT_MM={os.environ['VIPTPU_GCVIT_MM']} with {dtype} compute: the fused "
+            "block kernels' GEMMs in another dtype than the activations' are ROADMAP item A15c")
 
 
 class SE(nn.Module):
@@ -345,6 +364,8 @@ class GCViT(nn.Module):
         x = preprocess_input(x, cfg).to(cfg.dtype)
         x = self.drop(self.patch_embed(x))
         fused = _use_fused_block(cfg, self.training, x.device)
+        if fused:
+            check_gcvit_mm(cfg.dtype)
         for i in range(len(cfg.depths)):
             x = getattr(self, f"levels_{i}")(x, fused)
         x = self.norm(x).float().mean(dim=(1, 2))

@@ -57,7 +57,8 @@ epilogue step by step, so a kernel given the same codes and scales agrees
 with its plain version bit for bit before its output's last rounding.
 Given the f32 compute dtype's activations on CUDA (a bf16 block's bf16
 input or output in f32) a wrapper raises ``NotImplementedError`` naming
-ROADMAP item A15b (:func:`.convnext_block.refuse_f32`).
+ROADMAP item A15c (:func:`refuse_f32`): these kernels' f32 inputs and
+outputs are not built yet.
 """
 from __future__ import annotations
 
@@ -73,11 +74,23 @@ from ...quant.dyn_int8 import Int8Weight
 from . import build
 from . import convnext_block as CK
 from . import gcvit_block as G
-from .convnext_block import _check, _check_rows, _check_width, _stream, refuse_f32
+from .convnext_block import _check, _check_rows, _check_width, _stream
 
 LAUNCHES: Dict[str, int] = {"ln_fc1_gelu_int8": 0, "ln_qkv_int8": 0, "quantize_rows": 0,
                             "fc2_scale_residual_int8": 0, "proj_scale_residual_int8": 0,
                             "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0}
+
+
+def refuse_f32(name: str, *tensors) -> None:
+    """An int8-mode block kernel given the f32 compute dtype's activations
+    on CUDA (``tensors``: the activations, or an output dtype, that are bf16
+    in a bf16 block): raise ``NotImplementedError`` before any dtype check,
+    and run no plain version in its place."""
+    if any((t if isinstance(t, torch.dtype) else t.dtype) == torch.float32 for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the int8 block kernels (VIPTPU_INT8_KERNELS=1) take bf16 activations; "
+            "their f32 inputs and outputs are ROADMAP item A15c")
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

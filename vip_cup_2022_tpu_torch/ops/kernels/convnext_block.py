@@ -44,13 +44,19 @@ trip through device memory, which the TPU kernel keeps on chip (at s1 and
 batch 256 that is 2.5 M rows x 384 x 2 B = 1.9 GB written and read once
 per block); the depthwise output also makes a f32 round trip.
 
+The f32 mode (``VIPTPU_DTYPE=float32``, in which the TPU kernels take f32
+activations and cast W1 and W2 to them) is three more kernels on f32 rows:
+``dwconv7x7_nhwc_f32`` (the same depthwise template with f32 halo tiles),
+``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (``csrc/f32_gemm.cuh``:
+the LN, the products and the epilogues in f32 on the CUDA cores, a 128 x
+128 tile a CTA, 8 x 8 outputs a thread; the tensor cores take f32 only as
+TF32). A wrapper picks its kernel by dtype: the depthwise by x's, the two
+GEMMs by the weight's (``ln_fc1_gelu`` takes f32 x in a bf16 block too: the
+depthwise sum, GCViT's r1).
+
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
-wrapper counts its launches in :data:`LAUNCHES`. The kernels take bf16
-activations: given the f32 activations of ``VIPTPU_DTYPE=float32`` on CUDA
-(an f32 block input, weights or hidden), a wrapper raises
-``NotImplementedError`` (:func:`refuse_f32`): f32 members take the unfused
-block, and the fused blocks' f32 mode is ROADMAP item A15b.
+wrapper counts its launches in :data:`LAUNCHES`, one count a symbol.
 """
 from __future__ import annotations
 
@@ -63,7 +69,9 @@ import torch.nn.functional as F
 
 from . import build
 
-LAUNCHES: Dict[str, int] = {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0}
+LAUNCHES: Dict[str, int] = {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
+                            "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0,
+                            "fc2_scale_residual_f32": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LN_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I]  # + plan
@@ -73,6 +81,9 @@ _SIGNATURES = {
     "ln_fc1_gelu": _LN_ARGS + [_P],
     "fc2_scale_residual": _RES_ARGS + [_P],
     "fc2_scale_residual_f32res": _RES_ARGS + [_P],
+    "dwconv7x7_nhwc_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ln_fc1_gelu_f32": [_P] * 6 + [_I, _I, _I, _F, _P],
+    "fc2_scale_residual_f32": [_P] * 6 + [_I, _I, _I, _P],
 }
 _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type)
     "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
@@ -260,18 +271,6 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must start on a 16-byte boundary (the kernels load 16 bytes at a time)")
 
 
-def refuse_f32(name: str, *tensors) -> None:
-    """A fused-block kernel given the f32 compute dtype's activations on
-    CUDA (``tensors``: the activations and weights, or an output dtype,
-    that are bf16 in a bf16 block): raise ``NotImplementedError`` before
-    any dtype check, and run no plain version in its place."""
-    if any((t if isinstance(t, torch.dtype) else t.dtype) == torch.float32 for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the fused block kernels take bf16 activations; f32 members run the "
-            "unfused block (fused_block=False), and the fused blocks' f32 mode is ROADMAP item "
-            "A15b")
-
-
 def _check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     """A kernel without a backward must not cut an autograd graph silently."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -337,30 +336,32 @@ def fc2_scale_residual_plain(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.T
 def dwconv7x7_nhwc(x: torch.Tensor, dw_kernel: torch.Tensor,
                    dw_bias: torch.Tensor) -> torch.Tensor:
     """Depthwise 7x7 (stride 1, zero padding 3) + bias on NHWC input.
-    CUDA: x bf16 (B, H, W, C), taps f32 (7, 7, C), bias f32 (C,) -> f32."""
+    CUDA: x bf16 or f32 (B, H, W, C) (``dwconv7x7_nhwc`` or
+    ``dwconv7x7_nhwc_f32``), taps f32 (7, 7, C), bias f32 (C,) -> f32."""
     if x.device.type == "cpu":
         return dwconv7x7_nhwc_plain(x, dw_kernel, dw_bias)
-    refuse_f32("dwconv7x7_nhwc", x)
     if x.ndim != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     b, h, w, c = x.shape
     _check_width(c)
-    _check("x", x, torch.bfloat16, (b, h, w, c), x.device)
+    f32 = x.dtype == torch.float32
+    _check("x", x, torch.float32 if f32 else torch.bfloat16, (b, h, w, c), x.device)
     _check("dw_kernel", dw_kernel, torch.float32, (7, 7, c), x.device)
     _check("dw_bias", dw_bias, torch.float32, (c,), x.device)
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
-    _launch("dwconv7x7_nhwc", x.data_ptr(), dw_kernel.data_ptr(), dw_bias.data_ptr(),
-            out.data_ptr(), b, h, w, c, _stream(x.device))
+    _launch("dwconv7x7_nhwc_f32" if f32 else "dwconv7x7_nhwc", x.data_ptr(), dw_kernel.data_ptr(),
+            dw_bias.data_ptr(), out.data_ptr(), b, h, w, c, _stream(x.device))
     return out
 
 
 def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                 w1: torch.Tensor, b1: torch.Tensor, eps: float) -> torch.Tensor:
     """LN over C + Linear C->N + exact GELU on rows. CUDA: x f32 (M, C), LN
-    params f32 (C,), w1 bf16 (N, C), b1 f32 (N,) -> bf16 (M, N)."""
+    params f32 (C,), w1 bf16 or f32 (N, C), b1 f32 (N,) -> (M, N) in w1's
+    dtype (``ln_fc1_gelu`` or ``ln_fc1_gelu_f32``: the mode is w1's, since x
+    is f32 in bf16 blocks too)."""
     if x.device.type == "cpu":
         return ln_fc1_gelu_plain(x, ln_weight, ln_bias, w1, b1, eps)
-    refuse_f32("ln_fc1_gelu", w1)  # x is f32 in bf16 blocks too: the depthwise sum, GCViT's r1
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -371,9 +372,15 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     _check("x", x, torch.float32, (m, c), x.device)
     _check("ln_weight", ln_weight, torch.float32, (c,), x.device)
     _check("ln_bias", ln_bias, torch.float32, (c,), x.device)
-    _check("w1", w1, torch.bfloat16, (n, c), x.device)
+    f32 = w1.dtype == torch.float32
+    _check("w1", w1, torch.float32 if f32 else torch.bfloat16, (n, c), x.device)
     _check("b1", b1, torch.float32, (n,), x.device)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=w1.dtype, device=x.device)
+    if f32:
+        _launch("ln_fc1_gelu_f32", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n, float(eps),
+                _stream(x.device))
+        return out
     _launch("ln_fc1_gelu", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n, float(eps), *_ln_plan_args(c, n),
             _stream(x.device))
@@ -382,12 +389,12 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
 
 def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                        gamma: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-    """Linear N->C, (+ b2) x gamma + residual on rows. CUDA: hidden bf16
-    (M, N), w2 bf16 (C, N), b2 and gamma f32 (C,), residual bf16 or f32
-    (M, C) -> bf16."""
+    """Linear N->C, (+ b2) x gamma + residual on rows. CUDA: hidden and w2
+    (C, N) bf16, b2 and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16;
+    or, by w2's dtype, hidden, w2 and the residual f32 -> f32
+    (``fc2_scale_residual_f32``)."""
     if hidden.device.type == "cpu":
         return fc2_scale_residual_plain(hidden, w2, b2, gamma, residual)
-    refuse_f32("fc2_scale_residual", hidden, w2)
     if hidden.ndim != 2:
         raise ValueError(f"hidden must be (M, N), got {tuple(hidden.shape)}")
     m, n = hidden.shape
@@ -395,6 +402,15 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     _check_rows(m)
     _check_width(c)
     _check_width(n)
+    if w2.dtype == torch.float32:
+        for name, t, shape in (("hidden", hidden, (m, n)), ("w2", w2, (c, n)), ("b2", b2, (c,)),
+                               ("gamma", gamma, (c,)), ("residual", residual, (m, c))):
+            _check(name, t, torch.float32, shape, hidden.device)
+        out = torch.empty((m, c), dtype=torch.float32, device=hidden.device)
+        _launch("fc2_scale_residual_f32", hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                gamma.data_ptr(), residual.data_ptr(), out.data_ptr(), m, n, c,
+                _stream(hidden.device))
+        return out
     _check("hidden", hidden, torch.bfloat16, (m, n), hidden.device)
     _check("w2", w2, torch.bfloat16, (c, n), hidden.device)
     _check("b2", b2, torch.float32, (c,), hidden.device)

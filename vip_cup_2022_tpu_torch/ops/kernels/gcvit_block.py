@@ -47,11 +47,19 @@ table: q/k/v, the attention output, the f32 r1 and the (M, 3C) hidden each
 make a round trip through device memory, which the TPU's monoblock kept in
 VMEM.
 
+The f32 mode (``VIPTPU_DTYPE=float32``: the TPU kernels' GEMM dtype follows
+x's) is the same five launches on f32 kernels: ``ln_qkv_f32`` and
+``proj_scale_residual_f32`` on the f32 GEMM of ``csrc/f32_gemm.cuh``
+(FFMA on the CUDA cores: the tensor cores take f32 only as TF32),
+``window_attention_f32`` (``csrc/f32_attention.cuh`` on token rows: a CTA
+a (window, head), f32 FMAs, P.V divided by the row sum after, as the TPU
+kernel's default "mxu" softmax does), then :mod:`.convnext_block`'s
+``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32``. A wrapper picks its
+kernel by dtype (the GEMMs by the weight's, the attention by k's).
+
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
-wrapper counts its launches in :data:`LAUNCHES`. Given f32 activations on
-CUDA a wrapper raises ``NotImplementedError`` naming ROADMAP item A15b
-(:func:`.convnext_block.refuse_f32`).
+wrapper counts its launches in :data:`LAUNCHES`, one count a symbol.
 """
 from __future__ import annotations
 
@@ -64,9 +72,11 @@ import torch.nn.functional as F
 
 from . import build
 from . import convnext_block as CK
-from .convnext_block import _check, _check_width, _stream, refuse_f32
+from .convnext_block import _check, _check_width, _stream
 
-LAUNCHES: Dict[str, int] = {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0}
+LAUNCHES: Dict[str, int] = {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
+                            "ln_qkv_f32": 0, "window_attention_f32": 0,
+                            "proj_scale_residual_f32": 0}
 
 HEAD_DIM = 32  # the attention kernel's head width; every GCViT variant has dim / heads = 32
 MAX_WINDOW_TOKENS = 224  # keys per window the attention kernel holds (N <= 224: 14 x 14 fits)
@@ -76,6 +86,9 @@ _SIGNATURES = {
     "ln_qkv": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],  # + the plan
     "window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "proj_scale_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],  # + the plan
+    "ln_qkv_f32": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "window_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "proj_scale_residual_f32": [_P] * 6 + [_I, _I, _P],
 }
 
 
@@ -149,11 +162,11 @@ def proj_scale_residual_plain(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tenso
 def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
            w: torch.Tensor, b: torch.Tensor, eps: float) -> Tuple[torch.Tensor, ...]:
     """LN over C + Linear C -> S*C on rows, split into S (M, C) outputs (q, k,
-    v for S = 3; k, v for S = 2). CUDA: x bf16 (M, C), LN params f32 (C,),
-    w bf16 (S*C, C), b f32 (S*C,) -> bf16."""
+    v for S = 3; k, v for S = 2). CUDA: x and w (S*C, C) bf16, LN params
+    f32 (C,), b f32 (S*C,) -> bf16; or, by w's dtype, x and w f32 -> f32
+    (``ln_qkv_f32``)."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_weight, ln_bias, w, b, eps)
-    refuse_f32("ln_qkv", x, w)
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -162,13 +175,18 @@ def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     s = w.shape[0] // c
     if s not in (2, 3) or w.shape[0] != s * c:
         raise ValueError(f"w must be (2C or 3C, C) for C = {c}, got {tuple(w.shape)}")
-    _check("x", x, torch.bfloat16, (m, c), x.device)
+    dt = torch.float32 if w.dtype == torch.float32 else torch.bfloat16
+    _check("x", x, dt, (m, c), x.device)
     _check("ln_weight", ln_weight, torch.float32, (c,), x.device)
     _check("ln_bias", ln_bias, torch.float32, (c,), x.device)
-    _check("w", w, torch.bfloat16, (s * c, c), x.device)
+    _check("w", w, dt, (s * c, c), x.device)
     _check("b", b, torch.float32, (s * c,), x.device)
-    outs = [torch.empty((m, c), dtype=torch.bfloat16, device=x.device) for _ in range(s)]
+    outs = [torch.empty((m, c), dtype=dt, device=x.device) for _ in range(s)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - s)
+    if dt == torch.float32:
+        _launch("ln_qkv_f32", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+                w.data_ptr(), b.data_ptr(), *ptrs, m, c, s, float(eps), _stream(x.device))
+        return tuple(outs)
     _launch("ln_qkv", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
             b.data_ptr(), *ptrs, m, c, s, float(eps), *CK._ln_plan_args(c, s * c, "qkv"),
             _stream(x.device))
@@ -217,11 +235,11 @@ def proj_scale_residual_cut(a, wp, bp, gamma, x, cut: int) -> torch.Tensor:
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                      n: int, scale: float, q_is_global: bool = False) -> torch.Tensor:
     """Window attention on (B, nWin*N, C) tokens with a (heads, N, N) f32
-    rel-pos bias. CUDA: q, k, v bf16 (q (B, N, C) with ``q_is_global``),
-    head width 32, N <= 224 -> bf16 (B, nWin*N, C)."""
+    rel-pos bias. CUDA: q, k, v all bf16 or all f32 (``window_attention`` or
+    ``window_attention_f32``; q (B, N, C) with ``q_is_global``), head width
+    32, N <= 224 -> (B, nWin*N, C) in their dtype."""
     if k.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, n, scale, q_is_global)
-    refuse_f32("window_attention", q, k, v)
     if k.ndim != 3:
         raise ValueError(f"k must be (B, nWin*N, C), got {tuple(k.shape)}")
     b, toks, c = k.shape
@@ -230,35 +248,41 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
         raise ValueError(f"window attention takes N <= {MAX_WINDOW_TOKENS} dividing the "
                          f"{toks} tokens and C = heads * {HEAD_DIM}; got N = {n}, C = {c}, "
                          f"heads = {heads}")
-    _check("k", k, torch.bfloat16, (b, toks, c), k.device)
-    _check("v", v, torch.bfloat16, (b, toks, c), k.device)
-    _check("q", q, torch.bfloat16, (b, n, c) if q_is_global else (b, toks, c), k.device)
+    dt = torch.float32 if k.dtype == torch.float32 else torch.bfloat16
+    _check("k", k, dt, (b, toks, c), k.device)
+    _check("v", v, dt, (b, toks, c), k.device)
+    _check("q", q, dt, (b, n, c) if q_is_global else (b, toks, c), k.device)
     _check("bias", bias, torch.float32, (heads, n, n), k.device)
-    out = torch.empty((b, toks, c), dtype=torch.bfloat16, device=k.device)
-    _launch("window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, toks // n, n, c, heads, float(scale), int(q_is_global),
-            _stream(k.device))
+    out = torch.empty((b, toks, c), dtype=dt, device=k.device)
+    name = "window_attention_f32" if dt == torch.float32 else "window_attention"
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+            toks // n, n, c, heads, float(scale), int(q_is_global), _stream(k.device))
     return out
 
 
 def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
                         gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """r1 = x + gamma * (a wp^T + bp) on rows. CUDA: a and x bf16 (M, C), wp
-    bf16 (C, C), bp and gamma f32 (C,) -> f32 (M, C)."""
+    """r1 = x + gamma * (a wp^T + bp) on rows. CUDA: a, x (M, C) and wp
+    (C, C) all bf16 or, by wp's dtype, all f32 (``proj_scale_residual_f32``),
+    bp and gamma f32 (C,) -> f32 (M, C)."""
     if a.device.type == "cpu":
         return proj_scale_residual_plain(a, wp, bp, gamma, x)
-    refuse_f32("proj_scale_residual", a, wp, x)
     if a.ndim != 2:
         raise ValueError(f"a must be (M, C), got {tuple(a.shape)}")
     m, c = a.shape
     CK._check_rows(m)
     _check_width(c)
-    _check("a", a, torch.bfloat16, (m, c), a.device)
-    _check("wp", wp, torch.bfloat16, (c, c), a.device)
+    dt = torch.float32 if wp.dtype == torch.float32 else torch.bfloat16
+    _check("a", a, dt, (m, c), a.device)
+    _check("wp", wp, dt, (c, c), a.device)
     _check("bp", bp, torch.float32, (c,), a.device)
     _check("gamma", gamma, torch.float32, (c,), a.device)
-    _check("x", x, torch.bfloat16, (m, c), a.device)
+    _check("x", x, dt, (m, c), a.device)
     out = torch.empty((m, c), dtype=torch.float32, device=a.device)
+    if dt == torch.float32:
+        _launch("proj_scale_residual_f32", a.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+                gamma.data_ptr(), x.data_ptr(), out.data_ptr(), m, c, _stream(a.device))
+        return out
     _launch("proj_scale_residual", a.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(),
             x.data_ptr(), out.data_ptr(), m, c, *CK._proj_plan_args(c), _stream(a.device))
     return out

@@ -23,7 +23,9 @@ kernel bodies run on the wgmma + TMA GEMM of ``csrc/ptq_int8.cuh``
            int8 / bf16 speedup, and the same beside the library calls,
            ``torch.matmul`` in bf16 (cuBLAS) and ``torch._int_mm``
            (cuBLASLt s8 x s8 -> s32) on a column-major copy of w, the layout
-           its int8 path takes (the direct body's library time), and once
+           its int8 path takes (the direct body's library time; the int8
+           body's is the same call after x's quantize in PyTorch ops,
+           times sx), and once
            more on the row-major w, which cuBLASLt relayouts first; the
            kernels take w packed once (``pack_weight``) outside the timed
            calls, as the library takes its column-major copy, and the
@@ -95,6 +97,13 @@ def inputs(m: int, k: int, n: int) -> dict:
     return dict(x16=x16, w16=w16, w8=w8, x8=x8)
 
 
+def _quantize_static(x: torch.Tensor, inv: float) -> torch.Tensor:
+    """``clip(round(x_f32 * inv), -127, 127)`` as int8 in PyTorch ops, with
+    no host copy (capturable): the int8 body's quantize for its library
+    yardstick."""
+    return torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
+
+
 def timed(kern, plain, lib, iters: int) -> dict:
     """Device ms (CUDA-graph replay) of the kernel and the library call,
     with their CUDA-event ms beside, and event ms of the plain version; in
@@ -121,6 +130,7 @@ def gemm(iters: int = 64, shapes: Optional[Sequence[str]] = None) -> List[dict]:
             continue
         t = inputs(m, k, n)
         sx = 1.0 / 16.0
+        inv = Q.f32_reciprocal(sx)
         # prepared once, outside the timed calls: w column-major (N, K) for cuBLASLt's int8,
         # and the kernels' packed (N, Kp) weights
         w8_nk = t["w8"].t().contiguous()
@@ -130,7 +140,8 @@ def gemm(iters: int = 64, shapes: Optional[Sequence[str]] = None) -> List[dict]:
                      lambda: Q.int8_spike_bf16_plain(t["x16"], t["w16"]),
                      lambda: torch.matmul(t["x16"], t["w16"])),
             "int8": (lambda: Q.int8_spike_int8(t["x16"], t["w8"], sx, w_packed=p8),
-                     lambda: Q.int8_spike_int8_plain(t["x16"], t["w8"], sx), None),
+                     lambda: Q.int8_spike_int8_plain(t["x16"], t["w8"], sx),
+                     lambda: torch._int_mm(_quantize_static(t["x16"], inv), w8_nk.t()) * sx),
             "direct": (lambda: Q.int8_spike_direct(t["x8"], t["w8"], w_packed=p8),
                        lambda: Q.int8_spike_direct_plain(t["x8"], t["w8"]),
                        lambda: torch._int_mm(t["x8"], w8_nk.t())),

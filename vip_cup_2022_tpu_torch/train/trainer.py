@@ -7,8 +7,8 @@ config's dtype (bf16 or f32, on CUDA as on the CPU) with its parameters held
 in f32, as Flax's ``param_dtype``. In f32 on CUDA every step and evaluation
 runs with TF32 off for cuDNN and cuBLAS (``utils/precision.py::f32_scope``),
 and a GCViT or ConvNeXt whose config leaves the block path to the default
-evaluates on its unfused block, as it trains (the models' rule; the fused
-blocks' f32 mode is ROADMAP item A15b). A step: uint8
+trains on its unfused block and evaluates on its fused one, in f32 as in
+bf16 (the models' rule). A step: uint8
 batches / 255, mixup / cutmix, the forward in training mode (GCViT's
 unfused path: K8, K9 and K10 under autograd), the loss in f32 (plus the
 teacher's distillation KL), the gradient (SAM's second pass with
