@@ -457,9 +457,20 @@ CHAIN = ("ln_fc1_gelu_int8", QROWS_HIDDEN, "fc2_scale_residual_int8")
 BF16_VARIANT = {"ln_fc1_gelu_int8": "ln_fc1_gelu", "ln_qkv_int8": "ln_qkv",
                 "fc2_scale_residual_int8": "fc2_scale_residual",
                 "proj_scale_residual_int8": "proj_scale_residual"}
+# the last modes (ROADMAP A15c), a launch counter each: the int8 block kernels on f32
+# activations (VIPTPU_DTYPE=float32 VIPTPU_INT8_KERNELS=1; ln_qkv_int8_mmf32: a bf16 block's
+# f32 q, k, v under VIPTPU_GCVIT_MM=f32) and GCViT's mixed GEMM dtypes (VIPTPU_GCVIT_MM): f32
+# GEMMs on bf16 activations (_mmf32) and bf16 GEMMs on f32 ones (_mmbf16)
+INT8_F32 = ("ln_qkv_int8_f32", "ln_qkv_int8_mmf32", "proj_scale_residual_int8_f32",
+            "mlp_int8_scale_residual_f32")
+MIXED_MODES = {"mmf32": (torch.bfloat16, torch.float32), "mmbf16": (torch.float32, torch.bfloat16)}
+MIXED_KERNELS = GCVIT_KERNELS + ("fc2_scale_residual",)
+MIXED = tuple(f"{n}_{mode}" for mode in MIXED_MODES for n in MIXED_KERNELS)
+A15C = INT8_F32 + MIXED
 KERNELS = (CONVNEXT_KERNELS + GCVIT_KERNELS + (ATTN, LN, DW) + LNMLP_KERNELS + (PARTS,)
-           + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS + (ATTN32, DW32) + BLOCK_F32)
-COUNTED = KERNELS + CHAIN_KERNELS  # every launch counter the launch checks read
+           + SPIKE_KERNELS + (QUANT, PTQ) + INT8_KERNELS + (ATTN32, DW32) + BLOCK_F32 + A15C)
+# every launch counter the launch checks read (the chain's f32 fc2 too: off the model path)
+COUNTED = KERNELS + CHAIN_KERNELS + ("fc2_scale_residual_int8_f32",)
 RECORDED = KERNELS + (LN32,)  # the kernels record's entries
 CSRC = "vip_cup_2022_tpu_torch/csrc"
 SOURCES = {n: f"{CSRC}/convnext_block.cu" for n in CONVNEXT_KERNELS}
@@ -471,7 +482,8 @@ SOURCES.update({n + "_f32": SOURCES[n] for n in CONVNEXT_KERNELS + GCVIT_KERNELS
 SOURCES.update({n: f"{CSRC}/ln_mlp.cu" for n in LNMLP_KERNELS})
 SOURCES.update({n: f"{CSRC}/int8_gemm.cu" for n in SPIKE_KERNELS})
 SOURCES.update({n: f"{CSRC}/ptq_int8.cuh" for n in (QUANT, PTQ)})  # built into int8_gemm.cu's
-SOURCES.update({n: f"{CSRC}/block_int8.cu" for n in INT8_KERNELS})
+SOURCES.update({n: f"{CSRC}/block_int8.cu" for n in INT8_KERNELS + INT8_F32})
+SOURCES.update({f"{n}_{mode}": SOURCES[n] for mode in MIXED_MODES for n in MIXED_KERNELS})
 PALLAS = "vip_cup_2022_tpu/ops/pallas"
 TPU = f"{PALLAS}/convnext_block.py"
 GTPU = f"{PALLAS}/gcvit_block.py"
@@ -505,6 +517,11 @@ REPLACES = {  # K1 fused_convnext_block, K2 fused_ln_mlp_residual_batchlane, K4 
 }
 REPLACES.update({ATTN32: REPLACES[ATTN], LN32: REPLACES[LN], DW32: REPLACES[DW]})  # f32 modes
 REPLACES.update({n + "_f32": REPLACES[n] for n in CONVNEXT_KERNELS + GCVIT_KERNELS})
+REPLACES.update({f"{n}_{mode}": REPLACES[n] for mode in MIXED_MODES for n in MIXED_KERNELS})
+REPLACES.update({"ln_qkv_int8_f32": REPLACES["ln_qkv_int8"],
+                 "ln_qkv_int8_mmf32": REPLACES["ln_qkv_int8"],
+                 "proj_scale_residual_int8_f32": REPLACES["proj_scale_residual_int8"],
+                 "mlp_int8_scale_residual_f32": REPLACES["mlp_int8_scale_residual"]})
 STAGES = ((99, 99, 96, 3), (49, 49, 192, 3), (24, 24, 384, 9), (12, 12, 768, 3))  # H, W, C, blocks
 LEVELS = exp_window_attention.LEVELS  # GCViTTiny@224: grid, C, heads, window, blocks
 CONVNEXT_BLOCKS, GCVIT_BLOCKS = 18, 31
@@ -3395,6 +3412,327 @@ def phase_f32(card: str, stats: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the last modes (ROADMAP A15c): the int8 block kernels on f32 activations and
+# GCViT's mixed GEMM dtypes (VIPTPU_GCVIT_MM)
+# ---------------------------------------------------------------------------
+A15C_RUNS = {  # run -> the knobs main.py serves it under
+    "f32 int8": dict(VIPTPU_DTYPE="float32", VIPTPU_INT8_KERNELS="1"),
+    "bf16 mm f32": dict(VIPTPU_GCVIT_MM="f32"),
+    "f32 mm bf16": dict(VIPTPU_DTYPE="float32", VIPTPU_GCVIT_MM="bf16"),
+    "bf16 int8 mm f32": dict(VIPTPU_INT8_KERNELS="1", VIPTPU_GCVIT_MM="f32"),
+}
+# every fused-block counter: a run may launch its own mode's and no other
+BLOCK_COUNTERS = (CONVNEXT_KERNELS + GCVIT_KERNELS + BLOCK_F32 + INT8_KERNELS + CHAIN_KERNELS
+                  + A15C + ("fc2_scale_residual_int8_f32", ATTN, ATTN32))
+
+
+def a15c_forward(run: str) -> dict:
+    """The fused-block launches of one ConvNeXt + GCViTTiny forward under
+    ``run``'s knobs: ConvNeXt's 18 blocks and GCViT's 28 at C >= 128 on the
+    int8 kernels where the run has them, GCViT's L1 (and every level
+    without int8) on the run's mixed-mode kernels."""
+    cx, gc, i8 = CONVNEXT_BLOCKS, GCVIT_BLOCKS, GCVIT_INT8_BLOCKS
+    l1 = gc - i8
+    if run == "f32 int8":
+        return {"dwconv7x7_nhwc_f32": cx, "ln_fc1_rowmax_int8": cx + i8,
+                "mlp_int8_scale_residual_f32": cx + i8, "ln_qkv_int8_f32": i8,
+                "quantize_rows": i8, "proj_scale_residual_int8_f32": i8,
+                "window_attention_f32": gc, "ln_qkv_f32": l1,
+                "proj_scale_residual_f32": l1, "ln_fc1_gelu_f32": l1, "fc2_scale_residual_f32": l1}
+    if run == "bf16 mm f32":
+        return {**{n: cx for n in CONVNEXT_KERNELS}, "ln_fc1_gelu_f32": gc,
+                **{f"{n}_mmf32": gc for n in MIXED_KERNELS}}
+    if run == "f32 mm bf16":
+        return {**{n: cx for n in CONVNEXT_F32}, "ln_fc1_gelu": gc,
+                **{f"{n}_mmbf16": gc for n in MIXED_KERNELS}}
+    return {"dwconv7x7_nhwc": cx, "ln_fc1_rowmax_int8": cx + i8,
+            "mlp_int8_scale_residual": cx + i8, "ln_qkv_int8_mmf32": i8, "quantize_rows": i8,
+            "proj_scale_residual_int8": i8, "window_attention_mmf32": gc, "ln_qkv_mmf32": l1,
+            "proj_scale_residual_mmf32": l1, "ln_fc1_gelu_f32": l1,
+            "fc2_scale_residual_mmf32": l1}
+
+
+def a15c_bound(dtype: torch.dtype, mm: torch.dtype) -> float:
+    """An f32 output of f32 GEMMs ``F32_KERNEL_BOUND``; a bf16 output, or any
+    of bf16 GEMMs (operands rounded on chip), ``KERNEL_BOUND``."""
+    return F32_KERNEL_BOUND if dtype == mm == torch.float32 else KERNEL_BOUND
+
+
+def a15c_level(b: int, level: tuple, mode: str, gen, stats: dict) -> dict:
+    """GCViT's five launches of one level in ``mode`` at batch ``b`` (local
+    and global blocks), each against its plain version on the kernel
+    before's output; returns the level's inputs and outputs."""
+    act, mm = MIXED_MODES[mode]
+    grid, c, heads, ws, _, _ = level
+    p = gcvit_level_inputs(b, grid, c, heads, ws, gen, mm)
+    p["x"], p["qg"] = p["x"].to(act), p["qg"].to(act)
+    n, t = p["n"], lambda a: a.view(b, -1, c)
+    args = (p["x"], p["lg"], p["lb"])
+    p["qkv"] = G.ln_qkv(*args, p["wqkv"], p["bqkv"], 1e-5, mm_dtype=mm)
+    p["kv"] = G.ln_qkv(*args, p["wqkv"][c:], p["bqkv"][c:], 1e-5, mm_dtype=mm)
+    q, k, v = (t(a) for a in p["qkv"])
+    kg, vg = (t(a) for a in p["kv"])
+    attn = G.window_attention(q, k, v, p["bias"], n, p["scale"], mm_dtype=mm, out_dtype=act)
+    attn_g = G.window_attention(p["qg"], kg, vg, p["bias"], n, p["scale"], True, mm_dtype=mm,
+                                out_dtype=act)
+    p["attn"] = attn.view(-1, c)
+    p["r1"] = G.proj_scale_residual(p["attn"], p["wp"], p["bp"], p["g1"], p["x"], mm_dtype=mm)
+    p["hid"] = K.ln_fc1_gelu(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5, mm_dtype=mm)
+    out = K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"], out_dtype=act)
+    torch.cuda.synchronize()
+    f32 = torch.float32
+    for name, got, make_ref, bound in (
+            (f"ln_qkv_{mode} local", torch.cat(p["qkv"], 1), lambda: torch.cat(G.ln_qkv_plain(
+                *args, p["wqkv"], p["bqkv"], 1e-5, mm), 1), a15c_bound(f32, mm)),
+            (f"ln_qkv_{mode} global", torch.cat(p["kv"], 1), lambda: torch.cat(G.ln_qkv_plain(
+                *args, p["wqkv"][c:], p["bqkv"][c:], 1e-5, mm), 1), a15c_bound(f32, mm)),
+            (f"window_attention_{mode} local", attn, lambda: G.window_attention_plain(
+                q, k, v, p["bias"], n, p["scale"], False, mm, act), a15c_bound(act, mm)),
+            (f"window_attention_{mode} global", attn_g, lambda: G.window_attention_plain(
+                p["qg"], kg, vg, p["bias"], n, p["scale"], True, mm, act), a15c_bound(act, mm)),
+            (f"proj_scale_residual_{mode}", p["r1"], lambda: G.proj_scale_residual_plain(
+                p["attn"], p["wp"], p["bp"], p["g1"], p["x"], mm), a15c_bound(f32, mm)),
+            (f"fc2_scale_residual_{mode}", out, lambda: K.fc2_scale_residual_plain(
+                p["hid"], p["w2"], p["b2"], p["g2"], p["r1"], act), a15c_bound(act, mm))):
+        check({name: (got, make_ref)}, f"b{b} {grid}x{grid}x{c} w{ws}", stats, bound)
+    return p
+
+
+def a15c_level_calls(p: dict, b: int, c: int, heads: int, mode: str) -> dict:
+    """name -> (kernel, plain, library, bytes, operations) of the mode's
+    four new launches of one level (``ln_qkv`` and the attention local and
+    global); the library: cuBLAS's product in the mode's operand dtype (its
+    operands cast to it beforehand, TF32 off), SDPA on the same tiles in
+    that dtype (the global query repeated over the windows beforehand)."""
+    act, mm = MIXED_MODES[mode]
+    n, m = p["n"], p["m"]
+    ea, em = torch.tensor([], dtype=act).element_size(), torch.tensor([], dtype=mm).element_size()
+    t = lambda a: a.view(b, -1, c)  # noqa: E731
+    hv = lambda a: a.reshape(-1, n, heads, 32).transpose(1, 2).to(mm)  # noqa: E731
+    x_mm, a_mm, q_mm = p["x"].to(mm), p["attn"].to(mm), p["qg"].to(mm)
+    q, k, v = (t(a) for a in p["qkv"])
+    kg, vg = (t(a) for a in p["kv"])
+    qh, kh, vh, kgh, vgh = hv(q), hv(k), hv(v), hv(kg), hv(vg)
+    q_rep = hv(q_mm.repeat_interleave(m // (b * n), 0))
+    mask = p["bias"].to(mm)
+    w_kv, b_kv = p["wqkv"][c:], p["bqkv"][c:]
+    act_b, qkv_b, weight = m * c * ea, m * c * 4, c * c * em  # one (M, C) in act / f32, C x C
+    attn_ops, bias_b = 4 * m * n * c, heads * n * n * 4
+    kind = "f32" if mm == torch.float32 else "bf16"
+    args = (p["x"], p["lg"], p["lb"])
+    return {
+        f"ln_qkv_{mode} local": (
+            lambda: G.ln_qkv(*args, p["wqkv"], p["bqkv"], 1e-5, mm_dtype=mm),
+            lambda: G.ln_qkv_plain(*args, p["wqkv"], p["bqkv"], 1e-5, mm),
+            lambda: F.linear(x_mm, p["wqkv"]), act_b + 3 * qkv_b + 3 * weight,
+            2 * m * c * 3 * c, kind),
+        f"ln_qkv_{mode} global": (
+            lambda: G.ln_qkv(*args, w_kv, b_kv, 1e-5, mm_dtype=mm),
+            lambda: G.ln_qkv_plain(*args, w_kv, b_kv, 1e-5, mm),
+            lambda: F.linear(x_mm, w_kv), act_b + 2 * qkv_b + 2 * weight, 2 * m * c * 2 * c, kind),
+        f"window_attention_{mode} local": (
+            lambda: G.window_attention(q, k, v, p["bias"], n, p["scale"], mm_dtype=mm,
+                                       out_dtype=act),
+            lambda: G.window_attention_plain(q, k, v, p["bias"], n, p["scale"], False, mm, act),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=p["scale"]),
+            3 * qkv_b + act_b + bias_b, attn_ops, kind),
+        f"window_attention_{mode} global": (
+            lambda: G.window_attention(p["qg"], kg, vg, p["bias"], n, p["scale"], True,
+                                       mm_dtype=mm, out_dtype=act),
+            lambda: G.window_attention_plain(p["qg"], kg, vg, p["bias"], n, p["scale"], True, mm,
+                                             act),
+            lambda: F.scaled_dot_product_attention(q_rep, kgh, vgh, attn_mask=mask,
+                                                   scale=p["scale"]),
+            2 * qkv_b + b * n * c * ea + act_b + bias_b, attn_ops, kind),
+        f"proj_scale_residual_{mode}": (
+            lambda: G.proj_scale_residual(p["attn"], p["wp"], p["bp"], p["g1"], p["x"],
+                                          mm_dtype=mm),
+            lambda: G.proj_scale_residual_plain(p["attn"], p["wp"], p["bp"], p["g1"], p["x"], mm),
+            lambda: F.linear(a_mm, p["wp"]), 2 * act_b + weight + qkv_b, 2 * m * c * c, kind),
+        f"fc2_scale_residual_{mode}": (
+            lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"],
+                                         out_dtype=act),
+            lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"], act),
+            lambda: F.linear(p["hid"], p["w2"]), 3 * m * c * em + 3 * weight + qkv_b + act_b,
+            2 * m * 3 * c * c, kind),
+    }
+
+
+def a15c_kernels(card: str, stats: dict, gen) -> None:
+    """Every new instantiation at batch 8 (ragged row tiles) and 256 against
+    its plain version: the GCViT block's five kernels in both mixed modes at
+    L1-L4 (``a15c_bound``), timed at 256 beside cuBLAS's product in the
+    mode's operand dtype and SDPA; the int8 kernels' f32 modes at GCViT's
+    L2-L4 (q, k, v from f32 and from bf16 x; proj on the f32 x) and the MLP
+    pair's f32 pass 2 at ConvNeXt's s1-s4 and GCViT's L2-L4 (the LN GEMM
+    1e-2, the rest bit for bit as in bf16), timed beside torch._int_mm with
+    the quantize; per ConvNeXt + GCViT forward into the record."""
+    before = snapshot(stats)
+    for mode in MIXED_MODES:
+        for b in (8, BATCH):
+            for level in LEVELS:
+                grid, c, heads, ws, n_local, n_global = level
+                p = a15c_level(b, level, mode, gen, stats)
+                if b == BATCH:
+                    for name, (kern, plain, lib, nbytes, ops, kind) in a15c_level_calls(
+                            p, b, c, heads, mode).items():
+                        times = time_calls(kern, plain, lib)
+                        count = (n_local if name.endswith("local") else n_global
+                                 if name.endswith("global") else n_local + n_global)
+                        bound = account(stats, name.split(" ")[0], count, times, nbytes, ops,
+                                        kind)
+                        print_launch(name, f"({b},{grid},{grid},{c}) w{ws}", times, bound, card)
+                del p
+                torch.cuda.empty_cache()
+    f32, bf16 = torch.float32, torch.bfloat16
+    apart = {"bf16": Counter(), "int_mm": Counter()}
+    u = lambda *shape: torch.rand(shape, generator=gen, device="cuda") * 2 - 1  # noqa: E731
+    for b in (8, BATCH):
+        for grid, c, heads, ws, n_local, n_global in INT8_LEVELS:
+            m = b * grid * grid
+            x, attn, lg, lb = u(m, c), u(m, c), u(c) * 0.5 + 1.0, u(c) * 0.1
+            qkv = dyn_int8.quantize_linear(u(3 * c, c) * c ** -0.5)
+            proj = dyn_int8.quantize_linear(u(c, c) * c ** -0.5)
+            bqkv, bp, g1 = u(3 * c) * 0.1, u(c) * 0.1, u(c) * 0.5 + 1.0
+            a_q, a_s = B8.quantize_rows(attn)
+            outs = {}
+            for name, xx in (("ln_qkv_int8_f32", x), ("ln_qkv_int8_mmf32", x.to(bf16))):
+                outs[name] = (torch.cat(B8.ln_qkv_int8(xx, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, f32),
+                                        1),
+                              lambda xx=xx: torch.cat(B8.ln_qkv_int8_plain(
+                                  xx, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, f32), 1), False)
+            outs["proj_scale_residual_int8_f32"] = (
+                B8.proj_scale_residual_int8(a_q, a_s, proj.q, proj.s, bp, g1, x),
+                lambda: B8.proj_scale_residual_int8_plain(a_q, a_s, proj.q, proj.s, bp, g1, x),
+                True)
+            torch.cuda.synchronize()
+            label = f"b{b} ({m},{c}) L{grid}x{grid}"
+            check_int8(label, stats, outs)
+            if b == BATCH:
+                x16 = x.to(bf16)
+                run_int8_calls({
+                    "ln_qkv_int8_f32": (
+                        n_local + n_global,
+                        lambda: B8.ln_qkv_int8(x, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, f32),
+                        lambda: B8.ln_qkv_int8_plain(x, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, f32),
+                        int_mm_yardstick(x, qkv.q), m * c * 4 * 4 + 3 * c * c + 6 * c * 4,
+                        2 * m * c * 3 * c, "int8", None),
+                    "ln_qkv_int8_mmf32": (
+                        n_local + n_global,
+                        lambda: B8.ln_qkv_int8(x16, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, f32),
+                        lambda: B8.ln_qkv_int8_plain(x16, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, f32),
+                        int_mm_yardstick(x16, qkv.q), m * c * (2 + 3 * 4) + 3 * c * c + 6 * c * 4,
+                        2 * m * c * 3 * c, "int8", None),
+                    "proj_scale_residual_int8_f32": (
+                        n_local + n_global,
+                        lambda: B8.proj_scale_residual_int8(a_q, a_s, proj.q, proj.s, bp, g1, x),
+                        lambda: B8.proj_scale_residual_int8_plain(a_q, a_s, proj.q, proj.s, bp,
+                                                                  g1, x),
+                        int_mm_yardstick(attn, proj.q), m * c * (1 + 4 + 4) + m * 4 + c * c,
+                        2 * m * c * c, "int8", None),
+                }, label, stats, apart, card)
+            del x, attn, a_q, a_s, outs
+            torch.cuda.empty_cache()
+    shapes = [(h * w, c, 4 * c, nb) for h, w, c, nb in STAGES] + [
+        (grid * grid, c, 3 * c, n_local + n_global) for grid, c, _, _, n_local, n_global
+        in INT8_LEVELS]
+    for b in (8, BATCH):
+        for rows, c, n, count in shapes:
+            m = b * rows
+            d, res, lg, lb = u(m, c), u(m, c), u(c) * 0.5 + 1.0, u(c) * 0.1
+            fc1 = dyn_int8.quantize_linear(u(n, c) * c ** -0.5)
+            fc2 = dyn_int8.quantize_linear(u(c, n) * n ** -0.5)
+            b1, b2, gamma = u(n) * 0.1, u(c) * 0.1, u(c) * 0.5 + 1.0
+            x_q, x_s, h_s = B8.ln_fc1_rowmax_int8(d, lg, lb, fc1.q, fc1.s, b1, 1e-6)
+            pass2 = (x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s, b2, gamma, res, f32)
+            out = B8.mlp_int8_scale_residual(*pass2)
+            torch.cuda.synchronize()
+            label = f"b{b} ({m},{c}) N {n}"
+            check_int8(label, stats, {"mlp_int8_scale_residual_f32": (
+                out, lambda: B8.mlp_int8_scale_residual_plain(*pass2), False)})
+            if b == BATCH:
+                run_int8_calls({"mlp_int8_scale_residual_f32": (
+                    count, lambda: B8.mlp_int8_scale_residual(*pass2),
+                    lambda: B8.mlp_int8_scale_residual_plain(*pass2), None,
+                    m * c + 3 * m * 4 + 2 * n * c + (2 * n + 3 * c) * 4 + 2 * m * c * 4,
+                    *pair_floor("mlp_int8_scale_residual", 4 * m * c * n, m * n), None)},
+                    label, stats, apart, card)
+            del d, res, x_q, x_s, h_s, out, pass2
+            torch.cuda.empty_cache()
+    print_per_forward(stats, before, A15C,
+                      "ConvNeXt + GCViTTiny batch-256 forward in the run that launches it", card)
+
+
+def a15c_csv(card: str) -> dict:
+    """The two-member (ConvNeXt + GCViT) and seven-member CSVs, every member
+    with a one-output sigmoid head, through ``main_torch.main`` under each
+    of ``A15C_RUNS`` (the seven members under the first three), cold then
+    warm: the fused blocks launch the run's kernels at each block a batch
+    and no other block kernel (:func:`a15c_forward`; the cold run), no plain
+    version runs; the warm run against the same run under
+    ``plain_kernels()`` (raw means within ``MODEL_BOUND`` with int8,
+    ``SERVING_BOUND`` else; the decisions flipped at 0.487 and at the plain
+    run's median printed). Returns the new kernels' launches of the
+    two-member cold runs."""
+    batches = -(-N_IMAGES // BATCH)
+    launches, plain = {}, Counter()
+    ms = lambda s: ", ".join(f"{t * 1000:.1f} ms" for t in s)  # noqa: E731
+    with binary_heads():
+        for manifest, label in ((TWO, "2 members"), (MANIFEST, "7 members")):
+            with csv_workspace(manifest) as (input_csv, output_csv, times, names):
+                for run, env in A15C_RUNS.items():
+                    if manifest is MANIFEST and run == "bf16 int8 mm f32":
+                        continue
+                    with knobs(**env):
+                        with counting_plain(plain):  # cold (launches checked), then warm
+                            got, cold, _, _ = run_csv(input_csv, output_csv, names)
+                            _, sec, batch_s, res = run_csv(input_csv, output_csv, names, times)
+                        with plain_kernels():
+                            _, sec_p, _, ref = run_csv(input_csv, output_csv, names)
+                    want = {**{n: 0 for n in BLOCK_COUNTERS},
+                            **{n: batches * v for n, v in a15c_forward(run).items()}}
+                    expect_launches({n: got[n] for n in BLOCK_COUNTERS}, want,
+                                    f"{label} {run} CSV->CSV")
+                    compare_raw(f"{label} {run}", res, ref, "its plain run",
+                                bound=MODEL_BOUND if "int8" in run else SERVING_BOUND, tag="a15c")
+                    # the random heads put most means on one side of 0.487: flips at the plain
+                    # run's median too, a threshold with half the images on each side
+                    med = float(np.median(ref["raw"]))
+                    flips = int(((res["raw"] > med) != (ref["raw"] > med)).sum())
+                    print(f"[a15c] CSV->CSV {N_IMAGES} images, batch {BATCH}, {label}, {env}: "
+                          f"cold {cold:.2f} s, warm {sec:.2f} s ({N_IMAGES / sec:.1f} img/s; "
+                          f"per-batch e2e {ms(batch_s)}), plain run {sec_p:.2f} s; {flips} of "
+                          f"{N_IMAGES} decisions flip against the plain run at its median raw "
+                          f"mean {med:.6f} [{card}]")
+                    if manifest is TWO:  # each kernel's from the first run of its mode
+                        for n in A15C:
+                            if got[n]:
+                                launches.setdefault(n, got[n])
+    if sum(plain.values()):
+        raise AssertionError(f"the kernel runs called plain versions {dict(plain)}")
+    return launches
+
+
+def phase_a15c(card: str, stats: dict) -> dict:
+    """The last modes on the card (:func:`a15c_kernels`, :func:`a15c_csv`);
+    returns the new kernels' launches, each from the two-member CSV run that
+    serves its mode."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    a15c_kernels(card, stats, gen)
+    t1 = time.perf_counter()
+    launches = a15c_csv(card)
+    missing = [n for n in A15C if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"no CSV run launched {missing}")
+    print(f"[a15c] phase wall time {time.perf_counter() - t0:.1f} s (kernels {t1 - t0:.1f} s, "
+          f"CSV runs {time.perf_counter() - t1:.1f} s) [{card}]")
+    return launches
+
+
 # the block kernels' wrappers whose leading dimension (the batch of a
 # (B, ...) input, the rows of an (M, C) one) the TTA runs record
 BATCHED = ((K, ("dwconv7x7_nhwc", "ln_fc1_gelu", "fc2_scale_residual")),
@@ -4447,6 +4785,8 @@ def main(argv) -> None:
     lap("pth")
     launches.update(phase_f32(card, stats))
     lap("f32")
+    launches.update(phase_a15c(card, stats))
+    lap("a15c")
     for name in TRAIN_MEMBERS:
         phase_train(card, profile, name)
         lap(f"train {name}")

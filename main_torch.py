@@ -19,9 +19,9 @@ otherwise, and no CUDA device is an error); ``VIPTPU_DTYPE`` (bf16 on CUDA
 by default; ``float32`` runs every member in f32 on the card, GCViT and
 ConvNeXt on their fused blocks through the f32 modes of the block kernels,
 as ``main.py`` does, with TF32 off in the forwards);
-``VIPTPU_GCVIT_MM`` (``bf16`` or ``f32``, GCViT's fused GEMM dtype in
-``main.py``) equal to the compute dtype changes nothing, the other dtype
-raises (ROADMAP A15c);
+``VIPTPU_GCVIT_MM`` (``bf16`` or ``f32``) sets GCViT's fused GEMM dtype as
+in ``main.py``, the activations keeping the compute dtype (the block
+kernels' mixed modes; f32 GEMMs in bf16 take the checkpoint's f32 weights);
 ``VIPTPU_MAX_BATCH`` (default 256), ``VIPTPU_DEBUG``, ``VIPTPU_VERBOSE``,
 ``VIPTPU_ALLOW_RANDOM_INIT``, ``VIPTPU_E2E_BATCH_TIMES``;
 ``VIPTPU_TTA`` (test-time augmentation copies, default 1) with
@@ -33,18 +33,18 @@ runs int8 PTQ of their convs and Linears;
 ``VIPTPU_INT8_KERNELS=1`` runs the dense GEMMs inside ConvNeXt's and
 GCViT's fused blocks as s8 wgmma kernels (GCViT's only at the levels at
 least ``VIPTPU_GCVIT_INT8_MIN_C``, default 128, wide; its attention stays
-bf16; ConvNeXt's narrow stages only while ``VIPTPU_BATCHLANE_FOLD`` is
-``1``), composing with ``VIPTPU_INT8`` as in ``main.py``;
+in the GEMM dtype; ConvNeXt's narrow stages only while
+``VIPTPU_BATCHLANE_FOLD`` is ``1``), in either compute dtype, composing
+with ``VIPTPU_INT8`` and ``VIPTPU_GCVIT_MM`` as in ``main.py``;
 ``VIPTPU_CONVNEXT_FUSED_MIN_C`` sends ConvNeXt's stages from 256 up to it
 to the unfused block, as ``main.py``'s model does;
 ``VIPTPU_NO_FUSED_BLOCK=1`` runs GCViT's and ConvNeXt's unfused block paths.
 ``VIPTPU_PALLAS`` and ``VIPTPU_PALLAS_LN`` have no effect. The members of
 ``ckpts/ckpts.json`` (ConvNeXt, ResNest, GCViT, EfficientNet, NFNet,
 ResNet-RS) are all ported. ``VIPTPU_LN_BF16_SQ=1`` (a bf16 square in the
-JAX bf16 LN's statistics, which the port's two-pass f32 LN does not take),
-``VIPTPU_INT8_KERNELS=1`` with f32 compute on CUDA (the int8 block
-kernels' f32 inputs and outputs, ROADMAP A15c) and a manifest member outside
-those families raise ``NotImplementedError``: the port has no such path.
+JAX bf16 LN's statistics, which the port's two-pass f32 LN does not take)
+and a manifest member outside those families raise
+``NotImplementedError``: the port has no such path.
 """
 import os
 import sys

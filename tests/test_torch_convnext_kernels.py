@@ -107,7 +107,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     _port_block(x, _params(32, rng))
     assert K.LAUNCHES == {
         "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
-        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0,
+        "fc2_scale_residual_mmbf16": 0, "fc2_scale_residual_mmf32": 0}
 
 
 def test_library_path_tracks_source_and_flags(monkeypatch):

@@ -21,9 +21,12 @@ plain versions there); here:
   and run on their fused blocks, narrow, against the JAX package's f32
   models forced fused (its Pallas kernels in interpret mode, exact-erf
   GELU) within 1e-4;
-- the refusals naming A15c: the int8 block wrappers given f32 on a non-CPU
-  device (their plain versions never run), ``VIPTPU_INT8_KERNELS=1`` with
-  f32 on CUDA, ``VIPTPU_GCVIT_MM`` against the compute dtype;
+- the last modes, once refused under the name A15c (the test names keep
+  it): the int8 block wrappers given f32 off the CPU launch their f32
+  instantiations (their plain versions never run), ``VIPTPU_INT8_KERNELS=1``
+  with f32 on CUDA reaches them from a narrow ConvNeXt, and
+  ``VIPTPU_GCVIT_MM`` against the compute dtype runs a narrow GCViT's fused
+  blocks on the mixed-mode symbols (``_mmf32`` / ``_mmbf16``);
 - the TF32 scope (``utils/precision.py::f32_scope``) that the engine's
   forwards and the trainer's steps and evaluations take: both flags off
   inside, restored after.
@@ -47,6 +50,7 @@ from vip_cup_2022_tpu_torch.ops.kernels import depthwise as D
 from vip_cup_2022_tpu_torch.ops.kernels import gcvit_block as G
 from vip_cup_2022_tpu_torch.ops.kernels import layernorm as L
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA
+from vip_cup_2022_tpu_torch.quant import dyn_int8
 from vip_cup_2022_tpu_torch.quant.dyn_int8 import Int8Weight
 from vip_cup_2022_tpu_torch.train import TrainConfig, Trainer
 from vip_cup_2022_tpu_torch.utils.precision import f32_scope
@@ -136,7 +140,7 @@ def test_layer_norm_launches_the_symbol_of_its_dtype(monkeypatch, dtype, symbol,
 
 
 # ---------------------------------------------------------------------------
-# the fused blocks' wrappers launch their f32 symbols; the int8 ones refuse f32 (A15c)
+# the fused blocks' wrappers launch their f32 symbols, and so do the int8 ones
 # ---------------------------------------------------------------------------
 def _i8(n, c):
     return Int8Weight(_meta(n, c, dtype=torch.int8), _meta(n))
@@ -208,14 +212,27 @@ def test_fused_wrappers_launch_the_symbol_of_their_dtype(monkeypatch, name, dtyp
     assert all(o.dtype == (F32 if dtype == F32 else bf16_out) for o in outs)
 
 
+# each int8 wrapper's entry point in csrc/block_int8.cu and the counter of its f32 mode
+INT8_F32_SYMBOLS = {"ln_qkv_int8": ("ln_qkv_int8", "ln_qkv_int8_f32"),
+                    "mlp_int8_scale_residual": ("mlp_int8_scale_residual",
+                                                "mlp_int8_scale_residual_f32"),
+                    "fc2_scale_residual_int8": ("res_gemm_int8", "fc2_scale_residual_int8_f32"),
+                    "proj_scale_residual_int8": ("res_gemm_int8", "proj_scale_residual_int8_f32")}
+
+
 @pytest.mark.parametrize("name", sorted(INT8_F32_CALLS))
 def test_int8_wrappers_refuse_f32_naming_a15c(monkeypatch, name):
     """Off the CPU an int8 block wrapper (``VIPTPU_INT8_KERNELS=1``) given
-    f32 activations raises ``NotImplementedError`` naming A15c, before its
-    dtype checks, and runs no plain version in its place."""
+    an f32 block's activations (once refused as A15c) launches its kernel's
+    f32 instantiation, counted under the mode's own name, runs no plain
+    version, and writes f32, as the JAX kernels write ``x2.dtype``."""
     _no_plain(monkeypatch, B8, name)
-    with pytest.raises(NotImplementedError, match="A15c"):
-        INT8_F32_CALLS[name]()
+    entry, counter = INT8_F32_SYMBOLS[name]
+    called, launches, out = _launch(monkeypatch, B8, INT8_F32_CALLS[name])
+    assert called == [entry]
+    assert launches == {**{k: 0 for k in B8.LAUNCHES}, counter: 1}
+    outs = out if isinstance(out, tuple) else (out,)
+    assert outs and all(o.dtype == F32 for o in outs)
 
 
 # the launches of one narrow forward's blocks on the f32 symbols
@@ -258,16 +275,45 @@ def test_f32_member_off_the_cpu_takes_its_fused_block_and_reaches_the_f32_symbol
     assert sorted(set(libs[K].called + libs[G].called)) == sorted({**want_k, **want_g})
 
 
+def _off_the_cpu(monkeypatch, modules):
+    """The block kernels' libraries of ``modules`` replaced by recorders, the
+    LN and depthwise kernels by their plain versions (which compute shapes
+    only on the meta device); the recorders."""
+    monkeypatch.delenv("VIPTPU_NO_FUSED_BLOCK", raising=False)
+    monkeypatch.setattr(L, "layer_norm", L.layer_norm_plain)
+    monkeypatch.setattr(D, "depthwise_conv_nhwc", D.depthwise_conv_nhwc_plain)
+    libs = {}
+    for module in modules:
+        libs[module] = _Recorder()
+        monkeypatch.setattr(module, "_lib", lambda lib=libs[module]: lib)
+        monkeypatch.setattr(module, "_stream", lambda device: None)
+        module.reset_launches()
+    return libs
+
+
 def test_int8_kernels_with_f32_on_cuda_raise_a15c(monkeypatch):
+    """``VIPTPU_INT8_KERNELS=1`` with f32 compute on CUDA (once refused as
+    A15c) is on in every compute dtype, and a narrow f32 ConvNeXt off the
+    CPU runs its MLP on the int8 kernels' f32 instantiations only: pass 1
+    on its f32 x, pass 2 writing f32 beside the f32 residual."""
     monkeypatch.setenv("VIPTPU_INT8_KERNELS", "1")
-    f32_cuda = E.EnsembleEngine(device="cuda", compute_dtype=F32, verbose=0)
-    with pytest.raises(NotImplementedError, match="A15c"):
-        f32_cuda._int8_kernels()
-    f32_cuda.close()
-    for device, dtype in (("cuda", BF16), ("cpu", F32)):
+    for device, dtype in (("cuda", F32), ("cuda", BF16), ("cpu", F32)):
         eng = E.EnsembleEngine(device=device, compute_dtype=dtype, verbose=0)
         assert eng._int8_kernels()
         eng.close()
+    libs = _off_the_cpu(monkeypatch, (K, B8))
+    # the member's own widths (the int8 MLP pair's plans start at C = 64), one block a stage
+    model, _ = create_model("convnext_tiny_in22k", input_size=(64, 64), nb_classes=1, dtype=F32,
+                            nb_blocks=(1, 1, 1, 1))
+    model = model.to(META).eval()
+    with torch.no_grad():
+        out = model(_meta(1, 64, 64, 3))
+    assert out.shape == (1, 1) and out.dtype == F32
+    blocks = 4
+    assert K.LAUNCHES == {**{k: 0 for k in K.LAUNCHES}, "dwconv7x7_nhwc_f32": blocks}
+    assert B8.LAUNCHES == {**{k: 0 for k in B8.LAUNCHES}, "ln_fc1_rowmax_int8": blocks,
+                           "mlp_int8_scale_residual_f32": blocks}
+    assert sorted(set(libs[B8].called)) == ["ln_fc1_rowmax_int8", "mlp_int8_scale_residual"]
     monkeypatch.setenv("VIPTPU_INT8_KERNELS", "0")
     f32_cuda = E.EnsembleEngine(device="cuda", compute_dtype=F32, verbose=0)
     assert not f32_cuda._int8_kernels()
@@ -404,7 +450,7 @@ def test_gcvit_mm_equal_to_the_compute_dtype_changes_nothing(monkeypatch, value,
     does not read pass; a narrow f32 GCViT serves the same logits with the
     knob at ``f32`` as without it."""
     monkeypatch.setenv("VIPTPU_GCVIT_MM", value)
-    gcvit_model.check_gcvit_mm(dtype)
+    assert gcvit_model.gcvit_mm_dtype(dtype) == dtype
     if value == "f32":
         model, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1, seed=0,
                                 **NARROW_GCVIT)
@@ -418,19 +464,37 @@ def test_gcvit_mm_equal_to_the_compute_dtype_changes_nothing(monkeypatch, value,
 
 @pytest.mark.parametrize("value,dtype", [("bf16", F32), ("f32", BF16)])
 def test_gcvit_mm_against_the_compute_dtype_raises_a15c(monkeypatch, value, dtype):
-    """The other dtype than the compute dtype raises A15c on GCViT's fused
-    path (the engine's members included) and nowhere else: the unfused
-    path, which the JAX model runs without reading the knob, serves."""
+    """The other dtype than the compute dtype (once refused as A15c) sets
+    GCViT's fused GEMM dtype, as JAX's model reads the knob: a narrow GCViT
+    off the CPU runs every fused block on the mixed-mode symbols alone (an
+    f32 GEMM of a bf16 model on the f32 values its weights were cast from),
+    its output in the compute dtype; the unfused path, which the JAX model
+    runs without reading the knob, serves on the CPU."""
     monkeypatch.setenv("VIPTPU_GCVIT_MM", value)
-    monkeypatch.delenv("VIPTPU_NO_FUSED_BLOCK", raising=False)
-    with pytest.raises(NotImplementedError, match="A15c"):
-        gcvit_model.check_gcvit_mm(dtype)
+    mm = gcvit_model.GCVIT_MM[value]
+    assert gcvit_model.gcvit_mm_dtype(dtype) == mm != dtype
+    f32_model, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1, seed=0,
+                                **NARROW_GCVIT)
+    weights = f32_model.state_dict()
+    model, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1, dtype=dtype,
+                            **NARROW_GCVIT)
+    model.load_state_dict(weights)
+    libs = _off_the_cpu(monkeypatch, (K, G))
+    model = model.to(META).eval()
+    dyn_int8.attach(model, weights, f32=True)
+    with torch.no_grad():
+        out = model(_meta(1, 224, 224, 3, dtype=dtype))
+    assert out.shape == (1, 1)
+    tag = "_mmf32" if mm == F32 else "_mmbf16"
+    blocks = sum(NARROW_GCVIT["depths"])
+    want_g = {f"{n}{tag}": blocks for n in ("ln_qkv", "window_attention", "proj_scale_residual")}
+    want_k = {"ln_fc1_gelu_f32" if mm == F32 else "ln_fc1_gelu": blocks,
+              f"fc2_scale_residual{tag}": blocks}
+    assert G.LAUNCHES == {**{k: 0 for k in G.LAUNCHES}, **want_g}
+    assert K.LAUNCHES == {**{k: 0 for k in K.LAUNCHES}, **want_k}
+    assert sorted(set(libs[G].called + libs[K].called)) == sorted({**want_g, **want_k})
     x = torch.from_numpy(np.random.RandomState(1).uniform(0, 1, (1, 224, 224, 3))
                          .astype(np.float32))
-    model, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1, dtype=dtype,
-                            seed=0, **NARROW_GCVIT)
-    with torch.inference_mode(), pytest.raises(NotImplementedError, match="A15c"):
-        model.eval()(x)
     unfused, _ = create_model("GCViTTiny", input_size=(224, 224), nb_classes=1, dtype=dtype,
                               seed=0, fused_block=False, **NARROW_GCVIT)
     with torch.inference_mode():

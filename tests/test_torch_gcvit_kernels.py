@@ -136,10 +136,14 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     out = _port_block(_u(rng, (1, 18, 32)), None, p, 9)
     assert out.shape == (1, 18, 32)
     assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
-                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0}
+                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0,
+                          "ln_qkv_mmf32": 0, "window_attention_mmf32": 0,
+                          "proj_scale_residual_mmf32": 0, "ln_qkv_mmbf16": 0,
+                          "window_attention_mmbf16": 0, "proj_scale_residual_mmbf16": 0}
     assert CK.LAUNCHES == {
         "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
-        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0,
+        "fc2_scale_residual_mmbf16": 0, "fc2_scale_residual_mmf32": 0}
 
 
 def test_fc2_plain_keeps_the_hidden_dtype_with_an_f32_residual():

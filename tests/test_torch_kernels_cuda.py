@@ -89,7 +89,8 @@ def test_mlp_kernels_match_plain_on_card(cuda_device, c, ratio, rows, res_dtype)
     torch.cuda.synchronize()
     assert K.LAUNCHES == {
         "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1,
-        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0,
+        "fc2_scale_residual_mmbf16": 0, "fc2_scale_residual_mmf32": 0}
     assert hid.shape == (m, n) and out.shape == (m, c) and out.dtype == torch.bfloat16
     assert _rel(hid, K.ln_fc1_gelu_plain(x, lg, lb, w1.float(), b1, 1e-6)) <= 1e-2
     ref = K.fc2_scale_residual_plain(hid.float(), w2.float(), b2, gamma, res.float())
@@ -240,7 +241,8 @@ def test_each_wrapper_counts_its_launches(cuda_device):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {
         "dwconv7x7_nhwc": 1, "ln_fc1_gelu": 1, "fc2_scale_residual": 1,
-        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0,
+        "fc2_scale_residual_mmbf16": 0, "fc2_scale_residual_mmf32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +351,14 @@ def test_gcvit_block_counts_its_launches(cuda_device):
     torch.cuda.synchronize()
     assert out.shape == x.shape and out.dtype == torch.bfloat16
     assert G.LAUNCHES == {"ln_qkv": 1, "window_attention": 1, "proj_scale_residual": 1,
-                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0}
+                          "ln_qkv_f32": 0, "window_attention_f32": 0, "proj_scale_residual_f32": 0,
+                          "ln_qkv_mmf32": 0, "window_attention_mmf32": 0,
+                          "proj_scale_residual_mmf32": 0, "ln_qkv_mmbf16": 0,
+                          "window_attention_mmbf16": 0, "proj_scale_residual_mmbf16": 0}
     assert K.LAUNCHES == {
         "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 1, "fc2_scale_residual": 1,
-        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0}
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0, "fc2_scale_residual_f32": 0,
+        "fc2_scale_residual_mmbf16": 0, "fc2_scale_residual_mmf32": 0}
 
 
 @pytest.mark.cuda
@@ -671,7 +677,8 @@ def test_mlp_kernels_f32_match_plain_on_card(cuda_device, c, ratio, rows):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {
         "dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
-        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 1, "fc2_scale_residual_f32": 1}
+        "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 1, "fc2_scale_residual_f32": 1,
+        "fc2_scale_residual_mmbf16": 0, "fc2_scale_residual_mmf32": 0}
     assert hid.dtype == out.dtype == torch.float32 and hid.shape == (m, n)
     assert _rel(hid, K.ln_fc1_gelu_plain(x, lg, lb, w1, b1, 1e-6)) <= F32_BOUND
     assert _rel(out, K.fc2_scale_residual_plain(hid, w2, b2, gamma, res)) <= F32_BOUND
@@ -733,7 +740,10 @@ def test_gcvit_kernels_f32_match_plain_on_card(cuda_device, b, nwin, n, c, heads
     torch.cuda.synchronize()
     assert G.LAUNCHES == {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
                           "ln_qkv_f32": 1, "window_attention_f32": 1,
-                          "proj_scale_residual_f32": 1}
+                          "proj_scale_residual_f32": 1, "ln_qkv_mmf32": 0,
+                          "window_attention_mmf32": 0, "proj_scale_residual_mmf32": 0,
+                          "ln_qkv_mmbf16": 0, "window_attention_mmbf16": 0,
+                          "proj_scale_residual_mmbf16": 0}
 
 
 @pytest.mark.cuda
@@ -1510,7 +1520,10 @@ def test_int8_mlp_kernels_match_plain_on_card(cuda_device, c, ratio, rows, res_d
     torch.cuda.synchronize()
     assert B8.LAUNCHES == {"ln_fc1_gelu_int8": 1, "ln_qkv_int8": 0, "quantize_rows": 1,
                            "fc2_scale_residual_int8": 1, "proj_scale_residual_int8": 0,
-                           "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0}
+                           "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0,
+                           "ln_qkv_int8_f32": 0, "ln_qkv_int8_mmf32": 0,
+                           "fc2_scale_residual_int8_f32": 0, "proj_scale_residual_int8_f32": 0,
+                           "mlp_int8_scale_residual_f32": 0}
     assert hid.dtype == torch.float32 and out.shape == (m, c) and out.dtype == torch.bfloat16
     assert _rel(hid, B8.ln_fc1_gelu_int8_plain(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)) <= 1e-2
     p_q, p_s = B8.quantize_rows_plain(hid)
@@ -1547,7 +1560,10 @@ def test_int8_qkv_and_proj_kernels_match_plain_on_card(cuda_device, c, s, rows):
     torch.cuda.synchronize()
     assert B8.LAUNCHES == {"ln_fc1_gelu_int8": 0, "ln_qkv_int8": 1, "quantize_rows": 1,
                            "fc2_scale_residual_int8": 0, "proj_scale_residual_int8": 1,
-                           "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0}
+                           "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0,
+                           "ln_qkv_int8_f32": 0, "ln_qkv_int8_mmf32": 0,
+                           "fc2_scale_residual_int8_f32": 0, "proj_scale_residual_int8_f32": 0,
+                           "mlp_int8_scale_residual_f32": 0}
     want = B8.ln_qkv_int8_plain(x.float(), lg, lb, qkv.q, qkv.s, bqkv, 1e-5)
     assert len(parts) == s and all(p.dtype == torch.bfloat16 for p in parts)
     assert _rel(torch.cat(parts, 1), torch.cat(want, 1)) <= 1e-2
@@ -1727,3 +1743,217 @@ def test_int8_blocks_match_plain_on_card(cuda_device):
         want = B8.window_transformer_block_int8(x, qg, **kw)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and _rel(got, want.float()) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the last modes (ROADMAP A15c): the int8 kernels on f32 activations and the
+# GCViT block's mixed GEMM dtypes (VIPTPU_GCVIT_MM); select with -k a15c
+# ---------------------------------------------------------------------------
+A15C_ROWS = {"one": 1, "tile+1": 129, "ragged": 2 * 132 * 128 + 77}
+# mode -> (the activations' dtype, the GEMMs')
+A15C_MODES = {"mmf32": (torch.bfloat16, torch.float32), "mmbf16": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ratio", [(96, 4), (192, 4), (384, 4), (768, 4), (64, 3), (128, 3),
+                                     (256, 3), (512, 3)])
+@pytest.mark.parametrize("rows", sorted(A15C_ROWS))
+def test_a15c_int8_f32_mlp_pair_matches_chain_on_card(cuda_device, c, ratio, rows):
+    """An f32 block's int8 MLP at ConvNeXt's s1-s4 and GCViT's L1-L4
+    widths: ``ln_fc1_rowmax_int8`` on f32 x, then
+    ``mlp_int8_scale_residual_f32`` (f32 residual -> f32) against the chain
+    ending in ``fc2_scale_residual_int8_f32``, bit for bit; against its
+    plain version given pass 1's outputs within 1e-2 of max|ref| (a hidden
+    code on a tie)."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+
+    g = torch.Generator(device=cuda_device).manual_seed(c * ratio + 15)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    n, m = ratio * c, A15C_ROWS[rows]
+    x, lg, lb = u((m, c)), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    fc1, b1 = _int8_weight(g, n, c, cuda_device), u((n,), -0.1, 0.1)
+    fc2, b2, gamma = _int8_weight(g, c, n, cuda_device), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    residual = u((m, c))
+    B8.reset_launches()
+    x_q, x_s, h_s = B8.ln_fc1_rowmax_int8(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)
+    out = B8.mlp_int8_scale_residual(x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s, b2, gamma,
+                                     residual, torch.float32)
+    hid = B8.ln_fc1_gelu_int8(x, lg, lb, fc1.q, fc1.s, b1, 1e-6)
+    c_q, c_s = B8.quantize_rows(hid)
+    want = B8.fc2_scale_residual_int8(c_q, c_s, fc2.q, fc2.s, b2, gamma, residual, torch.float32)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in B8.LAUNCHES.items() if v} == {
+        "ln_fc1_rowmax_int8": 1, "mlp_int8_scale_residual_f32": 1, "ln_fc1_gelu_int8": 1,
+        "quantize_rows": 1, "fc2_scale_residual_int8_f32": 1}
+    assert out.dtype == want.dtype == torch.float32 and out.shape == (m, c)
+    assert torch.equal(h_s, c_s) and torch.equal(out, want)
+    plain = B8.mlp_int8_scale_residual_plain(x_q, x_s, h_s, fc1.q, fc1.s, b1, fc2.q, fc2.s, b2,
+                                             gamma, residual, torch.float32)
+    assert _rel(out, plain) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 96, 128, 256, 512])
+@pytest.mark.parametrize("s", [2, 3])
+@pytest.mark.parametrize("rows", sorted(A15C_ROWS))
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16x"])
+def test_a15c_int8_qkv_and_proj_f32_match_plain_on_card(cuda_device, c, s, rows, x_dtype):
+    """``ln_qkv_int8`` writing f32 q, k, v from f32 x (``ln_qkv_int8_f32``)
+    or bf16 x (``ln_qkv_int8_mmf32``) within 1e-2 of max|ref| of its plain
+    version (an LN ulp moves a code on a tie); ``quantize_rows`` on an f32
+    attention output and ``proj_scale_residual_int8_f32`` (f32 x -> f32 r1)
+    equal to their plain versions bit for bit."""
+    from vip_cup_2022_tpu_torch.ops.kernels import block_int8 as B8
+
+    g = torch.Generator(device=cuda_device).manual_seed(c * s + 5)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    m = A15C_ROWS[rows]
+    x, lg, lb = u((m, c)).to(x_dtype), u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    qkv, bqkv = _int8_weight(g, s * c, c, cuda_device), u((s * c,), -0.1, 0.1)
+    proj, bp, gamma = _int8_weight(g, c, c, cuda_device), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    attn, x32 = u((m, c)), u((m, c))
+    B8.reset_launches()
+    parts = B8.ln_qkv_int8(x, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, torch.float32)
+    a_q, a_s = B8.quantize_rows(attn)
+    r1 = B8.proj_scale_residual_int8(a_q, a_s, proj.q, proj.s, bp, gamma, x32)
+    torch.cuda.synchronize()
+    qkv_symbol = "ln_qkv_int8_f32" if x_dtype == torch.float32 else "ln_qkv_int8_mmf32"
+    assert {k: v for k, v in B8.LAUNCHES.items() if v} == {
+        qkv_symbol: 1, "quantize_rows": 1, "proj_scale_residual_int8_f32": 1}
+    refs = B8.ln_qkv_int8_plain(x, lg, lb, qkv.q, qkv.s, bqkv, 1e-5, torch.float32)
+    assert len(parts) == s
+    for got, ref in zip(parts, refs):
+        assert got.dtype == torch.float32 and _rel(got, ref) <= 1e-2
+    p_q, p_s = B8.quantize_rows_plain(attn)
+    assert torch.equal(a_q, p_q) and torch.equal(a_s, p_s)
+    want = B8.proj_scale_residual_int8_plain(a_q, a_s, proj.q, proj.s, bp, gamma, x32)
+    assert r1.dtype == torch.float32 and torch.equal(r1, want)
+
+
+def _a15c_bound(dtype, mm):
+    """f32 outputs of f32 GEMMs 1e-5 of max|ref|; bf16 outputs, and any
+    output of bf16 GEMMs (their operands rounded on chip), 1e-2."""
+    return F32_BOUND if dtype == mm == torch.float32 else 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nwin,n,c,heads", [
+    (2, 64, 49, 64, 2), (3, 16, 49, 128, 4), (2, 1, 196, 256, 8), (5, 1, 49, 512, 16),
+    (1, 4, 9, 32, 1), (1, 3, 49, 96, 3),
+])
+@pytest.mark.parametrize("global_query", [False, True])
+@pytest.mark.parametrize("mode", sorted(A15C_MODES))
+def test_a15c_gcvit_mixed_kernels_match_plain_on_card(cuda_device, b, nwin, n, c, heads,
+                                                      global_query, mode):
+    """The GCViT block's five kernels in a mixed mode at GCViTTiny's L1-L4
+    shapes, a 3 x 3 window and C = 96 (K = 96; M = 147, ragged), each
+    against its plain version on the kernel before's output: the mode's
+    symbols alone launch; q, k, v and r1 f32, the attention output and the
+    block's in the activations' dtype, the hidden in the GEMM dtype."""
+    act, mm = A15C_MODES[mode]
+    p = _gcvit_inputs(cuda_device, b, nwin, n, c, heads, global_query, seed=3, bf=mm)
+    m = b * nwin * n
+    x2 = p["x"].view(m, c).to(act)
+    qg = p["qg"].to(act) if global_query else None
+    G.reset_launches()
+    K.reset_launches()
+    parts = G.ln_qkv(x2, p["ln1_weight"], p["ln1_bias"], p["wqkv"], p["bqkv"], 1e-5, mm_dtype=mm)
+    refs = G.ln_qkv_plain(x2, p["ln1_weight"], p["ln1_bias"], p["wqkv"], p["bqkv"], 1e-5, mm)
+    for got, ref in zip(parts, refs):
+        assert got.dtype == torch.float32 and _rel(got, ref) <= _a15c_bound(torch.float32, mm)
+    q = qg if global_query else parts[0].view(b, -1, c)
+    k, v = (t.view(b, -1, c) for t in parts[-2:])
+    scale = 32 ** -0.5
+    attn = G.window_attention(q, k, v, p["bias"], n, scale, global_query, mm_dtype=mm,
+                              out_dtype=act)
+    ref = G.window_attention_plain(q, k, v, p["bias"], n, scale, global_query, mm, act)
+    assert attn.dtype == act and _rel(attn, ref) <= _a15c_bound(act, mm)
+    r1 = G.proj_scale_residual(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], x2, mm_dtype=mm)
+    ref = G.proj_scale_residual_plain(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], x2, mm)
+    assert r1.dtype == torch.float32 and _rel(r1, ref) <= _a15c_bound(torch.float32, mm)
+    hid = K.ln_fc1_gelu(r1, p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"], 1e-5, mm_dtype=mm)
+    ref = K.ln_fc1_gelu_plain(r1, p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"], 1e-5, mm)
+    assert hid.dtype == mm and _rel(hid, ref) <= _a15c_bound(mm, mm)
+    out = K.fc2_scale_residual(hid, p["w2"], p["b2"], p["gamma2"], r1, out_dtype=act)
+    ref = K.fc2_scale_residual_plain(hid, p["w2"], p["b2"], p["gamma2"], r1, act)
+    assert out.dtype == act and _rel(out, ref) <= _a15c_bound(act, mm)
+    torch.cuda.synchronize()
+    want_g = {f"{name}_{mode}": 1 for name in ("ln_qkv", "window_attention", "proj_scale_residual")}
+    want_k = {"ln_fc1_gelu_f32" if mm == torch.float32 else "ln_fc1_gelu": 1,
+              f"fc2_scale_residual_{mode}": 1}
+    assert {k: v for k, v in G.LAUNCHES.items() if v} == want_g
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == want_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nwin,n,heads", [
+    (1, 1, 1, 2), (2, 3, 16, 3), (1, 7, 49, 3), (2, 2, 64, 2), (3, 2, 65, 4), (1, 1, 196, 8),
+    (1, 1, 224, 2), (13, 64, 49, 2),
+])
+@pytest.mark.parametrize("global_query", [False, True])
+@pytest.mark.parametrize("mode", sorted(A15C_MODES))
+def test_a15c_window_attention_mixed_shapes_on_card(cuda_device, b, nwin, n, heads,
+                                                    global_query, mode):
+    """K5's mixed modes at the key-tile edges (N = 1 ... 224 over the 64 /
+    208 / 224 tiles of ``window_attention_mmbf16``, the 64 / 224 of
+    ``window_attention_mmf32``), one and several windows with a global query
+    (in the activations' dtype, as the model passes it), against the plain
+    version."""
+    act, mm = A15C_MODES[mode]
+    g = torch.Generator(device=cuda_device).manual_seed(n * 5 + heads + 2)
+    c = heads * 32
+
+    def u(s):
+        return torch.rand(s, generator=g, device=cuda_device) * 2 - 1
+
+    k, v = (u((b, nwin * n, c)) for _ in range(2))
+    q = u((b, n, c)).to(act) if global_query else u((b, nwin * n, c))
+    bias = u((heads, n, n))
+    G.reset_launches()
+    got = G.window_attention(q, k, v, bias, n, 32 ** -0.5, global_query, mm_dtype=mm,
+                             out_dtype=act)
+    torch.cuda.synchronize()
+    assert {s: v for s, v in G.LAUNCHES.items() if v} == {f"window_attention_{mode}": 1}
+    assert got.shape == k.shape and got.dtype == act
+    ref = G.window_attention_plain(q, k, v, bias, n, 32 ** -0.5, global_query, mm, act)
+    assert _rel(got, ref) <= _a15c_bound(act, mm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("ratio", [3, 4])
+@pytest.mark.parametrize("rows", ["tile+1", "ragged"])
+@pytest.mark.parametrize("mode", sorted(A15C_MODES))
+def test_a15c_mlp_mixed_match_plain_on_card(cuda_device, c, ratio, rows, mode):
+    """The MLP half of a mixed-mode block at every block width, N = 3C and
+    4C: ``ln_fc1_gelu`` in the GEMM dtype on the f32 r1, then
+    ``fc2_scale_residual_mmf32`` (f32 hidden -> bf16) or
+    ``fc2_scale_residual_mmbf16`` (bf16 hidden -> f32) beside the f32 r1,
+    against their plain versions."""
+    act, mm = A15C_MODES[mode]
+    g = torch.Generator(device=cuda_device).manual_seed(c * ratio + 3)
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    n, m = ratio * c, A15C_ROWS[rows]
+    r1, lg, lb = u((m, c)) * 2, u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+    w1, b1 = (u((n, c)) * c ** -0.5).to(mm), u((n,), -0.1, 0.1)
+    w2, b2, gamma = (u((c, n)) * n ** -0.5).to(mm), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    K.reset_launches()
+    hid = K.ln_fc1_gelu(r1, lg, lb, w1, b1, 1e-5, mm_dtype=mm)
+    out = K.fc2_scale_residual(hid, w2, b2, gamma, r1, out_dtype=act)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "ln_fc1_gelu_f32" if mm == torch.float32 else "ln_fc1_gelu": 1,
+        f"fc2_scale_residual_{mode}": 1}
+    assert hid.dtype == mm and out.dtype == act and out.shape == (m, c)
+    assert _rel(hid, K.ln_fc1_gelu_plain(r1, lg, lb, w1, b1, 1e-5, mm)) <= _a15c_bound(mm, mm)
+    ref = K.fc2_scale_residual_plain(hid, w2, b2, gamma, r1, act)
+    assert _rel(out, ref) <= _a15c_bound(act, mm)

@@ -5,6 +5,13 @@
 // and one GCViT block at C >= VIPTPU_GCVIT_INT8_MIN_C
 //   ln_qkv_int8 -> window_attention -> quantize_rows -> proj_scale_residual_int8
 //   -> ln_fc1_rowmax_int8 -> mlp_int8_scale_residual
+// In an f32 block (VIPTPU_DTYPE=float32) x, the residuals and the outputs
+// are f32: ln_qkv_int8 reads f32 x and writes f32 q, k, v, the residual GEMM
+// takes the f32 residual beside an f32 output, and mlp_int8_scale_residual
+// writes f32 (the flags below pick the instantiation); quantize_rows and
+// ln_fc1_rowmax_int8 take f32 already. Under VIPTPU_GCVIT_MM=f32 a bf16
+// block's ln_qkv_int8 writes f32 q, k, v (bf16 x), as the monoblock keeps
+// them.
 // ln_fc1_gelu_int8 -> quantize_rows -> fc2_scale_residual_int8, the MLP
 // chain the pair replaced, stays as its yardstick: nothing on the model path
 // calls it.
@@ -30,13 +37,23 @@ int ln_fc1_gelu_int8(const void* x, const void* ln_g, const void* ln_b, const vo
   return (int)block_int8::launch_ln<float, block_int8::kHidden>(p, w, bn, (cudaStream_t)stream);
 }
 
+// x_f32 / out_f32: x's and the outputs' type (bf16 or f32); bf16 x with f32
+// outputs is the bf16 block under VIPTPU_GCVIT_MM=f32, f32 x with bf16 ones
+// is refused
 int ln_qkv_int8(const void* x, const void* ln_g, const void* ln_b, const void* w,
                 const void* colscale, const void* bias, void* q, void* k, void* v, int M, int C,
-                int S, float eps, int bn, int stages, int a_buffers, int resident, void* stream) {
+                int S, float eps, int x_f32, int out_f32, int bn, int stages, int a_buffers,
+                int resident, void* stream) {
   const block_int8::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)colscale,
                                (const float*)bias, {q, k, v}, M, C, S * C, eps, stages,
                                a_buffers, resident};
-  return (int)block_int8::launch_ln<bf16, block_int8::kQkv>(p, w, bn, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!x_f32 && !out_f32) return (int)block_int8::launch_ln<bf16, block_int8::kQkv>(p, w, bn, s);
+  if (!x_f32 && out_f32)
+    return (int)block_int8::launch_ln<bf16, block_int8::kQkv, float>(p, w, bn, s);
+  if (x_f32 && out_f32)
+    return (int)block_int8::launch_ln<float, block_int8::kQkv, float>(p, w, bn, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // pass 1 of the MLP pair: f32 x (M, C) -> LN -> x's codes (M, C) and row
@@ -54,18 +71,22 @@ int ln_fc1_rowmax_int8(const void* x, const void* ln_g, const void* ln_b, const 
 
 // pass 2: x's codes @ W1 (N, C)^T -> GELU -> codes with pass 1's scales @ W2
 // (C, N)^T -> (+ b2) * gamma + residual -> bf16 (M, C); the residual bf16
-// (ConvNeXt) or f32 (res_f32 = 1, GCViT's r1)
+// (ConvNeXt) or f32 (res_f32 = 1, GCViT's r1); out_f32 = 1: an f32 block's
+// f32 output beside its f32 residual
 int mlp_int8_scale_residual(const void* x_codes, const void* x_scale, const void* h_scale,
                             const void* w1, const void* colscale1, const void* b1, const void* w2,
                             const void* colscale2, const void* b2, const void* gamma,
                             const void* res, void* out, int M, int C, int N, int res_f32,
-                            int col_tiles, int s1, int s2, int x_buffers, int resident,
-                            void* stream) {
+                            int out_f32, int col_tiles, int s1, int s2, int x_buffers,
+                            int resident, void* stream) {
   const block_int8::MlpParams p{(const float*)x_scale, (const float*)h_scale,
                                 (const float*)colscale1, (const float*)b1,
                                 (const float*)colscale2, (const float*)b2, (const float*)gamma,
                                 res, out, M, C, N, col_tiles, s1, s2, x_buffers, resident};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (out_f32)
+    return res_f32 ? (int)block_int8::launch_mlp<float, float>(p, x_codes, w1, w2, s)
+                   : (int)cudaErrorInvalidValue;
   return res_f32 ? (int)block_int8::launch_mlp<float, bf16>(p, x_codes, w1, w2, s)
                  : (int)block_int8::launch_mlp<bf16, bf16>(p, x_codes, w1, w2, s);
 }
@@ -92,7 +113,8 @@ int quantize_rows(const void* x, void* q, void* scale, int M, int K, int x_f32, 
 
 // s8 a (M, K) with row scales @ s8 w (C, K)^T: (+ bias) * gamma + residual;
 // res_f32 / out_f32 pick the residual's and the output's type (bf16 or f32):
-// ConvNeXt's fc2 bf16 / bf16, GCViT's fc2 f32 / bf16, its proj bf16 / f32
+// ConvNeXt's fc2 bf16 / bf16, GCViT's fc2 f32 / bf16, its proj bf16 / f32;
+// f32 / f32 in an f32 block (GCViT's proj and both blocks' fc2)
 int res_gemm_int8(const void* a, const void* row_scale, const void* w, const void* colscale,
                   const void* bias, const void* gamma, const void* res, void* out, int M, int K,
                   int C, int res_f32, int out_f32, int bn, int stages, int resident,
@@ -104,7 +126,7 @@ int res_gemm_int8(const void* a, const void* row_scale, const void* w, const voi
   if (!res_f32 && !out_f32) return (int)block_int8::launch_res<bf16, bf16>(p, a, w, bn, s);
   if (res_f32 && !out_f32) return (int)block_int8::launch_res<float, bf16>(p, a, w, bn, s);
   if (!res_f32 && out_f32) return (int)block_int8::launch_res<bf16, float>(p, a, w, bn, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)block_int8::launch_res<float, float>(p, a, w, bn, s);
 }
 
 }  // extern "C"

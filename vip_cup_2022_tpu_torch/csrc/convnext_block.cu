@@ -39,6 +39,14 @@
 //   ln_fc1_gelu_f32         f32 x, f32 W1 -> f32 hidden (f32_gemm.cuh, kGelu)
 //   fc2_scale_residual_f32  f32 hidden, f32 W2, f32 residual -> f32 (kResidual)
 //
+// GCViT's MLP half in the mixed modes of VIPTPU_GCVIT_MM (gcvit_block.cu)
+// takes two more fc2 launchers beside the f32 r1:
+//
+//   fc2_scale_residual_mmbf16  bf16 hidden, bf16 W2 -> f32 out (the engine's
+//                              residual GEMM, OutT = f32): f32 activations
+//   fc2_scale_residual_mmf32   f32 hidden, f32 W2 -> bf16 out (f32_gemm.cuh,
+//                              TO = bf16): bf16 activations
+//
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a plan the kernels do not
 // take) as an int, so a refused launch reaches the caller.
@@ -120,6 +128,30 @@ int fc2_scale_residual_f32(const void* hidden, const void* w2, const void* b2, c
   p.N = C;
   p.K = K;
   return (int)f32_gemm::launch<f32_gemm::kResidual>(p, (cudaStream_t)stream);
+}
+
+int fc2_scale_residual_mmbf16(const void* hidden, const void* w2, const void* b2,
+                              const void* gamma, const void* res, void* out, int M, int K, int C,
+                              int bn, int stages, void* stream) {
+  const hopper_gemm::ResParams p{(const float*)b2, (const float*)gamma, res, out, M, K, C, stages};
+  return (int)hopper_gemm::launch_res<float, hopper_gemm::kWhole, true, float>(
+      p, hidden, w2, bn, (cudaStream_t)stream);
+}
+
+int fc2_scale_residual_mmf32(const void* hidden, const void* w2, const void* b2,
+                             const void* gamma, const void* res, void* out, int M, int K, int C,
+                             void* stream) {
+  f32_gemm::Params p{};
+  p.a = hidden;
+  p.w = (const float*)w2;
+  p.bias = (const float*)b2;
+  p.gamma = (const float*)gamma;
+  p.res = res;
+  p.out[0] = out;
+  p.M = M;
+  p.N = C;
+  p.K = K;
+  return (int)f32_gemm::launch<f32_gemm::kResidual, float, float, bf16>(p, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -12,6 +12,12 @@
 //       (ops/pallas/gcvit_block.py) under its default softmax_mode() "mxu",
 //       which appends a ones column to V and divides P.V by the row sum
 //
+// The token-row mode also takes q, k, v and writes out in bf16 (TQ, TKV, TO),
+// every value widened to f32 on load and the output rounded once: the mixed
+// mode of VIPTPU_GCVIT_MM=f32 on bf16 activations (window_attention_mmf32),
+// whose monoblock keeps q, k, v in f32 (a global query in bf16, the
+// activations' dtype) and stores the attention output in bf16.
+//
 // Both follow the TPU kernels' f32 order: q times the scale in f32, s = q
 // k^T + bias, the row max subtracted, exp, then the division by the row sum
 // of exp before or after P.V as above. Their dots take f32 operands, which
@@ -40,6 +46,7 @@
 // thread, 8 threads a slice.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,11 +63,11 @@ constexpr int kMaxN = 224;
 enum class Layout : int { kHeads = 0, kTokens = 1 };
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;      // TQ
+  const void* k;      // TKV
+  const void* v;      // TKV
   const float* bias;  // (heads, N, N)
-  float* out;
+  void* out;          // TO
   long long items;    // (window, head) items: BH, or B * nWin * heads
   int heads, n, nwin, c;  // kTokens: windows an image and the row width C = heads * 32
   float scale;
@@ -83,7 +90,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int kNJ, Layout kLayout, bool kNormAfter>
+// four consecutive values as f32: 16 bytes of f32 or 8 of bf16
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <int kNJ, Layout kLayout, bool kNormAfter, typename TQ, typename TKV, typename TO>
 __global__ void __launch_bounds__(kWarps * 32) kernel(const Params p) {
   constexpr int NP = kNJ * 32;  // keys held, padded
   extern __shared__ __align__(16) float smem[];
@@ -111,9 +131,9 @@ __global__ void __launch_bounds__(kWarps * 32) kernel(const Params p) {
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a, d = a;
     if (r < n) {
       const long long off = (long long)r * stride + c;
-      a = __ldg(reinterpret_cast<const float4*>(p.q + q_base + off));
-      b = __ldg(reinterpret_cast<const float4*>(p.k + kv_base + off));
-      d = __ldg(reinterpret_cast<const float4*>(p.v + kv_base + off));
+      a = ld4(static_cast<const TQ*>(p.q) + q_base + off);
+      b = ld4(static_cast<const TKV*>(p.k) + kv_base + off);
+      d = ld4(static_cast<const TKV*>(p.v) + kv_base + off);
     }
     *reinterpret_cast<float4*>(qs + r * kHd + c) =
         make_float4(a.x * p.scale, a.y * p.scale, a.z * p.scale, a.w * p.scale);
@@ -200,32 +220,34 @@ __global__ void __launch_bounds__(kWarps * 32) kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < kR; ++r)
       if (r0 + r < n)
-        p.out[kv_base + (long long)(r0 + r) * stride + lane] = kNormAfter ? o[r] / sums[r] : o[r];
+        st1(static_cast<TO*>(p.out) + kv_base + (long long)(r0 + r) * stride + lane,
+            kNormAfter ? o[r] / sums[r] : o[r]);
     __syncwarp();  // every lane's P reads are done before the next rows overwrite them
   }
 }
 
-template <int kNJ, Layout kLayout, bool kNormAfter>
+template <int kNJ, Layout kLayout, bool kNormAfter, typename TQ, typename TKV, typename TO>
 cudaError_t launch_nj(const Params& p, cudaStream_t stream) {
   static smem_grant::SmemGrant grant;
-  const void* fn = (const void*)kernel<kNJ, kLayout, kNormAfter>;
+  const void* fn = (const void*)kernel<kNJ, kLayout, kNormAfter, TQ, TKV, TO>;
   const size_t smem = smem_bytes(kNJ);
   cudaError_t err = smem_grant::grant_smem(fn, smem, grant);
   if (err != cudaSuccess) return err;
-  kernel<kNJ, kLayout, kNormAfter><<<(unsigned)p.items, kWarps * 32, smem, stream>>>(p);
+  kernel<kNJ, kLayout, kNormAfter, TQ, TKV, TO><<<(unsigned)p.items, kWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // N <= 64 keys in a 64-key tile, else 224
-template <Layout kLayout, bool kNormAfter>
+template <Layout kLayout, bool kNormAfter, typename TQ = float, typename TKV = float,
+          typename TO = float>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (p.items == 0) return cudaSuccess;
   if (p.heads <= 0 || p.items % p.heads || p.items > 0x7fffffffLL || p.n <= 0 || p.n > kMaxN)
     return cudaErrorInvalidValue;
   if (kLayout == Layout::kTokens && (p.c != p.heads * kHd || p.nwin <= 0))
     return cudaErrorInvalidValue;
-  if (p.n <= 64) return launch_nj<2, kLayout, kNormAfter>(p, stream);
-  return launch_nj<7, kLayout, kNormAfter>(p, stream);
+  if (p.n <= 64) return launch_nj<2, kLayout, kNormAfter, TQ, TKV, TO>(p, stream);
+  return launch_nj<7, kLayout, kNormAfter, TQ, TKV, TO>(p, stream);
 }
 
 }  // namespace f32_attn

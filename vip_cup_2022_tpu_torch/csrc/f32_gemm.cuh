@@ -3,10 +3,17 @@
 //
 //   kind kGelu      LN(x) W^T + b, exact GELU          -> f32 (M, N) hidden
 //   kind kSplit     LN(x) W^T + b, split by columns     -> S f32 (M, N / S)
-//   kind kResidual  a W^T, (+ b) * gamma + f32 residual -> f32 (M, N)
+//   kind kResidual  a W^T, (+ b) * gamma + residual     -> (M, N)
 //
-// x, a (M, K) and W (N, K) (the nn.Linear layout) are f32, row-major; the LN
-// is two-pass f32 over K with weight and bias (K,). These are the f32 mode
+// W (N, K) (the nn.Linear layout) is f32, row-major; x, a (M, K) are f32 or
+// bf16 (TA), the residual f32 or bf16 (TR) and the output f32 or bf16 (TO),
+// every value read widened to f32 and the output rounded once. The LN is
+// two-pass f32 over K with weight and bias (K,). The bf16 types are the
+// mixed mode of VIPTPU_GCVIT_MM=f32 on bf16 activations, where the TPU
+// kernels cast their bf16 operands to f32 and store their outputs in the
+// activations' dtype: ln_qkv_mmf32 (bf16 x -> f32 q, k, v, as the monoblock
+// keeps them), proj_scale_residual_mmf32 (bf16 attention output and x -> f32
+// r1) and fc2_scale_residual_mmf32 (f32 hidden and r1 -> bf16). These are the f32 mode
 // of the TPU kernels fused_convnext_block / fused_ln_mlp_residual_batchlane
 // (vip_cup_2022_tpu/ops/pallas/convnext_block.py, whose W1 and W2 take x's
 // dtype) and ln_dense / proj_res_ln_mlp / mono_window_transformer_block
@@ -51,6 +58,7 @@
 // quarter of zeros.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -66,14 +74,14 @@ constexpr int kPad = 4;  // shared rows of kBM + 4 floats: 16-byte aligned, fewe
 enum Kind : int { kGelu = 0, kSplit = 1, kResidual = 2 };
 
 struct Params {
-  const float* a;      // (M, K): x for the LN GEMMs, the hidden / attention output otherwise
+  const void* a;       // TA (M, K): x for the LN GEMMs, the hidden / attention output otherwise
   const float* w;      // (N, K)
   const float* bias;   // (N,)
   const float* ln_g;   // (K,) LN weight and bias (the LN GEMMs)
   const float* ln_b;
   const float* gamma;  // (N,) (kResidual)
-  const float* res;    // (M, N) f32 residual (kResidual)
-  float* out[3];       // (M, N), or S outputs (M, split) for kSplit
+  const void* res;     // TR (M, N) residual (kResidual)
+  void* out[3];        // TO (M, N), or S outputs (M, split) for kSplit
   int M, N, K, split;  // split: the width of one kSplit output
   float eps;
 };
@@ -88,9 +96,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int kKind>
+// four consecutive values as f32: 16 bytes of f32 or 8 of bf16
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// four consecutive outputs: 16 bytes of f32, or 8 of bf16 rounded to nearest even
+__device__ __forceinline__ void st4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+template <int kKind, typename TA = float, typename TR = float, typename TO = float>
 __global__ void __launch_bounds__(kThreads, 2) kernel(const Params p) {
   constexpr bool kLn = kKind != kResidual;
+  const TA* a_rows = static_cast<const TA*>(p.a);
   __shared__ __align__(16) float As[2][kBK][kBM + kPad];
   __shared__ __align__(16) float Bs[2][kBK][kBN + kPad];
   __shared__ float mean_s[kBM], rstd_s[kBM];
@@ -108,10 +137,10 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(const Params p) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const long long row = m0 + r + h * kWarps;
-          const float4* xr = reinterpret_cast<const float4*>(p.a + row * p.K);
+          const TA* xr = a_rows + row * p.K;
 #pragma unroll
           for (int j = 0; j < kRowVec; ++j)
-            v[h][j] = row < p.M && lane + 32 * j < p.K / 4 ? __ldg(xr + lane + 32 * j)
+            v[h][j] = row < p.M && lane + 32 * j < p.K / 4 ? ld4(xr + 4 * (lane + 32 * j))
                                                            : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
@@ -141,16 +170,16 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(const Params p) {
         const long long row = m0 + r;
         float mean = 0.f, rstd = 0.f;
         if (row < p.M) {
-          const float4* xr = reinterpret_cast<const float4*>(p.a + row * p.K);
+          const TA* xr = a_rows + row * p.K;
           float s = 0.f;
           for (int i = lane; i < p.K / 4; i += 32) {
-            const float4 v = __ldg(xr + i);
+            const float4 v = ld4(xr + 4 * i);
             s += (v.x + v.y) + (v.z + v.w);
           }
           mean = warp_sum(s) / (float)p.K;
           float q = 0.f;
           for (int i = lane; i < p.K / 4; i += 32) {
-            const float4 v = __ldg(xr + i);
+            const float4 v = ld4(xr + 4 * i);
             const float a = v.x - mean, b = v.y - mean, c = v.z - mean, d = v.w - mean;
             q += (a * a + b * b) + (c * c + d * d);
           }
@@ -173,8 +202,7 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(const Params p) {
     for (int i = 0; i < 2; ++i) {
       const int r = lr + 64 * i;
       const long long row = m0 + r;
-      ra[i] = row < p.M ? __ldg(reinterpret_cast<const float4*>(p.a + row * p.K + k0 + lc))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      ra[i] = row < p.M ? ld4(a_rows + row * p.K + k0 + lc) : make_float4(0.f, 0.f, 0.f, 0.f);
       if constexpr (kLn) {
         const float4 g = __ldg(reinterpret_cast<const float4*>(p.ln_g + k0 + lc));
         const float4 b = __ldg(reinterpret_cast<const float4*>(p.ln_b + k0 + lc));
@@ -249,22 +277,22 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(const Params p) {
                              acc[i][h * 4 + 2] + bv.z, acc[i][h * 4 + 3] + bv.w);
       if constexpr (kKind == kGelu) {
         v = make_float4(gelu_erf(v.x), gelu_erf(v.y), gelu_erf(v.z), gelu_erf(v.w));
-        *reinterpret_cast<float4*>(p.out[0] + row * p.N + col) = v;
+        st4(static_cast<TO*>(p.out[0]) + row * p.N + col, v);
       } else if constexpr (kKind == kSplit) {
         const int part = col / p.split, c = col - part * p.split;  // 4 columns in one part
-        float* dst = part == 0 ? p.out[0] : part == 1 ? p.out[1] : p.out[2];
-        *reinterpret_cast<float4*>(dst + row * p.split + c) = v;
+        TO* dst = static_cast<TO*>(part == 0 ? p.out[0] : part == 1 ? p.out[1] : p.out[2]);
+        st4(dst + row * p.split + c, v);
       } else {
         const float4 g = __ldg(reinterpret_cast<const float4*>(p.gamma + col));
-        const float4 r = __ldg(reinterpret_cast<const float4*>(p.res + row * p.N + col));
+        const float4 r = ld4(static_cast<const TR*>(p.res) + row * p.N + col);
         v = make_float4(v.x * g.x + r.x, v.y * g.y + r.y, v.z * g.z + r.z, v.w * g.w + r.w);
-        *reinterpret_cast<float4*>(p.out[0] + row * p.N + col) = v;
+        st4(static_cast<TO*>(p.out[0]) + row * p.N + col, v);
       }
     }
   }
 }
 
-template <int kKind>
+template <int kKind, typename TA = float, typename TR = float, typename TO = float>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (p.M == 0) return cudaSuccess;
   if (p.M < 0 || p.N <= 0 || p.K <= 0 || p.K % kBK || p.N % 4 ||
@@ -272,7 +300,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const long long tiles = ((long long)p.M + kBM - 1) / kBM * ((p.N + kBN - 1) / kBN);
   if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
-  kernel<kKind><<<(unsigned)tiles, kThreads, 0, stream>>>(p);
+  kernel<kKind, TA, TR, TO><<<(unsigned)tiles, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 

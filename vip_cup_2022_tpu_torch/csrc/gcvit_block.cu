@@ -63,6 +63,29 @@
 //
 // then ln_fc1_gelu_f32 and fc2_scale_residual_f32 of convnext_block.cu.
 //
+// The mixed modes of VIPTPU_GCVIT_MM (the TPU kernels' GEMM operands in the
+// other dtype than the activations, which keep theirs) are six more:
+//
+//   VIPTPU_GCVIT_MM=f32 on bf16 activations (the FFMA kernels, bf16 loads
+//   widened to f32 in registers; q, k, v kept f32 as the monoblock, which
+//   the TPU takes at every GCViTTiny level, keeps them):
+//   ln_qkv_mmf32               bf16 x, f32 W_qkv -> S f32 outputs (kSplit)
+//   window_attention_mmf32     f32 q (or a bf16 global query), f32 k, v ->
+//                              bf16 (f32_attention.cuh)
+//   proj_scale_residual_mmf32  bf16 attn and x, f32 W_p -> f32 r1 (kResidual)
+//   then ln_fc1_gelu_f32 and fc2_scale_residual_mmf32 (convnext_block.cu).
+//
+//   VIPTPU_GCVIT_MM=bf16 on f32 activations (the wgmma engine and the
+//   window-attention template; every operand rounded to bf16 on chip):
+//   ln_qkv_mmbf16              f32 x -> LN -> bf16 A -> W_qkv bf16 -> S f32
+//                              outputs (stored from the accumulators)
+//   window_attention_mmbf16    f32 q, k, v -> f32 (k, v and the scaled q
+//                              rounded to bf16 on load)
+//   proj_scale_residual_mmbf16 f32 attn rounded to bf16 into the LN kernel's
+//                              swizzled A tile (TMA cannot convert), @ W_p
+//                              bf16 -> (+ b_p) * gamma1 + f32 x -> f32 r1
+//   then ln_fc1_gelu and fc2_scale_residual_mmbf16 (convnext_block.cu).
+//
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
 
@@ -81,7 +104,7 @@ int ln_qkv(const void* x, const void* ln_g, const void* ln_b, const void* w, con
   const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
                                 {(bf16*)q, (bf16*)k, (bf16*)v}, M, C, S * C, eps, stages,
                                 a_buffers, resident};
-  return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, bf16, true>(
+  return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, bf16, hopper_gemm::kEpiQkv>(
       p, w, bn, split_n, (cudaStream_t)stream);
 }
 
@@ -168,6 +191,107 @@ int proj_scale_residual_f32(const void* a, const void* wp, const void* bp, const
   p.N = C;
   p.K = C;
   return (int)f32_gemm::launch<f32_gemm::kResidual>(p, (cudaStream_t)stream);
+}
+
+int ln_qkv_mmbf16(const void* x, const void* ln_g, const void* ln_b, const void* w,
+                  const void* bias, void* q, void* k, void* v, int M, int C, int S, float eps,
+                  int bn, int stages, int a_buffers, int resident, int split_n, void* stream) {
+  const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
+                                {q, k, v}, M, C, S * C, eps, stages, a_buffers, resident};
+  return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, float, hopper_gemm::kEpiQkv,
+                                     float>(p, w, bn, split_n, (cudaStream_t)stream);
+}
+
+int window_attention_mmbf16(const void* q, const void* k, const void* v, const void* bias,
+                            void* out, int B, int nwin, int N, int C, int heads, float scale,
+                            int q_is_global, void* stream) {
+  const long long items = (long long)B * nwin * heads;
+  if (items == 0) return 0;
+  if (C != heads * window_attn::kHd || items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  window_attn::Params p{};  // f32 tensors behind the pointers (the template's T = float)
+  p.q = (const bf16*)q;
+  p.k = (const bf16*)k;
+  p.v = (const bf16*)v;
+  p.bias = (const float*)bias;
+  p.out = (bf16*)out;
+  p.items = (int)items;
+  p.heads = heads;
+  p.n = N;
+  p.nwin = nwin;
+  p.c = C;
+  p.scale = scale;
+  p.q_is_global = q_is_global;
+  return (int)window_attn::launch<true, true, window_attn::Layout::kTokens, 0, float>(
+      p, (cudaStream_t)stream);
+}
+
+int proj_scale_residual_mmbf16(const void* a, const void* wp, const void* bp, const void* gamma,
+                               const void* x, void* out, int M, int C, int bn, int stages,
+                               int a_buffers, int resident, int split_n, void* stream) {
+  hopper_gemm::LnParams p{a, nullptr, nullptr, (const float*)bp, {out, nullptr, nullptr},
+                          M, C, C, 0.f, stages, a_buffers, resident};
+  p.gamma = (const float*)gamma;
+  p.res = (const float*)x;
+  return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, float, hopper_gemm::kEpiProj,
+                                     float>(p, wp, bn, split_n, (cudaStream_t)stream);
+}
+
+int ln_qkv_mmf32(const void* x, const void* ln_g, const void* ln_b, const void* w,
+                 const void* bias, void* q, void* k, void* v, int M, int C, int S, float eps,
+                 void* stream) {
+  f32_gemm::Params p{};
+  p.a = x;
+  p.w = (const float*)w;
+  p.bias = (const float*)bias;
+  p.ln_g = (const float*)ln_g;
+  p.ln_b = (const float*)ln_b;
+  p.out[0] = q;
+  p.out[1] = k;
+  p.out[2] = v;
+  p.M = M;
+  p.N = S * C;
+  p.K = C;
+  p.split = C;
+  p.eps = eps;
+  return (int)f32_gemm::launch<f32_gemm::kSplit, bf16, float, float>(p, (cudaStream_t)stream);
+}
+
+// q f32, or bf16 (q_bf16 = 1: a global query in the activations' dtype)
+int window_attention_mmf32(const void* q, const void* k, const void* v, const void* bias,
+                           void* out, int B, int nwin, int N, int C, int heads, float scale,
+                           int q_is_global, int q_bf16, void* stream) {
+  f32_attn::Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.bias = (const float*)bias;
+  p.out = out;
+  p.items = (long long)B * nwin * heads;
+  p.heads = heads;
+  p.n = N;
+  p.nwin = nwin;
+  p.c = C;
+  p.scale = scale;
+  p.q_is_global = q_is_global;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return q_bf16
+             ? (int)f32_attn::launch<f32_attn::Layout::kTokens, true, bf16, float, bf16>(p, s)
+             : (int)f32_attn::launch<f32_attn::Layout::kTokens, true, float, float, bf16>(p, s);
+}
+
+int proj_scale_residual_mmf32(const void* a, const void* wp, const void* bp, const void* gamma,
+                              const void* x, void* out, int M, int C, void* stream) {
+  f32_gemm::Params p{};
+  p.a = a;
+  p.w = (const float*)wp;
+  p.bias = (const float*)bp;
+  p.gamma = (const float*)gamma;
+  p.res = x;
+  p.out[0] = out;
+  p.M = M;
+  p.N = C;
+  p.K = C;
+  return (int)f32_gemm::launch<f32_gemm::kResidual, bf16, bf16, float>(p, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -49,8 +49,12 @@ int qkv_cut(const hopper_gemm::LnParams& p, const void* w, int bn, int split_n,
   if (p.M == 0) return 0;
   if (split_n) return (int)cudaErrorInvalidValue;
   switch (bn) {  // GCViTTiny's levels: C = 64 -> 64, C = 128 ... 512 -> 128
-    case 64: return (int)hopper_gemm::launch_ln_bn<64, kCut, false, bf16, true>(p, w, stream);
-    case 128: return (int)hopper_gemm::launch_ln_bn<128, kCut, false, bf16, true>(p, w, stream);
+    case 64:
+      return (int)hopper_gemm::launch_ln_bn<64, kCut, false, bf16, hopper_gemm::kEpiQkv>(p, w,
+                                                                                       stream);
+    case 128:
+      return (int)hopper_gemm::launch_ln_bn<128, kCut, false, bf16, hopper_gemm::kEpiQkv>(p, w,
+                                                                                        stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

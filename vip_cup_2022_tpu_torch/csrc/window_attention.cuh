@@ -21,10 +21,16 @@
 //                       function on groups of g windows with each part of
 //                       the softmax removable (Part), in the streamed-key
 //                       mode at every group size.
-// The register-resident kernel's three compile-time choices are the layout
+// The register-resident kernel's four compile-time choices are the layout
 // (Layout), the q mode (kScaleQ: round the scaled q, else scale the f32
-// scores) and the normalisation (kNormAfter: after P.V over the bf16 sums,
-// else before).
+// scores), the normalisation (kNormAfter: after P.V over the bf16 sums,
+// else before) and the type of q, k, v and out (T: bf16, or f32 for the
+// mixed mode of VIPTPU_GCVIT_MM=bf16 on f32 activations,
+// window_attention_mmbf16, where the TPU kernel rounds k and v to bf16,
+// scales the f32 q in f32 before rounding it, and writes f32). cp.async
+// cannot convert, so f32 K and V come in through registers, rounded there
+// and stored into the same swizzled stage (the next item's loads then no
+// longer overlap this item's products: a CTA waits on them).
 //
 // What bounds it on this card. Per (window, head) it reads q, k, v and
 // writes the output once (256 bytes a token) and needs the (N, N) f32 bias
@@ -175,8 +181,27 @@ __device__ __forceinline__ void item_rows(const Params& p, int item, long long& 
   }
 }
 
-// Queue one item's K and V (NP rows, zero past N) into a stage.
-template <int NP, Layout L>
+// the tensors of Params as T: bf16, or f32 (their pointers hold f32 values then)
+template <typename T>
+__device__ __forceinline__ const T* as(const bf16* p) {
+  return reinterpret_cast<const T*>(p);
+}
+
+// 8 f32 values of a row rounded to bf16 into 16 bytes of a stage (zeros where !ok)
+__device__ __forceinline__ void round8(bf16* dst, const float* src, bool ok) {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    u = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                   pack_bf16(b.z, b.w));
+  }
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// Queue one item's K and V (NP rows, zero past N) into a stage; f32 K and V
+// are rounded to bf16 on the way, through registers.
+template <int NP, Layout L, typename T = bf16>
 __device__ __forceinline__ void load_kv(const Params& p, int item, bf16* st) {
   long long kv, qr;
   int stride;
@@ -185,28 +210,48 @@ __device__ __forceinline__ void load_kv(const Params& p, int item, bf16* st) {
     const int r = i >> 2, c = i & 3;
     const bool ok = r < p.n;
     const long long g = kv + (long long)(ok ? r : 0) * stride + c * 8;
-    cp_async16(st + swz(r, c), p.k + g, ok);
-    cp_async16(st + NP * kHd + swz(r, c), p.v + g, ok);
+    if constexpr (sizeof(T) == 4) {
+      round8(st + swz(r, c), as<float>(p.k) + g, ok);
+      round8(st + NP * kHd + swz(r, c), as<float>(p.v) + g, ok);
+    } else {
+      cp_async16(st + swz(r, c), p.k + g, ok);
+      cp_async16(st + NP * kHd + swz(r, c), p.v + g, ok);
+    }
   }
 }
 
+// two f32 q values times the scale in f32, rounded to a bf16 pair
+__device__ __forceinline__ uint32_t scaled_pair(const float* q, float scale) {
+  const float2 f = __ldg(reinterpret_cast<const float2*>(q));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
 // A warp's q rows [r0, r0 + 16) of one item as two m16k16 A fragments,
-// straight from global memory (rows past N clamped: computed, never stored)
-template <Layout L>
+// straight from global memory (rows past N clamped: computed, never stored);
+// f32 q is scaled here (q * scale in f32, then rounded), bf16 q in attend_rows
+template <Layout L, typename T = bf16>
 __device__ __forceinline__ void load_q(const Params& p, int item, int r0, uint32_t (&qa)[2][4]) {
   long long kv, qr;
   int stride;
   item_rows<L>(p, item, kv, qr, stride);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* q0 = p.q + qr + (long long)min(r0 + g, p.n - 1) * stride + t * 2;
-  const bf16* q1 = p.q + qr + (long long)min(r0 + g + 8, p.n - 1) * stride + t * 2;
+  const long long o0 = qr + (long long)min(r0 + g, p.n - 1) * stride + t * 2;
+  const long long o1 = qr + (long long)min(r0 + g + 8, p.n - 1) * stride + t * 2;
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
-    qa[kk][0] = __ldg(reinterpret_cast<const unsigned*>(q0 + kk * 16));
-    qa[kk][1] = __ldg(reinterpret_cast<const unsigned*>(q1 + kk * 16));
-    qa[kk][2] = __ldg(reinterpret_cast<const unsigned*>(q0 + kk * 16 + 8));
-    qa[kk][3] = __ldg(reinterpret_cast<const unsigned*>(q1 + kk * 16 + 8));
+    if constexpr (sizeof(T) == 4) {
+      const float* q = as<float>(p.q);
+      qa[kk][0] = scaled_pair(q + o0 + kk * 16, p.scale);
+      qa[kk][1] = scaled_pair(q + o1 + kk * 16, p.scale);
+      qa[kk][2] = scaled_pair(q + o0 + kk * 16 + 8, p.scale);
+      qa[kk][3] = scaled_pair(q + o1 + kk * 16 + 8, p.scale);
+    } else {
+      qa[kk][0] = __ldg(reinterpret_cast<const unsigned*>(p.q + o0 + kk * 16));
+      qa[kk][1] = __ldg(reinterpret_cast<const unsigned*>(p.q + o1 + kk * 16));
+      qa[kk][2] = __ldg(reinterpret_cast<const unsigned*>(p.q + o0 + kk * 16 + 8));
+      qa[kk][3] = __ldg(reinterpret_cast<const unsigned*>(p.q + o1 + kk * 16 + 8));
+    }
   }
 }
 
@@ -251,9 +296,11 @@ __device__ __forceinline__ void store_cut(const Params& p, long long kv, int str
 
 // One warp: query rows [rt*16, rt*16 + 16) of one item, from q fragments and
 // the staged K, V to the output rows.
-template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut>
+template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut, typename T>
 __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, uint32_t (&qa)[2][4],
                                             const bf16* st, const float4* bias_s) {
+  static_assert(sizeof(T) == 2 || (kScaleQ && kCut == 0),
+                "f32 q, k, v: the scaled-q mode, whole kernel only");
   constexpr int kTiles = NP / 8;  // m16n8 score tiles a warp holds
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // a fragment's row in the 8-row group, its quad lane
@@ -264,7 +311,7 @@ __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, u
   int stride;
   item_rows<L>(p, item, kv, qr, stride);
 
-  if (kScaleQ) {  // K5: q * hd^-1/2 in f32, rounded to bf16
+  if (kScaleQ && sizeof(T) == 2) {  // K5: q * hd^-1/2 in f32, rounded to bf16 (f32 q: load_q)
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
@@ -411,19 +458,29 @@ __device__ __forceinline__ void attend_rows(const Params& p, int item, int rt, u
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     const int col = d * 8 + t * 2;
-    if (i0 < n)
-      *reinterpret_cast<uint32_t*>(p.out + kv + (long long)i0 * stride + col) =
-          pack_bf16(o[d][0] * f0, o[d][1] * f0);
-    if (i1 < n)
-      *reinterpret_cast<uint32_t*>(p.out + kv + (long long)i1 * stride + col) =
-          pack_bf16(o[d][2] * f1, o[d][3] * f1);
+    if constexpr (sizeof(T) == 4) {  // f32 out: 8 bytes a lane, a quad's 32 bytes a row
+      float* out = reinterpret_cast<float*>(p.out);
+      if (i0 < n)
+        *reinterpret_cast<float2*>(out + kv + (long long)i0 * stride + col) =
+            make_float2(o[d][0] * f0, o[d][1] * f0);
+      if (i1 < n)
+        *reinterpret_cast<float2*>(out + kv + (long long)i1 * stride + col) =
+            make_float2(o[d][2] * f1, o[d][3] * f1);
+    } else {
+      if (i0 < n)
+        *reinterpret_cast<uint32_t*>(p.out + kv + (long long)i0 * stride + col) =
+            pack_bf16(o[d][0] * f0, o[d][1] * f0);
+      if (i1 < n)
+        *reinterpret_cast<uint32_t*>(p.out + kv + (long long)i1 * stride + col) =
+            pack_bf16(o[d][2] * f1, o[d][3] * f1);
+    }
   }
 }
 
 // Persistent CTAs over (window, head) items with a two-stage cp.async ring
 // of K and V; every item of a CTA has the head blockIdx.x % heads (the
 // launcher makes gridDim.x a multiple of heads or gives a CTA one item).
-template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut>
+template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut, typename T>
 __global__ void __launch_bounds__(warps_for(NP) * 32)
 window_attention_kernel(const Params p) {
   constexpr int kWarps = warps_for(NP);
@@ -434,14 +491,14 @@ window_attention_kernel(const Params p) {
   const int row_tiles = (p.n + 15) / 16;
   int item = blockIdx.x;
   if (item >= p.items) return;
-  load_kv<NP, L>(p, item, ring);
+  load_kv<NP, L, T>(p, item, ring);
   if (bias_in_smem(NP)) fill_bias<NP>(p, item % p.heads, bias_s);  // lands with the first item
   cp_async_commit();
   uint32_t qn[2][4];  // the warp's next q tile
-  if (warp < row_tiles) load_q<L>(p, item, warp * 16, qn);
+  if (warp < row_tiles) load_q<L, T>(p, item, warp * 16, qn);
   for (int it = 0; item < p.items; ++it, item += gridDim.x) {
     const int next = item + gridDim.x;
-    if (next < p.items) load_kv<NP, L>(p, next, ring + ((it + 1) & 1) * stage_elems(NP));
+    if (next < p.items) load_kv<NP, L, T>(p, next, ring + ((it + 1) & 1) * stage_elems(NP));
     cp_async_commit();
     cp_async_wait<1>();  // this item's K and V have landed; the next ones stay in flight
     __syncthreads();
@@ -453,11 +510,11 @@ window_attention_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) qa[kk][e] = qn[kk][e];
       if (rt + kWarps < row_tiles)
-        load_q<L>(p, item, (rt + kWarps) * 16, qn);
+        load_q<L, T>(p, item, (rt + kWarps) * 16, qn);
       else if (next < p.items)
-        load_q<L>(p, next, warp * 16, qn);
-      attend_rows<NP, kScaleQ, kNormAfter, L, kCut>(p, item, rt, qa, st,
-                                              reinterpret_cast<const float4*>(bias_s));
+        load_q<L, T>(p, next, warp * 16, qn);
+      attend_rows<NP, kScaleQ, kNormAfter, L, kCut, T>(p, item, rt, qa, st,
+                                                       reinterpret_cast<const float4*>(bias_s));
     }
     __syncthreads();  // the stage is free for the item after next
   }
@@ -489,11 +546,11 @@ inline cudaError_t resident_ctas(const void* kernel, int threads, size_t smem, G
   return cudaSuccess;
 }
 
-template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut>
+template <int NP, bool kScaleQ, bool kNormAfter, Layout L, int kCut, typename T>
 cudaError_t launch_np(const Params& p, cudaStream_t stream) {
   static block_gemm::SmemGrant grant;
   static GridCache cache;
-  const void* kernel = (const void*)window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut>;
+  const void* kernel = (const void*)window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut, T>;
   constexpr int threads = warps_for(NP) * 32;
   constexpr size_t smem = smem_bytes(NP);
   cudaError_t err = block_gemm::grant_smem(kernel, smem, grant);
@@ -504,20 +561,21 @@ cudaError_t launch_np(const Params& p, cudaStream_t stream) {
   // a multiple of the head count, so that a CTA keeps one head
   ctas = ctas < p.heads ? p.heads : ctas - ctas % p.heads;
   const int grid = p.items < ctas ? p.items : ctas;
-  window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut><<<grid, threads, smem, stream>>>(p);
+  window_attention_kernel<NP, kScaleQ, kNormAfter, L, kCut, T><<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// N -> the key tile: 64, 208 or 224
-template <bool kScaleQ, bool kNormAfter, Layout L, int kCut = 0>
+// N -> the key tile: 64, 208 or 224. T: the type of q, k, v and out (bf16,
+// or f32 with their pointers holding f32 values)
+template <bool kScaleQ, bool kNormAfter, Layout L, int kCut = 0, typename T = bf16>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (p.items == 0) return cudaSuccess;
   if (p.n <= 0 || p.n > kMaxN || p.heads <= 0 || p.items % p.heads)
     return cudaErrorInvalidValue;
   const int np = padded_keys(p.n);
-  if (np <= 64) return launch_np<64, kScaleQ, kNormAfter, L, kCut>(p, stream);
-  if (np <= 208) return launch_np<208, kScaleQ, kNormAfter, L, kCut>(p, stream);
-  return launch_np<224, kScaleQ, kNormAfter, L, kCut>(p, stream);
+  if (np <= 64) return launch_np<64, kScaleQ, kNormAfter, L, kCut, T>(p, stream);
+  if (np <= 208) return launch_np<208, kScaleQ, kNormAfter, L, kCut, T>(p, stream);
+  return launch_np<224, kScaleQ, kNormAfter, L, kCut, T>(p, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -91,15 +91,17 @@ unfused blocks' the f32 window attention, depthwise and LN kernels), and
 the forwards run with TF32 off for cuDNN and cuBLAS
 (:func:`..utils.precision.f32_scope`), so every conv and Linear computes
 in f32; the flags are restored after each forward.
-``VIPTPU_INT8_KERNELS=1`` with f32 on CUDA raises (its kernels' f32 inputs
-and outputs are ROADMAP item A15c); ``VIPTPU_INT8`` composes (the PTQ site
-takes f32). ``VIPTPU_GCVIT_MM`` set to the other dtype than the compute
-dtype raises on GCViT's fused path (A15c; the models' ``check_gcvit_mm``).
+``VIPTPU_INT8_KERNELS=1`` composes with f32 (the int8 block kernels' f32
+modes) and with ``VIPTPU_INT8`` (the PTQ site takes f32).
+``VIPTPU_GCVIT_MM=f32|bf16`` sets GCViT's fused GEMM dtype against either
+compute dtype, as the JAX model reads it (the models'
+``gcvit_mm_dtype``; the block kernels' mixed modes); f32 GEMMs in a bf16
+member take the f32 values its weights were cast from, kept per fold as
+for int8 (:meth:`EnsembleEngine.load_members`).
 
 Still raising ``NotImplementedError`` rather than running something else
 (a SavedModel checkpoint without TensorFlow installed raises it too):
-``VIPTPU_LN_BF16_SQ=1``; ``VIPTPU_INT8_KERNELS=1`` with f32 on CUDA and
-``VIPTPU_GCVIT_MM`` against the compute dtype (A15c); and
+``VIPTPU_LN_BF16_SQ=1``; and
 members of families other than ConvNeXt, GCViT, ResNet-RS, EfficientNet,
 ResNest and NFNet (A14), which are all seven of ``ckpts/ckpts.json``.
 Every Pallas kernel of the JAX package has a CUDA counterpart (the f32
@@ -124,6 +126,7 @@ from ..data.augment import TTAMasks, apply_augment, draw_masks
 from ..data.decode import ImageDecoder
 from ..data.pipeline import _host_resize_uint8
 from ..models import create_model, load_weights, transfer_weights
+from ..models.gcvit import gcvit_mm_dtype
 from ..models.registry import is_model, model_entry
 from ..ops.resize import resize
 from ..quant import calibrate, dyn_int8, quantized
@@ -295,15 +298,19 @@ class EnsembleEngine:
         return f32_scope(self.device, self.compute_dtype)
 
     def _int8_kernels(self) -> bool:
-        """``VIPTPU_INT8_KERNELS=1``; raises for f32 on CUDA, where the int8
-        block kernels it runs take bf16 activations (their f32 inputs and
-        outputs are ROADMAP item A15c)."""
-        on = dyn_int8.int8_kernels_enabled()
-        if on and self.device.type == "cuda" and self.compute_dtype == torch.float32:
-            raise NotImplementedError(
-                "VIPTPU_INT8_KERNELS=1 with f32 compute on CUDA: the int8 block kernels take bf16 "
-                "activations; their f32 inputs and outputs are ROADMAP item A15c")
-        return on
+        """``VIPTPU_INT8_KERNELS=1``, in either compute dtype."""
+        return dyn_int8.int8_kernels_enabled()
+
+    def _f32_gemm_members(self, ckpt_cfg) -> List[bool]:
+        """The manifest entries whose fused blocks take f32 GEMMs in a bf16
+        model (``VIPTPU_GCVIT_MM=f32`` with bf16 compute, on a model class
+        that reads the knob): they keep their f32 weights."""
+        if self.compute_dtype == torch.float32 or gcvit_mm_dtype(
+                self.compute_dtype) != torch.float32:
+            return [False] * len(ckpt_cfg)
+        return [is_model(registry_name(base_dir))
+                and getattr(model_entry(registry_name(base_dir))[0], "reads_gcvit_mm", False)
+                for base_dir, *_ in ckpt_cfg]
 
     # ------------------------------------------------------------------
     # data
@@ -450,9 +457,16 @@ class EnsembleEngine:
             chosen.append(pick)
         return chosen
 
-    def _attach_int8_blocks(self, base_dir: str, folds, f32) -> None:
+    def _attach_int8_blocks(self, base_dir: str, folds, f32, f32_gemms: bool = False) -> None:
         """VIPTPU_INT8_KERNELS=1: each fold's fused blocks' int8 weights,
-        quantized once from the fold's f32 values ``f32``."""
+        quantized once from the fold's f32 values ``f32``; with
+        ``f32_gemms`` (:meth:`_f32_gemm_members`) those values kept for the
+        blocks' f32 GEMMs too."""
+        if f32_gemms:
+            for model, weights in zip(folds, f32):
+                dyn_int8.attach(model, weights, f32=True)
+        if not self._int8_kernels():
+            return
         blocks = [dyn_int8.attach(model, weights) for model, weights in zip(folds, f32)]
         if self.verbose and blocks and blocks[0]:
             print(f"> INT8_KERNELS {registry_name(base_dir)}: {blocks[0]} blocks a fold")
@@ -587,11 +601,15 @@ class EnsembleEngine:
 
         int8 = self._int8_members(cfg.ckpt_cfg, self._int8_names())
         int8_kernels = self._int8_kernels()
+        f32_gemms = self._f32_gemm_members(cfg.ckpt_cfg)
         members, f32_weights = self.load_members(
-            cfg.ckpt_cfg, keep_f32=[pick or int8_kernels for pick in int8])
-        if int8_kernels:  # before calibration: JAX calibrates with its blocks int8
-            for (folds, _), f32, (base_dir, *_) in zip(members, f32_weights, cfg.ckpt_cfg):
-                self._attach_int8_blocks(base_dir, folds, f32)
+            cfg.ckpt_cfg, keep_f32=[pick or int8_kernels or mm
+                                    for pick, mm in zip(int8, f32_gemms)])
+        # before calibration: JAX calibrates with its blocks int8
+        for (folds, _), f32, (base_dir, *_), mm in zip(members, f32_weights, cfg.ckpt_cfg,
+                                                       f32_gemms):
+            if int8_kernels or mm:
+                self._attach_int8_blocks(base_dir, folds, f32, mm)
         quant_scales = None
         if any(int8):
             # one-batch calibration on the head of the CSV, with fold 0
@@ -656,9 +674,11 @@ class EnsembleEngine:
         if max_batch:
             batch_size = min(batch_size, max_batch)
         int8_kernels = self._int8_kernels()
-        folds, f32 = self._load_folds(model_dir_name, ckpt_paths, dim, keep_f32=int8_kernels)
-        if int8_kernels:
-            self._attach_int8_blocks(model_dir_name, folds, f32)
+        f32_gemms = self._f32_gemm_members([(model_dir_name,)])[0]
+        folds, f32 = self._load_folds(model_dir_name, ckpt_paths, dim,
+                                      keep_f32=int8_kernels or f32_gemms)
+        if int8_kernels or f32_gemms:
+            self._attach_int8_blocks(model_dir_name, folds, f32, f32_gemms)
             del f32
         imgs = self._decode_all(paths)
         masks = self.tta_masks(seed, tta, batch_size, fused=False) if tta > 1 else None

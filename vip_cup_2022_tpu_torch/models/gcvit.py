@@ -17,7 +17,8 @@ Counterpart of ``vip_cup_2022_tpu/models/gcvit.py``, NHWC throughout:
     ``VIPTPU_GCVIT_INT8_MIN_C`` (128) wide run their dense GEMMs int8
     (:class:`GCViTBlock`); in f32 every kernel has its f32 mode;
     ``VIPTPU_GCVIT_MM`` is read here as the JAX model reads it
-    (:func:`check_gcvit_mm`);
+    (:func:`gcvit_mm_dtype`): the blocks' GEMMs in that dtype, the
+    activations in the compute dtype (the kernels' mixed modes);
   - unfused (the JAX package's Flax path): on NHWC, LN1 -> window partition
     -> :class:`..ops.attention.WindowAttention` (the window-attention kernel
     of :mod:`..ops.kernels.window_attention`) -> window reverse -> residual
@@ -124,18 +125,12 @@ def _use_fused_block(cfg: GCViTConfig, training: bool,
 GCVIT_MM = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-def check_gcvit_mm(dtype: torch.dtype) -> None:
-    """``VIPTPU_GCVIT_MM``, which the JAX model's fused path reads to force
-    its kernels' GEMM dtype: unset, any other value than ``bf16`` or
-    ``f32`` (which the JAX model ignores too) or the compute ``dtype``
-    itself changes nothing; the other dtype raises ``NotImplementedError``:
-    the fused kernels' mixed-dtype GEMMs are ROADMAP item A15c, and the port
-    serves no result other than ``main.py``'s."""
-    forced = GCVIT_MM.get(os.environ.get("VIPTPU_GCVIT_MM", ""))
-    if forced is not None and forced != dtype:
-        raise NotImplementedError(
-            f"VIPTPU_GCVIT_MM={os.environ['VIPTPU_GCVIT_MM']} with {dtype} compute: the fused "
-            "block kernels' GEMMs in another dtype than the activations' are ROADMAP item A15c")
+def gcvit_mm_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The fused blocks' GEMM dtype under ``VIPTPU_GCVIT_MM``, which the JAX
+    model's fused path reads as its kernels' ``force_mm_dtype``: ``bf16`` or
+    ``f32``, else (unset, or a value the JAX model ignores too) the compute
+    ``dtype``. The activations keep ``dtype`` either way."""
+    return GCVIT_MM.get(os.environ.get("VIPTPU_GCVIT_MM", ""), dtype)
 
 
 class SE(nn.Module):
@@ -210,8 +205,13 @@ class GCViTBlock(nn.Module, dyn_int8.Int8Block):
     ``VIPTPU_INT8_KERNELS=1`` a fused block at least
     ``VIPTPU_GCVIT_INT8_MIN_C`` (128) wide runs its qkv, proj, fc1 and fc2
     GEMMs int8 (:func:`..ops.kernels.block_int8.window_transformer_block_int8`;
-    the attention stays in the compute dtype), the weights quantized once
-    from their f32 values (:class:`..quant.dyn_int8.Int8Block`)."""
+    the attention stays in the GEMM dtype), the weights quantized once
+    from their f32 values (:class:`..quant.dyn_int8.Int8Block`). The fused
+    block's GEMMs take ``mm_dtype`` (:func:`gcvit_mm_dtype`): the weights in
+    the compute dtype, rounded to bf16 from f32 parameters, or, for f32 GEMMs
+    in a bf16 block, the f32 values the parameters were cast from
+    (:meth:`..quant.dyn_int8.Int8Block.f32_weights`), never a bf16 weight
+    cast back up."""
 
     INT8_LINEARS = ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
 
@@ -234,13 +234,21 @@ class GCViTBlock(nn.Module, dyn_int8.Int8Block):
             self.register_buffer("gamma1", torch.ones(dim), persistent=False)
             self.register_buffer("gamma2", torch.ones(dim), persistent=False)
 
+    def mm_weights(self, mm_dtype: torch.dtype) -> dict:
+        """The four Linears' weights in the GEMM dtype ``mm_dtype``."""
+        if mm_dtype == torch.float32 and any(
+                self.get_submodule(n).weight.dtype != torch.float32 for n in self.INT8_LINEARS):
+            return self.f32_weights()
+        return {n: self.get_submodule(n).weight.to(mm_dtype) for n in self.INT8_LINEARS}
+
     def forward(self, x: torch.Tensor, q_global: Optional[torch.Tensor],
-                fused: bool = True) -> torch.Tensor:
-        """Fused: x window-ordered tokens (B, nWin*N, C). Unfused: x NHWC
-        (B, H, W, C). q_global (B, N, C) or None."""
+                fused: bool = True, mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Fused: x window-ordered tokens (B, nWin*N, C), the GEMMs in
+        ``mm_dtype`` (default the compute dtype). Unfused: x NHWC (B, H, W,
+        C). q_global (B, N, C) or None."""
         if not fused:
             return self._unfused(x, q_global)
-        a, dt = self.attn, self.dtype
+        a, mm = self.attn, mm_dtype or self.dtype
         if dyn_int8.gcvit_int8(self.dim):
             w = self.int8_weights()
             return window_transformer_block_int8(
@@ -249,16 +257,16 @@ class GCViTBlock(nn.Module, dyn_int8.Int8Block):
                 bqkv=a.qkv.bias, bias=a.bias_dense, proj=w["attn.proj"], bp=a.proj.bias,
                 gamma1=self.gamma1, ln2_weight=self.norm2.weight, ln2_bias=self.norm2.bias,
                 fc1=w["mlp.fc1"], b1=self.mlp.fc1.bias, fc2=w["mlp.fc2"], b2=self.mlp.fc2.bias,
-                gamma2=self.gamma2, scale=a.scale, eps=EPS)
+                gamma2=self.gamma2, scale=a.scale, eps=EPS, mm_dtype=mm)
+        w = self.mm_weights(mm)
         return window_transformer_block(
             x, q_global, n=self.window * self.window,
             ln1_weight=self.norm1.weight, ln1_bias=self.norm1.bias,
-            wqkv=a.qkv.weight.to(dt), bqkv=a.qkv.bias, bias=a.bias_dense,
-            wp=a.proj.weight.to(dt), bp=a.proj.bias, gamma1=self.gamma1,
+            wqkv=w["attn.qkv"], bqkv=a.qkv.bias, bias=a.bias_dense,
+            wp=w["attn.proj"], bp=a.proj.bias, gamma1=self.gamma1,
             ln2_weight=self.norm2.weight, ln2_bias=self.norm2.bias,
-            w1=self.mlp.fc1.weight.to(dt), b1=self.mlp.fc1.bias,
-            w2=self.mlp.fc2.weight.to(dt), b2=self.mlp.fc2.bias, gamma2=self.gamma2,
-            scale=a.scale, eps=EPS)
+            w1=w["mlp.fc1"], b1=self.mlp.fc1.bias, w2=w["mlp.fc2"], b2=self.mlp.fc2.bias,
+            gamma2=self.gamma2, scale=a.scale, eps=EPS, mm_dtype=mm)
 
     def _unfused(self, x: torch.Tensor, q_global: Optional[torch.Tensor]) -> torch.Tensor:
         """The Flax block: both residuals in x's dtype, each branch through
@@ -285,7 +293,8 @@ class GCViTLevel(nn.Module):
                                                       path_drops[i]))
         self.downsample = ReduceSize(dim, False, cfg.dtype) if downsample else None
 
-    def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = True,
+                mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         ws = self.window
         x, h, w = fit_window_pad(x, ws)
         b, hp, wp, c = x.shape
@@ -296,7 +305,7 @@ class GCViTLevel(nn.Module):
         if fused:  # partition once per level, as the JAX package hoists it
             x = window_partition(x, ws).reshape(b, -1, c).contiguous()
         for i in range(self.depth):
-            x = getattr(self, f"blocks_{i}")(x, q_global if i % 2 else None, fused)
+            x = getattr(self, f"blocks_{i}")(x, q_global if i % 2 else None, fused, mm_dtype)
         if fused:
             x = window_reverse(x.reshape(-1, ws, ws, c), ws, hp, wp)
         x = crop_from_window(x, h, w)
@@ -307,6 +316,7 @@ class GCViTLevel(nn.Module):
 
 class GCViT(nn.Module):
     int8_sites_match_jax = True
+    reads_gcvit_mm = True  # VIPTPU_GCVIT_MM sets its fused blocks' GEMM dtype
 
     def __init__(self, cfg: GCViTConfig):
         super().__init__()
@@ -364,10 +374,9 @@ class GCViT(nn.Module):
         x = preprocess_input(x, cfg).to(cfg.dtype)
         x = self.drop(self.patch_embed(x))
         fused = _use_fused_block(cfg, self.training, x.device)
-        if fused:
-            check_gcvit_mm(cfg.dtype)
+        mm = gcvit_mm_dtype(cfg.dtype) if fused else None
         for i in range(len(cfg.depths)):
-            x = getattr(self, f"levels_{i}")(x, fused)
+            x = getattr(self, f"levels_{i}")(x, fused, mm)
         x = self.norm(x).float().mean(dim=(1, 2))
         if cfg.nb_classes <= 0:
             return x

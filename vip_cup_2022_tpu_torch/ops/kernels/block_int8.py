@@ -38,8 +38,17 @@ weight scales and dynamic per-row activation scales
 One ConvNeXt block is :func:`convnext_block_int8` (``dwconv7x7_nhwc`` of
 :mod:`.convnext_block` stays as it is), one GCViT block
 :func:`window_transformer_block_int8` (the attention, ``window_attention`` of
-:mod:`.gcvit_block`, stays bf16, as in the JAX package); both run their MLP
-through :func:`mlp_int8`.
+:mod:`.gcvit_block`, stays in the compute dtype, or ``VIPTPU_GCVIT_MM``'s,
+as in the JAX package); both run their MLP through :func:`mlp_int8`.
+
+In an f32 block (``VIPTPU_DTYPE=float32``) the same kernels take f32
+activations and write f32, each such launch counted under its own name:
+``ln_qkv_int8_f32`` (f32 x -> f32 q, k, v), ``proj_scale_residual_int8_f32``
+(the f32 residual x -> f32 r1), ``mlp_int8_scale_residual_f32`` (the f32
+residual -> f32) and the yardstick's ``fc2_scale_residual_int8_f32``;
+``quantize_rows`` and ``ln_fc1_rowmax_int8`` read f32 in every mode. A bf16
+GCViT block under ``VIPTPU_GCVIT_MM=f32`` keeps its q, k, v in f32, as the
+TPU's monoblock does: ``ln_qkv_int8_mmf32`` (bf16 x -> f32).
 
 fc2's activation scale is taken over the whole hidden row. The JAX kernels
 keep that row in VMEM; an SM cannot hold 64 rows of it at the wide stages,
@@ -55,10 +64,6 @@ wrapper counts its launches in :data:`LAUNCHES`. The plain versions compute
 the int8 products in f64, exact at these magnitudes, and the same f32
 epilogue step by step, so a kernel given the same codes and scales agrees
 with its plain version bit for bit before its output's last rounding.
-Given the f32 compute dtype's activations on CUDA (a bf16 block's bf16
-input or output in f32) a wrapper raises ``NotImplementedError`` naming
-ROADMAP item A15c (:func:`refuse_f32`): these kernels' f32 inputs and
-outputs are not built yet.
 """
 from __future__ import annotations
 
@@ -78,28 +83,20 @@ from .convnext_block import _check, _check_rows, _check_width, _stream
 
 LAUNCHES: Dict[str, int] = {"ln_fc1_gelu_int8": 0, "ln_qkv_int8": 0, "quantize_rows": 0,
                             "fc2_scale_residual_int8": 0, "proj_scale_residual_int8": 0,
-                            "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0}
-
-
-def refuse_f32(name: str, *tensors) -> None:
-    """An int8-mode block kernel given the f32 compute dtype's activations
-    on CUDA (``tensors``: the activations, or an output dtype, that are bf16
-    in a bf16 block): raise ``NotImplementedError`` before any dtype check,
-    and run no plain version in its place."""
-    if any((t if isinstance(t, torch.dtype) else t.dtype) == torch.float32 for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the int8 block kernels (VIPTPU_INT8_KERNELS=1) take bf16 activations; "
-            "their f32 inputs and outputs are ROADMAP item A15c")
+                            "ln_fc1_rowmax_int8": 0, "mlp_int8_scale_residual": 0,
+                            "ln_qkv_int8_f32": 0, "ln_qkv_int8_mmf32": 0,
+                            "fc2_scale_residual_int8_f32": 0, "proj_scale_residual_int8_f32": 0,
+                            "mlp_int8_scale_residual_f32": 0}
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_fc1_gelu_int8": [_P] * 7 + [_I, _I, _I, _F] + [_I] * 4 + [_P],
-    "ln_qkv_int8": [_P] * 9 + [_I, _I, _I, _F] + [_I] * 4 + [_P],
+    "ln_qkv_int8": [_P] * 9 + [_I, _I, _I, _F] + [_I] * 6 + [_P],
     "quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     "res_gemm_int8": [_P] * 8 + [_I] * 8 + [_P],
     "ln_fc1_rowmax_int8": [_P] * 9 + [_I, _I, _I, _F] + [_I] * 4 + [_P],
-    "mlp_int8_scale_residual": [_P] * 12 + [_I] * 9 + [_P],
+    "mlp_int8_scale_residual": [_P] * 12 + [_I] * 10 + [_P],
     "gelu_bits_check": [_P, _P],
     "gelu_mono_check": [_P, _P],
 }
@@ -304,11 +301,12 @@ def ln_fc1_gelu_int8_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: to
 
 
 def ln_qkv_int8_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
-                      w_q: torch.Tensor, w_scale: torch.Tensor, b: torch.Tensor,
-                      eps: float) -> Tuple[torch.Tensor, ...]:
+                      w_q: torch.Tensor, w_scale: torch.Tensor, b: torch.Tensor, eps: float,
+                      out_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
     """(M, C) -> LN -> per-row int8 -> @ w_q (S C, C)^T, dequantized, + b ->
-    S (M, C) outputs (q, k, v or k, v) in x's dtype."""
-    o = Q8.dot_i8(_layer_norm(x, ln_weight, ln_bias, eps), w_q.t(), w_scale, b).to(x.dtype)
+    S (M, C) outputs (q, k, v or k, v) in ``out_dtype`` (default x's)."""
+    o = Q8.dot_i8(_layer_norm(x, ln_weight, ln_bias, eps), w_q.t(), w_scale,
+                  b).to(out_dtype or x.dtype)
     return tuple(part.contiguous() for part in o.chunk(w_q.shape[0] // x.shape[1], dim=-1))
 
 
@@ -394,6 +392,17 @@ def _check_ln_fc1(x, ln_weight, ln_bias, w_q, w_scale, b1) -> Tuple[int, int, in
     return m, c, n
 
 
+def _f32_out(name: str, out_dtype: torch.dtype, residual: torch.Tensor) -> bool:
+    """Whether a residual kernel writes f32: bf16 beside any residual, f32
+    beside an f32 one (an f32 block's)."""
+    if out_dtype == torch.bfloat16:
+        return False
+    if out_dtype == torch.float32 and residual.dtype == torch.float32:
+        return True
+    raise TypeError(f"{name} writes bf16, or f32 beside an f32 residual; got {out_dtype} with a "
+                    f"{residual.dtype} residual")
+
+
 def ln_fc1_gelu_int8(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                      w_q: torch.Tensor, w_scale: torch.Tensor, b1: torch.Tensor,
                      eps: float) -> torch.Tensor:
@@ -440,13 +449,14 @@ def mlp_int8_scale_residual(x_q: torch.Tensor, x_scale: torch.Tensor, h_scale: t
     with pass 1's scales, fc2, ``(+ b2) * gamma + residual``; the hidden stays
     on chip. CUDA: x_q int8 (M, C) with scales f32 (M,), h_scale f32 (M,),
     w1_q int8 (N, C) and w2_q int8 (C, N) with their scales, b1 f32 (N,), b2
-    and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16; N a multiple of
-    32 (a last hidden chunk short of 128 reads TMA's zero fill); C / R one of
+    and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16, or an f32
+    residual -> f32 (``mlp_int8_scale_residual_f32``); N a multiple of 32 (a
+    last hidden chunk short of 128 reads TMA's zero fill); C / R one of
     ``MLP_COLUMN_TILES`` (:func:`int8_plan` "mlp")."""
     if x_q.device.type == "cpu":
         return mlp_int8_scale_residual_plain(x_q, x_scale, h_scale, w1_q, w1_scale, b1, w2_q,
                                              w2_scale, b2, gamma, residual, out_dtype)
-    refuse_f32("mlp_int8_scale_residual", out_dtype)
+    out_f32 = _f32_out("mlp_int8_scale_residual", out_dtype, residual)
     if x_q.ndim != 2:
         raise ValueError(f"x_q must be (M, C), got {tuple(x_q.shape)}")
     m, c = x_q.shape
@@ -465,14 +475,14 @@ def mlp_int8_scale_residual(x_q: torch.Tensor, x_scale: torch.Tensor, h_scale: t
     _check("gamma", gamma, torch.float32, (c,), dev)
     res_f32 = residual.dtype == torch.float32
     _check("residual", residual, torch.float32 if res_f32 else torch.bfloat16, (m, c), dev)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"mlp_int8_scale_residual writes bf16 on CUDA, not {out_dtype}")
     plan = _mlp_plan_args(c, n)
     out = torch.empty((m, c), dtype=out_dtype, device=dev)
-    _launch("mlp_int8_scale_residual", "mlp_int8_scale_residual", x_q.data_ptr(),
-            x_scale.data_ptr(), h_scale.data_ptr(), w1_q.data_ptr(), w1_scale.data_ptr(),
-            b1.data_ptr(), w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-            residual.data_ptr(), out.data_ptr(), m, c, n, int(res_f32), *plan, _stream(dev))
+    _launch("mlp_int8_scale_residual",
+            "mlp_int8_scale_residual_f32" if out_f32 else "mlp_int8_scale_residual",
+            x_q.data_ptr(), x_scale.data_ptr(), h_scale.data_ptr(), w1_q.data_ptr(),
+            w1_scale.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), w2_scale.data_ptr(),
+            b2.data_ptr(), gamma.data_ptr(), residual.data_ptr(), out.data_ptr(), m, c, n,
+            int(res_f32), int(out_f32), *plan, _stream(dev))
     return out
 
 
@@ -506,13 +516,21 @@ def gelu_mono_check(device: torch.device) -> Dict[str, int]:
 
 def ln_qkv_int8(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                 w_q: torch.Tensor, w_scale: torch.Tensor, b: torch.Tensor,
-                eps: float) -> Tuple[torch.Tensor, ...]:
-    """LN + int8 Linear C -> S C on rows, split into S (M, C) outputs. CUDA:
-    x bf16 (M, C), LN params f32, w_q int8 (S C, C), w_scale and b f32
-    (S C,) -> bf16."""
+                eps: float, out_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
+    """LN + int8 Linear C -> S C on rows, split into S (M, C) outputs in
+    ``out_dtype`` (default x's). CUDA: x (M, C) bf16 or f32, LN params f32,
+    w_q int8 (S C, C), w_scale and b f32 (S C,): bf16 x -> bf16
+    (``ln_qkv_int8``) or f32 (``ln_qkv_int8_mmf32``, the monoblock's q, k, v
+    under ``VIPTPU_GCVIT_MM=f32``); f32 x -> f32 (``ln_qkv_int8_f32``)."""
     if x.device.type == "cpu":
-        return ln_qkv_int8_plain(x, ln_weight, ln_bias, w_q, w_scale, b, eps)
-    refuse_f32("ln_qkv_int8", x)
+        return ln_qkv_int8_plain(x, ln_weight, ln_bias, w_q, w_scale, b, eps, out_dtype)
+    out_dt = out_dtype or x.dtype
+    counter = {(torch.bfloat16, torch.bfloat16): "ln_qkv_int8",
+               (torch.bfloat16, torch.float32): "ln_qkv_int8_mmf32",
+               (torch.float32, torch.float32): "ln_qkv_int8_f32"}.get((x.dtype, out_dt))
+    if counter is None:
+        raise TypeError(f"ln_qkv_int8 takes bf16 x to bf16 or f32, or f32 x to f32; got {x.dtype} "
+                        f"x to {out_dt}")
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -521,15 +539,16 @@ def ln_qkv_int8(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     s = w_q.shape[0] // c
     if s not in (2, 3) or w_q.shape[0] != s * c:
         raise ValueError(f"w_q must be (2C or 3C, C) for C = {c}, got {tuple(w_q.shape)}")
-    _check("x", x, torch.bfloat16, (m, c), x.device)
+    _check("x", x, x.dtype, (m, c), x.device)
     _check("ln_weight", ln_weight, torch.float32, (c,), x.device)
     _check("ln_bias", ln_bias, torch.float32, (c,), x.device)
     _check_int8_weight("w_q", w_q, w_scale, (s * c, c), x.device)
     _check("b", b, torch.float32, (s * c,), x.device)
-    outs = [torch.empty((m, c), dtype=torch.bfloat16, device=x.device) for _ in range(s)]
+    outs = [torch.empty((m, c), dtype=out_dt, device=x.device) for _ in range(s)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - s)
-    _launch("ln_qkv_int8", "ln_qkv_int8", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+    _launch("ln_qkv_int8", counter, x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
             w_q.data_ptr(), w_scale.data_ptr(), b.data_ptr(), *ptrs, m, c, s, float(eps),
+            int(x.dtype == torch.float32), int(out_dt == torch.float32),
             *_ln_plan_args("qkv", c, s * c), _stream(x.device))
     return tuple(outs)
 
@@ -571,9 +590,8 @@ def _res_gemm(counter: str, kind: str, a_q, a_scale, w_q, w_scale, bias, gamma, 
     _check("gamma", gamma, torch.float32, (c,), dev)
     res_f32 = residual.dtype == torch.float32
     _check("residual", residual, torch.float32 if res_f32 else torch.bfloat16, (m, c), dev)
-    if out_dtype not in (torch.bfloat16, torch.float32) or (res_f32 and out_dtype == torch.float32):
-        raise TypeError(f"the kernel writes bf16, or f32 beside a bf16 residual; got {out_dtype} "
-                        f"with a {residual.dtype} residual")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the kernel writes bf16 or f32, not {out_dtype}")
     out = torch.empty((m, c), dtype=out_dtype, device=dev)
     _launch("res_gemm_int8", counter, a_q.data_ptr(), a_scale.data_ptr(), w_q.data_ptr(),
             w_scale.data_ptr(), bias.data_ptr(), gamma.data_ptr(), residual.data_ptr(),
@@ -587,17 +605,16 @@ def fc2_scale_residual_int8(a_q: torch.Tensor, a_scale: torch.Tensor, w_q: torch
                             residual: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """int8 Linear K -> C on quantized rows, (+ b2) x gamma + residual. CUDA:
     a_q int8 (M, K) with scales f32 (M,), w_q int8 (C, K) with scales f32
-    (C,), b2 and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16. The
-    MLP pair's yardstick (:func:`mlp_int8_chain`): the model path calls
+    (C,), b2 and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16, or an
+    f32 residual -> f32 (``fc2_scale_residual_int8_f32``). The MLP pair's
+    yardstick (:func:`mlp_int8_chain`): the model path calls
     :func:`mlp_int8_scale_residual` instead."""
     if a_q.device.type == "cpu":
         return fc2_scale_residual_int8_plain(a_q, a_scale, w_q, w_scale, b2, gamma, residual,
                                              out_dtype)
-    refuse_f32("fc2_scale_residual_int8", out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"fc2_scale_residual_int8 writes bf16 on CUDA, not {out_dtype}")
-    return _res_gemm("fc2_scale_residual_int8", "res", a_q, a_scale, w_q, w_scale, b2, gamma,
-                     residual, out_dtype)
+    f32 = _f32_out("fc2_scale_residual_int8", out_dtype, residual)
+    return _res_gemm("fc2_scale_residual_int8_f32" if f32 else "fc2_scale_residual_int8", "res",
+                     a_q, a_scale, w_q, w_scale, b2, gamma, residual, out_dtype)
 
 
 def proj_scale_residual_int8(a_q: torch.Tensor, a_scale: torch.Tensor, wp_q: torch.Tensor,
@@ -605,16 +622,17 @@ def proj_scale_residual_int8(a_q: torch.Tensor, a_scale: torch.Tensor, wp_q: tor
                              x: torch.Tensor) -> torch.Tensor:
     """r1 = x + gamma * (int8 proj of quantized rows + bp). CUDA: a_q int8
     (M, C) with scales f32 (M,), wp_q int8 (C, C) with scales, bp and gamma
-    f32 (C,), x bf16 (M, C) -> f32 (M, C)."""
+    f32 (C,), x bf16 (M, C) -> f32 (M, C), or f32 x (an f32 block's,
+    ``proj_scale_residual_int8_f32``)."""
     if a_q.device.type == "cpu":
         return proj_scale_residual_int8_plain(a_q, a_scale, wp_q, wp_scale, bp, gamma, x)
-    refuse_f32("proj_scale_residual_int8", x)
     if wp_q.shape[0] != a_q.shape[-1]:
         raise ValueError(f"wp_q must be (C, C) for C = {a_q.shape[-1]}, got {tuple(wp_q.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"x has dtype {x.dtype}, the kernel takes bfloat16")
-    return _res_gemm("proj_scale_residual_int8", "proj", a_q, a_scale, wp_q, wp_scale, bp, gamma,
-                     x, torch.float32)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x has dtype {x.dtype}, the kernel takes bfloat16 or float32")
+    f32 = x.dtype == torch.float32
+    return _res_gemm("proj_scale_residual_int8_f32" if f32 else "proj_scale_residual_int8", "proj",
+                     a_q, a_scale, wp_q, wp_scale, bp, gamma, x, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -660,19 +678,22 @@ def window_transformer_block_int8(x: torch.Tensor, q_global: Optional[torch.Tens
                                   ln1_weight, ln1_bias, qkv: Int8Weight, bqkv, bias,
                                   proj: Int8Weight, bp, gamma1, ln2_weight, ln2_bias,
                                   fc1: Int8Weight, b1, fc2: Int8Weight, b2, gamma2,
-                                  scale: Optional[float] = None,
-                                  eps: float = 1e-5) -> torch.Tensor:
+                                  scale: Optional[float] = None, eps: float = 1e-5,
+                                  mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One GCViT block (:func:`.gcvit_block.window_transformer_block`) with
-    its qkv, proj, fc1 and fc2 GEMMs int8; the attention stays in the
-    compute dtype, and r1 in f32."""
+    its qkv, proj, fc1 and fc2 GEMMs int8; the attention's products stay in
+    ``mm_dtype`` (default x's: the compute dtype, or ``VIPTPU_GCVIT_MM``'s),
+    r1 in f32, and the output in x's dtype."""
     b, toks, c = x.shape
     heads = bias.shape[0]
     scale = scale if scale is not None else (c // heads) ** -0.5
+    mm = mm_dtype or x.dtype
     x2 = x.reshape(b * toks, c)
     parts = [p.view(b, toks, c) for p in ln_qkv_int8(x2, ln1_weight, ln1_bias, qkv.q, qkv.s,
-                                                     bqkv, eps)]
+                                                     bqkv, eps, G.qkv_dtype(x.dtype, mm))]
     q, k, v = parts if q_global is None else (q_global, *parts)
-    attn = G.window_attention(q, k, v, bias, n, scale, q_is_global=q_global is not None)
+    attn = G.window_attention(q, k, v, bias, n, scale, q_is_global=q_global is not None,
+                              mm_dtype=mm, out_dtype=x.dtype)
     a_q, a_s = quantize_rows(attn.view(b * toks, c))
     r1 = proj_scale_residual_int8(a_q, a_s, proj.q, proj.s, bp, gamma1, x2)
     return mlp_int8(r1, ln2_weight, ln2_bias, fc1, b1, fc2, b2, gamma2, r1, x.dtype,

@@ -54,6 +54,12 @@ TF32). A wrapper picks its kernel by dtype: the depthwise by x's, the two
 GEMMs by the weight's (``ln_fc1_gelu`` takes f32 x in a bf16 block too: the
 depthwise sum, GCViT's r1).
 
+GCViT's MLP half in the mixed modes of ``VIPTPU_GCVIT_MM`` (:mod:`.gcvit_block`)
+adds two fc2 kernels, picked by ``out_dtype``: ``fc2_scale_residual_mmbf16``
+(bf16 hidden and W2 -> f32, an f32 block with bf16 GEMMs) and
+``fc2_scale_residual_mmf32`` (f32 hidden and W2 -> bf16, a bf16 block with
+f32 GEMMs); ``ln_fc1_gelu`` takes the GEMM dtype as ``mm_dtype``.
+
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
 wrapper counts its launches in :data:`LAUNCHES`, one count a symbol.
@@ -62,7 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -71,7 +77,8 @@ from . import build
 
 LAUNCHES: Dict[str, int] = {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
                             "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0,
-                            "fc2_scale_residual_f32": 0}
+                            "fc2_scale_residual_f32": 0, "fc2_scale_residual_mmbf16": 0,
+                            "fc2_scale_residual_mmf32": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LN_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I]  # + plan
@@ -84,6 +91,8 @@ _SIGNATURES = {
     "dwconv7x7_nhwc_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ln_fc1_gelu_f32": [_P] * 6 + [_I, _I, _I, _F, _P],
     "fc2_scale_residual_f32": [_P] * 6 + [_I, _I, _I, _P],
+    "fc2_scale_residual_mmbf16": _RES_ARGS + [_P],
+    "fc2_scale_residual_mmf32": [_P] * 6 + [_I, _I, _I, _P],
 }
 _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type)
     "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
@@ -158,7 +167,9 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     (:mod:`.gcvit_block`) on x (M, c) -> n = 2c or 3c columns, split into
     (M, c) outputs; "res": ``fc2_scale_residual`` on a hidden (M, n) ->
     (M, c); "proj": ``proj_scale_residual`` (:mod:`.gcvit_block`), the same
-    kernel with n = K = c and an f32 output. Keys: ``bm`` rows a work item
+    kernel with n = K = c and an f32 output; "proja":
+    ``proj_scale_residual_mmbf16``, the LN kernel's schedule with its A
+    tile the f32 rows rounded to bf16 (no LN), n = c, tiled as "qkv". Keys: ``bm`` rows a work item
     (64 for each warpgroup of a consumer pair), ``bn`` its columns (a wgmma
     n dividing the output width), ``stages`` of the TMA ring, ``a_buffers``
     (LN A tiles: two let the next tile's LN overlap this one's products),
@@ -177,6 +188,10 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
         if n not in (2 * c, 3 * c):
             raise ValueError(f"ln_qkv's width {n} is not 2 or 3 x C = {c}")
         plan.update(_ln_tiles(c, n, kind))
+    elif kind == "proja":
+        if n != c:
+            raise ValueError(f"proj_scale_residual_mmbf16's K = {n} is not C = {c}")
+        plan.update(_ln_tiles(c, n, "qkv"))
     elif kind in ("res", "proj"):
         if kind == "proj" and n != c:
             raise ValueError(f"proj_scale_residual's K = {n} is not C = {c}")
@@ -196,7 +211,7 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
                     held=held)
         plan["smem"] = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + ring
     else:
-        raise ValueError(f"kind must be 'ln', 'qkv', 'res' or 'proj', got {kind!r}")
+        raise ValueError(f"kind must be 'ln', 'qkv', 'proja', 'res' or 'proj', got {kind!r}")
     return plan
 
 
@@ -311,23 +326,33 @@ def dwconv7x7_nhwc_plain(x: torch.Tensor, dw_kernel: torch.Tensor,
 
 
 def ln_fc1_gelu_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
-                      w1: torch.Tensor, b1: torch.Tensor, eps: float) -> torch.Tensor:
+                      w1: torch.Tensor, b1: torch.Tensor, eps: float,
+                      mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(M, C) f32 -> LN (two-pass, f32) -> Linear(w1 (N, C), b1) -> exact GELU,
-    in w1's dtype."""
+    in ``mm_dtype`` (default w1's). In bf16 the product is the kernel's: bf16
+    operands, exact products, f32 sums; the bias and the GELU in f32, then
+    one rounding."""
+    mm = mm_dtype or w1.dtype
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps) * ln_weight + ln_bias).to(w1.dtype)
-    h = F.linear(y, w1).float() + b1
-    return F.gelu(h, approximate="none").to(w1.dtype)
+    y = ((xf - mean) * torch.rsqrt(var + eps) * ln_weight + ln_bias).to(mm)
+    h = F.linear(y.float(), w1.to(mm).float()) + b1
+    return F.gelu(h, approximate="none").to(mm)
 
 
 def fc2_scale_residual_plain(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                             gamma: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-    """(M, N) hidden -> Linear(w2 (C, N), b2) -> x gamma -> + residual, in the
-    hidden's dtype."""
-    o = F.linear(hidden, w2).float() + b2
-    return (o * gamma + residual.float()).to(hidden.dtype)
+                             gamma: torch.Tensor, residual: torch.Tensor,
+                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M, N) hidden -> Linear(w2 (C, N), b2) -> x gamma -> + residual, in
+    ``out_dtype`` (default the hidden's). Another output dtype than the
+    hidden's (a mixed mode) takes the product of the hidden and w2 in f32."""
+    out = out_dtype or hidden.dtype
+    if out == hidden.dtype:
+        o = F.linear(hidden, w2).float() + b2
+    else:
+        o = F.linear(hidden.float(), w2.to(hidden.dtype).float()) + b2
+    return (o * gamma + residual.float()).to(out)
 
 
 # ---------------------------------------------------------------------------
@@ -355,13 +380,17 @@ def dwconv7x7_nhwc(x: torch.Tensor, dw_kernel: torch.Tensor,
 
 
 def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
-                w1: torch.Tensor, b1: torch.Tensor, eps: float) -> torch.Tensor:
+                w1: torch.Tensor, b1: torch.Tensor, eps: float,
+                mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """LN over C + Linear C->N + exact GELU on rows. CUDA: x f32 (M, C), LN
-    params f32 (C,), w1 bf16 or f32 (N, C), b1 f32 (N,) -> (M, N) in w1's
-    dtype (``ln_fc1_gelu`` or ``ln_fc1_gelu_f32``: the mode is w1's, since x
-    is f32 in bf16 blocks too)."""
+    params f32 (C,), w1 (N, C) in ``mm_dtype`` (bf16 or f32, default w1's),
+    b1 f32 (N,) -> (M, N) in ``mm_dtype`` (``ln_fc1_gelu`` or
+    ``ln_fc1_gelu_f32``: the mode is the GEMM's, since x is f32 in bf16
+    blocks too)."""
     if x.device.type == "cpu":
-        return ln_fc1_gelu_plain(x, ln_weight, ln_bias, w1, b1, eps)
+        return ln_fc1_gelu_plain(x, ln_weight, ln_bias, w1, b1, eps, mm_dtype)
+    if mm_dtype is not None and w1.dtype != mm_dtype:
+        raise TypeError(f"w1 has dtype {w1.dtype}, the GEMM's is {mm_dtype}")
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -388,13 +417,17 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
 
 
 def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                       gamma: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-    """Linear N->C, (+ b2) x gamma + residual on rows. CUDA: hidden and w2
-    (C, N) bf16, b2 and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16;
-    or, by w2's dtype, hidden, w2 and the residual f32 -> f32
-    (``fc2_scale_residual_f32``)."""
+                       gamma: torch.Tensor, residual: torch.Tensor,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Linear N->C, (+ b2) x gamma + residual on rows, the output in
+    ``out_dtype`` (default the hidden's). CUDA: hidden and w2 (C, N) bf16,
+    b2 and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16; hidden, w2
+    and the residual f32 -> f32 (``fc2_scale_residual_f32``); the mixed
+    modes, beside an f32 residual: bf16 hidden and w2 -> f32
+    (``fc2_scale_residual_mmbf16``), f32 hidden and w2 -> bf16
+    (``fc2_scale_residual_mmf32``)."""
     if hidden.device.type == "cpu":
-        return fc2_scale_residual_plain(hidden, w2, b2, gamma, residual)
+        return fc2_scale_residual_plain(hidden, w2, b2, gamma, residual, out_dtype)
     if hidden.ndim != 2:
         raise ValueError(f"hidden must be (M, N), got {tuple(hidden.shape)}")
     m, n = hidden.shape
@@ -402,27 +435,30 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     _check_rows(m)
     _check_width(c)
     _check_width(n)
-    if w2.dtype == torch.float32:
-        for name, t, shape in (("hidden", hidden, (m, n)), ("w2", w2, (c, n)), ("b2", b2, (c,)),
-                               ("gamma", gamma, (c,)), ("residual", residual, (m, c))):
-            _check(name, t, torch.float32, shape, hidden.device)
-        out = torch.empty((m, c), dtype=torch.float32, device=hidden.device)
-        _launch("fc2_scale_residual_f32", hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                gamma.data_ptr(), residual.data_ptr(), out.data_ptr(), m, n, c,
-                _stream(hidden.device))
-        return out
-    _check("hidden", hidden, torch.bfloat16, (m, n), hidden.device)
-    _check("w2", w2, torch.bfloat16, (c, n), hidden.device)
-    _check("b2", b2, torch.float32, (c,), hidden.device)
-    _check("gamma", gamma, torch.float32, (c,), hidden.device)
+    mm = hidden.dtype
+    out_dt = out_dtype or mm
+    if mm not in (torch.bfloat16, torch.float32) or out_dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"no fc2 kernel takes a {mm} hidden to a {out_dt} output")
+    mixed = out_dt != mm
     f32_residual = residual.dtype == torch.float32
-    _check("residual", residual, torch.float32 if f32_residual else torch.bfloat16, (m, c),
-           hidden.device)
-    out = torch.empty((m, c), dtype=torch.bfloat16, device=hidden.device)
-    _launch("fc2_scale_residual_f32res" if f32_residual else "fc2_scale_residual",
-            hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-            residual.data_ptr(), out.data_ptr(), m, n, c, *_res_plan_args(c, n),
-            _stream(hidden.device), counter="fc2_scale_residual")
+    for name, t, dt, shape in (("hidden", hidden, mm, (m, n)), ("w2", w2, mm, (c, n)),
+                               ("b2", b2, torch.float32, (c,)),
+                               ("gamma", gamma, torch.float32, (c,)),
+                               ("residual", residual,
+                                torch.float32 if mm == torch.float32 or mixed or f32_residual
+                                else torch.bfloat16, (m, c))):
+        _check(name, t, dt, shape, hidden.device)
+    out = torch.empty((m, c), dtype=out_dt, device=hidden.device)
+    args = (hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            residual.data_ptr(), out.data_ptr(), m, n, c)
+    if mm == torch.float32:
+        _launch("fc2_scale_residual_mmf32" if mixed else "fc2_scale_residual_f32", *args,
+                _stream(hidden.device))
+    elif mixed:
+        _launch("fc2_scale_residual_mmbf16", *args, *_res_plan_args(c, n), _stream(hidden.device))
+    else:
+        _launch("fc2_scale_residual_f32res" if f32_residual else "fc2_scale_residual", *args,
+                *_res_plan_args(c, n), _stream(hidden.device), counter="fc2_scale_residual")
     return out
 
 

@@ -54,8 +54,29 @@ x's) is the same five launches on f32 kernels: ``ln_qkv_f32`` and
 ``window_attention_f32`` (``csrc/f32_attention.cuh`` on token rows: a CTA
 a (window, head), f32 FMAs, P.V divided by the row sum after, as the TPU
 kernel's default "mxu" softmax does), then :mod:`.convnext_block`'s
-``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32``. A wrapper picks its
-kernel by dtype (the GEMMs by the weight's, the attention by k's).
+``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32``.
+
+The mixed modes (``VIPTPU_GCVIT_MM``: the TPU kernels' GEMM operands in the
+other dtype than the activations, which keep theirs) are the same five
+launches, each wrapper told the GEMM dtype ``mm_dtype`` (default the
+activations' dtype, as the JAX package's ``force_mm_dtype``) and given its
+weights in it:
+
+- ``mm_dtype`` f32 on bf16 activations: ``ln_qkv_mmf32`` (bf16 x, f32 q, k,
+  v), ``window_attention_mmf32`` (f32 q, k, v, or a bf16 global query ->
+  bf16), ``proj_scale_residual_mmf32`` (bf16 attention output and x -> f32
+  r1), ``ln_fc1_gelu_f32``, ``fc2_scale_residual_mmf32`` (-> bf16): the
+  FFMA kernels loading bf16 into f32 registers. q, k and v stay f32 between
+  the kernels, as in the TPU's monoblock, the route the JAX package takes at
+  every GCViTTiny level (its three-kernel pipeline would round them to
+  bf16);
+- ``mm_dtype`` bf16 on f32 activations: ``ln_qkv_mmbf16`` (f32 q, k, v),
+  ``window_attention_mmbf16`` (f32 in and out, k, v and the scaled q
+  rounded to bf16 on load), ``proj_scale_residual_mmbf16`` (the f32
+  attention output rounded into the wgmma A tile), ``ln_fc1_gelu``,
+  ``fc2_scale_residual_mmbf16`` (-> f32).
+
+A wrapper picks its kernel by the activations' dtype and ``mm_dtype``.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -76,7 +97,11 @@ from .convnext_block import _check, _check_width, _stream
 
 LAUNCHES: Dict[str, int] = {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
                             "ln_qkv_f32": 0, "window_attention_f32": 0,
-                            "proj_scale_residual_f32": 0}
+                            "proj_scale_residual_f32": 0,
+                            "ln_qkv_mmf32": 0, "window_attention_mmf32": 0,
+                            "proj_scale_residual_mmf32": 0,
+                            "ln_qkv_mmbf16": 0, "window_attention_mmbf16": 0,
+                            "proj_scale_residual_mmbf16": 0}
 
 HEAD_DIM = 32  # the attention kernel's head width; every GCViT variant has dim / heads = 32
 MAX_WINDOW_TOKENS = 224  # keys per window the attention kernel holds (N <= 224: 14 x 14 fits)
@@ -89,6 +114,12 @@ _SIGNATURES = {
     "ln_qkv_f32": [_P] * 8 + [_I, _I, _I, _F, _P],
     "window_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "proj_scale_residual_f32": [_P] * 6 + [_I, _I, _P],
+    "ln_qkv_mmf32": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "window_attention_mmf32": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
+    "proj_scale_residual_mmf32": [_P] * 6 + [_I, _I, _P],
+    "ln_qkv_mmbf16": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
+    "window_attention_mmbf16": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "proj_scale_residual_mmbf16": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -114,59 +145,105 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def qkv_dtype(x_dtype: torch.dtype, mm_dtype: torch.dtype) -> torch.dtype:
+    """The dtype ``ln_qkv`` writes q, k, v in: bf16 when the activations and
+    the GEMMs are bf16, else f32 (the TPU's monoblock keeps its f32 q, k, v
+    when either is f32; they reach the attention as f32 or rounded there)."""
+    return torch.bfloat16 if x_dtype == mm_dtype == torch.bfloat16 else torch.float32
+
+
+def mixed_linear(a: torch.Tensor, w: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor:
+    """a w^T as the mixed modes' kernels (and the TPU's dots) compute it:
+    both operands rounded to ``mm_dtype``, exact products, f32 sums."""
+    return F.linear(a.to(mm_dtype).float(), w.to(mm_dtype).float())
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions: the same functions, computed in the inputs' dtype
+# (the mixed modes: the operands rounded to mm_dtype, the rest in f32)
 # ---------------------------------------------------------------------------
 def ln_qkv_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
-                 w: torch.Tensor, b: torch.Tensor, eps: float) -> Tuple[torch.Tensor, ...]:
+                 w: torch.Tensor, b: torch.Tensor, eps: float,
+                 mm_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
     """(M, C) -> LN (two-pass, f32) -> Linear(w (S*C, C), b) -> S (M, C)
-    outputs in w's dtype."""
+    outputs in :func:`qkv_dtype`; the product in ``mm_dtype`` (default w's)."""
+    mm = mm_dtype or w.dtype
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps) * ln_weight + ln_bias).to(w.dtype)
-    o = (F.linear(y, w).float() + b).to(w.dtype)
+    y = (xf - mean) * torch.rsqrt(var + eps) * ln_weight + ln_bias
+    if mm == x.dtype:
+        o = (F.linear(y.to(mm), w.to(mm)).float() + b).to(mm)
+    else:
+        o = (mixed_linear(y, w, mm) + b).to(qkv_dtype(x.dtype, mm))
     return tuple(part.contiguous() for part in o.chunk(w.shape[0] // x.shape[1], dim=-1))
 
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, n: int, scale: float,
-                           q_is_global: bool = False) -> torch.Tensor:
+                           q_is_global: bool = False, mm_dtype: Optional[torch.dtype] = None,
+                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """softmax(q k^T + bias) v per window and head on (B, nWin*N, C) tokens,
-    columns [head][head_dim]; q is scaled in f32 and rounded to k's dtype.
-    With ``q_is_global`` q is (B, N, C), one query per image for all its
-    windows. Returns (B, nWin*N, C) in v's dtype."""
+    columns [head][head_dim]; q is scaled in f32 and rounded to the product
+    dtype ``mm_dtype`` (default k's). With ``q_is_global`` q is (B, N, C),
+    one query per image for all its windows. Returns (B, nWin*N, C) in
+    ``out_dtype`` (default k's). In a mixed mode (``mm_dtype`` or
+    ``out_dtype`` other than k's) k and v are rounded to ``mm_dtype``, P is
+    exp(s - max) rounded to it and divided after P.V by the f32 sum of its
+    rounded values, as the TPU kernel's "mxu" softmax does."""
     b, toks, c = k.shape
     heads = bias.shape[0]
     nwin, hd = toks // n, c // heads
+    mm, out = mm_dtype or k.dtype, out_dtype or k.dtype
 
     def split(t):  # (B, nWin*N, C) -> (B, nWin, heads, N, hd)
         return t.reshape(b, -1, n, heads, hd).transpose(2, 3)
 
-    qs = split((q.float() * scale).to(k.dtype))
-    s = torch.matmul(qs, split(k).transpose(-1, -2)).float() + bias.float()
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    o = torch.matmul(p, split(v))  # (B, nWin, heads, N, hd)
-    return o.transpose(2, 3).reshape(b, nwin * n, c)
+    qs = split((q.float() * scale).to(mm))
+    if mm == out == k.dtype:
+        s = torch.matmul(qs, split(k).transpose(-1, -2)).float() + bias.float()
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.matmul(p, split(v))  # (B, nWin, heads, N, hd)
+        return o.transpose(2, 3).reshape(b, nwin * n, c)
+    s = torch.matmul(qs.float(), split(k.to(mm)).float().transpose(-1, -2)) + bias.float()
+    p = torch.exp(s - s.amax(-1, keepdim=True)).to(mm).float()
+    o = torch.matmul(p, split(v.to(mm)).float()) / p.sum(-1, keepdim=True)
+    return o.transpose(2, 3).reshape(b, nwin * n, c).to(out)
 
 
 def proj_scale_residual_plain(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
-                              gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x + gamma * (a wp^T + bp) on (M, C) rows, in f32."""
-    return (F.linear(a, wp).float() + bp) * gamma + x.float()
+                              gamma: torch.Tensor, x: torch.Tensor,
+                              mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x + gamma * (a wp^T + bp) on (M, C) rows, in f32; the product in
+    ``mm_dtype`` (default wp's)."""
+    mm = mm_dtype or wp.dtype
+    prod = F.linear(a, wp.to(mm)) if mm == a.dtype else mixed_linear(a, wp, mm)
+    return (prod.float() + bp) * gamma + x.float()
 
 
 # ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, the kernel on CUDA
 # ---------------------------------------------------------------------------
+def _dtypes(x: torch.Tensor, mm_dtype: Optional[torch.dtype]) -> Tuple[torch.dtype, torch.dtype]:
+    """(the activations' dtype, the GEMMs'): each bf16 or f32 on CUDA."""
+    mm = mm_dtype or x.dtype
+    for name, dt in (("activations", x.dtype), ("mm_dtype", mm)):
+        if dt not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"the {name} are {dt}; the kernels take bfloat16 or float32")
+    return x.dtype, mm
+
+
 def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
-           w: torch.Tensor, b: torch.Tensor, eps: float) -> Tuple[torch.Tensor, ...]:
+           w: torch.Tensor, b: torch.Tensor, eps: float,
+           mm_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
     """LN over C + Linear C -> S*C on rows, split into S (M, C) outputs (q, k,
-    v for S = 3; k, v for S = 2). CUDA: x and w (S*C, C) bf16, LN params
-    f32 (C,), b f32 (S*C,) -> bf16; or, by w's dtype, x and w f32 -> f32
-    (``ln_qkv_f32``)."""
+    v for S = 3; k, v for S = 2). CUDA: x (M, C) bf16 or f32, w (S*C, C) in
+    ``mm_dtype`` (default x's), LN params f32 (C,), b f32 (S*C,) -> outputs
+    in :func:`qkv_dtype`: ``ln_qkv`` (bf16 / bf16), ``ln_qkv_f32`` (f32 /
+    f32), ``ln_qkv_mmf32`` (bf16 x, f32 GEMM) or ``ln_qkv_mmbf16`` (f32 x,
+    bf16 GEMM)."""
     if x.device.type == "cpu":
-        return ln_qkv_plain(x, ln_weight, ln_bias, w, b, eps)
+        return ln_qkv_plain(x, ln_weight, ln_bias, w, b, eps, mm_dtype)
     if x.ndim != 2:
         raise ValueError(f"x must be (M, C), got {tuple(x.shape)}")
     m, c = x.shape
@@ -175,21 +252,22 @@ def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     s = w.shape[0] // c
     if s not in (2, 3) or w.shape[0] != s * c:
         raise ValueError(f"w must be (2C or 3C, C) for C = {c}, got {tuple(w.shape)}")
-    dt = torch.float32 if w.dtype == torch.float32 else torch.bfloat16
-    _check("x", x, dt, (m, c), x.device)
+    xdt, mm = _dtypes(x, mm_dtype)
+    _check("x", x, xdt, (m, c), x.device)
     _check("ln_weight", ln_weight, torch.float32, (c,), x.device)
     _check("ln_bias", ln_bias, torch.float32, (c,), x.device)
-    _check("w", w, dt, (s * c, c), x.device)
+    _check("w", w, mm, (s * c, c), x.device)
     _check("b", b, torch.float32, (s * c,), x.device)
-    outs = [torch.empty((m, c), dtype=dt, device=x.device) for _ in range(s)]
+    outs = [torch.empty((m, c), dtype=qkv_dtype(xdt, mm), device=x.device) for _ in range(s)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - s)
-    if dt == torch.float32:
-        _launch("ln_qkv_f32", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
-                w.data_ptr(), b.data_ptr(), *ptrs, m, c, s, float(eps), _stream(x.device))
-        return tuple(outs)
-    _launch("ln_qkv", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
-            b.data_ptr(), *ptrs, m, c, s, float(eps), *CK._ln_plan_args(c, s * c, "qkv"),
-            _stream(x.device))
+    args = (x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+            *ptrs, m, c, s, float(eps))
+    if mm == torch.float32:
+        _launch("ln_qkv_f32" if xdt == torch.float32 else "ln_qkv_mmf32", *args,
+                _stream(x.device))
+    else:
+        _launch("ln_qkv" if xdt == torch.bfloat16 else "ln_qkv_mmbf16", *args,
+                *CK._ln_plan_args(c, s * c, "qkv"), _stream(x.device))
     return tuple(outs)
 
 
@@ -233,13 +311,19 @@ def proj_scale_residual_cut(a, wp, bp, gamma, x, cut: int) -> torch.Tensor:
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-                     n: int, scale: float, q_is_global: bool = False) -> torch.Tensor:
+                     n: int, scale: float, q_is_global: bool = False,
+                     mm_dtype: Optional[torch.dtype] = None,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Window attention on (B, nWin*N, C) tokens with a (heads, N, N) f32
-    rel-pos bias. CUDA: q, k, v all bf16 or all f32 (``window_attention`` or
-    ``window_attention_f32``; q (B, N, C) with ``q_is_global``), head width
-    32, N <= 224 -> (B, nWin*N, C) in their dtype."""
+    rel-pos bias, the products in ``mm_dtype`` and the output in
+    ``out_dtype`` (both default k's). CUDA, head width 32, N <= 224 (q (B,
+    N, C) with ``q_is_global``): q, k, v and out bf16 with bf16 products
+    (``window_attention``), or f32 with f32 ones (``window_attention_f32``);
+    f32 q, k, v and out with bf16 products (``window_attention_mmbf16``);
+    f32 q (or a bf16 global query), f32 k, v with f32 products -> bf16
+    (``window_attention_mmf32``)."""
     if k.device.type == "cpu":
-        return window_attention_plain(q, k, v, bias, n, scale, q_is_global)
+        return window_attention_plain(q, k, v, bias, n, scale, q_is_global, mm_dtype, out_dtype)
     if k.ndim != 3:
         raise ValueError(f"k must be (B, nWin*N, C), got {tuple(k.shape)}")
     b, toks, c = k.shape
@@ -248,66 +332,93 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
         raise ValueError(f"window attention takes N <= {MAX_WINDOW_TOKENS} dividing the "
                          f"{toks} tokens and C = heads * {HEAD_DIM}; got N = {n}, C = {c}, "
                          f"heads = {heads}")
-    dt = torch.float32 if k.dtype == torch.float32 else torch.bfloat16
+    dt, mm = _dtypes(k, mm_dtype)
+    out_dt = out_dtype or dt
+    # (k's dtype, the products', the output's) -> the kernel
+    name = {(torch.bfloat16,) * 3: "window_attention",
+            (torch.float32,) * 3: "window_attention_f32",
+            (torch.float32, torch.bfloat16, torch.float32): "window_attention_mmbf16",
+            (torch.float32, torch.float32, torch.bfloat16): "window_attention_mmf32",
+            }.get((dt, mm, out_dt))
+    if name is None:
+        raise TypeError(f"no window-attention kernel takes {dt} k and v with {mm} products "
+                        f"and a {out_dt} output")
+    # the mixed f32 mode takes a global query in the activations' dtype
+    q_dt = q.dtype if name == "window_attention_mmf32" and q_is_global else dt
     _check("k", k, dt, (b, toks, c), k.device)
     _check("v", v, dt, (b, toks, c), k.device)
-    _check("q", q, dt, (b, n, c) if q_is_global else (b, toks, c), k.device)
+    _check("q", q, q_dt, (b, n, c) if q_is_global else (b, toks, c), k.device)
     _check("bias", bias, torch.float32, (heads, n, n), k.device)
-    out = torch.empty((b, toks, c), dtype=dt, device=k.device)
-    name = "window_attention_f32" if dt == torch.float32 else "window_attention"
-    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-            toks // n, n, c, heads, float(scale), int(q_is_global), _stream(k.device))
+    out = torch.empty((b, toks, c), dtype=out_dt, device=k.device)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+            toks // n, n, c, heads, float(scale), int(q_is_global)]
+    if name == "window_attention_mmf32":
+        args.append(int(q_dt == torch.bfloat16))
+    _launch(name, *args, _stream(k.device))
     return out
 
 
 def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
-                        gamma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """r1 = x + gamma * (a wp^T + bp) on rows. CUDA: a, x (M, C) and wp
-    (C, C) all bf16 or, by wp's dtype, all f32 (``proj_scale_residual_f32``),
-    bp and gamma f32 (C,) -> f32 (M, C)."""
+                        gamma: torch.Tensor, x: torch.Tensor,
+                        mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """r1 = x + gamma * (a wp^T + bp) on rows. CUDA: a and x (M, C) in the
+    activations' dtype, wp (C, C) in ``mm_dtype`` (default a's), bp and
+    gamma f32 (C,) -> f32 (M, C): ``proj_scale_residual`` (bf16 / bf16),
+    ``proj_scale_residual_f32`` (f32 / f32), ``proj_scale_residual_mmf32``
+    (bf16 a and x, f32 wp) or ``proj_scale_residual_mmbf16`` (f32 a and x,
+    bf16 wp)."""
     if a.device.type == "cpu":
-        return proj_scale_residual_plain(a, wp, bp, gamma, x)
+        return proj_scale_residual_plain(a, wp, bp, gamma, x, mm_dtype)
     if a.ndim != 2:
         raise ValueError(f"a must be (M, C), got {tuple(a.shape)}")
     m, c = a.shape
     CK._check_rows(m)
     _check_width(c)
-    dt = torch.float32 if wp.dtype == torch.float32 else torch.bfloat16
+    dt, mm = _dtypes(a, mm_dtype)
     _check("a", a, dt, (m, c), a.device)
-    _check("wp", wp, dt, (c, c), a.device)
+    _check("wp", wp, mm, (c, c), a.device)
     _check("bp", bp, torch.float32, (c,), a.device)
     _check("gamma", gamma, torch.float32, (c,), a.device)
     _check("x", x, dt, (m, c), a.device)
     out = torch.empty((m, c), dtype=torch.float32, device=a.device)
-    if dt == torch.float32:
-        _launch("proj_scale_residual_f32", a.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-                gamma.data_ptr(), x.data_ptr(), out.data_ptr(), m, c, _stream(a.device))
-        return out
-    _launch("proj_scale_residual", a.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(),
-            x.data_ptr(), out.data_ptr(), m, c, *CK._proj_plan_args(c), _stream(a.device))
+    args = (a.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(), x.data_ptr(),
+            out.data_ptr(), m, c)
+    if mm == torch.float32:
+        _launch("proj_scale_residual_f32" if dt == torch.float32 else "proj_scale_residual_mmf32",
+                *args, _stream(a.device))
+    elif dt == torch.bfloat16:
+        _launch("proj_scale_residual", *args, *CK._proj_plan_args(c), _stream(a.device))
+    else:  # the LN kernel's schedule, its A tile the f32 rows rounded (plan kind "qkv", n = c)
+        _launch("proj_scale_residual_mmbf16", *args, *CK._ln_plan_args(c, c, "proja"),
+                _stream(a.device))
     return out
 
 
 def window_transformer_block(x: torch.Tensor, q_global: Optional[torch.Tensor], *, n: int,
                              ln1_weight, ln1_bias, wqkv, bqkv, bias, wp, bp, gamma1,
                              ln2_weight, ln2_bias, w1, b1, w2, b2, gamma2,
-                             scale: Optional[float] = None, eps: float = 1e-5) -> torch.Tensor:
+                             scale: Optional[float] = None, eps: float = 1e-5,
+                             mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One GCViT block on window-ordered tokens x (B, nWin*N, C) through the
     five wrappers: r1 = x + gamma1 * proj(attn(LN1 x)) in f32, then
-    r1 + gamma2 * fc2(gelu(fc1(LN2 r1))). ``q_global`` (B, N, C) makes it a
-    global-query block (W_qkv is then the (2C, C) k/v projection). Weights
-    in the nn.Linear layout; ``bias`` the dense (heads, N, N) rel-pos bias."""
+    r1 + gamma2 * fc2(gelu(fc1(LN2 r1))) in x's dtype. ``q_global`` (B, N,
+    C) makes it a global-query block (W_qkv is then the (2C, C) k/v
+    projection). Weights in the nn.Linear layout and in ``mm_dtype``, the
+    GEMMs' dtype (default x's; ``VIPTPU_GCVIT_MM``); ``bias`` the dense
+    (heads, N, N) rel-pos bias."""
     b, toks, c = x.shape
     heads = bias.shape[0]
     scale = scale if scale is not None else (c // heads) ** -0.5
+    mm = mm_dtype or x.dtype
     x2 = x.reshape(b * toks, c)
-    parts = ln_qkv(x2, ln1_weight, ln1_bias, wqkv, bqkv, eps)
+    parts = ln_qkv(x2, ln1_weight, ln1_bias, wqkv, bqkv, eps, mm_dtype=mm)
     if q_global is None:
         q, k, v = (p.view(b, toks, c) for p in parts)
     else:
         q = q_global
         k, v = (p.view(b, toks, c) for p in parts)
-    attn = window_attention(q, k, v, bias, n, scale, q_is_global=q_global is not None)
-    r1 = proj_scale_residual(attn.view(b * toks, c), wp, bp, gamma1, x2)
-    hidden = CK.ln_fc1_gelu(r1, ln2_weight, ln2_bias, w1, b1, eps)
-    return CK.fc2_scale_residual(hidden, w2, b2, gamma2, r1).view(b, toks, c)
+    attn = window_attention(q, k, v, bias, n, scale, q_is_global=q_global is not None,
+                            mm_dtype=mm, out_dtype=x.dtype)
+    r1 = proj_scale_residual(attn.view(b * toks, c), wp, bp, gamma1, x2, mm_dtype=mm)
+    hidden = CK.ln_fc1_gelu(r1, ln2_weight, ln2_bias, w1, b1, eps, mm_dtype=mm)
+    return CK.fc2_scale_residual(hidden, w2, b2, gamma2, r1, out_dtype=x.dtype).view(b, toks, c)

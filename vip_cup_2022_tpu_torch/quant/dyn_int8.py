@@ -137,11 +137,18 @@ class Int8Block:
     cast. :meth:`int8_weights` returns the cache, made from the parameters
     on first use, and again after any of them changes (a reload or an
     in-place write moves its version counter, a move to another device its
-    storage)."""
+    storage).
+
+    The same f32 values feed the f32 GEMMs that ``VIPTPU_GCVIT_MM=f32`` asks
+    of a bf16 GCViT block: :meth:`set_f32_weights` keeps them on the
+    parameters' device and :meth:`f32_weights` returns them, under the same
+    rules."""
 
     INT8_LINEARS: Tuple[str, ...] = ()
     _int8: Optional[Dict[str, Int8Weight]] = None
     _int8_key: Optional[tuple] = None
+    _f32: Optional[Dict[str, torch.Tensor]] = None
+    _f32_key: Optional[tuple] = None
 
     def _int8_params(self):
         return [self.get_submodule(name).weight for name in self.INT8_LINEARS]
@@ -164,14 +171,31 @@ class Int8Block:
             self.set_int8_weights()
         return self._int8
 
+    def set_f32_weights(self, weights: Optional[Mapping[str, Any]] = None,
+                        prefix: str = "") -> None:
+        from .ptq import _f32_source
 
-def attach(model: torch.nn.Module, weights: Optional[Mapping[str, Any]] = None) -> int:
+        self._f32 = {name: _f32_source(f"{prefix}{name}.weight", param, weights)
+                     .to(param.device).contiguous()
+                     for name, param in zip(self.INT8_LINEARS, self._int8_params())}
+        self._f32_key = self._int8_state()
+
+    def f32_weights(self) -> Dict[str, torch.Tensor]:
+        if self._f32 is None or self._f32_key != self._int8_state():
+            self.set_f32_weights()
+        return self._f32
+
+
+def attach(model: torch.nn.Module, weights: Optional[Mapping[str, Any]] = None,
+           f32: bool = False) -> int:
     """Quantize the int8 weights of every :class:`Int8Block` of ``model``
     from ``weights`` (state_dict keys -> f32 values) or its own f32
-    parameters; returns the number of blocks."""
+    parameters, or, with ``f32``, keep those f32 values for its f32 GEMMs;
+    returns the number of blocks."""
     blocks = 0
     for name, module in model.named_modules():
         if isinstance(module, Int8Block):
-            module.set_int8_weights(weights, f"{name}." if name else "")
+            setter = module.set_f32_weights if f32 else module.set_int8_weights
+            setter(weights, f"{name}." if name else "")
             blocks += 1
     return blocks
