@@ -415,11 +415,13 @@ from vip_cup_2022_tpu_torch.ops.kernels import ln_mlp as LM  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels import window_attention as WA  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.kernels.reference import (MODEL_KERNELS,  # noqa: E402
                                                            plain_kernels)
+from vip_cup_2022_tpu_torch.ops.kernels.tf32 import tf32_weight  # noqa: E402
 from vip_cup_2022_tpu_torch.ops.norms import BatchNorm  # noqa: E402
 from vip_cup_2022_tpu_torch.quant import dyn_int8  # noqa: E402
 from vip_cup_2022_tpu_torch.tools import (exp_attn_parts, exp_convnext_s12, exp_dw,  # noqa: E402
-                                          exp_dwconv, exp_lnmlp_dw, exp_mlp_gemm, exp_ptq_int8,
-                                          exp_window_attention, int8_pallas_spike)
+                                          exp_dwconv, exp_f32_mlp, exp_lnmlp_dw, exp_mlp_gemm,
+                                          exp_ptq_int8, exp_window_attention,
+                                          int8_pallas_spike)
 from vip_cup_2022_tpu_torch.tools.bench_util import cuda_ms, device_ms  # noqa: E402
 from vip_cup_2022_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from vip_cup_2022_tpu_torch.train import history as train_history  # noqa: E402
@@ -547,9 +549,13 @@ SERVING_BOUND = 1e-2  # raw means of two serving paths of the same bf16 ensemble
 N_IMAGES = 300
 BATCH = 256
 # the card's data-sheet peaks (NVIDIA H100 SXM, 700 W): memory, dense bf16
-# and int8 tensor-core products, f32 outside the tensor cores
+# and int8 tensor-core products, f32 outside the tensor cores; "f32_tc": f32
+# products the tensor cores can carry, three TF32 passes at 495 TFLOP/s
+# (3xTF32, csrc/tf32_gemm.cuh), the yardstick of every f32 GEMM and
+# attention-product count whatever implements it (the LN, depthwise and
+# elementwise counts stay "f32")
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "f32_tc": 495e12 / 3}
 # the JAX pass's int8 sites (tests/test_torch_resnet_rs.py, tests/test_torch_ptq.py)
 # the JAX pass's int8 sites of each member at full width and its manifest size
 # (tests/test_torch_resnet_rs.py, test_torch_ptq.py, test_torch_int8_members.py, -m slow);
@@ -745,7 +751,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = sorted({os.path.basename(src)[:-len(".cu")] for src in SOURCES.values()
                     if src.endswith(".cu")}  # ptq_int8.cuh is built into int8_gemm.cu
-                   | {"mlp_gemm_cuts", "dwconv_cuts", "ptq_int8_cuts", "ln_mlp_cuts"})  # the cuts
+                   | {"mlp_gemm_cuts", "dwconv_cuts", "ptq_int8_cuts", "ln_mlp_cuts",
+                      "f32_mlp_cuts"})  # the cuts
     paths = build.build_all(names, verbose=True)
     for module in KERNEL_MODULES:
         module._lib()
@@ -888,6 +895,8 @@ def gcvit_calls(p: dict, b: int, c: int, heads: int) -> dict:
     gemm = (lambda a, w: lambda: F.linear(a, w)) if f32 else (lambda a, w: None)  # noqa: E731
     act, weights = m * c * e, c * c * e  # bytes of one (M, C) activation, one C x C weight
     attn_ops, bias_bytes = 4 * m * n * c, heads * n * n * 4
+    # f32: the MLP GEMMs' 3xTF32 weight pairs, made beforehand as the blocks keep them
+    sp1, sp2 = (tf32_weight(p["w1"]), tf32_weight(p["w2"])) if f32 else (None, None)
     return {
         "ln_qkv" + sfx + " local": (
             lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5),
@@ -910,11 +919,13 @@ def gcvit_calls(p: dict, b: int, c: int, heads: int) -> dict:
             lambda: G.proj_scale_residual_plain(p["attn"], p["wp"], p["bp"], p["g1"], p["x"]),
             gemm(p["attn"], p["wp"]), 2 * act + weights + m * c * 4, 2 * m * c * c),
         "ln_fc1_gelu" + sfx: (
-            lambda: K.ln_fc1_gelu(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5),
+            lambda: K.ln_fc1_gelu(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5,
+                                  w_split=sp1),
             lambda: K.ln_fc1_gelu_plain(p["r1"], p["lg2"], p["lb2"], p["w1"], p["b1"], 1e-5),
             gemm(p["r1"], p["w1"]), m * c * 4 + 3 * weights + 3 * act, 2 * m * c * 3 * c),
         "fc2_scale_residual" + sfx: (
-            lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"]),
+            lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"],
+                                         w_split=sp2),
             lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"]),
             gemm(p["hid"], p["w2"]), 3 * act + 3 * weights + m * c * 4 + act,
             2 * m * 3 * c * c),
@@ -3072,7 +3083,12 @@ def f32_block_kernels(card: str, stats: dict, gen) -> None:
     8 (ragged row tiles) and 256, timed at 256 (CUDA events, in turns)
     beside the library: cuDNN's f32 depthwise conv, cuBLAS's f32 product
     alone (``F.linear``, TF32 off) for the GEMMs, SDPA in f32 for the
-    attention; bounds at the f32 peak; per forward into the record."""
+    attention; bounds: the depthwise's FMAs at the f32 peak, the GEMMs' and
+    the attention's products at ``PEAK_OPS_PER_S["f32_tc"]``; the MLP GEMMs
+    timed on their weights' 3xTF32 pairs made beforehand, as the blocks keep
+    them; per forward into the record. Then ``tools/exp_f32_mlp.py``: the
+    3xTF32 MLP kernels against the FFMA kernels they replaced and cuBLAS's
+    f32 product by device time, and their phase cuts, at every shape."""
     before = snapshot(stats)
     for h, w, c, _ in STAGES:
         check_stage(run_stage(8, h, w, c, gen, torch.float32), (8, h, w, c), stats)
@@ -3082,6 +3098,7 @@ def f32_block_kernels(card: str, stats: dict, gen) -> None:
         check_stage(p, (BATCH, h, w, c), stats)
         m, n = BATCH * h * w, 4 * c
         xc, wc = p["x"].permute(0, 3, 1, 2), p["dw"].permute(2, 0, 1).unsqueeze(1)
+        s1, s2 = tf32_weight(p["w1"]), tf32_weight(p["w2"])
         calls = {  # name: (kernel, plain, library, bytes, f32 operations)
             "dwconv7x7_nhwc_f32": (
                 lambda: K.dwconv7x7_nhwc(p["x"], p["dw"], p["dwb"]),
@@ -3089,21 +3106,24 @@ def f32_block_kernels(card: str, stats: dict, gen) -> None:
                 lambda: F.conv2d(xc, wc, p["dwb"], padding=3, groups=c),
                 2 * m * c * 4 + 50 * c * 4, 2 * 49 * m * c),
             "ln_fc1_gelu_f32": (
-                lambda: K.ln_fc1_gelu(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6),
+                lambda: K.ln_fc1_gelu(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6,
+                                      w_split=s1),
                 lambda: K.ln_fc1_gelu_plain(p["d"], p["lg"], p["lb"], p["w1"], p["b1"], 1e-6),
                 lambda: F.linear(p["d"], p["w1"]),
                 m * c * 4 + n * c * 4 + (n + 2 * c) * 4 + m * n * 4, 2 * m * c * n),
             "fc2_scale_residual_f32": (
-                lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"]),
+                lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"],
+                                             w_split=s2),
                 lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["ls"], p["x2"]),
                 lambda: F.linear(p["hid"], p["w2"]),
                 m * n * 4 + n * c * 4 + 2 * c * 4 + 2 * m * c * 4, 2 * m * n * c),
         }
         for name, (kern, plain, lib, nbytes, ops) in calls.items():
             times = time_calls(kern, plain, lib)
-            bound = account(stats, name, nblocks, times, nbytes, ops, "f32")
+            kind = "f32" if name.startswith("dwconv") else "f32_tc"
+            bound = account(stats, name, nblocks, times, nbytes, ops, kind)
             print_launch(name, f"({BATCH},{h},{w},{c})", times, bound, card)
-        del p, calls, xc, wc
+        del p, calls, xc, wc, s1, s2
         torch.cuda.empty_cache()
     for level in LEVELS:
         run_check_level(8, level, gen, stats, torch.float32)
@@ -3115,12 +3135,13 @@ def f32_block_kernels(card: str, stats: dict, gen) -> None:
             times = time_calls(kern, plain, lib)
             count = (n_local if name.endswith("local") else n_global if name.endswith("global")
                      else n_local + n_global)
-            bound = account(stats, name.split(" ")[0], count, times, nbytes, ops, "f32")
+            bound = account(stats, name.split(" ")[0], count, times, nbytes, ops, "f32_tc")
             print_launch(name, f"({BATCH},{grid},{grid},{c}) w{ws}", times, bound, card)
         del p
         torch.cuda.empty_cache()
     print_per_forward(stats, before, BLOCK_F32,
                       "ConvNeXt + GCViTTiny batch-256 f32 forward (18 + 31 fused blocks)", card)
+    exp_f32_mlp.run(BATCH)
 
 
 def f32_kernels(card: str, stats: dict, gen, sites: dict, lns: Counter) -> None:
@@ -3156,7 +3177,7 @@ def f32_kernels(card: str, stats: dict, gen, sites: dict, lns: Counter) -> None:
                         lambda: WA.window_attention_plain(qq, k, v, bias, scale),
                         lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=bias,
                                                                scale=scale))
-                    bound = account(stats, ATTN32, count, times, nbytes, ops, "f32")
+                    bound = account(stats, ATTN32, count, times, nbytes, ops, "f32_tc")
                     print_launch(f"{ATTN32} {kind}", f"{tuple(qq.shape)} L{grid}x{grid}", times,
                                  bound, card)
             del q, k, v, qg, outs
@@ -3519,7 +3540,8 @@ def a15c_level_calls(p: dict, b: int, c: int, heads: int, mode: str) -> dict:
     w_kv, b_kv = p["wqkv"][c:], p["bqkv"][c:]
     act_b, qkv_b, weight = m * c * ea, m * c * 4, c * c * em  # one (M, C) in act / f32, C x C
     attn_ops, bias_b = 4 * m * n * c, heads * n * n * 4
-    kind = "f32" if mm == torch.float32 else "bf16"
+    kind = "f32_tc" if mm == torch.float32 else "bf16"
+    w2_split = tf32_weight(p["w2"]) if mm == torch.float32 else None
     args = (p["x"], p["lg"], p["lb"])
     return {
         f"ln_qkv_{mode} local": (
@@ -3552,7 +3574,7 @@ def a15c_level_calls(p: dict, b: int, c: int, heads: int, mode: str) -> dict:
             lambda: F.linear(a_mm, p["wp"]), 2 * act_b + weight + qkv_b, 2 * m * c * c, kind),
         f"fc2_scale_residual_{mode}": (
             lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"],
-                                         out_dtype=act),
+                                         out_dtype=act, w_split=w2_split),
             lambda: K.fc2_scale_residual_plain(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"], act),
             lambda: F.linear(p["hid"], p["w2"]), 3 * m * c * em + 3 * weight + qkv_b + act_b,
             2 * m * 3 * c * c, kind),

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_init import jax_model
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
-from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.models import efficientnet as jeff
 from vip_cup_2022_tpu.models import list_models, model_entry as jax_model_entry
 from vip_cup_2022_tpu.ops.conv import apply_depthwise_conv
@@ -67,7 +67,7 @@ def _tree(variables, seed):
 
 def _pair(name, seed=0, **kw):
     """(JAX module, perturbed f32 tree, port model holding the same weights)."""
-    module, variables, _ = jax_create_model(name, rng=jax.random.PRNGKey(seed), **kw)
+    module, variables, _ = jax_model(name, rng=jax.random.PRNGKey(seed), **kw)
     tree = _tree(variables, seed)
     port, _ = create_model(name, **kw)
     transfer_weights(tree, port, strict=True)
@@ -83,6 +83,13 @@ def _run(fn, x, **kw):
 def _close(got, want, atol=ATOL):
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=atol)
+
+
+def _jit_apply(module):
+    """The JAX model's ``apply`` under ``jax.jit``, as the JAX package runs
+    its models: one compiled program in place of op-by-op dispatch (an
+    eager narrow forward takes seconds; the outputs agree to ~1e-7)."""
+    return jax.jit(module.apply, static_argnames=("features_only",))
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +244,10 @@ def test_narrow_member_matches_jax(name, size):
               **NARROW[name])
     module, tree, port = _pair(name, 7, **kw)
     x = np.random.RandomState(size).uniform(0, 1, (2, size, size, 3)).astype(np.float32)
-    want = np.asarray(module.apply(tree, jnp.asarray(x)))
+    want = np.asarray(_jit_apply(module)(tree, jnp.asarray(x)))
     _close(_run(port, x), want)
     feats = _run(port, x, features_only=True)
-    _close(feats, np.asarray(module.apply(tree, jnp.asarray(x), features_only=True)))
+    _close(feats, np.asarray(_jit_apply(module)(tree, jnp.asarray(x), features_only=True)))
     assert feats.shape[-1] == 64
 
 
@@ -292,9 +299,9 @@ def test_global_context_variant_raises():
               **NARROW["EfficientNetV2T"])
     module, tree, port = _pair("EfficientNetV2T_GC", 5, **kw)
     x = np.random.RandomState(9).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
-    _close(_run(port, x), np.asarray(module.apply(tree, jnp.asarray(x))))
+    _close(_run(port, x), np.asarray(_jit_apply(module)(tree, jnp.asarray(x))))
     _close(_run(port, x, features_only=True),
-           np.asarray(module.apply(tree, jnp.asarray(x), features_only=True)))
+           np.asarray(_jit_apply(module)(tree, jnp.asarray(x), features_only=True)))
     widths = sorted({m.weight.shape[0] for n, m in port.named_modules() if n.endswith("gc_ln")})
     assert widths == [4, 6, 8]
     back = torch_to_flax(port)["params"]
@@ -306,8 +313,9 @@ def test_global_context_variant_raises():
 
 
 def test_strict_load_needs_every_statistic():
-    kw = dict(input_size=(64, 64), nb_classes=1, **NARROW["EfficientNetV2T"])
-    _, variables, _ = jax_create_model("EfficientNetV2T", **kw)
+    kw = dict(input_size=(64, 64), nb_classes=3, classifier_activation="softmax",
+              **NARROW["EfficientNetV2T"])  # the narrow member's: one compile of the init
+    _, variables, _ = jax_model("EfficientNetV2T", **kw)
     tree = _tree(variables, 8)
     broken = copy.deepcopy(tree)
     del broken["batch_stats"]["stack_4_block0_MB_dw_bn"]["moving_variance"]

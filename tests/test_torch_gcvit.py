@@ -15,6 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _jax_init import jax_model
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.ops.attention import relative_position_index as jax_rel_index
@@ -47,7 +48,7 @@ def _jax_gcvit(seed=0, name="GCViTTiny", **kw):
     """A JAX GCViT with its variables perturbed so every leaf matters: LN
     params and biases off their 1 / 0 init (as ``_perturb`` does) and the
     rel-pos tables ~ U(-1, 1), far above their 0.02 init."""
-    module, variables, _ = jax_create_model(name, rng=jax.random.PRNGKey(seed), **kw)
+    module, variables, _ = jax_model(name, rng=jax.random.PRNGKey(seed), **kw)
     tree = jax.tree_util.tree_map(np.asarray, flax.core.unfreeze(variables))
     rng = np.random.RandomState(seed)
     _perturb(tree["params"], rng)
@@ -111,7 +112,7 @@ def test_narrow_gcvit_matches_jax(size, activation, nb_classes):
     kw = dict(input_size=size, nb_classes=nb_classes, classifier_activation=activation, **NARROW)
     module, tree = _jax_gcvit(seed=1, **kw)
     x = np.random.RandomState(4).uniform(0, 1, (2, *size, 3)).astype(np.float32)
-    want = np.asarray(module.apply(tree, jnp.asarray(x)))
+    want = np.asarray(jax.jit(module.apply)(tree, jnp.asarray(x)))
     port, _ = create_model("GCViTTiny", **kw)
     transfer_weights(tree, port, strict=True)
     with torch.inference_mode():

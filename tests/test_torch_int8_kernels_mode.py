@@ -13,6 +13,7 @@ JAX's whole-image ConvNeXt kernel (K1) takes one activation scale per TPU
 grid tile where the port takes one per row, so it is held to JAX's own
 0.03, and whole models to JAX's own 0.05 (``tests/test_pallas.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -325,7 +326,7 @@ def test_narrow_gcvit_int8_matches_jax_fused_model(int8_mode, monkeypatch, gcvit
     monkeypatch.setenv("VIPTPU_GCVIT_INT8_MIN_C", "0")
     jax_module, _, _ = jax_create_model("GCViTTiny", init=False, fused_block=True,
                                         input_size=(224, 224), nb_classes=3, **GCVIT)
-    want = np.asarray(jax_module.apply(tree, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jax_module.apply)(tree, jnp.asarray(x)))
     with torch.no_grad():
         got = port(_t(x)).numpy()
         monkeypatch.delenv("VIPTPU_INT8_KERNELS")
@@ -386,7 +387,7 @@ def test_narrow_convnext_int8_matches_jax_fused_model(int8_mode, monkeypatch, co
     jax_seen, port_seen = _record_convnext_paths(monkeypatch)
     jax_module, _, _ = jax_create_model("convnext_tiny_in22k", init=False, fused_block=True,
                                         input_size=(64, 64), nb_classes=3, **NARROW_CONVNEXT)
-    want = np.asarray(jax_module.apply(tree, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jax_module.apply)(tree, jnp.asarray(x)))
     with torch.no_grad():
         got = port(_t(x)).numpy()
     port_fused = [(c, p == "int8") for c, p in port_seen if p != "unfused"]

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_init import jax_model
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from flax import linen
 from test_torch_resnet_rs import _boundary_flips, _port_site_inputs, _run
@@ -104,12 +105,20 @@ def _perturb(tree, rng):
     return tree
 
 
+def _jax_variables(name: str, seed: int, size: int, narrow: dict):
+    """The JAX model's variables as ``jax_create_model`` draws them (one output); a
+    member's cases and the engine's workspace share one compile of its init."""
+    return jax_model(name, rng=jax.random.PRNGKey(seed), input_size=(size, size),
+                     nb_classes=1, **narrow)[1]
+
+
 def _pair(case: str, seed: int = 3):
     """(JAX module, perturbed f32 tree, port model holding it, input) of a case."""
     name, size, narrow, extra = CASES[case]
     kw = dict(input_size=(size, size), nb_classes=1, classifier_activation=None, **narrow,
               **extra)
-    module, variables, _ = jax_create_model(name, rng=jax.random.PRNGKey(seed), **kw)
+    module, _, _ = jax_create_model(name, init=False, **kw)
+    variables = _jax_variables(name, seed, size, narrow)
     tree = _perturb(jax.tree_util.tree_map(np.asarray, jax.device_get(variables)),
                     np.random.RandomState(seed))
     port, _ = create_model(name, **kw)
@@ -347,8 +356,7 @@ def int8_workspace(tmp_path_factory):
         ck = root / "ckpts" / base / "ckpt"
         ck.mkdir(parents=True)
         cfg = dict(nb_classes=1, classifier_activation="sigmoid", **narrow)
-        _, variables, _ = jax_create_model(name, input_size=(size, size),
-                                           rng=jax.random.PRNGKey(i), **cfg)
+        variables = _jax_variables(name, i, size, narrow)
         tree = _perturb(jax.tree_util.tree_map(np.asarray, jax.device_get(variables)),
                         np.random.RandomState(i))
         save_variables(str(ck / "fold0.msgpack"), tree)

@@ -35,6 +35,7 @@ The card's side (each mode's kernel launched, no plain version run) is in
 """
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -246,7 +247,7 @@ def test_narrow_gcvit_under_the_knobs_matches_jax_fused_model(monkeypatch, gcvit
     monkeypatch.setenv("VIPTPU_GCVIT_MM", "f32" if mm == F32 else "bf16")
     jax_module, _, _ = jax_create_model("GCViTTiny", init=False, fused_block=True,
                                         dtype=JAX_DTYPE[dt], **kw)
-    want = np.asarray(jax_module.apply(tree, jnp.asarray(x)), np.float32)
+    want = np.asarray(jax.jit(jax_module.apply)(tree, jnp.asarray(x)), np.float32)
     port, _ = create_model("GCViTTiny", dtype=dt, fused_block=True, **kw)
     transfer_weights(tree, port, strict=True)
     dyn_int8.attach(port, flax_to_torch(tree), f32=True)

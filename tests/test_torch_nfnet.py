@@ -21,10 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_init import jax_model
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
-from test_torch_efficientnet import _close, _flax_shapes, _run
+from test_torch_efficientnet import _close, _flax_shapes, _jit_apply, _run
 
-from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.models import list_models
 from vip_cup_2022_tpu.models import model_entry as jax_model_entry
 from vip_cup_2022_tpu.models import nfnets as jnf
@@ -64,7 +64,7 @@ def _tree(variables, seed):
 
 
 def _pair(name, seed=0, **kw):
-    module, variables, _ = jax_create_model(name, rng=jax.random.PRNGKey(seed), **kw)
+    module, variables, _ = jax_model(name, rng=jax.random.PRNGKey(seed), **kw)
     tree = _tree(variables, seed)
     port, _ = create_model(name, **kw)
     transfer_weights(tree, port, strict=True)
@@ -170,7 +170,7 @@ def test_one_block_matches_jax(name, stride, out):
     assert (spec.stride, spec.conv_shortcut) == (stride, stride > 1 or out != 64)
     x = np.random.RandomState(5).uniform(0, 1, (2, 52, 52, 3)).astype(np.float32)
     _close(_run(port, x, features_only=True),
-           np.asarray(module.apply(tree, jnp.asarray(x), features_only=True)))
+           np.asarray(_jit_apply(module)(tree, jnp.asarray(x), features_only=True)))
 
 
 @pytest.mark.parametrize("name,size", [("ECA_NFNetL0", 64), ("ECA_NFNetL0", 57),
@@ -179,7 +179,7 @@ def test_narrow_member_matches_jax(name, size):
     kw = dict(input_size=(size, size), nb_classes=3, classifier_activation="softmax", **NARROW)
     module, tree, port = _pair(name, 7, **kw)
     x = np.random.RandomState(size).uniform(0, 1, (2, size, size, 3)).astype(np.float32)
-    _close(_run(port, x), np.asarray(module.apply(tree, jnp.asarray(x))))
+    _close(_run(port, x), np.asarray(_jit_apply(module)(tree, jnp.asarray(x))))
 
 
 def test_registry_names_equal_jax():
@@ -198,8 +198,9 @@ def test_every_registered_name_builds_the_jax_tree(name):
 
 def test_init_mirrors_jax():
     """Gains 1, ZeroInitGain 0, biases 0, as the JAX init draws them."""
-    port, _ = create_model("NFNetF0", input_size=(64, 64), **NARROW)
-    _, variables, _ = jax_create_model("NFNetF0", input_size=(64, 64), **NARROW)
+    kw = dict(input_size=(64, 64), nb_classes=3, classifier_activation="softmax", **NARROW)
+    port, _ = create_model("NFNetF0", **kw)
+    _, variables, _ = jax_model("NFNetF0", **kw)  # the narrow member's init, compiled once
     sd, want = port.state_dict(), flax_to_torch(variables)
     for key, v in want.items():
         if key.endswith((".gain", ".bias")):
@@ -223,8 +224,9 @@ def test_bridge_layouts():
 
 
 def test_strict_load_needs_every_leaf():
-    kw = dict(input_size=(64, 64), nb_classes=1, **NARROW)
-    _, variables, _ = jax_create_model("ECA_NFNetL0", **kw)
+    kw = dict(input_size=(64, 64), nb_classes=3, classifier_activation="softmax",
+              **NARROW)  # the narrow member's: one compile of the init
+    _, variables, _ = jax_model("ECA_NFNetL0", **kw)
     tree = _tree(variables, 8)
     broken = copy.deepcopy(tree)
     del broken["params"]["stack2_block1_deep_2_conv"]["gain"]

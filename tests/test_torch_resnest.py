@@ -18,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_init import jax_model
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
-from test_torch_efficientnet import _close, _flax_shapes, _pair, _run, _tree
+from test_torch_efficientnet import _close, _flax_shapes, _jit_apply, _pair, _run, _tree
 
 from vip_cup_2022_tpu.models import aotnet as jaot
-from vip_cup_2022_tpu.models import create_model as jax_create_model
 from vip_cup_2022_tpu.models import list_models
 from vip_cup_2022_tpu.models import model_entry as jax_model_entry
 from vip_cup_2022_tpu_torch.models import aotnet, create_model, transfer_weights
@@ -126,11 +126,12 @@ def test_blocks_match_jax(size):
 def test_random_init_zero_gamma():
     """``init_weights`` mirrors the JAX init's zero-gamma closing BN: a fresh
     model's deep branches add 0."""
-    port, _ = create_model("ResNest50", input_size=(64, 64), **NARROW)
+    kw = dict(input_size=(64, 64), nb_classes=3, classifier_activation="softmax", **NARROW)
+    port, _ = create_model("ResNest50", **kw)
     zero = {n for n, m in port.named_modules() if isinstance(m, aotnet.BatchNorm)
             and not m.weight.any()}
     assert zero == {s.name + "3_bn" for s in port.blocks}
-    _, variables, _ = jax_create_model("ResNest50", input_size=(64, 64), **NARROW)
+    _, variables, _ = jax_model("ResNest50", **kw)  # the narrow member's init, compiled once
     assert all(not np.asarray(variables["params"][n]["gamma"]).any() for n in zero)
 
 
@@ -142,9 +143,9 @@ def test_narrow_resnest50_matches_jax(size):
     kw = dict(input_size=(size, size), nb_classes=3, classifier_activation="softmax", **NARROW)
     module, tree, port = _pair("ResNest50", 7, **kw)
     x = np.random.RandomState(size).uniform(0, 1, (2, size, size, 3)).astype(np.float32)
-    _close(_run(port, x), np.asarray(module.apply(tree, jnp.asarray(x))))
+    _close(_run(port, x), np.asarray(_jit_apply(module)(tree, jnp.asarray(x))))
     feats = _run(port, x, features_only=True)
-    _close(feats, np.asarray(module.apply(tree, jnp.asarray(x), features_only=True)))
+    _close(feats, np.asarray(_jit_apply(module)(tree, jnp.asarray(x), features_only=True)))
     assert feats.shape[-1] == 256
 
 
@@ -163,8 +164,9 @@ def test_every_registered_name_builds_the_jax_tree(name):
 
 
 def test_strict_load_needs_every_statistic():
-    kw = dict(input_size=(64, 64), nb_classes=1, **NARROW)
-    _, variables, _ = jax_create_model("ResNest50", **kw)
+    kw = dict(input_size=(64, 64), nb_classes=3, classifier_activation="softmax",
+              **NARROW)  # the narrow member's: one compile of the init
+    _, variables, _ = jax_model("ResNest50", **kw)
     tree = _tree(variables, 8)
     broken = copy.deepcopy(tree)
     del broken["batch_stats"]["stack3_block1_deep_2_sa_1_bn"]["moving_mean"]

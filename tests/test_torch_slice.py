@@ -15,6 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _jax_init import jax_model
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from vip_cup_2022_tpu.data.decode import decode_image as jax_decode_image
 from vip_cup_2022_tpu.data.pipeline import _host_resize_uint8 as jax_host_resize
@@ -56,7 +57,7 @@ def _perturb(tree, rng):
 
 
 def _jax_variables(seed=0, **kw):
-    module, variables, _ = jax_create_model("convnext_tiny_in22k", rng=jax.random.PRNGKey(seed), **kw)
+    module, variables, _ = jax_model("convnext_tiny_in22k", rng=jax.random.PRNGKey(seed), **kw)
     tree = jax.tree_util.tree_map(np.asarray, flax.core.unfreeze(variables))
     _perturb(tree["params"], np.random.RandomState(seed))
     return module, tree
@@ -181,7 +182,7 @@ def test_narrow_convnext_matches_jax(size, activation, nb_classes):
     kw = dict(input_size=size, nb_classes=nb_classes, classifier_activation=activation, **NARROW)
     module, tree = _jax_variables(seed=1, **kw)
     x = np.random.RandomState(4).uniform(0, 1, (2, *size, 3)).astype(np.float32)
-    want = np.asarray(module.apply(tree, jnp.asarray(x)))
+    want = np.asarray(jax.jit(module.apply)(tree, jnp.asarray(x)))
     port, _ = create_model("convnext_tiny_in22k", **kw)
     transfer_weights(tree, port)
     with torch.inference_mode():

@@ -123,7 +123,7 @@ def narrow_gcvit(request):
     kw = dict(input_size=size, nb_classes=nb_classes, classifier_activation=activation, **NARROW)
     module, tree = _jax_gcvit(seed=8, fused_block=False, **kw)
     x = np.random.RandomState(9).uniform(0, 1, (2, *size, 3)).astype(np.float32)
-    want = np.asarray(module.apply(tree, jnp.asarray(x)))
+    want = np.asarray(jax.jit(module.apply)(tree, jnp.asarray(x)))
     return kw, tree, x, want
 
 

@@ -36,24 +36,25 @@
 //                           f32 halo tiles: at k = 7 a 16 x 16-output tile's
 //                           halo is 22 x 22 pixels of 128 bytes, two buffers
 //                           124 KB, one CTA an SM)
-//   ln_fc1_gelu_f32         f32 x, f32 W1 -> f32 hidden (f32_gemm.cuh, kGelu)
-//   fc2_scale_residual_f32  f32 hidden, f32 W2, f32 residual -> f32 (kResidual)
+//   ln_fc1_gelu_f32         f32 x, W1 as its 3xTF32 pair (W_hi, W_lo) -> f32
+//                           hidden (tf32_gemm.cuh, kGelu)
+//   fc2_scale_residual_f32  f32 hidden, W2's pair, f32 residual -> f32 (kResidual)
 //
 // GCViT's MLP half in the mixed modes of VIPTPU_GCVIT_MM (gcvit_block.cu)
 // takes two more fc2 launchers beside the f32 r1:
 //
 //   fc2_scale_residual_mmbf16  bf16 hidden, bf16 W2 -> f32 out (the engine's
 //                              residual GEMM, OutT = f32): f32 activations
-//   fc2_scale_residual_mmf32   f32 hidden, f32 W2 -> bf16 out (f32_gemm.cuh,
-//                              TO = bf16): bf16 activations
+//   fc2_scale_residual_mmf32   f32 hidden, W2's pair -> bf16 out (tf32_gemm.cuh,
+//                              OutT = bf16): bf16 activations
 //
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a plan the kernels do not
 // take) as an int, so a refused launch reaches the caller.
 
 #include "depthwise.cuh"
-#include "f32_gemm.cuh"
 #include "hopper_gemm.cuh"
+#include "tf32_gemm.cuh"
 
 using hopper_gemm::bf16;
 
@@ -99,35 +100,23 @@ int dwconv7x7_nhwc_f32(const void* x, const void* w, const void* bias, void* out
       x, w, bias, out, B, H, W, C, H, W, 3, 3, (cudaStream_t)stream);
 }
 
-int ln_fc1_gelu_f32(const void* x, const void* ln_g, const void* ln_b, const void* w1,
-                    const void* b1, void* hidden, int M, int C, int N, float eps, void* stream) {
-  f32_gemm::Params p{};
-  p.a = (const float*)x;
-  p.w = (const float*)w1;
-  p.bias = (const float*)b1;
-  p.ln_g = (const float*)ln_g;
-  p.ln_b = (const float*)ln_b;
-  p.out[0] = (float*)hidden;
-  p.M = M;
-  p.N = N;
-  p.K = C;
-  p.eps = eps;
-  return (int)f32_gemm::launch<f32_gemm::kGelu>(p, (cudaStream_t)stream);
+int ln_fc1_gelu_f32(const void* x, const void* ln_g, const void* ln_b, const void* w_hi,
+                    const void* w_lo, const void* b1, void* hidden, int M, int C, int N,
+                    float eps, int bn, int stages, int promote, void* stream) {
+  const tf32_gemm::Params p{(const float*)x, (const float*)ln_g, (const float*)ln_b,
+                            (const float*)b1, nullptr, nullptr, hidden, M, N, C, stages, eps};
+  return (int)tf32_gemm::launch<tf32_gemm::kGelu, hopper_gemm::kWhole>(p, x, w_hi, w_lo, bn,
+                                                                      promote,
+                                                                      (cudaStream_t)stream);
 }
 
-int fc2_scale_residual_f32(const void* hidden, const void* w2, const void* b2, const void* gamma,
-                           const void* res, void* out, int M, int K, int C, void* stream) {
-  f32_gemm::Params p{};
-  p.a = (const float*)hidden;
-  p.w = (const float*)w2;
-  p.bias = (const float*)b2;
-  p.gamma = (const float*)gamma;
-  p.res = (const float*)res;
-  p.out[0] = (float*)out;
-  p.M = M;
-  p.N = C;
-  p.K = K;
-  return (int)f32_gemm::launch<f32_gemm::kResidual>(p, (cudaStream_t)stream);
+int fc2_scale_residual_f32(const void* hidden, const void* w_hi, const void* w_lo,
+                           const void* b2, const void* gamma, const void* res, void* out, int M,
+                           int K, int C, int bn, int stages, int promote, void* stream) {
+  const tf32_gemm::Params p{nullptr, nullptr, nullptr, (const float*)b2, (const float*)gamma,
+                            (const float*)res, out, M, C, K, stages, 0.f};
+  return (int)tf32_gemm::launch<tf32_gemm::kResidual, hopper_gemm::kWhole>(
+      p, hidden, w_hi, w_lo, bn, promote, (cudaStream_t)stream);
 }
 
 int fc2_scale_residual_mmbf16(const void* hidden, const void* w2, const void* b2,
@@ -138,20 +127,14 @@ int fc2_scale_residual_mmbf16(const void* hidden, const void* w2, const void* b2
       p, hidden, w2, bn, (cudaStream_t)stream);
 }
 
-int fc2_scale_residual_mmf32(const void* hidden, const void* w2, const void* b2,
-                             const void* gamma, const void* res, void* out, int M, int K, int C,
+int fc2_scale_residual_mmf32(const void* hidden, const void* w_hi, const void* w_lo,
+                             const void* b2, const void* gamma, const void* res, void* out,
+                             int M, int K, int C, int bn, int stages, int promote,
                              void* stream) {
-  f32_gemm::Params p{};
-  p.a = hidden;
-  p.w = (const float*)w2;
-  p.bias = (const float*)b2;
-  p.gamma = (const float*)gamma;
-  p.res = res;
-  p.out[0] = out;
-  p.M = M;
-  p.N = C;
-  p.K = K;
-  return (int)f32_gemm::launch<f32_gemm::kResidual, float, float, bf16>(p, (cudaStream_t)stream);
+  const tf32_gemm::Params p{nullptr, nullptr, nullptr, (const float*)b2, (const float*)gamma,
+                            (const float*)res, out, M, C, K, stages, 0.f};
+  return (int)tf32_gemm::launch<tf32_gemm::kResidual, hopper_gemm::kWhole, bf16>(
+      p, hidden, w_hi, w_lo, bn, promote, (cudaStream_t)stream);
 }
 
 }  // extern "C"

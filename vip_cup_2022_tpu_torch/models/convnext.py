@@ -152,10 +152,14 @@ class ConvNeXtBlock(nn.Module, dyn_int8.Int8Block):
                 w["mlp_fc1"], self.mlp_fc1.bias, w["mlp_fc2"], self.mlp_fc2.bias, self.gamma,
                 eps=self.eps)
         dt = self.dtype  # the GEMM weights in the compute dtype, held in f32 when trained
+        splits = {}
+        if dt == torch.float32 and x.device.type != "cpu":  # the 3xTF32 kernels' weight pairs
+            splits = dict(w1_split=self.tf32_weight("mlp_fc1"),
+                          w2_split=self.tf32_weight("mlp_fc2"))
         return convnext_block(
             x, self.conv_dw.weight, self.conv_dw.bias, self.norm.weight, self.norm.bias,
             self.mlp_fc1.weight.to(dt), self.mlp_fc1.bias, self.mlp_fc2.weight.to(dt),
-            self.mlp_fc2.bias, self.gamma, eps=self.eps)
+            self.mlp_fc2.bias, self.gamma, eps=self.eps, **splits)
 
     def _unfused(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

@@ -259,6 +259,10 @@ class GCViTBlock(nn.Module, dyn_int8.Int8Block):
                 fc1=w["mlp.fc1"], b1=self.mlp.fc1.bias, fc2=w["mlp.fc2"], b2=self.mlp.fc2.bias,
                 gamma2=self.gamma2, scale=a.scale, eps=EPS, mm_dtype=mm)
         w = self.mm_weights(mm)
+        splits = {}
+        if mm == torch.float32 and x.device.type != "cpu":  # the 3xTF32 MLP's weight pairs
+            splits = dict(w1_split=self.tf32_weight("mlp.fc1"),
+                          w2_split=self.tf32_weight("mlp.fc2"))
         return window_transformer_block(
             x, q_global, n=self.window * self.window,
             ln1_weight=self.norm1.weight, ln1_bias=self.norm1.bias,
@@ -266,7 +270,7 @@ class GCViTBlock(nn.Module, dyn_int8.Int8Block):
             wp=w["attn.proj"], bp=a.proj.bias, gamma1=self.gamma1,
             ln2_weight=self.norm2.weight, ln2_bias=self.norm2.bias,
             w1=w["mlp.fc1"], b1=self.mlp.fc1.bias, w2=w["mlp.fc2"], b2=self.mlp.fc2.bias,
-            gamma2=self.gamma2, scale=a.scale, eps=EPS, mm_dtype=mm)
+            gamma2=self.gamma2, scale=a.scale, eps=EPS, mm_dtype=mm, **splits)
 
     def _unfused(self, x: torch.Tensor, q_global: Optional[torch.Tensor]) -> torch.Tensor:
         """The Flax block: both residuals in x's dtype, each branch through

@@ -47,18 +47,24 @@ per block); the depthwise output also makes a f32 round trip.
 The f32 mode (``VIPTPU_DTYPE=float32``, in which the TPU kernels take f32
 activations and cast W1 and W2 to them) is three more kernels on f32 rows:
 ``dwconv7x7_nhwc_f32`` (the same depthwise template with f32 halo tiles),
-``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (``csrc/f32_gemm.cuh``:
-the LN, the products and the epilogues in f32 on the CUDA cores, a 128 x
-128 tile a CTA, 8 x 8 outputs a thread; the tensor cores take f32 only as
-TF32). A wrapper picks its kernel by dtype: the depthwise by x's, the two
-GEMMs by the weight's (``ln_fc1_gelu`` takes f32 x in a bf16 block too: the
-depthwise sum, GCViT's r1).
+``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (``csrc/tf32_gemm.cuh``:
+3xTF32 wgmma on the engine above, the activations split in registers, the
+weights split once into a :class:`.tf32.Tf32Weight` pair that the caller
+passes as ``w_split`` or the wrapper makes; :func:`tf32_gemm_plan` picks the
+column tile and ring depth). A wrapper picks its kernel by dtype: the
+depthwise by x's, the two GEMMs by the weight's (``ln_fc1_gelu`` takes f32 x
+in a bf16 block too: the depthwise sum, GCViT's r1).
 
 GCViT's MLP half in the mixed modes of ``VIPTPU_GCVIT_MM`` (:mod:`.gcvit_block`)
 adds two fc2 kernels, picked by ``out_dtype``: ``fc2_scale_residual_mmbf16``
 (bf16 hidden and W2 -> f32, an f32 block with bf16 GEMMs) and
 ``fc2_scale_residual_mmf32`` (f32 hidden and W2 -> bf16, a bf16 block with
-f32 GEMMs); ``ln_fc1_gelu`` takes the GEMM dtype as ``mm_dtype``.
+f32 GEMMs: the 3xTF32 kernel with a bf16 output); ``ln_fc1_gelu`` takes the
+GEMM dtype as ``mm_dtype``.
+
+The FFMA kernels these replaced (``csrc/f32_gemm.cuh``'s register-blocked
+SGEMM) stay in ``csrc/f32_mlp_cuts.cu`` beside the new kernel's phase cuts,
+for ``tools/exp_f32_mlp.py``: off the model path, uncounted.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -74,6 +80,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .tf32 import Tf32Weight, tf32_weight
 
 LAUNCHES: Dict[str, int] = {"dwconv7x7_nhwc": 0, "ln_fc1_gelu": 0, "fc2_scale_residual": 0,
                             "dwconv7x7_nhwc_f32": 0, "ln_fc1_gelu_f32": 0,
@@ -89,10 +96,10 @@ _SIGNATURES = {
     "fc2_scale_residual": _RES_ARGS + [_P],
     "fc2_scale_residual_f32res": _RES_ARGS + [_P],
     "dwconv7x7_nhwc_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ln_fc1_gelu_f32": [_P] * 6 + [_I, _I, _I, _F, _P],
-    "fc2_scale_residual_f32": [_P] * 6 + [_I, _I, _I, _P],
+    "ln_fc1_gelu_f32": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _I, _P],  # + plan
+    "fc2_scale_residual_f32": [_P] * 7 + [_I] * 6 + [_P],  # + plan
     "fc2_scale_residual_mmbf16": _RES_ARGS + [_P],
-    "fc2_scale_residual_mmf32": [_P] * 6 + [_I, _I, _I, _P],
+    "fc2_scale_residual_mmf32": [_P] * 7 + [_I] * 6 + [_P],  # + plan
 }
 _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type)
     "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
@@ -102,6 +109,12 @@ _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type
     "proj_scale_residual_cut": [_P] * 6 + [_I] * 6 + [_P],
 }
 _DW_CUT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # csrc/dwconv_cuts.cu
+_F32_CUT_SIGNATURES = {  # csrc/f32_mlp_cuts.cu
+    "ffma_ln_fc1_gelu": [_P] * 6 + [_I, _I, _I, _F, _P],
+    "ffma_fc2_scale_residual": [_P] * 6 + [_I, _I, _I, _I, _P],  # + bf16 output
+    # kind (0 gelu, 1 residual), cut, passes, then as the kernels (+ bf16 output)
+    "tf32_mlp_cut": [_I, _I, _I] + [_P] * 9 + [_I, _I, _I, _F] + [_I] * 4 + [_P],
+}
 
 # ---------------------------------------------------------------------------
 # the MLP GEMMs' per-shape plan (csrc/hopper_gemm.cuh checks it)
@@ -215,6 +228,55 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     return plan
 
 
+# ---------------------------------------------------------------------------
+# the f32 MLP GEMMs' plan (csrc/tf32_gemm.cuh checks it)
+# ---------------------------------------------------------------------------
+TF32_BK = 32  # f32 per K tile: one 128-byte swizzle row
+TF32_WIDTHS = (128, 96, 64, 32)  # column tiles (wgmma n) the 3xTF32 kernels are built for
+TF32_MAX_LN_K = 768  # the LN kind's widest row: a warp holds it in registers for its statistics
+# Above this depth the kernels sum each two K tiles apart and add them to the accumulator by
+# FADD (csrc/tf32_gemm.cuh: kPromote): the tensor cores' f32 accumulation rounds toward zero,
+# an error that grows with K (on the card, per the first 3xTF32 runs at b256: 4.2e-6 of
+# max|ref| at K = 384, 1.5e-5 at 3072 against the 1e-5 gate). The second accumulator tile
+# costs registers: column tiles of at most 64.
+TF32_PROMOTE_K = 384
+TF32_PROMOTE_WIDTHS = (64, 32)
+
+
+def tf32_gemm_plan(kind: str, k: int, n: int) -> dict:
+    """Tiles of one launch of ``csrc/tf32_gemm.cuh``: ``kind`` "gelu"
+    (``ln_fc1_gelu_f32`` on x (M, k) -> the (M, n) hidden) or "res"
+    (``fc2_scale_residual_f32`` / ``_mmf32`` on a hidden (M, k) -> (M, n)).
+    Keys: ``bm`` rows a work item (64 for each warpgroup of a consumer pair),
+    ``bn`` its columns (the widest of :data:`TF32_WIDTHS`, or with
+    ``promote`` of :data:`TF32_PROMOTE_WIDTHS`, dividing n), ``bk`` f32 a K
+    tile, ``promote`` (K > :data:`TF32_PROMOTE_K`: K summed in chunks of two
+    tiles, each added to the accumulator rounded to nearest), ``stages`` of
+    the TMA ring (each stage an A tile and the W_hi and W_lo tiles:
+    ``stage`` bytes), ``swizzle``, ``ctas_per_sm`` and ``smem`` bytes
+    (barriers, alignment, the 16 consumer warps' 2 KB f32 staging, the
+    ring). Independent of M: the launcher sizes the persistent grid."""
+    if kind not in ("gelu", "res"):
+        raise ValueError(f"kind must be 'gelu' or 'res', got {kind!r}")
+    if k <= 0 or n <= 0 or k % TF32_BK or n % 32:
+        raise ValueError(f"K = {k} must be a multiple of {TF32_BK} and N = {n} of 32")
+    if kind == "gelu" and k > TF32_MAX_LN_K:
+        raise ValueError(f"the LN kind takes K <= {TF32_MAX_LN_K}, got {k}")
+    promote = k > TF32_PROMOTE_K
+    bn = next(w for w in (TF32_PROMOTE_WIDTHS if promote else TF32_WIDTHS) if n % w == 0)
+    stage = BM * 4 * TF32_BK + 2 * bn * 4 * TF32_BK
+    stages = _stages_that_fit(EPILOGUE_BYTES["res"], stage, MAX_RING)
+    smem = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + stages * stage
+    return dict(kind=kind, bm=BM, bn=bn, bk=TF32_BK, promote=promote, stages=stages,
+                stage=stage, smem=smem, swizzle=128, ctas_per_sm=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_plan_args(kind: str, k: int, n: int) -> tuple:
+    p = tf32_gemm_plan(kind, k, n)
+    return p["bn"], p["stages"], int(p["promote"])
+
+
 @functools.lru_cache(maxsize=None)
 def _ln_plan_args(c: int, n: int, kind: str = "ln") -> tuple:
     p = mlp_gemm_plan(kind, c, n)
@@ -266,6 +328,16 @@ def _dw_cut_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_cut_lib() -> ctypes.CDLL:
+    lib = build.load("f32_mlp_cuts")
+    for name, argtypes in _F32_CUT_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _launch(name: str, *args, counter: str = "") -> None:
     err = getattr(_lib(), name)(*args)
     if err != 0:
@@ -309,6 +381,16 @@ def _check_rows(m: int) -> None:
         raise ValueError(f"M = {m} rows is more than the GEMM engine takes ({MAX_ROWS})")
 
 
+def _tf32_operands(name: str, w: torch.Tensor, w_split: Optional[Tf32Weight]) -> Tf32Weight:
+    """The 3xTF32 kernels' weight pair: ``w_split`` as the caller keeps it
+    (checked against w's shape and device), else made from w here."""
+    if w_split is None:
+        return tf32_weight(w)
+    for part, t in zip(("hi", "lo"), w_split):
+        _check(f"{name} {part}", t, torch.float32, w.shape, w.device)
+    return w_split
+
+
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -327,11 +409,14 @@ def dwconv7x7_nhwc_plain(x: torch.Tensor, dw_kernel: torch.Tensor,
 
 def ln_fc1_gelu_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, eps: float,
-                      mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      mm_dtype: Optional[torch.dtype] = None,
+                      w_split: Optional[Tf32Weight] = None) -> torch.Tensor:
     """(M, C) f32 -> LN (two-pass, f32) -> Linear(w1 (N, C), b1) -> exact GELU,
     in ``mm_dtype`` (default w1's). In bf16 the product is the kernel's: bf16
     operands, exact products, f32 sums; the bias and the GELU in f32, then
-    one rounding."""
+    one rounding. In f32 it is the f32 product (TF32 off), the function the
+    3xTF32 kernel keeps to about 22 bits; ``w_split``, the kernel's operand
+    pair, is not read."""
     mm = mm_dtype or w1.dtype
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
@@ -343,10 +428,12 @@ def ln_fc1_gelu_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.T
 
 def fc2_scale_residual_plain(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                              gamma: torch.Tensor, residual: torch.Tensor,
-                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                             out_dtype: Optional[torch.dtype] = None,
+                             w_split: Optional[Tf32Weight] = None) -> torch.Tensor:
     """(M, N) hidden -> Linear(w2 (C, N), b2) -> x gamma -> + residual, in
     ``out_dtype`` (default the hidden's). Another output dtype than the
-    hidden's (a mixed mode) takes the product of the hidden and w2 in f32."""
+    hidden's (a mixed mode) takes the product of the hidden and w2 in f32.
+    ``w_split`` (the 3xTF32 kernel's operand pair) is not read."""
     out = out_dtype or hidden.dtype
     if out == hidden.dtype:
         o = F.linear(hidden, w2).float() + b2
@@ -381,12 +468,14 @@ def dwconv7x7_nhwc(x: torch.Tensor, dw_kernel: torch.Tensor,
 
 def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                 w1: torch.Tensor, b1: torch.Tensor, eps: float,
-                mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                mm_dtype: Optional[torch.dtype] = None,
+                w_split: Optional[Tf32Weight] = None) -> torch.Tensor:
     """LN over C + Linear C->N + exact GELU on rows. CUDA: x f32 (M, C), LN
     params f32 (C,), w1 (N, C) in ``mm_dtype`` (bf16 or f32, default w1's),
     b1 f32 (N,) -> (M, N) in ``mm_dtype`` (``ln_fc1_gelu`` or
     ``ln_fc1_gelu_f32``: the mode is the GEMM's, since x is f32 in bf16
-    blocks too)."""
+    blocks too). The f32 kernel reads w1 as ``w_split`` (``tf32_weight(w1)``,
+    kept by the caller), or splits w1 itself."""
     if x.device.type == "cpu":
         return ln_fc1_gelu_plain(x, ln_weight, ln_bias, w1, b1, eps, mm_dtype)
     if mm_dtype is not None and w1.dtype != mm_dtype:
@@ -406,9 +495,10 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     _check("b1", b1, torch.float32, (n,), x.device)
     out = torch.empty((m, n), dtype=w1.dtype, device=x.device)
     if f32:
+        hi, lo = _tf32_operands("w1", w1, w_split)
         _launch("ln_fc1_gelu_f32", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
-                w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n, float(eps),
-                _stream(x.device))
+                hi.data_ptr(), lo.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n, float(eps),
+                *_tf32_plan_args("gelu", c, n), _stream(x.device))
         return out
     _launch("ln_fc1_gelu", x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n, float(eps), *_ln_plan_args(c, n),
@@ -418,14 +508,17 @@ def ln_fc1_gelu(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
 
 def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                        gamma: torch.Tensor, residual: torch.Tensor,
-                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                       out_dtype: Optional[torch.dtype] = None,
+                       w_split: Optional[Tf32Weight] = None) -> torch.Tensor:
     """Linear N->C, (+ b2) x gamma + residual on rows, the output in
     ``out_dtype`` (default the hidden's). CUDA: hidden and w2 (C, N) bf16,
     b2 and gamma f32 (C,), residual bf16 or f32 (M, C) -> bf16; hidden, w2
     and the residual f32 -> f32 (``fc2_scale_residual_f32``); the mixed
     modes, beside an f32 residual: bf16 hidden and w2 -> f32
     (``fc2_scale_residual_mmbf16``), f32 hidden and w2 -> bf16
-    (``fc2_scale_residual_mmf32``)."""
+    (``fc2_scale_residual_mmf32``). The two f32-GEMM kernels read w2 as
+    ``w_split`` (``tf32_weight(w2)``, kept by the caller), or split w2
+    themselves."""
     if hidden.device.type == "cpu":
         return fc2_scale_residual_plain(hidden, w2, b2, gamma, residual, out_dtype)
     if hidden.ndim != 2:
@@ -452,8 +545,10 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     args = (hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
             residual.data_ptr(), out.data_ptr(), m, n, c)
     if mm == torch.float32:
-        _launch("fc2_scale_residual_mmf32" if mixed else "fc2_scale_residual_f32", *args,
-                _stream(hidden.device))
+        hi, lo = _tf32_operands("w2", w2, w_split)
+        _launch("fc2_scale_residual_mmf32" if mixed else "fc2_scale_residual_f32",
+                hidden.data_ptr(), hi.data_ptr(), lo.data_ptr(), *args[2:],
+                *_tf32_plan_args("res", n, c), _stream(hidden.device))
     elif mixed:
         _launch("fc2_scale_residual_mmbf16", *args, *_res_plan_args(c, n), _stream(hidden.device))
     else:
@@ -517,12 +612,73 @@ def fc2_scale_residual_cut(hidden, w2, b2, gamma, residual, cut: int) -> torch.T
     return out
 
 
+# phase cuts of the 3xTF32 kernels (csrc/tf32_gemm.cuh's kCut; kPasses 1 issues
+# a_hi w_hi alone), numbered as the engine's
+# (the kernel itself, cut 3, is the wrapper's launch)
+TF32_CUTS = {"loads": (0, 3), "products_1pass": (2, 1), "products": (2, 3), "no_stores": (5, 3)}
+
+
+def tf32_mlp_cut(kind: str, cut: str, a, w_split: Tf32Weight, bias, *, ln_weight=None,
+                 ln_bias=None, eps: float = 0.0, gamma=None, residual=None,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A phase cut (:data:`TF32_CUTS`) of ``ln_fc1_gelu_f32`` (``kind``
+    "gelu": a = x) or ``fc2_scale_residual_f32`` / ``_mmf32`` ("res": a =
+    the hidden, ``out_dtype`` f32 or bf16) on CUDA tensors, on the model's
+    plan (``csrc/f32_mlp_cuts.cu``). Timing only: its output holds nothing
+    meaningful; never counted in :data:`LAUNCHES`."""
+    which, passes = TF32_CUTS[cut]
+    m, k = a.shape
+    n = w_split.hi.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _f32_cut_lib().tf32_mlp_cut(
+        0 if kind == "gelu" else 1, which, passes, a.data_ptr(), ptr(ln_weight), ptr(ln_bias),
+        w_split.hi.data_ptr(), w_split.lo.data_ptr(), bias.data_ptr(), ptr(gamma), ptr(residual),
+        out.data_ptr(), m, k, n, float(eps), *_tf32_plan_args(kind, k, n),
+        int(out_dtype == torch.bfloat16), _stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"tf32 {kind} cut {cut}: CUDA launch failed with cudaError {err}")
+    return out
+
+
+def ffma_ln_fc1_gelu(x, ln_weight, ln_bias, w1, b1, eps: float) -> torch.Tensor:
+    """The FFMA ``ln_fc1_gelu_f32`` that the 3xTF32 kernel replaced
+    (``csrc/f32_gemm.cuh``, kind kGelu; ``csrc/f32_mlp_cuts.cu``), on CUDA
+    tensors: the before of ``tools/exp_f32_mlp.py``; never counted."""
+    m, c = x.shape
+    n = w1.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = _f32_cut_lib().ffma_ln_fc1_gelu(x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+                                          w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n,
+                                          float(eps), _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"ffma_ln_fc1_gelu: CUDA launch failed with cudaError {err}")
+    return out
+
+
+def ffma_fc2_scale_residual(hidden, w2, b2, gamma, residual,
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The FFMA ``fc2_scale_residual_f32`` (f32 out) or ``_mmf32`` (bf16
+    out) that the 3xTF32 kernel replaced (kind kResidual), on CUDA tensors."""
+    m, n = hidden.shape
+    c = w2.shape[0]
+    out = torch.empty((m, c), dtype=out_dtype, device=hidden.device)
+    err = _f32_cut_lib().ffma_fc2_scale_residual(
+        hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), residual.data_ptr(),
+        out.data_ptr(), m, n, c, int(out_dtype == torch.bfloat16), _stream(hidden.device))
+    if err != 0:
+        raise RuntimeError(f"ffma_fc2_scale_residual: CUDA launch failed with cudaError {err}")
+    return out
+
+
 def convnext_block(x: torch.Tensor, dw_kernel, dw_bias, ln_weight, ln_bias, w1, b1,
-                   w2, b2, gamma, eps: float = 1e-6) -> torch.Tensor:
+                   w2, b2, gamma, eps: float = 1e-6, w1_split: Optional[Tf32Weight] = None,
+                   w2_split: Optional[Tf32Weight] = None) -> torch.Tensor:
     """Whole ConvNeXt block on NHWC x through the three wrappers:
-    x + gamma * fc2(gelu(fc1(LN(dw7x7(x) + dw_bias))))."""
+    x + gamma * fc2(gelu(fc1(LN(dw7x7(x) + dw_bias)))); in f32 the GEMMs'
+    weight pairs ``w1_split`` / ``w2_split`` where the caller keeps them."""
     b, h, w, c = x.shape
     d = dwconv7x7_nhwc(x, dw_kernel, dw_bias)
-    hid = ln_fc1_gelu(d.view(b * h * w, c), ln_weight, ln_bias, w1, b1, eps)
-    out = fc2_scale_residual(hid, w2, b2, gamma, x.reshape(b * h * w, c))
+    hid = ln_fc1_gelu(d.view(b * h * w, c), ln_weight, ln_bias, w1, b1, eps, w_split=w1_split)
+    out = fc2_scale_residual(hid, w2, b2, gamma, x.reshape(b * h * w, c), w_split=w2_split)
     return out.view(b, h, w, c)

@@ -54,7 +54,8 @@ x's) is the same five launches on f32 kernels: ``ln_qkv_f32`` and
 ``window_attention_f32`` (``csrc/f32_attention.cuh`` on token rows: a CTA
 a (window, head), f32 FMAs, P.V divided by the row sum after, as the TPU
 kernel's default "mxu" softmax does), then :mod:`.convnext_block`'s
-``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32``.
+``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (3xTF32 wgmma,
+``csrc/tf32_gemm.cuh``).
 
 The mixed modes (``VIPTPU_GCVIT_MM``: the TPU kernels' GEMM operands in the
 other dtype than the activations, which keep theirs) are the same five
@@ -65,8 +66,9 @@ weights in it:
 - ``mm_dtype`` f32 on bf16 activations: ``ln_qkv_mmf32`` (bf16 x, f32 q, k,
   v), ``window_attention_mmf32`` (f32 q, k, v, or a bf16 global query ->
   bf16), ``proj_scale_residual_mmf32`` (bf16 attention output and x -> f32
-  r1), ``ln_fc1_gelu_f32``, ``fc2_scale_residual_mmf32`` (-> bf16): the
-  FFMA kernels loading bf16 into f32 registers. q, k and v stay f32 between
+  r1): the FFMA kernels loading bf16 into f32 registers; then
+  ``ln_fc1_gelu_f32`` and ``fc2_scale_residual_mmf32`` (-> bf16), the
+  3xTF32 MLP. q, k and v stay f32 between
   the kernels, as in the TPU's monoblock, the route the JAX package takes at
   every GCViTTiny level (its three-kernel pipeline would round them to
   bf16);
@@ -398,14 +400,16 @@ def window_transformer_block(x: torch.Tensor, q_global: Optional[torch.Tensor], 
                              ln1_weight, ln1_bias, wqkv, bqkv, bias, wp, bp, gamma1,
                              ln2_weight, ln2_bias, w1, b1, w2, b2, gamma2,
                              scale: Optional[float] = None, eps: float = 1e-5,
-                             mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                             mm_dtype: Optional[torch.dtype] = None,
+                             w1_split=None, w2_split=None) -> torch.Tensor:
     """One GCViT block on window-ordered tokens x (B, nWin*N, C) through the
     five wrappers: r1 = x + gamma1 * proj(attn(LN1 x)) in f32, then
     r1 + gamma2 * fc2(gelu(fc1(LN2 r1))) in x's dtype. ``q_global`` (B, N,
     C) makes it a global-query block (W_qkv is then the (2C, C) k/v
     projection). Weights in the nn.Linear layout and in ``mm_dtype``, the
     GEMMs' dtype (default x's; ``VIPTPU_GCVIT_MM``); ``bias`` the dense
-    (heads, N, N) rel-pos bias."""
+    (heads, N, N) rel-pos bias; with f32 GEMMs ``w1_split`` / ``w2_split``
+    the MLP weights' 3xTF32 pairs where the caller keeps them."""
     b, toks, c = x.shape
     heads = bias.shape[0]
     scale = scale if scale is not None else (c // heads) ** -0.5
@@ -420,5 +424,6 @@ def window_transformer_block(x: torch.Tensor, q_global: Optional[torch.Tensor], 
     attn = window_attention(q, k, v, bias, n, scale, q_is_global=q_global is not None,
                             mm_dtype=mm, out_dtype=x.dtype)
     r1 = proj_scale_residual(attn.view(b * toks, c), wp, bp, gamma1, x2, mm_dtype=mm)
-    hidden = CK.ln_fc1_gelu(r1, ln2_weight, ln2_bias, w1, b1, eps, mm_dtype=mm)
-    return CK.fc2_scale_residual(hidden, w2, b2, gamma2, r1, out_dtype=x.dtype).view(b, toks, c)
+    hidden = CK.ln_fc1_gelu(r1, ln2_weight, ln2_bias, w1, b1, eps, mm_dtype=mm, w_split=w1_split)
+    return CK.fc2_scale_residual(hidden, w2, b2, gamma2, r1, out_dtype=x.dtype,
+                                 w_split=w2_split).view(b, toks, c)

@@ -30,6 +30,8 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.kernels.tf32 import Tf32Weight, tf32_weight
+
 INV_127 = float(np.float32(1.0 / 127.0))  # the f32 constant of ``* (1.0 / 127.0)``
 MIN_AMAX = float(np.float32(1e-8))
 GCVIT_INT8_MIN_C = 128  # VIPTPU_GCVIT_INT8_MIN_C's default
@@ -142,13 +144,22 @@ class Int8Block:
     The same f32 values feed the f32 GEMMs that ``VIPTPU_GCVIT_MM=f32`` asks
     of a bf16 GCViT block: :meth:`set_f32_weights` keeps them on the
     parameters' device and :meth:`f32_weights` returns them, under the same
-    rules."""
+    rules.
+
+    The 3xTF32 f32 GEMMs (``csrc/tf32_gemm.cuh``) read a Linear's f32 weight
+    as its split pair (:func:`..ops.kernels.tf32.tf32_weight`):
+    :meth:`tf32_weight` makes it once per Linear, from the parameter if it is
+    f32, else from :meth:`f32_weights`, and makes it again when the
+    parameter's storage or version moves (an optimizer step, a reload, an
+    in-place write) or :meth:`set_f32_weights` runs."""
 
     INT8_LINEARS: Tuple[str, ...] = ()
     _int8: Optional[Dict[str, Int8Weight]] = None
     _int8_key: Optional[tuple] = None
     _f32: Optional[Dict[str, torch.Tensor]] = None
     _f32_key: Optional[tuple] = None
+    _f32_generation = 0  # set_f32_weights calls: a split from their values is remade after one
+    _tf32: Optional[Dict[str, Tuple[tuple, Tf32Weight]]] = None
 
     def _int8_params(self):
         return [self.get_submodule(name).weight for name in self.INT8_LINEARS]
@@ -179,11 +190,25 @@ class Int8Block:
                      .to(param.device).contiguous()
                      for name, param in zip(self.INT8_LINEARS, self._int8_params())}
         self._f32_key = self._int8_state()
+        self._f32_generation += 1
 
     def f32_weights(self) -> Dict[str, torch.Tensor]:
         if self._f32 is None or self._f32_key != self._int8_state():
             self.set_f32_weights()
         return self._f32
+
+    def tf32_weight(self, name: str) -> Tf32Weight:
+        """The 3xTF32 pair of Linear ``name``'s f32 weight, cached."""
+        param = self.get_submodule(name).weight
+        src = param if param.dtype == torch.float32 else self.f32_weights()[name]
+        key = (param.data_ptr(), param._version,
+               None if src is param else self._f32_generation)
+        if self._tf32 is None:
+            self._tf32 = {}
+        hit = self._tf32.get(name)
+        if hit is None or hit[0] != key:
+            hit = self._tf32[name] = (key, tf32_weight(src))
+        return hit[1]
 
 
 def attach(model: torch.nn.Module, weights: Optional[Mapping[str, Any]] = None,
