@@ -553,9 +553,11 @@ BATCH = 256
 # products the tensor cores can carry, three TF32 passes at 495 TFLOP/s
 # (3xTF32, csrc/tf32_gemm.cuh), the yardstick of every f32 GEMM and
 # attention-product count whatever implements it (the LN, depthwise and
-# elementwise counts stay "f32")
+# elementwise counts stay "f32"); "f32_tc2": two passes, an f32 product of a
+# bf16 A, exact in TF32, by f32 weights (proj_scale_residual_mmf32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "f32_tc": 495e12 / 3}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "f32_tc": 495e12 / 3,
+                  "f32_tc2": 495e12 / 2}
 # the JAX pass's int8 sites (tests/test_torch_resnet_rs.py, tests/test_torch_ptq.py)
 # the JAX pass's int8 sites of each member at full width and its manifest size
 # (tests/test_torch_resnet_rs.py, test_torch_ptq.py, test_torch_int8_members.py, -m slow);
@@ -895,15 +897,16 @@ def gcvit_calls(p: dict, b: int, c: int, heads: int) -> dict:
     gemm = (lambda a, w: lambda: F.linear(a, w)) if f32 else (lambda a, w: None)  # noqa: E731
     act, weights = m * c * e, c * c * e  # bytes of one (M, C) activation, one C x C weight
     attn_ops, bias_bytes = 4 * m * n * c, heads * n * n * 4
-    # f32: the MLP GEMMs' 3xTF32 weight pairs, made beforehand as the blocks keep them
-    sp1, sp2 = (tf32_weight(p["w1"]), tf32_weight(p["w2"])) if f32 else (None, None)
+    # f32: the GEMMs' 3xTF32 weight pairs, made beforehand as the blocks keep them
+    sq, skv, sp, sp1, sp2 = ([tf32_weight(w) for w in (p["wqkv"], wkv, p["wp"], p["w1"], p["w2"])]
+                             if f32 else [None] * 5)
     return {
         "ln_qkv" + sfx + " local": (
-            lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5),
+            lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5, w_split=sq),
             lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], p["wqkv"], p["bqkv"], 1e-5),
             gemm(p["x"], p["wqkv"]), 4 * act + 3 * weights, 2 * m * c * 3 * c),
         "ln_qkv" + sfx + " global": (
-            lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
+            lambda: G.ln_qkv(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5, w_split=skv),
             lambda: G.ln_qkv_plain(p["x"], p["lg"], p["lb"], wkv, bkv, 1e-5),
             gemm(p["x"], wkv), 3 * act + 2 * weights, 2 * m * c * 2 * c),
         "window_attention" + sfx + " local": (
@@ -915,7 +918,8 @@ def gcvit_calls(p: dict, b: int, c: int, heads: int) -> dict:
             lambda: G.window_attention_plain(p["qg"], t(k), t(v), p["bias"], n, p["scale"], True),
             lambda: sdpa(q_rep), 3 * act + b * n * c * e + bias_bytes, attn_ops),
         "proj_scale_residual" + sfx: (
-            lambda: G.proj_scale_residual(p["attn"], p["wp"], p["bp"], p["g1"], p["x"]),
+            lambda: G.proj_scale_residual(p["attn"], p["wp"], p["bp"], p["g1"], p["x"],
+                                          w_split=sp),
             lambda: G.proj_scale_residual_plain(p["attn"], p["wp"], p["bp"], p["g1"], p["x"]),
             gemm(p["attn"], p["wp"]), 2 * act + weights + m * c * 4, 2 * m * c * c),
         "ln_fc1_gelu" + sfx: (
@@ -3086,9 +3090,10 @@ def f32_block_kernels(card: str, stats: dict, gen) -> None:
     attention; bounds: the depthwise's FMAs at the f32 peak, the GEMMs' and
     the attention's products at ``PEAK_OPS_PER_S["f32_tc"]``; the MLP GEMMs
     timed on their weights' 3xTF32 pairs made beforehand, as the blocks keep
-    them; per forward into the record. Then ``tools/exp_f32_mlp.py``: the
-    3xTF32 MLP kernels against the FFMA kernels they replaced and cuBLAS's
-    f32 product by device time, and their phase cuts, at every shape."""
+    them (GCViT's qkv and proj GEMMs too); per forward into the record. Then
+    ``tools/exp_f32_mlp.py``: the 3xTF32 kernels (the MLP pair, and at
+    GCViT's levels qkv and proj in f32 and ``_mmf32``) beside cuBLAS's f32
+    product by device time, and their phase cuts, at every shape."""
     before = snapshot(stats)
     for h, w, c, _ in STAGES:
         check_stage(run_stage(8, h, w, c, gen, torch.float32), (8, h, w, c), stats)
@@ -3521,17 +3526,22 @@ def a15c_level(b: int, level: tuple, mode: str, gen, stats: dict) -> dict:
 
 
 def a15c_level_calls(p: dict, b: int, c: int, heads: int, mode: str) -> dict:
-    """name -> (kernel, plain, library, bytes, operations) of the mode's
-    four new launches of one level (``ln_qkv`` and the attention local and
-    global); the library: cuBLAS's product in the mode's operand dtype (its
-    operands cast to it beforehand, TF32 off), SDPA on the same tiles in
-    that dtype (the global query repeated over the windows beforehand)."""
+    """name -> (kernel, plain, library, bytes, operations, peak's kind) of
+    the mode's launches of one level (``ln_qkv`` and the attention local and global,
+    ``proj_scale_residual``, ``fc2_scale_residual``); the library: cuBLAS's
+    product in the mode's operand dtype, TF32 off, the activations cast to
+    it inside the timed call as the kernels convert them (the weights are in
+    it already), SDPA on the same tiles in that dtype (q, k, v, the global
+    query repeated over the windows, cast beforehand). f32 GEMMs take their
+    weights' 3xTF32 pairs made beforehand, as the blocks keep them; their
+    bound is three TF32 passes, two for ``proj_scale_residual_mmf32``'s bf16
+    A (``"f32_tc2"``)."""
     act, mm = MIXED_MODES[mode]
     n, m = p["n"], p["m"]
     ea, em = torch.tensor([], dtype=act).element_size(), torch.tensor([], dtype=mm).element_size()
     t = lambda a: a.view(b, -1, c)  # noqa: E731
     hv = lambda a: a.reshape(-1, n, heads, 32).transpose(1, 2).to(mm)  # noqa: E731
-    x_mm, a_mm, q_mm = p["x"].to(mm), p["attn"].to(mm), p["qg"].to(mm)
+    q_mm = p["qg"].to(mm)
     q, k, v = (t(a) for a in p["qkv"])
     kg, vg = (t(a) for a in p["kv"])
     qh, kh, vh, kgh, vgh = hv(q), hv(k), hv(v), hv(kg), hv(vg)
@@ -3541,18 +3551,20 @@ def a15c_level_calls(p: dict, b: int, c: int, heads: int, mode: str) -> dict:
     act_b, qkv_b, weight = m * c * ea, m * c * 4, c * c * em  # one (M, C) in act / f32, C x C
     attn_ops, bias_b = 4 * m * n * c, heads * n * n * 4
     kind = "f32_tc" if mm == torch.float32 else "bf16"
-    w2_split = tf32_weight(p["w2"]) if mm == torch.float32 else None
+    sq, skv, sp, w2_split = ([tf32_weight(w) for w in (p["wqkv"], w_kv, p["wp"], p["w2"])]
+                             if mm == torch.float32 else [None] * 4)
     args = (p["x"], p["lg"], p["lb"])
     return {
         f"ln_qkv_{mode} local": (
-            lambda: G.ln_qkv(*args, p["wqkv"], p["bqkv"], 1e-5, mm_dtype=mm),
+            lambda: G.ln_qkv(*args, p["wqkv"], p["bqkv"], 1e-5, mm_dtype=mm, w_split=sq),
             lambda: G.ln_qkv_plain(*args, p["wqkv"], p["bqkv"], 1e-5, mm),
-            lambda: F.linear(x_mm, p["wqkv"]), act_b + 3 * qkv_b + 3 * weight,
+            lambda: F.linear(p["x"].to(mm), p["wqkv"]), act_b + 3 * qkv_b + 3 * weight,
             2 * m * c * 3 * c, kind),
         f"ln_qkv_{mode} global": (
-            lambda: G.ln_qkv(*args, w_kv, b_kv, 1e-5, mm_dtype=mm),
+            lambda: G.ln_qkv(*args, w_kv, b_kv, 1e-5, mm_dtype=mm, w_split=skv),
             lambda: G.ln_qkv_plain(*args, w_kv, b_kv, 1e-5, mm),
-            lambda: F.linear(x_mm, w_kv), act_b + 2 * qkv_b + 2 * weight, 2 * m * c * 2 * c, kind),
+            lambda: F.linear(p["x"].to(mm), w_kv), act_b + 2 * qkv_b + 2 * weight,
+            2 * m * c * 2 * c, kind),
         f"window_attention_{mode} local": (
             lambda: G.window_attention(q, k, v, p["bias"], n, p["scale"], mm_dtype=mm,
                                        out_dtype=act),
@@ -3569,9 +3581,10 @@ def a15c_level_calls(p: dict, b: int, c: int, heads: int, mode: str) -> dict:
             2 * qkv_b + b * n * c * ea + act_b + bias_b, attn_ops, kind),
         f"proj_scale_residual_{mode}": (
             lambda: G.proj_scale_residual(p["attn"], p["wp"], p["bp"], p["g1"], p["x"],
-                                          mm_dtype=mm),
+                                          mm_dtype=mm, w_split=sp),
             lambda: G.proj_scale_residual_plain(p["attn"], p["wp"], p["bp"], p["g1"], p["x"], mm),
-            lambda: F.linear(a_mm, p["wp"]), 2 * act_b + weight + qkv_b, 2 * m * c * c, kind),
+            lambda: F.linear(p["attn"].to(mm), p["wp"]), 2 * act_b + weight + qkv_b,
+            2 * m * c * c, "f32_tc2" if mode == "mmf32" else kind),
         f"fc2_scale_residual_{mode}": (
             lambda: K.fc2_scale_residual(p["hid"], p["w2"], p["b2"], p["g2"], p["r1"],
                                          out_dtype=act, w_split=w2_split),

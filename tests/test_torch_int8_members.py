@@ -129,21 +129,28 @@ def _pair(case: str, seed: int = 3):
 
 def _jax_site_inputs(fn, sites, x):
     """(output, {site: f32 input}) of one JAX call, the inputs of each
-    site's ``nn.Conv`` / ``nn.Dense`` / ``ScaledStdConv``."""
-    seen = {}
+    site's ``nn.Conv`` / ``nn.Dense`` / ``ScaledStdConv``: one jitted
+    program (as the JAX package runs its models) that returns them beside
+    the output, recorded at trace time."""
 
-    def record(next_fun, args, kwargs, context):
-        mod = context.module
-        if context.method_name == "__call__" and args and isinstance(
-                mod, (linen.Conv, linen.Dense, JaxScaledStdConv)):
-            site = "/".join(str(p) for p in mod.path)
-            if site in sites:
-                seen[site] = np.asarray(args[0], np.float32)
-        return next_fun(*args, **kwargs)
+    def traced(b):
+        seen = {}
 
-    with linen.intercept_methods(record):
-        out = np.asarray(fn(jnp.asarray(x)))
-    return out, seen
+        def record(next_fun, args, kwargs, context):
+            mod = context.module
+            if context.method_name == "__call__" and args and isinstance(
+                    mod, (linen.Conv, linen.Dense, JaxScaledStdConv)):
+                site = "/".join(str(p) for p in mod.path)
+                if site in sites:
+                    seen[site] = args[0]
+            return next_fun(*args, **kwargs)
+
+        with linen.intercept_methods(record):
+            out = fn(b)
+        return out, seen
+
+    out, seen = jax.jit(traced)(jnp.asarray(x))
+    return np.asarray(out), {site: np.asarray(v, np.float32) for site, v in seen.items()}
 
 
 def _standardized_codes(params, module):
@@ -200,7 +207,7 @@ def _sites_match_jax(case: str) -> dict:
     int8 logits of both packages on one case; returns the JAX report."""
     module, tree, port, x = _pair(case)
     apply = lambda b: module.apply(tree, b)  # noqa: E731
-    jscales = jquant.calibrate(apply, [jnp.asarray(x)])
+    jscales = jquant.calibrate(apply, [jnp.asarray(x)], use_jit=True)  # one program, as on a TPU
     scales = quant.calibrate(port, [torch.from_numpy(x)])
     assert set(scales) == set(jscales)
     for site, v in jscales.items():

@@ -54,25 +54,28 @@
 // The f32 mode (VIPTPU_DTYPE=float32: f32 activations and weights, as the
 // TPU kernels take them when x is f32) is three more launchers:
 //
-//   ln_qkv_f32               f32 x, f32 W_qkv -> S f32 (M, C) outputs
-//                            (f32_gemm.cuh, kSplit)
+//   ln_qkv_f32               f32 x, W_qkv as its 3xTF32 pair (W_hi, W_lo)
+//                            -> S f32 (M, C) outputs (tf32_gemm.cuh, kQkv)
 //   window_attention_f32     f32 q, k, v -> f32 (f32_attention.cuh on token
 //                            rows, P.V divided by the row sum after, as the
 //                            TPU kernel's default "mxu" softmax does)
-//   proj_scale_residual_f32  f32 attn, f32 W_p, f32 x -> f32 r1 (kResidual)
+//   proj_scale_residual_f32  f32 attn, W_p's pair, f32 x -> f32 r1
+//                            (tf32_gemm.cuh, kResidual with K = C)
 //
 // then ln_fc1_gelu_f32 and fc2_scale_residual_f32 of convnext_block.cu.
 //
 // The mixed modes of VIPTPU_GCVIT_MM (the TPU kernels' GEMM operands in the
 // other dtype than the activations, which keep theirs) are six more:
 //
-//   VIPTPU_GCVIT_MM=f32 on bf16 activations (the FFMA kernels, bf16 loads
-//   widened to f32 in registers; q, k, v kept f32 as the monoblock, which
-//   the TPU takes at every GCViTTiny level, keeps them):
-//   ln_qkv_mmf32               bf16 x, f32 W_qkv -> S f32 outputs (kSplit)
+//   VIPTPU_GCVIT_MM=f32 on bf16 activations (the 3xTF32 kernels on a bf16 A
+//   tile, widened to f32 in registers; q, k, v kept f32 as the monoblock,
+//   which the TPU takes at every GCViTTiny level, keeps them):
+//   ln_qkv_mmf32               bf16 x, W_qkv's pair -> S f32 outputs (kQkv)
 //   window_attention_mmf32     f32 q (or a bf16 global query), f32 k, v ->
 //                              bf16 (f32_attention.cuh)
-//   proj_scale_residual_mmf32  bf16 attn and x, f32 W_p -> f32 r1 (kResidual)
+//   proj_scale_residual_mmf32  bf16 attn and x, W_p's pair -> f32 r1
+//                              (kResidual: a bf16 A is exact in TF32, so
+//                              two passes a k8 step)
 //   then ln_fc1_gelu_f32 and fc2_scale_residual_mmf32 (convnext_block.cu).
 //
 //   VIPTPU_GCVIT_MM=bf16 on f32 activations (the wgmma engine and the
@@ -90,11 +93,57 @@
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
 
 #include "f32_attention.cuh"
-#include "f32_gemm.cuh"
 #include "hopper_gemm.cuh"
+#include "tf32_gemm.cuh"
 #include "window_attention.cuh"
 
 using hopper_gemm::bf16;
+
+namespace {
+
+// ln_qkv's 3xTF32 kernel on x of type TA (f32, or bf16 for ln_qkv_mmf32)
+template <typename TA>
+int ln_qkv_tf32(const void* x, const void* ln_g, const void* ln_b, const void* w_hi,
+                const void* w_lo, const void* bias, void* q, void* k, void* v, int M, int C,
+                int S, float eps, int bn, int stages, int promote, void* stream) {
+  tf32_gemm::Params p{};
+  p.x = x;
+  p.ln_g = (const float*)ln_g;
+  p.ln_b = (const float*)ln_b;
+  p.bias = (const float*)bias;
+  p.out = q;
+  p.out1 = k;
+  p.out2 = v;
+  p.M = M;
+  p.N = S * C;
+  p.K = C;
+  p.split = C;
+  p.stages = stages;
+  p.eps = eps;
+  return (int)tf32_gemm::launch<tf32_gemm::kQkv, hopper_gemm::kWhole, float, 3, TA>(
+      p, x, w_hi, w_lo, bn, promote, (cudaStream_t)stream);
+}
+
+// proj_scale_residual's: attention output a and residual x of type T (f32, or
+// bf16 for proj_scale_residual_mmf32), K = N = C, f32 r1
+template <typename T>
+int proj_tf32(const void* a, const void* w_hi, const void* w_lo, const void* bp,
+              const void* gamma, const void* x, void* out, int M, int C, int bn, int stages,
+              int promote, void* stream) {
+  tf32_gemm::Params p{};
+  p.bias = (const float*)bp;
+  p.gamma = (const float*)gamma;
+  p.res = x;
+  p.out = out;
+  p.M = M;
+  p.N = C;
+  p.K = C;
+  p.stages = stages;
+  return (int)tf32_gemm::launch<tf32_gemm::kResidual, hopper_gemm::kWhole, float, 3, T, T>(
+      p, a, w_hi, w_lo, bn, promote, (cudaStream_t)stream);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -140,23 +189,11 @@ int proj_scale_residual(const void* a, const void* wp, const void* bp, const voi
       p, a, wp, bn, (cudaStream_t)stream);
 }
 
-int ln_qkv_f32(const void* x, const void* ln_g, const void* ln_b, const void* w, const void* bias,
-               void* q, void* k, void* v, int M, int C, int S, float eps, void* stream) {
-  f32_gemm::Params p{};
-  p.a = (const float*)x;
-  p.w = (const float*)w;
-  p.bias = (const float*)bias;
-  p.ln_g = (const float*)ln_g;
-  p.ln_b = (const float*)ln_b;
-  p.out[0] = (float*)q;
-  p.out[1] = (float*)k;
-  p.out[2] = (float*)v;
-  p.M = M;
-  p.N = S * C;
-  p.K = C;
-  p.split = C;
-  p.eps = eps;
-  return (int)f32_gemm::launch<f32_gemm::kSplit>(p, (cudaStream_t)stream);
+int ln_qkv_f32(const void* x, const void* ln_g, const void* ln_b, const void* w_hi,
+               const void* w_lo, const void* bias, void* q, void* k, void* v, int M, int C, int S,
+               float eps, int bn, int stages, int promote, void* stream) {
+  return ln_qkv_tf32<float>(x, ln_g, ln_b, w_hi, w_lo, bias, q, k, v, M, C, S, eps, bn, stages,
+                            promote, stream);
 }
 
 int window_attention_f32(const void* q, const void* k, const void* v, const void* bias,
@@ -178,19 +215,10 @@ int window_attention_f32(const void* q, const void* k, const void* v, const void
   return (int)f32_attn::launch<f32_attn::Layout::kTokens, true>(p, (cudaStream_t)stream);
 }
 
-int proj_scale_residual_f32(const void* a, const void* wp, const void* bp, const void* gamma,
-                            const void* x, void* out, int M, int C, void* stream) {
-  f32_gemm::Params p{};
-  p.a = (const float*)a;
-  p.w = (const float*)wp;
-  p.bias = (const float*)bp;
-  p.gamma = (const float*)gamma;
-  p.res = (const float*)x;
-  p.out[0] = (float*)out;
-  p.M = M;
-  p.N = C;
-  p.K = C;
-  return (int)f32_gemm::launch<f32_gemm::kResidual>(p, (cudaStream_t)stream);
+int proj_scale_residual_f32(const void* a, const void* w_hi, const void* w_lo, const void* bp,
+                            const void* gamma, const void* x, void* out, int M, int C, int bn,
+                            int stages, int promote, void* stream) {
+  return proj_tf32<float>(a, w_hi, w_lo, bp, gamma, x, out, M, C, bn, stages, promote, stream);
 }
 
 int ln_qkv_mmbf16(const void* x, const void* ln_g, const void* ln_b, const void* w,
@@ -236,24 +264,11 @@ int proj_scale_residual_mmbf16(const void* a, const void* wp, const void* bp, co
                                      float>(p, wp, bn, split_n, (cudaStream_t)stream);
 }
 
-int ln_qkv_mmf32(const void* x, const void* ln_g, const void* ln_b, const void* w,
-                 const void* bias, void* q, void* k, void* v, int M, int C, int S, float eps,
-                 void* stream) {
-  f32_gemm::Params p{};
-  p.a = x;
-  p.w = (const float*)w;
-  p.bias = (const float*)bias;
-  p.ln_g = (const float*)ln_g;
-  p.ln_b = (const float*)ln_b;
-  p.out[0] = q;
-  p.out[1] = k;
-  p.out[2] = v;
-  p.M = M;
-  p.N = S * C;
-  p.K = C;
-  p.split = C;
-  p.eps = eps;
-  return (int)f32_gemm::launch<f32_gemm::kSplit, bf16, float, float>(p, (cudaStream_t)stream);
+int ln_qkv_mmf32(const void* x, const void* ln_g, const void* ln_b, const void* w_hi,
+                 const void* w_lo, const void* bias, void* q, void* k, void* v, int M, int C,
+                 int S, float eps, int bn, int stages, int promote, void* stream) {
+  return ln_qkv_tf32<bf16>(x, ln_g, ln_b, w_hi, w_lo, bias, q, k, v, M, C, S, eps, bn, stages,
+                           promote, stream);
 }
 
 // q f32, or bf16 (q_bf16 = 1: a global query in the activations' dtype)
@@ -279,19 +294,10 @@ int window_attention_mmf32(const void* q, const void* k, const void* v, const vo
              : (int)f32_attn::launch<f32_attn::Layout::kTokens, true, float, float, bf16>(p, s);
 }
 
-int proj_scale_residual_mmf32(const void* a, const void* wp, const void* bp, const void* gamma,
-                              const void* x, void* out, int M, int C, void* stream) {
-  f32_gemm::Params p{};
-  p.a = a;
-  p.w = (const float*)wp;
-  p.bias = (const float*)bp;
-  p.gamma = (const float*)gamma;
-  p.res = x;
-  p.out[0] = out;
-  p.M = M;
-  p.N = C;
-  p.K = C;
-  return (int)f32_gemm::launch<f32_gemm::kResidual, bf16, bf16, float>(p, (cudaStream_t)stream);
+int proj_scale_residual_mmf32(const void* a, const void* w_hi, const void* w_lo, const void* bp,
+                              const void* gamma, const void* x, void* out, int M, int C, int bn,
+                              int stages, int promote, void* stream) {
+  return proj_tf32<bf16>(a, w_hi, w_lo, bp, gamma, x, out, M, C, bn, stages, promote, stream);
 }
 
 }  // extern "C"

@@ -1,20 +1,27 @@
-// The fused blocks' f32 MLP GEMMs on the tensor cores (sm_90a): 3xTF32
-// wgmma on the engine of hopper_gemm.cuh (TMA ring under mbarriers,
-// persistent CTAs, two consumer pairs in ping-pong, setmaxnreg).
+// The fused blocks' f32 GEMMs on the tensor cores (sm_90a): 3xTF32 wgmma on
+// the engine of hopper_gemm.cuh (TMA ring under mbarriers, persistent CTAs,
+// two consumer pairs in ping-pong, setmaxnreg).
 //
 //   kind kGelu      LN(x) W1^T + b1, exact GELU             -> f32 (M, N) hidden
 //                   (ln_fc1_gelu_f32)
-//   kind kResidual  h W2^T, (+ b2) * gamma + f32 residual   -> f32 or bf16 (M, N)
-//                   (fc2_scale_residual_f32, fc2_scale_residual_mmf32)
+//   kind kResidual  a W^T, (+ b) * gamma + residual          -> f32 or bf16 (M, N)
+//                   (fc2_scale_residual_f32 / _mmf32 on the hidden; with K = N = C
+//                   proj_scale_residual_f32 / _mmf32 on the attention output,
+//                   the residual x f32 or bf16)
+//   kind kQkv       LN(x) W_qkv^T + b, split by columns     -> S f32 (M, N / S)
+//                   (ln_qkv_f32 / _mmf32: q, k, v, or k, v for a global query)
 //
-// They replace the f32 mode of the MLP dots of the TPU kernels
+// A, the activations TMA loads (x for the LN kinds, the hidden or the
+// attention output otherwise), is f32, or bf16 for the _mmf32 modes of
+// ln_qkv and proj_scale_residual (VIPTPU_GCVIT_MM=f32 on bf16 activations).
+//
+// They replace the f32 mode of the dots of the TPU kernels
 // fused_convnext_block and fused_ln_mlp_residual_batchlane
-// (vip_cup_2022_tpu/ops/pallas/convnext_block.py) and of proj_res_ln_mlp /
-// mono_window_transformer_block (ops/pallas/gcvit_block.py): with f32
-// activations every dot there takes f32 operands, so the function is the
-// f32 product. One TF32 pass (10 bits of mantissa) is not that function;
-// three are: each f32 operand v is split as hi = rna_tf32(v), lo =
-// rna_tf32(v - hi), and
+// (vip_cup_2022_tpu/ops/pallas/convnext_block.py) and of ln_dense /
+// proj_res_ln_mlp / mono_window_transformer_block (ops/pallas/gcvit_block.py):
+// with f32 operands every dot there is the f32 product. One TF32 pass (10
+// bits of mantissa) is not that function; three are: each f32 operand v is
+// split as hi = rna_tf32(v), lo = rna_tf32(v - hi), and
 //
 //   a w ~= a_lo w_hi + a_hi w_lo + a_hi w_hi
 //
@@ -22,58 +29,66 @@
 // (a_lo w_lo, about 2^-22 of a w, is dropped). hi and lo are rounded
 // explicitly (cvt.rna.tf32.f32 here, the same rounding in
 // ops/kernels/tf32.py for the weights), so nothing depends on what the
-// tensor core does with a value's low 13 bits.
+// tensor core does with a value's low 13 bits. A bf16 value is exact in
+// TF32 (8 bits of mantissa against 11), so a bf16 A without an LN has a_lo =
+// 0 and two passes, a_hi w_lo + a_hi w_hi, give the same sum.
 //
 // What bounds them on this card: the products, 3 x 2 M N K TF32 operations
-// at 495 TFLOP/s (165 TFLOP/s of f32 products, 2.46x the 67 TFLOP/s of
-// FFMA) at s2-s4 and GCViT's L2-L4; the bytes of x, the hidden and the
-// output at s1 and L1. What the design does about each:
+// at 495 TFLOP/s (165 TFLOP/s of f32 products) at s2-s4 and GCViT's L2-L4
+// MLP and qkv; the bytes of A, the residual and the output at s1, L1 and
+// for proj (K = C: 2 C products per 12 bytes an element in f32). What the
+// design does about each:
 //
 // - Weights split once: W_hi and W_lo are f32 (N, K) tensors made by the
 //   wrapper's caller (the blocks' weight cache, Int8Block.tf32_weight) and
-//   loaded by TMA beside the A tile; a stage is A (128 rows x 32 f32) +
-//   W_hi + W_lo (BN rows x 32 f32 each), 128-byte swizzle.
+//   loaded by TMA beside the A tile; a stage is A (128 rows x 32 K columns:
+//   f32 under the 128-byte swizzle, or bf16 under the 64-byte one) + W_hi +
+//   W_lo (BN rows x 32 f32 each, 128-byte swizzle).
 // - Activations split in registers: wgmma takes TF32 A from registers. The
-//   consumers read their rows of the raw f32 tile that TMA brought (x for
-//   ln_fc1_gelu, the hidden for fc2), apply (x - mean) * rstd * g + b for
-//   the LN (row statistics two-pass in f32, taken once per row tile by
-//   each warp for its own 16 rows, from device memory), split each value
-//   into hi and lo, and issue the three m64nBNk8 wgmmas. Nothing of A's
-//   split goes to shared or device memory, and no LN'd row tile stays
-//   resident (at C = 768 a 128-row tile in hi + lo would be 768 KB).
+//   consumers read their rows of the raw tile that TMA brought, widen bf16
+//   to f32, apply (x - mean) * rstd * g + b for the LN (row statistics
+//   two-pass in f32, taken once per row tile by each warp for its own 16
+//   rows, from device memory), split each value into hi and lo, and issue
+//   the m64nBNk8 wgmmas. Nothing of A's split goes to shared or device
+//   memory, and no LN'd row tile stays resident (at C = 768 a 128-row tile
+//   in hi + lo would be 768 KB).
 // - Fragment order: a thread of an m64nNk8 TF32 fragment holds rows r and
 //   r + 8 at K columns t and t + 4 (t = lane % 4). W's K columns are
 //   permuted within each 32-column tile (ops/kernels/tf32.py: tf32_weight),
-//   so that the values a thread needs for two k8 steps lie in one 16-byte
-//   chunk of its row: logical column 8 (2 p + e) + 4 h + t holds actual
-//   column 16 p + 4 t + 2 h + e. A thread then reads its A fragment as two
-//   16-byte loads a row per half tile (bank-conflict free under the
-//   swizzle), and the product is unchanged (the same permutation on both
-//   sides of every dot).
-// - Pipelining: one commit group per k8 step (its three wgmmas), waited
-//   one group behind, so a step's split runs under the previous step's
-//   products; a stage is released once its last group is done.
+//   so that the values a thread needs for two k8 steps are four consecutive
+//   columns of its row: logical column 8 (2 p + e) + 4 h + t holds actual
+//   column 16 p + 4 t + 2 h + e. A thread then reads its A fragment as one
+//   16-byte load (f32) or one 8-byte load (bf16) a row per half tile
+//   (bank-conflict free under the swizzle), and the product is unchanged
+//   (the same permutation on both sides of every dot).
+// - Pipelining: one commit group per k8 step (its wgmmas), waited one group
+//   behind, so a step's split runs under the previous step's products; a
+//   stage is released once its last group is done.
 // - Epilogues in the accumulators' layout, staged through each warp's 2 KB
 //   f32 tile so a lane holds 8 consecutive columns of a row: GELU (the
-//   engine's two-polynomial erf, <= 1 ulp of f32 erf) after + b1, stored
-//   as 32 f32 bytes a lane; fc2's (acc + b2) * gamma + residual is the
-//   engine's residual_epilogue (f32 out, or bf16 rounded once).
+//   engine's two-polynomial erf, <= 1 ulp of f32 erf) after + b1, or + b
+//   alone into the q, k or v output the column tile lies in (kQkv: the plan's
+//   column tiles divide C), stored as 32 f32 bytes a lane; (acc + b) * gamma
+//   + residual is the engine's residual_epilogue (f32 out, or bf16 rounded
+//   once).
 // - Work: items of 128 rows x BN columns, column chunk fastest, split into
 //   contiguous ranges, one per persistent CTA (so a CTA's consecutive
 //   items share a row tile: its rows stay in L2 and the LN statistics are
 //   taken once per tile), taken in turns by the two pairs; each warpgroup
 //   of a pair multiplies 64 rows.
 //
-// BN (32, 64, 96 or 128, dividing N) and the ring depth come from the caller's
-// plan (ops/kernels/convnext_block.py: tf32_gemm_plan), checked here.
-// K must be a multiple of 32 (the models' widths are), and at most 768 for
-// the LN kind (a warp holds a row in registers for its statistics).
+// BN (32, 64, 96 or 128, dividing N; for kQkv dividing C) and the ring depth
+// come from the caller's plan (ops/kernels/convnext_block.py: tf32_gemm_plan),
+// checked here. K must be a multiple of 32 (the models' widths are), and at
+// most 768 for the LN kinds (a warp holds a row in registers for its
+// statistics).
 //
 // kCut makes phase-cut instantiations for timing (csrc/f32_mlp_cuts.cu):
-// kLoads (the TMA ring and, for the LN, the statistics' reads), kProducts
-// (+ the A fragments, the split and the wgmmas), kWhole (+ the epilogue:
-// the kernel itself), kNoStores (kWhole without its stores); kPasses = 1
-// issues a_hi w_hi alone (one TF32 pass: not the function, for timing).
+// kLoads (the TMA ring and, for the LN kinds, the statistics' reads),
+// kProducts (+ the A fragments, the split and the wgmmas), kWhole (+ the
+// epilogue: the kernel itself), kNoStores (kWhole without its stores);
+// kPasses = 1 issues a_hi w_hi alone (one TF32 pass: not the function, for
+// timing).
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -93,31 +108,71 @@ using hopper_gemm::kWhole;
 using hopper_gemm::Ring;
 
 constexpr int kBM = 128;                    // rows of a work item: 64 a warpgroup
-constexpr int kBK = 32;                     // f32 per K tile: one 128-byte swizzle row
-constexpr int kRowBytes = kBK * 4;
-constexpr int kATileBytes = kBM * kRowBytes;
+constexpr int kBK = 32;                     // K columns a tile: one 128-byte swizzle row of f32
+constexpr int kRowBytes = kBK * 4;          // a W tile's row (and an f32 A tile's)
 constexpr int kMaxStages = 8;
-constexpr int kMaxLnK = 768;                // the LN kind's widest row (six float4 a lane)
+constexpr int kMaxLnK = 768;                // the LN kinds' widest row (six float4 a lane)
 
-enum Kind : int { kGelu = 0, kResidual = 1 };
+enum Kind : int { kGelu = 0, kResidual = 1, kQkv = 2 };
 
 struct Params {
-  const float* x;      // kGelu: the LN's input rows (M, K), read for the statistics
-  const float* ln_g;   // (K,) LN weight and bias (kGelu)
+  const void* x;       // the LN kinds: their input rows (M, K) in TA, read for the statistics
+  const float* ln_g;   // (K,) LN weight and bias (kGelu, kQkv)
   const float* ln_b;
   const float* bias;   // (N,)
   const float* gamma;  // (N,) (kResidual)
-  const float* res;    // (M, N) f32 residual (kResidual)
-  void* out;           // (M, N): f32 (kGelu), OutT (kResidual)
+  const void* res;     // (M, N) ResT residual (kResidual)
+  void* out;           // (M, N): f32 (kGelu), OutT (kResidual); kQkv: the first (M, split) output
   int M, N, K, stages;
   float eps;
+  void* out1;          // kQkv: the second and third (M, split) outputs (N = 2 or 3 split)
+  void* out2;
+  int split;           // kQkv: the width of one output (C)
 };
 
-__host__ __device__ constexpr int stage_bytes(int bn) { return kATileBytes + 2 * bn * kRowBytes; }
+// an A tile's row: 32 K columns of TA (128 bytes of f32, 64 of bf16)
+__host__ __device__ constexpr int a_row_bytes(int a_bytes) { return kBK * a_bytes; }
+__host__ __device__ constexpr int a_tile_bytes(int a_bytes) { return kBM * a_row_bytes(a_bytes); }
 
-inline size_t smem_bytes(int bn, int stages) {
+__host__ __device__ constexpr int stage_bytes(int bn, int a_bytes) {
+  return a_tile_bytes(a_bytes) + 2 * bn * kRowBytes;
+}
+
+inline size_t smem_bytes(int bn, int stages, int a_bytes) {
   return hopper_gemm::kBarrierBytes(stages) + kAlign + kConsumers * 4 * kResEpilogueBytes +
-         (size_t)stages * stage_bytes(bn);
+         (size_t)stages * stage_bytes(bn, a_bytes);
+}
+
+// four consecutive values of TA from device memory, as f32
+__device__ __forceinline__ float4 widen4(uint2 u) {  // bf16 x 4 -> f32 x 4 (exact)
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+// a lane's four consecutive A values of half tile p (actual columns 16 p + 4 t
+// ... + 3) in the row at byte `row` of a stage's A tile, as TMA swizzled it:
+// f32 rows are 128 bytes under the 128-byte swizzle (16-byte chunk 4 p + t,
+// XOR the row's r % 8), bf16 rows 64 bytes under the 64-byte swizzle (chunk
+// 2 p + t / 2, XOR (r / 2) % 4, half 8 (t % 2)); `sw` is that XOR of the row
+template <typename TA>
+__device__ __forceinline__ float4 a_quad(const uint8_t* row, int p, int t, int sw) {
+  if constexpr (sizeof(TA) == 4) {
+    return *reinterpret_cast<const float4*>(row + (((4 * p + t) ^ sw) << 4));
+  } else {
+    return widen4(*reinterpret_cast<const uint2*>(row + (((2 * p + (t >> 1)) ^ sw) << 4) +
+                                                  8 * (t & 1)));
+  }
+}
+
+template <typename TA>
+__device__ __forceinline__ int a_swizzle(int r) {
+  return sizeof(TA) == 4 ? (r & 7) : ((r >> 1) & 3);
 }
 
 // m64nNk8 tf32 x tf32 -> f32: A from registers (a thread's rows lane / 4 and
@@ -240,8 +295,8 @@ __device__ __forceinline__ float4 ln4(const float4& v, float mean, float rstd, c
 // 32 x 4 CV), two rows in flight, each read once into registers; lane l
 // keeps those of rows l / 4 (m0, s0) and l / 4 + 8 (m1, s1), the rows of its
 // A fragment. Rows past M get mean 0 (their products are never stored).
-template <int CV, int kCut>
-__device__ __forceinline__ void row_stats(const float* __restrict__ x, long long row0, int M,
+template <int CV, int kCut, typename TA>
+__device__ __forceinline__ void row_stats(const TA* __restrict__ x, long long row0, int M,
                                           int K, float eps, int lane, float& m0, float& s0,
                                           float& m1, float& s1) {
   const float inv_k = 1.0f / (float)K;
@@ -253,8 +308,7 @@ __device__ __forceinline__ void row_stats(const float* __restrict__ x, long long
 #pragma unroll
       for (int j = 0; j < CV; ++j) {
         const int c = 4 * (lane + 32 * j);
-        v[h][j] = row < M && c < K ? __ldg(reinterpret_cast<const float4*>(x + row * K + c))
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[h][j] = row < M && c < K ? ldg4(x + row * K + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
 #pragma unroll
@@ -315,7 +369,7 @@ __device__ __forceinline__ T& pick(T& a, T& b) {
   else return b;
 }
 
-template <int BN, int kKind, int kCut, int kPasses, bool kPromote>
+template <int BN, int kKind, int kCut, int kPasses, bool kPromote, typename TA>
 __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], const Ring& ring, int KT,
                                          long long q, int pair, int half, int warp, int lane,
                                          const float* __restrict__ ln_g,
@@ -326,6 +380,9 @@ __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], const Ring& ring,
   using hopper_gemm::mbar_arrive;
   using hopper_gemm::mbar_wait;
   static_assert(!kPromote || BN <= 64, "two accumulator tiles fit the registers up to BN = 64");
+  // a bf16 A taken as it is (no LN) is exact in TF32: a_lo = 0, two passes
+  constexpr bool kExactA = sizeof(TA) == 2 && kKind == kResidual;
+  constexpr int kARow = a_row_bytes(sizeof(TA)), kATile = a_tile_bytes(sizeof(TA));
   float tc_tile[BN / 2];  // the wgmmas' tile with kPromote (unused, and dropped, without)
   float (&tc)[BN / 2] = pick<kPromote>(tc_tile, acc);
   if constexpr (kCut >= kProducts) {
@@ -335,8 +392,8 @@ __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], const Ring& ring,
   }
   if (q > 0) mbar_wait(&ring.order[pair ^ 1], (int)(((q - 1) >> 1) & 1));
   const int t = lane & 3, r0 = 16 * warp + (lane >> 2);  // this lane's first row of the 64
-  const int a_row = (half * 64 + r0) * kRowBytes;
-  const int sw = r0 & 7;  // the swizzle's XOR for rows r0 and r0 + 8
+  const int a_row = (half * 64 + r0) * kARow;
+  const int sw = a_swizzle<TA>(r0);  // the swizzle's XOR for rows r0 and r0 + 8
   const long long g0 = q * KT;
   int prev = -1;
   for (int kt = 0; kt < KT; ++kt) {
@@ -346,15 +403,14 @@ __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], const Ring& ring,
     if (kt == KT - 1 && lane == 0) mbar_arrive(&ring.order[pair]);
     if constexpr (kCut >= kProducts) {
       const uint8_t* stage = ring.base + (size_t)s * ring.stage_bytes;
-      const uint32_t whi = hopper_gemm::smem_u32(stage) + kATileBytes;
+      const uint32_t whi = hopper_gemm::smem_u32(stage) + kATile;
       const uint32_t wlo = whi + BN * kRowBytes;
       const bool chunk_start = kPromote && kt % kPromoteTiles == 0;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {  // half tiles: k8 steps 2p and 2p + 1
-        const int chunk = ((4 * p + t) ^ sw) << 4;
-        float4 v0 = *reinterpret_cast<const float4*>(stage + a_row + chunk);
-        float4 v1 = *reinterpret_cast<const float4*>(stage + a_row + 8 * kRowBytes + chunk);
-        if constexpr (kKind == kGelu) {
+        float4 v0 = a_quad<TA>(stage + a_row, p, t, sw);
+        float4 v1 = a_quad<TA>(stage + a_row + 8 * kARow, p, t, sw);
+        if constexpr (kKind != kResidual) {  // the LN kinds
           const int col = kt * kBK + 16 * p + 4 * t;
           const float4 gv = __ldg(reinterpret_cast<const float4*>(ln_g + col));
           const float4 bv = __ldg(reinterpret_cast<const float4*>(ln_b + col));
@@ -366,14 +422,24 @@ __device__ __forceinline__ void mainloop(float (&acc)[BN / 2], const Ring& ring,
         for (int e = 0; e < 2; ++e) {
           const int kk = 2 * p + e;
           uint32_t hi[4], lo[4];  // rows r0, r0 + 8 at logical columns t, then t + 4
-          split(x0[e], hi[0], lo[0]);
-          split(x1[e], hi[1], lo[1]);
-          split(x0[2 + e], hi[2], lo[2]);
-          split(x1[2 + e], hi[3], lo[3]);
+          if constexpr (kExactA) {
+            hi[0] = __float_as_uint(x0[e]);
+            hi[1] = __float_as_uint(x1[e]);
+            hi[2] = __float_as_uint(x0[2 + e]);
+            hi[3] = __float_as_uint(x1[2 + e]);
+          } else {
+            split(x0[e], hi[0], lo[0]);
+            split(x1[e], hi[1], lo[1]);
+            split(x0[2 + e], hi[2], lo[2]);
+            split(x1[2 + e], hi[3], lo[3]);
+          }
           const uint64_t dh = desc_sw128(whi + kk * 32), dl = desc_sw128(wlo + kk * 32);
           const int first = chunk_start && kk == 0 ? 0 : 1;  // 0: the chunk's first overwrites
           hopper_gemm::wgmma_fence();
-          if constexpr (kPasses == 3) {
+          if constexpr (kPasses == 3 && kExactA) {  // a_lo w_hi is exactly zero
+            WgmmaTf32<BN>::mma(tc, hi, dl, first);
+            WgmmaTf32<BN>::mma(tc, hi, dh, 1);
+          } else if constexpr (kPasses == 3) {
             WgmmaTf32<BN>::mma(tc, lo, dh, first);
             WgmmaTf32<BN>::mma(tc, hi, dl, 1);
             WgmmaTf32<BN>::mma(tc, hi, dh, 1);
@@ -452,12 +518,16 @@ __device__ __forceinline__ void staged_epilogue(float (&acc)[BN / 2], long long 
 }
 
 // OutT: the output of kResidual (f32, or bf16 for fc2_scale_residual_mmf32);
-// kGelu writes f32.
-template <int BN, int kKind, int kCut, typename OutT, int kPasses, bool kPromote>
+// kGelu and kQkv write f32. TA: A's type (f32, or bf16 for the _mmf32 modes
+// of ln_qkv and proj_scale_residual); ResT: kResidual's residual (f32, or
+// bf16 for proj_scale_residual_mmf32's x).
+template <int BN, int kKind, int kCut, typename OutT, int kPasses, bool kPromote, typename TA,
+          typename ResT>
 __global__ void __launch_bounds__(kThreads, 1)
 tf32_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap whi_map,
             const __grid_constant__ CUtensorMap wlo_map, const Params p) {
-  static_assert(kKind == kResidual || sizeof(OutT) == 4, "the hidden is f32");
+  static_assert(kKind == kResidual || sizeof(OutT) == 4, "the hidden and q, k, v are f32");
+  constexpr int kStage = stage_bytes(BN, sizeof(TA)), kATile = a_tile_bytes(sizeof(TA));
   extern __shared__ __align__(1024) uint8_t smem[];
   const int KT = p.K / kBK, NC = p.N / BN;
   const long long items = (long long)hopper_gemm::ceil_div(p.M, kBM) * NC;
@@ -468,8 +538,8 @@ tf32_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   hopper_gemm::init_ring(ring, smem, p.stages);
   uint8_t* staging_base = hopper_gemm::aligned_base(smem, p.stages);  // each consumer warp's 2 KB
   ring.base = staging_base + kConsumers * 4 * kResEpilogueBytes;
-  ring.stage_bytes = stage_bytes(BN);
-  ring.b_offset = kATileBytes;
+  ring.stage_bytes = kStage;
+  ring.b_offset = kATile;
   ring.stages = p.stages;
   __syncthreads();
 
@@ -478,18 +548,17 @@ tf32_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   if (wg == kConsumers) {  // producer warpgroup: one thread issues every TMA load
     hopper_gemm::reg_dealloc<hopper_gemm::kProducerRegs>();
     if (threadIdx.x == kConsumers * kWarpgroup) {
-      const uint32_t bytes = stage_bytes(BN);
       long long g = 0;
       for (long long i = first; i < last; ++i) {
         const int row0 = (int)(i / NC) * kBM, col0 = (int)(i % NC) * BN;
         for (int kt = 0; kt < KT; ++kt, ++g) {
           const int s = (int)(g % p.stages);
           hopper_gemm::mbar_wait(&ring.empty[s], (int)(((g / p.stages) & 1) ^ 1));
-          hopper_gemm::mbar_expect_tx(&ring.full[s], bytes);
+          hopper_gemm::mbar_expect_tx(&ring.full[s], kStage);
           uint8_t* stage = ring.base + (size_t)s * ring.stage_bytes;
           hopper_gemm::tma_load(stage, &a_map, &ring.full[s], kt * kBK, row0);
-          hopper_gemm::tma_load(stage + kATileBytes, &whi_map, &ring.full[s], kt * kBK, col0);
-          hopper_gemm::tma_load(stage + kATileBytes + BN * kRowBytes, &wlo_map, &ring.full[s],
+          hopper_gemm::tma_load(stage + kATile, &whi_map, &ring.full[s], kt * kBK, col0);
+          hopper_gemm::tma_load(stage + kATile + BN * kRowBytes, &wlo_map, &ring.full[s],
                                 kt * kBK, col0);
         }
       }
@@ -509,12 +578,13 @@ tf32_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
       const long long tile = i / NC;
       const int col0 = (int)(i % NC) * BN;
       const long long row0 = tile * kBM + half * 64;  // this warpgroup's rows
-      if constexpr (kKind == kGelu) {
+      if constexpr (kKind != kResidual) {  // the LN kinds
         if (tile != stats_tile) {  // the warp's 16 rows of the new row tile
+          const TA* x = static_cast<const TA*>(p.x);
           switch (cv) {
 #define STATS_CASE(V)                                                                    \
   case V:                                                                                \
-    row_stats<V, kCut>(p.x, row0 + 16 * warp, p.M, p.K, p.eps, lane, m0, s0, m1, s1);   \
+    row_stats<V, kCut>(x, row0 + 16 * warp, p.M, p.K, p.eps, lane, m0, s0, m1, s1);     \
     break;
             STATS_CASE(1) STATS_CASE(2) STATS_CASE(3) STATS_CASE(4) STATS_CASE(5) STATS_CASE(6)
 #undef STATS_CASE
@@ -523,8 +593,8 @@ tf32_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
           stats_tile = tile;
         }
       }
-      mainloop<BN, kKind, kCut, kPasses, kPromote>(acc, ring, KT, q, pair, half, warp, lane,
-                                                   p.ln_g, p.ln_b, m0, s0, m1, s1);
+      mainloop<BN, kKind, kCut, kPasses, kPromote, TA>(acc, ring, KT, q, pair, half, warp, lane,
+                                                       p.ln_g, p.ln_b, m0, s0, m1, s1);
       if constexpr (kCut >= kWhole) {
         const int N = p.N, M = p.M;
         const float* bias = p.bias;
@@ -536,10 +606,22 @@ tf32_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
                 a = hopper_gemm::gelu_erf(a + bv.x);
                 b = hopper_gemm::gelu_erf(b + bv.y);
               });
+        } else if constexpr (kKind == kQkv) {  // the item's columns lie in one output
+          const int S = p.split, part = col0 / S, lc = col0 - part * S;
+          float* out = static_cast<float*>(part == 0 ? p.out : part == 1 ? p.out1 : p.out2);
+          const float* b_part = bias + part * S;
+          staged_epilogue<BN, kCut != kNoStores>(
+              acc, row0, lc, M, S, warp, lane, staging, out, S,
+              [&](float& a, float& b, int n) {
+                const float2 bv = n < S ? hopper_gemm::load_pair(b_part + n) : make_float2(0.f, 0.f);
+                a += bv.x;
+                b += bv.y;
+              });
         } else {
           const float* gamma = p.gamma;
           hopper_gemm::residual_epilogue<BN, kCut != kNoStores>(
-              acc, row0, col0, M, N, warp, lane, staging, p.res, static_cast<OutT*>(p.out), N,
+              acc, row0, col0, M, N, warp, lane, staging, static_cast<const ResT*>(p.res),
+              static_cast<OutT*>(p.out), N,
               [&](float& a, float& b, int n) {
                 const float2 bv = n < N ? hopper_gemm::load_pair(bias + n) : make_float2(0.f, 0.f);
                 const float2 gv = n < N ? hopper_gemm::load_pair(gamma + n) : make_float2(0.f, 0.f);
@@ -554,58 +636,92 @@ tf32_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   }
 }
 
-template <int BN, int kKind, int kCut, typename OutT, int kPasses, bool kPromote>
+// A's tensor map: f32 rows in boxes of 128 rows x 32 columns (128 bytes) under
+// the 128-byte swizzle, bf16 rows in boxes of 128 x 32 (64 bytes) under the
+// 64-byte one (the swizzle's span is a box row; a_quad reads both)
+template <typename TA>
+inline bool make_a_map(CUtensorMap* map, const void* a, int M, int K) {
+  if constexpr (sizeof(TA) == 4) {
+    return hopper_gemm::make_map(map, a, M, K, kBM, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4);
+  } else {
+    const hopper_gemm::EncodeTiledFn fn = hopper_gemm::encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)kBM};
+    const cuuint32_t elem[2] = {1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a), dims, strides, box,
+              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
+}
+
+template <int BN, int kKind, int kCut, typename OutT, int kPasses, bool kPromote, typename TA,
+          typename ResT>
 cudaError_t launch_bn(const Params& p, const void* a, const void* w_hi, const void* w_lo,
                       cudaStream_t stream) {
   static hopper_gemm::SmemGrant grant;
   if (p.K <= 0 || p.K % kBK || p.N <= 0 || p.N % BN || p.stages < 2 || p.stages > kMaxStages)
     return cudaErrorInvalidValue;
-  if (kKind == kGelu && (p.K > kMaxLnK || !p.x || !p.ln_g || !p.ln_b)) return cudaErrorInvalidValue;
+  if (kKind != kResidual && (p.K > kMaxLnK || !p.x || !p.ln_g || !p.ln_b))
+    return cudaErrorInvalidValue;
   if (kKind == kResidual && (!p.gamma || !p.res)) return cudaErrorInvalidValue;
-  if ((size_t)stage_bytes(BN) > hopper_gemm::kMaxTxBytes) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(BN, p.stages);
+  if (kKind == kQkv) {  // S = 2 or 3 outputs of `split` columns, each a whole number of tiles
+    const int S = p.split > 0 ? p.N / p.split : 0;
+    if (p.split <= 0 || p.split % BN || S * p.split != p.N || S < 2 || S > 3 || !p.out ||
+        !p.out1 || (S == 3 && !p.out2))
+      return cudaErrorInvalidValue;
+  }
+  constexpr int kStage = stage_bytes(BN, sizeof(TA));
+  if ((size_t)kStage > hopper_gemm::kMaxTxBytes) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(BN, p.stages, sizeof(TA));
   if (smem > hopper_gemm::kSmemLimit) return cudaErrorInvalidValue;
   CUtensorMap a_map, whi_map, wlo_map;
   constexpr CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  if (!hopper_gemm::make_map(&a_map, a, p.M, p.K, kBM, f32, 4) ||
+  if (!make_a_map<TA>(&a_map, a, p.M, p.K) ||
       !hopper_gemm::make_map(&whi_map, w_hi, p.N, p.K, BN, f32, 4) ||
       !hopper_gemm::make_map(&wlo_map, w_lo, p.N, p.K, BN, f32, 4))
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = hopper_gemm::sm_count(&dev, &sms);
   if (err != cudaSuccess) return err;
-  const void* kernel = (const void*)tf32_kernel<BN, kKind, kCut, OutT, kPasses, kPromote>;
+  const void* kernel = (const void*)tf32_kernel<BN, kKind, kCut, OutT, kPasses, kPromote, TA, ResT>;
   err = hopper_gemm::grant_smem(kernel, smem, grant, dev);
   if (err != cudaSuccess) return err;
   const long long items = (long long)hopper_gemm::ceil_div(p.M, kBM) * (p.N / BN);
   const int grid = items < sms ? (int)items : sms;
-  tf32_kernel<BN, kKind, kCut, OutT, kPasses, kPromote>
+  tf32_kernel<BN, kKind, kCut, OutT, kPasses, kPromote, TA, ResT>
       <<<grid, kThreads, smem, stream>>>(a_map, whi_map, wlo_map, p);
   return cudaGetLastError();
 }
 
-// a: x (kGelu) or the hidden (kResidual), f32 (M, K); w_hi, w_lo: f32 (N, K),
-// split and K-permuted (ops/kernels/tf32.py: tf32_weight); bn: 32, 64, 96 or
-// 128, with `promote` (chunked sums, the plan's choice for K > 384) 32 or 64
-template <int kKind, int kCut, typename OutT = float, int kPasses = 3>
+// a: x (the LN kinds), the hidden or the attention output (kResidual), TA (M,
+// K); w_hi, w_lo: f32 (N, K), split and K-permuted (ops/kernels/tf32.py:
+// tf32_weight); bn: 32, 64, 96 or 128, with `promote` (chunked sums, the
+// plan's choice for K > 384) 32 or 64
+template <int kKind, int kCut, typename OutT = float, int kPasses = 3, typename TA = float,
+          typename ResT = float>
 cudaError_t launch(const Params& p, const void* a, const void* w_hi, const void* w_lo, int bn,
                    int promote, cudaStream_t stream) {
   if (p.M == 0) return cudaSuccess;
   if (p.M < 0) return cudaErrorInvalidValue;
+#define TF32_BN(B, PROMOTE) \
+  launch_bn<B, kKind, kCut, OutT, kPasses, PROMOTE, TA, ResT>(p, a, w_hi, w_lo, stream)
   if (promote) {
     switch (bn) {
-      case 32: return launch_bn<32, kKind, kCut, OutT, kPasses, true>(p, a, w_hi, w_lo, stream);
-      case 64: return launch_bn<64, kKind, kCut, OutT, kPasses, true>(p, a, w_hi, w_lo, stream);
+      case 32: return TF32_BN(32, true);
+      case 64: return TF32_BN(64, true);
       default: return cudaErrorInvalidValue;
     }
   }
   switch (bn) {
-    case 32: return launch_bn<32, kKind, kCut, OutT, kPasses, false>(p, a, w_hi, w_lo, stream);
-    case 64: return launch_bn<64, kKind, kCut, OutT, kPasses, false>(p, a, w_hi, w_lo, stream);
-    case 96: return launch_bn<96, kKind, kCut, OutT, kPasses, false>(p, a, w_hi, w_lo, stream);
-    case 128: return launch_bn<128, kKind, kCut, OutT, kPasses, false>(p, a, w_hi, w_lo, stream);
+    case 32: return TF32_BN(32, false);
+    case 64: return TF32_BN(64, false);
+    case 96: return TF32_BN(96, false);
+    case 128: return TF32_BN(128, false);
     default: return cudaErrorInvalidValue;
   }
+#undef TF32_BN
 }
 
 }  // namespace tf32_gemm

@@ -260,9 +260,9 @@ class GCViTBlock(nn.Module, dyn_int8.Int8Block):
                 gamma2=self.gamma2, scale=a.scale, eps=EPS, mm_dtype=mm)
         w = self.mm_weights(mm)
         splits = {}
-        if mm == torch.float32 and x.device.type != "cpu":  # the 3xTF32 MLP's weight pairs
-            splits = dict(w1_split=self.tf32_weight("mlp.fc1"),
-                          w2_split=self.tf32_weight("mlp.fc2"))
+        if mm == torch.float32 and x.device.type != "cpu":  # the 3xTF32 GEMMs' weight pairs
+            splits = {f"{key}_split": self.tf32_weight(name) for key, name in (
+                ("wqkv", "attn.qkv"), ("wp", "attn.proj"), ("w1", "mlp.fc1"), ("w2", "mlp.fc2"))}
         return window_transformer_block(
             x, q_global, n=self.window * self.window,
             ln1_weight=self.norm1.weight, ln1_bias=self.norm1.bias,

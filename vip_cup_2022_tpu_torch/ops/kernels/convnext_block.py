@@ -51,9 +51,11 @@ activations and cast W1 and W2 to them) is three more kernels on f32 rows:
 3xTF32 wgmma on the engine above, the activations split in registers, the
 weights split once into a :class:`.tf32.Tf32Weight` pair that the caller
 passes as ``w_split`` or the wrapper makes; :func:`tf32_gemm_plan` picks the
-column tile and ring depth). A wrapper picks its kernel by dtype: the
-depthwise by x's, the two GEMMs by the weight's (``ln_fc1_gelu`` takes f32 x
-in a bf16 block too: the depthwise sum, GCViT's r1).
+column tile and ring depth; also for GCViT's ``ln_qkv_f32`` and
+``proj_scale_residual_f32`` and their ``_mmf32`` modes, kinds "qkv" and
+"proj"). A wrapper picks its kernel by dtype: the depthwise by x's, the two
+GEMMs by the weight's (``ln_fc1_gelu`` takes f32 x in a bf16 block too: the
+depthwise sum, GCViT's r1).
 
 GCViT's MLP half in the mixed modes of ``VIPTPU_GCVIT_MM`` (:mod:`.gcvit_block`)
 adds two fc2 kernels, picked by ``out_dtype``: ``fc2_scale_residual_mmbf16``
@@ -62,9 +64,8 @@ adds two fc2 kernels, picked by ``out_dtype``: ``fc2_scale_residual_mmbf16``
 f32 GEMMs: the 3xTF32 kernel with a bf16 output); ``ln_fc1_gelu`` takes the
 GEMM dtype as ``mm_dtype``.
 
-The FFMA kernels these replaced (``csrc/f32_gemm.cuh``'s register-blocked
-SGEMM) stay in ``csrc/f32_mlp_cuts.cu`` beside the new kernel's phase cuts,
-for ``tools/exp_f32_mlp.py``: off the model path, uncounted.
+The 3xTF32 kernels' phase cuts (``csrc/f32_mlp_cuts.cu``, :func:`tf32_mlp_cut`)
+are for ``tools/exp_f32_mlp.py``: off the model path, uncounted.
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -110,9 +111,7 @@ _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type
 }
 _DW_CUT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # csrc/dwconv_cuts.cu
 _F32_CUT_SIGNATURES = {  # csrc/f32_mlp_cuts.cu
-    "ffma_ln_fc1_gelu": [_P] * 6 + [_I, _I, _I, _F, _P],
-    "ffma_fc2_scale_residual": [_P] * 6 + [_I, _I, _I, _I, _P],  # + bf16 output
-    # kind (0 gelu, 1 residual), cut, passes, then as the kernels (+ bf16 output)
+    # kind (0 gelu, 1 residual, 2 qkv), cut, passes, then as the kernels (+ bf16 output)
     "tf32_mlp_cut": [_I, _I, _I] + [_P] * 9 + [_I, _I, _I, _F] + [_I] * 4 + [_P],
 }
 
@@ -229,7 +228,7 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the f32 MLP GEMMs' plan (csrc/tf32_gemm.cuh checks it)
+# the f32 GEMMs' plan (csrc/tf32_gemm.cuh checks it)
 # ---------------------------------------------------------------------------
 TF32_BK = 32  # f32 per K tile: one 128-byte swizzle row
 TF32_WIDTHS = (128, 96, 64, 32)  # column tiles (wgmma n) the 3xTF32 kernels are built for
@@ -241,39 +240,57 @@ TF32_MAX_LN_K = 768  # the LN kind's widest row: a warp holds it in registers fo
 # costs registers: column tiles of at most 64.
 TF32_PROMOTE_K = 384
 TF32_PROMOTE_WIDTHS = (64, 32)
+TF32_KINDS = ("gelu", "res", "qkv", "proj")
 
 
-def tf32_gemm_plan(kind: str, k: int, n: int) -> dict:
+def tf32_gemm_plan(kind: str, k: int, n: int, a_bytes: int = 4) -> dict:
     """Tiles of one launch of ``csrc/tf32_gemm.cuh``: ``kind`` "gelu"
-    (``ln_fc1_gelu_f32`` on x (M, k) -> the (M, n) hidden) or "res"
-    (``fc2_scale_residual_f32`` / ``_mmf32`` on a hidden (M, k) -> (M, n)).
-    Keys: ``bm`` rows a work item (64 for each warpgroup of a consumer pair),
+    (``ln_fc1_gelu_f32`` on x (M, k) -> the (M, n) hidden), "res"
+    (``fc2_scale_residual_f32`` / ``_mmf32`` on a hidden (M, k) -> (M, n)),
+    "qkv" (``ln_qkv_f32`` / ``_mmf32`` of :mod:`.gcvit_block` on x (M, k = C)
+    -> n = 2C or 3C columns split into (M, C) outputs: column tiles dividing
+    C, so that each lies in one output) or "proj"
+    (``proj_scale_residual_f32`` / ``_mmf32``: the "res" kernel with n = k =
+    C). ``a_bytes``: A's element, 4 (f32) or 2 (bf16 x or attention output,
+    the "qkv" and "proj" ``_mmf32`` modes: a 64-byte A row a K tile). Keys:
+    ``bm`` rows a work item (64 for each warpgroup of a consumer pair),
     ``bn`` its columns (the widest of :data:`TF32_WIDTHS`, or with
-    ``promote`` of :data:`TF32_PROMOTE_WIDTHS`, dividing n), ``bk`` f32 a K
-    tile, ``promote`` (K > :data:`TF32_PROMOTE_K`: K summed in chunks of two
-    tiles, each added to the accumulator rounded to nearest), ``stages`` of
-    the TMA ring (each stage an A tile and the W_hi and W_lo tiles:
-    ``stage`` bytes), ``swizzle``, ``ctas_per_sm`` and ``smem`` bytes
-    (barriers, alignment, the 16 consumer warps' 2 KB f32 staging, the
-    ring). Independent of M: the launcher sizes the persistent grid."""
-    if kind not in ("gelu", "res"):
-        raise ValueError(f"kind must be 'gelu' or 'res', got {kind!r}")
+    ``promote`` of :data:`TF32_PROMOTE_WIDTHS`, dividing n, for "qkv"
+    dividing C), ``bk`` K columns a tile, ``promote`` (K >
+    :data:`TF32_PROMOTE_K`: K summed in chunks of two tiles, each added to
+    the accumulator rounded to nearest), ``stages`` of the TMA ring (each
+    stage an A tile and the W_hi and W_lo tiles: ``stage`` bytes), ``swizzle``
+    (A's; W's is 128), ``ctas_per_sm`` and ``smem`` bytes (barriers,
+    alignment, the 16 consumer warps' 2 KB f32 staging, the ring).
+    Independent of M: the launcher sizes the persistent grid."""
+    if kind not in TF32_KINDS:
+        raise ValueError(f"kind must be one of {TF32_KINDS}, got {kind!r}")
+    if a_bytes not in (4, 2) or (a_bytes == 2 and kind not in ("qkv", "proj")):
+        raise ValueError(f"the {kind!r} kernels take no {a_bytes}-byte A")
     if k <= 0 or n <= 0 or k % TF32_BK or n % 32:
         raise ValueError(f"K = {k} must be a multiple of {TF32_BK} and N = {n} of 32")
-    if kind == "gelu" and k > TF32_MAX_LN_K:
-        raise ValueError(f"the LN kind takes K <= {TF32_MAX_LN_K}, got {k}")
+    if kind in ("gelu", "qkv") and k > TF32_MAX_LN_K:
+        raise ValueError(f"the LN kinds take K <= {TF32_MAX_LN_K}, got {k}")
+    if kind == "qkv" and n not in (2 * k, 3 * k):
+        raise ValueError(f"ln_qkv's width {n} is not 2 or 3 x C = {k}")
+    if kind == "proj" and n != k:
+        raise ValueError(f"proj_scale_residual's N = {n} is not K = C = {k}")
     promote = k > TF32_PROMOTE_K
-    bn = next(w for w in (TF32_PROMOTE_WIDTHS if promote else TF32_WIDTHS) if n % w == 0)
-    stage = BM * 4 * TF32_BK + 2 * bn * 4 * TF32_BK
+    tile_of = k if kind == "qkv" else n  # the width a column tile divides
+    bn = next((w for w in (TF32_PROMOTE_WIDTHS if promote else TF32_WIDTHS) if tile_of % w == 0),
+              None)
+    if bn is None:
+        raise ValueError(f"no column tile divides {tile_of}")
+    stage = BM * a_bytes * TF32_BK + 2 * bn * 4 * TF32_BK
     stages = _stages_that_fit(EPILOGUE_BYTES["res"], stage, MAX_RING)
     smem = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + stages * stage
     return dict(kind=kind, bm=BM, bn=bn, bk=TF32_BK, promote=promote, stages=stages,
-                stage=stage, smem=smem, swizzle=128, ctas_per_sm=1)
+                stage=stage, smem=smem, swizzle=128 if a_bytes == 4 else 64, ctas_per_sm=1)
 
 
 @functools.lru_cache(maxsize=None)
-def _tf32_plan_args(kind: str, k: int, n: int) -> tuple:
-    p = tf32_gemm_plan(kind, k, n)
+def _tf32_plan_args(kind: str, k: int, n: int, a_bytes: int = 4) -> tuple:
+    p = tf32_gemm_plan(kind, k, n, a_bytes)
     return p["bn"], p["stages"], int(p["promote"])
 
 
@@ -618,12 +635,17 @@ def fc2_scale_residual_cut(hidden, w2, b2, gamma, residual, cut: int) -> torch.T
 TF32_CUTS = {"loads": (0, 3), "products_1pass": (2, 1), "products": (2, 3), "no_stores": (5, 3)}
 
 
+_TF32_CUT_KIND = {"gelu": 0, "res": 1, "proj": 1, "qkv": 2}  # the cut launcher's kinds
+
+
 def tf32_mlp_cut(kind: str, cut: str, a, w_split: Tf32Weight, bias, *, ln_weight=None,
                  ln_bias=None, eps: float = 0.0, gamma=None, residual=None,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A phase cut (:data:`TF32_CUTS`) of ``ln_fc1_gelu_f32`` (``kind``
-    "gelu": a = x) or ``fc2_scale_residual_f32`` / ``_mmf32`` ("res": a =
-    the hidden, ``out_dtype`` f32 or bf16) on CUDA tensors, on the model's
+    "gelu": a = x), ``fc2_scale_residual_f32`` / ``_mmf32`` ("res": a = the
+    hidden, ``out_dtype`` f32 or bf16), ``ln_qkv_f32`` ("qkv": a = x, w_split
+    the (S C, C) pair) or ``proj_scale_residual_f32`` ("proj": a = the
+    attention output, the residual x) on f32 CUDA tensors, on the model's
     plan (``csrc/f32_mlp_cuts.cu``). Timing only: its output holds nothing
     meaningful; never counted in :data:`LAUNCHES`."""
     which, passes = TF32_CUTS[cut]
@@ -632,42 +654,12 @@ def tf32_mlp_cut(kind: str, cut: str, a, w_split: Tf32Weight, bias, *, ln_weight
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _f32_cut_lib().tf32_mlp_cut(
-        0 if kind == "gelu" else 1, which, passes, a.data_ptr(), ptr(ln_weight), ptr(ln_bias),
+        _TF32_CUT_KIND[kind], which, passes, a.data_ptr(), ptr(ln_weight), ptr(ln_bias),
         w_split.hi.data_ptr(), w_split.lo.data_ptr(), bias.data_ptr(), ptr(gamma), ptr(residual),
         out.data_ptr(), m, k, n, float(eps), *_tf32_plan_args(kind, k, n),
         int(out_dtype == torch.bfloat16), _stream(a.device))
     if err != 0:
         raise RuntimeError(f"tf32 {kind} cut {cut}: CUDA launch failed with cudaError {err}")
-    return out
-
-
-def ffma_ln_fc1_gelu(x, ln_weight, ln_bias, w1, b1, eps: float) -> torch.Tensor:
-    """The FFMA ``ln_fc1_gelu_f32`` that the 3xTF32 kernel replaced
-    (``csrc/f32_gemm.cuh``, kind kGelu; ``csrc/f32_mlp_cuts.cu``), on CUDA
-    tensors: the before of ``tools/exp_f32_mlp.py``; never counted."""
-    m, c = x.shape
-    n = w1.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = _f32_cut_lib().ffma_ln_fc1_gelu(x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
-                                          w1.data_ptr(), b1.data_ptr(), out.data_ptr(), m, c, n,
-                                          float(eps), _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"ffma_ln_fc1_gelu: CUDA launch failed with cudaError {err}")
-    return out
-
-
-def ffma_fc2_scale_residual(hidden, w2, b2, gamma, residual,
-                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The FFMA ``fc2_scale_residual_f32`` (f32 out) or ``_mmf32`` (bf16
-    out) that the 3xTF32 kernel replaced (kind kResidual), on CUDA tensors."""
-    m, n = hidden.shape
-    c = w2.shape[0]
-    out = torch.empty((m, c), dtype=out_dtype, device=hidden.device)
-    err = _f32_cut_lib().ffma_fc2_scale_residual(
-        hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), residual.data_ptr(),
-        out.data_ptr(), m, n, c, int(out_dtype == torch.bfloat16), _stream(hidden.device))
-    if err != 0:
-        raise RuntimeError(f"ffma_fc2_scale_residual: CUDA launch failed with cudaError {err}")
     return out
 
 

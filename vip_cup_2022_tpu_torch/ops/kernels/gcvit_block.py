@@ -49,13 +49,16 @@ VMEM.
 
 The f32 mode (``VIPTPU_DTYPE=float32``: the TPU kernels' GEMM dtype follows
 x's) is the same five launches on f32 kernels: ``ln_qkv_f32`` and
-``proj_scale_residual_f32`` on the f32 GEMM of ``csrc/f32_gemm.cuh``
-(FFMA on the CUDA cores: the tensor cores take f32 only as TF32),
+``proj_scale_residual_f32`` on the 3xTF32 wgmma engine of
+``csrc/tf32_gemm.cuh`` (kinds kQkv and kResidual with K = C: the f32
+product as three TF32 products of split operands, the activations split in
+registers, the weights split once into a :class:`.tf32.Tf32Weight` pair that
+the caller passes as ``w_split`` or the wrapper makes; plans
+:func:`.convnext_block.tf32_gemm_plan` "qkv" and "proj"),
 ``window_attention_f32`` (``csrc/f32_attention.cuh`` on token rows: a CTA
 a (window, head), f32 FMAs, P.V divided by the row sum after, as the TPU
 kernel's default "mxu" softmax does), then :mod:`.convnext_block`'s
-``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (3xTF32 wgmma,
-``csrc/tf32_gemm.cuh``).
+``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (the same engine).
 
 The mixed modes (``VIPTPU_GCVIT_MM``: the TPU kernels' GEMM operands in the
 other dtype than the activations, which keep theirs) are the same five
@@ -66,7 +69,8 @@ weights in it:
 - ``mm_dtype`` f32 on bf16 activations: ``ln_qkv_mmf32`` (bf16 x, f32 q, k,
   v), ``window_attention_mmf32`` (f32 q, k, v, or a bf16 global query ->
   bf16), ``proj_scale_residual_mmf32`` (bf16 attention output and x -> f32
-  r1): the FFMA kernels loading bf16 into f32 registers; then
+  r1): the 3xTF32 kernels on a bf16 A tile widened in registers (the
+  projection's bf16 A is exact in TF32: two passes); then
   ``ln_fc1_gelu_f32`` and ``fc2_scale_residual_mmf32`` (-> bf16), the
   3xTF32 MLP. q, k and v stay f32 between
   the kernels, as in the TPU's monoblock, the route the JAX package takes at
@@ -96,6 +100,7 @@ import torch.nn.functional as F
 from . import build
 from . import convnext_block as CK
 from .convnext_block import _check, _check_width, _stream
+from .tf32 import Tf32Weight
 
 LAUNCHES: Dict[str, int] = {"ln_qkv": 0, "window_attention": 0, "proj_scale_residual": 0,
                             "ln_qkv_f32": 0, "window_attention_f32": 0,
@@ -113,12 +118,13 @@ _SIGNATURES = {
     "ln_qkv": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],  # + the plan
     "window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "proj_scale_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],  # + the plan
-    "ln_qkv_f32": [_P] * 8 + [_I, _I, _I, _F, _P],
+    # the 3xTF32 kernels: the weight as its pair (W_hi, W_lo), + the plan
+    "ln_qkv_f32": [_P] * 9 + [_I, _I, _I, _F] + [_I] * 3 + [_P],
     "window_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    "proj_scale_residual_f32": [_P] * 6 + [_I, _I, _P],
-    "ln_qkv_mmf32": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "proj_scale_residual_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "ln_qkv_mmf32": [_P] * 9 + [_I, _I, _I, _F] + [_I] * 3 + [_P],
     "window_attention_mmf32": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
-    "proj_scale_residual_mmf32": [_P] * 6 + [_I, _I, _P],
+    "proj_scale_residual_mmf32": [_P] * 7 + [_I] * 5 + [_P],
     "ln_qkv_mmbf16": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
     "window_attention_mmbf16": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "proj_scale_residual_mmbf16": [_P] * 6 + [_I] * 7 + [_P],
@@ -166,9 +172,12 @@ def mixed_linear(a: torch.Tensor, w: torch.Tensor, mm_dtype: torch.dtype) -> tor
 # ---------------------------------------------------------------------------
 def ln_qkv_plain(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
                  w: torch.Tensor, b: torch.Tensor, eps: float,
-                 mm_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
+                 mm_dtype: Optional[torch.dtype] = None,
+                 w_split: Optional[Tf32Weight] = None) -> Tuple[torch.Tensor, ...]:
     """(M, C) -> LN (two-pass, f32) -> Linear(w (S*C, C), b) -> S (M, C)
-    outputs in :func:`qkv_dtype`; the product in ``mm_dtype`` (default w's)."""
+    outputs in :func:`qkv_dtype`; the product in ``mm_dtype`` (default w's):
+    in f32 the f32 product (TF32 off), the function the 3xTF32 kernels keep
+    to about 22 bits. ``w_split`` (their operand pair) is not read."""
     mm = mm_dtype or w.dtype
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
@@ -215,9 +224,11 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def proj_scale_residual_plain(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
                               gamma: torch.Tensor, x: torch.Tensor,
-                              mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                              mm_dtype: Optional[torch.dtype] = None,
+                              w_split: Optional[Tf32Weight] = None) -> torch.Tensor:
     """x + gamma * (a wp^T + bp) on (M, C) rows, in f32; the product in
-    ``mm_dtype`` (default wp's)."""
+    ``mm_dtype`` (default wp's). ``w_split`` (the 3xTF32 kernels' operand
+    pair) is not read."""
     mm = mm_dtype or wp.dtype
     prod = F.linear(a, wp.to(mm)) if mm == a.dtype else mixed_linear(a, wp, mm)
     return (prod.float() + bp) * gamma + x.float()
@@ -237,13 +248,16 @@ def _dtypes(x: torch.Tensor, mm_dtype: Optional[torch.dtype]) -> Tuple[torch.dty
 
 def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
            w: torch.Tensor, b: torch.Tensor, eps: float,
-           mm_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
+           mm_dtype: Optional[torch.dtype] = None,
+           w_split: Optional[Tf32Weight] = None) -> Tuple[torch.Tensor, ...]:
     """LN over C + Linear C -> S*C on rows, split into S (M, C) outputs (q, k,
     v for S = 3; k, v for S = 2). CUDA: x (M, C) bf16 or f32, w (S*C, C) in
     ``mm_dtype`` (default x's), LN params f32 (C,), b f32 (S*C,) -> outputs
     in :func:`qkv_dtype`: ``ln_qkv`` (bf16 / bf16), ``ln_qkv_f32`` (f32 /
     f32), ``ln_qkv_mmf32`` (bf16 x, f32 GEMM) or ``ln_qkv_mmbf16`` (f32 x,
-    bf16 GEMM)."""
+    bf16 GEMM). The f32-GEMM kernels read w as ``w_split``
+    (``tf32_weight(w)``, kept by the caller), or split w themselves; the
+    plain version does not read it."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_weight, ln_bias, w, b, eps, mm_dtype)
     if x.ndim != 2:
@@ -265,8 +279,10 @@ def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
     args = (x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(),
             *ptrs, m, c, s, float(eps))
     if mm == torch.float32:
-        _launch("ln_qkv_f32" if xdt == torch.float32 else "ln_qkv_mmf32", *args,
-                _stream(x.device))
+        hi, lo = CK._tf32_operands("w", w, w_split)
+        _launch("ln_qkv_f32" if xdt == torch.float32 else "ln_qkv_mmf32", *args[:3],
+                hi.data_ptr(), lo.data_ptr(), *args[4:],
+                *CK._tf32_plan_args("qkv", c, s * c, x.element_size()), _stream(x.device))
     else:
         _launch("ln_qkv" if xdt == torch.bfloat16 else "ln_qkv_mmbf16", *args,
                 *CK._ln_plan_args(c, s * c, "qkv"), _stream(x.device))
@@ -362,13 +378,16 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
 
 def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
                         gamma: torch.Tensor, x: torch.Tensor,
-                        mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                        mm_dtype: Optional[torch.dtype] = None,
+                        w_split: Optional[Tf32Weight] = None) -> torch.Tensor:
     """r1 = x + gamma * (a wp^T + bp) on rows. CUDA: a and x (M, C) in the
     activations' dtype, wp (C, C) in ``mm_dtype`` (default a's), bp and
     gamma f32 (C,) -> f32 (M, C): ``proj_scale_residual`` (bf16 / bf16),
     ``proj_scale_residual_f32`` (f32 / f32), ``proj_scale_residual_mmf32``
     (bf16 a and x, f32 wp) or ``proj_scale_residual_mmbf16`` (f32 a and x,
-    bf16 wp)."""
+    bf16 wp). The f32-GEMM kernels read wp as ``w_split``
+    (``tf32_weight(wp)``, kept by the caller), or split wp themselves; the
+    plain version does not read it."""
     if a.device.type == "cpu":
         return proj_scale_residual_plain(a, wp, bp, gamma, x, mm_dtype)
     if a.ndim != 2:
@@ -386,8 +405,10 @@ def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
     args = (a.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(), x.data_ptr(),
             out.data_ptr(), m, c)
     if mm == torch.float32:
+        hi, lo = CK._tf32_operands("wp", wp, w_split)
         _launch("proj_scale_residual_f32" if dt == torch.float32 else "proj_scale_residual_mmf32",
-                *args, _stream(a.device))
+                args[0], hi.data_ptr(), lo.data_ptr(), *args[2:],
+                *CK._tf32_plan_args("proj", c, c, a.element_size()), _stream(a.device))
     elif dt == torch.bfloat16:
         _launch("proj_scale_residual", *args, *CK._proj_plan_args(c), _stream(a.device))
     else:  # the LN kernel's schedule, its A tile the f32 rows rounded (plan kind "qkv", n = c)
@@ -401,21 +422,23 @@ def window_transformer_block(x: torch.Tensor, q_global: Optional[torch.Tensor], 
                              ln2_weight, ln2_bias, w1, b1, w2, b2, gamma2,
                              scale: Optional[float] = None, eps: float = 1e-5,
                              mm_dtype: Optional[torch.dtype] = None,
-                             w1_split=None, w2_split=None) -> torch.Tensor:
+                             wqkv_split=None, wp_split=None, w1_split=None,
+                             w2_split=None) -> torch.Tensor:
     """One GCViT block on window-ordered tokens x (B, nWin*N, C) through the
     five wrappers: r1 = x + gamma1 * proj(attn(LN1 x)) in f32, then
     r1 + gamma2 * fc2(gelu(fc1(LN2 r1))) in x's dtype. ``q_global`` (B, N,
     C) makes it a global-query block (W_qkv is then the (2C, C) k/v
     projection). Weights in the nn.Linear layout and in ``mm_dtype``, the
     GEMMs' dtype (default x's; ``VIPTPU_GCVIT_MM``); ``bias`` the dense
-    (heads, N, N) rel-pos bias; with f32 GEMMs ``w1_split`` / ``w2_split``
-    the MLP weights' 3xTF32 pairs where the caller keeps them."""
+    (heads, N, N) rel-pos bias; with f32 GEMMs ``wqkv_split`` /
+    ``wp_split`` / ``w1_split`` / ``w2_split`` the four weights' 3xTF32
+    pairs where the caller keeps them."""
     b, toks, c = x.shape
     heads = bias.shape[0]
     scale = scale if scale is not None else (c // heads) ** -0.5
     mm = mm_dtype or x.dtype
     x2 = x.reshape(b * toks, c)
-    parts = ln_qkv(x2, ln1_weight, ln1_bias, wqkv, bqkv, eps, mm_dtype=mm)
+    parts = ln_qkv(x2, ln1_weight, ln1_bias, wqkv, bqkv, eps, mm_dtype=mm, w_split=wqkv_split)
     if q_global is None:
         q, k, v = (p.view(b, toks, c) for p in parts)
     else:
@@ -423,7 +446,8 @@ def window_transformer_block(x: torch.Tensor, q_global: Optional[torch.Tensor], 
         k, v = (p.view(b, toks, c) for p in parts)
     attn = window_attention(q, k, v, bias, n, scale, q_is_global=q_global is not None,
                             mm_dtype=mm, out_dtype=x.dtype)
-    r1 = proj_scale_residual(attn.view(b * toks, c), wp, bp, gamma1, x2, mm_dtype=mm)
+    r1 = proj_scale_residual(attn.view(b * toks, c), wp, bp, gamma1, x2, mm_dtype=mm,
+                             w_split=wp_split)
     hidden = CK.ln_fc1_gelu(r1, ln2_weight, ln2_bias, w1, b1, eps, mm_dtype=mm, w_split=w1_split)
     return CK.fc2_scale_residual(hidden, w2, b2, gamma2, r1, out_dtype=x.dtype,
                                  w_split=w2_split).view(b, toks, c)

@@ -1,4 +1,4 @@
-"""The 3xTF32 split of the f32 MLP kernels (``csrc/tf32_gemm.cuh``).
+"""The 3xTF32 split of the f32 GEMM kernels (``csrc/tf32_gemm.cuh``).
 
 The tensor cores take f32 only as TF32 (10 bits of mantissa). An f32
 product ``a w`` is kept to about 22 bits by splitting each operand as
@@ -12,8 +12,9 @@ kernels' fragment order (:func:`tf32_weight`), and kept by the blocks
 
 :func:`tf32x3_linear` is the plain emulation of the kernels' product: the
 three products of the split operands, each exact, summed in f64. The
-kernels' plain versions (``ln_fc1_gelu_plain``, ``fc2_scale_residual_plain``)
-stay the f32 product itself: that is the function the TPU kernels compute.
+kernels' plain versions (``ln_fc1_gelu_plain``, ``fc2_scale_residual_plain``,
+``ln_qkv_plain``, ``proj_scale_residual_plain``) stay the f32 product itself:
+that is the function the TPU kernels compute.
 """
 from __future__ import annotations
 
