@@ -37,7 +37,10 @@ each printing its results on earlier lines, any failure exiting non-zero:
    phase cuts of the kernels on the wgmma + TMA engine (loads / + LN / +
    products / whole, and the epilogue without its math or without its
    stores) at s1-s4 and L1-L4, ``ln_qkv``'s and ``proj_scale_residual``'s
-   at L1-L4;
+   at L1-L4, and by device time those of the two f32 residual GEMMs of
+   ``VIPTPU_GCVIT_MM=bf16``, ``fc2_scale_residual_mmbf16`` (beside its
+   earlier design's) and ``proj_scale_residual_mmbf16`` (loads / +
+   products / + epilogue without stores / whole) at L1-L4;
 5. unfused-path kernels, under the same bound at batch 8 and 256, timed as
    in 3 at batch 256:
    - ``window_attention_bhnd`` on (B*nWin, heads, N, 32) at L1-L4, local and
@@ -1008,7 +1011,7 @@ def phase_gcvit_kernels(card: str, stats: dict) -> None:
                       "GCViTTiny batch-256 forward (3/4/19/5 blocks)", card)
     print_per_forward(stats, {n: new_stats()[n] for n in MLP_KERNELS}, MLP_KERNELS,
                       "ConvNeXt + fused GCViT batch-256 forward (18 + 31 blocks)", card)
-    exp_mlp_gemm.main(["--iters", "10"])  # the two MLP GEMM kernels' phase cuts
+    exp_mlp_gemm.main(["--iters", "10"])  # the engine's phase cuts, the mixed modes' too
 
 
 def attention_inputs(b, grid, heads, ws, gen) -> dict:

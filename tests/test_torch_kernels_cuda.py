@@ -194,11 +194,18 @@ def test_exp_dwconv_tool_runs_on_card(cuda_device):
 @pytest.mark.cuda
 def test_mlp_gemm_cuts_run_on_card(cuda_device):
     """The phase-cut tool at s1 and L4 (a resident and a streamed plan):
-    every cut launches and is timed (at L4 also ``ln_qkv``'s), and the whole
-    kernels agree with their plain versions."""
+    every cut launches and is timed (at L4 also ``ln_qkv``'s and the mixed
+    modes' ``fc2_scale_residual_mmbf16`` and ``proj_scale_residual_mmbf16``),
+    and the whole kernels agree with their plain versions."""
     from vip_cup_2022_tpu_torch.tools import exp_mlp_gemm
 
     for r in exp_mlp_gemm.main(["--iters", "1", "--batch", "2", "--shapes", "s1", "L4"]):
+        if r["name"] == "L4":
+            for kernel in ("fc2_scale_residual_mmbf16", "proj_scale_residual_mmbf16"):
+                got = r["mixed"][kernel]
+                assert got["rel_err"] <= 1e-2
+                assert set(got["ms"]) >= set(exp_mlp_gemm.MIXED_CUTS) | {"cublas"}
+                assert all(t > 0 for t in got["ms"].values())
         assert all(e <= 1e-2 for e in r["rel_err"])
         assert set(r["ln_fc1_gelu"]) == set(exp_mlp_gemm.LN_CUTS) | {"cublas"}
         assert set(r["fc2_scale_residual"]) == set(exp_mlp_gemm.FC2_CUTS) | {"cublas"}
@@ -1842,6 +1849,21 @@ def _a15c_bound(dtype, mm):
     return F32_BOUND if dtype == mm == torch.float32 else 1e-2
 
 
+def _ramp(m, c, dev):
+    """(M, C) values in [-1, 1) that tell rows and columns apart: 2 ((7 row
+    + 3 col) mod 17) / 17 - 1. A result stored one row or column off (or 4,
+    8, 16, 32, 64 off: a chunk, a box, half a tile) moves by at least 2 / 17,
+    past the 1e-2 gate."""
+    row = torch.arange(m, device=dev).view(m, 1)
+    col = torch.arange(c, device=dev).view(1, c)
+    return ((7 * row + 3 * col) % 17).float() * (2 / 17) - 1
+
+
+# row counts at the edges of the residual GEMMs' 128-row items and 64-row tiles,
+# and past one persistent wave of 132 CTAs
+MIXED_ROWS = {"one": 1, "tile-1": 127, "tile+1": 129, "ragged": 2 * 132 * 128 + 77}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,nwin,n,c,heads", [
     (2, 64, 49, 64, 2), (3, 16, 49, 128, 4), (2, 1, 196, 256, 8), (5, 1, 49, 512, 16),
@@ -1855,11 +1877,16 @@ def test_a15c_gcvit_mixed_kernels_match_plain_on_card(cuda_device, b, nwin, n, c
     shapes, a 3 x 3 window and C = 96 (K = 96; M = 147, ragged), each
     against its plain version on the kernel before's output: the mode's
     symbols alone launch; q, k, v and r1 f32, the attention output and the
-    block's in the activations' dtype, the hidden in the GEMM dtype."""
+    block's in the activations' dtype, the hidden in the GEMM dtype. The
+    residual of proj (and through r1 that of fc2) is the block's random
+    input x plus an index ramp (:func:`_ramp`), so a row or column stored in
+    the wrong place shows; ``ln_qkv`` normalizes x itself, whose rows'
+    statistics differ."""
     act, mm = A15C_MODES[mode]
     p = _gcvit_inputs(cuda_device, b, nwin, n, c, heads, global_query, seed=3, bf=mm)
     m = b * nwin * n
     x2 = p["x"].view(m, c).to(act)
+    xr = (p["x"].view(m, c).float() + _ramp(m, c, cuda_device)).to(act)
     qg = p["qg"].to(act) if global_query else None
     G.reset_launches()
     K.reset_launches()
@@ -1874,8 +1901,8 @@ def test_a15c_gcvit_mixed_kernels_match_plain_on_card(cuda_device, b, nwin, n, c
                               out_dtype=act)
     ref = G.window_attention_plain(q, k, v, p["bias"], n, scale, global_query, mm, act)
     assert attn.dtype == act and _rel(attn, ref) <= _a15c_bound(act, mm)
-    r1 = G.proj_scale_residual(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], x2, mm_dtype=mm)
-    ref = G.proj_scale_residual_plain(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], x2, mm)
+    r1 = G.proj_scale_residual(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], xr, mm_dtype=mm)
+    ref = G.proj_scale_residual_plain(attn.view(m, c), p["wp"], p["bp"], p["gamma1"], xr, mm)
     assert r1.dtype == torch.float32 and _rel(r1, ref) <= _a15c_bound(torch.float32, mm)
     hid = K.ln_fc1_gelu(r1, p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"], 1e-5, mm_dtype=mm)
     ref = K.ln_fc1_gelu_plain(r1, p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"], 1e-5, mm)
@@ -1928,32 +1955,62 @@ def test_a15c_window_attention_mixed_shapes_on_card(cuda_device, b, nwin, n, hea
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
 @pytest.mark.parametrize("ratio", [3, 4])
-@pytest.mark.parametrize("rows", ["tile+1", "ragged"])
+@pytest.mark.parametrize("rows", sorted(MIXED_ROWS))
 @pytest.mark.parametrize("mode", sorted(A15C_MODES))
 def test_a15c_mlp_mixed_match_plain_on_card(cuda_device, c, ratio, rows, mode):
     """The MLP half of a mixed-mode block at every block width, N = 3C and
     4C: ``ln_fc1_gelu`` in the GEMM dtype on the f32 r1, then
     ``fc2_scale_residual_mmf32`` (f32 hidden -> bf16) or
     ``fc2_scale_residual_mmbf16`` (bf16 hidden -> f32) beside the f32 r1,
-    against their plain versions."""
+    against their plain versions; M = 1, 127, 129 and past a wave; fc2's
+    residual r1 plus an index ramp (:func:`_ramp`), so a row or column
+    stored in the wrong place shows."""
     act, mm = A15C_MODES[mode]
     g = torch.Generator(device=cuda_device).manual_seed(c * ratio + 3)
 
     def u(s, lo=-1.0, hi=1.0):
         return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
 
-    n, m = ratio * c, A15C_ROWS[rows]
+    n, m = ratio * c, MIXED_ROWS[rows]
     r1, lg, lb = u((m, c)) * 2, u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
     w1, b1 = (u((n, c)) * c ** -0.5).to(mm), u((n,), -0.1, 0.1)
     w2, b2, gamma = (u((c, n)) * n ** -0.5).to(mm), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
     K.reset_launches()
     hid = K.ln_fc1_gelu(r1, lg, lb, w1, b1, 1e-5, mm_dtype=mm)
-    out = K.fc2_scale_residual(hid, w2, b2, gamma, r1, out_dtype=act)
+    res = r1 + _ramp(m, c, cuda_device)
+    out = K.fc2_scale_residual(hid, w2, b2, gamma, res, out_dtype=act)
     torch.cuda.synchronize()
     assert {k: v for k, v in K.LAUNCHES.items() if v} == {
         "ln_fc1_gelu_f32" if mm == torch.float32 else "ln_fc1_gelu": 1,
         f"fc2_scale_residual_{mode}": 1}
     assert hid.dtype == mm and out.dtype == act and out.shape == (m, c)
     assert _rel(hid, K.ln_fc1_gelu_plain(r1, lg, lb, w1, b1, 1e-5, mm)) <= _a15c_bound(mm, mm)
-    ref = K.fc2_scale_residual_plain(hid, w2, b2, gamma, r1, act)
+    ref = K.fc2_scale_residual_plain(hid, w2, b2, gamma, res, act)
     assert _rel(out, ref) <= _a15c_bound(act, mm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("rows", sorted(MIXED_ROWS))
+@pytest.mark.parametrize("mode", sorted(A15C_MODES))
+def test_a15c_proj_mixed_widths_and_rows_on_card(cuda_device, c, rows, mode):
+    """``proj_scale_residual`` in a mixed mode at every width the plans take
+    (C = 32 ... 768, K = C; ``_mmbf16``: 32-, 64- and 96-column items, W_p
+    held or streamed) and M = 1, 127, 129 and past a wave, the residual x an
+    index ramp (:func:`_ramp`), against its plain version."""
+    act, mm = A15C_MODES[mode]
+    g = torch.Generator(device=cuda_device).manual_seed(c + 11)
+    m = MIXED_ROWS[rows]
+
+    def u(s, lo=-1.0, hi=1.0):
+        return torch.rand(s, generator=g, device=cuda_device) * (hi - lo) + lo
+
+    a, x = u((m, c)).to(act), _ramp(m, c, cuda_device).to(act)
+    wp, bp, gamma = (u((c, c)) * c ** -0.5).to(mm), u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+    G.reset_launches()
+    r1 = G.proj_scale_residual(a, wp, bp, gamma, x, mm_dtype=mm)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in G.LAUNCHES.items() if v} == {f"proj_scale_residual_{mode}": 1}
+    assert r1.dtype == torch.float32 and r1.shape == (m, c)
+    ref = G.proj_scale_residual_plain(a, wp, bp, gamma, x, mm)
+    assert _rel(r1, ref) <= _a15c_bound(torch.float32, mm)

@@ -11,6 +11,9 @@ fit a block's 227 KB of shared memory, use a width the kernels are built
 for, and tile the output width exactly. On CPU tensors the wrappers run the
 plain versions and count no launch.
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -224,3 +227,220 @@ def test_rows_past_32_bits_raise():
     """The launchers take M as a 32-bit int, which ctypes would wrap silently."""
     with pytest.raises(ValueError, match="more than the GEMM engine takes"):
         K._check_rows(K.MAX_ROWS + 1)
+
+
+# ---------------------------------------------------------------------------
+# the f32 residual GEMMs of VIPTPU_GCVIT_MM=bf16 (hopper_gemm.cuh: tma_res_kernel)
+# ---------------------------------------------------------------------------
+HOPPER_GEMM = pathlib.Path(K.__file__).resolve().parents[2] / "csrc" / "hopper_gemm.cuh"
+KMAX_STAGES, KMAX_TX_BYTES, KALIGN = 64, (1 << 20) - 1, 1024  # hopper_gemm.cuh's limits
+TMA_RES_SHAPES = ([("res_tma", c, r * c) for c in (64, 96, 128, 192, 256, 384, 512, 768)
+                   for r in (3, 4)]
+                  + [("proj_tma", c, c) for c in (32, 64, 96, 128, 192, 256, 384, 512, 768)])
+
+
+def _launcher_stage(bn: int, a_bytes: int, resident: bool) -> int:
+    """``tma_res_stage``: an A tile (128 rows x 64 K columns) and, streamed,
+    a W tile (bn rows x 128 bytes); or a warpgroup's f32 tile (64 rows x bn),
+    whichever is larger."""
+    return max(128 * 64 * a_bytes + (0 if resident else bn * 128), 64 * bn * 4)
+
+
+def _launcher_smem(bn: int, stages: int, a_bytes: int, resident: bool, c: int, k: int) -> int:
+    """``tma_res_smem_bytes`` of the launcher, term by term: the ring's
+    mbarriers (two a stage, two order, one held), the alignment slack, the
+    held weight, the stages."""
+    held = (c // bn) * -(-k // 64) * bn * 128 if resident else 0
+    return (2 * stages + 3) * 8 + KALIGN + held + stages * _launcher_stage(bn, a_bytes, resident)
+
+
+@pytest.mark.parametrize("kind,c,k", TMA_RES_SHAPES)
+def test_tma_res_plan_fits_and_the_launcher_takes_it(kind, c, k):
+    """fc2 at C = 64 ... 768 with K = 3C and 4C, proj at C = 32 ... 768 with
+    K = C: a built column tile dividing C, 2 to MAX_RING stages each large
+    enough for a warpgroup's f32 residual tile, the weight held only beside
+    MIN_TMA_RES_STAGES stages, every buffer on a 1024-byte swizzle boundary,
+    and the shared memory the launcher counts (the same bytes) within the
+    card's 227 KB."""
+    plan = K.mlp_gemm_plan(kind, c, k)
+    bn, stages, a_bytes = plan["bn"], plan["stages"], 4 if kind == "proj_tma" else 2
+    assert plan["kind"] == kind and plan["bm"] == K.BM and not plan["split_n"]
+    assert bn in K.TMA_RES_BUILT[kind] and bn in K.WGMMA_N and c % bn == 0 and k % 32 == 0
+    assert 2 <= stages <= min(K.MAX_RING, KMAX_STAGES)
+    assert plan["tile"] == K.RES_TILE_ROWS * bn * 4 <= plan["stage"]
+    assert plan["stage"] == _launcher_stage(bn, a_bytes, plan["resident"]) <= KMAX_TX_BYTES
+    smem = _launcher_smem(bn, stages, a_bytes, plan["resident"], c, k)
+    assert plan["smem"] == smem <= K.SMEM_LIMIT
+    if plan["resident"]:
+        assert stages >= K.MIN_TMA_RES_STAGES and 0 < plan["held"] <= KMAX_TX_BYTES
+    else:  # a held weight would leave fewer stages than that
+        assert plan["held"] == 0
+        held = (c // bn) * -(-k // 64) * bn * 128
+        room = K.SMEM_LIMIT - KALIGN - 24 - held
+        assert room // (_launcher_stage(bn, a_bytes, True) + 16) < K.MIN_TMA_RES_STAGES
+    for size in (plan["tile"], bn * 128, plan["stage"], plan["held"]):
+        assert size % KALIGN == 0
+
+
+@pytest.mark.parametrize("level", [(64, 64, True), (128, 128, True), (256, 128, False),
+                                   (512, 128, False)], ids=["L1", "L2", "L3", "L4"])
+def test_tma_res_plan_at_gcvit_levels(level):
+    """GCViTTiny's levels: fc2's items 64 columns wide at L1 (C = 64), else
+    128, proj's 64 at every level; W2 (3C x C) and W_p held at L1 and L2,
+    streamed with A at L3 and L4; four ring stages or more."""
+    c, fc2_bn, held = level
+    for kind, k, bn in (("res_tma", 3 * c, fc2_bn), ("proj_tma", c, 64)):
+        plan = K.mlp_gemm_plan(kind, c, k)
+        assert plan["bn"] == bn and plan["resident"] == held
+        assert plan["stages"] >= K.MIN_TMA_RES_STAGES
+
+
+def test_tma_res_launcher_builds_the_plan_widths():
+    """The column tiles ``launch_tma_res`` dispatches are TMA_RES_BUILT's:
+    every one for the bf16 hidden, all but 128 for the f32 A; the main
+    path's two (64, 128) are built without kAll (the cut library)."""
+    src = HOPPER_GEMM.read_text()
+    body = src[src.index("cudaError_t launch_tma_res("):]
+    body = body[:body.index("\n}\n")]
+    built = {int(w) for w in re.findall(r"launch_tma_res_bn<(\d+), TA, kCut>", body)}
+    bf16_only = {int(w) for w in re.findall(
+        r"if constexpr \(sizeof\(TA\) == 2\)\s+return launch_tma_res_bn<(\d+),", body)}
+    assert built == set(K.TMA_RES_BUILT["res_tma"])
+    assert built - bf16_only == set(K.TMA_RES_BUILT["proj_tma"]) and bf16_only == {128}
+    main = body[:body.index("if constexpr (kAll)")]
+    assert {int(w) for w in re.findall(r"launch_tma_res_bn<(\d+),", main)} == {64, 128}
+    assert all(K.mlp_gemm_plan(kind, c, k)["bn"] in (64, 128)
+               for kind, c, k in [("res_tma", c, 3 * c) for c in (64, 128, 256, 512)]
+               + [("proj_tma", c, c) for c in (64, 128, 256, 512)])
+
+
+@pytest.mark.parametrize("kind,c,k,widths", [
+    ("res_tma", 64, 192, (96,)), ("proj_tma", 96, 96, (48,)), ("proj_tma", 128, 128, (128,)),
+    ("proj_tma", 96, 64, None), ("res_tma", 48, 144, None)])
+def test_tma_res_plan_refuses_tiles_the_kernels_do_not_take(kind, c, k, widths, monkeypatch):
+    """No plan where no column tile of the kind divides C, where the tile
+    that does is not built (48; 128 with f32 A), where proj's K is not C,
+    or where C is not a multiple of 32."""
+    if widths is not None:
+        monkeypatch.setitem(K.TMA_RES_WIDTHS, kind, widths)
+    with pytest.raises(ValueError):
+        K.mlp_gemm_plan(kind, c, k)
+
+
+def _tma_swizzled(a: np.ndarray) -> dict:
+    """A box of f32 rows of 128 bytes as TMA's 128-byte swizzle lays it out
+    in shared memory (the box 1024-byte aligned): 16-byte chunk c of row r at
+    chunk c XOR r % 8. Byte offset -> value, one entry a 4-byte value."""
+    smem = {}
+    for r in range(a.shape[0]):
+        for col in range(32):
+            chunk, within = col // 4, 4 * (col % 4)
+            smem[r * 128 + ((chunk ^ (r % 8)) * 16) + within] = a[r, col]
+    return smem
+
+
+def _pack_bf16(lo: float, hi: float) -> tuple:
+    """A bf16 pair as the kernel packs it (round to nearest even)."""
+    return tuple(torch.tensor([lo, hi], dtype=torch.float32).to(torch.bfloat16).tolist())
+
+
+def test_f32_a_fragments_are_the_bf16_tile_a_wgmma_reads():
+    """proj_scale_residual_mmbf16's A: a stage holds 128 rows x 64 K columns
+    of f32 as two 128-byte TMA boxes (16 KB apart). Lane l of warp w of the
+    warpgroup at row offset h0 (0 or 64) reads, for k16 step k, 8 bytes at
+    chunks 4 (k % 2) + t / 2 and + 2 (half t % 2; t = l % 4) of rows r = h0 +
+    16w + l / 4 and r + 8, swizzle XOR r % 8, of box k / 2, and rounds each
+    pair to bf16 into the registers of wgmma's A fragment: a0 (r, 2t ...),
+    a1 (r + 8, 2t ...), a2 (r, 2t + 8 ...), a3 (r + 8, 2t + 8 ...). The
+    matrix those registers build is the stage's A rounded to bf16, and each
+    8-byte read of a warp puts at most 32 bytes on a 16-byte bank group: two
+    wavefronts, no conflict."""
+    rng = np.random.RandomState(5)
+    a = rng.uniform(-3, 3, (128, 64)).astype(np.float32)
+    boxes = [_tma_swizzled(a[:, 32 * b:32 * b + 32]) for b in range(2)]
+    want = torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    got = np.full((128, 64), np.nan, dtype=np.float32)
+    for h0 in (0, 64):
+        for warp in range(4):
+            for k in range(4):
+                reads = {}
+                for lane in range(32):
+                    t, r = lane & 3, h0 + 16 * warp + (lane >> 2)
+                    sw, c, off = r & 7, 4 * (k & 1) + (t >> 1), 8 * (t & 1)
+                    lo, hi = ((c ^ sw) << 4) + off, (((c + 2) ^ sw) << 4) + off
+                    box = boxes[k >> 1]
+
+                    def pair(row, at):
+                        return box[row * 128 + at], box[row * 128 + at + 4]
+
+                    frags = [_pack_bf16(*pair(r, lo)), _pack_bf16(*pair(r + 8, lo)),
+                             _pack_bf16(*pair(r, hi)), _pack_bf16(*pair(r + 8, hi))]
+                    for reg, (row, col) in enumerate([(r, 2 * t), (r + 8, 2 * t),
+                                                      (r, 2 * t + 8), (r + 8, 2 * t + 8)]):
+                        got[row, 16 * k + col], got[row, 16 * k + col + 1] = frags[reg]
+                    for name, at in (("lo", lo), ("hi", hi)):  # one LDS.64 a (row, chunk) pair
+                        for row in (r, r + 8):
+                            key = (name, row - r, ((row * 128 + at) % 128) // 16)
+                            reads[key] = reads.get(key, 0) + 8
+                for (name, dr, unit), nbytes in reads.items():
+                    assert nbytes <= 32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_residual_epilogue_addresses_the_tma_tile():
+    """The f32 residual tile of a warpgroup: 64 rows x BN columns as BN / 32
+    TMA boxes of 64 rows x 128 bytes (8 KB apart), 128-byte swizzle. Lane l
+    of warp w holds accumulator d[4j + 2h + e] of row 16w + l / 4 + 8h,
+    column 8j + 2 (l % 4) + e; ``scale_add_residual`` reads and writes it at
+    box n / 32, ``stage32_offset(row, n % 32)`` (n = 8j + 2 (l % 4)): the
+    byte TMA put (row, n) at, and each warp-wide 8-byte access puts at most
+    32 bytes on a 16-byte bank group."""
+    bn = 128
+    tile = np.arange(64 * bn, dtype=np.float32).reshape(64, bn)
+    smem = {}
+    for b in range(bn // 32):
+        for off, v in _tma_swizzled(tile[:, 32 * b:32 * b + 32]).items():
+            smem[b * 64 * 128 + off] = v
+
+    def stage32_offset(r, col):  # hopper_gemm.cuh
+        return r * 128 + ((((col >> 2) ^ (r & 7))) << 4) + ((col & 3) << 2)
+
+    seen = set()
+    for warp in range(4):
+        for j in range(bn // 8):
+            for h in range(2):
+                units = {}
+                for lane in range(32):
+                    n = 8 * j + 2 * (lane & 3)
+                    row = 16 * warp + (lane >> 2) + 8 * h
+                    addr = (n >> 5) * 64 * 128 + stage32_offset(row, n & 31)
+                    assert (smem[addr], smem[addr + 4]) == (tile[row, n], tile[row, n + 1])
+                    seen.update({(row, n), (row, n + 1)})
+                    unit = (addr % 128) // 16
+                    units[unit] = units.get(unit, 0) + 8
+                assert max(units.values()) <= 32
+    assert len(seen) == 64 * bn
+
+
+@pytest.mark.parametrize("m,c", [(1, 32), (37, 64), (130, 96)])
+def test_mmbf16_residual_gemms_take_the_plain_versions_on_cpu(m, c):
+    """``fc2_scale_residual`` with a bf16 hidden and an f32 output and
+    ``proj_scale_residual`` with f32 activations and bf16 GEMMs, on CPU
+    tensors: their plain versions, no launch."""
+    rng = np.random.RandomState(m * c)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.uniform(-1, 1, shape) * scale).astype(np.float32))
+
+    hid, r1 = t(m, 3 * c).to(torch.bfloat16), t(m, c)
+    w2, b2, gamma = t(c, 3 * c, scale=(3 * c) ** -0.5).to(torch.bfloat16), t(c), t(c) + 1
+    a, x, wp = t(m, c), t(m, c), t(c, c, scale=c ** -0.5).to(torch.bfloat16)
+    K.reset_launches()
+    G.reset_launches()
+    out = K.fc2_scale_residual(hid, w2, b2, gamma, r1, out_dtype=torch.float32)
+    r = G.proj_scale_residual(a, wp, b2, gamma, x, mm_dtype=torch.bfloat16)
+    assert not any(K.LAUNCHES.values()) and not any(G.LAUNCHES.values())
+    torch.testing.assert_close(out, K.fc2_scale_residual_plain(hid, w2, b2, gamma, r1,
+                                                               torch.float32), rtol=0, atol=0)
+    torch.testing.assert_close(r, G.proj_scale_residual_plain(a, wp, b2, gamma, x,
+                                                              torch.bfloat16), rtol=0, atol=0)

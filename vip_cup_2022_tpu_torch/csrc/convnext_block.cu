@@ -43,8 +43,10 @@
 // GCViT's MLP half in the mixed modes of VIPTPU_GCVIT_MM (gcvit_block.cu)
 // takes two more fc2 launchers beside the f32 r1:
 //
-//   fc2_scale_residual_mmbf16  bf16 hidden, bf16 W2 -> f32 out (the engine's
-//                              residual GEMM, OutT = f32): f32 activations
+//   fc2_scale_residual_mmbf16  bf16 hidden, bf16 W2, f32 residual -> f32 out
+//                              (the engine's tma_res_kernel: the residual
+//                              tile in and the output out by TMA): f32
+//                              activations
 //   fc2_scale_residual_mmf32   f32 hidden, W2's pair -> bf16 out (tf32_gemm.cuh,
 //                              OutT = bf16): bf16 activations
 //
@@ -121,10 +123,11 @@ int fc2_scale_residual_f32(const void* hidden, const void* w_hi, const void* w_l
 
 int fc2_scale_residual_mmbf16(const void* hidden, const void* w2, const void* b2,
                               const void* gamma, const void* res, void* out, int M, int K, int C,
-                              int bn, int stages, void* stream) {
-  const hopper_gemm::ResParams p{(const float*)b2, (const float*)gamma, res, out, M, K, C, stages};
-  return (int)hopper_gemm::launch_res<float, hopper_gemm::kWhole, true, float>(
-      p, hidden, w2, bn, (cudaStream_t)stream);
+                              int bn, int stages, int resident, void* stream) {
+  const hopper_gemm::TmaResParams p{(const float*)b2, (const float*)gamma, M, K, C, stages,
+                                    resident};
+  return (int)hopper_gemm::launch_tma_res<bf16, hopper_gemm::kWhole, true>(
+      p, hidden, w2, res, out, bn, (cudaStream_t)stream);
 }
 
 int fc2_scale_residual_mmf32(const void* hidden, const void* w_hi, const void* w_lo,

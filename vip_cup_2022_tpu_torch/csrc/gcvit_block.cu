@@ -84,9 +84,11 @@
 //                              outputs (stored from the accumulators)
 //   window_attention_mmbf16    f32 q, k, v -> f32 (k, v and the scaled q
 //                              rounded to bf16 on load)
-//   proj_scale_residual_mmbf16 f32 attn rounded to bf16 into the LN kernel's
-//                              swizzled A tile (TMA cannot convert), @ W_p
-//                              bf16 -> (+ b_p) * gamma1 + f32 x -> f32 r1
+//   proj_scale_residual_mmbf16 f32 attn by TMA into the ring, each lane's
+//                              fragment rounded to bf16 in registers, @ W_p
+//                              bf16 (wgmma with A from registers) -> (+ b_p)
+//                              * gamma1 + f32 x -> f32 r1, x in and r1 out
+//                              by TMA (the engine's tma_res_kernel)
 //   then ln_fc1_gelu and fc2_scale_residual_mmbf16 (convnext_block.cu).
 //
 // Every launcher has a plain C interface for ctypes and returns
@@ -255,13 +257,11 @@ int window_attention_mmbf16(const void* q, const void* k, const void* v, const v
 
 int proj_scale_residual_mmbf16(const void* a, const void* wp, const void* bp, const void* gamma,
                                const void* x, void* out, int M, int C, int bn, int stages,
-                               int a_buffers, int resident, int split_n, void* stream) {
-  hopper_gemm::LnParams p{a, nullptr, nullptr, (const float*)bp, {out, nullptr, nullptr},
-                          M, C, C, 0.f, stages, a_buffers, resident};
-  p.gamma = (const float*)gamma;
-  p.res = (const float*)x;
-  return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, float, hopper_gemm::kEpiProj,
-                                     float>(p, wp, bn, split_n, (cudaStream_t)stream);
+                               int resident, void* stream) {
+  const hopper_gemm::TmaResParams p{(const float*)bp, (const float*)gamma, M, C, C, stages,
+                                    resident};
+  return (int)hopper_gemm::launch_tma_res<float, hopper_gemm::kWhole, true>(
+      p, a, wp, x, out, bn, (cudaStream_t)stream);
 }
 
 int ln_qkv_mmf32(const void* x, const void* ln_g, const void* ln_b, const void* w_hi,

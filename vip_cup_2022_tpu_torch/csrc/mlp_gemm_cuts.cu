@@ -1,6 +1,8 @@
-// Phase cuts of the four kernels on hopper_gemm.cuh's engine for timing,
-// at the widths of the main path's shapes (ConvNeXt s1-s4, GCViT L1-L4; for
-// ln_qkv and proj_scale_residual GCViT's column tiles of 64 and 128):
+// Phase cuts of the kernels on hopper_gemm.cuh's engine for timing, at the
+// widths of the main path's shapes (ConvNeXt s1-s4, GCViT L1-L4; for ln_qkv,
+// proj_scale_residual and the f32 residual GEMMs of VIPTPU_GCVIT_MM=bf16,
+// fc2_scale_residual_mmbf16 and proj_scale_residual_mmbf16, GCViT's column
+// tiles of 64 and 128):
 //
 //   cut 0  loads: the TMA loads of W (and of the hidden for fc2, of attn
 //          for proj) and the reads of x, nothing computed or written
@@ -11,6 +13,10 @@
 //          gcvit_block.cu)
 //   cut 4  cut 2 + the accumulators stored as bf16 (the MLP GEMMs)
 //   cut 5  cut 3 without its stores
+//
+// fc2_scale_residual_mmbf16 also in its earlier design (res_gemm_kernel with
+// an f32 residual and output, the epilogue's loads and stores by the
+// consumers), whole (cut 3) too, as the yardstick of the TMA epilogue.
 //
 // The cut kernels are other instantiations of the same templates, under
 // other mangled names, so they load beside convnext_block.cu's library.
@@ -41,6 +47,30 @@ int res_cut(const void* hidden, const void* w2, const void* b2, const void* gamm
                                  M, K, C, stages};
   return (int)hopper_gemm::launch_res<ResT, kCut, false>(p, hidden, w2, bn,
                                                           (cudaStream_t)stream);
+}
+
+// fc2_scale_residual_mmbf16's earlier design: res_gemm_kernel, f32 residual and output
+template <int kCut>
+int staged_mmbf16_cut(const hopper_gemm::ResParams& p, const void* hidden, const void* w2, int bn,
+                      cudaStream_t stream) {
+  return (int)hopper_gemm::launch_res<float, kCut, false, float>(p, hidden, w2, bn, stream);
+}
+
+// the f32 residual GEMMs of VIPTPU_GCVIT_MM=bf16 (tma_res_kernel), A of type TA
+template <typename TA>
+int tma_res_cut(const void* a, const void* w, const void* bias, const void* gamma,
+                const void* res, void* out, int M, int K, int C, int bn, int stages, int resident,
+                int cut, void* stream) {
+  const hopper_gemm::TmaResParams p{(const float*)bias, (const float*)gamma, M, K, C, stages,
+                                    resident};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (cut) {
+    case 0: return (int)hopper_gemm::launch_tma_res<TA, 0, false>(p, a, w, res, out, bn, st);
+    case 2: return (int)hopper_gemm::launch_tma_res<TA, 2, false>(p, a, w, res, out, bn, st);
+    case 3: return (int)hopper_gemm::launch_tma_res<TA, 3, false>(p, a, w, res, out, bn, st);
+    case 5: return (int)hopper_gemm::launch_tma_res<TA, 5, false>(p, a, w, res, out, bn, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int kCut>
@@ -75,6 +105,36 @@ int proj_cut(const hopper_gemm::ResParams& p, const void* a, const void* w, int 
 }  // namespace
 
 extern "C" {
+
+int fc2_scale_residual_mmbf16_cut(const void* hidden, const void* w2, const void* b2,
+                                  const void* gamma, const void* res, void* out, int M, int K,
+                                  int C, int bn, int stages, int resident, int cut,
+                                  void* stream) {
+  return tma_res_cut<bf16>(hidden, w2, b2, gamma, res, out, M, K, C, bn, stages, resident, cut,
+                           stream);
+}
+
+int fc2_scale_residual_mmbf16_staged_cut(const void* hidden, const void* w2, const void* b2,
+                                         const void* gamma, const void* res, void* out, int M,
+                                         int K, int C, int bn, int stages, int cut,
+                                         void* stream) {
+  const hopper_gemm::ResParams p{(const float*)b2, (const float*)gamma, res, out, M, K, C, stages};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (cut) {
+    case 0: return staged_mmbf16_cut<0>(p, hidden, w2, bn, st);
+    case 2: return staged_mmbf16_cut<2>(p, hidden, w2, bn, st);
+    case 3: return staged_mmbf16_cut<3>(p, hidden, w2, bn, st);
+    case 5: return staged_mmbf16_cut<5>(p, hidden, w2, bn, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int proj_scale_residual_mmbf16_cut(const void* a, const void* wp, const void* bp,
+                                   const void* gamma, const void* x, void* out, int M, int C,
+                                   int bn, int stages, int resident, int cut, void* stream) {
+  return tma_res_cut<float>(a, wp, bp, gamma, x, out, M, C, C, bn, stages, resident, cut,
+                            stream);
+}
 
 int proj_scale_residual_cut(const void* a, const void* wp, const void* bp, const void* gamma,
                             const void* x, void* out, int M, int C, int bn, int stages,

@@ -59,7 +59,9 @@ depthwise sum, GCViT's r1).
 
 GCViT's MLP half in the mixed modes of ``VIPTPU_GCVIT_MM`` (:mod:`.gcvit_block`)
 adds two fc2 kernels, picked by ``out_dtype``: ``fc2_scale_residual_mmbf16``
-(bf16 hidden and W2 -> f32, an f32 block with bf16 GEMMs) and
+(bf16 hidden and W2 -> f32, an f32 block with bf16 GEMMs: the engine's
+``tma_res_kernel``, the f32 residual in and the output out by TMA, plan
+kind "res_tma") and
 ``fc2_scale_residual_mmf32`` (f32 hidden and W2 -> bf16, a bf16 block with
 f32 GEMMs: the 3xTF32 kernel with a bf16 output); ``ln_fc1_gelu`` takes the
 GEMM dtype as ``mm_dtype``.
@@ -99,15 +101,18 @@ _SIGNATURES = {
     "dwconv7x7_nhwc_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ln_fc1_gelu_f32": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _I, _P],  # + plan
     "fc2_scale_residual_f32": [_P] * 7 + [_I] * 6 + [_P],  # + plan
-    "fc2_scale_residual_mmbf16": _RES_ARGS + [_P],
+    "fc2_scale_residual_mmbf16": _RES_ARGS + [_I, _P],  # + resident
     "fc2_scale_residual_mmf32": [_P] * 7 + [_I] * 6 + [_P],  # + plan
 }
 _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type)
     "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
     "fc2_scale_residual_cut": _RES_ARGS + [_I, _I, _P],
+    "fc2_scale_residual_mmbf16_cut": _RES_ARGS + [_I, _I, _P],  # + resident, cut
+    "fc2_scale_residual_mmbf16_staged_cut": _RES_ARGS + [_I, _P],
     "ln_qkv_cut": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 6 + [_P],  # gcvit_block.ln_qkv_cut
-    # gcvit_block.proj_scale_residual_cut
+    # gcvit_block.proj_scale_residual_cut and _mmbf16_cut
     "proj_scale_residual_cut": [_P] * 6 + [_I] * 6 + [_P],
+    "proj_scale_residual_mmbf16_cut": [_P] * 6 + [_I] * 6 + [_P],
 }
 _DW_CUT_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]  # csrc/dwconv_cuts.cu
 _F32_CUT_SIGNATURES = {  # csrc/f32_mlp_cuts.cu
@@ -129,6 +134,16 @@ SPLIT_WIDTHS = (128,)  # ln_fc1_gelu's column-split 64-row tiles: 64 columns a w
 EPILOGUE_BYTES = {"ln": 16 * 1024, "res": 32 * 1024}
 MAX_RING = 8  # stages of a streamed ring
 MAX_RESIDENT = 64  # K tiles of a resident fc1
+# the f32 residual GEMMs of VIPTPU_GCVIT_MM=bf16 (hopper_gemm.cuh: tma_res_kernel): each
+# consumer warpgroup's f32 residual tile holds its 64 rows, in TMA boxes of 32 columns
+RES_TILE_ROWS = 64
+# column tiles in the order the plan tries them: fc2 (K = 3C) the widest, whose items re-read
+# the hidden from L2 half as often as 64-column ones; proj (K = C, f32 A) 64 columns, whose
+# 40 KB stages leave five of them where 128 columns leave four (PERF.md)
+TMA_RES_WIDTHS = {"res_tma": (128, 64, 96, 32), "proj_tma": (64, 96, 32)}
+# the column tiles the kernels are built for (f32 A: no 128, hopper_gemm.cuh's launch_tma_res)
+TMA_RES_BUILT = {"res_tma": (32, 64, 96, 128), "proj_tma": (32, 64, 96)}
+MIN_TMA_RES_STAGES = 4  # ring stages the plan wants beside a held weight or at a width
 WGMMA_N = tuple(range(8, 257, 8))  # the n a bf16 wgmma takes
 
 
@@ -173,15 +188,49 @@ def _ln_tiles(c: int, n: int, kind: str = "ln") -> dict:
     raise ValueError(f"no {kind} plan fits C = {c}, N = {n} in shared memory")
 
 
+def _tma_res_tiles(kind: str, c: int, k: int) -> dict:
+    """The f32 residual GEMMs' tiles (``tma_res_kernel``): 128-row items of
+    ``bn`` columns (the first of the kind's :data:`TMA_RES_WIDTHS` dividing
+    c that leaves :data:`MIN_TMA_RES_STAGES` ring stages, else the first
+    that leaves two). A ring stage holds an A tile of 64 K columns (bf16
+    hidden: 16 KB; f32 attention output for "proj_tma": two 32-column
+    boxes, 32 KB) and, streamed, the W tile; or one consumer
+    warpgroup's f32 residual tile (64 rows x bn: ``tile`` bytes), whichever
+    is larger: an item takes its K tiles, then the two residual tiles,
+    through the ring. The weight is held in shared memory apart from the
+    ring where :data:`MIN_TMA_RES_STAGES` stages still fit beside it."""
+    a_tile = BM * _BK * (4 if kind == "proj_tma" else 2)
+    options = []
+    for w in [w for w in TMA_RES_WIDTHS[kind] if c % w == 0]:
+        if w not in TMA_RES_BUILT[kind]:
+            raise ValueError(f"column tile {w} is not built")
+        tile, w_tile = RES_TILE_ROWS * w * 4, w * 2 * _BK
+        held, stage = (c // w) * -(-k // _BK) * w_tile, max(a_tile, tile)
+        stages = _stages_that_fit(held, stage, MAX_RING)
+        resident = stages >= MIN_TMA_RES_STAGES
+        if not resident:
+            held, stage = 0, max(a_tile + w_tile, tile)
+            stages = _stages_that_fit(0, stage, MAX_RING)
+        if stages >= 2:
+            options.append(dict(bm=BM, bn=w, stages=stages, a_buffers=0, resident=resident,
+                                split_n=False, held=held, stage=stage, tile=tile,
+                                smem=_barrier_bytes(stages) + _ALIGN + held + stages * stage))
+    if not options:
+        raise ValueError(f"no {kind} plan fits C = {c}, K = {k} in shared memory")
+    return next((p for p in options if p["stages"] >= MIN_TMA_RES_STAGES), options[0])
+
+
 def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     """Tiles of one launch on ``csrc/hopper_gemm.cuh``'s engine. ``kind``
     "ln": ``ln_fc1_gelu`` on x (M, c) -> (M, n); "qkv": ``ln_qkv``
     (:mod:`.gcvit_block`) on x (M, c) -> n = 2c or 3c columns, split into
     (M, c) outputs; "res": ``fc2_scale_residual`` on a hidden (M, n) ->
     (M, c); "proj": ``proj_scale_residual`` (:mod:`.gcvit_block`), the same
-    kernel with n = K = c and an f32 output; "proja":
-    ``proj_scale_residual_mmbf16``, the LN kernel's schedule with its A
-    tile the f32 rows rounded to bf16 (no LN), n = c, tiled as "qkv". Keys: ``bm`` rows a work item
+    kernel with n = K = c and an f32 output; "res_tma":
+    ``fc2_scale_residual_mmbf16`` on a bf16 hidden (M, n) -> f32 (M, c)
+    beside an f32 residual, and "proj_tma": ``proj_scale_residual_mmbf16``
+    on the f32 attention output, n = K = c (both ``tma_res_kernel``: the
+    residual in and the output out by TMA, :func:`_tma_res_tiles`). Keys: ``bm`` rows a work item
     (64 for each warpgroup of a consumer pair), ``bn`` its columns (a wgmma
     n dividing the output width), ``stages`` of the TMA ring, ``a_buffers``
     (LN A tiles: two let the next tile's LN overlap this one's products),
@@ -190,7 +239,8 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     still fit beside it), ``split_n`` (64-row LN tiles whose columns the
     pair's two warpgroups split), ``swizzle`` bytes, ``ctas_per_sm`` and
     ``smem`` bytes. Independent of M: the launcher sizes the persistent
-    grid."""
+    grid. The "_tma" kinds add ``stage`` and ``tile`` (a warpgroup's f32
+    residual tile) bytes."""
     if c % 32 or n % 32 or c <= 0 or n <= 0:
         raise ValueError(f"widths {c}, {n} are not multiples of 32")
     plan = dict(kind=kind, swizzle=128, ctas_per_sm=1)
@@ -200,10 +250,10 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
         if n not in (2 * c, 3 * c):
             raise ValueError(f"ln_qkv's width {n} is not 2 or 3 x C = {c}")
         plan.update(_ln_tiles(c, n, kind))
-    elif kind == "proja":
-        if n != c:
+    elif kind in ("res_tma", "proj_tma"):
+        if kind == "proj_tma" and n != c:
             raise ValueError(f"proj_scale_residual_mmbf16's K = {n} is not C = {c}")
-        plan.update(_ln_tiles(c, n, "qkv"))
+        plan.update(_tma_res_tiles(kind, c, n))
     elif kind in ("res", "proj"):
         if kind == "proj" and n != c:
             raise ValueError(f"proj_scale_residual's K = {n} is not C = {c}")
@@ -223,7 +273,8 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
                     held=held)
         plan["smem"] = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + ring
     else:
-        raise ValueError(f"kind must be 'ln', 'qkv', 'proja', 'res' or 'proj', got {kind!r}")
+        raise ValueError("kind must be 'ln', 'qkv', 'res', 'proj', 'res_tma' or 'proj_tma', "
+                         f"got {kind!r}")
     return plan
 
 
@@ -304,6 +355,12 @@ def _ln_plan_args(c: int, n: int, kind: str = "ln") -> tuple:
 def _res_plan_args(c: int, n: int) -> tuple:
     p = mlp_gemm_plan("res", c, n)
     return p["bn"], p["stages"]
+
+
+@functools.lru_cache(maxsize=None)
+def _tma_res_plan_args(kind: str, c: int, k: int) -> tuple:
+    p = mlp_gemm_plan(kind, c, k)
+    return p["bn"], p["stages"], int(p["resident"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -567,7 +624,8 @@ def fc2_scale_residual(hidden: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                 hidden.data_ptr(), hi.data_ptr(), lo.data_ptr(), *args[2:],
                 *_tf32_plan_args("res", n, c), _stream(hidden.device))
     elif mixed:
-        _launch("fc2_scale_residual_mmbf16", *args, *_res_plan_args(c, n), _stream(hidden.device))
+        _launch("fc2_scale_residual_mmbf16", *args, *_tma_res_plan_args("res_tma", c, n),
+                _stream(hidden.device))
     else:
         _launch("fc2_scale_residual_f32res" if f32_residual else "fc2_scale_residual", *args,
                 *_res_plan_args(c, n), _stream(hidden.device), counter="fc2_scale_residual")
@@ -626,6 +684,36 @@ def fc2_scale_residual_cut(hidden, w2, b2, gamma, residual, cut: int) -> torch.T
         cut, _stream(hidden.device))
     if err != 0:
         raise RuntimeError(f"fc2_scale_residual cut {cut}: CUDA launch failed with cudaError {err}")
+    return out
+
+
+MMBF16_DESIGNS = ("tma", "staged")  # fc2_scale_residual_mmbf16's kernel, and its earlier one
+
+
+def fc2_scale_residual_mmbf16_cut(hidden, w2, b2, gamma, residual, cut: int,
+                                  design: str = "tma") -> torch.Tensor:
+    """A phase cut of ``fc2_scale_residual_mmbf16`` (bf16 hidden and w2, f32
+    residual -> f32) on CUDA tensors: 0 loads (with the residual tile's),
+    2 + products, 3 the kernel itself, 5 the kernel without its stores
+    (``csrc/mlp_gemm_cuts.cu``); ``design`` "staged": the same cuts of the
+    earlier kernel (``res_gemm_kernel``, the epilogue's loads and stores by
+    the consumers), the yardstick of the TMA epilogue. Timing only: the
+    output holds nothing meaningful except at 3; never counted in
+    :data:`LAUNCHES`."""
+    m, n = hidden.shape
+    c = w2.shape[0]
+    out = torch.empty((m, c), dtype=torch.float32, device=hidden.device)
+    args = (hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            residual.data_ptr(), out.data_ptr(), m, n, c)
+    if design == "staged":
+        err = _cut_lib().fc2_scale_residual_mmbf16_staged_cut(
+            *args, *_res_plan_args(c, n), cut, _stream(hidden.device))
+    else:
+        err = _cut_lib().fc2_scale_residual_mmbf16_cut(
+            *args, *_tma_res_plan_args("res_tma", c, n), cut, _stream(hidden.device))
+    if err != 0:
+        raise RuntimeError(f"fc2_scale_residual_mmbf16 cut {cut}: CUDA launch failed with "
+                           f"cudaError {err}")
     return out
 
 

@@ -79,8 +79,11 @@ weights in it:
 - ``mm_dtype`` bf16 on f32 activations: ``ln_qkv_mmbf16`` (f32 q, k, v),
   ``window_attention_mmbf16`` (f32 in and out, k, v and the scaled q
   rounded to bf16 on load), ``proj_scale_residual_mmbf16`` (the f32
-  attention output rounded into the wgmma A tile), ``ln_fc1_gelu``,
-  ``fc2_scale_residual_mmbf16`` (-> f32).
+  attention output by TMA into the ring, each lane's fragment rounded to
+  bf16 in registers), ``ln_fc1_gelu``, ``fc2_scale_residual_mmbf16`` (->
+  f32); the two residual GEMMs on the engine's ``tma_res_kernel``, whose
+  f32 residual comes in and output goes out by TMA (plan kinds "proj_tma"
+  and "res_tma").
 
 A wrapper picks its kernel by the activations' dtype and ``mm_dtype``.
 
@@ -127,7 +130,7 @@ _SIGNATURES = {
     "proj_scale_residual_mmf32": [_P] * 7 + [_I] * 5 + [_P],
     "ln_qkv_mmbf16": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
     "window_attention_mmbf16": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    "proj_scale_residual_mmbf16": [_P] * 6 + [_I] * 7 + [_P],
+    "proj_scale_residual_mmbf16": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 
@@ -328,6 +331,25 @@ def proj_scale_residual_cut(a, wp, bp, gamma, x, cut: int) -> torch.Tensor:
     return out
 
 
+def proj_scale_residual_mmbf16_cut(a, wp, bp, gamma, x, cut: int) -> torch.Tensor:
+    """A phase cut of ``proj_scale_residual_mmbf16`` (f32 a and x, bf16 wp)
+    on CUDA tensors: 0 loads (with the residual tile's), 2 + the A
+    fragments' rounding and the products, 3 the kernel itself, 5 the kernel
+    without its stores (``csrc/mlp_gemm_cuts.cu``). Timing only: the output
+    holds nothing meaningful except at 3; never counted in
+    :data:`LAUNCHES`."""
+    m, c = a.shape
+    out = torch.empty((m, c), dtype=torch.float32, device=a.device)
+    err = CK._cut_lib().proj_scale_residual_mmbf16_cut(
+        a.data_ptr(), wp.data_ptr(), bp.data_ptr(), gamma.data_ptr(), x.data_ptr(),
+        out.data_ptr(), m, c, *CK._tma_res_plan_args("proj_tma", c, c), cut,
+        _stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"proj_scale_residual_mmbf16 cut {cut}: CUDA launch failed with "
+                           f"cudaError {err}")
+    return out
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                      n: int, scale: float, q_is_global: bool = False,
                      mm_dtype: Optional[torch.dtype] = None,
@@ -411,8 +433,8 @@ def proj_scale_residual(a: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
                 *CK._tf32_plan_args("proj", c, c, a.element_size()), _stream(a.device))
     elif dt == torch.bfloat16:
         _launch("proj_scale_residual", *args, *CK._proj_plan_args(c), _stream(a.device))
-    else:  # the LN kernel's schedule, its A tile the f32 rows rounded (plan kind "qkv", n = c)
-        _launch("proj_scale_residual_mmbf16", *args, *CK._ln_plan_args(c, c, "proja"),
+    else:  # the f32 rows by TMA, rounded in registers (plan kind "proj_tma")
+        _launch("proj_scale_residual_mmbf16", *args, *CK._tma_res_plan_args("proj_tma", c, c),
                 _stream(a.device))
     return out
 

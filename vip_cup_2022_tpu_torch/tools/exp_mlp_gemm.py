@@ -2,7 +2,8 @@
 """Phase cuts of the kernels on the wgmma + TMA engine at the main path's shapes, on one CUDA card.
 
     python3 -m vip_cup_2022_tpu_torch.tools.exp_mlp_gemm [--iters 10] [--batch 256]
-        [--shapes s1 s2 ... L4]
+        [--shapes s1 s2 ... L4] [--kernels bf16 mixed]
+    python3 vip_cup_2022_tpu_torch/tools/exp_mlp_gemm.py --root DIR --kernels mixed
 
 Per shape (ConvNeXt's stages s1-s4 at 200 px: 99/49/24/12 grids, C 96-768,
 N = 4C, bf16 residual; GCViTTiny@224's levels L1-L4: 56/28/14/7 grids, C
@@ -28,21 +29,50 @@ off) and the kernel's bound (its bytes over 3.35 TB/s or its operations over
 CUDA events over ``--iters`` launches after a warm-up, in the order listed,
 then reversed (the two readings averaged). The whole kernels are first
 checked against their plain versions in f32. The difference between two
-cuts is what a phase adds where it is not hidden behind the others. No
-counterpart in the JAX package. Needs a CUDA device.
+cuts is what a phase adds where it is not hidden behind the others.
+
+``--kernels mixed`` (at L1-L4; in the default run after the bf16 kernels):
+the two GEMMs of ``VIPTPU_GCVIT_MM=bf16`` on f32 activations that end in an
+f32 residual epilogue, ``fc2_scale_residual_mmbf16`` (bf16 hidden, K = 3C)
+and ``proj_scale_residual_mmbf16`` (f32 attention output, K = C), by device
+time (``bench_util.device_ms``): whole and their cuts (loads, products,
+no_stores) where the checkout has them, beside cuBLAS's bf16 product with
+the f32 activations cast to bf16 inside the timed call (fc2's hidden is
+bf16 already) and the bound, then per GCViTTiny forward (each level's
+launches times its blocks). ``--root DIR`` imports the package from DIR, a
+checkout of another commit (run this file by its path, so that nothing is
+imported before the root is chosen): two builds are timed by the same code,
+one process each, in one chip call. No counterpart in the JAX package.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 import sys
 from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels import convnext_block as K
-from ..ops.kernels import gcvit_block as G
-from .bench_util import card_line, cuda_ms
+HERE = os.path.dirname(os.path.abspath(__file__))
+CHECKOUT = os.path.dirname(os.path.dirname(HERE))
+K = G = None  # the kernel modules of the checkout timed (:func:`_load`)
+cuda_ms = device_ms = card_line = None
+
+
+def _load(root: str) -> None:
+    """Import the kernel modules and the timers from checkout ``root``."""
+    global K, G, cuda_ms, device_ms, card_line
+    if root not in sys.path[:1]:
+        sys.path.insert(0, root)
+    from vip_cup_2022_tpu_torch.ops.kernels import convnext_block, gcvit_block
+    from vip_cup_2022_tpu_torch.tools import bench_util
+
+    K, G = convnext_block, gcvit_block
+    cuda_ms, device_ms, card_line = bench_util.cuda_ms, bench_util.device_ms, bench_util.card_line
+
 
 # name: grid, C, N / C, residual dtype, blocks per forward
 SHAPES = {"s1": (99, 96, 4, torch.bfloat16, 3), "s2": (49, 192, 4, torch.bfloat16, 3),
@@ -53,6 +83,7 @@ LN_CUTS = {"loads": 0, "ln": 1, "products": 2, "whole": 3, "raw_stores": 4, "no_
 FC2_CUTS = {"loads": 0, "products": 2, "whole": 3, "raw_stores": 4, "no_stores": 5}
 QKV_CUTS = {"loads": 0, "ln": 1, "products": 2, "whole": 3, "no_stores": 5}
 PROJ_CUTS = {"loads": 0, "products": 2, "whole": 3, "no_stores": 5}
+MIXED_CUTS = {"loads": 0, "products": 2, "no_stores": 5, "whole": 3}
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
 
@@ -79,11 +110,103 @@ def proj_bound_ms(m: int, c: int) -> float:
     return max(nbytes / HBM_BYTES_PER_S, 2 * m * c * c / BF16_OPS_PER_S) * 1e3
 
 
-def _timed(fns: dict, iters: int) -> dict:
+def mixed_bounds_ms(m: int, c: int) -> tuple:
+    """(fc2_scale_residual_mmbf16, proj_scale_residual_mmbf16) bounds in ms:
+    the bf16 hidden (K = 3C) or the f32 attention output (K = C), the bf16
+    weight, bias and gamma read once, the f32 residual read and the f32
+    output written once; or the products at the bf16 peak."""
+    io = m * c * 8 + 2 * c * 4
+    fc2 = max((m * 3 * c * 2 + 3 * c * c * 2 + io) / HBM_BYTES_PER_S,
+              2 * m * 3 * c * c / BF16_OPS_PER_S)
+    proj = max((m * c * 4 + c * c * 2 + io) / HBM_BYTES_PER_S, 2 * m * c * c / BF16_OPS_PER_S)
+    return fc2 * 1e3, proj * 1e3
+
+
+def _timed(fns: dict, iters: int, timer=None) -> dict:
+    timer = timer or (lambda fn: cuda_ms(fn, iters))
     readings = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
-        readings[name].append(cuda_ms(fns[name], iters))
+        readings[name].append(timer(fns[name]))
     return {name: sum(r) / len(r) for name, r in readings.items()}
+
+
+def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def run_mixed(batch: int = 256, iters: int = 10,
+              levels: Sequence[str] = ("L1", "L2", "L3", "L4")) -> dict:
+    """The two mixed-mode residual GEMMs at GCViTTiny's levels by device
+    time (ms per launch), each whole kernel first checked against its plain
+    version (max|d| / max|ref| on 4096 rows); where the checkout has them,
+    their cuts and ``fc2_scale_residual_mmbf16``'s earlier design's cuts and
+    whole ("staged_*"); then per GCViTTiny forward: a reading's total over
+    ``levels`` where it was timed at each of them, else marked partial with
+    the levels it covers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    timer = lambda fn: device_ms(fn, calls=iters)  # noqa: E731
+    per_level, forward = {}, {}
+    rows = slice(0, 4096)
+    for name in levels:
+        grid, c, ratio, _, blocks = SHAPES[name]
+        m = batch * grid * grid
+        hid = u((m, ratio * c)).to(bf16)
+        w2 = (u((c, ratio * c)) * (ratio * c) ** -0.5).to(bf16)
+        attn, x, r1 = u((m, c)), u((m, c)) * 2, u((m, c)) * 2
+        wp = (u((c, c)) * c ** -0.5).to(bf16)
+        bias, gamma = u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
+        kernels = {
+            "fc2_scale_residual_mmbf16": (
+                lambda: K.fc2_scale_residual(hid, w2, bias, gamma, r1, out_dtype=f32),
+                lambda: K.fc2_scale_residual_plain(hid[rows], w2, bias, gamma, r1[rows], f32),
+                getattr(K, "fc2_scale_residual_mmbf16_cut", None),
+                (hid, w2, bias, gamma, r1), lambda: F.linear(hid, w2)),
+            "proj_scale_residual_mmbf16": (
+                lambda: G.proj_scale_residual(attn, wp, bias, gamma, x, mm_dtype=bf16),
+                lambda: G.proj_scale_residual_plain(attn[rows], wp, bias, gamma, x[rows], bf16),
+                getattr(G, "proj_scale_residual_mmbf16_cut", None),
+                (attn, wp, bias, gamma, x), lambda: F.linear(attn.to(bf16), wp)),
+        }
+        bounds = dict(zip(kernels, mixed_bounds_ms(m, c)))
+        level = per_level[name] = {}
+        for kernel, (whole, plain, cut, args, cublas) in kernels.items():
+            err = _rel(whole()[rows], plain())
+            fns = {"whole": whole, "cublas": cublas}
+            if cut is not None:
+                fns.update({cn: functools.partial(cut, *args, v) for cn, v in MIXED_CUTS.items()
+                            if cn != "whole"})
+                if kernel.startswith("fc2") and "staged" in getattr(K, "MMBF16_DESIGNS", ()):
+                    fns.update({f"staged_{cn}": functools.partial(cut, *args, v, design="staged")
+                                for cn, v in MIXED_CUTS.items()})
+            ms = _timed(fns, iters, timer)
+            level[kernel] = dict(ms=ms, bound=bounds[kernel], rel_err=err)
+            acc = forward.setdefault(kernel, {})
+            for cn, t in list(ms.items()) + [("bound", bounds[kernel])]:
+                total, covered = acc.get(cn, (0.0, []))
+                acc[cn] = (total + t * blocks, covered + [name])
+            print(f"[mixed {name} ({m},{c})] {kernel}: whole vs plain max|d|/max|ref| {err:.2e}; "
+                  "device " + ", ".join(f"{cn} {t:.4f}" for cn, t in ms.items())
+                  + f" ms; bound {bounds[kernel]:.4f} ms; whole/bound "
+                  f"{ms['whole'] / bounds[kernel]:.2f}, whole/cuBLAS with the cast "
+                  f"{ms['whole'] / ms['cublas']:.2f} [{card_line()}]", flush=True)
+        del hid, w2, attn, x, r1, wp, kernels
+        torch.cuda.empty_cache()
+    for kernel, acc in forward.items():
+        whole = {cn: t for cn, (t, covered) in acc.items() if covered == list(levels)}
+        partial = {cn: (t, covered) for cn, (t, covered) in acc.items() if cn not in whole}
+        forward[kernel] = whole
+        print(f"[mixed] {kernel} per GCViTTiny batch-{batch} forward ({', '.join(levels)}), "
+              "device ms: " + ", ".join(f"{cn} {t:.4f}" for cn, t in whole.items())
+              + "".join(f"; {cn} {t:.4f} partial: {', '.join(covered)} only"
+                        for cn, (t, covered) in partial.items())
+              + f" [{card_line()}]", flush=True)
+    return dict(levels=per_level, forward=forward)
 
 
 def run(batch: int = 256, iters: int = 10, shapes: Sequence[str] = tuple(SHAPES)) -> List[dict]:
@@ -173,11 +296,25 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--shapes", nargs="+", choices=list(SHAPES), default=list(SHAPES))
+    ap.add_argument("--kernels", nargs="+", choices=["bf16", "mixed"], default=["bf16", "mixed"])
+    ap.add_argument("--root", default=CHECKOUT, help="checkout whose package is timed")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("exp_mlp_gemm: no CUDA device is available; the cuts are CUDA kernels")
-    print(f"device={torch.cuda.get_device_name(0)} [{card_line()}]", flush=True)
-    return run(args.batch, args.iters, args.shapes)
+    root = os.path.abspath(args.root)
+    _load(root)
+    print(f"root={root} device={torch.cuda.get_device_name(0)} [{card_line()}]", flush=True)
+    results = run(args.batch, args.iters, args.shapes) if "bf16" in args.kernels else []
+    levels = [s for s in args.shapes if s.startswith("L")]
+    if "mixed" in args.kernels and levels:  # each level's dict gains "mixed"
+        mixed = run_mixed(args.batch, args.iters, levels)["levels"]
+        by_name = {r["name"]: r for r in results}
+        for name in levels:
+            if name not in by_name:
+                by_name[name] = dict(name=name)
+                results.append(by_name[name])
+            by_name[name]["mixed"] = mixed[name]
+    return results
 
 
 if __name__ == "__main__":
