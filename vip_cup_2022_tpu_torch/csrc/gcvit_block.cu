@@ -56,9 +56,10 @@
 //
 //   ln_qkv_f32               f32 x, W_qkv as its 3xTF32 pair (W_hi, W_lo)
 //                            -> S f32 (M, C) outputs (tf32_gemm.cuh, kQkv)
-//   window_attention_f32     f32 q, k, v -> f32 (f32_attention.cuh on token
-//                            rows, P.V divided by the row sum after, as the
-//                            TPU kernel's default "mxu" softmax does)
+//   window_attention_f32     f32 q, k, v -> f32 (tf32_attention.cuh: both
+//                            products as 3xTF32 mma.sync, P.V divided by the
+//                            row sum after, as the TPU kernel's default "mxu"
+//                            softmax does)
 //   proj_scale_residual_f32  f32 attn, W_p's pair, f32 x -> f32 r1
 //                            (tf32_gemm.cuh, kResidual with K = C)
 //
@@ -72,7 +73,7 @@
 //   which the TPU takes at every GCViTTiny level, keeps them):
 //   ln_qkv_mmf32               bf16 x, W_qkv's pair -> S f32 outputs (kQkv)
 //   window_attention_mmf32     f32 q (or a bf16 global query), f32 k, v ->
-//                              bf16 (f32_attention.cuh)
+//                              bf16 (tf32_attention.cuh)
 //   proj_scale_residual_mmf32  bf16 attn and x, W_p's pair -> f32 r1
 //                              (kResidual: a bf16 A is exact in TF32, so
 //                              two passes a k8 step)
@@ -81,7 +82,11 @@
 //   VIPTPU_GCVIT_MM=bf16 on f32 activations (the wgmma engine and the
 //   window-attention template; every operand rounded to bf16 on chip):
 //   ln_qkv_mmbf16              f32 x -> LN -> bf16 A -> W_qkv bf16 -> S f32
-//                              outputs (stored from the accumulators)
+//                              outputs: at C = 32, 64 each warpgroup's f32
+//                              tile out by TMA (the engine's
+//                              ln_qkv_tma_kernel, plan kind "qkv_tma"), else
+//                              the LN kernel's f32 outputs from the
+//                              accumulators
 //   window_attention_mmbf16    f32 q, k, v -> f32 (k, v and the scaled q
 //                              rounded to bf16 on load)
 //   proj_scale_residual_mmbf16 f32 attn by TMA into the ring, each lane's
@@ -94,8 +99,8 @@
 // Every launcher has a plain C interface for ctypes and returns
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
 
-#include "f32_attention.cuh"
 #include "hopper_gemm.cuh"
+#include "tf32_attention.cuh"
 #include "tf32_gemm.cuh"
 #include "window_attention.cuh"
 
@@ -124,6 +129,26 @@ int ln_qkv_tf32(const void* x, const void* ln_g, const void* ln_b, const void* w
   p.eps = eps;
   return (int)tf32_gemm::launch<tf32_gemm::kQkv, hopper_gemm::kWhole, float, 3, TA>(
       p, x, w_hi, w_lo, bn, promote, (cudaStream_t)stream);
+}
+
+// the f32-product attention's parameters: q of the launch's TQ, f32 k, v and bias
+tf32_attn::Params tf32_params(const void* q, const void* k, const void* v, const void* bias,
+                              void* out, int B, int nwin, int N, int C, int heads, float scale,
+                              int q_is_global) {
+  tf32_attn::Params p{};
+  p.q = q;
+  p.k = (const float*)k;
+  p.v = (const float*)v;
+  p.bias = (const float*)bias;
+  p.out = out;
+  p.items = (long long)B * nwin * heads;
+  p.heads = heads;
+  p.n = N;
+  p.nwin = nwin;
+  p.c = C;
+  p.scale = scale;
+  p.q_is_global = q_is_global;
+  return p;
 }
 
 // proj_scale_residual's: attention output a and residual x of type T (f32, or
@@ -201,20 +226,27 @@ int ln_qkv_f32(const void* x, const void* ln_g, const void* ln_b, const void* w_
 int window_attention_f32(const void* q, const void* k, const void* v, const void* bias,
                          void* out, int B, int nwin, int N, int C, int heads, float scale,
                          int q_is_global, void* stream) {
-  f32_attn::Params p{};
-  p.q = (const float*)q;
-  p.k = (const float*)k;
-  p.v = (const float*)v;
-  p.bias = (const float*)bias;
-  p.out = (float*)out;
-  p.items = (long long)B * nwin * heads;
-  p.heads = heads;
-  p.n = N;
-  p.nwin = nwin;
-  p.c = C;
-  p.scale = scale;
-  p.q_is_global = q_is_global;
-  return (int)f32_attn::launch<f32_attn::Layout::kTokens, true>(p, (cudaStream_t)stream);
+  return (int)tf32_attn::launch<float, float>(
+      tf32_params(q, k, v, bias, out, B, nwin, N, C, heads, scale, q_is_global),
+      (cudaStream_t)stream);
+}
+
+// window_attention_f32 stopped after a phase, for tools/exp_window_attention.py:
+// cut 1 after the loads, 2 after the scores and the row max, 3 after the
+// softmax (tf32_attention.cuh's kCut). The output holds a checksum, not
+// attention.
+int window_attention_f32_cut(const void* q, const void* k, const void* v, const void* bias,
+                             void* out, int B, int nwin, int N, int C, int heads, float scale,
+                             int q_is_global, int cut, void* stream) {
+  const tf32_attn::Params p =
+      tf32_params(q, k, v, bias, out, B, nwin, N, C, heads, scale, q_is_global);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (cut) {
+    case 1: return (int)tf32_attn::launch<float, float, tf32_attn::kLoads>(p, s);
+    case 2: return (int)tf32_attn::launch<float, float, tf32_attn::kScores>(p, s);
+    case 3: return (int)tf32_attn::launch<float, float, tf32_attn::kSoftmax>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int proj_scale_residual_f32(const void* a, const void* w_hi, const void* w_lo, const void* bp,
@@ -223,13 +255,25 @@ int proj_scale_residual_f32(const void* a, const void* w_hi, const void* w_lo, c
   return proj_tf32<float>(a, w_hi, w_lo, bp, gamma, x, out, M, C, bn, stages, promote, stream);
 }
 
+// tma (C = 32, 64): ln_qkv_tma_kernel, its f32 outputs stored by TMA; else the LN kernel
+// with its f32 outputs stored from the accumulators (flag: split_n). The choice and the
+// plan: ops/kernels/convnext_block.py::_qkv_tma_plan_args
 int ln_qkv_mmbf16(const void* x, const void* ln_g, const void* ln_b, const void* w,
                   const void* bias, void* q, void* k, void* v, int M, int C, int S, float eps,
-                  int bn, int stages, int a_buffers, int resident, int split_n, void* stream) {
-  const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
-                                {q, k, v}, M, C, S * C, eps, stages, a_buffers, resident};
-  return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, float, hopper_gemm::kEpiQkv,
-                                     float>(p, w, bn, split_n, (cudaStream_t)stream);
+                  int tma, int bn, int stages, int a_buffers, int resident, int flag,
+                  void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!tma) {
+    const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
+                                  {q, k, v}, M, C, S * C, eps, stages, a_buffers, resident};
+    return (int)hopper_gemm::launch_ln<hopper_gemm::kWhole, true, float, hopper_gemm::kEpiQkv,
+                                       float>(p, w, bn, flag, st);
+  }
+  const hopper_gemm::QkvTmaParams p{(const float*)x, (const float*)ln_g, (const float*)ln_b,
+                                    (const float*)bias, M, C, S * C, eps, stages, a_buffers,
+                                    resident};
+  void* const out[3] = {q, k, v};
+  return (int)hopper_gemm::launch_qkv_tma<hopper_gemm::kWhole, true>(p, w, out, bn, st);
 }
 
 int window_attention_mmbf16(const void* q, const void* k, const void* v, const void* bias,
@@ -275,23 +319,11 @@ int ln_qkv_mmf32(const void* x, const void* ln_g, const void* ln_b, const void* 
 int window_attention_mmf32(const void* q, const void* k, const void* v, const void* bias,
                            void* out, int B, int nwin, int N, int C, int heads, float scale,
                            int q_is_global, int q_bf16, void* stream) {
-  f32_attn::Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.bias = (const float*)bias;
-  p.out = out;
-  p.items = (long long)B * nwin * heads;
-  p.heads = heads;
-  p.n = N;
-  p.nwin = nwin;
-  p.c = C;
-  p.scale = scale;
-  p.q_is_global = q_is_global;
+  const tf32_attn::Params p =
+      tf32_params(q, k, v, bias, out, B, nwin, N, C, heads, scale, q_is_global);
   const cudaStream_t s = (cudaStream_t)stream;
-  return q_bf16
-             ? (int)f32_attn::launch<f32_attn::Layout::kTokens, true, bf16, float, bf16>(p, s)
-             : (int)f32_attn::launch<f32_attn::Layout::kTokens, true, float, float, bf16>(p, s);
+  return q_bf16 ? (int)tf32_attn::launch<bf16, bf16>(p, s)
+                : (int)tf32_attn::launch<float, bf16>(p, s);
 }
 
 int proj_scale_residual_mmf32(const void* a, const void* w_hi, const void* w_lo, const void* bp,

@@ -1,8 +1,8 @@
 // Phase cuts of the kernels on hopper_gemm.cuh's engine for timing, at the
 // widths of the main path's shapes (ConvNeXt s1-s4, GCViT L1-L4; for ln_qkv,
-// proj_scale_residual and the f32 residual GEMMs of VIPTPU_GCVIT_MM=bf16,
-// fc2_scale_residual_mmbf16 and proj_scale_residual_mmbf16, GCViT's column
-// tiles of 64 and 128):
+// proj_scale_residual and the f32 GEMMs of VIPTPU_GCVIT_MM=bf16 on f32
+// activations, ln_qkv_mmbf16, fc2_scale_residual_mmbf16 and
+// proj_scale_residual_mmbf16, GCViT's column tiles of 64 and 128):
 //
 //   cut 0  loads: the TMA loads of W (and of the hidden for fc2, of attn
 //          for proj) and the reads of x, nothing computed or written
@@ -14,9 +14,10 @@
 //   cut 4  cut 2 + the accumulators stored as bf16 (the MLP GEMMs)
 //   cut 5  cut 3 without its stores
 //
-// fc2_scale_residual_mmbf16 also in its earlier design (res_gemm_kernel with
-// an f32 residual and output, the epilogue's loads and stores by the
-// consumers), whole (cut 3) too, as the yardstick of the TMA epilogue.
+// ln_qkv_mmbf16 (f32 x -> LN -> bf16 A, f32 q, k, v) has cuts 0, 1, 2 and 5
+// of the kernel its plan takes (ln_qkv_tma_kernel at C = 64, the LN kernel
+// with f32 outputs at C = 128 ... 512); the kernel itself (cut 3) is
+// gcvit_block.cu's.
 //
 // The cut kernels are other instantiations of the same templates, under
 // other mangled names, so they load beside convnext_block.cu's library.
@@ -49,13 +50,6 @@ int res_cut(const void* hidden, const void* w2, const void* b2, const void* gamm
                                                           (cudaStream_t)stream);
 }
 
-// fc2_scale_residual_mmbf16's earlier design: res_gemm_kernel, f32 residual and output
-template <int kCut>
-int staged_mmbf16_cut(const hopper_gemm::ResParams& p, const void* hidden, const void* w2, int bn,
-                      cudaStream_t stream) {
-  return (int)hopper_gemm::launch_res<float, kCut, false, float>(p, hidden, w2, bn, stream);
-}
-
 // the f32 residual GEMMs of VIPTPU_GCVIT_MM=bf16 (tma_res_kernel), A of type TA
 template <typename TA>
 int tma_res_cut(const void* a, const void* w, const void* bias, const void* gamma,
@@ -73,18 +67,31 @@ int tma_res_cut(const void* a, const void* w, const void* bias, const void* gamm
   }
 }
 
-template <int kCut>
+// ln_qkv (XT = OutT = bf16) and ln_qkv_mmbf16's LN-kernel path (XT = OutT = f32)
+template <int kCut, typename XT, typename OutT>
 int qkv_cut(const hopper_gemm::LnParams& p, const void* w, int bn, int split_n,
             cudaStream_t stream) {
   if (p.M == 0) return 0;
   if (split_n) return (int)cudaErrorInvalidValue;
   switch (bn) {  // GCViTTiny's levels: C = 64 -> 64, C = 128 ... 512 -> 128
     case 64:
-      return (int)hopper_gemm::launch_ln_bn<64, kCut, false, bf16, hopper_gemm::kEpiQkv>(p, w,
-                                                                                       stream);
+      return (int)hopper_gemm::launch_ln_bn<64, kCut, false, XT, hopper_gemm::kEpiQkv, OutT>(
+          p, w, stream);
     case 128:
-      return (int)hopper_gemm::launch_ln_bn<128, kCut, false, bf16, hopper_gemm::kEpiQkv>(p, w,
-                                                                                        stream);
+      return (int)hopper_gemm::launch_ln_bn<128, kCut, false, XT, hopper_gemm::kEpiQkv, OutT>(
+          p, w, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename XT, typename OutT>
+int qkv_cuts(const hopper_gemm::LnParams& p, const void* w, int bn, int split_n, int cut,
+             cudaStream_t st) {
+  switch (cut) {
+    case 0: return qkv_cut<0, XT, OutT>(p, w, bn, split_n, st);
+    case 1: return qkv_cut<1, XT, OutT>(p, w, bn, split_n, st);
+    case 2: return qkv_cut<2, XT, OutT>(p, w, bn, split_n, st);
+    case 5: return qkv_cut<5, XT, OutT>(p, w, bn, split_n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -114,21 +121,6 @@ int fc2_scale_residual_mmbf16_cut(const void* hidden, const void* w2, const void
                            stream);
 }
 
-int fc2_scale_residual_mmbf16_staged_cut(const void* hidden, const void* w2, const void* b2,
-                                         const void* gamma, const void* res, void* out, int M,
-                                         int K, int C, int bn, int stages, int cut,
-                                         void* stream) {
-  const hopper_gemm::ResParams p{(const float*)b2, (const float*)gamma, res, out, M, K, C, stages};
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (cut) {
-    case 0: return staged_mmbf16_cut<0>(p, hidden, w2, bn, st);
-    case 2: return staged_mmbf16_cut<2>(p, hidden, w2, bn, st);
-    case 3: return staged_mmbf16_cut<3>(p, hidden, w2, bn, st);
-    case 5: return staged_mmbf16_cut<5>(p, hidden, w2, bn, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 int proj_scale_residual_mmbf16_cut(const void* a, const void* wp, const void* bp,
                                    const void* gamma, const void* x, void* out, int M, int C,
                                    int bn, int stages, int resident, int cut, void* stream) {
@@ -155,14 +147,30 @@ int ln_qkv_cut(const void* x, const void* ln_g, const void* ln_b, const void* w,
                int bn, int stages, int a_buffers, int resident, int split_n, int cut,
                void* stream) {
   const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
-                                {(bf16*)q, (bf16*)k, (bf16*)v}, M, C, S * C, eps, stages,
-                                a_buffers, resident};
+                                {q, k, v}, M, C, S * C, eps, stages, a_buffers, resident};
+  return qkv_cuts<bf16, bf16>(p, w, bn, split_n, cut, (cudaStream_t)stream);
+}
+
+// ln_qkv_mmbf16's kernel by its plan (gcvit_block.cu's ln_qkv_mmbf16)
+int ln_qkv_mmbf16_cut(const void* x, const void* ln_g, const void* ln_b, const void* w,
+                      const void* bias, void* q, void* k, void* v, int M, int C, int S,
+                      float eps, int tma, int bn, int stages, int a_buffers, int resident,
+                      int flag, int cut, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (!tma) {
+    const hopper_gemm::LnParams p{x, (const float*)ln_g, (const float*)ln_b, (const float*)bias,
+                                  {q, k, v}, M, C, S * C, eps, stages, a_buffers, resident};
+    return qkv_cuts<float, float>(p, w, bn, flag, cut, st);
+  }
+  const hopper_gemm::QkvTmaParams p{(const float*)x, (const float*)ln_g, (const float*)ln_b,
+                                    (const float*)bias, M, C, S * C, eps, stages, a_buffers,
+                                    resident};
+  void* const out[3] = {q, k, v};
   switch (cut) {
-    case 0: return qkv_cut<0>(p, w, bn, split_n, st);
-    case 1: return qkv_cut<1>(p, w, bn, split_n, st);
-    case 2: return qkv_cut<2>(p, w, bn, split_n, st);
-    case 5: return qkv_cut<5>(p, w, bn, split_n, st);
+    case 0: return (int)hopper_gemm::launch_qkv_tma<0, false>(p, w, out, bn, st);
+    case 1: return (int)hopper_gemm::launch_qkv_tma<1, false>(p, w, out, bn, st);
+    case 2: return (int)hopper_gemm::launch_qkv_tma<2, false>(p, w, out, bn, st);
+    case 5: return (int)hopper_gemm::launch_qkv_tma<5, false>(p, w, out, bn, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

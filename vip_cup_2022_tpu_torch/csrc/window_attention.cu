@@ -24,12 +24,12 @@
 // and the output; at N = 196 the on-chip path between the two products
 // (see the template's note, and PERF.md for the phase cuts).
 //
-// window_attention_bhnd_f32 is the TPU kernel's f32 mode: its dots take f32
-// operands, which the tensor cores cannot (TF32 keeps 10 bits of mantissa),
-// so it runs the f32 FMAs on the CUDA cores (f32_attention.cuh's kernel on
-// (BH, N, 32) tiles) in the TPU kernel's order: q times the scale in f32,
-// s = q k^T + bias, the row max subtracted, exp, each P divided by the row
-// sum, then P.V in f32.
+// window_attention_bhnd_f32 is the TPU kernel's f32 mode, f32 FMAs on the
+// CUDA cores (f32_attention.cuh's kernel on (BH, N, 32) tiles) in the TPU
+// kernel's order: q times the scale in f32, s = q k^T + bias, the row max
+// subtracted, exp, each P divided by the row sum, then P.V in f32. (The
+// fused block's f32 attention runs both products as 3xTF32 on the tensor
+// cores, tf32_attention.cuh; this one has not moved there yet.)
 //
 // The launchers have a plain C interface for ctypes and return
 // cudaGetLastError() as an int, so a refused launch reaches the caller.
@@ -79,19 +79,9 @@ int window_attention_bhnd(const void* q, const void* k, const void* v, const voi
 // f32 q, k, v (BH, N, 32) and bias (H, N, N) -> f32 out (BH, N, 32), N <= 224
 int window_attention_bhnd_f32(const void* q, const void* k, const void* v, const void* bias,
                               void* out, long long BH, int H, int N, float scale, void* stream) {
-  f32_attn::Params p{};
-  p.q = (const float*)q;
-  p.k = (const float*)k;
-  p.v = (const float*)v;
-  p.bias = (const float*)bias;
-  p.out = (float*)out;
-  p.items = BH;
-  p.heads = H;
-  p.n = N;
-  p.nwin = 1;
-  p.c = H * f32_attn::kHd;
-  p.scale = scale;
-  return (int)f32_attn::launch<f32_attn::Layout::kHeads, false>(p, (cudaStream_t)stream);
+  const f32_attn::Params p{(const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+                           (float*)out, BH, H, N, scale};
+  return (int)f32_attn::launch(p, (cudaStream_t)stream);
 }
 
 // The kernel stopped after a phase, for tools/exp_window_attention.py: cut 1

@@ -108,8 +108,9 @@ _CUT_SIGNATURES = {  # csrc/mlp_gemm_cuts.cu: + the cut (and fc2's residual type
     "ln_fc1_gelu_cut": _LN_ARGS + [_I, _P],
     "fc2_scale_residual_cut": _RES_ARGS + [_I, _I, _P],
     "fc2_scale_residual_mmbf16_cut": _RES_ARGS + [_I, _I, _P],  # + resident, cut
-    "fc2_scale_residual_mmbf16_staged_cut": _RES_ARGS + [_I, _P],
-    "ln_qkv_cut": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 6 + [_P],  # gcvit_block.ln_qkv_cut
+    # gcvit_block.ln_qkv_cut and ln_qkv_mmbf16_cut
+    "ln_qkv_cut": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 6 + [_P],
+    "ln_qkv_mmbf16_cut": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 7 + [_P],
     # gcvit_block.proj_scale_residual_cut and _mmbf16_cut
     "proj_scale_residual_cut": [_P] * 6 + [_I] * 6 + [_P],
     "proj_scale_residual_mmbf16_cut": [_P] * 6 + [_I] * 6 + [_P],
@@ -144,6 +145,11 @@ TMA_RES_WIDTHS = {"res_tma": (128, 64, 96, 32), "proj_tma": (64, 96, 32)}
 # the column tiles the kernels are built for (f32 A: no 128, hopper_gemm.cuh's launch_tma_res)
 TMA_RES_BUILT = {"res_tma": (32, 64, 96, 128), "proj_tma": (32, 64, 96)}
 MIN_TMA_RES_STAGES = 4  # ring stages the plan wants beside a held weight or at a width
+# ln_qkv_mmbf16 (hopper_gemm.cuh: ln_qkv_tma_kernel) where W_qkv is resident: each of the
+# four consumer warpgroups stages its f32 output tile (64 rows x bn) in shared memory of its
+# own for the TMA store, 64-column items keeping the four tiles (64 KB) beside the A tiles
+QKV_TMA_WIDTHS = (64, 32)
+CONSUMER_WARPGROUPS = 4
 WGMMA_N = tuple(range(8, 257, 8))  # the n a bf16 wgmma takes
 
 
@@ -220,6 +226,28 @@ def _tma_res_tiles(kind: str, c: int, k: int) -> dict:
     return next((p for p in options if p["stages"] >= MIN_TMA_RES_STAGES), options[0])
 
 
+def _qkv_tma_tiles(c: int, n: int) -> dict:
+    """``ln_qkv_mmbf16``'s tiles on ``ln_qkv_tma_kernel``: LN tiles of 128
+    rows, W_qkv resident in the ring beside two A tiles (else one) and the
+    four consumer warpgroups' f32 output tiles (64 rows x ``bn``, ``tile``
+    bytes each) in room of their own, ``bn`` the first of
+    :data:`QKV_TMA_WIDTHS` dividing c. Where W_qkv does not fit (C >= 192)
+    no plan: ``ln_qkv_mmbf16`` runs on the LN kernel there
+    (:func:`_qkv_tma_plan_args`)."""
+    cpad = -(-c // _BK) * _BK
+    for bn in (w for w in QKV_TMA_WIDTHS if c % w == 0):
+        stages, tile = (n // bn) * (cpad // _BK), RES_TILE_ROWS * bn * 4
+        if stages > MAX_RESIDENT:
+            continue
+        for a in (2, 1):
+            fixed = CONSUMER_WARPGROUPS * tile + a * BM * cpad * 2
+            if _stages_that_fit(fixed, bn * 2 * _BK, stages) == stages:
+                return dict(bm=BM, bn=bn, stages=stages, a_buffers=a, resident=True,
+                            split_n=False, tile=tile,
+                            smem=_barrier_bytes(stages) + _ALIGN + fixed + stages * bn * 2 * _BK)
+    raise ValueError(f"no qkv_tma plan fits C = {c}, N = {n} in shared memory")
+
+
 def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     """Tiles of one launch on ``csrc/hopper_gemm.cuh``'s engine. ``kind``
     "ln": ``ln_fc1_gelu`` on x (M, c) -> (M, n); "qkv": ``ln_qkv``
@@ -230,7 +258,10 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     ``fc2_scale_residual_mmbf16`` on a bf16 hidden (M, n) -> f32 (M, c)
     beside an f32 residual, and "proj_tma": ``proj_scale_residual_mmbf16``
     on the f32 attention output, n = K = c (both ``tma_res_kernel``: the
-    residual in and the output out by TMA, :func:`_tma_res_tiles`). Keys: ``bm`` rows a work item
+    residual in and the output out by TMA, :func:`_tma_res_tiles`); "qkv_tma":
+    ``ln_qkv_mmbf16`` on f32 x (M, c) -> n = 2c or 3c f32 columns, split into
+    (M, c) outputs, each stored by TMA from an f32 tile of its warpgroup
+    (``ln_qkv_tma_kernel``, :func:`_qkv_tma_tiles`). Keys: ``bm`` rows a work item
     (64 for each warpgroup of a consumer pair), ``bn`` its columns (a wgmma
     n dividing the output width), ``stages`` of the TMA ring, ``a_buffers``
     (LN A tiles: two let the next tile's LN overlap this one's products),
@@ -239,8 +270,8 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
     still fit beside it), ``split_n`` (64-row LN tiles whose columns the
     pair's two warpgroups split), ``swizzle`` bytes, ``ctas_per_sm`` and
     ``smem`` bytes. Independent of M: the launcher sizes the persistent
-    grid. The "_tma" kinds add ``stage`` and ``tile`` (a warpgroup's f32
-    residual tile) bytes."""
+    grid. The "_tma" kinds add ``tile`` (a warpgroup's f32 residual or
+    output tile) bytes, "res_tma" and "proj_tma" also ``stage``."""
     if c % 32 or n % 32 or c <= 0 or n <= 0:
         raise ValueError(f"widths {c}, {n} are not multiples of 32")
     plan = dict(kind=kind, swizzle=128, ctas_per_sm=1)
@@ -250,6 +281,10 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
         if n not in (2 * c, 3 * c):
             raise ValueError(f"ln_qkv's width {n} is not 2 or 3 x C = {c}")
         plan.update(_ln_tiles(c, n, kind))
+    elif kind == "qkv_tma":
+        if n not in (2 * c, 3 * c):
+            raise ValueError(f"ln_qkv_mmbf16's width {n} is not 2 or 3 x C = {c}")
+        plan.update(_qkv_tma_tiles(c, n))
     elif kind in ("res_tma", "proj_tma"):
         if kind == "proj_tma" and n != c:
             raise ValueError(f"proj_scale_residual_mmbf16's K = {n} is not C = {c}")
@@ -273,8 +308,8 @@ def mlp_gemm_plan(kind: str, c: int, n: int) -> dict:
                     held=held)
         plan["smem"] = _barrier_bytes(stages) + _ALIGN + EPILOGUE_BYTES["res"] + ring
     else:
-        raise ValueError("kind must be 'ln', 'qkv', 'res', 'proj', 'res_tma' or 'proj_tma', "
-                         f"got {kind!r}")
+        raise ValueError("kind must be 'ln', 'qkv', 'qkv_tma', 'res', 'proj', 'res_tma' or "
+                         f"'proj_tma', got {kind!r}")
     return plan
 
 
@@ -349,6 +384,23 @@ def _tf32_plan_args(kind: str, k: int, n: int, a_bytes: int = 4) -> tuple:
 def _ln_plan_args(c: int, n: int, kind: str = "ln") -> tuple:
     p = mlp_gemm_plan(kind, c, n)
     return p["bn"], p["stages"], p["a_buffers"], int(p["resident"]), int(p["split_n"])
+
+
+@functools.lru_cache(maxsize=None)
+def _qkv_tma_plan_args(c: int, n: int) -> tuple:
+    """``ln_qkv_mmbf16``'s launch arguments: (1, the "qkv_tma" plan) on
+    ``ln_qkv_tma_kernel`` where W_qkv stays resident beside the four f32
+    tiles with the column tile the LN kernel's "qkv" plan takes (C = 32,
+    64: GCViTTiny's L1); else (0, the "qkv" plan) on the LN kernel, its f32
+    outputs stored from the accumulators. Where the tiles' room narrows the
+    items (L2: 64 columns against 128) or W_qkv streams (L3, L4), the LN
+    kernel was the faster (PERF.md PR 29)."""
+    ln = _ln_plan_args(c, n, "qkv")
+    try:
+        p = mlp_gemm_plan("qkv_tma", c, n)
+    except ValueError:
+        return (0, *ln)
+    return (1, p["bn"], p["stages"], p["a_buffers"], 1, 0) if p["bn"] == ln[0] else (0, *ln)
 
 
 @functools.lru_cache(maxsize=None)
@@ -687,30 +739,19 @@ def fc2_scale_residual_cut(hidden, w2, b2, gamma, residual, cut: int) -> torch.T
     return out
 
 
-MMBF16_DESIGNS = ("tma", "staged")  # fc2_scale_residual_mmbf16's kernel, and its earlier one
-
-
-def fc2_scale_residual_mmbf16_cut(hidden, w2, b2, gamma, residual, cut: int,
-                                  design: str = "tma") -> torch.Tensor:
+def fc2_scale_residual_mmbf16_cut(hidden, w2, b2, gamma, residual, cut: int) -> torch.Tensor:
     """A phase cut of ``fc2_scale_residual_mmbf16`` (bf16 hidden and w2, f32
     residual -> f32) on CUDA tensors: 0 loads (with the residual tile's),
     2 + products, 3 the kernel itself, 5 the kernel without its stores
-    (``csrc/mlp_gemm_cuts.cu``); ``design`` "staged": the same cuts of the
-    earlier kernel (``res_gemm_kernel``, the epilogue's loads and stores by
-    the consumers), the yardstick of the TMA epilogue. Timing only: the
-    output holds nothing meaningful except at 3; never counted in
-    :data:`LAUNCHES`."""
+    (``csrc/mlp_gemm_cuts.cu``). Timing only: the output holds nothing
+    meaningful except at 3; never counted in :data:`LAUNCHES`."""
     m, n = hidden.shape
     c = w2.shape[0]
     out = torch.empty((m, c), dtype=torch.float32, device=hidden.device)
     args = (hidden.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
             residual.data_ptr(), out.data_ptr(), m, n, c)
-    if design == "staged":
-        err = _cut_lib().fc2_scale_residual_mmbf16_staged_cut(
-            *args, *_res_plan_args(c, n), cut, _stream(hidden.device))
-    else:
-        err = _cut_lib().fc2_scale_residual_mmbf16_cut(
-            *args, *_tma_res_plan_args("res_tma", c, n), cut, _stream(hidden.device))
+    err = _cut_lib().fc2_scale_residual_mmbf16_cut(
+        *args, *_tma_res_plan_args("res_tma", c, n), cut, _stream(hidden.device))
     if err != 0:
         raise RuntimeError(f"fc2_scale_residual_mmbf16 cut {cut}: CUDA launch failed with "
                            f"cudaError {err}")

@@ -55,10 +55,14 @@ product as three TF32 products of split operands, the activations split in
 registers, the weights split once into a :class:`.tf32.Tf32Weight` pair that
 the caller passes as ``w_split`` or the wrapper makes; plans
 :func:`.convnext_block.tf32_gemm_plan` "qkv" and "proj"),
-``window_attention_f32`` (``csrc/f32_attention.cuh`` on token rows: a CTA
-a (window, head), f32 FMAs, P.V divided by the row sum after, as the TPU
-kernel's default "mxu" softmax does), then :mod:`.convnext_block`'s
-``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32`` (the same engine).
+``window_attention_f32`` (``csrc/tf32_attention.cuh``: both products as
+3xTF32 ``mma.sync`` m16n8k8, a warp a 16-row query tile of a (window, head)
+item with its scores in registers, P handed from the scores' accumulators
+to P.V unshuffled, the next item's q, k and v by ``cp.async`` under this
+one's math, P.V divided by the row sum after, as the TPU kernel's default
+"mxu" softmax does; CTA plan :func:`tf32_attention_plan`), then
+:mod:`.convnext_block`'s ``ln_fc1_gelu_f32`` and ``fc2_scale_residual_f32``
+(the same engine).
 
 The mixed modes (``VIPTPU_GCVIT_MM``: the TPU kernels' GEMM operands in the
 other dtype than the activations, which keep theirs) are the same five
@@ -72,11 +76,16 @@ weights in it:
   r1): the 3xTF32 kernels on a bf16 A tile widened in registers (the
   projection's bf16 A is exact in TF32: two passes); then
   ``ln_fc1_gelu_f32`` and ``fc2_scale_residual_mmf32`` (-> bf16), the
-  3xTF32 MLP. q, k and v stay f32 between
+  3xTF32 MLP; the attention is ``window_attention_f32``'s kernel with a
+  bf16 output. q, k and v stay f32 between
   the kernels, as in the TPU's monoblock, the route the JAX package takes at
   every GCViTTiny level (its three-kernel pipeline would round them to
   bf16);
-- ``mm_dtype`` bf16 on f32 activations: ``ln_qkv_mmbf16`` (f32 q, k, v),
+- ``mm_dtype`` bf16 on f32 activations: ``ln_qkv_mmbf16`` (f32 q, k, v; at
+  C = 32 and 64 each consumer warpgroup's f32 tile staged in shared memory
+  and stored by TMA, the next row tile of x prefetched into L2: the
+  engine's ``ln_qkv_tma_kernel``, plan kind "qkv_tma"; elsewhere the LN
+  kernel's f32 outputs stored from the accumulators),
   ``window_attention_mmbf16`` (f32 in and out, k, v and the scaled q
   rounded to bf16 on load), ``proj_scale_residual_mmbf16`` (the f32
   attention output by TMA into the ring, each lane's fragment rounded to
@@ -116,6 +125,28 @@ LAUNCHES: Dict[str, int] = {"ln_qkv": 0, "window_attention": 0, "proj_scale_resi
 HEAD_DIM = 32  # the attention kernel's head width; every GCViT variant has dim / heads = 32
 MAX_WINDOW_TOKENS = 224  # keys per window the attention kernel holds (N <= 224: 14 x 14 fits)
 
+# the f32-product attention (csrc/tf32_attention.cuh): a warp a 16-row tile of an item's
+# queries, keys in tiles of 8, q, k and v rows of 128 bytes in a two-stage cp.async ring
+TF32_ATTN_ROWS, TF32_ATTN_KEYS, TF32_ATTN_ROW_BYTES, TF32_ATTN_STAGES = 16, 8, 128, 2
+TF32_ATTN_HELD_TILES = ((64, 8), (200, 25), (224, 28))  # (N up to, key tiles a kernel holds)
+
+
+def tf32_attention_plan(n: int) -> dict:
+    """The CTA of ``window_attention_f32`` / ``_mmf32`` at N tokens a window
+    (``csrc/tf32_attention.cuh`` computes the same): ``warps`` (one a
+    16-row query tile), ``key_tiles`` of 8 keys, ``held_tiles`` (the
+    instantiation's register tiles: 4 f32 of scores a lane each),
+    ``stages`` of q, k and v (``stage`` bytes each: rows padded to 16 and
+    8, 128 bytes a row) and ``smem`` bytes."""
+    if not 1 <= n <= MAX_WINDOW_TOKENS:
+        raise ValueError(f"the f32 attention takes 1 <= N <= {MAX_WINDOW_TOKENS}, got {n}")
+    warps, key_tiles = -(-n // TF32_ATTN_ROWS), -(-n // TF32_ATTN_KEYS)
+    held = next(t for top, t in TF32_ATTN_HELD_TILES if n <= top)
+    stage = (warps * TF32_ATTN_ROWS + 2 * key_tiles * TF32_ATTN_KEYS) * TF32_ATTN_ROW_BYTES
+    return dict(warps=warps, key_tiles=key_tiles, held_tiles=held, stages=TF32_ATTN_STAGES,
+                stage=stage, smem=TF32_ATTN_STAGES * stage)
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_qkv": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],  # + the plan
@@ -128,8 +159,9 @@ _SIGNATURES = {
     "ln_qkv_mmf32": [_P] * 9 + [_I, _I, _I, _F] + [_I] * 3 + [_P],
     "window_attention_mmf32": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     "proj_scale_residual_mmf32": [_P] * 7 + [_I] * 5 + [_P],
-    "ln_qkv_mmbf16": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
+    "ln_qkv_mmbf16": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 6 + [_P],  # + the plan
     "window_attention_mmbf16": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "window_attention_f32_cut": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],  # + the cut
     "proj_scale_residual_mmbf16": [_P] * 6 + [_I] * 5 + [_P],
 }
 
@@ -286,9 +318,10 @@ def ln_qkv(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Tensor,
         _launch("ln_qkv_f32" if xdt == torch.float32 else "ln_qkv_mmf32", *args[:3],
                 hi.data_ptr(), lo.data_ptr(), *args[4:],
                 *CK._tf32_plan_args("qkv", c, s * c, x.element_size()), _stream(x.device))
-    else:
-        _launch("ln_qkv" if xdt == torch.bfloat16 else "ln_qkv_mmbf16", *args,
-                *CK._ln_plan_args(c, s * c, "qkv"), _stream(x.device))
+    elif xdt == torch.bfloat16:
+        _launch("ln_qkv", *args, *CK._ln_plan_args(c, s * c, "qkv"), _stream(x.device))
+    else:  # f32 outputs stored by TMA (plan kind "qkv_tma")
+        _launch("ln_qkv_mmbf16", *args, *CK._qkv_tma_plan_args(c, s * c), _stream(x.device))
     return tuple(outs)
 
 
@@ -310,6 +343,26 @@ def ln_qkv_cut(x, ln_weight, ln_bias, w, b, eps: float, cut: int) -> Tuple[torch
                          *CK._ln_plan_args(c, s * c, "qkv"), cut, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"ln_qkv cut {cut}: CUDA launch failed with cudaError {err}")
+    return tuple(outs)
+
+
+def ln_qkv_mmbf16_cut(x, ln_weight, ln_bias, w, b, eps: float, cut: int) -> Tuple[torch.Tensor, ...]:
+    """A phase cut of ``ln_qkv_mmbf16`` (f32 x, bf16 w -> S f32 outputs) on
+    CUDA tensors at GCViTTiny's widths: 0 loads, 1 + LN, 2 + products, 3 the
+    kernel itself, 5 the kernel without its stores (``csrc/mlp_gemm_cuts.cu``).
+    Timing only: except at 3 the outputs hold nothing meaningful; counted in
+    :data:`LAUNCHES` only at 3."""
+    if cut == 3:
+        return ln_qkv(x, ln_weight, ln_bias, w, b, eps, mm_dtype=torch.bfloat16)
+    m, c = x.shape
+    s = w.shape[0] // c
+    outs = [torch.empty((m, c), dtype=torch.float32, device=x.device) for _ in range(s)]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - s)
+    err = CK._cut_lib().ln_qkv_mmbf16_cut(
+        x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+        *ptrs, m, c, s, float(eps), *CK._qkv_tma_plan_args(c, s * c), cut, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"ln_qkv_mmbf16 cut {cut}: CUDA launch failed with cudaError {err}")
     return tuple(outs)
 
 
@@ -395,6 +448,27 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
     if name == "window_attention_mmf32":
         args.append(int(q_dt == torch.bfloat16))
     _launch(name, *args, _stream(k.device))
+    return out
+
+
+F32_ATTENTION_CUTS = {"loads": 1, "scores": 2, "softmax": 3}
+
+
+def window_attention_f32_cut(q, k, v, bias, n: int, scale: float, q_is_global: bool,
+                             cut: int) -> torch.Tensor:
+    """``window_attention_f32`` (f32 q, k, v on CUDA) stopped after a phase,
+    for ``tools/exp_window_attention.py``: 1 after the loads, 2 after the
+    scores with the bias and the row max, 3 after the softmax and P's split
+    (:data:`F32_ATTENTION_CUTS`). Timing only: the output holds a checksum;
+    never counted in :data:`LAUNCHES`."""
+    b, toks, c = k.shape
+    out = torch.empty((b, toks, c), dtype=torch.float32, device=k.device)
+    err = _lib().window_attention_f32_cut(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, toks // n,
+        n, c, bias.shape[0], float(scale), int(q_is_global), int(cut), _stream(k.device))
+    if err != 0:
+        raise RuntimeError(f"window_attention_f32 cut {cut}: CUDA launch failed with "
+                           f"cudaError {err}")
     return out
 
 

@@ -32,14 +32,17 @@ checked against their plain versions in f32. The difference between two
 cuts is what a phase adds where it is not hidden behind the others.
 
 ``--kernels mixed`` (at L1-L4; in the default run after the bf16 kernels):
-the two GEMMs of ``VIPTPU_GCVIT_MM=bf16`` on f32 activations that end in an
-f32 residual epilogue, ``fc2_scale_residual_mmbf16`` (bf16 hidden, K = 3C)
-and ``proj_scale_residual_mmbf16`` (f32 attention output, K = C), by device
-time (``bench_util.device_ms``): whole and their cuts (loads, products,
-no_stores) where the checkout has them, beside cuBLAS's bf16 product with
-the f32 activations cast to bf16 inside the timed call (fc2's hidden is
-bf16 already) and the bound, then per GCViTTiny forward (each level's
-launches times its blocks). ``--root DIR`` imports the package from DIR, a
+the three GEMMs of ``VIPTPU_GCVIT_MM=bf16`` on f32 activations with f32
+outputs, ``ln_qkv_mmbf16`` (f32 x, S = 3 in the local blocks and S = 2,
+``kv``, in the global-query ones), ``fc2_scale_residual_mmbf16`` (bf16
+hidden, K = 3C) and ``proj_scale_residual_mmbf16`` (f32 attention output,
+K = C), by device time (``bench_util.device_ms``): whole and their cuts
+(loads, ln for ``ln_qkv_mmbf16``, products, no_stores) where the checkout
+has them, beside cuBLAS's bf16 product with the f32 activations cast to
+bf16 inside the timed call (fc2's hidden is bf16 already; for
+``ln_qkv_mmbf16`` x stands in for its LN output) and the bound, then per
+GCViTTiny forward (each level's launches times its blocks: local and
+global-query blocks apart for ``ln_qkv_mmbf16``). ``--root DIR`` imports the package from DIR, a
 checkout of another commit (run this file by its path, so that nothing is
 imported before the root is chosen): two builds are timed by the same code,
 one process each, in one chip call. No counterpart in the JAX package.
@@ -84,6 +87,8 @@ FC2_CUTS = {"loads": 0, "products": 2, "whole": 3, "raw_stores": 4, "no_stores":
 QKV_CUTS = {"loads": 0, "ln": 1, "products": 2, "whole": 3, "no_stores": 5}
 PROJ_CUTS = {"loads": 0, "products": 2, "whole": 3, "no_stores": 5}
 MIXED_CUTS = {"loads": 0, "products": 2, "no_stores": 5, "whole": 3}
+MIXED_QKV_CUTS = {"loads": 0, "ln": 1, "products": 2, "no_stores": 5, "whole": 3}
+GLOBAL_BLOCKS = {"L1": 1, "L2": 2, "L3": 9, "L4": 2}  # GCViTTiny's global-query blocks a level
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
 
@@ -122,6 +127,14 @@ def mixed_bounds_ms(m: int, c: int) -> tuple:
     return fc2 * 1e3, proj * 1e3
 
 
+def mixed_qkv_bound_ms(m: int, c: int, s: int = 3) -> float:
+    """``ln_qkv_mmbf16``'s bound in ms: f32 x, the bf16 W_qkv, the LN
+    parameters and the bias read once, S f32 (M, C) outputs written once;
+    or the products at the bf16 peak."""
+    nbytes = (s + 1) * m * c * 4 + s * c * c * 2 + (2 + s) * c * 4
+    return max(nbytes / HBM_BYTES_PER_S, 2 * m * c * s * c / BF16_OPS_PER_S) * 1e3
+
+
 def _timed(fns: dict, iters: int, timer=None) -> dict:
     timer = timer or (lambda fn: cuda_ms(fn, iters))
     readings = {name: [] for name in fns}
@@ -136,13 +149,12 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def run_mixed(batch: int = 256, iters: int = 10,
               levels: Sequence[str] = ("L1", "L2", "L3", "L4")) -> dict:
-    """The two mixed-mode residual GEMMs at GCViTTiny's levels by device
+    """The mixed-mode GEMMs with f32 outputs at GCViTTiny's levels by device
     time (ms per launch), each whole kernel first checked against its plain
-    version (max|d| / max|ref| on 4096 rows); where the checkout has them,
-    their cuts and ``fc2_scale_residual_mmbf16``'s earlier design's cuts and
-    whole ("staged_*"); then per GCViTTiny forward: a reading's total over
-    ``levels`` where it was timed at each of them, else marked partial with
-    the levels it covers."""
+    version (max|d| / max|ref| on 4096 rows); their cuts where the checkout
+    has them; then per GCViTTiny forward: a reading's total over ``levels``
+    where it was timed at each of them, else marked partial with the levels
+    it covers."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -153,6 +165,7 @@ def run_mixed(batch: int = 256, iters: int = 10,
     timer = lambda fn: device_ms(fn, calls=iters)  # noqa: E731
     per_level, forward = {}, {}
     rows = slice(0, 4096)
+    cat = lambda t: torch.cat(t, 1) if isinstance(t, tuple) else t  # noqa: E731
     for name in levels:
         grid, c, ratio, _, blocks = SHAPES[name]
         m = batch * grid * grid
@@ -161,41 +174,50 @@ def run_mixed(batch: int = 256, iters: int = 10,
         attn, x, r1 = u((m, c)), u((m, c)) * 2, u((m, c)) * 2
         wp = (u((c, c)) * c ** -0.5).to(bf16)
         bias, gamma = u((c,), -0.1, 0.1), u((c,), 0.5, 1.5)
-        kernels = {
-            "fc2_scale_residual_mmbf16": (
-                lambda: K.fc2_scale_residual(hid, w2, bias, gamma, r1, out_dtype=f32),
-                lambda: K.fc2_scale_residual_plain(hid[rows], w2, bias, gamma, r1[rows], f32),
-                getattr(K, "fc2_scale_residual_mmbf16_cut", None),
-                (hid, w2, bias, gamma, r1), lambda: F.linear(hid, w2)),
-            "proj_scale_residual_mmbf16": (
-                lambda: G.proj_scale_residual(attn, wp, bias, gamma, x, mm_dtype=bf16),
-                lambda: G.proj_scale_residual_plain(attn[rows], wp, bias, gamma, x[rows], bf16),
-                getattr(G, "proj_scale_residual_mmbf16_cut", None),
-                (attn, wp, bias, gamma, x), lambda: F.linear(attn.to(bf16), wp)),
-        }
-        bounds = dict(zip(kernels, mixed_bounds_ms(m, c)))
+        lg, lb = u((c,), 0.5, 1.5), u((c,), -0.1, 0.1)
+        wq, bq = (u((3 * c, c)) * c ** -0.5).to(bf16), u((3 * c,), -0.1, 0.1)
+        qkv_cut = getattr(G, "ln_qkv_mmbf16_cut", None)
+        # name: (whole, plain, cut, the cut's arguments, its cuts, cuBLAS, bound, blocks)
+        kernels = {}
+        for label, s_, count in (("ln_qkv_mmbf16", 3, blocks - GLOBAL_BLOCKS[name]),
+                                 ("ln_qkv_mmbf16 kv", 2, GLOBAL_BLOCKS[name])):
+            w_, b_ = wq[(3 - s_) * c:], bq[(3 - s_) * c:]
+            kernels[label] = (
+                lambda w_=w_, b_=b_: G.ln_qkv(x, lg, lb, w_, b_, 1e-5, mm_dtype=bf16),
+                lambda w_=w_, b_=b_: G.ln_qkv_plain(x[rows], lg, lb, w_, b_, 1e-5, bf16),
+                qkv_cut, (x, lg, lb, w_, b_, 1e-5), MIXED_QKV_CUTS,
+                lambda w_=w_: F.linear(x.to(bf16), w_), mixed_qkv_bound_ms(m, c, s_), count)
+        bound_fc2, bound_proj = mixed_bounds_ms(m, c)
+        kernels["fc2_scale_residual_mmbf16"] = (
+            lambda: K.fc2_scale_residual(hid, w2, bias, gamma, r1, out_dtype=f32),
+            lambda: K.fc2_scale_residual_plain(hid[rows], w2, bias, gamma, r1[rows], f32),
+            getattr(K, "fc2_scale_residual_mmbf16_cut", None),
+            (hid, w2, bias, gamma, r1), MIXED_CUTS, lambda: F.linear(hid, w2), bound_fc2, blocks)
+        kernels["proj_scale_residual_mmbf16"] = (
+            lambda: G.proj_scale_residual(attn, wp, bias, gamma, x, mm_dtype=bf16),
+            lambda: G.proj_scale_residual_plain(attn[rows], wp, bias, gamma, x[rows], bf16),
+            getattr(G, "proj_scale_residual_mmbf16_cut", None),
+            (attn, wp, bias, gamma, x), MIXED_CUTS, lambda: F.linear(attn.to(bf16), wp),
+            bound_proj, blocks)
         level = per_level[name] = {}
-        for kernel, (whole, plain, cut, args, cublas) in kernels.items():
-            err = _rel(whole()[rows], plain())
+        for kernel, (whole, plain, cut, args, cuts, cublas, bound, count) in kernels.items():
+            err = _rel(cat(whole())[rows], cat(plain()))
             fns = {"whole": whole, "cublas": cublas}
             if cut is not None:
-                fns.update({cn: functools.partial(cut, *args, v) for cn, v in MIXED_CUTS.items()
+                fns.update({cn: functools.partial(cut, *args, v) for cn, v in cuts.items()
                             if cn != "whole"})
-                if kernel.startswith("fc2") and "staged" in getattr(K, "MMBF16_DESIGNS", ()):
-                    fns.update({f"staged_{cn}": functools.partial(cut, *args, v, design="staged")
-                                for cn, v in MIXED_CUTS.items()})
             ms = _timed(fns, iters, timer)
-            level[kernel] = dict(ms=ms, bound=bounds[kernel], rel_err=err)
-            acc = forward.setdefault(kernel, {})
-            for cn, t in list(ms.items()) + [("bound", bounds[kernel])]:
+            level[kernel] = dict(ms=ms, bound=bound, rel_err=err, blocks=count)
+            acc = forward.setdefault(kernel.split(" ")[0], {})
+            for cn, t in list(ms.items()) + [("bound", bound)]:
                 total, covered = acc.get(cn, (0.0, []))
-                acc[cn] = (total + t * blocks, covered + [name])
+                acc[cn] = (total + t * count, covered + ([name] if name not in covered else []))
             print(f"[mixed {name} ({m},{c})] {kernel}: whole vs plain max|d|/max|ref| {err:.2e}; "
                   "device " + ", ".join(f"{cn} {t:.4f}" for cn, t in ms.items())
-                  + f" ms; bound {bounds[kernel]:.4f} ms; whole/bound "
-                  f"{ms['whole'] / bounds[kernel]:.2f}, whole/cuBLAS with the cast "
-                  f"{ms['whole'] / ms['cublas']:.2f} [{card_line()}]", flush=True)
-        del hid, w2, attn, x, r1, wp, kernels
+                  + f" ms; bound {bound:.4f} ms; whole/bound "
+                  f"{ms['whole'] / bound:.2f}, whole/cuBLAS with the cast "
+                  f"{ms['whole'] / ms['cublas']:.2f}; {count} blocks [{card_line()}]", flush=True)
+        del hid, w2, attn, x, r1, wp, wq, kernels
         torch.cuda.empty_cache()
     for kernel, acc in forward.items():
         whole = {cn: t for cn, (t, covered) in acc.items() if covered == list(levels)}
